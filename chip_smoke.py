@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``vwfd_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``; exits non-zero, with
+no result line, on any failure or without a card. Drives the port only: it
+imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
+
+1. the card: name and power limit as ``nvidia-smi`` reports them;
+2. build: one ``nvcc`` call compiles every ``vwfd_tpu_torch/csrc/*.cu``;
+3. per-kernel checks at the flagship serving shapes (batch 16, T=4, 256²),
+   in bf16 and f32, each kernel against its plain PyTorch version on the
+   card, with the tolerances stated in ``TOL`` below; each kernel is timed
+   beside its plain version (and, for K1, the single ``F.conv2d`` /
+   ``F.conv_transpose2d`` call that computes the same map) with CUDA events;
+4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
+   random weights from a seed with the zero-init heads perturbed) serves one
+   roundtrip with the launch counts at 0 just before and read just after
+   (K1 ×6, K2 ×10, K3 ×3, K4 ×1), then embed, detect and roundtrip requests
+   compared with the same server running the plain versions, and a small
+   f32 clip compared with the CPU plain path;
+5. roundtrip latency (p50 ms) and streaming throughput (frames/s).
+
+The line before the last is a JSON object with one entry per kernel (its
+launches on the main path, its error against the plain version, its time,
+the plain time, the bound and the library time, all per roundtrip); the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
+from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, launch_counts,
+                                    mask, reset_launch_counts, transition,
+                                    wire)
+from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
+from vwfd_tpu_torch.ops.squeeze import depth_to_space
+from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
+
+# H100 SXM data sheet (dense, no sparsity), at its 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12     # non-tensor-core f32: the kernels' arithmetic
+
+# kernel vs plain tolerances, |kernel − plain| ≤ rtol·|plain| + atol·max|plain|
+TOL = {torch.bfloat16: (2.0 ** -7, 1e-6),   # one bf16 ulp relative
+       torch.float32: (1e-5, 1e-6)}
+MASK_NEAR = 1e-6         # mask bits may differ only where |p − thr| < this
+MEAN_ATOL = 1e-5         # tamper fraction
+# slice vs the plain server (bf16, full width). Observed on an H100 SXM at
+# 700 W: at most 1 level, 1 − 8e-8 of pixels equal, 2.6e-6 of mask bits
+# differing (bf16 rounding differences amplified through the nets).
+EMBED_MAX_LEVELS = 1     # watermarked uint8 within 1 level ...
+EMBED_FRAC_EXACT = 0.9999  # ... and equal on ≥ 99.99% of pixels
+MASK_DISAGREE = 1e-4     # mask bits disagreeing on < 0.01%
+
+B, T, S = 16, 4, 256
+KERNEL_SOURCES = {
+    "transition": ("vwfd_tpu_torch/csrc/transition.cu",
+                   "vwfd_tpu/nets/inn_packed.py:75"),
+    "coupling_affine": ("vwfd_tpu_torch/csrc/coupling.cu",
+                        "vwfd_tpu/nets/inn_packed.py:201"),
+    "wire": ("vwfd_tpu_torch/csrc/wire.cu", "vwfd_tpu/serving.py:377"),
+    "mask_pack": ("vwfd_tpu_torch/csrc/mask.cu", "vwfd_tpu/serving.py:82"),
+}
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Mean device time of one call: CUDA events around ``iters`` calls
+    queued behind a ~50 ms device sleep, so that the host has enqueued them
+    all before the first starts and a short kernel is not timed at the
+    host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved, ops):
+    """Least time (ms) for the work: bytes over the memory rate vs
+    operations over the f32 rate, whichever is larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got, want, dtype):
+    """Max abs error and whether every element is within TOL[dtype]."""
+    rtol, atol = TOL[dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = float(want.abs().max()) or 1.0
+    ok = not bool((err > rtol * want.abs() + atol * scale).any())
+    return float(err.max()), ok
+
+
+class Row:
+    """Per-kernel totals over one roundtrip's launches."""
+
+    def __init__(self, name):
+        self.name = name
+        self.err = 0.0
+        self.ms = self.plain_ms = 0.0
+        self.library_ms = None
+        self.bytes = self.ops = 0
+
+    def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None):
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bytes += bytes_moved
+        self.ops += ops
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
+
+    def json(self, launches):
+        b, by = bound(self.bytes, self.ops)
+        src, rep = KERNEL_SOURCES[self.name]
+        return {"name": self.name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches,
+                "max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
+                "library_ms": self.library_ms}
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def check_transition(rows, card):
+    row = rows["transition"]
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    # the six maps of one flagship embed: entry, p2p, p2u and transposes
+    walk = [("entry", (B, S, S, 3 * T)), ("p2p", (B, S // 4, S // 4, 192)),
+            ("p2u", (B, S // 8, S // 8, 768))]
+    for kind, shape in walk:
+        for transpose in (False, True):
+            src = transition.out_shape(shape, kind) if transpose else shape
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(src, device=dev, generator=g).to(dt)
+                y = transition.transition(x, kind, transpose)
+                ref = transition.transition_plain(x, kind, transpose)
+                torch.cuda.synchronize()
+                err, ok = rel_err(y, ref, dt)
+                check(ok, f"transition {kind} T={transpose} {dt}: {err}")
+                back = transition.transition(y, kind, not transpose)
+                inv_err, inv_ok = rel_err(back, x, dt)
+                check(inv_ok or (dt == torch.bfloat16
+                                 and inv_err <= 2.0 ** -6 * float(x.abs().max())),
+                      f"transition {kind} T={transpose} {dt} does not invert: "
+                      f"{inv_err}")
+                if dt != torch.bfloat16:
+                    print(f"check transition {kind}{'T' if transpose else ''} "
+                          f"f32 max_abs_err={err} inverse_err={inv_err}")
+                    continue
+                row.err = max(row.err, err)
+                w = transition._fixed_weight(kind, x, transpose)
+                s = transition._STRIDE[kind]
+                xc = x.permute(0, 3, 1, 2)
+                lib = (lambda: F.conv_transpose2d(xc, w, stride=s)) \
+                    if transpose else (lambda: F.conv2d(xc, w, stride=s))
+                ms = time_ms(lambda: transition.transition(x, kind, transpose))
+                pms = time_ms(
+                    lambda: transition.transition_plain(x, kind, transpose))
+                lms = time_ms(lib)
+                row.add(ms, pms, nbytes(x, y), 8 * y.numel(), lms)
+                print(f"check transition {kind}{'T' if transpose else ''} "
+                      f"bf16 {tuple(x.shape)}->{tuple(y.shape)} "
+                      f"max_abs_err={err} inverse_err={inv_err} ms={ms:.4f} "
+                      f"plain_ms={pms:.4f} library_ms={lms:.4f} [{card}]")
+
+
+def check_coupling(rows, card):
+    row = rows["coupling_affine"]
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(1)
+    # (spatial, channels of z, launches per roundtrip): level 48 packed
+    # (2 couplings), levels 192 packed and 768 unpacked (3 couplings)
+    levels = [((S // 4), 192, 4), ((S // 8), 768, 6)]
+    for hw, cz, launches in levels:
+        c = cz // 2
+        for dt in (torch.float32, torch.bfloat16):
+            z = torch.rand(B, hw, hw, cz, device=dev, generator=g).to(dt)
+            head = (2 * torch.randn(B, hw, hw, cz, device=dev, generator=g)
+                    ).to(dt)
+            bias = 0.1 * torch.randn(cz, device=dev, generator=g)
+            for inverse in (False, True):
+                out = torch.empty_like(z)
+                ref = torch.empty_like(z)
+                coupling.coupling_affine(head, bias, z[..., c:],
+                                         out=out[..., :c], inverse=inverse)
+                coupling.coupling_affine_plain(head, bias, z[..., c:],
+                                               out=ref[..., :c],
+                                               inverse=inverse)
+                torch.cuda.synchronize()
+                err, ok = rel_err(out[..., :c], ref[..., :c], dt)
+                check(ok, f"coupling {cz} inverse={inverse} {dt}: {err}")
+                if dt != torch.bfloat16:
+                    print(f"check coupling_affine z={cz} inverse={inverse} "
+                          f"f32 max_abs_err={err}")
+                    continue
+                row.err = max(row.err, err)
+                if inverse:  # serving runs the forward affine only
+                    continue
+                x, o = z[..., c:], out[..., :c]
+                ms = time_ms(lambda: coupling.coupling_affine(
+                    head, bias, x, out=o))
+                pms = time_ms(lambda: coupling.coupling_affine_plain(
+                    head, bias, x, out=o))
+                moved = nbytes(head, bias) + 2 * o.numel() * o.element_size()
+                row.add(launches * ms, launches * pms, launches * moved,
+                        launches * 24 * o.numel())
+                print(f"check coupling_affine z={cz} bf16 head="
+                      f"{tuple(head.shape)} max_abs_err={err} ms={ms:.4f} "
+                      f"plain_ms={pms:.4f} (x{launches} per roundtrip) "
+                      f"[{card}]")
+
+
+def check_wire(rows, card):
+    row = rows["wire"]
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(2)
+    clip = torch.randint(0, 256, (B, T, S, S, 3), device=dev, generator=g,
+                         dtype=torch.uint8)
+    flat = clip.reshape(B * T, S, S, 3)
+    for dt in (torch.float32, torch.bfloat16):
+        a = wire.to_channels(clip, dt)
+        check(torch.equal(a, wire.to_channels_plain(clip, dt)),
+              f"wire to_channels {dt} differs")
+        c = wire.to_s2d(flat, 2, dt)
+        check(torch.equal(c, wire.to_s2d_plain(flat, 2, dt)),
+              f"wire to_s2d {dt} differs")
+        x = torch.rand(B, S, S, 3 * T, device=dev, generator=g) * 1.4 - 0.2
+        # exact .5 ties: x = fl((k + .5)/255), whose product with 255 often
+        # rounds to k + .5 exactly in f32
+        k = torch.arange(x.numel() // 4, device=dev) % 255
+        x.view(-1)[: k.numel()] = (k + 0.5) / 255.0
+        x = x.to(dt)
+        ties = int(((x.float().clamp(0, 1) * 255.0) % 1 == 0.5).sum())
+        b = wire.to_u8(x, T)
+        check(torch.equal(b, wire.to_u8_plain(x, T)), f"wire to_u8 {dt} "
+              f"differs")
+        print(f"check wire {dt} exact (to_u8 inputs with {ties} exact .5 "
+              f"ties)")
+        if dt == torch.float32:
+            check(ties > 0, "no exact ties in the to_u8 input")
+            continue
+        parts = [("to_channels", lambda: wire.to_channels(clip, dt),
+                  lambda: wire.to_channels_plain(clip, dt), nbytes(clip, a)),
+                 ("to_u8", lambda: wire.to_u8(x, T),
+                  lambda: wire.to_u8_plain(x, T), nbytes(x, b)),
+                 ("to_s2d", lambda: wire.to_s2d(flat, 2, dt),
+                  lambda: wire.to_s2d_plain(flat, 2, dt), nbytes(flat, c))]
+        for name, fn, plain, moved in parts:
+            ms, pms = time_ms(fn), time_ms(plain)
+            row.add(ms, pms, moved, 3 * x.numel())
+            print(f"check wire {name} bf16 ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"[{card}]")
+
+
+def check_mask(rows, card):
+    row = rows["mask_pack"]
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16):
+        logits = torch.randn(B * T, S // 2, S // 2, 4, device=dev, generator=g)
+        logits.view(-1)[::97] = 0.0  # p == threshold exactly
+        logits = logits.to(dt)
+        m, frac = mask.mask_pack(logits, T, 2, 0.5)
+        m_ref, frac_ref = mask.mask_pack_plain(logits, T, 2, 0.5)
+        torch.cuda.synchronize()
+        p = torch.sigmoid(depth_to_space(logits.float(), 2)).reshape(
+            B, T, S, S, 1)
+        near = ((p - 0.5).abs() < MASK_NEAR).cpu().numpy()
+        differ = (unpack_mask_bits(m.cpu().numpy())
+                  != unpack_mask_bits(m_ref.cpu().numpy()))
+        check(not (differ & ~near).any(),
+              f"mask_pack {dt}: bits differ away from the threshold")
+        mean_err = float((frac - frac_ref).abs().max())
+        check(mean_err <= MEAN_ATOL, f"mask_pack {dt}: mean err {mean_err}")
+        print(f"check mask_pack {dt} bits_differ={int(differ.sum())} "
+              f"near_threshold={int(near.sum())} mean_err={mean_err}")
+        if dt == torch.bfloat16:
+            row.err = mean_err
+            ms = time_ms(lambda: mask.mask_pack(logits, T, 2, 0.5))
+            pms = time_ms(lambda: mask.mask_pack_plain(logits, T, 2, 0.5))
+            row.add(ms, pms, nbytes(logits, m, frac), 6 * 4 * logits.numel())
+            print(f"check mask_pack bf16 ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"[{card}]")
+
+
+# ------------------------------------------------------------ phase 4
+
+
+HEAD_PERTURB = 5e-4  # moves pixels by about 2 levels: a faint watermark
+
+
+def perturbed_states(cfg, seed):
+    """Random weights from ``seed`` with the zero-init coupling heads
+    perturbed (``HEAD_PERTURB``·N(0,1)), so that the INN is not the
+    identity. Larger heads saturate the random INN and turn the output
+    into noise."""
+    model = VideoWatermarkModel(cfg)
+    states = model.init_states(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    netG = {}
+    for k, v in states["netG"].items():
+        if ".Conv_2." in k:
+            v = v + HEAD_PERTURB * torch.randn(v.shape, generator=gen).to(
+                v.device)
+        netG[k] = v
+    return {"netG": netG, "generator": states["generator"]}
+
+
+def compare(got, want, what):
+    """Kernel-served vs plain-served outputs of one request."""
+    out = {}
+    if "watermarked" in got.keys():
+        d = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
+        exact = float((d == 0).mean())
+        check(d.max() <= EMBED_MAX_LEVELS and exact >= EMBED_FRAC_EXACT,
+              f"{what}: watermark differs by up to {d.max()} levels, "
+              f"{exact:.6f} exact")
+        out.update(embed_max_levels=int(d.max()), embed_exact=exact)
+    if "mask_bits" in got.keys():
+        dis = float((got.mask != want.mask).mean())
+        check(dis < MASK_DISAGREE, f"{what}: mask bits disagree on {dis}")
+        ferr = float(np.abs(got.tamper_fraction
+                            - want.tamper_fraction).max())
+        out.update(mask_disagree=dis, tamper_fraction_err=ferr)
+    return out
+
+
+def run_slice(card):
+    cfg = load_config(FLAGSHIP_CONFIG)
+    check((cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size,
+           cfg.train.dtype) == (B, T, S, "bfloat16"), "flagship config")
+    modes = ("embed", "detect", "roundtrip")
+    states = perturbed_states(cfg, seed=7)
+    server = WatermarkServer(cfg, weights=states, modes=modes)
+    plain = WatermarkServer(cfg, weights=states, modes=modes, kernels=PLAIN)
+    rng = np.random.default_rng(0)
+    clips = [rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+             for _ in range(3)]
+    server.serve(clips[0], "roundtrip").prefetch()  # warm up cuDNN/cuBLAS
+    torch.cuda.synchronize()
+
+    # the main path, with the launch counts at 0 just before
+    reset_launch_counts()
+    res = server.serve(clips[0], "roundtrip")
+    res.prefetch()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"main path launches per roundtrip: {json.dumps(launches)}")
+    check(launches == {"transition": 6, "coupling_affine": 10, "wire": 3,
+                       "mask_pack": 1}, f"launch counts {launches}")
+
+    wm = res.watermarked
+    check(wm.shape == (B, T, S, S, 3) and wm.dtype == np.uint8, "wm shape")
+    check(res.mask_bits.shape == (B, T, S, S // 8), "mask shape")
+    frac = res.tamper_fraction
+    check(frac.shape == (B,) and np.isfinite(frac).all()
+          and ((frac >= 0) & (frac <= 1)).all(), f"tamper_fraction {frac}")
+    moved = np.abs(wm.astype(int) - clips[0].astype(int))
+    print(f"slice roundtrip: watermark moves pixels by mean "
+          f"{moved.mean():.4f} max {moved.max()} levels; tamper_fraction "
+          f"{np.round(frac, 4).tolist()}")
+    check(moved.max() > 0, "the perturbed INN left the clip unchanged")
+
+    stats = {
+        "roundtrip": compare(res, plain.serve(clips[0], "roundtrip"),
+                             "roundtrip"),
+        "roundtrip_2": compare(server.serve(clips[1], "roundtrip"),
+                               plain.serve(clips[1], "roundtrip"),
+                               "roundtrip 2"),
+        "embed": compare(server.serve(clips[2], "embed"),
+                         plain.serve(clips[2], "embed"), "embed"),
+    }
+    det = server.serve(wm, "detect")
+    stats["detect"] = compare(det, plain.serve(wm, "detect"), "detect")
+    check(np.array_equal(det.mask_bits, res.mask_bits),
+          "detect(watermarked) differs from the roundtrip's mask")
+    print(f"slice vs plain server: {json.dumps(stats)}")
+
+    # a small f32 clip against the CPU plain path (the CPU tests' reference)
+    small = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64),
+        train=dataclasses.replace(cfg.train, dtype="float32"))
+    w_small = perturbed_states(small, seed=11)
+    clip = rng.integers(0, 256, (2, T, 64, 64, 3), dtype=np.uint8)
+    gpu = WatermarkServer(small, weights=w_small, modes=("roundtrip",))
+    cpu = WatermarkServer(small, device="cpu", weights=w_small,
+                          modes=("roundtrip",))
+    small_stats = compare(gpu.serve(clip, "roundtrip"),
+                          cpu.serve(clip, "roundtrip"), "f32 card vs CPU")
+    print(f"slice f32 64² card vs CPU plain path: {json.dumps(small_stats)}")
+    return server, plain, clips, launches
+
+
+# ------------------------------------------------------------ phase 5
+
+
+def run_timing(server, plain, clips, card):
+    def one(srv):
+        r = srv.serve(clips[0], "roundtrip")
+        return r.watermarked, r.mask_bits, r.tamper_fraction
+
+    p50 = {}
+    for name, srv in (("kernels", server), ("plain", plain)):
+        for _ in range(3):
+            one(srv)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            one(srv)
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50[name] = float(np.percentile(times, 50))
+    n = 24
+    t0 = time.perf_counter()
+    for r in server.serve_stream((clips[i % 3] for i in range(n)),
+                                 "roundtrip", window=2):
+        r.watermarked, r.mask_bits, r.tamper_fraction
+    wall = time.perf_counter() - t0
+    fps = n * B * T / wall
+    print(f"roundtrip latency p50_ms={p50['kernels']:.3f} (plain versions "
+          f"p50_ms={p50['plain']:.3f}); stream window=2 frames_per_s="
+          f"{fps:.1f} over {n} requests of {B}x{T}x{S}x{S} [{card}]")
+    print(json.dumps({"serving": {
+        "roundtrip_p50_ms": p50["kernels"], "plain_roundtrip_p50_ms":
+        p50["plain"], "stream_frames_per_s": fps, "batch": B, "frames": T,
+        "size": S, "card": card}}))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        sys.exit(2)
+    card = card_line()
+    print(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    _lib.load()
+    built = ("already built" if _lib.build_seconds is None
+             else f"nvcc {_lib.build_seconds:.1f} s")
+    print(f"build: {_lib.library_path().name} loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({built})")
+
+    rows = {n: Row(n) for n in KERNEL_SOURCES}
+    check_transition(rows, card)
+    check_coupling(rows, card)
+    check_wire(rows, card)
+    check_mask(rows, card)
+    errs = {n: r.err for n, r in rows.items()}
+    print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
+
+    server, plain, clips, launches = run_slice(card)
+    run_timing(server, plain, clips, card)
+
+    print(json.dumps({"kernels": [rows[n].json(launches[n])
+                                  for n in KERNEL_SOURCES]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when no
+card is present (decided at run time, never at import, so that every xdist
+worker collects the same tests). Run on a machine with an H100:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerances: bf16 within one bf16 ulp relative (2⁻⁷·|plain|), f32 within
+1e-5 relative (sums of the same terms in another order, one rounding);
+the uint8 wire is exact; mask bits are exact except where the probability
+is within 1e-6 of the threshold.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
+from vwfd_tpu_torch.kernels import (PLAIN, coupling, launch_counts, mask,
+                                    reset_launch_counts, transition, wire)
+from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-5
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    bad = err > rtol * want.abs() + 1e-6 * scale
+    assert not bool(bad.any()), float(err.max())
+
+
+def _gen(seed=0):
+    return torch.Generator("cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("kind,shape", [("entry", (2, 32, 32, 12)),
+                                        ("p2p", (2, 8, 8, 192)),
+                                        ("p2u", (2, 4, 4, 768))])
+def test_transition_kernel_matches_plain(cuda, kind, shape, transpose, dtype):
+    src = transition.out_shape(shape, kind) if transpose else shape
+    x = torch.randn(src, device=cuda, generator=_gen()).to(dtype)
+    y = transition.transition(x, kind, transpose)
+    torch.cuda.synchronize()
+    _close(y, transition.transition_plain(x, kind, transpose))
+    if dtype == torch.float32:
+        back = transition.transition(y, kind, not transpose)
+        torch.testing.assert_close(back, x, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_coupling_kernel_matches_plain(cuda, inverse, dtype):
+    g = _gen(1)
+    z = torch.randn(2, 8, 8, 96, device=cuda, generator=g).to(dtype)
+    head = (2 * torch.randn(2, 8, 8, 96, device=cuda, generator=g)).to(dtype)
+    bias = 0.1 * torch.randn(96, device=cuda, generator=g)
+    out = torch.zeros_like(z)
+    ref = torch.zeros_like(z)
+    coupling.coupling_affine(head, bias, z[..., 48:], out=out[..., :48],
+                             inverse=inverse)
+    coupling.coupling_affine_plain(head, bias, z[..., 48:], out=ref[..., :48],
+                                   inverse=inverse)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert bool((out[..., 48:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wire_kernels_are_exact(cuda, dtype):
+    g = _gen(2)
+    clip = torch.randint(0, 256, (2, 4, 16, 16, 3), device=cuda, generator=g,
+                         dtype=torch.uint8)
+    assert torch.equal(wire.to_channels(clip, dtype),
+                       wire.to_channels_plain(clip, dtype))
+    flat = clip.reshape(8, 16, 16, 3)
+    assert torch.equal(wire.to_s2d(flat, 2, dtype),
+                       wire.to_s2d_plain(flat, 2, dtype))
+    x = torch.rand(2, 16, 16, 12, device=cuda, generator=g) * 1.4 - 0.2
+    x.view(-1)[:256] = (torch.arange(256, device=cuda) + 0.5) / 255.0
+    x = x.to(dtype)
+    assert torch.equal(wire.to_u8(x, 4), wire.to_u8_plain(x, 4))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [32, 36])
+def test_mask_kernel_matches_plain(cuda, w, dtype):
+    logits = torch.randn(8, 8, w // 2, 4, device=cuda, generator=_gen(3))
+    logits.view(-1)[::5] = 0.0  # p == threshold exactly
+    logits = logits.to(dtype)
+    m, frac = mask.mask_pack(logits, 4, 2, 0.5)
+    m_ref, frac_ref = mask.mask_pack_plain(logits, 4, 2, 0.5)
+    torch.cuda.synchronize()
+    if w % 8 == 0:
+        m, m_ref = (unpack_mask_bits(t.cpu().numpy()) for t in (m, m_ref))
+    else:
+        m, m_ref = m.cpu().numpy(), m_ref.cpu().numpy()
+    np.testing.assert_array_equal(m, m_ref)
+    torch.testing.assert_close(frac, frac_ref, rtol=0, atol=1e-5)
+
+
+def test_server_on_card_matches_plain_and_counts_launches(cuda):
+    """A small flagship server on the card: one roundtrip launches K1 ×6,
+    K2 ×10, K3 ×3, K4 ×1, and agrees with the same server through the plain
+    versions (f32)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64),
+        train=dataclasses.replace(cfg.train, dtype="float32"))
+    modes = ("roundtrip",)
+    srv = WatermarkServer(cfg, modes=modes)
+    with torch.no_grad():
+        for p in srv.model.inn.parameters():
+            if p.dim() == 4 and p.shape[-1] == 1:  # perturb the zero heads
+                p.add_(0.05 * torch.randn(p.shape, device=cuda,
+                                          generator=_gen(4)))
+    ref = WatermarkServer(cfg, modes=modes, kernels=PLAIN,
+                          weights=srv.model.states())
+    clip = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3),
+                                             dtype=np.uint8)
+    reset_launch_counts()
+    got = srv.serve(clip, "roundtrip")
+    got.prefetch()
+    torch.cuda.synchronize()
+    assert launch_counts() == {"transition": 6, "coupling_affine": 10,
+                               "wire": 3, "mask_pack": 1}
+    want = ref.serve(clip, "roundtrip")
+    assert launch_counts()["transition"] == 6  # the plain server launches none
+    diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
+    assert diff.max() <= 1
+    assert (unpack_mask_bits(got.mask_bits)
+            != unpack_mask_bits(want.mask_bits)).mean() < 1e-3
+    np.testing.assert_allclose(got.tamper_fraction, want.tamper_fraction,
+                               atol=1e-4)

@@ -1,0 +1,32 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the CUDA card unless the caller asks for the CPU by
+name. There is no silent fallback: with no card and no explicit ``"cpu"``
+they raise.
+"""
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` → ``cuda`` (raises without a card); otherwise the named
+    device, which must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "vwfd_tpu_torch runs on a CUDA card by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``TrainConfig.dtype`` → the compute dtype (params stay float32)."""
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    if name not in dtypes:
+        raise ValueError(f"unsupported compute dtype {name!r}")
+    return dtypes[name]

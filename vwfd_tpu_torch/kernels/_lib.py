@@ -1,0 +1,155 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+All sources under ``vwfd_tpu_torch/csrc`` are compiled by ONE ``nvcc`` call
+for ``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``. The library is built at first use into ``build/vwfd_tpu_torch/``
+at the root of the checkout (a directory ``.gitignore`` lists); its file
+name carries a hash of the sources, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is built or loaded at import.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vwfd_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+# The C interface, one entry per exported function: argtypes (the trailing
+# void* is the CUDA stream); every launcher returns a cudaError_t as int.
+_SIGNATURES = {
+    "vwfd_transition": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_coupling_affine": [_P, _P, _P, _L, _P, _L, _L, _I, _I, _I, _P],
+    "vwfd_wire_to_channels": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_u8": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_s2d": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_mask_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                       _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None          # the loaded library, one per process
+build_seconds = None  # wall time of the nvcc call, if this process built it
+
+
+class LaunchCount:
+    """Launches of one kernel's CUDA code. A wrapper adds one where it
+    launches its kernel and nowhere else; the plain path is not counted."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.n = 0
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libvwfd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` with one nvcc call (no-op when the
+    library for these sources exists). Returns the library's path."""
+    global build_seconds
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a half file
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C interface."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vwfd_error_string.argtypes = [ctypes.c_int]
+            lib.vwfd_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call one C launcher on the current stream of ``device`` and raise if
+    the launch was refused."""
+    lib = load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.vwfd_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}"
+                        ) from None
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie on
+    the CPU (the plain path); raises for anything else."""
+    kinds = {t.device for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, kinds))}")
+    dev = kinds.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {dev}")
+
+
+def check_nhwc(t: torch.Tensor, name: str, ndim: int = 4) -> None:
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,112 @@
+"""Where the serving roundtrip's time goes on the card.
+
+    python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
+
+Serves the flagship roundtrip (``configs/video.yaml``: batch 16, T=4, 256²,
+bf16; random weights from a seed) under ``torch.profiler`` after a warm-up,
+then prints one JSON line: the host wall time per request, the device time
+per request by kernel class (the port's four kernels, convolutions, GEMMs,
+other elementwise work, copies), the twelve longest kernels by name, and the
+device's idle share over the window (1 − device busy time / host wall time).
+Needs the CUDA card; ``--trace`` also writes a Chrome trace.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from . import FLAGSHIP_CONFIG, load_config
+from .serving import WatermarkServer
+
+# substrings of the port's kernel names (csrc/*.cu), by kernel
+PORT_KERNELS = {"transition": ("transition_fwd", "transition_t"),
+                "coupling_affine": ("coupling_affine",),
+                "wire": ("u8_to_channels", "channels_to_u8", "u8_to_s2d"),
+                "mask_pack": ("mask_pack",)}
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for kernel, keys in PORT_KERNELS.items():
+        if any(k in name for k in keys):
+            return f"port:{kernel}"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "conv" in low or "xmma" in low or "cudnn" in low or "implicit" in low:
+        return "convolutions"
+    if "gemm" in low or "cutlass" in low or "cublas" in low:
+        return "gemm"
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+
+    cfg = load_config(FLAGSHIP_CONFIG)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    server = WatermarkServer(cfg, modes=("roundtrip",))
+    b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
+    clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
+                                             dtype=np.uint8)
+
+    def one():
+        r = server.serve(clip, "roundtrip")
+        return r.watermarked, r.mask_bits, r.tamper_fraction
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.requests):
+            one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for a, z in sorted(spans):  # union of device intervals
+        if z > end:
+            busy += z - max(a, end)
+            end = z
+    by_class = {}
+    for name, us in by_name.items():
+        c = classify(name)
+        by_class[c] = by_class.get(c, 0.0) + us
+    n = args.requests
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "card": card, "requests": n, "batch": b, "frames": t, "size": s,
+        "wall_ms_per_request": wall_us / n / 1e3,
+        "device_busy_ms_per_request": busy / n / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "device_ms_per_request_by_class": {
+            k: v / n / 1e3 for k, v in sorted(by_class.items(),
+                                               key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_request": {k[:90]: v / n / 1e3 for k, v in top},
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,218 @@
+"""Serving runtime for the video watermarking pipeline (port of
+vwfd_tpu/serving.py).
+
+Two deployable operations and their fusion:
+
+* ``embed``  — watermark a uint8 clip (INN forward, clamp, 8-bit round);
+* ``detect`` — per-frame tamper mask, bit-packed, and a per-clip tamper
+  fraction;
+* ``roundtrip`` — embed then detect on the device, the detector reading
+  exactly the uint8 the embed wire would carry.
+
+The wire format is the JAX package's: uint8 frames in, uint8 frames out,
+masks one bit per pixel (MSB first along W) when the frame width divides by
+8, else uint8 {0,255}. A final partial batch is padded to the server's batch
+and the outputs trimmed (eval-mode nets are per-sample, so this is exact).
+
+On the card the uint8 decode/encode and relayouts run in K3
+(``kernels/wire.py``), the INN in K1/K2 plus cuDNN/cuBLAS, and the detect
+epilogue in K4 (``kernels/mask.py``). Uploads go through pinned host
+buffers with ``non_blocking`` copies; results come back the same way,
+behind a CUDA event, so ``serve`` returns without waiting for the card and
+``serve_stream`` keeps a window of requests in flight.
+
+Not ported yet: AOT compile (CUDA graphs), ``mesh``, ``export_program``,
+the int8 options and orbax ``ckpt_dir``.
+"""
+
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import Config
+from .kernels import KERNELS, KernelSet
+from .models.video_model import VideoWatermarkModel
+
+__all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits",
+           "save_weights"]
+
+MODES = ("embed", "detect", "roundtrip")
+Weights = Union[str, Mapping[str, Mapping[str, torch.Tensor]]]
+
+
+def unpack_mask_bits(packed) -> np.ndarray:
+    """Host-side inverse of the packed mask wire: uint8 (...,S,S//8) →
+    uint8 {0,255} (...,S,S,1)."""
+    bits = np.unpackbits(np.asarray(packed), axis=-1)
+    return (bits[..., None] * np.uint8(255)).astype(np.uint8)
+
+
+def save_weights(states: Mapping[str, Mapping[str, torch.Tensor]],
+                 path: str) -> None:
+    """Write ``{"netG": ..., "generator": ...}`` state dicts for
+    ``WatermarkServer(weights=path)``."""
+    torch.save({k: {n: t.detach().cpu() for n, t in sd.items()}
+                for k, sd in states.items()}, path)
+
+
+class ServeResult:
+    """One served clip batch. Holds device tensors; the device→host copies
+    start at ``prefetch`` (into pinned buffers, behind a CUDA event) and the
+    consumer waits only when it reads an output."""
+
+    __slots__ = ("_arrays", "n", "_host", "_done")
+
+    def __init__(self, arrays: Dict[str, torch.Tensor], n: int):
+        self._arrays = arrays
+        self.n = n  # valid rows (≤ server batch; the rest is tail padding)
+        self._host = None
+        self._done = None
+
+    def prefetch(self) -> "ServeResult":
+        """Start the device→host copies of every output now."""
+        if self._host is None:
+            host = {}
+            for name, arr in self._arrays.items():
+                if arr.is_cuda:
+                    buf = torch.empty(arr.shape, dtype=arr.dtype,
+                                      pin_memory=True)
+                    host[name] = buf.copy_(arr, non_blocking=True)
+                else:
+                    host[name] = arr
+            if any(a.is_cuda for a in self._arrays.values()):
+                self._done = torch.cuda.Event()
+                self._done.record()
+            self._host = host
+        return self
+
+    def _fetch(self, name: str) -> np.ndarray:
+        self.prefetch()
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host[name].numpy()
+
+    def __getattr__(self, name):
+        if name == "mask" and "mask" not in self._arrays:
+            # bit-packed wire format — unpack on the host, same interface
+            return unpack_mask_bits(self._fetch("mask_bits"))[: self.n]
+        if name not in self._arrays:
+            raise AttributeError(name)
+        return self._fetch(name)[: self.n]
+
+    def keys(self):
+        return self._arrays.keys()
+
+
+class WatermarkServer:
+    """Embed / detect / roundtrip server for one clip shape.
+
+    Parameters
+    ----------
+    cfg : Config
+        ``cfg.data`` fixes the clip shape (batch_size, frames, gt_size);
+        ``cfg.model`` picks the nets; ``cfg.train.dtype`` the compute dtype.
+    device : str or torch.device, optional
+        ``None`` → the CUDA card (raises without one); ``"cpu"`` runs the
+        plain PyTorch path.
+    weights : str or mapping, optional
+        A file written by ``save_weights`` or ``{"netG": state_dict,
+        "generator": state_dict}`` (e.g. from ``convert.params_from_jax``).
+        Without it the server serves random-init params (seed 0).
+    modes : tuple of {"embed", "detect", "roundtrip"}
+        The operations this server accepts.
+    threshold : float
+        Mask binarisation threshold on the sigmoid probabilities.
+    kernels : KernelSet
+        ``kernels.KERNELS`` (default) or ``kernels.PLAIN`` (the plain
+        versions on any device, for comparisons).
+    """
+
+    def __init__(self, cfg: Config, device=None,
+                 weights: Optional[Weights] = None,
+                 modes: Tuple[str, ...] = ("embed", "detect"),
+                 threshold: float = 0.5, kernels: KernelSet = KERNELS):
+        unknown = set(modes) - set(MODES)
+        if unknown:
+            raise ValueError(f"unknown modes {sorted(unknown)}")
+        self.cfg = cfg
+        self.batch = cfg.data.batch_size
+        self.frames = cfg.data.frames
+        self.size = cfg.data.gt_size
+        self.threshold = float(threshold)
+        self.modes = tuple(modes)
+        self.kernels = kernels
+        self.model = VideoWatermarkModel(cfg, device=device, kernels=kernels)
+        self.device = self.model.device
+        if weights is None:
+            self.model.init_states(0)
+        else:
+            if isinstance(weights, str):
+                weights = torch.load(weights, map_location="cpu",
+                                     weights_only=True)
+            self.model.load_states(weights)
+        self._fns = {"embed": self._embed_u8, "detect": self._detect_u8,
+                     "roundtrip": self._roundtrip_u8}
+
+    # ---------------------------------------------------------- device fns
+
+    def _embed_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        k, m = self.kernels, self.model
+        x = k.wire_to_channels(x_u8, m.compute_dtype)
+        y = m.inn(x, out_f32=False)
+        return {"watermarked": k.wire_to_u8(y, self.frames)}
+
+    def _detect_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        k, m = self.kernels, self.model
+        b, t, h, w, c = x_u8.shape
+        s = m.unet.s2d
+        xs = k.wire_to_s2d(x_u8.reshape(b * t, h, w, c), s, m.compute_dtype)
+        mask, frac = k.mask_pack(m.unet.body(xs), t, s, self.threshold)
+        key = "mask_bits" if w % 8 == 0 else "mask"
+        return {key: mask, "tamper_fraction": frac}
+
+    def _roundtrip_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self._embed_u8(x_u8)
+        return {**out, **self._detect_u8(out["watermarked"])}
+
+    # ------------------------------------------------------------- serving
+
+    def _put(self, clip_u8: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """Host→device upload with tail padding to the server batch."""
+        n = clip_u8.shape[0]
+        want = (self.batch, self.frames, self.size, self.size, 3)
+        if clip_u8.dtype != np.uint8:
+            raise TypeError(f"serving wire format is uint8, got "
+                            f"{clip_u8.dtype} (scale to 0..255 on the host)")
+        if clip_u8.shape[1:] != want[1:] or n > self.batch:
+            raise ValueError(f"server clip shape is {want}, got "
+                             f"{clip_u8.shape} — start one server per shape")
+        host = torch.empty(want, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        host[:n] = torch.from_numpy(np.ascontiguousarray(clip_u8))
+        host[n:] = 0
+        return host.to(self.device, non_blocking=True), n
+
+    def serve(self, clip_u8: np.ndarray, mode: str) -> ServeResult:
+        """One request; returns before the card finishes (the result waits
+        only when its outputs are read)."""
+        if mode not in self.modes:
+            raise KeyError(f"mode {mode!r} not served (modes={self.modes})")
+        dev, n = self._put(clip_u8)
+        with torch.no_grad():
+            return ServeResult(self._fns[mode](dev), n)
+
+    def serve_stream(self, clips: Iterable[np.ndarray], mode: str,
+                     window: int = 2) -> Iterator[ServeResult]:
+        """Pipelined serving: keeps ≤ ``window`` request batches in flight.
+        The oldest result is yielded (and may then block its reader) only
+        when the window is full or the input is exhausted."""
+        if mode not in self.modes:
+            raise KeyError(f"mode {mode!r} not served (modes={self.modes})")
+        inflight = []
+        for clip in clips:
+            inflight.append(self.serve(clip, mode).prefetch())
+            if len(inflight) >= max(1, window):
+                yield inflight.pop(0)
+        while inflight:
+            yield inflight.pop(0)
