@@ -12,12 +12,15 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
 3. per-kernel checks at the flagship serving shapes (batch 16, T=4, 256²),
    in bf16 and f32, each kernel against its plain PyTorch version on the
    card, with the tolerances stated in ``TOL`` below; each kernel is timed
-   beside its plain version (and, for K1, the single ``F.conv2d`` /
-   ``F.conv_transpose2d`` call that computes the same map) with CUDA events;
+   beside its plain version with CUDA events: K1 per map beside the single
+   ``F.conv2d`` / ``F.conv_transpose2d`` call that computes the same map, K2
+   ``coupling_head`` at both coupling levels, forward and inverse, f32 and
+   bf16, beside ``torch.cat`` + ``torch.matmul`` of the same shapes (the
+   unfused path's yardstick; no single call computes the fused function);
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
-   (K1 ×6, K2 ×10, K3 ×3, K4 ×1), then embed, detect and roundtrip requests
+   (K1 ×6, K2 ``coupling_head`` ×10, K3 ×3, K4 ×1), then embed, detect and roundtrip requests
    compared with the same server running the plain versions, and a small
    f32 clip compared with the CPU plain path;
 5. roundtrip latency (p50 ms) and streaming throughput (frames/s).
@@ -49,6 +52,7 @@ from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
 # H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor-core f32: the kernels' arithmetic
+BF16_TC_OPS_PER_S = 989e12  # bf16 tensor-core flops: coupling_head's GEMM
 
 # kernel vs plain tolerances, |kernel − plain| ≤ rtol·|plain| + atol·max|plain|
 TOL = {torch.bfloat16: (2.0 ** -7, 1e-6),   # one bf16 ulp relative
@@ -66,8 +70,8 @@ B, T, S = 16, 4, 256
 KERNEL_SOURCES = {
     "transition": ("vwfd_tpu_torch/csrc/transition.cu",
                    "vwfd_tpu/nets/inn_packed.py:75"),
-    "coupling_affine": ("vwfd_tpu_torch/csrc/coupling.cu",
-                        "vwfd_tpu/nets/inn_packed.py:201"),
+    "coupling_head": ("vwfd_tpu_torch/csrc/coupling.cu",
+                      "vwfd_tpu/nets/inn_packed.py:186"),
     "wire": ("vwfd_tpu_torch/csrc/wire.cu", "vwfd_tpu/serving.py:377"),
     "mask_pack": ("vwfd_tpu_torch/csrc/mask.cu", "vwfd_tpu/serving.py:82"),
 }
@@ -101,11 +105,11 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, ops_per_s=F32_OPS_PER_S):
     """Least time (ms) for the work: bytes over the memory rate vs
-    operations over the f32 rate, whichever is larger."""
+    operations over their type's peak rate, whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -127,18 +131,20 @@ class Row:
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
-        self.bytes = self.ops = 0
+        self.t_bytes = self.t_ops = 0.0  # ms at the memory / ops rate
 
-    def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None):
+    def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None,
+            ops_per_s=F32_OPS_PER_S):
         self.ms += ms
         self.plain_ms += plain_ms
-        self.bytes += bytes_moved
-        self.ops += ops
+        self.t_bytes += bound(bytes_moved, 0)[0]
+        self.t_ops += ops / ops_per_s * 1e3
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
 
     def json(self, launches):
-        b, by = bound(self.bytes, self.ops)
+        b = max(self.t_bytes, self.t_ops)
+        by = "bytes" if self.t_bytes >= self.t_ops else "operations"
         src, rep = KERNEL_SOURCES[self.name]
         return {"name": self.name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches,
@@ -194,57 +200,70 @@ def check_transition(rows, card):
                 pms = time_ms(
                     lambda: transition.transition_plain(x, kind, transpose))
                 lms = time_ms(lib)
-                row.add(ms, pms, nbytes(x, y), 8 * y.numel(), lms)
+                row.add(ms, pms, nbytes(x, y), 3 * y.numel(), lms)
+                bms = bound(nbytes(x, y), 3 * y.numel())[0]
                 print(f"check transition {kind}{'T' if transpose else ''} "
                       f"bf16 {tuple(x.shape)}->{tuple(y.shape)} "
                       f"max_abs_err={err} inverse_err={inv_err} ms={ms:.4f} "
-                      f"plain_ms={pms:.4f} library_ms={lms:.4f} [{card}]")
+                      f"plain_ms={pms:.4f} library_ms={lms:.4f} "
+                      f"bound_ms={bms:.4f} share_of_bound={bms / ms:.3f} "
+                      f"[{card}]")
 
 
 def check_coupling(rows, card):
-    row = rows["coupling_affine"]
+    row = rows["coupling_head"]
     dev = torch.device("cuda")
     g = torch.Generator("cuda").manual_seed(1)
     # (spatial, channels of z, launches per roundtrip): level 48 packed
-    # (2 couplings), levels 192 packed and 768 unpacked (3 couplings)
+    # (2 couplings), levels 192 packed and 768 unpacked (3 couplings); the
+    # trunk width is 128
     levels = [((S // 4), 192, 4), ((S // 8), 768, 6)]
     for hw, cz, launches in levels:
         c = cz // 2
+        k = c + 128
         for dt in (torch.float32, torch.bfloat16):
-            z = torch.rand(B, hw, hw, cz, device=dev, generator=g).to(dt)
-            head = (2 * torch.randn(B, hw, hw, cz, device=dev, generator=g)
-                    ).to(dt)
-            bias = 0.1 * torch.randn(cz, device=dev, generator=g)
+            z = torch.randn(B, hw, hw, cz, device=dev, generator=g).to(dt)
+            h = torch.randn(B, hw, hw, 128, device=dev, generator=g).to(dt)
+            p = {"wh": (torch.randn(cz, k, device=dev, generator=g)
+                        / k ** 0.5).to(dt),
+                 "bh": 0.1 * torch.randn(cz, device=dev, generator=g)}
+            xin, x = z[..., c:], z[..., :c]
             for inverse in (False, True):
                 out = torch.empty_like(z)
                 ref = torch.empty_like(z)
-                coupling.coupling_affine(head, bias, z[..., c:],
-                                         out=out[..., :c], inverse=inverse)
-                coupling.coupling_affine_plain(head, bias, z[..., c:],
-                                               out=ref[..., :c],
-                                               inverse=inverse)
+                coupling.coupling_head(xin, h, p, x, out=out[..., :c],
+                                       inverse=inverse)
+                coupling.coupling_head_plain(xin, h, p, x, out=ref[..., :c],
+                                             inverse=inverse)
                 torch.cuda.synchronize()
                 err, ok = rel_err(out[..., :c], ref[..., :c], dt)
-                check(ok, f"coupling {cz} inverse={inverse} {dt}: {err}")
+                check(ok, f"coupling_head z={cz} inverse={inverse} {dt}: "
+                      f"{err}")
+                print(f"check coupling_head z={cz} inverse={inverse} {dt} "
+                      f"max_abs_err={err}")
                 if dt != torch.bfloat16:
-                    print(f"check coupling_affine z={cz} inverse={inverse} "
-                          f"f32 max_abs_err={err}")
                     continue
                 row.err = max(row.err, err)
-                if inverse:  # serving runs the forward affine only
+                if inverse:  # serving runs the forward only
                     continue
-                x, o = z[..., c:], out[..., :c]
-                ms = time_ms(lambda: coupling.coupling_affine(
-                    head, bias, x, out=o))
-                pms = time_ms(lambda: coupling.coupling_affine_plain(
-                    head, bias, x, out=o))
-                moved = nbytes(head, bias) + 2 * o.numel() * o.element_size()
+                o = out[..., :c]
+                ms = time_ms(lambda: coupling.coupling_head(xin, h, p, x,
+                                                            out=o))
+                pms = time_ms(lambda: coupling.coupling_head_plain(
+                    xin, h, p, x, out=o))
+                cat_mm = time_ms(lambda: torch.matmul(
+                    torch.cat([xin, h], -1).reshape(-1, k), p["wh"].t()))
+                m = B * hw * hw
+                moved = nbytes(xin, h, x, o, p["wh"], p["bh"])
+                flops = 2 * m * k * cz
                 row.add(launches * ms, launches * pms, launches * moved,
-                        launches * 24 * o.numel())
-                print(f"check coupling_affine z={cz} bf16 head="
-                      f"{tuple(head.shape)} max_abs_err={err} ms={ms:.4f} "
-                      f"plain_ms={pms:.4f} (x{launches} per roundtrip) "
-                      f"[{card}]")
+                        launches * flops, ops_per_s=BF16_TC_OPS_PER_S)
+                bms, by = bound(moved, flops, BF16_TC_OPS_PER_S)
+                print(f"check coupling_head z={cz} bf16 M={m} K={k} N={cz} "
+                      f"ms={ms:.4f} plain_ms={pms:.4f} cat_matmul_ms="
+                      f"{cat_mm:.4f} bound_ms={bms:.4f} ({by}) "
+                      f"share_of_bound={bms / ms:.3f} (x{launches} per "
+                      f"roundtrip) [{card}]")
 
 
 def check_wire(rows, card):
@@ -383,7 +402,7 @@ def run_slice(card):
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"main path launches per roundtrip: {json.dumps(launches)}")
-    check(launches == {"transition": 6, "coupling_affine": 10, "wire": 3,
+    check(launches == {"transition": 6, "coupling_head": 10, "wire": 3,
                        "mask_pack": 1}, f"launch counts {launches}")
 
     wm = res.watermarked

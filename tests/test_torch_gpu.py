@@ -54,11 +54,18 @@ def _gen(seed=0):
     return torch.Generator("cuda").manual_seed(seed)
 
 
+# the flagship's widths at small sizes, ragged tiles (widths that are no
+# multiple of the block's column tile, an odd p2u group count) and widths
+# that take the runtime-C path
+_MAPS = [("entry", (2, 32, 32, 12)), ("p2p", (2, 8, 8, 192)),
+         ("p2u", (2, 4, 4, 768)), ("entry", (3, 36, 44, 12)),
+         ("p2p", (3, 10, 14, 48)), ("p2u", (3, 5, 7, 12)),
+         ("entry", (1, 8, 12, 3)), ("p2p", (1, 4, 6, 20))]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("kind,shape", [("entry", (2, 32, 32, 12)),
-                                        ("p2p", (2, 8, 8, 192)),
-                                        ("p2u", (2, 4, 4, 768))])
+@pytest.mark.parametrize("kind,shape", _MAPS)
 def test_transition_kernel_matches_plain(cuda, kind, shape, transpose, dtype):
     src = transition.out_shape(shape, kind) if transpose else shape
     x = torch.randn(src, device=cuda, generator=_gen()).to(dtype)
@@ -71,21 +78,43 @@ def test_transition_kernel_matches_plain(cuda, kind, shape, transpose, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_transition_p2u_is_its_own_transpose(cuda, dtype):
+    x = torch.randn(2, 4, 4, 768, device=cuda, generator=_gen(5)).to(dtype)
+    assert torch.equal(transition.transition(x, "p2u", transpose=True),
+                       transition.transition(x, "p2u"))
+    assert torch.equal(transition.transition_plain(x, "p2u", transpose=True),
+                       transition.transition_plain(x, "p2u"))
+
+
+# (N, H, W, channels of z): the flagship's level-48 packed coupling and its
+# 768-channel ones, at row counts that are no multiple of the 64-row tile
+_COUPLINGS = [(3, 9, 7, 192), (2, 5, 6, 768)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("inverse", [False, True])
-def test_coupling_kernel_matches_plain(cuda, inverse, dtype):
+@pytest.mark.parametrize("shape", _COUPLINGS)
+def test_coupling_kernel_matches_plain(cuda, shape, inverse, dtype):
     g = _gen(1)
-    z = torch.randn(2, 8, 8, 96, device=cuda, generator=g).to(dtype)
-    head = (2 * torch.randn(2, 8, 8, 96, device=cuda, generator=g)).to(dtype)
-    bias = 0.1 * torch.randn(96, device=cuda, generator=g)
+    n, hh, ww, cz = shape
+    c = cz // 2
+    z = torch.randn(shape, device=cuda, generator=g).to(dtype)
+    h = torch.randn(n, hh, ww, 128, device=cuda, generator=g).to(dtype)
+    k = c + 128
+    p = {"wh": (torch.randn(cz, k, device=cuda, generator=g) / k ** 0.5
+                ).to(dtype),
+         "bh": 0.1 * torch.randn(cz, device=cuda, generator=g)}
     out = torch.zeros_like(z)
     ref = torch.zeros_like(z)
-    coupling.coupling_affine(head, bias, z[..., 48:], out=out[..., :48],
-                             inverse=inverse)
-    coupling.coupling_affine_plain(head, bias, z[..., 48:], out=ref[..., :48],
-                                   inverse=inverse)
+    before = launch_counts()["coupling_head"]
+    coupling.coupling_head(z[..., c:], h, p, z[..., :c], out=out[..., :c],
+                           inverse=inverse)
+    assert launch_counts()["coupling_head"] == before + 1
+    coupling.coupling_head_plain(z[..., c:], h, p, z[..., :c],
+                                 out=ref[..., :c], inverse=inverse)
     torch.cuda.synchronize()
     _close(out, ref)
-    assert bool((out[..., 48:] == 0).all())
+    assert bool((out[..., c:] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -123,7 +152,7 @@ def test_mask_kernel_matches_plain(cuda, w, dtype):
 
 def test_server_on_card_matches_plain_and_counts_launches(cuda):
     """A small flagship server on the card: one roundtrip launches K1 ×6,
-    K2 ×10, K3 ×3, K4 ×1, and agrees with the same server through the plain
+    K2 (``coupling_head``) ×10, K3 ×3, K4 ×1, and agrees with the same server through the plain
     versions (f32)."""
     cfg = load_config(FLAGSHIP_CONFIG)
     cfg = dataclasses.replace(
@@ -144,7 +173,7 @@ def test_server_on_card_matches_plain_and_counts_launches(cuda):
     got = srv.serve(clip, "roundtrip")
     got.prefetch()
     torch.cuda.synchronize()
-    assert launch_counts() == {"transition": 6, "coupling_affine": 10,
+    assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 3, "mask_pack": 1}
     want = ref.serve(clip, "roundtrip")
     assert launch_counts()["transition"] == 6  # the plain server launches none

@@ -101,17 +101,18 @@ def test_transition_matches_fixed_conv(rng, kind, shape, transpose):
 
 @pytest.mark.parametrize("inverse", [False, True])
 def test_coupling_affine_matches_e(rng, inverse):
-    """K2 against ``_e(s)·x + t`` (and ``(x − t)/_e(s)``), writing into a
-    channel slice of a wider output as the executor does."""
+    """K2's affine (``coupling_affine_plain``, which ``coupling_head_plain``
+    ends in) against ``_e(s)·x + t`` (and ``(x − t)/_e(s)``), writing into
+    a channel slice of a wider output as the executor does."""
     n, h, w, c = 2, 4, 4, 24
     head = rng.standard_normal((n, h, w, 2 * c)).astype(np.float32) * 2
     bias = rng.standard_normal(2 * c).astype(np.float32)
     z = rng.standard_normal((n, h, w, 2 * c)).astype(np.float32)
     zt = torch.from_numpy(z)
     out = torch.zeros(n, h, w, 2 * c)
-    got = coupling.coupling_affine(torch.from_numpy(head),
-                                   torch.from_numpy(bias), zt[..., :c],
-                                   out=out[..., c:], inverse=inverse)
+    got = coupling.coupling_affine_plain(torch.from_numpy(head),
+                                         torch.from_numpy(bias), zt[..., :c],
+                                         out=out[..., c:], inverse=inverse)
     assert got.data_ptr() == out[..., c:].data_ptr()
     st = jnp.asarray(head + bias)
     s, t = st[..., :c], st[..., c:]
@@ -180,8 +181,8 @@ def test_wrappers_reject_bad_inputs():
         transition.transition(torch.zeros(1, 3, 4, 4).permute(0, 2, 3, 1),
                               "entry")
     with pytest.raises(ValueError):  # head must hold s ‖ t for x
-        coupling.coupling_affine(torch.zeros(1, 2, 2, 6), torch.zeros(6),
-                                 torch.zeros(1, 2, 2, 2))
+        coupling.coupling_affine_plain(torch.zeros(1, 2, 2, 6),
+                                       torch.zeros(6), torch.zeros(1, 2, 2, 2))
     with pytest.raises(ValueError):  # wire input is uint8 RGB
         wire.to_channels(torch.zeros(1, 2, 4, 4, 3), torch.float32)
     with pytest.raises(ValueError):

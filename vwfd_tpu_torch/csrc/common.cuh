@@ -31,19 +31,86 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as torch's cast
 }
 
-// Haar sign of band k (LL, LH, HL, HH) at sub-pixel m = 2u + v: the
-// Walsh-Hadamard sign (-1)^popcount(k & m), which is exactly
-// vwfd_tpu/nets/inn_packed.py::_SIGNS[k][u, v].
-__device__ __forceinline__ float haar_sign(int k, int m) {
-  return (__popc(k & m) & 1) ? -1.f : 1.f;
-}
-
 __device__ __forceinline__ long long global_index() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;
 }
 
 inline unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+// 32-bit words <-> f32 values: one f32, or two bf16 (element 0 in the low
+// half). The bf16 -> f32 widening is exact; f32 -> bf16 rounds to nearest
+// even.
+template <typename T>
+struct Word;
+template <>
+struct Word<float> {
+  static constexpr int kPer = 1;
+  static __device__ __forceinline__ void unpack(uint32_t w, float* v) {
+    v[0] = __uint_as_float(w);
+  }
+  static __device__ __forceinline__ uint32_t pack(const float* v) {
+    return __float_as_uint(v[0]);
+  }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int kPer = 2;
+  static __device__ __forceinline__ void unpack(uint32_t w, float* v) {
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ uint32_t pack(const float* v) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[0])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
+  }
+};
+
+// N contiguous values as 8- or 16-byte accesses; p must be aligned to the
+// access width (16 bytes when N values fill whole 16-byte words).
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
+  constexpr int kWords = N / Word<T>::kPer;
+  static_assert(kWords == 2 || kWords % 4 == 0, "8- or 16-byte accesses");
+  if constexpr (kWords % 4 == 0) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i) {
+      const uint4 u = q[i];
+      Word<T>::unpack(u.x, v + (4 * i + 0) * Word<T>::kPer);
+      Word<T>::unpack(u.y, v + (4 * i + 1) * Word<T>::kPer);
+      Word<T>::unpack(u.z, v + (4 * i + 2) * Word<T>::kPer);
+      Word<T>::unpack(u.w, v + (4 * i + 3) * Word<T>::kPer);
+    }
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    Word<T>::unpack(u.x, v);
+    Word<T>::unpack(u.y, v + Word<T>::kPer);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
+  constexpr int kWords = N / Word<T>::kPer;
+  static_assert(kWords == 2 || kWords % 4 == 0, "8- or 16-byte accesses");
+  if constexpr (kWords % 4 == 0) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i) {
+      uint4 u;
+      u.x = Word<T>::pack(v + (4 * i + 0) * Word<T>::kPer);
+      u.y = Word<T>::pack(v + (4 * i + 1) * Word<T>::kPer);
+      u.z = Word<T>::pack(v + (4 * i + 2) * Word<T>::kPer);
+      u.w = Word<T>::pack(v + (4 * i + 3) * Word<T>::kPer);
+      q[i] = u;
+    }
+  } else {
+    uint2 u;
+    u.x = Word<T>::pack(v);
+    u.y = Word<T>::pack(v + Word<T>::kPer);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
 }
 
 }  // namespace vwfd

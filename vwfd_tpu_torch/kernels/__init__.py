@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch version.
 
 * K1 ``transition``      — packed INN Haar/packing maps (kernels/transition.py)
-* K2 ``coupling_affine`` — RealNVP affine of a coupling (kernels/coupling.py)
+* K2 ``coupling_head``   — coupling head GEMM + bias + RealNVP affine (kernels/coupling.py)
 * K3 ``wire``            — uint8 wire format + relayouts (kernels/wire.py)
 * K4 ``mask_pack``       — detect epilogue, bits + tamper fraction (kernels/mask.py)
 
@@ -23,16 +23,16 @@ MODULES = (transition, coupling, wire, mask)
 
 class KernelSet(NamedTuple):
     transition: Callable
-    coupling_affine: Callable
+    coupling_head: Callable
     wire_to_channels: Callable
     wire_to_u8: Callable
     wire_to_s2d: Callable
     mask_pack: Callable
 
 
-KERNELS = KernelSet(transition.transition, coupling.coupling_affine,
+KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_channels, wire.to_u8, wire.to_s2d, mask.mask_pack)
-PLAIN = KernelSet(transition.transition_plain, coupling.coupling_affine_plain,
+PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   mask.mask_pack_plain)
 

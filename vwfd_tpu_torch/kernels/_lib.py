@@ -33,7 +33,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # void* is the CUDA stream); every launcher returns a cudaError_t as int.
 _SIGNATURES = {
     "vwfd_transition": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vwfd_coupling_affine": [_P, _P, _P, _L, _P, _L, _L, _I, _I, _I, _P],
+    "vwfd_coupling_head": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I,
+                           _I, _I, _I, _I, _P],
     "vwfd_wire_to_channels": [_P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_wire_to_u8": [_P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_wire_to_s2d": [_P, _P, _I, _I, _I, _I, _I, _P],
@@ -146,6 +147,15 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     raise ValueError(f"unsupported device {dev}")
+
+
+def check_aligned(t: torch.Tensor, name: str, row_stride: int = 0) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary and its rows (of
+    ``row_stride`` elements) keep it: the kernels' vector accesses."""
+    if t.data_ptr() % 16 or (row_stride * t.element_size()) % 16:
+        raise ValueError(f"{name}: base address and row stride must be "
+                         f"16-byte aligned (address {t.data_ptr():#x}, row "
+                         f"stride {row_stride} elements)")
 
 
 def check_nhwc(t: torch.Tensor, name: str, ndim: int = 4) -> None:

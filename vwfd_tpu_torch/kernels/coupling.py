@@ -1,40 +1,77 @@
-"""K2 `coupling_affine`: the RealNVP affine of one coupling half.
+"""K2 `coupling_head`: one coupling half's head GEMM, bias and affine.
 
-Replaces the affine lines of ``vwfd_tpu/nets/inn_packed.py::_coupling_fwd``
-/ ``_coupling_inv`` (:201-220), ``vwfd_tpu/nets/inn.py::_e`` (:176-179) and
-the head's bias add and (s ‖ t) split (inn_packed.py:186-188)::
+Replaces ``vwfd_tpu/nets/inn_packed.py::_st_packed`` / ``_st_unpacked``
+from the concat on (:186-188, :195-198), and the affine lines of
+``_coupling_fwd`` / ``_coupling_inv`` (:201-220) with
+``vwfd_tpu/nets/inn.py::_e``::
 
-    s, t = split(head + bias)
+    head = round_dt([xin | h] · Whᵀ)    (the 1×1 cat-skip head)
+    s, t = split(head + bh)
     e    = exp(2·sigmoid(s) − 1) + 1e-4
     out  = e·x + t          (inverse: (x − t) / e)
 
-The 1×1 head GEMM that produces ``head`` stays a matmul outside the kernel,
-as XLA computes it outside any kernel in the JAX package.
+``xin`` is the coupling's input half and ``h`` its trunk output; ``x`` and
+``out`` are channel slices of the coupling's tensors (unit channel stride,
+uniform row stride), so the result lands straight in the coupling's output.
+``Wh`` (2C, K), the head transposed with K contiguous, and ``bh`` come from
+``nets/inn_packed.py::pack_params`` with the head's outputs interleaved in
+blocks of 8, ``[s c..c+7 | t c..c+7 | …]`` (``interleave_index``), so that
+the kernel's accumulator fragments hold the s and t of the same channels.
 
-Bound: bytes. About 20 operations per output element against 2 + 2 + 2
-bf16 bytes (head pair, x, out), far below the card's ~295 operations per
-byte, so the least time is head + x read once and out written once over the
-memory rate: at the flagship level-48 coupling (batch 16, 256², bf16)
-25.2 + 12.6 + 12.6 MB, about 15 µs at 3.35 TB/s (H100 SXM data sheet,
-700 W).
+Bound: at the flagship shapes (batch 16, 256², bf16) the level-48 coupling
+(M = 65536, K = 224, N = 192) moves 54.6 MB for 5.6 GFLOP, bytes-bound at
+about 16 µs; the 768-channel ones (M = 16384, K = 512, N = 768) move 42.7 MB
+for 12.9 GFLOP, where bytes and tensor-core flops bind alike at about 13 µs
+(3.35 TB/s and 989 TFLOP/s dense bf16, H100 SXM data sheet, 700 W).
 
-Design (``csrc/coupling.cu``): one thread per output element, f32 inside
-with explicitly rounded mul/add/div so that it follows the plain version's
-order of operations. ``x`` and ``out`` may be channel slices of NHWC tensors
-(unit channel stride, uniform row stride): the kernel writes its half
-straight into the coupling's output tensor, so no concat is needed.
+Design (``csrc/coupling.cu``): a persistent tensor-core GEMM (``wgmma``,
+f32 accumulators) whose blocks each keep one column slice of ``Wh`` in
+shared memory and stream A in place from its two sources, ``xin`` then
+``h``, through TMA tensor maps, so no concat and no head tensor touch device
+memory; a producer warp feeds the rings of three or four consumer
+warpgroups, which take 64-row tiles in turn so that one's epilogue overlaps
+the others' products. The epilogue rounds the accumulator to the compute dtype,
+adds the f32 bias and applies the affine with explicitly rounded
+mul/add/div, following the plain version's order of operations. f32 takes
+a CUDA-core tile (no TF32). The plain version is ``torch.cat`` +
+``torch.matmul`` in the dtype, then ``coupling_affine_plain``.
 """
 
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import _lib
 
-__all__ = ["coupling_affine", "coupling_affine_plain", "COUNT"]
+__all__ = ["coupling_head", "coupling_head_plain", "coupling_affine_plain",
+           "interleave_index", "deinterleave_index", "COUNT"]
 
-COUNT = _lib.LaunchCount("coupling_affine")
+COUNT = _lib.LaunchCount("coupling_head")
 _EPS = 1e-4
+_BLOCK = 8  # s/t interleave block (columns)
+
+
+@functools.lru_cache(maxsize=None)
+def interleave_index(n2c: int) -> np.ndarray:
+    """Column order of the interleaved head: interleaved column j holds the
+    (s ‖ t) column ``idx[j]``; blocks of 8 alternate s and t of the same 8
+    channels."""
+    c = n2c // 2
+    if n2c % 2 or c % _BLOCK:
+        raise ValueError(f"head width {n2c}: the s/t interleave needs a "
+                         f"multiple of {2 * _BLOCK} columns")
+    j = np.arange(n2c)
+    blk, w = j // _BLOCK, j % _BLOCK
+    return np.where(blk % 2 == 0, 0, c) + (blk // 2) * _BLOCK + w
+
+
+@functools.lru_cache(maxsize=None)
+def deinterleave_index(n2c: int) -> np.ndarray:
+    """Inverse of ``interleave_index``: (s ‖ t) column i is interleaved
+    column ``idx[i]``."""
+    return np.argsort(interleave_index(n2c))
 
 
 def _row_stride(t: torch.Tensor, name: str) -> int:
@@ -52,7 +89,7 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
     return ld
 
 
-def _check(head, bias, x, out):
+def _check_affine(head, bias, x, out):
     _lib.check_nhwc(head, "head")
     code = _lib.dtype_code(head)
     n, h, w, c2 = head.shape
@@ -73,9 +110,10 @@ def _check(head, bias, x, out):
 def coupling_affine_plain(head: torch.Tensor, bias: torch.Tensor,
                           x: torch.Tensor, out: Optional[torch.Tensor] = None,
                           inverse: bool = False) -> torch.Tensor:
-    """Plain PyTorch version (f32 arithmetic, one rounding to the dtype)."""
+    """The affine alone, on a head in (s ‖ t) order: f32 arithmetic, one
+    rounding to the dtype; writes into ``out`` and returns it."""
     out = torch.empty_like(x) if out is None else out
-    _check(head, bias, x, out)
+    _check_affine(head, bias, x, out)
     c = x.shape[-1]
     st = head.float() + bias
     s, t = st[..., :c], st[..., c:]
@@ -85,19 +123,73 @@ def coupling_affine_plain(head: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def coupling_affine(head: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
-                    out: Optional[torch.Tensor] = None,
-                    inverse: bool = False) -> torch.Tensor:
-    """``out = e(s)·x + t`` (or the inverse) with ``s ‖ t = head + bias``;
-    writes into ``out`` (a channel slice is fine) and returns it. The CUDA
+def _check_head(xin, h, p, x, out):
+    wh, bh = p["wh"], p["bh"]
+    for t, name in ((xin, "xin"), (h, "h"), (x, "x"), (out, "out")):
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected NHWC, got {tuple(t.shape)}")
+    code = _lib.dtype_code(x)
+    if any(t.dtype != x.dtype for t in (xin, h, wh, out)):
+        raise TypeError("xin, h, wh, x and out must share one dtype")
+    n, hh, ww, c = x.shape
+    if tuple(out.shape) != tuple(x.shape) or tuple(xin.shape[:3]) != \
+            (n, hh, ww) or tuple(h.shape[:3]) != (n, hh, ww):
+        raise ValueError(f"xin {tuple(xin.shape)}, h {tuple(h.shape)}, x "
+                         f"{tuple(x.shape)} and out {tuple(out.shape)} must "
+                         f"share N, H, W (and x, out their channels)")
+    kx, f = xin.shape[-1], h.shape[-1]
+    if c % _BLOCK or kx % _BLOCK or f % _BLOCK:
+        raise ValueError(f"channels xin {kx}, h {f}, x {c}: each must be a "
+                         f"multiple of {_BLOCK}")
+    if tuple(wh.shape) != (2 * c, kx + f) or not wh.is_contiguous():
+        raise ValueError(f"wh must be contiguous ({2 * c}, {kx + f}), got "
+                         f"{tuple(wh.shape)}")
+    if bh.dtype != torch.float32 or tuple(bh.shape) != (2 * c,) \
+            or not bh.is_contiguous():
+        raise ValueError(f"bh must be contiguous float32 ({2 * c},)")
+    lds = [_row_stride(t, name) for t, name in
+           ((xin, "xin"), (h, "h"), (x, "x"), (out, "out"))]
+    return code, lds
+
+
+def coupling_head_plain(xin: torch.Tensor, h: torch.Tensor,
+                        p: Dict[str, torch.Tensor], x: torch.Tensor,
+                        out: Optional[torch.Tensor] = None,
+                        inverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: ``torch.cat`` + ``torch.matmul`` in the dtype
+    with the interleaved ``wh``, the head's columns put back in (s ‖ t)
+    order, then ``coupling_affine_plain``."""
+    out = torch.empty_like(x) if out is None else out
+    _check_head(xin, h, p, x, out)
+    z = torch.cat([xin, h], -1)
+    n, hh, ww, k = z.shape
+    head = torch.matmul(z.reshape(-1, k), p["wh"].t())
+    back = torch.from_numpy(deinterleave_index(head.shape[-1])).to(
+        head.device)
+    head = head[:, back].reshape(n, hh, ww, -1)
+    return coupling_affine_plain(head, p["bh"][back], x, out, inverse)
+
+
+def coupling_head(xin: torch.Tensor, h: torch.Tensor,
+                  p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  out: Optional[torch.Tensor] = None,
+                  inverse: bool = False) -> torch.Tensor:
+    """``out = e(s)·x + t`` (or the inverse) with ``s ‖ t = [xin | h]·Whᵀ
+    + bh``; ``p`` holds the interleaved ``wh`` / ``bh`` of ``pack_params``.
+    Writes into ``out`` (a channel slice is fine) and returns it. The CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     out = torch.empty_like(x) if out is None else out
-    code, ldx, ldo = _check(head, bias, x, out)
-    if not _lib.on_cuda(head, bias, x, out):
-        return coupling_affine_plain(head, bias, x, out, inverse)
-    n, h, w, c = x.shape
-    _lib.launch("vwfd_coupling_affine", x.device, head.data_ptr(),
-                bias.data_ptr(), x.data_ptr(), ldx, out.data_ptr(), ldo,
-                n * h * w, c, int(inverse), code)
+    code, (ldxin, ldh, ldx, ldo) = _check_head(xin, h, p, x, out)
+    if not _lib.on_cuda(xin, h, p["wh"], p["bh"], x, out):
+        return coupling_head_plain(xin, h, p, x, out, inverse)
+    wh = p["wh"]
+    for t, ld, name in ((xin, ldxin, "xin"), (h, ldh, "h"), (x, ldx, "x"),
+                        (out, ldo, "out"), (wh, wh.shape[1], "wh")):
+        _lib.check_aligned(t, name, ld)
+    n, hh, ww, c = x.shape
+    _lib.launch("vwfd_coupling_head", x.device, xin.data_ptr(), ldxin,
+                h.data_ptr(), ldh, xin.shape[-1], h.shape[-1],
+                wh.data_ptr(), p["bh"].data_ptr(), x.data_ptr(), ldx,
+                out.data_ptr(), ldo, n * hh * ww, c, int(inverse), code)
     COUNT.n += 1
     return out

@@ -16,13 +16,16 @@ output written once over the card's memory rate: at the flagship serving
 shapes (batch 16, 256², bf16) 25.2 MB in and 25.2 MB out, about 15 µs at
 3.35 TB/s (H100 SXM data sheet, 700 W).
 
-Design (``csrc/transition.cu``): a gather plus a butterfly, not a conv. One
-thread per output element computes its four taps' addresses from the
-c-major packing order and takes the signs from the Walsh–Hadamard parity
-(−1)^popcount(k & g), which equals ``_SIGNS``; the sum is taken in f32 and
-rounded once to the tensor's dtype. The plain version below is the JAX
-package's own spelling: ``F.conv2d`` / ``F.conv_transpose2d`` with the
-dense fixed kernel built in numpy.
+Design (``csrc/transition.cu``): a tiled Walsh–Hadamard butterfly, not a
+conv. One thread per (position on the packed side, channel c) reads its 16
+inputs (4 for p2u) once, computes the bands with 4-point butterflies
+(a±b)±(c±d) in f32 with one rounding per output, and writes its 16 outputs,
+adjacent under the c-major order, as 16-byte stores. entry's 12-channel
+unpacked side is staged through shared memory with 16-byte copies. p2u is
+its own transpose (½·S is symmetric and orthogonal). The flagship's channel
+counts are template parameters; other widths take a runtime-C path. The
+plain version below is the JAX package's own spelling: ``F.conv2d`` /
+``F.conv_transpose2d`` with the dense fixed kernel built in numpy.
 """
 
 import torch
@@ -97,6 +100,10 @@ def transition(x: torch.Tensor, kind: str, transpose: bool = False
     _check(x, kind, transpose)
     if not _lib.on_cuda(x):
         return transition_plain(x, kind, transpose)
+    _lib.check_aligned(x, "transition input")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"transition: {x.numel()} elements; the kernel "
+                         f"indexes in 32 bits (fewer than 2^31)")
     y = torch.empty(out_shape(x.shape, kind, transpose), device=x.device,
                     dtype=x.dtype)
     _lib.launch("vwfd_transition", x.device, x.data_ptr(), y.data_ptr(),

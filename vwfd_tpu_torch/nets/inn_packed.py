@@ -12,8 +12,11 @@ c·4 + g, g = 2p + q the sub-pixel):
 * the Haar levels are fixed orthogonal transitions (K1, ``kernels/
   transition.py``): entry 4×4/s4, packed→packed 2×2/s2, packed→unpacked
   1×1, and their exact transposes on the way up;
-* each coupling's affine runs in K2 (``kernels/coupling.py``), which writes
-  its half straight into the coupling's output.
+* each coupling half's 1×1 head GEMM, bias and affine run in K2
+  (``kernels/coupling.py``), which reads the input half and the trunk output
+  in place (no concat) and writes its half straight into the coupling's
+  output; ``pack_params`` interleaves the head's s and t columns in blocks
+  of 8 for it.
 
 At the flagship shapes (12 channels, down_num 3, block_num (1,1,1)) the walk
 is: entry (→ H/4 × 192), coupling 48; p2p (→ H/8 × 768), coupling 192; p2u
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import KERNELS, KernelSet
+from ..kernels.coupling import interleave_index
 
 # sign of Haar band k ∈ (LL, LH, HL, HH) at sub-pixel (p=row, q=col) —
 # vwfd_tpu/nets/inn_packed.py::_SIGNS
@@ -118,8 +122,10 @@ def _head_colperm(c4: int):
 
 def _pack_subnet(sub, packed: bool, dt):
     """One subnet's executor weights: trunk convs in ``dt`` (OIHW), the head
-    as a (K, 2C) matrix in ``dt`` and its bias in f32 (rounded through
-    ``dt`` first, as flax casts the bias to the compute dtype)."""
+    as a (2C, K) matrix in ``dt`` (transposed, K contiguous, as K2's tensor
+    cores read it) and its bias in f32 (rounded through ``dt`` first, as
+    flax casts the bias to the compute dtype), both with the (s ‖ t)
+    outputs interleaved in blocks of 8 for K2."""
     w0 = sub.Conv_0.weight
     wh = sub.Conv_2.weight[:, :, 0, 0].t()           # (ci4 + F, out)
     bh = sub.Conv_2.bias
@@ -132,9 +138,11 @@ def _pack_subnet(sub, packed: bool, dt):
         wh = torch.cat([wh[perm], wh[ci4:]], 0)
         colperm = torch.from_numpy(_head_colperm(wh.shape[1])).to(w0.device)
         wh, bh = wh[:, colperm], bh[colperm]
+    st = torch.from_numpy(interleave_index(wh.shape[1])).to(w0.device)
+    wh, bh = wh[:, st], bh[st]
     out = {"w0": w0.to(dt).contiguous(), "b0": sub.Conv_0.bias.to(dt),
            "w1": sub.Conv_1.weight.to(dt), "b1": sub.Conv_1.bias.to(dt),
-           "wh": wh.to(dt).contiguous(), "bh": bh.to(dt).float()}
+           "wh": wh.t().to(dt).contiguous(), "bh": bh.to(dt).float()}
     return {k: v.detach() for k, v in out.items()}
 
 
@@ -157,14 +165,12 @@ def _conv3x3(x, w, b):
 
 
 def _st(p, xin):
-    """Trunk + 1×1 cat-skip head; returns the head output (s ‖ t) without
-    its bias (K2 adds it). Same code for the packed subnet (its weights
-    are permuted in ``pack_params``) and the unpacked ≥256-channel one."""
+    """The subnet's trunk (two 3×3 convs + ELU); returns ``h``. The 1×1
+    cat-skip head on ``[xin | h]`` runs in K2. Same code for the packed
+    subnet (its weights are permuted in ``pack_params``) and the unpacked
+    ≥256-channel one."""
     h = F.elu(_conv3x3(xin, p["w0"], p["b0"]))
-    h = F.elu(_conv3x3(h, p["w1"], p["b1"]))
-    z = torch.cat([xin, h], -1)
-    n, hh, ww, k = z.shape
-    return torch.matmul(z.reshape(-1, k), p["wh"]).reshape(n, hh, ww, -1)
+    return F.elu(_conv3x3(h, p["w1"], p["b1"]))
 
 
 def _coupling_fwd(p, z, k: KernelSet):
@@ -172,8 +178,8 @@ def _coupling_fwd(p, z, k: KernelSet):
     out = torch.empty_like(z)
     x1, x2 = z[..., :half], z[..., half:]
     y1, y2 = out[..., :half], out[..., half:]
-    k.coupling_affine(_st(p["st2"], x2), p["st2"]["bh"], x1, out=y1)
-    k.coupling_affine(_st(p["st1"], y1), p["st1"]["bh"], x2, out=y2)
+    k.coupling_head(x2, _st(p["st2"], x2), p["st2"], x1, out=y1)
+    k.coupling_head(y1, _st(p["st1"], y1), p["st1"], x2, out=y2)
     return out
 
 
@@ -182,10 +188,10 @@ def _coupling_inv(p, z, k: KernelSet):
     out = torch.empty_like(z)
     y1, y2 = z[..., :half], z[..., half:]
     x1, x2 = out[..., :half], out[..., half:]
-    k.coupling_affine(_st(p["st1"], y1), p["st1"]["bh"], y2, out=x2,
-                      inverse=True)
-    k.coupling_affine(_st(p["st2"], x2), p["st2"]["bh"], y1, out=x1,
-                      inverse=True)
+    k.coupling_head(y1, _st(p["st1"], y1), p["st1"], y2, out=x2,
+                    inverse=True)
+    k.coupling_head(x2, _st(p["st2"], x2), p["st2"], y1, out=x1,
+                    inverse=True)
     return out
 
 

@@ -6,8 +6,9 @@ Serves the flagship roundtrip (``configs/video.yaml``: batch 16, T=4, 256²,
 bf16; random weights from a seed) under ``torch.profiler`` after a warm-up,
 then prints one JSON line: the host wall time per request, the device time
 per request by kernel class (the port's four kernels, convolutions, GEMMs,
-other elementwise work, copies), the twelve longest kernels by name, and the
-device's idle share over the window (1 − device busy time / host wall time).
+concatenations, other elementwise work, copies), the kernels of the GEMM
+class and the twelve longest kernels by name, and the device's idle share
+over the window (1 − device busy time / host wall time).
 Needs the CUDA card; ``--trace`` also writes a Chrome trace.
 """
 
@@ -24,8 +25,9 @@ from . import FLAGSHIP_CONFIG, load_config
 from .serving import WatermarkServer
 
 # substrings of the port's kernel names (csrc/*.cu), by kernel
-PORT_KERNELS = {"transition": ("transition_fwd", "transition_t"),
-                "coupling_affine": ("coupling_affine",),
+PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
+                               "transition_p2u"),
+                "coupling_head": ("coupling_head",),
                 "wire": ("u8_to_channels", "channels_to_u8", "u8_to_s2d"),
                 "mask_pack": ("mask_pack",)}
 
@@ -37,9 +39,13 @@ def classify(name: str) -> str:
             return f"port:{kernel}"
     if "memcpy" in low or "memset" in low:
         return "copies"
-    if "conv" in low or "xmma" in low or "cudnn" in low or "implicit" in low:
+    if "catarray" in low:  # torch.cat
+        return "concat"
+    # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                              "cudnn")):
         return "convolutions"
-    if "gemm" in low or "cutlass" in low or "cublas" in low:
+    if any(k in low for k in ("gemm", "cutlass", "cublas", "xmma")):
         return "gemm"
     return "other"
 
@@ -104,6 +110,9 @@ def main(argv=None):
         "device_ms_per_request_by_class": {
             k: v / n / 1e3 for k, v in sorted(by_class.items(),
                                                key=lambda kv: -kv[1])},
+        "gemm_kernels_ms_per_request": {
+            k[:90]: v / n / 1e3 for k, v in by_name.items()
+            if classify(k) == "gemm"},
         "top_kernels_ms_per_request": {k[:90]: v / n / 1e3 for k, v in top},
     }))
 
