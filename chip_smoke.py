@@ -17,10 +17,15 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    ``coupling_head`` at both coupling levels, forward and inverse, f32 and
    bf16, beside ``torch.cat`` + ``torch.matmul`` of the same shapes (the
    unfused path's yardstick; no single call computes the fused function);
+   K3's four maps exact on the tiled and the general path, each timed warm
+   and with a cold L2, (a)-(c) beside a one-call ``Tensor.copy_`` between
+   the same layouts (a yardstick: no single call computes them); K4 warm
+   and cold;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
-   (K1 ×6, K2 ``coupling_head`` ×10, K3 ×3, K4 ×1), then embed, detect and roundtrip requests
+   (K1 ×6, K2 ``coupling_head`` ×10, K3 ×2: ``to_channels`` and the
+   one-pass ``to_u8_s2d``, K4 ×1), then embed, detect and roundtrip requests
    compared with the same server running the plain versions, and a small
    f32 clip compared with the CPU plain path;
 5. roundtrip latency (p50 ms) and streaming throughput (frames/s).
@@ -31,8 +36,10 @@ the plain time, the bound and the library time, all per roundtrip); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,6 +74,8 @@ EMBED_FRAC_EXACT = 0.9999  # ... and equal on ≥ 99.99% of pixels
 MASK_DISAGREE = 1e-4     # mask bits disagreeing on < 0.01%
 
 B, T, S = 16, 4, 256
+COLD_BYTES = 100e6       # cold-L2 timing: working set of twice the L2
+ROUNDTRIP_WIRE = ("to_channels", "to_u8_s2d")  # K3's launches per roundtrip
 KERNEL_SOURCES = {
     "transition": ("vwfd_tpu_torch/csrc/transition.cu",
                    "vwfd_tpu/nets/inn_packed.py:75"),
@@ -266,56 +275,129 @@ def check_coupling(rows, card):
                       f"roundtrip) [{card}]")
 
 
-def check_wire(rows, card):
-    row = rows["wire"]
-    dev = torch.device("cuda")
-    g = torch.Generator("cuda").manual_seed(2)
-    clip = torch.randint(0, 256, (B, T, S, S, 3), device=dev, generator=g,
+def time_cold_ms(fn, input_sets, iters=None):
+    """Mean device time of one call with a cold L2: the calls rotate over
+    ``input_sets`` (together at least ``COLD_BYTES``, twice the H100's
+    50 MB L2) and each call's outputs stay alive until its set comes round
+    again, so no call finds its inputs or its output memory in L2."""
+    n = len(input_sets)
+    keep = collections.deque(maxlen=n - 1)
+    iters = iters or max(20, 4 * n)
+
+    def step(k):
+        keep.append(fn(*input_sets[k % n]))
+    for k in range(n):
+        step(k)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for k in range(iters):
+        step(k)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_sets(make, bytes_per_call):
+    """Enough input sets from ``make(i)`` for ``time_cold_ms``."""
+    return [make(i) for i in range(max(2, math.ceil(COLD_BYTES
+                                                     / bytes_per_call)))]
+
+
+def wire_inputs(b, h, w, dt, g):
+    """A u8 clip and an INN output (b,h,w,3T) in [-0.2, 1.2] whose first
+    quarter holds exact .5 ties x = fl((k + .5)/255) (their product with
+    255 often rounds to k + .5 exactly in f32)."""
+    clip = torch.randint(0, 256, (b, T, h, w, 3), device="cuda", generator=g,
                          dtype=torch.uint8)
-    flat = clip.reshape(B * T, S, S, 3)
-    for dt in (torch.float32, torch.bfloat16):
-        a = wire.to_channels(clip, dt)
-        check(torch.equal(a, wire.to_channels_plain(clip, dt)),
-              f"wire to_channels {dt} differs")
-        c = wire.to_s2d(flat, 2, dt)
-        check(torch.equal(c, wire.to_s2d_plain(flat, 2, dt)),
-              f"wire to_s2d {dt} differs")
-        x = torch.rand(B, S, S, 3 * T, device=dev, generator=g) * 1.4 - 0.2
-        # exact .5 ties: x = fl((k + .5)/255), whose product with 255 often
-        # rounds to k + .5 exactly in f32
-        k = torch.arange(x.numel() // 4, device=dev) % 255
-        x.view(-1)[: k.numel()] = (k + 0.5) / 255.0
-        x = x.to(dt)
-        ties = int(((x.float().clamp(0, 1) * 255.0) % 1 == 0.5).sum())
-        b = wire.to_u8(x, T)
-        check(torch.equal(b, wire.to_u8_plain(x, T)), f"wire to_u8 {dt} "
-              f"differs")
-        print(f"check wire {dt} exact (to_u8 inputs with {ties} exact .5 "
-              f"ties)")
-        if dt == torch.float32:
+    x = torch.rand(b, h, w, 3 * T, device="cuda", generator=g) * 1.4 - 0.2
+    k = torch.arange(x.numel() // 4, device="cuda") % 255
+    x.view(-1)[: k.numel()] = (k + 0.5) / 255.0
+    return clip, x.to(dt)
+
+
+def check_wire(rows, card):
+    """K3: every map exact against its plain version, in f32 and bf16, on
+    the tiled path (the flagship) and the general path (rows of 300 bytes);
+    then each map timed at the flagship in bf16, warm and with a cold L2,
+    beside its plain version and, for (a)-(c), a one-call copy yardstick."""
+    row = rows["wire"]
+    g = torch.Generator("cuda").manual_seed(2)
+    for b, h, w in ((B, S, S), (2, 100, 100)):
+        path = "tiled" if (3 * w) % 16 == 0 else "general"
+        for dt in (torch.float32, torch.bfloat16):
+            clip, x = wire_inputs(b, h, w, dt, g)
+            flat = clip.reshape(b * T, h, w, 3)
+            check(torch.equal(wire.to_channels(clip, dt),
+                              wire.to_channels_plain(clip, dt)),
+                  f"wire to_channels {path} {dt} differs")
+            check(torch.equal(wire.to_s2d(flat, 2, dt),
+                              wire.to_s2d_plain(flat, 2, dt)),
+                  f"wire to_s2d {path} {dt} differs")
+            check(torch.equal(wire.to_u8(x, T), wire.to_u8_plain(x, T)),
+                  f"wire to_u8 {path} {dt} differs")
+            u8, xs = wire.to_u8_s2d(x, T, 2)
+            u8_ref, xs_ref = wire.to_u8_s2d_plain(x, T, 2)
+            check(torch.equal(u8, u8_ref) and torch.equal(xs, xs_ref),
+                  f"wire to_u8_s2d {path} {dt} differs")
+            ties = int(((x.float().clamp(0, 1) * 255.0) % 1 == 0.5).sum())
             check(ties > 0, "no exact ties in the to_u8 input")
-            continue
-        parts = [("to_channels", lambda: wire.to_channels(clip, dt),
-                  lambda: wire.to_channels_plain(clip, dt), nbytes(clip, a)),
-                 ("to_u8", lambda: wire.to_u8(x, T),
-                  lambda: wire.to_u8_plain(x, T), nbytes(x, b)),
-                 ("to_s2d", lambda: wire.to_s2d(flat, 2, dt),
-                  lambda: wire.to_s2d_plain(flat, 2, dt), nbytes(flat, c))]
-        for name, fn, plain, moved in parts:
-            ms, pms = time_ms(fn), time_ms(plain)
+            print(f"check wire {path} {(b, T, h, w)} {dt} exact: to_channels "
+                  f"to_u8 to_s2d to_u8_s2d (to_u8 inputs with {ties} exact "
+                  f".5 ties)")
+
+    dt = torch.bfloat16
+    clip, x = wire_inputs(B, S, S, dt, g)
+    flat = clip.reshape(B * T, S, S, 3)
+    a = torch.empty(B, S, S, 3 * T, device="cuda", dtype=dt)
+    u8 = torch.empty(B, T, S, S, 3, device="cuda", dtype=torch.uint8)
+    c = torch.empty(B * T, S // 2, S // 2, 12, device="cuda", dtype=dt)
+    maps = [
+        ("to_channels", wire.to_channels, wire.to_channels_plain, (clip, dt),
+         lambda: a.view(B, S, S, T, 3).copy_(clip.permute(0, 2, 3, 1, 4)),
+         nbytes(clip, a), lambda i: wire_inputs(B, S, S, dt, g)[:1] + (dt,)),
+        ("to_u8", wire.to_u8, wire.to_u8_plain, (x, T),
+         lambda: u8.permute(0, 2, 3, 1, 4).copy_(x.view(B, S, S, T, 3)),
+         nbytes(x, u8), lambda i: (wire_inputs(B, S, S, dt, g)[1], T)),
+        ("to_s2d", wire.to_s2d, wire.to_s2d_plain, (flat, 2, dt),
+         lambda: c.view(B * T, S // 2, S // 2, 2, 2, 3).copy_(
+             flat.view(B * T, S // 2, 2, S // 2, 2, 3).permute(
+                 0, 1, 3, 2, 4, 5)),
+         nbytes(flat, c), lambda i: (wire_inputs(B, S, S, dt, g)[0].reshape(
+             B * T, S, S, 3), 2, dt)),
+        ("to_u8_s2d", wire.to_u8_s2d, wire.to_u8_s2d_plain, (x, T, 2),
+         None, nbytes(x, u8, c),
+         lambda i: (wire_inputs(B, S, S, dt, g)[1], T, 2)),
+    ]
+    for name, fn, plain, args, copy, moved, make in maps:
+        ms = time_ms(lambda: fn(*args))
+        cold = time_cold_ms(fn, cold_sets(make, moved))
+        pms = time_ms(lambda: plain(*args))
+        bms = bound(moved, 0)[0]
+        copy_ms = time_ms(copy) if copy else None
+        if name in ROUNDTRIP_WIRE:
             row.add(ms, pms, moved, 3 * x.numel())
-            print(f"check wire {name} bf16 ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"[{card}]")
+        yard = (f" copy_yardstick_ms={copy_ms:.4f}" if copy else "")
+        print(f"check wire {name} bf16 ms={ms:.4f} cold_ms={cold:.4f} "
+              f"plain_ms={pms:.4f}{yard} bound_ms={bms:.4f} "
+              f"share_of_bound={bms / ms:.3f} cold_share={bms / cold:.3f} "
+              f"({'roundtrip' if name in ROUNDTRIP_WIRE else 'embed/detect-only'}"
+              f" path) [{card}]")
 
 
 def check_mask(rows, card):
     row = rows["mask_pack"]
-    dev = torch.device("cuda")
     g = torch.Generator("cuda").manual_seed(3)
+
+    def make_logits(dt):
+        z = torch.randn(B * T, S // 2, S // 2, 4, device="cuda", generator=g)
+        z.view(-1)[::97] = 0.0  # p == threshold exactly
+        return z.to(dt)
+
     for dt in (torch.float32, torch.bfloat16):
-        logits = torch.randn(B * T, S // 2, S // 2, 4, device=dev, generator=g)
-        logits.view(-1)[::97] = 0.0  # p == threshold exactly
-        logits = logits.to(dt)
+        logits = make_logits(dt)
         m, frac = mask.mask_pack(logits, T, 2, 0.5)
         m_ref, frac_ref = mask.mask_pack_plain(logits, T, 2, 0.5)
         torch.cuda.synchronize()
@@ -328,15 +410,26 @@ def check_mask(rows, card):
               f"mask_pack {dt}: bits differ away from the threshold")
         mean_err = float((frac - frac_ref).abs().max())
         check(mean_err <= MEAN_ATOL, f"mask_pack {dt}: mean err {mean_err}")
+        again = mask.mask_pack(logits, T, 2, 0.5)[1]
+        check(torch.equal(again, frac), f"mask_pack {dt}: tamper fraction "
+              f"not repeatable")
         print(f"check mask_pack {dt} bits_differ={int(differ.sum())} "
-              f"near_threshold={int(near.sum())} mean_err={mean_err}")
+              f"near_threshold={int(near.sum())} mean_err={mean_err} "
+              f"(fraction bit-identical over repeated calls)")
         if dt == torch.bfloat16:
             row.err = mean_err
+            moved = nbytes(logits, m, frac)
             ms = time_ms(lambda: mask.mask_pack(logits, T, 2, 0.5))
+            cold = time_cold_ms(
+                lambda z: mask.mask_pack(z, T, 2, 0.5),
+                cold_sets(lambda i: (make_logits(dt),), moved))
             pms = time_ms(lambda: mask.mask_pack_plain(logits, T, 2, 0.5))
-            row.add(ms, pms, nbytes(logits, m, frac), 6 * 4 * logits.numel())
-            print(f"check mask_pack bf16 ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"[{card}]")
+            row.add(ms, pms, moved, 6 * 4 * logits.numel())
+            bms = bound(moved, 0)[0]
+            print(f"check mask_pack bf16 ms={ms:.4f} cold_ms={cold:.4f} "
+                  f"plain_ms={pms:.4f} bound_ms={bms:.4f} "
+                  f"share_of_bound={bms / ms:.3f} cold_share={bms / cold:.3f}"
+                  f" [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -402,7 +495,7 @@ def run_slice(card):
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"main path launches per roundtrip: {json.dumps(launches)}")
-    check(launches == {"transition": 6, "coupling_head": 10, "wire": 3,
+    check(launches == {"transition": 6, "coupling_head": 10, "wire": 2,
                        "mask_pack": 1}, f"launch counts {launches}")
 
     wm = res.watermarked

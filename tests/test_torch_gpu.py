@@ -117,30 +117,81 @@ def test_coupling_kernel_matches_plain(cuda, shape, inverse, dtype):
     assert bool((out[..., c:] == 0).all())
 
 
+# (B, T, H, W, s): tiled rows (W·3 % 16 == 0; W = 48 leaves a ragged last
+# pass of the block's threads), s = 4, and rows of W·3 % 16 != 0 that take
+# the general path
+_WIRE = [(2, 4, 16, 16, 2), (1, 4, 6, 48, 2), (1, 4, 8, 32, 4),
+         (1, 4, 10, 40, 2), (2, 3, 6, 20, 2)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_wire_kernels_are_exact(cuda, dtype):
+@pytest.mark.parametrize("b,t,h,w,s", _WIRE)
+def test_wire_kernels_are_exact(cuda, b, t, h, w, s, dtype):
     g = _gen(2)
-    clip = torch.randint(0, 256, (2, 4, 16, 16, 3), device=cuda, generator=g,
+    clip = torch.randint(0, 256, (b, t, h, w, 3), device=cuda, generator=g,
                          dtype=torch.uint8)
+    tiles = wire.tiled(clip, w, t, 3 * t)
+    assert tiles is ((3 * w) % 16 == 0)
     assert torch.equal(wire.to_channels(clip, dtype),
                        wire.to_channels_plain(clip, dtype))
-    flat = clip.reshape(8, 16, 16, 3)
-    assert torch.equal(wire.to_s2d(flat, 2, dtype),
-                       wire.to_s2d_plain(flat, 2, dtype))
-    x = torch.rand(2, 16, 16, 12, device=cuda, generator=g) * 1.4 - 0.2
-    x.view(-1)[:256] = (torch.arange(256, device=cuda) + 0.5) / 255.0
+    flat = clip.reshape(b * t, h, w, 3)
+    assert torch.equal(wire.to_s2d(flat, s, dtype),
+                       wire.to_s2d_plain(flat, s, dtype))
+    x = torch.rand(b, h, w, 3 * t, device=cuda, generator=g) * 1.4 - 0.2
+    n = min(x.numel(), 255)
+    x.view(-1)[:n] = (torch.arange(n, device=cuda) + 0.5) / 255.0
     x = x.to(dtype)
-    assert torch.equal(wire.to_u8(x, 4), wire.to_u8_plain(x, 4))
+    assert torch.equal(wire.to_u8(x, t), wire.to_u8_plain(x, t))
+    before = launch_counts()["wire"]
+    u8, xs = wire.to_u8_s2d(x, t, s)
+    assert launch_counts()["wire"] == before + (1 if tiles else 2)
+    u8_ref, xs_ref = wire.to_u8_s2d_plain(x, t, s)
+    assert xs.dtype == dtype
+    assert torch.equal(u8, u8_ref) and torch.equal(xs, xs_ref)
+
+
+# widths whose staged rows come within the kernels' static tables of 48 KB:
+# the launch must opt in to its dynamic shared memory
+@pytest.mark.parametrize("name,w", [("to_channels", 4000), ("to_u8", 4000),
+                                    ("to_s2d", 8000), ("to_u8_s2d", 1984)])
+def test_wire_tiles_rows_at_the_shared_memory_limit(cuda, name, w):
+    t, s, dtype = 4, 2, torch.bfloat16
+    g = _gen(8)
+    clip = torch.randint(0, 256, (1, t, 2, w, 3), device=cuda, generator=g,
+                         dtype=torch.uint8)
+    flat = clip.reshape(t, 2, w, 3)
+    x = (torch.rand(1, 2, w, 3 * t, device=cuda, generator=g) * 1.4
+         - 0.2).to(dtype)
+    fn, plain, args, rows, channels = {
+        "to_channels": (wire.to_channels, wire.to_channels_plain,
+                        (clip, dtype), t, 3 * t),
+        "to_u8": (wire.to_u8, wire.to_u8_plain, (x, t), t, 3 * t),
+        "to_s2d": (wire.to_s2d, wire.to_s2d_plain, (flat, s, dtype), s,
+                   3 * s * s),
+        "to_u8_s2d": (wire.to_u8_s2d, wire.to_u8_s2d_plain, (x, t, s),
+                      t * s, 3 * t),
+    }[name]
+    assert wire.tiled(args[0], w, rows, channels)
+    assert rows * (3 * w + 16) > 46 * 1024
+    before = launch_counts()["wire"]
+    got = fn(*args)
+    assert launch_counts()["wire"] == before + 1
+    want = plain(*args)
+    if name == "to_u8_s2d":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("w", [32, 36])
-def test_mask_kernel_matches_plain(cuda, w, dtype):
-    logits = torch.randn(8, 8, w // 2, 4, device=cuda, generator=_gen(3))
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("w", [32, 36, 256])
+def test_mask_kernel_matches_plain(cuda, w, s, dtype):
+    logits = torch.randn(8, 8, w // s, s * s, device=cuda, generator=_gen(3))
     logits.view(-1)[::5] = 0.0  # p == threshold exactly
     logits = logits.to(dtype)
-    m, frac = mask.mask_pack(logits, 4, 2, 0.5)
-    m_ref, frac_ref = mask.mask_pack_plain(logits, 4, 2, 0.5)
+    m, frac = mask.mask_pack(logits, 4, s, 0.5)
+    m_ref, frac_ref = mask.mask_pack_plain(logits, 4, s, 0.5)
     torch.cuda.synchronize()
     if w % 8 == 0:
         m, m_ref = (unpack_mask_bits(t.cpu().numpy()) for t in (m, m_ref))
@@ -150,10 +201,49 @@ def test_mask_kernel_matches_plain(cuda, w, dtype):
     torch.testing.assert_close(frac, frac_ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("s", [2, 4])
+def test_mask_fraction_is_repeatable(cuda, s):
+    """The tamper fraction is bit-identical over consecutive calls, also
+    after a call of another shape in between: each launch leaves its
+    tickets at 0 for the next."""
+    g = _gen(6)
+    big = torch.randn(64, 128 // s, 128 // s, s * s, device=cuda,
+                      generator=g).to(torch.bfloat16)
+    small = torch.randn(6, 24 // s, 32 // s, s * s, device=cuda, generator=g)
+    first = mask.mask_pack(big, 4, s, 0.5)[1]
+    again = mask.mask_pack(big, 4, s, 0.5)[1]
+    mid = mask.mask_pack(small, 2, s, 0.5)[1]
+    last = mask.mask_pack(big, 4, s, 0.5)[1]
+    assert torch.equal(first, again) and torch.equal(first, last)
+    assert torch.equal(mid, mask.mask_pack(small, 2, s, 0.5)[1])
+    torch.testing.assert_close(first, mask.mask_pack_plain(big, 4, s, 0.5)[1],
+                               rtol=0, atol=1e-5)
+
+
+def test_mask_scratch_is_per_stream(cuda):
+    """Calls on two streams at once keep their own tickets and partials:
+    each fraction equals the one from the default stream."""
+    g = _gen(7)
+    clips = [torch.randn(64, 64, 64, 4, device=cuda, generator=g).to(
+        torch.bfloat16) for _ in range(2)]
+    want = [mask.mask_pack(z, 4, 2, 0.5)[1] for z in clips]
+    streams = [torch.cuda.Stream(cuda) for _ in clips]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(8):
+        for k, (st, z) in enumerate(zip(streams, clips)):
+            with torch.cuda.stream(st):
+                got[k].append(mask.mask_pack(z, 4, 2, 0.5)[1])
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(f, want[k]) for f in got[k])
+
+
 def test_server_on_card_matches_plain_and_counts_launches(cuda):
     """A small flagship server on the card: one roundtrip launches K1 ×6,
-    K2 (``coupling_head``) ×10, K3 ×3, K4 ×1, and agrees with the same server through the plain
-    versions (f32)."""
+    K2 (``coupling_head``) ×10, K3 ×2 (``to_channels`` and the one-pass
+    ``to_u8_s2d``), K4 ×1, and agrees with the same server through the
+    plain versions (f32)."""
     cfg = load_config(FLAGSHIP_CONFIG)
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64),
@@ -174,7 +264,7 @@ def test_server_on_card_matches_plain_and_counts_launches(cuda):
     got.prefetch()
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
-                               "wire": 3, "mask_pack": 1}
+                               "wire": 2, "mask_pack": 1}
     want = ref.serve(clip, "roundtrip")
     assert launch_counts()["transition"] == 6  # the plain server launches none
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))

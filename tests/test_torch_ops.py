@@ -171,6 +171,18 @@ def test_mask_pack_matches_pack_mask_bits(rng, w):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("clips,rows,sms", [(16, 512, 132), (2, 16, 132),
+                                            (1, 3, 8), (64, 1024, 132)])
+def test_mask_fast_grid_covers_each_clip(clips, rows, sms):
+    """K4's fast path: G blocks of 8 warps × rows-per-warp cover a clip's
+    logits rows, no block is empty, and the flagship (16 clips of 512 rows
+    on 132 SMs) gets about four blocks per SM, two rows per warp."""
+    g, rpw = mask.fast_grid(clips, rows, sms)
+    assert g * 8 * rpw >= rows > (g - 1) * 8 * rpw
+    if (clips, rows) == (16, 512):
+        assert (g, rpw) == (32, 2)
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         transition.transition(torch.zeros(1, 4, 4, 3, dtype=torch.float64),

@@ -27,14 +27,16 @@ class KernelSet(NamedTuple):
     wire_to_channels: Callable
     wire_to_u8: Callable
     wire_to_s2d: Callable
+    wire_to_u8_s2d: Callable
     mask_pack: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
-                    wire.to_channels, wire.to_u8, wire.to_s2d, mask.mask_pack)
+                    wire.to_channels, wire.to_u8, wire.to_s2d, wire.to_u8_s2d,
+                    mask.mask_pack)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
-                  mask.mask_pack_plain)
+                  wire.to_u8_s2d_plain, mask.mask_pack_plain)
 
 
 def launch_counts() -> Dict[str, int]:

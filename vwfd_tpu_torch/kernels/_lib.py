@@ -35,11 +35,12 @@ _SIGNATURES = {
     "vwfd_transition": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_coupling_head": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I,
                            _I, _I, _I, _I, _P],
-    "vwfd_wire_to_channels": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "vwfd_wire_to_u8": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "vwfd_wire_to_s2d": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_channels": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_u8": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_s2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_wire_to_u8_s2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_mask_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                       _I, _P],
+                       _I, _I, _P],
 }
 
 _lock = threading.Lock()

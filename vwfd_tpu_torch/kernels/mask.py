@@ -4,7 +4,7 @@ and per-clip tamper fraction.
 Replaces ``UNetTPU``'s d2s head + sigmoid (``vwfd_tpu/nets/unet.py:298-309``)
 and the serving epilogue of ``vwfd_tpu/serving.py``: ``_pack_mask_bits``
 (:82-88), ``_mask_u8`` (:157-161) and the threshold + per-clip mean of
-``_detect_u8`` (:420-425). From head logits (B·T, H/s, W/s, s²):
+``_detect_u8`` (:414-425). From head logits (B·T, H/s, W/s, s²):
 
 * ``p = sigmoid(depth_to_space(logits))`` in f32;
 * W % 8 == 0: ``p > threshold`` bit-packed MSB-first along W → u8
@@ -16,14 +16,18 @@ Bound: bytes. At the flagship serving shapes (64 frames of 128²×4 bf16
 logits) 8.4 MB in, 0.5 MB of bits out: 8.9 MB, about 2.7 µs at 3.35 TB/s
 (H100 SXM data sheet, 700 W).
 
-Design (``csrc/mask.cu``): one thread per output byte (8 pixels, or 1 in the
-u8 mode). A grid of G blocks per clip; each block reduces its partial sum in
-a fixed tree order and the last block of a clip, found with an integer
-ticket, adds the G partials in index order. No float atomics, so the mean
-is deterministic.
+Design (``csrc/mask.cu``): on the fast path (s = 2, W % 8 == 0, 16-byte
+aligned logits) one warp per logits row, i.e. two image rows, with 16-byte
+loads; each lane writes one byte of each row. Other shapes take the general
+path, one thread per output byte. A grid of G blocks per clip; each block
+sums its pixels in a fixed order and the last block of a clip, found with
+an integer ticket, adds the G partials in a fixed order. No float atomics,
+so the mean is deterministic. The last block resets its ticket, so the
+ticket and partial scratch live in buffers kept per device and stream, and a
+call allocates only its outputs.
 """
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +35,17 @@ import torch
 from ..ops.squeeze import depth_to_space
 from . import _lib
 
-__all__ = ["mask_pack", "mask_pack_plain", "COUNT"]
+__all__ = ["mask_pack", "mask_pack_plain", "fast_grid", "COUNT"]
 
 COUNT = _lib.LaunchCount("mask_pack")
 _BIT_WEIGHTS = np.array([128, 64, 32, 16, 8, 4, 2, 1], np.uint8)
+_WARPS = 8       # warps per block on the fast path (csrc/mask.cu kWarps)
+_WAVES = 4       # fast-path grid: about this many blocks per SM
+# Per (device, stream handle): (tickets, partials). The tickets are zeroed
+# once here and left at 0 by every launch. Launches on one stream run one
+# after another, so they never share the scratch at the same time.
+_SCRATCH: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _check(logits: torch.Tensor, frames: int, s: int) -> None:
@@ -44,6 +55,28 @@ def _check(logits: torch.Tensor, frames: int, s: int) -> None:
     if c != s * s or frames < 1 or n % frames:
         raise ValueError(f"logits {tuple(logits.shape)} do not hold "
                          f"{frames}-frame clips at s2d {s} (1 output channel)")
+
+
+def fast_grid(clips: int, rows_per_clip: int, sms: int) -> Tuple[int, int]:
+    """Fast-path grid: ``(G, rows per warp)`` so that the B·G blocks of
+    ``_WARPS`` warps come to about ``_WAVES`` per SM and G blocks cover a
+    clip's ``rows_per_clip`` logits rows."""
+    rpw = max(1, -(-clips * rows_per_clip // (_WARPS * _WAVES * sms)))
+    return -(-rows_per_clip // (_WARPS * rpw)), rpw
+
+
+def _scratch(dev: torch.device, b: int, g: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The current stream's scratch on ``dev``, grown to ``b`` clips of ``g``
+    partials."""
+    key = dev, torch.cuda.current_stream(dev).cuda_stream
+    tickets, partials = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < b:
+        tickets = torch.zeros(b, device=dev, dtype=torch.int32)
+    if partials is None or partials.numel() < b * g:
+        partials = torch.empty(b * g, device=dev, dtype=torch.float32)
+    _SCRATCH[key] = tickets, partials
+    return tickets, partials
 
 
 def mask_pack_plain(logits: torch.Tensor, frames: int, s: int,
@@ -71,6 +104,9 @@ def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float
     _check(logits, frames, s)
     if not _lib.on_cuda(logits):
         return mask_pack_plain(logits, frames, s, threshold)
+    if logits.numel() >= 2 ** 31:
+        raise ValueError(f"mask_pack: {logits.numel()} logits; the kernel "
+                         f"indexes in 32 bits (fewer than 2^31)")
     n, hs, ws, _ = logits.shape
     b, h, w = n // frames, hs * s, ws * s
     packed = w % 8 == 0
@@ -78,14 +114,17 @@ def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float
     mask = torch.empty((b, frames, h, w // 8) if packed
                        else (b, frames, h, w, 1), device=dev,
                        dtype=torch.uint8)
-    clip_bytes = frames * h * (w // 8 if packed else w)
-    g = max(1, min(64, -(-clip_bytes // 1024)))  # blocks per clip
-    partial = torch.empty(b * g, device=dev, dtype=torch.float32)
-    ticket = torch.zeros(b, device=dev, dtype=torch.int32)
     frac = torch.empty(b, device=dev, dtype=torch.float32)
+    if s == 2 and packed and logits.data_ptr() % 16 == 0:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        g, rpw = fast_grid(b, frames * hs, sms)
+    else:
+        clip_bytes = frames * h * (w // 8 if packed else w)
+        g, rpw = max(1, min(64, -(-clip_bytes // 1024))), 0
+    tickets, partials = _scratch(dev, b, g)
     _lib.launch("vwfd_mask_pack", dev, logits.data_ptr(), mask.data_ptr(),
-                partial.data_ptr(), ticket.data_ptr(), frac.data_ptr(), b,
-                frames, h, w, s, float(threshold), int(packed), g,
+                partials.data_ptr(), tickets.data_ptr(), frac.data_ptr(), b,
+                frames, h, w, s, float(threshold), int(packed), g, rpw,
                 _lib.dtype_code(logits))
     COUNT.n += 1
     return mask, frac

@@ -4,33 +4,64 @@ Replaces the uint8 decode/encode of ``vwfd_tpu/serving.py::_embed_u8`` /
 ``_detect_u8`` (:377-401), ``models/video_model.py::_to_channels`` /
 ``_to_frames`` (:43-52, :146-156), the clamp and 8-bit quantize of
 ``ops/quantize.py`` (:12-25) and the detect stem's space-to-depth
-(``nets/unet.py:220-223``). Three entry points share one launch count:
+(``nets/unet.py:220-223``). Four entry points share one launch count:
 
 * ``to_channels``: u8 (B,T,H,W,3) → ``/255`` → dtype, (B,H,W,3T);
 * ``to_u8``: dtype (B,H,W,3T) → frames → f32 → clamp[0,1] → ``rint(x·255)``
   → u8 (B,T,H,W,3), rounding half to even as ``jnp.round``;
 * ``to_s2d``: u8 (N,H,W,3) → ``/255`` → dtype, (N,H/s,W/s,s²·3) in the
-  space-to-depth order of ``ops/squeeze.py``.
+  space-to-depth order of ``ops/squeeze.py``;
+* ``to_u8_s2d``: ``to_u8`` and ``to_s2d`` of its output in one pass, the
+  roundtrip's hand-over from embed to detect (``vwfd_tpu/serving.py:427-434``,
+  one XLA program there): the watermarked u8 clip and the detect stem's
+  input, decoded from the same bytes.
 
 Bound: bytes, a handful of operations per element. At the flagship serving
-shapes (batch 16, T=4, 256²) each entry point reads or writes 12.6 MB of
-uint8 and 25.2 MB of bf16: 37.7 MB, about 11 µs at 3.35 TB/s (H100 SXM data
-sheet, 700 W).
+shapes (batch 16, T=4, 256²) each of the first three reads or writes 12.6 MB
+of uint8 and 25.2 MB of bf16: 37.7 MB, about 11.3 µs at 3.35 TB/s (H100 SXM
+data sheet, 700 W); ``to_u8_s2d`` moves 62.9 MB, about 18.8 µs.
 
-Design (``csrc/wire.cu``): one thread per output element, each reading its
-one input element from the source layout; the division by 255 is an IEEE
-division in both versions, so the outputs agree exactly.
+Design (``csrc/wire.cu``): the tiled path runs one block per output row
+(``to_u8_s2d``: per s input rows), stages the uint8 side of its rows in
+shared memory with 1-D bulk copies and walks the dtype side in 16-byte
+vectors, with 32-bit indices from a per-block offset table. ``tiled`` alone
+picks it where the rows allow (16-byte rows, the staged rows within 48 KB);
+other shapes take the general path, one thread per output element. The division
+by 255 is an IEEE division everywhere (the tiled path reads a per-block
+table of the 256 quotients), as in the plain version, so the outputs agree
+exactly.
 """
+
+from typing import Tuple
 
 import torch
 
 from ..ops.squeeze import space_to_depth
 from . import _lib
 
-__all__ = ["to_channels", "to_u8", "to_s2d", "to_channels_plain",
-           "to_u8_plain", "to_s2d_plain", "COUNT"]
+__all__ = ["to_channels", "to_u8", "to_s2d", "to_u8_s2d", "to_channels_plain",
+           "to_u8_plain", "to_s2d_plain", "to_u8_s2d_plain", "tiled",
+           "COUNT"]
 
 COUNT = _lib.LaunchCount("wire")
+# csrc/wire.cu: channels of one dtype-side pixel the offset table holds
+# (kMaxK) and bytes between staged rows (kRowPad). The C launchers opt each
+# launch in to the dynamic shared memory it asks for, so the staged rows may
+# take all of _SMEM_MAX beside the kernels' static tables.
+_MAX_K = 64
+_ROW_PAD = 16
+_SMEM_MAX = 48 * 1024
+
+
+def tiled(x: torch.Tensor, width: int, rows: int, channels: int) -> bool:
+    """Whether the row-tiled kernels take a map whose input is ``x``: image
+    rows of ``width`` RGB pixels in whole 16-byte words, ``x`` 16-byte
+    aligned, at most ``_MAX_K`` channels per dtype-side pixel, and ``rows``
+    staged image rows within ``_SMEM_MAX``. The only place the path is
+    chosen: the C launchers check just what the tiled kernels need."""
+    return ((3 * width) % 16 == 0 and x.data_ptr() % 16 == 0
+            and channels <= _MAX_K
+            and rows * (3 * width + _ROW_PAD) <= _SMEM_MAX)
 
 
 def _check_u8(x: torch.Tensor, ndim: int, name: str) -> None:
@@ -38,6 +69,31 @@ def _check_u8(x: torch.Tensor, ndim: int, name: str) -> None:
     if x.dtype != torch.uint8 or x.shape[-1] != 3:
         raise ValueError(f"{name}: expected uint8 (..., 3), got {x.dtype} "
                          f"{tuple(x.shape)}")
+
+
+def _check_frames(x: torch.Tensor, frames: int) -> None:
+    _lib.check_nhwc(x, "to_u8 input")
+    _lib.dtype_code(x)
+    if x.shape[-1] != 3 * frames:
+        raise ValueError(f"to_u8: {x.shape[-1]} channels != 3·{frames}")
+
+
+def _check_s2d(x: torch.Tensor, s: int) -> None:
+    if s < 1 or x.shape[-3] % s or x.shape[-2] % s:
+        raise ValueError(f"s2d: {tuple(x.shape)} not divisible by {s}")
+
+
+def _code(dtype: torch.dtype, name: str) -> int:
+    code = _lib.DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    return code
+
+
+def _check_size(*ts: torch.Tensor) -> None:
+    if any(t.numel() >= 2 ** 31 for t in ts):
+        raise ValueError("wire: the kernels index in 32 bits (fewer than "
+                         "2^31 elements a tensor)")
 
 
 def _div255(x: torch.Tensor) -> torch.Tensor:
@@ -63,35 +119,29 @@ def to_u8_plain(x: torch.Tensor, frames: int) -> torch.Tensor:
 
 def to_s2d_plain(x: torch.Tensor, s: int, dtype: torch.dtype
                  ) -> torch.Tensor:
+    _check_u8(x, 4, "to_s2d input")
     _check_s2d(x, s)
     return space_to_depth(_div255(x).to(dtype), s).contiguous()
 
 
-def _check_frames(x: torch.Tensor, frames: int) -> None:
-    _lib.check_nhwc(x, "to_u8 input")
-    _lib.dtype_code(x)
-    if x.shape[-1] != 3 * frames:
-        raise ValueError(f"to_u8: {x.shape[-1]} channels != 3·{frames}")
-
-
-def _check_s2d(x: torch.Tensor, s: int) -> None:
-    _check_u8(x, 4, "to_s2d input")
-    if s < 1 or x.shape[1] % s or x.shape[2] % s:
-        raise ValueError(f"to_s2d: {tuple(x.shape)} not divisible by {s}")
+def to_u8_s2d_plain(x: torch.Tensor, frames: int, s: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    u8 = to_u8_plain(x, frames)
+    b, t, h, w, c = u8.shape
+    return u8, to_s2d_plain(u8.reshape(b * t, h, w, c), s, x.dtype)
 
 
 def to_channels(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(a) u8 clip (B,T,H,W,3) → INN input (B,H,W,3T) in ``dtype``."""
     _check_u8(x, 5, "to_channels input")
-    code = _lib.DTYPE_CODES.get(dtype)
-    if code is None:
-        raise TypeError(f"to_channels: unsupported dtype {dtype}")
+    code = _code(dtype, "to_channels")
     if not _lib.on_cuda(x):
         return to_channels_plain(x, dtype)
     b, t, h, w, c = x.shape
     y = torch.empty((b, h, w, t * c), device=x.device, dtype=dtype)
+    _check_size(x, y)
     _lib.launch("vwfd_wire_to_channels", x.device, x.data_ptr(),
-                y.data_ptr(), b, t, h, w, code)
+                y.data_ptr(), b, t, h, w, code, int(tiled(x, w, t, 3 * t)))
     COUNT.n += 1
     return y
 
@@ -103,24 +153,50 @@ def to_u8(x: torch.Tensor, frames: int) -> torch.Tensor:
         return to_u8_plain(x, frames)
     b, h, w, _ = x.shape
     y = torch.empty((b, frames, h, w, 3), device=x.device, dtype=torch.uint8)
+    _check_size(x, y)
     _lib.launch("vwfd_wire_to_u8", x.device, x.data_ptr(), y.data_ptr(),
-                b, frames, h, w, _lib.dtype_code(x))
+                b, frames, h, w, _lib.dtype_code(x),
+                int(tiled(x, w, frames, 3 * frames)))
     COUNT.n += 1
     return y
 
 
 def to_s2d(x: torch.Tensor, s: int, dtype: torch.dtype) -> torch.Tensor:
     """(c) u8 frames (N,H,W,3) → detect stem input (N,H/s,W/s,s²·3)."""
+    _check_u8(x, 4, "to_s2d input")
     _check_s2d(x, s)
-    code = _lib.DTYPE_CODES.get(dtype)
-    if code is None:
-        raise TypeError(f"to_s2d: unsupported dtype {dtype}")
+    code = _code(dtype, "to_s2d")
     if not _lib.on_cuda(x):
         return to_s2d_plain(x, s, dtype)
     n, h, w, _ = x.shape
     y = torch.empty((n, h // s, w // s, s * s * 3), device=x.device,
                     dtype=dtype)
+    _check_size(x, y)
     _lib.launch("vwfd_wire_to_s2d", x.device, x.data_ptr(), y.data_ptr(),
-                n, h, w, s, code)
+                n, h, w, s, code, int(tiled(x, w, s, 3 * s * s)))
     COUNT.n += 1
     return y
+
+
+def to_u8_s2d(x: torch.Tensor, frames: int, s: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d) INN output (B,H,W,3T) → the watermarked u8 clip (B,T,H,W,3) and
+    the detect stem input (B·T,H/s,W/s,s²·3), in ``x``'s dtype, decoded from
+    its bytes: one launch on the tiled path; ``to_u8`` then ``to_s2d`` for
+    other shapes."""
+    _check_frames(x, frames)
+    _check_s2d(x, s)
+    if not _lib.on_cuda(x):
+        return to_u8_s2d_plain(x, frames, s)
+    b, h, w, _ = x.shape
+    if not tiled(x, w, frames * s, 3 * max(frames, s * s)):
+        u8 = to_u8(x, frames)
+        return u8, to_s2d(u8.reshape(b * frames, h, w, 3), s, x.dtype)
+    u8 = torch.empty((b, frames, h, w, 3), device=x.device, dtype=torch.uint8)
+    y = torch.empty((b * frames, h // s, w // s, s * s * 3), device=x.device,
+                    dtype=x.dtype)
+    _check_size(x, u8, y)
+    _lib.launch("vwfd_wire_to_u8_s2d", x.device, x.data_ptr(), u8.data_ptr(),
+                y.data_ptr(), b, frames, h, w, s, _lib.dtype_code(x))
+    COUNT.n += 1
+    return u8, y

@@ -28,7 +28,8 @@ from .serving import WatermarkServer
 PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                                "transition_p2u"),
                 "coupling_head": ("coupling_head",),
-                "wire": ("u8_to_channels", "channels_to_u8", "u8_to_s2d"),
+                "wire": ("wire_decode_rows", "wire_encode_rows",
+                         "u8_to_channels", "channels_to_u8", "u8_to_s2d"),
                 "mask_pack": ("mask_pack",)}
 
 

@@ -15,7 +15,8 @@ masks one bit per pixel (MSB first along W) when the frame width divides by
 and the outputs trimmed (eval-mode nets are per-sample, so this is exact).
 
 On the card the uint8 decode/encode and relayouts run in K3
-(``kernels/wire.py``), the INN in K1/K2 plus cuDNN/cuBLAS, and the detect
+(``kernels/wire.py``; the roundtrip's encode and the detect stem's decode
+in one pass), the INN in K1/K2 plus cuDNN/cuBLAS, and the detect
 epilogue in K4 (``kernels/mask.py``). Uploads go through pinned host
 buffers with ``non_blocking`` copies; results come back the same way,
 behind a CUDA event, so ``serve`` returns without waiting for the card and
@@ -156,24 +157,37 @@ class WatermarkServer:
 
     # ---------------------------------------------------------- device fns
 
-    def _embed_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        k, m = self.kernels, self.model
-        x = k.wire_to_channels(x_u8, m.compute_dtype)
-        y = m.inn(x, out_f32=False)
-        return {"watermarked": k.wire_to_u8(y, self.frames)}
+    def _inn_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """u8 clip → INN output (B,H,W,3T) in the compute dtype."""
+        m = self.model
+        return m.inn(self.kernels.wire_to_channels(x_u8, m.compute_dtype),
+                     out_f32=False)
 
-    def _detect_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        k, m = self.kernels, self.model
-        b, t, h, w, c = x_u8.shape
-        s = m.unet.s2d
-        xs = k.wire_to_s2d(x_u8.reshape(b * t, h, w, c), s, m.compute_dtype)
-        mask, frac = k.mask_pack(m.unet.body(xs), t, s, self.threshold)
-        key = "mask_bits" if w % 8 == 0 else "mask"
+    def _detect_s2d(self, xs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Detect stem input (B·T,H/s,W/s,3s²) → mask and tamper fraction."""
+        m = self.model
+        mask, frac = self.kernels.mask_pack(m.unet.body(xs), self.frames,
+                                            m.unet.s2d, self.threshold)
+        key = "mask_bits" if self.size % 8 == 0 else "mask"
         return {key: mask, "tamper_fraction": frac}
 
+    def _embed_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"watermarked": self.kernels.wire_to_u8(self._inn_u8(x_u8),
+                                                       self.frames)}
+
+    def _detect_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        m = self.model
+        b, t, h, w, c = x_u8.shape
+        return self._detect_s2d(self.kernels.wire_to_s2d(
+            x_u8.reshape(b * t, h, w, c), m.unet.s2d, m.compute_dtype))
+
     def _roundtrip_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self._embed_u8(x_u8)
-        return {**out, **self._detect_u8(out["watermarked"])}
+        """Embed then detect; the detector reads the stem input decoded
+        from the watermarked bytes in the same pass that writes them."""
+        m = self.model
+        wm, xs = self.kernels.wire_to_u8_s2d(self._inn_u8(x_u8), self.frames,
+                                             m.unet.s2d)
+        return {"watermarked": wm, **self._detect_s2d(xs)}
 
     # ------------------------------------------------------------- serving
 
