@@ -20,7 +20,12 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    K3's four maps exact on the tiled and the general path, each timed warm
    and with a cold L2, (a)-(c) beside a one-call ``Tensor.copy_`` between
    the same layouts (a yardstick: no single call computes them); K4 warm
-   and cold;
+   and cold; then the training kernels at the training shape (64 frames of
+   256²×3 f32): K5 ``jpeg_pair`` with draws covering all 5 qualities × 3
+   modes and K6 ``median3`` on 8-bit inputs full of ties, each forward and
+   input gradient against its plain version (K6 exact; K5 to 1e-4 except in
+   8×8 blocks where a coefficient's rounding flipped, counted), each timed
+   forward + backward beside its plain version;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -28,12 +33,27 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    one-pass ``to_u8_s2d``, K4 ×1), then embed, detect and roundtrip requests
    compared with the same server running the plain versions, and a small
    f32 clip compared with the CPU plain path;
-5. roundtrip latency (p50 ms) and streaming throughput (frames/s).
+5. roundtrip latency (p50 ms) and streaming throughput (frames/s);
+6. training at full width: the same model with a synthetic loader takes one
+   ``train_step`` through ``KERNELS`` with the launch counts at 0 just
+   before and read just after (K1 ×11: six maps forward, five backward,
+   the clip taking no gradient; K2 ×10; K5 ×2; K6 ×2), after the loss and
+   gradients of one step through ``KERNELS`` and through ``PLAIN`` from the
+   same weights, batch, previous batch and draws are compared (loss terms
+   within 1e-2 relative, each net's gradient with cosine ≥ 0.999); then 2
+   warm-up and 10 timed steps (p50 ms, frames/s), the finiteness of every
+   loss, a batch with a NaN pixel that must leave every parameter, moment,
+   step count and running statistic as it was, and the peak memory.
+
+TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
+and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
+compare full-float32 paths.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches on the main path, its error against the plain version, its time,
-the plain time, the bound and the library time, all per roundtrip); the last
-line is ``{"ok": true, "device": {...}}``.
+launches on its main path, its error against the plain version, its time,
+the plain time, the bound and the library time: per roundtrip for K1-K4,
+per train step for K5 and K6); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import collections
@@ -49,9 +69,11 @@ import torch
 import torch.nn.functional as F
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
-from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, launch_counts,
-                                    mask, reset_launch_counts, transition,
-                                    wire)
+from vwfd_tpu_torch.attacks import quant_tables
+from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
+from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, jpeg,
+                                    launch_counts, mask, median,
+                                    reset_launch_counts, transition, wire)
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
@@ -83,7 +105,23 @@ KERNEL_SOURCES = {
                       "vwfd_tpu/nets/inn_packed.py:186"),
     "wire": ("vwfd_tpu_torch/csrc/wire.cu", "vwfd_tpu/serving.py:377"),
     "mask_pack": ("vwfd_tpu_torch/csrc/mask.cu", "vwfd_tpu/serving.py:82"),
+    "jpeg_pair": ("vwfd_tpu_torch/csrc/jpeg.cu",
+                  "vwfd_tpu/attacks/jpeg.py:183"),
+    "median3": ("vwfd_tpu_torch/csrc/median.cu",
+                "vwfd_tpu/ops/filters.py:76"),
 }
+ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
+                      "mask_pack": 1, "jpeg_pair": 0, "median3": 0}
+# K1: six maps forward and five backward (the entry map's input, the clip,
+# takes no gradient)
+TRAIN_LAUNCHES = {"transition": 11, "coupling_head": 10, "wire": 0,
+                  "mask_pack": 0, "jpeg_pair": 2, "median3": 2}
+TRAIN_PATH = ("jpeg_pair", "median3")  # rows timed per train step
+JPEG_FLIP_ATOL = 1e-4    # K5 vs plain, outside flipped blocks ...
+JPEG_FLIP_SHARE = 1e-4   # ... which are at most this share of all blocks
+JPEG_FLIP_BOUND = 1.0    # and differ by at most this anywhere
+TRAIN_LOSS_RTOL = 1e-2   # train step, KERNELS vs PLAIN, bf16
+TRAIN_GRAD_COS = 0.999
 
 
 def check(cond, msg):
@@ -151,12 +189,16 @@ class Row:
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
 
-    def json(self, launches):
+    def json(self, by_path):
         b = max(self.t_bytes, self.t_ops)
         by = "bytes" if self.t_bytes >= self.t_ops else "operations"
         src, rep = KERNEL_SOURCES[self.name]
+        path = "train_step" if self.name in TRAIN_PATH else "roundtrip"
         return {"name": self.name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches,
+                "replaces": rep, "launches": by_path[path][self.name],
+                "launches_by_path": {k: v[self.name]
+                                     for k, v in by_path.items()},
+                "timed_per": path,
                 "max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": self.library_ms}
@@ -432,6 +474,119 @@ def check_mask(rows, card):
                   f" [{card}]")
 
 
+def train_shape_input(g, levels=256):
+    """64 frames of 256²×3 f32 on the 8-bit grid (``levels`` levels: few
+    levels make ties common), as the attack pool sees them."""
+    return torch.randint(0, levels, (B * T, S, S, 3), device="cuda",
+                         generator=g).float() / 255.0
+
+
+def fwd_bwd_ms(fn, x, cot):
+    """Device ms of one forward and of one backward of ``fn`` at x."""
+    xg = x.clone().requires_grad_(True)
+    fwd = time_ms(lambda: fn(xg))
+    y = fn(xg)
+    bwd = time_ms(lambda: torch.autograd.grad(y, xg, cot,
+                                              retain_graph=True))
+    return fwd, bwd
+
+
+def flipped_blocks(got, want, atol):
+    """8×8 blocks (all channels) of NHWC frames where |got − want| > atol."""
+    n, h, w, c = got.shape
+    d = (got - want).abs().reshape(n, h // 8, 8, w // 8, 8, c)
+    return int((d.amax(dim=(2, 4, 5)) > atol).sum()), n * (h // 8) * (w // 8)
+
+
+def check_jpeg(rows, card):
+    """K5 at the training shape: forward and input gradient against the
+    plain version (autograd through the torch ops); every quality × mode
+    pair among the 128 draws."""
+    row = rows["jpeg_pair"]
+    g = torch.Generator("cuda").manual_seed(4)
+    n = B * T
+    pairs = torch.arange(2 * n, device="cuda") % 15
+    qt = quant_tables((pairs % 5).view(n, 2)).contiguous()
+    mode = (pairs // 5).view(n, 2).to(torch.int32).contiguous()
+    w = torch.softmax(torch.randn(n, 5, device="cuda", generator=g),
+                      -1)[:, 1:3].contiguous()
+    x = train_shape_input(g)
+    cot = torch.randn(x.shape, device="cuda", generator=g)
+    outs = []
+    for fn in (jpeg.jpeg_pair, jpeg.jpeg_pool_pair_plain):
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg, qt, mode, w)
+        outs.append((y.detach(), torch.autograd.grad(y, xg, cot)[0]))
+    torch.cuda.synchronize()
+    (yk, gk), (yp, gp) = outs
+    gscale = float(gp.abs().max())
+    fb, blocks = flipped_blocks(yk, yp, JPEG_FLIP_ATOL)
+    gfb, _ = flipped_blocks(gk, gp, JPEG_FLIP_ATOL * gscale)
+    ok_y = (yk - yp).abs()
+    err = float(ok_y.max())
+    check(fb <= JPEG_FLIP_SHARE * blocks and gfb <= JPEG_FLIP_SHARE * blocks,
+          f"jpeg_pair: {fb} / {gfb} of {blocks} blocks differ (forward / "
+          f"gradient)")
+    check(err <= JPEG_FLIP_BOUND, f"jpeg_pair: max err {err}")
+    d = ok_y.reshape(n, S // 8, 8, S // 8, 8, 3).amax(dim=(2, 4, 5))
+    calm = float(d[d <= JPEG_FLIP_ATOL].max()) if fb < blocks else 0.0
+    row.err = err
+    fn = lambda v: jpeg.jpeg_pair(v, qt, mode, w)  # noqa: E731
+    pfn = lambda v: jpeg.jpeg_pool_pair_plain(v, qt, mode, w)  # noqa: E731
+    kf, kb = fwd_bwd_ms(fn, x, cot)
+    pf, pb = fwd_bwd_ms(pfn, x, cot)
+    fwd_bytes = nbytes(x, yk, qt, mode, w)
+    bwd_bytes = nbytes(x, cot, gk, qt, mode, w)
+    vals = x.numel()
+    # per value: forward 2 transforms × 2 passes × 8 FMA + ~20 for colour,
+    # quantisation and mix; backward 3 transforms + ~30
+    fwd_ops, bwd_ops = vals * (64 + 20), vals * (96 + 30)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+    bms = bound(fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)[0]
+    print(f"check jpeg_pair {tuple(x.shape)} f32 modes 0/1/2 x qualities "
+          f"50..90: forward flipped_blocks={fb} gradient flipped_blocks="
+          f"{gfb} of {blocks} (tol {JPEG_FLIP_ATOL}, share "
+          f"{JPEG_FLIP_SHARE}); max_abs_err={err} (outside flipped blocks "
+          f"{calm}); gradient max_abs_err={float((gk - gp).abs().max())} of "
+          f"max {gscale}")
+    print(f"check jpeg_pair ms fwd={kf:.4f} bwd={kb:.4f} plain fwd={pf:.4f} "
+          f"bwd={pb:.4f} bound_ms={bms:.4f} (fwd {bound(fwd_bytes, 0)[0]:.4f}"
+          f" + bwd {bound(bwd_bytes, 0)[0]:.4f}) share_of_bound="
+          f"{bms / (kf + kb):.3f} [{card}]")
+
+
+def check_median(rows, card):
+    """K6 at the training shape on inputs of 4 levels (ties everywhere):
+    forward and input gradient EQUAL to the plain version's."""
+    row = rows["median3"]
+    g = torch.Generator("cuda").manual_seed(5)
+    x = train_shape_input(g, levels=4)
+    cot = torch.randn(x.shape, device="cuda", generator=g)
+    outs = []
+    for fn in (median.median3, median.median3_plain):
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg)
+        outs.append((y.detach(), torch.autograd.grad(y, xg, cot)[0]))
+    torch.cuda.synchronize()
+    (yk, gk), (yp, gp) = outs
+    check(torch.equal(yk, yp), "median3 forward differs from plain")
+    check(torch.equal(gk, gp), "median3 gradient differs from plain")
+    routed = float((gk != cot).float().mean())
+    kf, kb = fwd_bwd_ms(median.median3, x, cot)
+    pf, pb = fwd_bwd_ms(median.median3_plain, x, cot)
+    fwd_bytes, bwd_bytes = nbytes(x, yk), nbytes(x, cot, gk)
+    # 19 min/max pairs per value forward; recomputed + 9 compares and
+    # up to 9 adds backward
+    fwd_ops, bwd_ops = x.numel() * 38, x.numel() * (38 + 27)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+    bms = bound(fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)[0]
+    print(f"check median3 {tuple(x.shape)} f32 4-level input: forward and "
+          f"gradient equal to plain (gradient routed off the pixel itself "
+          f"for {routed:.3f} of values); ms fwd={kf:.4f} bwd={kb:.4f} plain "
+          f"fwd={pf:.4f} bwd={pb:.4f} bound_ms={bms:.4f} share_of_bound="
+          f"{bms / (kf + kb):.3f} [{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -495,8 +650,7 @@ def run_slice(card):
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"main path launches per roundtrip: {json.dumps(launches)}")
-    check(launches == {"transition": 6, "coupling_head": 10, "wire": 2,
-                       "mask_pack": 1}, f"launch counts {launches}")
+    check(launches == ROUNDTRIP_LAUNCHES, f"launch counts {launches}")
 
     wm = res.watermarked
     check(wm.shape == (B, T, S, S, 3) and wm.dtype == np.uint8, "wm shape")
@@ -574,6 +728,112 @@ def run_timing(server, plain, clips, card):
         "size": S, "card": card}}))
 
 
+# ------------------------------------------------------------ phase 6
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def snapshot(model):
+    out = [t.clone() for net in model.nets().values()
+           for t in list(net.parameters()) + list(net.buffers())]
+    for opt in model.optimizers.values():
+        out += [t.clone() for t in opt.mu + opt.nu + [opt.count]]
+    return out
+
+
+def run_train(card):
+    cfg = load_config(FLAGSHIP_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    states = perturbed_states(cfg, seed=7)
+    model = VideoWatermarkModel(cfg)
+    model.load_states(states)
+    plain = VideoWatermarkModel(cfg, kernels=PLAIN)
+    plain.load_states(states)
+    loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=16 * B,
+                                          seed=cfg.train.seed), B,
+                    seed=cfg.train.seed)
+    batches = [model.to_device(v, m) for v, m in loader]  # 16 batches
+    prev, (video, mask_) = batches[0][0], batches[1]
+    draws = model.sample_draws(B, T)
+
+    # KERNELS vs PLAIN: loss terms and gradients from the same state
+    res = {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        loss, aux, grads, _ = m.loss_and_grads(video, mask_, prev, draws)
+        res[name] = ({"loss": float(loss), "lF": float(aux["lF"]),
+                      "lB": float(aux["lB"]), "PF": float(aux["PF"])}, grads)
+    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+    for k in ("loss", "lF", "lB"):
+        check(abs(lk[k] - lp[k]) <= TRAIN_LOSS_RTOL * abs(lp[k]),
+              f"train {k}: kernels {lk[k]} plain {lp[k]}")
+    grad_stats = {}
+    for net in gk:
+        cos = cosine(torch.cat([t.flatten() for t in gk[net]]),
+                     torch.cat([t.flatten() for t in gp[net]]))
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(gk[net], gp[net]))
+        grad_stats[net] = {"cosine": cos, "max_rel_err_per_tensor": rel}
+        check(cos >= TRAIN_GRAD_COS, f"train {net} gradient cosine {cos}")
+    print(f"train step bf16 {B}x{T}x{S}x{S}: kernels {json.dumps(lk)} plain "
+          f"{json.dumps(lp)}; gradients kernels vs plain "
+          f"{json.dumps(grad_stats)}")
+
+    # the main path, with the launch counts at 0 just before
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logs = model.train_step(video, mask_, prev, draws)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"main path launches per train step: {json.dumps(launches)}")
+    check(launches == TRAIN_LAUNCHES, f"train launch counts {launches}")
+    first = {k: float(v) for k, v in logs.items()}
+    check(all(math.isfinite(v) for v in first.values()), f"train {first}")
+    check(first["PF"] > 30.0, f"train PF {first['PF']}")
+
+    # 2 warm-up and 10 timed steps, each on the batch after its prev
+    times, all_logs = [], [first]
+    for i in range(2, 14):
+        p, (v, m) = batches[i - 1][0], batches[i]
+        t0 = time.perf_counter()
+        out = model.train_step(v, m, p)
+        torch.cuda.synchronize()
+        if i >= 4:
+            times.append((time.perf_counter() - t0) * 1e3)
+        all_logs.append({k: float(x) for k, x in out.items()})
+    finite = all(math.isfinite(x) for lg in all_logs for x in lg.values())
+    check(finite, f"train losses {all_logs}")
+    p50 = float(np.percentile(times, 50))
+    fps = B * T / p50 * 1e3
+    print(f"train steps: {len(all_logs)} finite losses, last "
+          f"{json.dumps(all_logs[-1])}")
+
+    # the non-finite guard: a NaN pixel leaves every state as it was
+    before = snapshot(model)
+    bad = batches[14][0].clone()
+    bad[0, 0, 5, 7, 1] = float("nan")
+    logs = model.train_step(bad, batches[14][1], batches[13][0])
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(snapshot(model), before))
+    check(not math.isfinite(float(logs["loss"])) and kept,
+          f"guard: loss {float(logs['loss'])}, state kept {kept}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train guard: a batch with a NaN pixel gives loss "
+          f"{float(logs['loss'])} and keeps every parameter, moment, step "
+          f"count and running statistic ({len(before)} tensors)")
+    print(f"train step p50_ms={p50:.3f} frames_per_s={fps:.1f} over "
+          f"{len(times)} timed steps of {B}x{T}x{S}x{S} bf16 (2 warm-up); "
+          f"peak memory {peak:.2f} GiB [{card}]")
+    print(json.dumps({"training": {
+        "train_step_p50_ms": p50, "frames_per_s": fps,
+        "timed_steps": len(times), "peak_memory_gib": peak, "batch": B,
+        "frames": T, "size": S, "loss_terms": {"kernels": lk, "plain": lp},
+        "gradients": grad_stats, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -596,13 +856,18 @@ def main():
     check_coupling(rows, card)
     check_wire(rows, card)
     check_mask(rows, card)
+    check_jpeg(rows, card)
+    check_median(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
     server, plain, clips, launches = run_slice(card)
     run_timing(server, plain, clips, card)
+    del server, plain
+    train_launches = run_train(card)
 
-    print(json.dumps({"kernels": [rows[n].json(launches[n])
+    by_path = {"roundtrip": launches, "train_step": train_launches}
+    print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
-"""Parity of the port's UNetTPU (eval mode) with vwfd_tpu/nets/unet.py at
-the flagship plan: f=64, s2d 2, enc_convs (2,2,1,1,1), d2s head, convt up,
-concat decoder, on 32² frames in f32. Weights and random BatchNorm running
-statistics go through ``convert.params_from_jax``."""
+"""Parity of the port's UNetTPU with vwfd_tpu/nets/unet.py at the flagship
+plan: f=64, s2d 2, enc_convs (2,2,1,1,1), d2s head, convt up, concat
+decoder, on 32² frames in f32, in eval mode; train mode at f=8. Weights and
+random BatchNorm running statistics go through ``convert``."""
 
 import jax
 import jax.numpy as jnp
@@ -95,5 +95,71 @@ def test_convert_roundtrip_and_convtranspose_flip(nets):
 
 
 def test_train_mode_is_not_ported(nets):
-    with pytest.raises(NotImplementedError):
-        nets[2](torch.zeros(1, 32, 32, 3), train=True)
+    """Train mode returns the batch-statistics probabilities and the new
+    running statistics without writing them; ``load_stats`` writes them,
+    unless the step's guard is False."""
+    net = nets[2]
+    x = torch.from_numpy(
+        np.random.default_rng(8).random((2, 32, 32, 3), dtype=np.float32))
+    before = {k: b.clone() for k, b in net.named_buffers()}
+    with torch.no_grad():
+        probs, stats = net(x, train=True)
+        evals = net(x)
+    assert probs.shape == evals.shape == (2, 32, 32, 1)
+    assert not torch.allclose(probs, evals)  # batch, not running, stats
+    assert len(stats) == 11  # every BatchNorm of the (2,2,1,1,1) plan
+    assert all(torch.equal(b, before[k]) for k, b in net.named_buffers())
+    net.load_stats(stats, good=torch.tensor(False))
+    assert all(torch.equal(b, before[k]) for k, b in net.named_buffers())
+    net.load_stats(stats, good=torch.tensor(True))
+    assert not torch.equal(net.enc1.BatchNorm_0.running_mean,
+                           before["enc1.BatchNorm_0.running_mean"])
+    net.load_state_dict({**net.state_dict(), **before})
+
+
+def test_train_mode_matches_flax():
+    """Train mode at f = 8: the batch-statistics output, the running
+    statistics flax stores (BIASED batch variance, momentum 0.9: F1) and
+    the gradient of every parameter (within 1e-3 of each tensor's max-abs;
+    the JAX side compiled without XLA's algebraic simplifier, which would
+    rewrite its divisions as reciprocal products)."""
+    jnet = JUNetTPU(out_channels=1, init_features=8, s2d=2,
+                    enc_convs=(2, 2, 1, 1, 1))
+    net = UNetTPU(init_features=8, s2d=2, enc_convs=(2, 2, 1, 1, 1))
+    net.init_params(torch.Generator().manual_seed(2))
+    with torch.no_grad():  # non-trivial running statistics
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.5, 0.5)
+                m.running_var.uniform_(0.5, 1.5)
+    _, tree, stats = params_to_jax({}, net.state_dict())
+    tree, stats = jax.tree_util.tree_map(jnp.asarray, (tree, stats))
+    x = np.random.default_rng(6).random((4, 32, 32, 3), dtype=np.float32)
+
+    def loss(p):
+        out, new = jnet.apply({"params": p, "batch_stats": stats},
+                              jnp.asarray(x), train=True,
+                              mutable=["batch_stats"])
+        return jnp.sum(out ** 2), (out, new["batch_stats"])
+
+    (_, (ref, new_stats)), g = jax.jit(jax.value_and_grad(
+        loss, has_aux=True)).lower(tree).compile(
+        compiler_options={"xla_disable_hlo_passes": "algsimp"})(tree)
+    probs, new = net(torch.from_numpy(x), train=True)
+    np.testing.assert_allclose(probs.detach().numpy(), np.asarray(ref),
+                               rtol=0, atol=1e-5)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad((probs ** 2).sum(), list(net.parameters()))
+    net.load_stats(new)
+    _, got_tree, got_stats = params_to_jax(
+        {}, {**dict(zip(names, grads)), **dict(net.named_buffers())})
+    for want_tree, got, atol in ((new_stats, got_stats, 1e-5),
+                                 (g, got_tree, None)):
+        for path, w in jax.tree_util.tree_leaves_with_path(want_tree):
+            node = got
+            for k in path:
+                node = node[k.key]
+            w = np.asarray(w)
+            tol = atol if atol else 1e-3 * np.abs(w).max()
+            np.testing.assert_allclose(node, w, rtol=0, atol=tol,
+                                       err_msg=jax.tree_util.keystr(path))

@@ -5,9 +5,11 @@ A second package beside the JAX one, which stays the reference. It imports
 functions keep the JAX package's NHWC layout. Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``; without a card they raise.
 
-This slice serves the flagship embed → detect roundtrip
-(``serving.WatermarkServer``) through four hand-written CUDA kernels
-(``kernels``). Training comes in a later slice.
+It serves the flagship embed → detect roundtrip
+(``serving.WatermarkServer``) and trains the flagship
+(``models.VideoWatermarkModel.train_step`` / ``fit``, ``python -m
+vwfd_tpu_torch.train``) through six hand-written CUDA kernels
+(``kernels``). The eval step comes in a later slice.
 """
 
 import os

@@ -1,0 +1,16 @@
+"""Blur attacks (port of vwfd_tpu/attacks/blur.py:1-15)."""
+
+from ..ops.filters import gaussian_blur, median_blur
+
+__all__ = ["gaussian_blur_attack", "median_blur_attack"]
+
+
+def gaussian_blur_attack(img, kernel_size: int = 3, sigma: float = 2.0):
+    """3×3 σ = 2 depthwise gaussian (noise_layers/gaussian_blur.py)."""
+    return gaussian_blur(img, kernel_size, sigma)
+
+
+def median_blur_attack(img, kernel_size: int = 3, kernels=None):
+    """k = 3 median filter (noise_layers/middle_filter.py, kornia
+    MedianBlur), through K6 for k = 3."""
+    return median_blur(img, kernel_size, kernels)

@@ -4,21 +4,27 @@
 * K2 ``coupling_head``   — coupling head GEMM + bias + RealNVP affine (kernels/coupling.py)
 * K3 ``wire``            — uint8 wire format + relayouts (kernels/wire.py)
 * K4 ``mask_pack``       — detect epilogue, bits + tamper fraction (kernels/mask.py)
+* K5 ``jpeg_pair``       — the attack pool's two fused JPEG draws, forward
+  and backward (kernels/jpeg.py)
+* K6 ``median3``         — 3×3 median filter, forward and first-match
+  backward (kernels/median.py)
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
-only for CPU tensors. ``KERNELS`` routes through the wrappers; ``PLAIN``
-calls the plain versions on any device, so that a caller (the chip smoke
-script, a test) can run the same model through both and compare.
+only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
+(K1's backward is K1 with ``transpose`` flipped); K5 and K6 launch their own
+backward kernels. ``KERNELS`` routes through the wrappers; ``PLAIN`` calls
+the plain versions on any device, so that a caller (the chip smoke script, a
+test) can run the same model, serving or training, through both and compare.
 """
 
 from typing import Callable, Dict, NamedTuple
 
-from . import coupling, mask, transition, wire
+from . import coupling, jpeg, mask, median, transition, wire
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
-MODULES = (transition, coupling, wire, mask)
+MODULES = (transition, coupling, wire, mask, jpeg, median)
 
 
 class KernelSet(NamedTuple):
@@ -29,14 +35,17 @@ class KernelSet(NamedTuple):
     wire_to_s2d: Callable
     wire_to_u8_s2d: Callable
     mask_pack: Callable
+    jpeg_pair: Callable
+    median3: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_channels, wire.to_u8, wire.to_s2d, wire.to_u8_s2d,
-                    mask.mask_pack)
+                    mask.mask_pack, jpeg.jpeg_pair, median.median3)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
-                  wire.to_u8_s2d_plain, mask.mask_pack_plain)
+                  wire.to_u8_s2d_plain, mask.mask_pack_plain,
+                  jpeg.jpeg_pool_pair_plain, median.median3_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,11 +1,12 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-All sources under ``vwfd_tpu_torch/csrc`` are compiled by ONE ``nvcc`` call
-for ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``. The library is built at first use into ``build/vwfd_tpu_torch/``
-at the root of the checkout (a directory ``.gitignore`` lists); its file
-name carries a hash of the sources, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built or loaded at import.
+Every source under ``vwfd_tpu_torch/csrc`` is compiled for ``sm_90a`` by its
+own ``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library is built at first use into ``build/vwfd_tpu_torch/`` at the root of
+the checkout (a directory ``.gitignore`` lists); its file name carries a
+hash of the sources, so an edited source is rebuilt and a stale library is
+never loaded. Nothing is built or loaded at import.
 """
 
 import ctypes
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vwfd_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "vwfd_wire_to_u8_s2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_mask_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                        _I, _I, _P],
+    "vwfd_jpeg_pair_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_median3_fwd": [_P, _P, _I, _I, _I, _P],
+    "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -80,23 +85,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvwfd_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every ``(cmd, Popen)``; raise with the output of the first
+    that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, out, err)
+    if failed:
+        rc, cmd, out, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
+
+
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` with one nvcc call (no-op when the
-    library for these sources exists). Returns the library's path."""
+    """Compile each ``csrc/*.cu`` in its own ``nvcc`` process, all at once,
+    then link them into one library (no-op when the library for these
+    sources exists). Returns the library's path."""
     global build_seconds
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    objdir = out.with_name(f"{out.stem}.{os.getpid()}.obj")
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = objdir / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True)))
+        objs.append(str(obj))
+    _run(procs)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
     os.replace(tmp, out)  # atomic: concurrent builders never see a half file
+    shutil.rmtree(objdir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

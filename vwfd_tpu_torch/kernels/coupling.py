@@ -35,6 +35,13 @@ adds the f32 bias and applies the affine with explicitly rounded
 mul/add/div, following the plain version's order of operations. f32 takes
 a CUDA-core tile (no TF32). The plain version is ``torch.cat`` +
 ``torch.matmul`` in the dtype, then ``coupling_affine_plain``.
+
+Under autograd (a train step) the wrapper returns a fresh tensor through
+``CouplingHeadFn``: the forward launches K2, the backward is
+``coupling_head_backward`` in PyTorch — ∂/∂x = e(s) (1/e(s) inverse),
+∂/∂t = 1 (−1/e(s)), ∂/∂s through e(s) = exp(2σ(s) − 1) + 1e-4, then the two
+head products ``dHead·Wh`` and ``dHeadᵀ·[xin | h]`` with ``torch.matmul``,
+as the JAX package leaves that GEMM to XLA.
 """
 
 import functools
@@ -46,7 +53,8 @@ import torch
 from . import _lib
 
 __all__ = ["coupling_head", "coupling_head_plain", "coupling_affine_plain",
-           "interleave_index", "deinterleave_index", "COUNT"]
+           "coupling_head_backward", "CouplingHeadFn", "interleave_index",
+           "deinterleave_index", "COUNT"]
 
 COUNT = _lib.LaunchCount("coupling_head")
 _EPS = 1e-4
@@ -170,14 +178,85 @@ def coupling_head_plain(xin: torch.Tensor, h: torch.Tensor,
     return coupling_affine_plain(head, p["bh"][back], x, out, inverse)
 
 
+def coupling_head_backward(g, xin, h, wh, bh, x, inverse=False):
+    """Gradients of ``coupling_head`` (in (s ‖ t) terms, then back to the
+    interleaved head): ``(dxin, dh, dwh, dbh, dx)``, each in its input's
+    dtype. The head is recomputed as the plain version computes it."""
+    dt = x.dtype
+    n, hh, ww, c = x.shape
+    kx = xin.shape[-1]
+    xin2, h2 = xin.reshape(-1, kx), h.reshape(-1, h.shape[-1])
+    head = torch.matmul(torch.cat([xin2, h2], -1), wh.t())
+    back = torch.from_numpy(deinterleave_index(2 * c)).to(x.device)
+    st = head[:, back].float() + bh[back]
+    sig = torch.sigmoid(st[:, :c])
+    e0 = torch.exp(2.0 * sig - 1.0)
+    e = e0 + _EPS
+    gf = g.reshape(-1, c).float()
+    xf = x.reshape(-1, c).float()
+    if inverse:
+        dx = gf / e
+        dtt = -dx
+        de = -dx * (xf - st[:, c:]) / e
+    else:
+        dx = gf * e
+        dtt = gf
+        de = gf * xf
+    ds = de * e0 * 2.0 * sig * (1.0 - sig)
+    dhead = torch.cat([ds, dtt], -1)[
+        :, torch.from_numpy(interleave_index(2 * c)).to(x.device)]
+    dbh = dhead.sum(0)
+    dhead = dhead.to(dt)
+    dz = torch.matmul(dhead, wh)
+    dwh = torch.cat([torch.matmul(dhead.t(), xin2),
+                     torch.matmul(dhead.t(), h2)], 1)
+    return (dz[:, :kx].reshape(xin.shape), dz[:, kx:].reshape(h.shape), dwh,
+            dbh, dx.to(dt).reshape(x.shape))
+
+
+class CouplingHeadFn(torch.autograd.Function):
+    """``coupling_head`` under autograd: ``launch`` computes the forward
+    (K2, or the plain version in a test), ``coupling_head_backward`` the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, xin, h, wh, bh, x, inverse, launch):
+        ctx.inverse = inverse
+        ctx.save_for_backward(xin, h, wh, bh, x)
+        return launch(xin, h, {"wh": wh, "bh": bh}, x, None, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = coupling_head_backward(g, *ctx.saved_tensors, ctx.inverse)
+        return (*grads, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def coupling_head(xin: torch.Tensor, h: torch.Tensor,
                   p: Dict[str, torch.Tensor], x: torch.Tensor,
                   out: Optional[torch.Tensor] = None,
                   inverse: bool = False) -> torch.Tensor:
     """``out = e(s)·x + t`` (or the inverse) with ``s ‖ t = [xin | h]·Whᵀ
     + bh``; ``p`` holds the interleaved ``wh`` / ``bh`` of ``pack_params``.
-    Writes into ``out`` (a channel slice is fine) and returns it. The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    Without autograd it writes into ``out`` (a channel slice is fine) and
+    returns it; under autograd it returns a fresh tensor (``out`` must be
+    None). The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if _needs_grad(xin, h, p["wh"], p["bh"], x):
+        if out is not None:
+            raise ValueError("coupling_head under autograd returns a fresh "
+                             "tensor: pass out=None")
+        if _lib.on_cuda(xin, h, p["wh"], p["bh"], x):
+            return CouplingHeadFn.apply(xin, h, p["wh"], p["bh"], x, inverse,
+                                        _launch)
+        return coupling_head_plain(xin, h, p, x, None, inverse)
+    return _launch(xin, h, p, x, out, inverse)
+
+
+def _launch(xin, h, p, x, out, inverse):
     out = torch.empty_like(x) if out is None else out
     code, (ldxin, ldh, ldx, ldo) = _check_head(xin, h, p, x, out)
     if not _lib.on_cuda(xin, h, p["wh"], p["bh"], x, out):

@@ -26,6 +26,11 @@ its own transpose (½·S is symmetric and orthogonal). The flagship's channel
 counts are template parameters; other widths take a runtime-C path. The
 plain version below is the JAX package's own spelling: ``F.conv2d`` /
 ``F.conv_transpose2d`` with the dense fixed kernel built in numpy.
+
+Under autograd each map is linear and K1 computes its exact transpose, so
+the backward of a launch is K1 itself with ``transpose`` flipped
+(``_TransitionFn``). A train step launches the six maps forward and five
+backward: the entry map's input, the clip, takes no gradient.
 """
 
 import torch
@@ -93,13 +98,8 @@ def transition_plain(x: torch.Tensor, kind: str, transpose: bool = False
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def transition(x: torch.Tensor, kind: str, transpose: bool = False
-               ) -> torch.Tensor:
-    """One transition (or its transpose) on an NHWC f32/bf16 tensor: the
-    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+def _launch(x: torch.Tensor, kind: str, transpose: bool) -> torch.Tensor:
     _check(x, kind, transpose)
-    if not _lib.on_cuda(x):
-        return transition_plain(x, kind, transpose)
     _lib.check_aligned(x, "transition input")
     if x.numel() >= 2 ** 31:
         raise ValueError(f"transition: {x.numel()} elements; the kernel "
@@ -111,3 +111,28 @@ def transition(x: torch.Tensor, kind: str, transpose: bool = False
                 x.shape[0], *x.shape[1:], *y.shape[1:])
     COUNT.n += 1
     return y
+
+
+class _TransitionFn(torch.autograd.Function):
+    """K1 under autograd: the backward is the flipped map, also K1."""
+
+    @staticmethod
+    def forward(ctx, x, kind, transpose):
+        ctx.kind, ctx.transpose = kind, transpose
+        return _launch(x, kind, transpose)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _launch(g.contiguous(), ctx.kind, not ctx.transpose), None, \
+            None
+
+
+def transition(x: torch.Tensor, kind: str, transpose: bool = False
+               ) -> torch.Tensor:
+    """One transition (or its transpose) on an NHWC f32/bf16 tensor,
+    differentiable: the CUDA kernel for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    _check(x, kind, transpose)
+    if not _lib.on_cuda(x):
+        return transition_plain(x, kind, transpose)
+    return _TransitionFn.apply(x, kind, transpose)

@@ -1,23 +1,46 @@
-"""Flagship video watermarking model (port of vwfd_tpu/models/video_model.py,
-serving half): the INN that embeds the watermark and the UNet that predicts
-the per-frame tamper mask, in eval mode.
+"""Flagship video watermarking model (port of vwfd_tpu/models/video_model.py):
+the INN that embeds the watermark and the UNet that predicts the per-frame
+tamper mask, served and trained.
+
+Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
+
+1. the INN embeds (bf16 through K1/K2), then ``clamp_with_grad`` and the
+   straight-through 8-bit quantizer;
+2. splice tamper: ``fwd·(1 − mask) + previous_batch·mask``;
+3. the 5-way per-frame attack pool (K5, K6), quantized again;
+4. the UNet in train mode predicts the per-frame mask;
+5. losses: the PSNR-gated forward fidelity (L1 by default) plus the mask
+   BCE; one AdamW update per net (``models/state.py``, each clipped on its
+   own);
+6. the non-finite guard: on a non-finite loss, parameters, moments, step
+   counts and BatchNorm running statistics keep their pre-step values, by
+   ``torch.where`` on the device (no host sync).
 
 Ported: ``_to_channels``, ``_to_frames``, ``__init__``, ``init_states``,
-``embed`` and ``predict_mask(train=False)``. The train and eval steps, the
-attack pool and the optimizer belong to the training slice.
+``embed``, ``predict_mask``, ``_loss``, ``train_step`` and ``fit`` (with the
+previous-batch buffer). Not yet: ``eval_step``, ``extract_f1``,
+``eval_real_jpeg``, montages and checkpoints.
 """
 
+import logging
+import math
 from typing import Dict, Optional
 
 import torch
 
+from ..attacks import AttackDraws, attack_pool_video, sample_attack_draws
+from ..attacks.spatial import DEFAULT_RATIOS
 from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..kernels import KERNELS, KernelSet
+from ..metrics import bce_with_logits, l1_loss, psnr255_int
 from ..nets import InvertibleNet, UNetTPU
 from ..ops.quantize import clamp_with_grad, ste_quantize_255
+from .state import AdamW, make_optimizer
 
-__all__ = ["VideoWatermarkModel", "_to_channels", "_to_frames"]
+__all__ = ["VideoWatermarkModel", "_to_channels", "_to_frames", "NETS"]
+
+NETS = ("netG", "generator")
 
 
 def _to_channels(video: torch.Tensor) -> torch.Tensor:
@@ -68,6 +91,10 @@ class VideoWatermarkModel:
         self.frames = cfg.data.frames
         self.kernels = kernels
         mc = cfg.model
+        self.attack_ratios = (tuple(mc.attack_ratios) if mc.attack_ratios
+                              else DEFAULT_RATIOS)
+        self._opt: Optional[Dict[str, AdamW]] = None
+        self._draw_gen: Optional[torch.Generator] = None
         self.compute_dtype = compute_dtype(cfg.train.dtype)
         dt = None if self.compute_dtype == torch.float32 else \
             self.compute_dtype
@@ -84,13 +111,14 @@ class VideoWatermarkModel:
 
     def init_states(self, seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
         """Fresh parameters from a seeded ``torch.Generator`` (zero-init
-        coupling heads: the INN starts at the identity); returns the two
-        nets' state dicts."""
+        coupling heads: the INN starts at the identity) and fresh optimizer
+        states; returns the two nets' state dicts."""
         gen = torch.Generator().manual_seed(seed)
         for net in (self.inn, self.unet):
             net.to("cpu")
             net.init_params(gen)
             net.to(self.device)
+        self._opt = None
         return self.states()
 
     def states(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -100,6 +128,27 @@ class VideoWatermarkModel:
     def load_states(self, states: Dict[str, Dict[str, torch.Tensor]]) -> None:
         self.inn.load_state_dict(states["netG"])
         self.unet.load_state_dict(states["generator"])
+
+    def nets(self):
+        return {"netG": self.inn, "generator": self.unet}
+
+    @property
+    def optimizers(self) -> Dict[str, AdamW]:
+        """One AdamW per net (built at first use: serving needs none)."""
+        if self._opt is None:
+            self._opt = {name: make_optimizer(list(net.parameters()),
+                                              self.cfg.train)
+                         for name, net in self.nets().items()}
+        return self._opt
+
+    def sample_draws(self, b: int, t: int) -> AttackDraws:
+        """Attack draws for one step from the model's generator (seeded
+        with ``TrainConfig.seed`` at first use)."""
+        if self._draw_gen is None:
+            self._draw_gen = torch.Generator(self.device).manual_seed(
+                self.cfg.train.seed)
+        return sample_attack_draws(self._draw_gen, b, t,
+                                   len(self.attack_ratios))
 
     @torch.no_grad()
     def embed(self, video: torch.Tensor) -> torch.Tensor:
@@ -112,11 +161,113 @@ class VideoWatermarkModel:
         return ste_quantize_255(clamp_with_grad(fwd.float()))
 
     @torch.no_grad()
-    def predict_mask(self, video: torch.Tensor, train: bool = False
-                     ) -> torch.Tensor:
+    def predict_mask(self, video: torch.Tensor, train: bool = False):
         """Tamper probabilities per frame (B,T,H,W,1); frames folded into
-        the batch."""
+        the batch. ``train=True`` also returns the new BatchNorm running
+        statistics (``UNetTPU.forward``)."""
         b, t, h, w, c = video.shape
         out = self.unet(video.to(self.device).reshape(b * t, h, w, c),
                         train=train)
+        if train:
+            return out[0].reshape(b, t, h, w, 1), out[1]
         return out.reshape(b, t, h, w, 1)
+
+    # -------------------------------------------------------------- train
+
+    def _loss(self, video: torch.Tensor, mask: torch.Tensor,
+              prev: torch.Tensor, draws: AttackDraws):
+        """``vwfd_tpu/models/video_model.py:174-229``: (loss, {"lF", "lB",
+        "PF"}, the UNet's new BatchNorm running statistics)."""
+        tc = self.cfg.train
+        b, t = video.shape[0], video.shape[1]
+        x = _to_channels(video.to(self.compute_dtype))
+        fwd = self.inn(x, out_f32=self.compute_dtype == torch.float32)
+        fwd_video = ste_quantize_255(clamp_with_grad(
+            _to_frames(fwd, t).float()))
+        attacked_fwd = fwd_video * (1.0 - mask) + prev * mask
+        attacked = attack_pool_video(attacked_fwd, draws, self.attack_ratios,
+                                     self.kernels)
+        attacked = ste_quantize_255(clamp_with_grad(attacked))
+        pred, stats = self.unet(attacked.reshape(b * t, *attacked.shape[2:]),
+                                train=True)
+        pred_mask = pred.reshape(b, t, *pred.shape[1:])
+        with torch.no_grad():
+            psnr_forward = psnr255_int(video, fwd_video)
+        w_fwd = torch.where(psnr_forward < tc.psnr_gate, tc.loss_weight_low,
+                            tc.loss_weight_high)
+        if tc.forward_criterion == "l1":
+            l_fid = l1_loss(fwd_video, video)
+        elif tc.forward_criterion == "l2":
+            l_fid = torch.mean((fwd_video - video) ** 2)
+        else:
+            l_fid = bce_with_logits(fwd_video, video)
+        l_forward = w_fwd * l_fid
+        l_backward = bce_with_logits(pred_mask, mask)
+        loss = l_forward + l_backward
+        return loss, {"lF": l_forward, "lB": l_backward,
+                      "PF": psnr_forward}, stats
+
+    def to_device(self, *tensors):
+        """Clips, masks or previous clips (numpy or tensors) → float32 on
+        the model's device."""
+        return [torch.as_tensor(t).to(self.device, torch.float32,
+                                      non_blocking=True) for t in tensors]
+
+    def loss_and_grads(self, video, mask, prev,
+                       draws: Optional[AttackDraws] = None):
+        """The loss, its terms, the gradients per net (lists in parameter
+        order) and the new BatchNorm statistics, without any update."""
+        video, mask, prev = self.to_device(video, mask, prev)
+        if draws is None:
+            draws = self.sample_draws(video.shape[0], video.shape[1])
+        params = {k: list(net.parameters()) for k, net in self.nets().items()}
+        flat = params["netG"] + params["generator"]
+        with torch.enable_grad():
+            loss, aux, stats = self._loss(video, mask, prev,
+                                          draws.to(self.device))
+            g = torch.autograd.grad(loss, flat, allow_unused=True)
+        g = [torch.zeros_like(p) if d is None else d for p, d in zip(flat, g)]
+        n = len(params["netG"])
+        aux = {k: v.detach() for k, v in aux.items()}
+        return loss.detach(), aux, {"netG": g[:n], "generator": g[n:]}, stats
+
+    def train_step(self, video, mask, prev,
+                   draws: Optional[AttackDraws] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One step on a batch (video (B,T,H,W,3), mask (B,T,H,W,1)) with
+        the previous batch ``prev`` spliced in. Returns the logs as 0-dim
+        tensors on the device (no host sync)."""
+        loss, aux, grads, stats = self.loss_and_grads(video, mask, prev,
+                                                      draws)
+        good = torch.isfinite(loss)
+        for name, opt in self.optimizers.items():
+            opt.step(grads[name], good)
+        self.unet.load_stats(stats, good)
+        return {"loss": loss, **aux}
+
+    def fit(self, loader, steps: int):
+        """Epoch loop (train.py:91-109) with the previous-batch buffer: the
+        first batch only seeds it. Returns ``(states, logs)`` with the last
+        step's logs as floats."""
+        log = logging.getLogger("base")
+        prev, step, logs_out = None, 0, {}
+        while step < steps:
+            seen = 0
+            for video, mask in loader:
+                seen += 1
+                if step >= steps:
+                    break
+                video, mask = self.to_device(video, mask)
+                if prev is None:
+                    prev = video  # the first batch only seeds the buffer
+                    continue
+                logs = self.train_step(video, mask, prev)
+                step += 1
+                logs_out = {k: float(v) for k, v in logs.items()}
+                if not math.isfinite(logs_out["loss"]):
+                    log.warning("non-finite loss at step %d: update skipped "
+                                "(the guard kept the pre-step state)", step)
+                prev = video
+            if not seen:
+                raise ValueError("the loader yields no batches")
+        return self.states(), logs_out

@@ -8,8 +8,8 @@ ARE that executor, with the permuted weights it needs computed once per
 weight version and device.
 
 Ported: ``subnet='res_tpu2'`` with ``fused_st=True`` and conv Haar (the
-flagship). Other subnets, ``fused_st=False`` and the lift/mixed Haar raise
-``NotImplementedError``.
+flagship), forward differentiable for training. Other subnets,
+``fused_st=False`` and the lift/mixed Haar raise ``NotImplementedError``.
 """
 
 import math
@@ -137,10 +137,14 @@ class InvertibleNet(nn.Module):
                 m.init_params(gen)
 
     def packed_params(self):
-        """The executor's weights (permuted, cast to the compute dtype),
-        computed once per parameter version, device and dtype. The state
-        dict keeps the JAX tree's own unpermuted layout."""
+        """The executor's weights (permuted, cast to the compute dtype). With
+        grad enabled they are computed afresh on every call, keeping the
+        graph to the parameters; without, once per parameter version, device
+        and dtype. The state dict keeps the JAX tree's own unpermuted
+        layout."""
         params = list(self.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return inn_packed.pack_params(self, self.dtype)
         key = (tuple(p._version for p in params), params[0].device,
                self.dtype)
         if key != self._packed_key:

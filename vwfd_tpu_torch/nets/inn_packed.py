@@ -22,6 +22,12 @@ At the flagship shapes (12 channels, down_num 3, block_num (1,1,1)) the walk
 is: entry (→ H/4 × 192), coupling 48; p2p (→ H/8 × 768), coupling 192; p2u
 (→ unpacked 768), coupling 768; then p2uᵀ, coupling 192; p2pᵀ, coupling 48;
 entryᵀ. Six transitions, five couplings, two affines each.
+
+The executor is differentiable: with grad enabled ``pack_params`` keeps the
+graph (gather, then cast) so that gradients reach the float32 module
+parameters, each coupling half is a fresh tensor (K2 under autograd), and
+K1's backward is K1 with ``transpose`` flipped. Without grad (serving) the
+couplings write their halves in place, as before.
 """
 
 import functools
@@ -143,12 +149,13 @@ def _pack_subnet(sub, packed: bool, dt):
     out = {"w0": w0.to(dt).contiguous(), "b0": sub.Conv_0.bias.to(dt),
            "w1": sub.Conv_1.weight.to(dt), "b1": sub.Conv_1.bias.to(dt),
            "wh": wh.t().to(dt).contiguous(), "bh": bh.to(dt).float()}
-    return {k: v.detach() for k, v in out.items()}
+    return out
 
 
 def pack_params(net, dtype=None):
     """``InvertibleNet`` parameters → the executor's tree: for every
-    coupling name, ``{"st1": ..., "st2": ...}``."""
+    coupling name, ``{"st1": ..., "st2": ...}``. Differentiable in the
+    parameters when grad is enabled."""
     dt = dtype or torch.float32
     return {name: {st: _pack_subnet(getattr(blk, st), blk.packed, dt)
                    for st in ("st1", "st2")}
@@ -175,6 +182,12 @@ def _st(p, xin):
 
 def _coupling_fwd(p, z, k: KernelSet):
     half = z.shape[-1] // 2
+    if torch.is_grad_enabled():
+        # autograd: fresh halves (K2 through its autograd function)
+        x1, x2 = z[..., :half], z[..., half:]
+        y1 = k.coupling_head(x2, _st(p["st2"], x2), p["st2"], x1)
+        y2 = k.coupling_head(y1, _st(p["st1"], y1), p["st1"], x2)
+        return torch.cat([y1, y2], -1)
     out = torch.empty_like(z)
     x1, x2 = z[..., :half], z[..., half:]
     y1, y2 = out[..., :half], out[..., half:]

@@ -1,4 +1,4 @@
-"""Tamper-mask extractor (port of vwfd_tpu/nets/unet.py::UNetTPU, eval mode).
+"""Tamper-mask extractor (port of vwfd_tpu/nets/unet.py::UNetTPU).
 
 Same parameter names as the flax tree (``enc1.Conv_0``, ``enc1.BatchNorm_0``,
 ``up4``, ``dec4_conv``, ``dec4_bn``, ``head`` ...), so that a flax tree and its
@@ -8,7 +8,12 @@ so no copy is made.
 
 Ported lowerings: space-to-depth stem, ``up_impl='convt'``,
 ``dec_impl='concat'``, ``head_impl='d2s'``; BatchNorm in eval mode (running
-statistics). Train-mode BatchNorm belongs to the training slice.
+statistics) and in train mode. Train mode normalises with the batch
+statistics (biased variance, float32 for a bf16 input, as flax) and
+returns the running statistics flax would store, ``0.9·ra + 0.1·batch``
+with the BIASED batch variance (``F.batch_norm`` alone would blend in the
+unbiased one), without writing them: the train step applies them with
+``load_stats`` after its non-finite guard.
 """
 
 import math
@@ -44,11 +49,30 @@ def _conv(x, conv: nn.Conv2d, dt, padding):
     return _nhwc(F.conv2d(_nchw(x), conv.weight.to(dt), b, padding=padding))
 
 
-def _bn_relu(x, bn: nn.BatchNorm2d):
-    """Eval BatchNorm (flax computes it in f32 and casts to the compute
-    dtype; PyTorch does the same for a bf16 input with f32 statistics)."""
-    y = F.batch_norm(_nchw(x), bn.running_mean, bn.running_var, bn.weight,
-                     bn.bias, False, 0.0, bn.eps)
+_MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9): ra ← 0.9·ra + 0.1·batch
+
+
+def _bn_relu(x, bn: nn.BatchNorm2d, stats=None):
+    """BatchNorm + ReLU (flax computes it in f32 and casts to the compute
+    dtype; PyTorch does the same for a bf16 input with f32 statistics).
+    ``stats`` None: eval mode, running statistics. Otherwise train mode:
+    batch statistics, and ``stats[bn]`` receives the updated running
+    (mean, var)."""
+    if stats is None:
+        y = F.batch_norm(_nchw(x), bn.running_mean, bn.running_var,
+                         bn.weight, bn.bias, False, 0.0, bn.eps)
+        return F.relu(_nhwc(y))
+    c = x.shape[-1]
+    mean = torch.zeros(c, device=x.device)
+    var = torch.ones(c, device=x.device)
+    # momentum 1: the buffers receive the batch mean and unbiased variance
+    y = F.batch_norm(_nchw(x), mean, var, bn.weight, bn.bias, True, 1.0,
+                     bn.eps)
+    n = x.numel() // c
+    with torch.no_grad():
+        biased = var * ((n - 1) / n)
+        stats[bn] = (_MOMENTUM * bn.running_mean + (1 - _MOMENTUM) * mean,
+                     _MOMENTUM * bn.running_var + (1 - _MOMENTUM) * biased)
     return F.relu(_nhwc(y))
 
 
@@ -64,10 +88,10 @@ class _DoubleConv(nn.Module):
                               padding=1, bias=False))
             setattr(self, f"BatchNorm_{i}", nn.BatchNorm2d(features, eps=1e-5))
 
-    def forward(self, x, dt):
+    def forward(self, x, dt, stats=None):
         for i in range(self.convs):
             x = _conv(x, getattr(self, f"Conv_{i}"), dt, 1)
-            x = _bn_relu(x, getattr(self, f"BatchNorm_{i}"))
+            x = _bn_relu(x, getattr(self, f"BatchNorm_{i}"), stats)
         return x
 
 
@@ -121,35 +145,47 @@ class UNetTPU(nn.Module):
         return _nhwc(F.conv_transpose2d(_nchw(z), up.weight.to(dt),
                                         up.bias.to(dt), stride=2))
 
-    def _dec(self, z, skip, lvl, dt):
+    def _dec(self, z, skip, lvl, dt, stats=None):
         z = torch.cat([z, skip], -1)
         z = _conv(z, getattr(self, f"dec{lvl}_conv"), dt, 1)
-        return _bn_relu(z, getattr(self, f"dec{lvl}_bn"))
+        return _bn_relu(z, getattr(self, f"dec{lvl}_bn"), stats)
 
-    def body(self, x: torch.Tensor) -> torch.Tensor:
-        """Space-to-depth input (N,H/s,W/s,s²·C) → packed head logits."""
+    def body(self, x: torch.Tensor, stats=None) -> torch.Tensor:
+        """Space-to-depth input (N,H/s,W/s,s²·C) → packed head logits.
+        ``stats`` (a dict) selects train-mode BatchNorm and receives the
+        updated running statistics."""
         dt = self.dtype or torch.float32
         x = x.to(dt)
 
         def pool(z):
             return _nhwc(F.max_pool2d(_nchw(z), 2, 2))
 
-        enc1 = self.enc1(x, dt)
-        enc2 = self.enc2(pool(enc1), dt)
-        enc3 = self.enc3(pool(enc2), dt)
-        enc4 = self.enc4(pool(enc3), dt)
-        bott = self.bottleneck(pool(enc4), dt)
-        d4 = self._dec(self._up(bott, 4, dt), enc4, 4, dt)
-        d3 = self._dec(self._up(d4, 3, dt), enc3, 3, dt)
-        d2 = self._dec(self._up(d3, 2, dt), enc2, 2, dt)
-        d1 = self._dec(self._up(d2, 1, dt), enc1, 1, dt)
+        enc1 = self.enc1(x, dt, stats)
+        enc2 = self.enc2(pool(enc1), dt, stats)
+        enc3 = self.enc3(pool(enc2), dt, stats)
+        enc4 = self.enc4(pool(enc3), dt, stats)
+        bott = self.bottleneck(pool(enc4), dt, stats)
+        d4 = self._dec(self._up(bott, 4, dt), enc4, 4, dt, stats)
+        d3 = self._dec(self._up(d4, 3, dt), enc3, 3, dt, stats)
+        d2 = self._dec(self._up(d3, 2, dt), enc2, 2, dt, stats)
+        d1 = self._dec(self._up(d2, 1, dt), enc1, 1, dt, stats)
         return _conv(d1, self.head, dt, 0).contiguous()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(N,H,W,C) in [0,1] → sigmoid probabilities (N,H,W,out), f32."""
-        if train:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (training slice)")
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """(N,H,W,C) in [0,1] → sigmoid probabilities (N,H,W,out), f32.
+        ``train=True`` returns ``(probs, stats)``: BatchNorm on batch
+        statistics, and the updated running (mean, var) of every BatchNorm
+        for ``load_stats`` (flax's ``mutable=["batch_stats"]``)."""
         dt = self.dtype or torch.float32
-        logits = self.body(space_to_depth(x.to(dt), self.s2d))
-        return torch.sigmoid(depth_to_space(logits, self.s2d).float())
+        stats = {} if train else None
+        logits = self.body(space_to_depth(x.to(dt), self.s2d), stats)
+        probs = torch.sigmoid(depth_to_space(logits, self.s2d).float())
+        return (probs, stats) if train else probs
+
+    @torch.no_grad()
+    def load_stats(self, stats, good=None) -> None:
+        """Write the running statistics of a train-mode forward; where
+        ``good`` (a 0-dim bool tensor) is False, keep the old ones."""
+        for bn, (mean, var) in stats.items():
+            for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
+                buf.copy_(new if good is None else torch.where(good, new, buf))

@@ -1,14 +1,17 @@
-"""Where the serving roundtrip's time goes on the card.
+"""Where the serving roundtrip's, or the train step's, time goes on the card.
 
     python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
+    python -m vwfd_tpu_torch.profile_roundtrip --mode train [--requests 5]
 
-Serves the flagship roundtrip (``configs/video.yaml``: batch 16, T=4, 256²,
-bf16; random weights from a seed) under ``torch.profiler`` after a warm-up,
-then prints one JSON line: the host wall time per request, the device time
-per request by kernel class (the port's four kernels, convolutions, GEMMs,
-concatenations, other elementwise work, copies), the kernels of the GEMM
-class and the twelve longest kernels by name, and the device's idle share
-over the window (1 − device busy time / host wall time).
+``--mode roundtrip`` (the default) serves the flagship roundtrip
+(``configs/video.yaml``: batch 16, T=4, 256², bf16; random weights from a
+seed); ``--mode train`` runs the flagship ``train_step`` on synthetic
+batches. Either runs under ``torch.profiler`` after a warm-up, then prints
+one JSON line: the host wall time per request (or step), the device time
+per request by kernel class (the port's kernels, convolutions, GEMMs,
+BatchNorm, concatenations, other elementwise work, copies), the kernels of
+the GEMM class and the twelve longest kernels by name, and the device's
+idle share over the window (1 − device busy time / host wall time).
 Needs the CUDA card; ``--trace`` also writes a Chrome trace.
 """
 
@@ -22,6 +25,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import FLAGSHIP_CONFIG, load_config
+from .data import Loader, SyntheticVideoDataset
+from .models import VideoWatermarkModel
 from .serving import WatermarkServer
 
 # substrings of the port's kernel names (csrc/*.cu), by kernel
@@ -30,7 +35,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "coupling_head": ("coupling_head",),
                 "wire": ("wire_decode_rows", "wire_encode_rows",
                          "u8_to_channels", "channels_to_u8", "u8_to_s2d"),
-                "mask_pack": ("mask_pack",)}
+                "mask_pack": ("mask_pack",),
+                "jpeg_pair": ("jpeg_pair",), "median3": ("median3",)}
 
 
 def classify(name: str) -> str:
@@ -42,6 +48,8 @@ def classify(name: str) -> str:
         return "copies"
     if "catarray" in low:  # torch.cat
         return "concat"
+    if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
+        return "batchnorm"
     # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
     if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "implicit",
                               "cudnn")):
@@ -53,21 +61,38 @@ def classify(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--mode", default="roundtrip",
+                    choices=["roundtrip", "train"])
+    ap.add_argument("--requests", type=int, default=10,
+                    help="requests (or train steps) in the window")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
     cfg = load_config(FLAGSHIP_CONFIG)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    server = WatermarkServer(cfg, modes=("roundtrip",))
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
-    clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
-                                             dtype=np.uint8)
+    if args.mode == "train":
+        model = VideoWatermarkModel(cfg)
+        model.init_states(cfg.train.seed)
+        loader = Loader(SyntheticVideoDataset(size=s, frames=t, length=4 * b),
+                        b)
+        batches = [model.to_device(v, m) for v, m in loader]
+        step = [0]
 
-    def one():
-        r = server.serve(clip, "roundtrip")
-        return r.watermarked, r.mask_bits, r.tamper_fraction
+        def one():
+            i = step[0] = step[0] + 1
+            video, mask = batches[i % len(batches)]
+            prev = batches[(i - 1) % len(batches)][0]
+            return model.train_step(video, mask, prev)
+    else:
+        server = WatermarkServer(cfg, modes=("roundtrip",))
+        clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
+                                                 dtype=np.uint8)
+
+        def one():
+            r = server.serve(clip, "roundtrip")
+            return r.watermarked, r.mask_bits, r.tamper_fraction
 
     for _ in range(3):
         one()
@@ -104,7 +129,8 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "card": card, "requests": n, "batch": b, "frames": t, "size": s,
+        "card": card, "mode": args.mode, "requests": n, "batch": b,
+        "frames": t, "size": s,
         "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy / n / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
