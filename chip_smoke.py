@@ -24,8 +24,10 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    256²×3 f32): K5 ``jpeg_pair`` with draws covering all 5 qualities × 3
    modes and K6 ``median3`` on 8-bit inputs full of ties, each forward and
    input gradient against its plain version (K6 exact; K5 to 1e-4 except in
-   8×8 blocks where a coefficient's rounding flipped, counted), each timed
-   forward + backward beside its plain version;
+   8×8 blocks where a coefficient's rounding flipped, counted), K6 also on
+   a small input with NaN pixels (NaN outputs at the same places), each
+   timed forward + backward, warm and with a cold L2, beside its plain
+   version;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -58,6 +60,7 @@ per train step for K5 and K6); the last line is ``{"ok": true, "device":
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -491,6 +494,20 @@ def fwd_bwd_ms(fn, x, cot):
     return fwd, bwd
 
 
+def fwd_bwd_cold_ms(fn, make):
+    """Device ms of one forward and of one backward of ``fn`` with a cold
+    L2 (``time_cold_ms``), on fresh inputs ``make(i)`` -> (x, cotangent)."""
+    xs = [make(i) for i in range(2)]  # each call moves ≥ 100 MB
+    fwd = time_cold_ms(lambda v, c: fn(v), xs)
+    graphs = []
+    for v, c in xs:
+        vg = v.clone().requires_grad_(True)
+        graphs.append((fn(vg), vg, c))
+    bwd = time_cold_ms(lambda y, vg, c: torch.autograd.grad(
+        y, vg, c, retain_graph=True)[0], graphs)
+    return fwd, bwd
+
+
 def flipped_blocks(got, want, atol):
     """8×8 blocks (all channels) of NHWC frames where |got − want| > atol."""
     n, h, w, c = got.shape
@@ -534,6 +551,9 @@ def check_jpeg(rows, card):
     fn = lambda v: jpeg.jpeg_pair(v, qt, mode, w)  # noqa: E731
     pfn = lambda v: jpeg.jpeg_pool_pair_plain(v, qt, mode, w)  # noqa: E731
     kf, kb = fwd_bwd_ms(fn, x, cot)
+    cf, cb = fwd_bwd_cold_ms(fn, lambda i: (
+        train_shape_input(g), torch.randn(x.shape, device="cuda",
+                                          generator=g)))
     pf, pb = fwd_bwd_ms(pfn, x, cot)
     fwd_bytes = nbytes(x, yk, qt, mode, w)
     bwd_bytes = nbytes(x, cot, gk, qt, mode, w)
@@ -549,30 +569,58 @@ def check_jpeg(rows, card):
           f"{JPEG_FLIP_SHARE}); max_abs_err={err} (outside flipped blocks "
           f"{calm}); gradient max_abs_err={float((gk - gp).abs().max())} of "
           f"max {gscale}")
-    print(f"check jpeg_pair ms fwd={kf:.4f} bwd={kb:.4f} plain fwd={pf:.4f} "
-          f"bwd={pb:.4f} bound_ms={bms:.4f} (fwd {bound(fwd_bytes, 0)[0]:.4f}"
-          f" + bwd {bound(bwd_bytes, 0)[0]:.4f}) share_of_bound="
-          f"{bms / (kf + kb):.3f} [{card}]")
+    print(f"check jpeg_pair ms fwd={kf:.4f} bwd={kb:.4f} cold fwd={cf:.4f} "
+          f"bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} bound_ms={bms:.4f} "
+          f"(fwd {bound(fwd_bytes, 0)[0]:.4f} + bwd "
+          f"{bound(bwd_bytes, 0)[0]:.4f}) share_of_bound={bms / (kf + kb):.3f}"
+          f" cold_share={bms / (cf + cb):.3f} [{card}]")
 
 
-def check_median(rows, card):
-    """K6 at the training shape on inputs of 4 levels (ties everywhere):
-    forward and input gradient EQUAL to the plain version's."""
-    row = rows["median3"]
-    g = torch.Generator("cuda").manual_seed(5)
-    x = train_shape_input(g, levels=4)
-    cot = torch.randn(x.shape, device="cuda", generator=g)
+def median_both(x, cot):
+    """(output, input gradient) of K6 and of its plain version at x."""
     outs = []
     for fn in (median.median3, median.median3_plain):
         xg = x.clone().requires_grad_(True)
         y = fn(xg)
         outs.append((y.detach(), torch.autograd.grad(y, xg, cot)[0]))
     torch.cuda.synchronize()
-    (yk, gk), (yp, gp) = outs
+    return outs
+
+
+def check_median(rows, card):
+    """K6 at the training shape on inputs of 4 levels (ties everywhere):
+    forward and input gradient EQUAL to the plain version's; then a small
+    input with NaN pixels: NaN outputs at the same places, every other
+    value and the whole gradient equal."""
+    row = rows["median3"]
+    g = torch.Generator("cuda").manual_seed(5)
+    x = train_shape_input(g, levels=4)
+    cot = torch.randn(x.shape, device="cuda", generator=g)
+    (yk, gk), (yp, gp) = median_both(x, cot)
     check(torch.equal(yk, yp), "median3 forward differs from plain")
     check(torch.equal(gk, gp), "median3 gradient differs from plain")
     routed = float((gk != cot).float().mean())
+
+    xn = torch.randint(0, 8, (2, 64, 64, 3), device="cuda",
+                       generator=g).float() / 255.0
+    xn.view(-1)[torch.randperm(xn.numel(), device="cuda",
+                               generator=g)[:5]] = float("nan")
+    cn = torch.randn(xn.shape, device="cuda", generator=g)
+    (ynk, gnk), (ynp, gnp) = median_both(xn, cn)
+    nan = torch.isnan(ynp)
+    check(bool(nan.any()) and torch.equal(torch.isnan(ynk), nan)
+          and torch.equal(ynk[~nan], ynp[~nan]),
+          "median3 forward on NaN input differs from plain")
+    check(torch.equal(gnk, gnp),
+          "median3 gradient on NaN input differs from plain")
+    print(f"check median3 {tuple(xn.shape)} f32 with 5 NaN values: "
+          f"{int(nan.sum())} NaN outputs at the plain version's places, "
+          f"other values and the gradient equal")
+
     kf, kb = fwd_bwd_ms(median.median3, x, cot)
+    cf, cb = fwd_bwd_cold_ms(median.median3, lambda i: (
+        train_shape_input(g, levels=4), torch.randn(x.shape, device="cuda",
+                                                    generator=g)))
     pf, pb = fwd_bwd_ms(median.median3_plain, x, cot)
     fwd_bytes, bwd_bytes = nbytes(x, yk), nbytes(x, cot, gk)
     # 19 min/max pairs per value forward; recomputed + 9 compares and
@@ -582,9 +630,10 @@ def check_median(rows, card):
     bms = bound(fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)[0]
     print(f"check median3 {tuple(x.shape)} f32 4-level input: forward and "
           f"gradient equal to plain (gradient routed off the pixel itself "
-          f"for {routed:.3f} of values); ms fwd={kf:.4f} bwd={kb:.4f} plain "
-          f"fwd={pf:.4f} bwd={pb:.4f} bound_ms={bms:.4f} share_of_bound="
-          f"{bms / (kf + kb):.3f} [{card}]")
+          f"for {routed:.3f} of values); ms fwd={kf:.4f} bwd={kb:.4f} cold "
+          f"fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} "
+          f"bound_ms={bms:.4f} share_of_bound={bms / (kf + kb):.3f} "
+          f"cold_share={bms / (cf + cb):.3f} [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -746,6 +795,7 @@ def snapshot(model):
 
 def run_train(card):
     cfg = load_config(FLAGSHIP_CONFIG)
+    gc.collect()  # the peak counts this phase, not what earlier ones left
     torch.cuda.reset_peak_memory_stats()
     states = perturbed_states(cfg, seed=7)
     model = VideoWatermarkModel(cfg)

@@ -308,8 +308,10 @@ def _jpeg_draws(n, device, seed):
             mode.contiguous().to(device), w.contiguous().to(device))
 
 
-# (N, H, W): 40 = 5 blocks (the CTA strip holds 4), and a square frame
-@pytest.mark.parametrize("shape", [(8, 32, 40), (8, 64, 64)])
+# (N, H, W): 40 = 5 blocks (a unit holds 32), a square frame, 264 = one
+# unit of 32 blocks and a ragged one of 1, and a single frame
+@pytest.mark.parametrize("shape", [(8, 32, 40), (8, 64, 64), (2, 16, 264),
+                                   (1, 24, 48)])
 def test_jpeg_pair_kernel_matches_plain(cuda, shape):
     n, h, w = shape
     g = _gen(9)
@@ -333,7 +335,11 @@ def test_jpeg_pair_kernel_matches_plain(cuda, shape):
     assert gbad <= max(1, blocks // 1000), (gbad, blocks)
 
 
-@pytest.mark.parametrize("shape", [(3, 20, 45), (2, 64, 64)])
+# (N, H, W): ragged tiles off the 16-byte grid (W % 4 != 0), whole 32×32
+# tiles, frames over several tiles with ragged last ones (130: scalar
+# path; 100: 16-byte path with a ragged right tile), a single frame
+@pytest.mark.parametrize("shape", [(3, 20, 45), (2, 64, 64), (2, 67, 130),
+                                   (1, 33, 100)])
 def test_median3_kernel_is_exact(cuda, shape):
     n, h, w = shape
     g = _gen(10)
@@ -349,6 +355,32 @@ def test_median3_kernel_is_exact(cuda, shape):
     torch.cuda.synchronize()
     assert launch_counts()["median3"] == before + 2
     assert torch.equal(yk, yp)
+    assert torch.equal(gk, gp)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 20), (2, 40, 72)])
+def test_median3_kernel_propagates_nan_as_plain(cuda, shape):
+    """NaN pixels: the kernel's NaN outputs fall where the plain version's
+    do (NaN-propagating min/max in the same network), every other value is
+    equal, and an output whose median is NaN routes its cotangent nowhere
+    in both, so the input gradients are equal."""
+    n, h, w = shape
+    g = _gen(12)
+    x = torch.randint(0, 8, (n, h, w, 3), device=cuda, generator=g) / 255.0
+    x.view(-1)[torch.randperm(x.numel(), device=cuda, generator=g)[:3]] = \
+        float("nan")
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    yk = median.median3(xk)
+    yp = median.median3_plain(xp)
+    cot = torch.randn(yk.shape, device=cuda, generator=g)
+    (gk,) = torch.autograd.grad(yk, xk, cot)
+    (gp,) = torch.autograd.grad(yp, xp, cot)
+    torch.cuda.synchronize()
+    nan = torch.isnan(yp)
+    assert bool(nan.any())
+    assert torch.equal(torch.isnan(yk), nan)
+    assert torch.equal(yk[~nan], yp[~nan])
     assert torch.equal(gk, gp)
 
 

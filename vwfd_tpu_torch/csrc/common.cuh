@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace vwfd {
 
 // dtype codes passed by the wrappers (kernels/_lib.py::DTYPE_CODES)
@@ -37,6 +39,13 @@ __device__ __forceinline__ long long global_index() {
 
 inline unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+// Host side: every pointer on a 16-byte boundary (vector and bulk accesses)
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // 32-bit words <-> f32 values: one f32, or two bf16 (element 0 in the low
@@ -141,6 +150,57 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "@P bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+// Makes mbarrier initialisations visible to the async proxy (the copies).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Hopper's 1-D bulk copies (cp.async.bulk), issued by one thread. Row
+// lengths and every address are multiples of 16 bytes.
+//
+// R rows of rb bytes, r_stride apart in global memory, to rs apart in
+// shared memory; they complete on the mbarrier `bar`, whose transaction
+// count the caller has armed (mbar_expect_tx) for them.
+__device__ __forceinline__ void bulk_load_rows(uint8_t* smem, int rs,
+                                               const uint8_t* g, int R,
+                                               int r_stride, int rb,
+                                               uint32_t bar) {
+  for (int r = 0; r < R; ++r)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem + r * rs)),
+        "l"(g + (long long)r * r_stride), "r"(rb), "r"(bar)
+        : "memory");
+}
+
+// R1 x R2 staged rows of rb bytes to global memory, as one committed bulk
+// group: staged row r1*R2 + r2 at smem + (r1*R2 + r2)*rs, global row at
+// g + r1*st1 + r2*st2. Issued after every writer's fence_to_bulk() and a
+// barrier; the issuer waits with bulk_wait_read() before the shared memory
+// is written again or the block exits.
+__device__ __forceinline__ void bulk_store_rows(uint8_t* g,
+                                                const uint8_t* smem, int rs,
+                                                int R1, int st1, int R2,
+                                                int st2, int rb) {
+  for (int r1 = 0; r1 < R1; ++r1)
+    for (int r2 = 0; r2 < R2; ++r2)
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
+              "l"(g + (long long)r1 * st1 + (long long)r2 * st2),
+          "r"(smem_u32(smem + (r1 * R2 + r2) * rs)), "r"(rb)
+          : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the bulk copies.
+__device__ __forceinline__ void fence_to_bulk() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Waits until every committed bulk store has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace vwfd

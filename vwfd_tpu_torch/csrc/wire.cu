@@ -65,57 +65,6 @@ __device__ __forceinline__ void fill_koff(int* koff, int K, int m, int rs) {
   }
 }
 
-// Thread 0 stages R rows of rb bytes, r_stride apart in global memory, rs
-// apart in shared memory, with 1-D bulk copies that complete on `bar` (rb
-// and both addresses multiples of 16). The other threads wait on `bar`
-// after the block's next __syncthreads.
-__device__ __forceinline__ void bulk_load_rows(uint8_t* smem, int rs,
-                                               const uint8_t* g, int R,
-                                               int r_stride, int rb,
-                                               uint64_t* bar) {
-  if (threadIdx.x != 0) return;
-  const uint32_t b = vwfd::smem_u32(bar);
-  vwfd::mbar_init(b, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  vwfd::mbar_expect_tx(b, R * rb);
-  for (int r = 0; r < R; ++r)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];\n" ::"r"(vwfd::smem_u32(smem + r * rs)),
-        "l"(g + r * r_stride), "r"(rb), "r"(b)
-        : "memory");
-}
-
-// Thread 0 writes R1 x R2 staged rows of rb bytes to global memory with 1-D
-// bulk copies: staged row r1*R2 + r2 at smem + (r1*R2 + r2)*rs, global row
-// at g + r1*st1 + r2*st2. Called after every thread's fence_to_bulk() and a
-// __syncthreads; thread 0 calls bulk_store_wait() before the block exits.
-__device__ __forceinline__ void bulk_store_rows(uint8_t* g,
-                                                const uint8_t* smem, int rs,
-                                                int R1, int st1, int R2,
-                                                int st2, int rb) {
-  if (threadIdx.x != 0) return;
-  for (int r1 = 0; r1 < R1; ++r1)
-    for (int r2 = 0; r2 < R2; ++r2)
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
-              "l"(g + r1 * st1 + r2 * st2),
-          "r"(vwfd::smem_u32(smem + (r1 * R2 + r2) * rs)), "r"(rb)
-          : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Makes this thread's shared-memory writes visible to the bulk copies.
-__device__ __forceinline__ void fence_to_bulk() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Thread 0: waits until the bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_store_wait() {
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // The 256 quotients v / 255 the decode reads.
 __device__ __forceinline__ void fill_div255(float* tab) {
   for (int v = threadIdx.x; v < 256; v += blockDim.x)
@@ -177,9 +126,15 @@ __global__ void __launch_bounds__(kRowThreads)
   __shared__ uint64_t bar;
   const int rs = rb + kRowPad;
   const int b = blockIdx.x, img = b / per_img;
-  bulk_load_rows(rows, rs,
-                 in + img * img_stride + (b - img * per_img) * row_step, R,
-                 r_stride, rb, &bar);
+  if (threadIdx.x == 0) {  // stage the rows; the others wait on `bar`
+    const uint32_t bb = vwfd::smem_u32(&bar);
+    vwfd::mbar_init(bb, 1);
+    vwfd::mbar_fence_init();
+    vwfd::mbar_expect_tx(bb, R * rb);
+    vwfd::bulk_load_rows(
+        rows, rs, in + img * img_stride + (b - img * per_img) * row_step, R,
+        r_stride, rb, bb);
+  }
   fill_koff(koff, K, m, rs);
   fill_div255(tab);
   __syncthreads();
@@ -210,17 +165,18 @@ __global__ void __launch_bounds__(kRowThreads)
   for (int p = 0; p < P; ++p)
     encode_row<T>(in + (bb * H + P * i + p) * W * K, rows + p * rs, koff_q, K,
                   W * K);
-  fence_to_bulk();
+  vwfd::fence_to_bulk();
   __syncthreads();
-  bulk_store_rows(out + (bb * Tn * H + P * i) * rb, rows, rs, Tn, H * rb, P,
-                  rb, rb);
+  if (threadIdx.x == 0)
+    vwfd::bulk_store_rows(out + (bb * Tn * H + P * i) * rb, rows, rs, Tn,
+                          H * rb, P, rb, rb);
   if (kS2D) {
     const int n = 3 * W * P;  // (W/s) * 3s^2
     for (int t = 0; t < Tn; ++t)
       decode_row<T>(s2d + ((bb * Tn + t) * Hb + i) * n, rows + t * P * rs,
                     koff_s, tab, 3 * P * P, 3 * P, n);
   }
-  bulk_store_wait();
+  if (threadIdx.x == 0) vwfd::bulk_wait_read();
 }
 
 template <typename T>
@@ -313,9 +269,7 @@ __global__ void u8_to_s2d(const uint8_t* __restrict__ in, T* __restrict__ out,
 // a pixel (the offset tables). An oversized shared-memory request is refused
 // by the opt-in instead.
 bool tileable(const void* a, const void* b, int W, int K) {
-  return reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0 && (3 * W) % 16 == 0 &&
-         K <= kMaxK;
+  return vwfd::aligned16({a, b}) && (3 * W) % 16 == 0 && K <= kMaxK;
 }
 
 }  // namespace
@@ -408,7 +362,7 @@ extern "C" int vwfd_wire_to_u8_s2d(const void* in, void* out, void* s2d, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((long long)B * Tn * H * W == 0) return (int)cudaGetLastError();
   if (!tileable(in, out, W, 3 * (Tn > sf * sf ? Tn : sf * sf)) ||
-      reinterpret_cast<uintptr_t>(s2d) % 16 || H % sf || W % sf)
+      !vwfd::aligned16({s2d}) || H % sf || W % sf)
     return (int)cudaErrorInvalidValue;
   return (int)(dtype == vwfd::kBF16
                    ? encode<__nv_bfloat16, true>(in, out, s2d, B, Tn, H, W,

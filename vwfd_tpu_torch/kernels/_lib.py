@@ -42,8 +42,8 @@ _SIGNATURES = {
     "vwfd_wire_to_u8_s2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_mask_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                        _I, _I, _P],
-    "vwfd_jpeg_pair_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_jpeg_pair_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vwfd_median3_fwd": [_P, _P, _I, _I, _I, _P],
     "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
 }

@@ -22,15 +22,24 @@ reads and writes 50.3 MB each, 0.030 ms at 3.35 TB/s; the backward reads x
 and g and writes gx, 0.045 ms; the arithmetic, about 0.8 GFLOP a pass, takes
 about 0.012 ms at the f32 FMA peak.
 
-Design (``csrc/jpeg.cu``): a CTA per strip of four 8×8 blocks, its rows
-staged through shared memory as 16-byte vectors; one thread per pixel does
-the colour map and one row-column pass of the separable DCT through shared
-memory. The backward recomputes c from x rather than storing it. The colour
-maps, c/q (IEEE division), the rounding and the mix are rounded operation
-by operation in the plain version's order; the DCT passes contract to FMA
-and sum in another order than ``torch.matmul``, so a coefficient that lies
-within rounding of a .5 boundary may round the other way: kernel and plain
-agree to 1e-4 except in such blocks (``chip_smoke.py`` counts them).
+Design (``csrc/jpeg.cu``): the first design loaded both operands of every
+DCT term from shared memory, so the rate of shared-memory loads, not
+bytes, set its pace. Now persistent CTAs (two per SM) walk 8-row bands of up to 256
+pixels; a producer warp moves each band with 1-D bulk copies through a
+two-stage mbarrier ring (the next band loads while this one computes) and
+copies a frame's quantisation tables once per stage and frame. Eight
+threads own an 8×8 block, one column each: the separable passes are 8-term
+FMA chains in registers whose matrix operand is an immediate (the DCT
+matrix is compiled in; a CPU test checks the literals bit for bit), with
+padded shared-memory tiles only for the two transposes. The backward
+recomputes c from x rather than storing it. The colour maps, c/q (a
+correctly rounded division), the rounding and the mix are rounded
+operation by operation in the plain version's order, and the forward
+coefficients sum as the first design's did (columns, then rows); they sum
+in another order than ``torch.matmul``, so a coefficient that lies within
+rounding of a .5 boundary may round the other way: kernel and plain agree
+to 1e-4 except in such blocks (``chip_smoke.py`` counts them). What bounds
+it now is the instruction rate (four divisions a value forward).
 """
 
 import functools
@@ -40,8 +49,7 @@ import torch
 
 from . import _lib
 from ..ops.color import rgb_to_yuv_jpegbasic, yuv_to_rgb_jpegbasic
-from ..ops.dct import block_merge, block_split, dct_blocks, dct_matrix, \
-    idct_blocks
+from ..ops.dct import block_merge, block_split, dct_blocks, idct_blocks
 from ..ops.quantize import round_only_at_0
 
 __all__ = ["jpeg_pair", "jpeg_pool_pair_plain", "zonal_mask", "COUNT"]
@@ -112,11 +120,10 @@ class _JpegPairKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, qt, mode, w):
         n, h, wd, _ = x.shape
-        dct = dct_matrix(x.device)
         y = torch.empty_like(x)
         _lib.launch("vwfd_jpeg_pair_fwd", x.device, x.data_ptr(),
                     y.data_ptr(), qt.data_ptr(), mode.data_ptr(),
-                    w.data_ptr(), dct.data_ptr(), n, h, wd)
+                    w.data_ptr(), n, h, wd)
         COUNT.n += 1
         ctx.save_for_backward(x, qt, mode, w)
         return y
@@ -126,11 +133,10 @@ class _JpegPairKernel(torch.autograd.Function):
         x, qt, mode, w = ctx.saved_tensors
         g = g.contiguous()
         n, h, wd, _ = x.shape
-        dct = dct_matrix(x.device)
         gx = torch.empty_like(x)
         _lib.launch("vwfd_jpeg_pair_bwd", x.device, x.data_ptr(),
                     g.data_ptr(), gx.data_ptr(), qt.data_ptr(),
-                    mode.data_ptr(), w.data_ptr(), dct.data_ptr(), n, h, wd)
+                    mode.data_ptr(), w.data_ptr(), n, h, wd)
         COUNT.n += 1
         return gx, None, None, None
 

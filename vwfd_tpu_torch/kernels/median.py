@@ -13,14 +13,24 @@ Bound: bytes. At the training shape (64 frames of 256²×3 f32) the forward
 moves 100.7 MB (x read, y written), about 0.030 ms at 3.35 TB/s; the
 backward reads x and g and writes gx, 151 MB, 0.045 ms.
 
-Design (``csrc/median.cu``): a CTA per 32×8-pixel tile stages the
-reflect-padded halo in shared memory; one thread per pixel runs the network
-for the three channels. The backward is a deterministic gather (no float
-atomics): each output's choice is kept as a code 0..8, the offset of its
-source pixel from it, and each input pixel adds the cotangents of the
-outputs that chose it, visiting its 3×3 neighbours in raster order. The
-plain version below computes the same codes and sums in the same order, so
-kernel and plain agree bit for bit, forward and backward.
+NaN: the network's min/max propagate NaN (``torch.minimum``/``maximum``
+here, PTX ``min.NaN``/``max.NaN`` in the kernel), as ``jnp.minimum`` does,
+and an output whose median is NaN, which no view equals, routes its
+cotangent nowhere, as the JAX backward does.
+
+Design (``csrc/median.cu``): a CTA per 32×32-pixel tile stages its
+reflect-padded halo in shared memory, the tile's rows as 16-byte vectors;
+each thread slides a 3×3 window down a column of 4 outputs, loading and
+sorting one new row per output (the network's first nine swaps sort the
+window's rows). The backward is a deterministic gather (no float atomics):
+each output's choice is kept as a code 0..8, the offset of its source pixel
+from it (255 for none), found by an unrolled select chain in registers, and
+each input pixel adds the cotangents of the outputs that chose it, visiting
+its 3×3 neighbours in raster order. The plain version below computes the
+same codes and sums in the same order, so kernel and plain agree bit for
+bit, forward and backward, NaN positions included. What holds the backward
+above its bound now is its staging of x and g, which no computation
+overlaps, and the recomputed codes.
 """
 
 import torch
@@ -75,11 +85,13 @@ def _refl(i: torch.Tensor, n: int) -> torch.Tensor:
 
 def _codes(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Per output: (sy+1)·3 + (sx+1), the offset (sy, sx) ∈ {-1,0,1}² of the
-    input pixel that the first view equal to the median reads."""
+    input pixel that the first view equal to the median reads; -1, which
+    routes nothing, where no view equals it (a NaN median), as
+    ``filters.py:86-111``."""
     n, h, w, c = x.shape
-    k = torch.full(m.shape, 8, dtype=torch.long, device=x.device)
+    k = torch.zeros(m.shape, dtype=torch.long, device=x.device)
     claimed = torch.zeros(m.shape, dtype=torch.bool, device=x.device)
-    for idx, v in enumerate(median_views(x)[:8]):
+    for idx, v in enumerate(median_views(x)):
         hit = (v == m) & ~claimed
         k = torch.where(hit, idx, k)
         claimed |= hit
@@ -87,7 +99,7 @@ def _codes(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     ox = torch.arange(w, device=x.device).view(1, 1, w, 1)
     sy = _refl(oy + k // 3 - 1, h) - oy
     sx = _refl(ox + k % 3 - 1, w) - ox
-    return (sy + 1) * 3 + sx + 1
+    return torch.where(claimed, (sy + 1) * 3 + sx + 1, -1)
 
 
 def _gather(codes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
