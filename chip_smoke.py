@@ -27,7 +27,12 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    8×8 blocks where a coefficient's rounding flipped, counted), K6 also on
    a small input with NaN pixels (NaN outputs at the same places), each
    timed forward + backward, warm and with a cold L2, beside its plain
-   version;
+   version; then the eval kernels at the eval shape: K7 ``f1_sweep``
+   (64 frames of 256² f32, every k/255 boundary and NaN pixels) with counts
+   EQUAL to the plain version's, and K8 ``ssim`` (64 frames of 256²×3 f32,
+   with a flat patch) within ``ssim.ATOL`` on every per-image mean and the
+   mean, each timed warm and with a cold L2 beside its plain version, K8
+   also beside a depthwise 11×11 ``F.conv2d`` yardstick;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -45,17 +50,25 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    within 1e-2 relative, each net's gradient with cosine ≥ 0.999); then 2
    warm-up and 10 timed steps (p50 ms, frames/s), the finiteness of every
    loss, a batch with a NaN pixel that must leave every parameter, moment,
-   step count and running statistic as it was, and the peak memory.
+   step count and running statistic as it was, and the peak memory;
+7. evaluation at full width: the same model takes one ``eval_step``
+   through ``KERNELS`` with the launch counts at 0 just before and read
+   just after (K1 ×6, K2 ×10, K5 ×1, K6 ×1, K7 ×1, K8 ×1), compared with
+   ``PLAIN`` on the same batch, previous batch and draws (PSNR and SSIM
+   within ``EVAL_PSNR_ATOL`` / ``EVAL_SSIM_ATOL``, each F1 within the
+   bound its pixels that cross a level between the two paths allow); then
+   2 warm-up and 10 timed eval steps (p50 ms, frames/s) and the peak memory.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
 compare full-float32 paths.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches on its main path, its error against the plain version, its time,
-the plain time, the bound and the library time: per roundtrip for K1-K4,
-per train step for K5 and K6); the last line is ``{"ok": true, "device":
-{...}}``.
+launches on its main path and on each path, its error against the plain
+version, its time warm and with a cold L2, the plain time, the bound, the
+library time and a yardstick's: per roundtrip for K1-K4, per train step for
+K5 and K6, per eval step for K7 and K8); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import collections
@@ -74,9 +87,12 @@ import torch.nn.functional as F
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
-from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, jpeg,
+from vwfd_tpu_torch.attacks import attack_pool_video
+from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, f1, jpeg,
                                     launch_counts, mask, median,
-                                    reset_launch_counts, transition, wire)
+                                    reset_launch_counts, ssim, transition,
+                                    wire)
+from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
@@ -112,14 +128,40 @@ KERNEL_SOURCES = {
                   "vwfd_tpu/attacks/jpeg.py:183"),
     "median3": ("vwfd_tpu_torch/csrc/median.cu",
                 "vwfd_tpu/ops/filters.py:76"),
+    "f1_sweep": ("vwfd_tpu_torch/csrc/f1.cu",
+                 "vwfd_tpu/metrics/metrics.py:96"),
+    "ssim": ("vwfd_tpu_torch/csrc/ssim.cu", "vwfd_tpu/metrics/metrics.py:65"),
 }
+# one PyTorch call beside a kernel that computes a related, not the same,
+# function (no single call computes the kernel's)
+YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
+              "wire": "Tensor.copy_ between the layouts of to_channels, "
+                      "to_u8 and to_s2d",
+              "ssim": "one depthwise 11x11 F.conv2d over the five stacked "
+                      "windowed quantities"}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
-                      "mask_pack": 1, "jpeg_pair": 0, "median3": 0}
+                      "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
+                      "f1_sweep": 0, "ssim": 0}
 # K1: six maps forward and five backward (the entry map's input, the clip,
 # takes no gradient)
 TRAIN_LAUNCHES = {"transition": 11, "coupling_head": 10, "wire": 0,
-                  "mask_pack": 0, "jpeg_pair": 2, "median3": 2}
-TRAIN_PATH = ("jpeg_pair", "median3")  # rows timed per train step
+                  "mask_pack": 0, "jpeg_pair": 2, "median3": 2,
+                  "f1_sweep": 0, "ssim": 0}
+# the eval step: the embed's six maps, the attack pool's forward only
+EVAL_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 0,
+                 "mask_pack": 0, "jpeg_pair": 1, "median3": 1,
+                 "f1_sweep": 1, "ssim": 1}
+# the rows' main paths: each row is timed per launch of its path
+ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
+            "f1_sweep": "eval_step", "ssim": "eval_step"}
+SSIM_FLOPS = 243  # per value: 2 passes x 5 sums x 11 FMA, products, map
+# eval step, KERNELS vs PLAIN (bf16, full width): PSNR and SSIM within these
+# (the embed differs by one level on < 0.01 % of pixels, F7; K8 sums the
+# windows in another order); each F1 within 4·n/(2·tp + fp + fn), n the
+# pixels whose prediction lies on the other side of that level's boundary
+# on the two paths (each such pixel moves tp, fp or fn by one)
+EVAL_PSNR_ATOL = 0.01
+EVAL_SSIM_ATOL = 1e-4
 JPEG_FLIP_ATOL = 1e-4    # K5 vs plain, outside flipped blocks ...
 JPEG_FLIP_SHARE = 1e-4   # ... which are at most this share of all blocks
 JPEG_FLIP_BOUND = 1.0    # and differ by at most this anywhere
@@ -180,31 +222,39 @@ class Row:
         self.name = name
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
-        self.library_ms = None
+        self.library_ms = self.yardstick_ms = None
+        self.cold_ms = None
         self.t_bytes = self.t_ops = 0.0  # ms at the memory / ops rate
 
     def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None,
-            ops_per_s=F32_OPS_PER_S):
+            ops_per_s=F32_OPS_PER_S, yardstick_ms=None, cold_ms=None):
         self.ms += ms
         self.plain_ms += plain_ms
         self.t_bytes += bound(bytes_moved, 0)[0]
         self.t_ops += ops / ops_per_s * 1e3
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
+        if yardstick_ms is not None:
+            self.yardstick_ms = (self.yardstick_ms or 0.0) + yardstick_ms
+        if cold_ms is not None:
+            self.cold_ms = (self.cold_ms or 0.0) + cold_ms
 
     def json(self, by_path):
         b = max(self.t_bytes, self.t_ops)
         by = "bytes" if self.t_bytes >= self.t_ops else "operations"
         src, rep = KERNEL_SOURCES[self.name]
-        path = "train_step" if self.name in TRAIN_PATH else "roundtrip"
+        path = ROW_PATH.get(self.name, "roundtrip")
         return {"name": self.name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": by_path[path][self.name],
                 "launches_by_path": {k: v[self.name]
                                      for k, v in by_path.items()},
                 "timed_per": path,
                 "max_abs_err": self.err, "ms": self.ms,
+                "cold_ms": self.cold_ms,
                 "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
-                "library_ms": self.library_ms}
+                "library_ms": self.library_ms,
+                "yardstick_ms": self.yardstick_ms,
+                "yardstick": YARDSTICKS.get(self.name)}
 
 
 def card_line():
@@ -311,7 +361,8 @@ def check_coupling(rows, card):
                 moved = nbytes(xin, h, x, o, p["wh"], p["bh"])
                 flops = 2 * m * k * cz
                 row.add(launches * ms, launches * pms, launches * moved,
-                        launches * flops, ops_per_s=BF16_TC_OPS_PER_S)
+                        launches * flops, ops_per_s=BF16_TC_OPS_PER_S,
+                        yardstick_ms=launches * cat_mm)
                 bms, by = bound(moved, flops, BF16_TC_OPS_PER_S)
                 print(f"check coupling_head z={cz} bf16 M={m} K={k} N={cz} "
                       f"ms={ms:.4f} plain_ms={pms:.4f} cat_matmul_ms="
@@ -423,7 +474,9 @@ def check_wire(rows, card):
         bms = bound(moved, 0)[0]
         copy_ms = time_ms(copy) if copy else None
         if name in ROUNDTRIP_WIRE:
-            row.add(ms, pms, moved, 3 * x.numel())
+            row.add(ms, pms, moved, 3 * x.numel(), cold_ms=cold)
+        if copy_ms is not None:
+            row.yardstick_ms = (row.yardstick_ms or 0.0) + copy_ms
         yard = (f" copy_yardstick_ms={copy_ms:.4f}" if copy else "")
         print(f"check wire {name} bf16 ms={ms:.4f} cold_ms={cold:.4f} "
               f"plain_ms={pms:.4f}{yard} bound_ms={bms:.4f} "
@@ -469,7 +522,7 @@ def check_mask(rows, card):
                 lambda z: mask.mask_pack(z, T, 2, 0.5),
                 cold_sets(lambda i: (make_logits(dt),), moved))
             pms = time_ms(lambda: mask.mask_pack_plain(logits, T, 2, 0.5))
-            row.add(ms, pms, moved, 6 * 4 * logits.numel())
+            row.add(ms, pms, moved, 6 * 4 * logits.numel(), cold_ms=cold)
             bms = bound(moved, 0)[0]
             print(f"check mask_pack bf16 ms={ms:.4f} cold_ms={cold:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} "
@@ -561,7 +614,8 @@ def check_jpeg(rows, card):
     # per value: forward 2 transforms × 2 passes × 8 FMA + ~20 for colour,
     # quantisation and mix; backward 3 transforms + ~30
     fwd_ops, bwd_ops = vals * (64 + 20), vals * (96 + 30)
-    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops,
+            cold_ms=cf + cb)
     bms = bound(fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)[0]
     print(f"check jpeg_pair {tuple(x.shape)} f32 modes 0/1/2 x qualities "
           f"50..90: forward flipped_blocks={fb} gradient flipped_blocks="
@@ -626,7 +680,8 @@ def check_median(rows, card):
     # 19 min/max pairs per value forward; recomputed + 9 compares and
     # up to 9 adds backward
     fwd_ops, bwd_ops = x.numel() * 38, x.numel() * (38 + 27)
-    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops,
+            cold_ms=cf + cb)
     bms = bound(fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)[0]
     print(f"check median3 {tuple(x.shape)} f32 4-level input: forward and "
           f"gradient equal to plain (gradient routed off the pixel itself "
@@ -634,6 +689,112 @@ def check_median(rows, card):
           f"fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} "
           f"bound_ms={bms:.4f} share_of_bound={bms / (kf + kb):.3f} "
           f"cold_share={bms / (cf + cb):.3f} [{card}]")
+
+
+LEVELS = [threshold_level(t) for t in np.float32(DEFAULT_THRESHOLDS)]
+
+
+def eval_pred(g):
+    """A prediction at the eval shape (64 frames of 256², f32) holding every
+    k/255, its float32 neighbours and NaN pixels; the rest uniform."""
+    p = torch.rand(B * T, S, S, 1, device="cuda", generator=g)
+    k = torch.arange(256, device="cuda", dtype=torch.float32) / 255.0
+    special = torch.cat([k, torch.nextafter(k, torch.full_like(k, 2.0)),
+                         torch.nextafter(k, torch.full_like(k, -1.0)),
+                         torch.full((64,), float("nan"), device="cuda")])
+    idx = torch.randperm(p.numel(), device="cuda", generator=g)
+    p.view(-1)[idx[:special.numel()]] = special
+    return p
+
+
+def eval_mask(g):
+    return (torch.rand(B * T, S, S, 1, device="cuda", generator=g)
+            < 0.3).float()
+
+
+def check_f1(rows, card):
+    """K7 at the eval shape: the counts EQUAL the plain version's (every
+    k/255 boundary and NaN pixels), repeated calls equal; timed warm and
+    with a cold L2 beside the plain version."""
+    row = rows["f1_sweep"]
+    g = torch.Generator("cuda").manual_seed(6)
+    pred, gt = eval_pred(g), eval_mask(g)
+    counts = f1.f1_sweep(pred, gt, LEVELS)
+    ref = f1.f1_sweep_plain(pred, gt, LEVELS)
+    torch.cuda.synchronize()
+    check(torch.equal(counts, ref), f"f1_sweep counts {counts} plain {ref}")
+    check(torch.equal(f1.f1_sweep(pred, gt, LEVELS), counts),
+          "f1_sweep counts not repeatable")
+    # an odd size off the 16-byte grid takes the scalar path
+    odd_p, odd_g = pred.view(-1)[1:1 + 100_003], gt.view(-1)[1:1 + 100_003]
+    check(torch.equal(f1.f1_sweep(odd_p, odd_g, LEVELS),
+                      f1.f1_sweep_plain(odd_p, odd_g, LEVELS)),
+          "f1_sweep counts differ on the scalar path")
+    row.err = 0.0
+    moved = nbytes(pred, gt, counts)
+    ms = time_ms(lambda: f1.f1_sweep(pred, gt, LEVELS))
+    cold = time_cold_ms(lambda p, m: f1.f1_sweep(p, m, LEVELS),
+                        cold_sets(lambda i: (eval_pred(g), eval_mask(g)),
+                                  moved))
+    pms = time_ms(lambda: f1.f1_sweep_plain(pred, gt, LEVELS))
+    ops = pred.numel() * (4 + 2 * len(LEVELS))  # 2 mul, 2 trunc, compares
+    row.add(ms, pms, moved, ops, cold_ms=cold)
+    bms, by = bound(moved, ops)
+    print(f"check f1_sweep {tuple(pred.shape)} f32 x{len(LEVELS)} levels: "
+          f"counts equal to plain (tp of the 0.5 level {int(counts[4, 0])}, "
+          f"{int(torch.isnan(pred).sum())} NaN pixels); ms={ms:.4f} "
+          f"cold_ms={cold:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+          f"share_of_bound={bms / ms:.3f} cold_share={bms / cold:.3f} "
+          f"[{card}]")
+
+
+def ssim_pair(g):
+    x = torch.rand(B * T, S, S, 3, device="cuda", generator=g)
+    y = (x + 0.05 * torch.randn(x.shape, device="cuda", generator=g)).clamp(
+        0, 1)
+    y[:, :40, :40] = x[:, :40, :40] = 0.25  # flat: σ² cancels to ~0
+    return x, y
+
+
+def check_ssim(rows, card):
+    """K8 at the eval shape: per-image means and the mean within
+    ``ssim.ATOL`` of the plain version's, bit-identical over repeated calls;
+    a ragged shape off the 16-byte grid on the scalar staging path; timed
+    warm and with a cold L2 beside the plain version and the depthwise
+    ``F.conv2d`` yardstick."""
+    row = rows["ssim"]
+    g = torch.Generator("cuda").manual_seed(7)
+    x, y = ssim_pair(g)
+    means, mean = ssim.ssim(x, y)
+    pmeans, pmean = ssim.ssim_plain(x, y)
+    torch.cuda.synchronize()
+    err = max(float((means - pmeans).abs().max()), abs(float(mean - pmean)))
+    check(err <= ssim.ATOL, f"ssim: err {err} > {ssim.ATOL}")
+    again = ssim.ssim(x, y)
+    check(torch.equal(again[0], means) and torch.equal(again[1], mean),
+          "ssim not repeatable")
+    xr, yr = x[:3, :37, :45].contiguous(), y[:3, :37, :45].contiguous()
+    rerr = float((ssim.ssim(xr, yr)[0] - ssim.ssim_plain(xr, yr)[0]).abs()
+                 .max())
+    check(rerr <= ssim.ATOL, f"ssim ragged: err {rerr}")
+    row.err = err
+    moved = nbytes(x, y, means, mean)
+    ms = time_ms(lambda: ssim.ssim(x, y))
+    cold = time_cold_ms(ssim.ssim, cold_sets(lambda i: ssim_pair(g), moved))
+    pms = time_ms(lambda: ssim.ssim_plain(x, y), iters=3, warmup=1)
+    stacked = torch.cat([x, y, x * x, y * y, x * y], -1).permute(
+        0, 3, 1, 2).contiguous()
+    w = ssim.window_2d().to("cuda").expand(15, 1, 11, 11).contiguous()
+    yard = time_ms(lambda: F.conv2d(stacked, w, padding=5, groups=15))
+    ops = x.numel() * SSIM_FLOPS
+    row.add(ms, pms, moved, ops, yardstick_ms=yard, cold_ms=cold)
+    bms, by = bound(moved, ops)
+    print(f"check ssim {tuple(x.shape)} f32: mean {float(mean):.6f}, max "
+          f"abs err vs plain {err:.3g} (ragged 3x37x45: {rerr:.3g}; tol "
+          f"{ssim.ATOL}), bit-identical over repeated calls; ms={ms:.4f} "
+          f"cold_ms={cold:.4f} plain_ms={pms:.4f} conv2d_yardstick_ms="
+          f"{yard:.4f} bound_ms={bms:.4f} ({by}) share_of_bound="
+          f"{bms / ms:.3f} cold_share={bms / cold:.3f} [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -884,6 +1045,114 @@ def run_train(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 7
+
+
+def eval_preds(model, video, mask_, prev, draws):
+    """The eval step's prediction, rebuilt from its public parts."""
+    with torch.no_grad():
+        fwd = model.embed(video)
+        attacked = attack_pool_video(fwd * (1.0 - mask_) + prev * mask_,
+                                     draws, model.attack_ratios,
+                                     model.kernels).clamp(0.0, 1.0)
+        return model.predict_mask(attacked)
+
+
+def f1_bounds(pk, pp, gt):
+    """Per level, ``4·n/(2·tp + fp + fn)`` with ``n`` the pixels whose
+    predictions lie on the two sides of the level on the two paths; and the
+    ``n``."""
+    pkl, ppl = torch.trunc(pk * 255.0), torch.trunc(pp * 255.0)
+    g = gt > 0.5
+    out, flips = [], []
+    for t in LEVELS:
+        on = pkl > t
+        n = int(((pkl > t) != (ppl > t)).sum())
+        denom = 2 * int((on & g).sum()) + int((on ^ g).sum())
+        out.append(4.0 * n / max(denom, 1))
+        flips.append(n)
+    return out, flips
+
+
+def run_eval(card):
+    """The flagship eval step at full width through KERNELS, with the
+    launch counts at 0 just before and read just after; KERNELS against
+    PLAIN on the same weights, batch, previous batch and draws; then 2
+    warm-up and 10 timed steps."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    states = perturbed_states(cfg, seed=7)
+    model = VideoWatermarkModel(cfg)
+    model.load_states(states)
+    plain = VideoWatermarkModel(cfg, kernels=PLAIN)
+    plain.load_states(states)
+    loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=14 * B,
+                                          seed=cfg.train.seed), B,
+                    seed=cfg.train.seed)
+    batches = [model.to_device(v, m) for v, m in loader]  # 14 batches
+    prev, (video, mask_) = batches[0][0], batches[1]
+    draws = model.sample_draws(B, T)
+    model.eval_step(video, mask_, prev, draws)  # warm up cuDNN/cuBLAS
+    torch.cuda.synchronize()
+
+    # the main path, with the launch counts at 0 just before
+    reset_launch_counts()
+    out_k = model.eval_step(video, mask_, prev, draws)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"main path launches per eval step: {json.dumps(launches)}")
+    check(launches == EVAL_LAUNCHES, f"eval launch counts {launches}")
+
+    out_p = plain.eval_step(video, mask_, prev, draws)
+    mk = {k: v.tolist() for k, v in out_k.items()}
+    mp = {k: v.tolist() for k, v in out_p.items()}
+    check(all(np.isfinite(np.asarray(v)).all() for v in mk.values()),
+          f"eval metrics {mk}")
+    check(mk["psnr_forward"] > 30.0 and 0.0 < mk["ssim_forward"] <= 1.0
+          and 0.0 <= mk["f1_best"] <= 1.0, f"eval metrics {mk}")
+    dpsnr = abs(mk["psnr_forward"] - mp["psnr_forward"])
+    dssim = abs(mk["ssim_forward"] - mp["ssim_forward"])
+    check(dpsnr <= EVAL_PSNR_ATOL, f"eval psnr kernels {mk} plain {mp}")
+    check(dssim <= EVAL_SSIM_ATOL, f"eval ssim kernels {mk} plain {mp}")
+    bounds, flips = f1_bounds(eval_preds(model, video, mask_, prev, draws),
+                              eval_preds(plain, video, mask_, prev, draws),
+                              mask_)
+    df1 = [abs(a - b) for a, b in zip(mk["f1_sweep"], mp["f1_sweep"])]
+    check(all(d <= b + 1e-6 for d, b in zip(df1, bounds)),
+          f"eval f1 kernels {mk['f1_sweep']} plain {mp['f1_sweep']} "
+          f"bounds {bounds}")
+    print(f"eval step bf16 {B}x{T}x{S}x{S}: kernels {json.dumps(mk)} plain "
+          f"{json.dumps(mp)}; |dpsnr| {dpsnr:.3g} dB (tol "
+          f"{EVAL_PSNR_ATOL}), |dssim| {dssim:.3g} (tol {EVAL_SSIM_ATOL}), "
+          f"|df1| per level {[round(d, 8) for d in df1]} within "
+          f"{[round(b, 8) for b in bounds]} (pixels across a level "
+          f"between the paths {flips} of {video.numel() // 3})")
+
+    times, psnrs = [], []
+    for i in range(2, 14):
+        p, (v, m) = batches[i - 1][0], batches[i]
+        t0 = time.perf_counter()
+        out = model.eval_step(v, m, p)
+        torch.cuda.synchronize()
+        if i >= 4:
+            times.append((time.perf_counter() - t0) * 1e3)
+        psnrs.append(float(out["psnr_forward"]))
+    check(all(math.isfinite(x) for x in psnrs), f"eval psnr {psnrs}")
+    p50 = float(np.percentile(times, 50))
+    fps = B * T / p50 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"eval step p50_ms={p50:.3f} frames_per_s={fps:.1f} over "
+          f"{len(times)} timed steps of {B}x{T}x{S}x{S} bf16 (2 warm-up); "
+          f"peak memory {peak:.2f} GiB [{card}]")
+    print(json.dumps({"eval": {
+        "eval_step_p50_ms": p50, "frames_per_s": fps,
+        "timed_steps": len(times), "peak_memory_gib": peak, "batch": B,
+        "frames": T, "size": S, "metrics": {"kernels": mk, "plain": mp},
+        "f1_flips_per_level": flips, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -908,6 +1177,8 @@ def main():
     check_mask(rows, card)
     check_jpeg(rows, card)
     check_median(rows, card)
+    check_f1(rows, card)
+    check_ssim(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -915,8 +1186,10 @@ def main():
     run_timing(server, plain, clips, card)
     del server, plain
     train_launches = run_train(card)
+    eval_launches = run_eval(card)
 
-    by_path = {"roundtrip": launches, "train_step": train_launches}
+    by_path = {"roundtrip": launches, "train_step": train_launches,
+               "eval_step": eval_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

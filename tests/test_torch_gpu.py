@@ -13,7 +13,9 @@ is within 1e-6 of the threshold. K5 ``jpeg_pair`` agrees to 1e-4 except in
 8×8 blocks where a coefficient within rounding of a .5 boundary rounded the
 other way (its DCT sums in another order than ``torch.matmul``); those
 blocks are counted and bounded. K6 ``median3`` is exact, forward and
-backward (same codes, same summation order).
+backward (same codes, same summation order). K7 ``f1_sweep``'s counts are
+exact (integer sums); K8 ``ssim`` is within ``ssim.ATOL`` (1e-5) on every
+per-image mean and on the mean (separable window sums in another order).
 """
 
 import dataclasses
@@ -24,9 +26,11 @@ import torch
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
-from vwfd_tpu_torch.kernels import (PLAIN, coupling, jpeg, launch_counts,
-                                    mask, median, reset_launch_counts,
-                                    transition, wire)
+from vwfd_tpu_torch.kernels import (PLAIN, coupling, f1, jpeg,
+                                    launch_counts, mask, median,
+                                    reset_launch_counts, ssim, transition,
+                                    wire)
+from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
 
@@ -272,7 +276,7 @@ def test_server_on_card_matches_plain_and_counts_launches(cuda):
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 2, "mask_pack": 1, "jpeg_pair": 0,
-                               "median3": 0}
+                               "median3": 0, "f1_sweep": 0, "ssim": 0}
     want = ref.serve(clip, "roundtrip")
     assert launch_counts()["transition"] == 6  # the plain server launches none
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
@@ -456,7 +460,7 @@ def test_train_step_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 11, "coupling_head": 10,
                                "wire": 0, "mask_pack": 0, "jpeg_pair": 2,
-                               "median3": 2}
+                               "median3": 2, "f1_sweep": 0, "ssim": 0}
     lp, ap, gp, _ = pm.loss_and_grads(video, mask, prev, draws)
     for a, b in ((lk, lp), (ak["lF"], ap["lF"]), (ak["lB"], ap["lB"])):
         assert abs(float(a) - float(b)) <= 1e-2 * abs(float(b))
@@ -464,3 +468,87 @@ def test_train_step_kernels_match_plain(cuda):
         flat_k = torch.cat([t.flatten() for t in gk[net]])
         flat_p = torch.cat([t.flatten() for t in gp[net]])
         assert _cos(flat_k, flat_p) >= 0.999, net
+
+
+_LEVELS = [threshold_level(t) for t in np.float32(DEFAULT_THRESHOLDS)]
+
+
+# (shape, element offset): 16-byte vectors with a tail, an odd size, a
+# base off the 16-byte grid (the scalar path)
+@pytest.mark.parametrize("shape,offset", [((2, 4, 32, 33, 1), 0),
+                                          ((3, 5, 7), 0), ((4097,), 1)])
+def test_f1_sweep_kernel_counts_equal_plain(cuda, shape, offset):
+    g = _gen(15)
+    n = int(np.prod(shape))
+    base = torch.rand(n + offset, device=cuda, generator=g)
+    k = torch.arange(256, device=cuda) / 255.0
+    m = min(n, 256)
+    base[offset:offset + m] = k[:m]  # every k/255 boundary
+    base[offset + n // 2] = float("nan")
+    pred = base[offset:].view(shape)
+    gt = (torch.rand(shape, device=cuda, generator=g) < 0.3).float()
+    gt.view(-1)[-1] = float("nan")
+    for levels in (_LEVELS, list(range(0, 256, 16))):
+        before = launch_counts()["f1_sweep"]
+        got = f1.f1_sweep(pred, gt, levels)
+        assert launch_counts()["f1_sweep"] == before + 1
+        want = f1.f1_sweep_plain(pred, gt, levels)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+# (N, H, W): whole 32×32 tiles on the 16-byte path, ragged tiles with
+# W % 4 != 0 (scalar staging), ragged tiles with W % 4 == 0, a frame
+# narrower than the halo
+@pytest.mark.parametrize("shape", [(2, 64, 64), (3, 37, 45), (1, 40, 52),
+                                   (2, 31, 8)])
+def test_ssim_kernel_matches_plain(cuda, shape):
+    g = _gen(16)
+    x = torch.rand(*shape, 3, device=cuda, generator=g)
+    y = (x + 0.05 * torch.randn(x.shape, device=cuda, generator=g)).clamp(0, 1)
+    y[:, :10, :10] = x[:, :10, :10] = 0.5  # a flat patch: σ² cancels
+    before = launch_counts()["ssim"]
+    means, mean = ssim.ssim(x, y)
+    assert launch_counts()["ssim"] == before + 1
+    pmeans, pmean = ssim.ssim_plain(x, y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(means, pmeans, rtol=0, atol=ssim.ATOL)
+    torch.testing.assert_close(mean, pmean, rtol=0, atol=ssim.ATOL)
+    again = ssim.ssim(x, y)
+    assert torch.equal(again[0], means) and torch.equal(again[1], mean)
+
+
+def test_eval_step_kernels_match_plain(cuda):
+    """One bf16 eval step of the flagship model at 64² through KERNELS and
+    PLAIN from the same weights, batch and draws: it launches K1 ×6, K2
+    ×10, K5 ×1, K6 ×1, K7 ×1, K8 ×1; PSNR within 0.01 dB, SSIM within
+    1e-4 and each F1 within 0.05 (64² frames: a pixel that crosses a level
+    between the paths moves an F1 by about 1e-4)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64))
+    km = VideoWatermarkModel(cfg)
+    km.init_states(3)
+    with torch.no_grad():
+        for p in km.inn.parameters():
+            if p.dim() == 4 and p.shape[-1] == 1:  # perturb the zero heads
+                p.add_(5e-4 * torch.randn(p.shape, device=cuda,
+                                          generator=_gen(17)))
+    pm = VideoWatermarkModel(cfg, kernels=PLAIN)
+    pm.load_states(km.states())
+    rng = np.random.default_rng(1)
+    video = rng.random((2, 4, 64, 64, 3), dtype=np.float32)
+    prev = rng.random((2, 4, 64, 64, 3), dtype=np.float32)
+    mask = (rng.random((2, 4, 64, 64, 1)) < 0.2).astype(np.float32)
+    draws = km.sample_draws(2, 4)
+    reset_launch_counts()
+    ok = km.eval_step(video, mask, prev, draws)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"transition": 6, "coupling_head": 10,
+                               "wire": 0, "mask_pack": 0, "jpeg_pair": 1,
+                               "median3": 1, "f1_sweep": 1, "ssim": 1}
+    op = pm.eval_step(video, mask, prev, draws)
+    assert abs(float(ok["psnr_forward"]) - float(op["psnr_forward"])) <= 0.01
+    assert abs(float(ok["ssim_forward"]) - float(op["ssim_forward"])) <= 1e-4
+    torch.testing.assert_close(ok["f1_sweep"], op["f1_sweep"], rtol=0,
+                               atol=0.05)

@@ -6,10 +6,11 @@ functions keep the JAX package's NHWC layout. Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``; without a card they raise.
 
 It serves the flagship embed → detect roundtrip
-(``serving.WatermarkServer``) and trains the flagship
+(``serving.WatermarkServer``), trains the flagship
 (``models.VideoWatermarkModel.train_step`` / ``fit``, ``python -m
-vwfd_tpu_torch.train``) through six hand-written CUDA kernels
-(``kernels``). The eval step comes in a later slice.
+vwfd_tpu_torch.train``) and evaluates it (``eval_step``, ``extract_f1``,
+``eval_real_jpeg``, ``python -m vwfd_tpu_torch.train --val``) through eight
+hand-written CUDA kernels (``kernels``).
 """
 
 import os

@@ -30,6 +30,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
 # The C interface, one entry per exported function: argtypes (the trailing
 # void* is the CUDA stream); every launcher returns a cudaError_t as int.
 _SIGNATURES = {
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vwfd_median3_fwd": [_P, _P, _I, _I, _I, _P],
     "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    "vwfd_f1_sweep": [_P, _P, _L, _FP, _I, _P, _I, _P],
+    "vwfd_ssim": [_P, _P, _I, _I, _I, _FP, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -154,6 +157,22 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.vwfd_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+def stream_scratch(cache: dict, dev: torch.device, specs):
+    """Scratch tensors of the current stream on ``dev``, kept in ``cache``
+    from call to call: one per ``(numel, dtype, zeroed)`` of ``specs``,
+    reallocated only when it must grow (a grown ``zeroed`` one starts at
+    0). A kernel that keeps tickets here must leave them at 0. Launches on
+    one stream run one after another, so they never share the scratch at
+    the same time."""
+    key = dev, torch.cuda.current_stream(dev).cuda_stream
+    old = cache.get(key, [None] * len(specs))
+    new = [t if t is not None and t.numel() >= n else
+           (torch.zeros if zeroed else torch.empty)(n, device=dev, dtype=dt)
+           for t, (n, dt, zeroed) in zip(old, specs)]
+    cache[key] = new
+    return new
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -27,7 +27,7 @@ ticket and partial scratch live in buffers kept per device and stream, and a
 call allocates only its outputs.
 """
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -41,11 +41,7 @@ COUNT = _lib.LaunchCount("mask_pack")
 _BIT_WEIGHTS = np.array([128, 64, 32, 16, 8, 4, 2, 1], np.uint8)
 _WARPS = 8       # warps per block on the fast path (csrc/mask.cu kWarps)
 _WAVES = 4       # fast-path grid: about this many blocks per SM
-# Per (device, stream handle): (tickets, partials). The tickets are zeroed
-# once here and left at 0 by every launch. Launches on one stream run one
-# after another, so they never share the scratch at the same time.
-_SCRATCH: Dict[Tuple[torch.device, int],
-               Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH: dict = {}  # per (device, stream): tickets, partials
 
 
 def _check(logits: torch.Tensor, frames: int, s: int) -> None:
@@ -63,20 +59,6 @@ def fast_grid(clips: int, rows_per_clip: int, sms: int) -> Tuple[int, int]:
     clip's ``rows_per_clip`` logits rows."""
     rpw = max(1, -(-clips * rows_per_clip // (_WARPS * _WAVES * sms)))
     return -(-rows_per_clip // (_WARPS * rpw)), rpw
-
-
-def _scratch(dev: torch.device, b: int, g: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The current stream's scratch on ``dev``, grown to ``b`` clips of ``g``
-    partials."""
-    key = dev, torch.cuda.current_stream(dev).cuda_stream
-    tickets, partials = _SCRATCH.get(key, (None, None))
-    if tickets is None or tickets.numel() < b:
-        tickets = torch.zeros(b, device=dev, dtype=torch.int32)
-    if partials is None or partials.numel() < b * g:
-        partials = torch.empty(b * g, device=dev, dtype=torch.float32)
-    _SCRATCH[key] = tickets, partials
-    return tickets, partials
 
 
 def mask_pack_plain(logits: torch.Tensor, frames: int, s: int,
@@ -121,7 +103,9 @@ def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float
     else:
         clip_bytes = frames * h * (w // 8 if packed else w)
         g, rpw = max(1, min(64, -(-clip_bytes // 1024))), 0
-    tickets, partials = _scratch(dev, b, g)
+    tickets, partials = _lib.stream_scratch(
+        _SCRATCH, dev, [(b, torch.int32, True),
+                        (b * g, torch.float32, False)])
     _lib.launch("vwfd_mask_pack", dev, logits.data_ptr(), mask.data_ptr(),
                 partials.data_ptr(), tickets.data_ptr(), frac.data_ptr(), b,
                 frames, h, w, s, float(threshold), int(packed), g, rpw,

@@ -1,4 +1,4 @@
-"""Per-net optimizer (port of vwfd_tpu/models/state.py:37-64).
+"""Per-net optimizer and checkpoints (port of vwfd_tpu/models/state.py).
 
 ``AdamW`` is ``optax.chain(clip_by_global_norm(clip), adamw(lr, b1, b2,
 weight_decay))`` with optax's arithmetic: the clip scales by
@@ -11,8 +11,17 @@ The state (moments and step count) lives in tensors on the parameters'
 device, and ``step`` takes a 0-dim bool ``good``: where it is False every
 parameter, moment and the count keep their values (``torch.where``, no host
 sync), as the JAX step's non-finite guard does.
+
+Checkpoints (``save_checkpoint`` / ``restore_checkpoint`` / ``latest_step``,
+``state.py:116-147``) are torch-native: one directory per step, named by
+the step's digits, holding every net's parameters and buffers (the
+BatchNorm running statistics) and each net's AdamW moments and step count,
+so a restored model continues bit for bit. Reading the JAX package's orbax
+checkpoints needs orbax, which the port does not import.
 """
 
+import os
+import shutil
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
@@ -20,9 +29,11 @@ import torch
 from ..config import TrainConfig
 from .schedules import cosine_restart, multistep_restart, with_warmup
 
-__all__ = ["AdamW", "make_optimizer"]
+__all__ = ["AdamW", "make_optimizer", "save_checkpoint",
+           "restore_checkpoint", "latest_step", "CKPT_FILE"]
 
 _EPS = 1e-8  # optax.adamw's eps (eps_root 0)
+CKPT_FILE = "state.pt"  # the file in each step's directory
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -90,3 +101,56 @@ def make_optimizer(params: Sequence[torch.Tensor], tc: TrainConfig
     lr = with_warmup(lr, tc.warmup_steps)
     return AdamW(params, lr, tc.beta1, tc.beta2, tc.weight_decay,
                  tc.gradient_clipping)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, model) -> str:
+    """Write ``model``'s state (a ``VideoWatermarkModel``: its nets'
+    state dicts and its optimizers' ``mu``, ``nu`` and ``count``) to
+    ``ckpt_dir/<step>/``, replacing a checkpoint of the same step. The
+    directory appears whole or not at all. Returns its path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, str(step)))
+    payload = {
+        "step": int(step),
+        "nets": {name: {k: v.detach().cpu()
+                        for k, v in net.state_dict().items()}
+                 for name, net in model.nets().items()},
+        "optimizers": {name: {"mu": [t.cpu() for t in opt.mu],
+                              "nu": [t.cpu() for t in opt.nu],
+                              "count": opt.count.cpu()}
+                       for name, opt in model.optimizers.items()},
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(payload, os.path.join(tmp, CKPT_FILE))
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, model) -> None:
+    """Load ``ckpt_dir/<step>/`` into ``model`` in place: parameters,
+    buffers and optimizer state, each of the same shape as the model's
+    (raises otherwise)."""
+    payload = torch.load(os.path.join(ckpt_dir, str(step), CKPT_FILE),
+                         map_location="cpu", weights_only=True)
+    model.load_states(payload["nets"])
+    with torch.no_grad():
+        for name, opt in model.optimizers.items():
+            saved = payload["optimizers"][name]
+            for key in ("mu", "nu"):
+                dst, src = getattr(opt, key), saved[key]
+                if [t.shape for t in dst] != [t.shape for t in src]:
+                    raise ValueError(f"checkpoint {step}: {name}.{key} "
+                                     f"does not fit the model")
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+            opt.count.copy_(saved["count"])
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The largest step with a checkpoint directory in ``ckpt_dir``."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d) for d in os.listdir(ckpt_dir) if d.isdigit()]
+    return max(steps) if steps else None

@@ -1,6 +1,6 @@
 """Flagship video watermarking model (port of vwfd_tpu/models/video_model.py):
 the INN that embeds the watermark and the UNet that predicts the per-frame
-tamper mask, served and trained.
+tamper mask, served, trained and evaluated.
 
 Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
 
@@ -16,16 +16,25 @@ Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
    counts and BatchNorm running statistics keep their pre-step values, by
    ``torch.where`` on the device (no host sync).
 
+Eval step (``video_model.py:257-275``): embed, splice, the attack pool on
+its draws, ``clip(·, 0, 1)`` with no quantizer, the UNet in eval mode, then
+the int-truncated PSNR, SSIM (K8) over the B·T frames and the F1 sweep (K7),
+all as device tensors. ``extract_f1`` (``:277-283``) and ``eval_real_jpeg``
+(``:285-305``, with the host JPEG codec an argument: the port reads no
+image library).
+
 Ported: ``_to_channels``, ``_to_frames``, ``__init__``, ``init_states``,
-``embed``, ``predict_mask``, ``_loss``, ``train_step`` and ``fit`` (with the
-previous-batch buffer). Not yet: ``eval_step``, ``extract_f1``,
-``eval_real_jpeg``, montages and checkpoints.
+``embed``, ``predict_mask``, ``_loss``, ``train_step``, ``fit`` (with the
+previous-batch buffer and checkpoints every ``save_interval`` steps),
+``eval_step``, ``extract_f1`` and ``eval_real_jpeg``. Not yet: montages
+(they need an image writer).
 """
 
 import logging
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..attacks import AttackDraws, attack_pool_video, sample_attack_draws
@@ -33,10 +42,10 @@ from ..attacks.spatial import DEFAULT_RATIOS
 from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..kernels import KERNELS, KernelSet
-from ..metrics import bce_with_logits, l1_loss, psnr255_int
+from ..metrics import bce_with_logits, f1_sweep, l1_loss, psnr255_int, ssim
 from ..nets import InvertibleNet, UNetTPU
 from ..ops.quantize import clamp_with_grad, ste_quantize_255
-from .state import AdamW, make_optimizer
+from .state import AdamW, make_optimizer, save_checkpoint
 
 __all__ = ["VideoWatermarkModel", "_to_channels", "_to_frames", "NETS"]
 
@@ -245,11 +254,78 @@ class VideoWatermarkModel:
         self.unet.load_stats(stats, good)
         return {"loss": loss, **aux}
 
-    def fit(self, loader, steps: int):
+    # --------------------------------------------------------------- eval
+
+    @torch.no_grad()
+    def eval_step(self, video, mask, prev,
+                  draws: Optional[AttackDraws] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """Embed → splice → attack → localize on a batch (video
+        (B,T,H,W,3), mask (B,T,H,W,1)) with the previous batch ``prev``
+        spliced in. Returns ``psnr_forward``, ``ssim_forward``, ``f1_best``
+        (0-dim) and ``f1_sweep`` (9,) as float32 tensors on the device (no
+        host sync)."""
+        video, mask, prev = self.to_device(video, mask, prev)
+        if draws is None:
+            draws = self.sample_draws(video.shape[0], video.shape[1])
+        fwd_video = self.embed(video)
+        attacked_fwd = fwd_video * (1.0 - mask) + prev * mask
+        attacked = attack_pool_video(attacked_fwd, draws.to(self.device),
+                                     self.attack_ratios, self.kernels)
+        attacked = torch.clamp(attacked, 0.0, 1.0)
+        pred_mask = self.predict_mask(attacked)
+        _, f1s = f1_sweep(pred_mask, mask, kernels=self.kernels)
+        return {
+            "psnr_forward": psnr255_int(video, fwd_video),
+            "ssim_forward": ssim(fwd_video.reshape(-1, *fwd_video.shape[2:]),
+                                 video.reshape(-1, *video.shape[2:]),
+                                 kernels=self.kernels),
+            "f1_best": torch.max(f1s),
+            "f1_sweep": f1s,
+        }
+
+    @torch.no_grad()
+    def extract_f1(self, attacked, mask) -> torch.Tensor:
+        """Best-threshold F1 of the extractor on already attacked frames
+        (B,T,H,W,3): the building block of host-side attack evals."""
+        attacked, mask = self.to_device(attacked, mask)
+        _, f1s = f1_sweep(self.predict_mask(attacked), mask,
+                          kernels=self.kernels)
+        return torch.max(f1s)
+
+    @torch.no_grad()
+    def eval_real_jpeg(self, video, mask, prev,
+                       codec: Callable[[np.ndarray, int], np.ndarray],
+                       qualities: Sequence[int] = (50, 70, 90)
+                       ) -> Dict[str, float]:
+        """Robustness to a real JPEG codec: embed, splice-tamper, clip, then
+        ``codec(frames, quality)`` (float32 NHWC frames in [0, 1] → the
+        decoded frames, on the host) at each quality before localization.
+        Returns ``{"none": f1, "qf50": f1, ...}``. The card machine has no
+        image library, so the codec is the caller's (the tests pass
+        ``vwfd_tpu.attacks.jpeg.jpeg_real``, i.e. PIL's libjpeg)."""
+        video, mask, prev = self.to_device(video, mask, prev)
+        fwd = self.embed(video)
+        tampered = torch.clamp(fwd * (1.0 - mask) + prev * mask, 0.0, 1.0)
+        b, t, h, w, c = tampered.shape
+        frames = tampered.reshape(b * t, h, w, c).cpu().numpy()
+        out = {"none": float(self.extract_f1(tampered, mask))}
+        for q in qualities:
+            att = np.asarray(codec(frames, q), np.float32).reshape(
+                b, t, h, w, c)
+            out[f"qf{q}"] = float(self.extract_f1(att, mask))
+        return out
+
+    # --------------------------------------------------------------- loop
+
+    def fit(self, loader, steps: int, ckpt_dir: Optional[str] = None):
         """Epoch loop (train.py:91-109) with the previous-batch buffer: the
-        first batch only seeds it. Returns ``(states, logs)`` with the last
-        step's logs as floats."""
+        first batch only seeds it. With ``ckpt_dir``, a checkpoint is
+        written every ``TrainConfig.save_interval`` steps
+        (``video_model.py:356-357``). Returns ``(states, logs)`` with the
+        last step's logs as floats."""
         log = logging.getLogger("base")
+        interval = self.cfg.train.save_interval
         prev, step, logs_out = None, 0, {}
         while step < steps:
             seen = 0
@@ -268,6 +344,8 @@ class VideoWatermarkModel:
                     log.warning("non-finite loss at step %d: update skipped "
                                 "(the guard kept the pre-step state)", step)
                 prev = video
+                if ckpt_dir and step % interval == 0:
+                    save_checkpoint(ckpt_dir, step, self)
             if not seen:
                 raise ValueError("the loader yields no batches")
         return self.states(), logs_out

@@ -1,17 +1,20 @@
-"""Where the serving roundtrip's, or the train step's, time goes on the card.
+"""Where the serving roundtrip's, the train step's or the eval step's time
+goes on the card.
 
     python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
     python -m vwfd_tpu_torch.profile_roundtrip --mode train [--requests 5]
+    python -m vwfd_tpu_torch.profile_roundtrip --mode eval [--requests 5]
 
 ``--mode roundtrip`` (the default) serves the flagship roundtrip
 (``configs/video.yaml``: batch 16, T=4, 256², bf16; random weights from a
-seed); ``--mode train`` runs the flagship ``train_step`` on synthetic
-batches. Either runs under ``torch.profiler`` after a warm-up, then prints
-one JSON line: the host wall time per request (or step), the device time
-per request by kernel class (the port's kernels, convolutions, GEMMs,
-BatchNorm, concatenations, other elementwise work, copies), the kernels of
-the GEMM class and the twelve longest kernels by name, and the device's
-idle share over the window (1 − device busy time / host wall time).
+seed); ``--mode train`` runs the flagship ``train_step`` and ``--mode
+eval`` its ``eval_step`` on synthetic batches. Each runs under
+``torch.profiler`` after a warm-up, then prints one JSON line: the host
+wall time per request (or step), the device time per request by kernel
+class (the port's kernels, convolutions, GEMMs, BatchNorm, concatenations,
+other elementwise work, copies), the kernels of the GEMM class and the
+twelve longest kernels by name, and the device's idle share over the
+window (1 − device busy time / host wall time).
 Needs the CUDA card; ``--trace`` also writes a Chrome trace.
 """
 
@@ -36,7 +39,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "wire": ("wire_decode_rows", "wire_encode_rows",
                          "u8_to_channels", "channels_to_u8", "u8_to_s2d"),
                 "mask_pack": ("mask_pack",),
-                "jpeg_pair": ("jpeg_pair",), "median3": ("median3",)}
+                "jpeg_pair": ("jpeg_pair",), "median3": ("median3",),
+                "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_tiles",)}
 
 
 def classify(name: str) -> str:
@@ -62,9 +66,9 @@ def classify(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="roundtrip",
-                    choices=["roundtrip", "train"])
+                    choices=["roundtrip", "train", "eval"])
     ap.add_argument("--requests", type=int, default=10,
-                    help="requests (or train steps) in the window")
+                    help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -72,19 +76,21 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
-    if args.mode == "train":
+    if args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg)
         model.init_states(cfg.train.seed)
         loader = Loader(SyntheticVideoDataset(size=s, frames=t, length=4 * b),
                         b)
         batches = [model.to_device(v, m) for v, m in loader]
+        step_fn = model.train_step if args.mode == "train" else \
+            model.eval_step
         step = [0]
 
         def one():
             i = step[0] = step[0] + 1
             video, mask = batches[i % len(batches)]
             prev = batches[(i - 1) % len(batches)][0]
-            return model.train_step(video, mask, prev)
+            return step_fn(video, mask, prev)
     else:
         server = WatermarkServer(cfg, modes=("roundtrip",))
         clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
