@@ -12,8 +12,9 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
 3. per-kernel checks at the flagship serving shapes (batch 16, T=4, 256²),
    in bf16 and f32, each kernel against its plain PyTorch version on the
    card, with the tolerances stated in ``TOL`` below; each kernel is timed
-   beside its plain version with CUDA events: K1 per map beside the single
-   ``F.conv2d`` / ``F.conv_transpose2d`` call that computes the same map, K2
+   beside its plain version with CUDA events, warm and with a cold L2: K1
+   per map beside the single ``F.conv2d`` / ``F.conv_transpose2d`` call
+   that computes the same map, K2
    ``coupling_head`` at both coupling levels, forward and inverse, f32 and
    bf16, beside ``torch.cat`` + ``torch.matmul`` of the same shapes (the
    unfused path's yardstick; no single call computes the fused function);
@@ -29,10 +30,14 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    timed forward + backward, warm and with a cold L2, beside its plain
    version; then the eval kernels at the eval shape: K7 ``f1_sweep``
    (64 frames of 256² f32, every k/255 boundary and NaN pixels) with counts
-   EQUAL to the plain version's, and K8 ``ssim`` (64 frames of 256²×3 f32,
-   with a flat patch) within ``ssim.ATOL`` on every per-image mean and the
-   mean, each timed warm and with a cold L2 beside its plain version, K8
-   also beside a depthwise 11×11 ``F.conv2d`` yardstick;
+   EQUAL to the plain version's for each compiled level count (1, 9 and the
+   generic 16 with unsorted, duplicate and out-of-range levels), there and
+   on 100,003 pixels off the 16-byte grid, and K8 ``ssim`` (64 frames of
+   256²×3 f32, with a flat patch) within ``ssim.ATOL`` on every per-image
+   mean and the mean, bit-identical over calls, on ragged shapes and with
+   a NaN pixel (NaN means where the plain version's are), each timed warm
+   and with a cold L2 beside its plain version, K8 also beside a depthwise
+   11×11 ``F.conv2d`` yardstick;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -154,7 +159,11 @@ EVAL_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 0,
 # the rows' main paths: each row is timed per launch of its path
 ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "f1_sweep": "eval_step", "ssim": "eval_step"}
-SSIM_FLOPS = 243  # per value: 2 passes x 5 sums x 11 FMA, products, map
+# per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
+# E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
+# the products x², y² and xy summed 4, the map 15 (its division one), the
+# mean's add 1
+SSIM_FLOPS = 196
 # eval step, KERNELS vs PLAIN (bf16, full width): PSNR and SSIM within these
 # (the embed differs by one level on < 0.01 % of pixels, F7; K8 sums the
 # windows in another order); each F1 within 4·n/(2·tp + fp + fn), n the
@@ -301,17 +310,22 @@ def check_transition(rows, card):
                 lib = (lambda: F.conv_transpose2d(xc, w, stride=s)) \
                     if transpose else (lambda: F.conv2d(xc, w, stride=s))
                 ms = time_ms(lambda: transition.transition(x, kind, transpose))
+                cold = time_cold_ms(
+                    lambda v: transition.transition(v, kind, transpose),
+                    cold_sets(lambda i: (torch.randn(
+                        src, device=dev, generator=g).to(dt),), nbytes(x, y)))
                 pms = time_ms(
                     lambda: transition.transition_plain(x, kind, transpose))
                 lms = time_ms(lib)
-                row.add(ms, pms, nbytes(x, y), 3 * y.numel(), lms)
+                row.add(ms, pms, nbytes(x, y), 3 * y.numel(), lms,
+                        cold_ms=cold)
                 bms = bound(nbytes(x, y), 3 * y.numel())[0]
                 print(f"check transition {kind}{'T' if transpose else ''} "
                       f"bf16 {tuple(x.shape)}->{tuple(y.shape)} "
                       f"max_abs_err={err} inverse_err={inv_err} ms={ms:.4f} "
-                      f"plain_ms={pms:.4f} library_ms={lms:.4f} "
-                      f"bound_ms={bms:.4f} share_of_bound={bms / ms:.3f} "
-                      f"[{card}]")
+                      f"cold_ms={cold:.4f} plain_ms={pms:.4f} "
+                      f"library_ms={lms:.4f} bound_ms={bms:.4f} "
+                      f"share_of_bound={bms / ms:.3f} [{card}]")
 
 
 def check_coupling(rows, card):
@@ -353,6 +367,15 @@ def check_coupling(rows, card):
                 o = out[..., :c]
                 ms = time_ms(lambda: coupling.coupling_head(xin, h, p, x,
                                                             out=o))
+                cold = time_cold_ms(
+                    lambda zz, hh, oo: coupling.coupling_head(
+                        zz[..., c:], hh, p, zz[..., :c], out=oo[..., :c]),
+                    cold_sets(lambda i: (
+                        torch.randn(B, hw, hw, cz, device=dev,
+                                    generator=g).to(dt),
+                        torch.randn(B, hw, hw, 128, device=dev,
+                                    generator=g).to(dt),
+                        torch.empty_like(z)), nbytes(z, h, z)))
                 pms = time_ms(lambda: coupling.coupling_head_plain(
                     xin, h, p, x, out=o))
                 cat_mm = time_ms(lambda: torch.matmul(
@@ -362,10 +385,12 @@ def check_coupling(rows, card):
                 flops = 2 * m * k * cz
                 row.add(launches * ms, launches * pms, launches * moved,
                         launches * flops, ops_per_s=BF16_TC_OPS_PER_S,
-                        yardstick_ms=launches * cat_mm)
+                        yardstick_ms=launches * cat_mm,
+                        cold_ms=launches * cold)
                 bms, by = bound(moved, flops, BF16_TC_OPS_PER_S)
                 print(f"check coupling_head z={cz} bf16 M={m} K={k} N={cz} "
-                      f"ms={ms:.4f} plain_ms={pms:.4f} cat_matmul_ms="
+                      f"ms={ms:.4f} cold_ms={cold:.4f} plain_ms={pms:.4f} "
+                      f"cat_matmul_ms="
                       f"{cat_mm:.4f} bound_ms={bms:.4f} ({by}) "
                       f"share_of_bound={bms / ms:.3f} (x{launches} per "
                       f"roundtrip) [{card}]")
@@ -692,6 +717,11 @@ def check_median(rows, card):
 
 
 LEVELS = [threshold_level(t) for t in np.float32(DEFAULT_THRESHOLDS)]
+# K7's generic 16-level variant: one level (mask_confusion), and unsorted,
+# duplicate and out-of-range levels
+F1_LEVEL_SETS = ([127.0], [204.0, 25.0, 127.0, 127.0, -1.0],
+                 [229.0, 0.0, 255.0, 51.0, 76.0, 300.0, 102.0, 153.0, 178.0,
+                  25.0, 25.0, 127.5, 204.0, -0.5, 254.0, 128.0])
 
 
 def eval_pred(g):
@@ -727,9 +757,12 @@ def check_f1(rows, card):
           "f1_sweep counts not repeatable")
     # an odd size off the 16-byte grid takes the scalar path
     odd_p, odd_g = pred.view(-1)[1:1 + 100_003], gt.view(-1)[1:1 + 100_003]
-    check(torch.equal(f1.f1_sweep(odd_p, odd_g, LEVELS),
-                      f1.f1_sweep_plain(odd_p, odd_g, LEVELS)),
-          "f1_sweep counts differ on the scalar path")
+    for levels in (LEVELS, *F1_LEVEL_SETS):  # each compiled level count
+        for p, m in ((pred, gt), (odd_p, odd_g)):
+            check(torch.equal(f1.f1_sweep(p, m, levels),
+                              f1.f1_sweep_plain(p, m, levels)),
+                  f"f1_sweep counts differ: {len(levels)} levels, "
+                  f"{p.numel()} pixels")
     row.err = 0.0
     moved = nbytes(pred, gt, counts)
     ms = time_ms(lambda: f1.f1_sweep(pred, gt, LEVELS))
@@ -759,7 +792,9 @@ def ssim_pair(g):
 def check_ssim(rows, card):
     """K8 at the eval shape: per-image means and the mean within
     ``ssim.ATOL`` of the plain version's, bit-identical over repeated calls;
-    a ragged shape off the 16-byte grid on the scalar staging path; timed
+    ragged shapes (strips cut by the frame, split rows, a frame shorter than
+    the halo); a NaN pixel gives NaN means where the plain version does;
+    timed
     warm and with a cold L2 beside the plain version and the depthwise
     ``F.conv2d`` yardstick."""
     row = rows["ssim"]
@@ -773,10 +808,18 @@ def check_ssim(rows, card):
     again = ssim.ssim(x, y)
     check(torch.equal(again[0], means) and torch.equal(again[1], mean),
           "ssim not repeatable")
-    xr, yr = x[:3, :37, :45].contiguous(), y[:3, :37, :45].contiguous()
-    rerr = float((ssim.ssim(xr, yr)[0] - ssim.ssim_plain(xr, yr)[0]).abs()
-                 .max())
+    rerr = 0.0
+    for n, h, w in ((3, 37, 45), (2, 5, 300), (1, 11, 11)):  # ragged strips
+        xr, yr = x[:n, :h, :w].contiguous(), y[:n, :h, :w].contiguous()
+        rerr = max(rerr, float((ssim.ssim(xr, yr)[0]
+                                - ssim.ssim_plain(xr, yr)[0]).abs().max()))
     check(rerr <= ssim.ATOL, f"ssim ragged: err {rerr}")
+    xn = x[:2, :40, :40].clone()
+    xn[1, 17, 3, 1] = float("nan")
+    yn = y[:2, :40, :40].contiguous()
+    check(torch.equal(ssim.ssim(xn, yn)[0].isnan(),
+                      ssim.ssim_plain(xn, yn)[0].isnan()),
+          "ssim: NaN means differ from plain")
     row.err = err
     moved = nbytes(x, y, means, mean)
     ms = time_ms(lambda: ssim.ssim(x, y))
@@ -790,7 +833,7 @@ def check_ssim(rows, card):
     row.add(ms, pms, moved, ops, yardstick_ms=yard, cold_ms=cold)
     bms, by = bound(moved, ops)
     print(f"check ssim {tuple(x.shape)} f32: mean {float(mean):.6f}, max "
-          f"abs err vs plain {err:.3g} (ragged 3x37x45: {rerr:.3g}; tol "
+          f"abs err vs plain {err:.3g} (ragged shapes: {rerr:.3g}; tol "
           f"{ssim.ATOL}), bit-identical over repeated calls; ms={ms:.4f} "
           f"cold_ms={cold:.4f} plain_ms={pms:.4f} conv2d_yardstick_ms="
           f"{yard:.4f} bound_ms={bms:.4f} ({by}) share_of_bound="

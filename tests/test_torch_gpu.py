@@ -497,11 +497,84 @@ def test_f1_sweep_kernel_counts_equal_plain(cuda, shape, offset):
         assert got.dtype == torch.int64 and torch.equal(got, want)
 
 
-# (N, H, W): whole 32×32 tiles on the 16-byte path, ragged tiles with
-# W % 4 != 0 (scalar staging), ragged tiles with W % 4 == 0, a frame
-# narrower than the halo
+# each compiled level count (9, the generic 16, which also takes 1 and 5
+# levels) with unsorted, duplicate and out-of-range levels
+_LEVEL_SETS = [[127.0], [204.0, 25.0, 127.0, 127.0, -1.0], _LEVELS,
+               [229.0, 0.0, 255.0, 51.0, 76.0, 300.0, 102.0, 153.0, 178.0,
+                25.0, 25.0, 127.5, 204.0, -0.5, 254.0, 128.0]]
+
+
+def _f1_inputs(n, g, offset=1):
+    """``n`` predictions one float off the 16-byte grid holding every
+    k/255, its float32 neighbours, values outside [0, 1] and NaN, and a
+    mask with a NaN pixel."""
+    base = torch.rand(n + offset, device="cuda", generator=g) * 1.4 - 0.2
+    k = torch.arange(256, device="cuda") / 255.0
+    special = torch.cat([k, torch.nextafter(k, torch.full_like(k, 2.0)),
+                         torch.nextafter(k, torch.full_like(k, -1.0)),
+                         torch.tensor([float("nan"), float("inf"), -3.0],
+                                      device="cuda")])
+    idx = torch.randperm(n, device="cuda", generator=g)[:special.numel()]
+    pred = base[offset:]
+    pred[idx] = special[:idx.numel()]
+    gt = (torch.rand(n, device="cuda", generator=g) < 0.3).float()
+    gt[n // 2] = float("nan")
+    return pred, gt
+
+
+@pytest.mark.parametrize("n", [1, 3, 4 * 1000 + 1, 100_003])
+@pytest.mark.parametrize("levels", _LEVEL_SETS,
+                         ids=lambda lv: f"{len(lv)}levels")
+def test_f1_sweep_kernel_level_sets_equal_plain(cuda, levels, n):
+    pred, gt = _f1_inputs(n, _gen(18))
+    got = f1.f1_sweep(pred, gt, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, f1.f1_sweep_plain(pred, gt, levels))
+
+
+def test_f1_sweep_and_ssim_repeat_on_a_second_stream(cuda):
+    """Two calls in a row and one on another stream give the same counts
+    and means bit for bit: each kernel's last block leaves its ticket at 0,
+    and each stream has its own scratch."""
+    g = _gen(19)
+    pred, gt = _f1_inputs(64 * 64 * 9 + 5, g, offset=0)
+    x = torch.rand(3, 70, 90, 3, device=cuda, generator=g)
+    y = (x + 0.05 * torch.randn(x.shape, device=cuda, generator=g)).clamp(0, 1)
+    runs = [(f1.f1_sweep(pred, gt, _LEVELS), ssim.ssim(x, y))
+            for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append((f1.f1_sweep(pred, gt, _LEVELS), ssim.ssim(x, y)))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    counts, (means, mean) = runs[0]
+    assert torch.equal(counts, f1.f1_sweep_plain(pred, gt, _LEVELS))
+    for c, (m, mm) in runs[1:]:
+        assert torch.equal(c, counts)
+        assert torch.equal(m, means) and torch.equal(mm, mean)
+
+
+def test_ssim_kernel_nan_pixel_gives_nan_means_as_plain(cuda):
+    g = _gen(20)
+    x = torch.rand(3, 30, 40, 3, device=cuda, generator=g)
+    y = torch.rand(3, 30, 40, 3, device=cuda, generator=g)
+    x[1, 12, 7, 2] = float("nan")
+    means, mean = ssim.ssim(x, y)
+    pmeans, _ = ssim.ssim_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(means.isnan(), pmeans.isnan())
+    assert bool(means.isnan()[1]) and bool(mean.isnan())
+    torch.testing.assert_close(means[[0, 2]], pmeans[[0, 2]], rtol=0,
+                               atol=ssim.ATOL)
+
+
+# (N, H, W): whole 64-column strips, ragged strips (W % 4 != 0), ragged
+# strips with W % 4 == 0, a frame narrower than the halo, one window, a
+# frame shorter than the halo, and the flagship eval shape
 @pytest.mark.parametrize("shape", [(2, 64, 64), (3, 37, 45), (1, 40, 52),
-                                   (2, 31, 8)])
+                                   (2, 31, 8), (1, 11, 11), (2, 5, 300),
+                                   (64, 256, 256)])
 def test_ssim_kernel_matches_plain(cuda, shape):
     g = _gen(16)
     x = torch.rand(*shape, 3, device=cuda, generator=g)

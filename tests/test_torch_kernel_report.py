@@ -1,8 +1,15 @@
 """The compiler-report parsers of ``vwfd_tpu_torch.kernel_report`` on
-samples of ``ptxas -v`` and ``cuobjdump -sass`` output (the tools
+samples of ``ptxas -v`` and ``cuobjdump -sass`` output, and the host-side
+logic of the other card tools (``profile_roundtrip``'s kernel classes,
+``ablate_ssim``'s patches) against the sources in ``csrc`` (the tools
 themselves run only where the CUDA toolkit is)."""
 
+import re
+
+from vwfd_tpu_torch import ablate_ssim
 from vwfd_tpu_torch import kernel_report as kr
+from vwfd_tpu_torch import profile_roundtrip
+from vwfd_tpu_torch.kernels import _lib
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem, 256 bytes cmem[3]
@@ -52,3 +59,42 @@ def test_parse_sass_counts_opcodes_per_kernel():
     assert bwd["BAR"] == 1 and bwd["LDC"] == 1 and sum(bwd.values()) == 8
     fwd = ops["_ZN12_GLOBAL__N_113jpeg_pair_fwdEPKfPf"]
     assert fwd == {"FFMA": 1, "STS": 1}
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def test_profile_classes_name_every_kernel_in_csrc():
+    """Every ``__global__`` kernel of ``csrc`` falls in its port class, and
+    every class names a kernel that exists (a renamed kernel would
+    otherwise be counted as "other")."""
+    names = [m.group(1) for src in sorted(_lib.CSRC.glob("*.cu"))
+             for m in _GLOBAL.finditer(src.read_text())]
+    assert "ssim_strips" in names and "f1_sweep_counts" in names
+    classes = {profile_roundtrip.classify(n) for n in names}
+    assert all(c.startswith("port:") for c in classes), classes
+    assert classes == {f"port:{k}" for k in profile_roundtrip.PORT_KERNELS}
+
+
+def test_ablate_ssim_patches_hold_on_the_source():
+    """Each variant's patches find their line of ``ssim.cu`` exactly once
+    and change it."""
+    src = (_lib.CSRC / "ssim.cu").read_text()
+    variants = ablate_ssim._variants(src)
+    assert {"base", "no_vertical", "no_horizontal", "no_map", "no_sync",
+            "occ3", "tw128"} == set(variants)
+    for name, patches in variants.items():
+        for old, new in patches:
+            assert src.count(old) == 1 and old != new, (name, old)
+
+
+def test_ablate_ssim_geometry_takes_the_variant_shape_and_restores():
+    """A variant's grid comes from ``ssim.geometry`` with its own columns
+    and CTAs an SM; the module's constants are the kernel's again after."""
+    from vwfd_tpu_torch.kernels import ssim
+    base = ssim.geometry(64, 256, 256, 132)
+    assert ablate_ssim._geometry(64, 256, 256, 132, 128, 1)[0] == 2
+    assert ablate_ssim._geometry(64, 256, 256, 132, 64, 2) == base
+    assert (ssim._TW, ssim._CTAS_PER_SM) == (64, 2)
+    assert ssim.geometry(64, 256, 256, 132) == base

@@ -171,3 +171,90 @@ def test_kernel_sets_agree_on_the_cpu():
         kssim.ssim(a, a[:1])
     with pytest.raises(ValueError):  # not contiguous
         kssim.ssim(a.transpose(1, 2), a.transpose(1, 2))
+
+
+@pytest.mark.parametrize("nl", range(0, f1.MAX_LEVELS + 2))
+def test_f1_level_variant_is_the_compiled_count(nl):
+    """K7 is compiled for 9 levels (``f1_sweep``'s thresholds) and 16 (any
+    other count, the unused levels never on)."""
+    if not 1 <= nl <= f1.MAX_LEVELS:
+        with pytest.raises(ValueError):
+            f1.level_variant(nl)
+        return
+    want = 9 if nl == 9 else f1.MAX_LEVELS
+    assert f1.level_variant(nl) == want
+
+
+def test_f1_launch_geometry_and_scratch():
+    """One CTA an SM at the flagship eval shape (64 frames of 256²), fewer
+    for small inputs and at least one for none; the partials hold p, g and
+    both of each compiled level, per CTA."""
+    flagship = 64 * 256 * 256
+    assert f1.blocks(flagship, 9, 132) == 132
+    assert f1.blocks(flagship, 5, 132) == 132
+    assert f1.scratch_sizes(9, flagship, 132) == (1, 3 * 9 * 132)
+    assert f1.scratch_sizes(5, flagship, 132) == (1, 3 * 16 * 132)
+    assert f1.scratch_sizes(9, 100_003, 132) == (1, 3 * 9 * 33)
+    assert f1.scratch_sizes(1, 100_003, 132) == (1, 3 * 16 * 49)
+    assert f1.scratch_sizes(16, 100_003, 132) == (1, 3 * 16 * 49)
+    for n in (0, 1, 3, 4 * 768, 4 * 768 + 1):  # 768 threads a CTA ...
+        assert f1.blocks(n, 9, 132) == max(1, -(-n // (4 * 768)))
+        # ... and 512 for the 16-level variant, which takes any other count
+        assert f1.blocks(n, 1, 132) == max(1, -(-n // (4 * 512)))
+        assert f1.blocks(n, 2, 132) == max(1, -(-n // (4 * 512)))
+
+
+@pytest.mark.parametrize("n,h,w", [(64, 256, 256), (3, 37, 45), (1, 11, 11),
+                                   (2, 5, 300), (1, 2000, 2000), (8, 14, 64),
+                                   (1, 1, 1)])
+def test_ssim_launch_geometry_covers_each_frame_once(n, h, w):
+    """K8's grid: 64-column strips, each image's rows split into runs of a
+    multiple of 14 rows that cover the frame once; a split only where it
+    fills the card's two CTAs an SM in fewer row-walks. The flagship is one
+    run of 266 rows a strip (256 CTAs, one wave of 264 slots)."""
+    tiles, splits, rows = kssim.geometry(n, h, w, 132)
+    assert tiles == -(-w // 64)
+    assert rows % 14 == 0 and rows >= 14
+    assert splits * rows >= h > (splits - 1) * rows
+    assert kssim.scratch_sizes(n, tiles, splits) == (1, n * splits * tiles,
+                                                     n)
+    if (n, h, w) == (64, 256, 256):
+        assert (tiles, splits, rows) == (4, 1, 266)
+    if (n, h, w) == (3, 37, 45):  # 3 strips: split to fill the card
+        assert (splits, rows) == (3, 14)
+
+
+def _separable(x, g, axis):
+    """Zero-padded 11-tap pass of ``x`` along ``axis`` (torch, float32)."""
+    pad = [0] * (2 * x.dim())  # (before, after) pairs from the last dim
+    pad[2 * (x.dim() - 1 - axis)] = pad[2 * (x.dim() - 1 - axis) + 1] = 5
+    xp = torch.nn.functional.pad(x, pad)
+    out = torch.zeros_like(x)
+    for k in range(11):
+        out = out + g[k] * xp.narrow(axis, k, x.shape[axis])
+    return out
+
+
+def test_ssim_kernel_formulation_matches_plain():
+    """K8's arithmetic as a torch model: four window sums (mu1, mu2,
+    E[x² + y²], E[xy]), each vertical then horizontal over the 1-D taps,
+    and the map with sigma1² + sigma2² taken from the summed squares, is
+    within ``ATOL`` of ``ssim_plain`` per image, a flat patch included."""
+    rng = np.random.default_rng(6)
+    a = rng.random((3, 23, 30, 3), dtype=np.float32)
+    b = np.clip(a + 0.05 * rng.standard_normal(a.shape), 0, 1).astype(
+        np.float32)
+    a[2, :9, :9] = b[2, :9, :9] = 0.25
+    x, y = torch.from_numpy(a), torch.from_numpy(b)
+    g = kssim.window_1d()
+    sums = [_separable(_separable(q, g, 1), g, 2)
+            for q in (x, y, y * y + x * x, x * y)]
+    mu1, mu2, sq, xy = sums
+    mu12 = mu1 * mu2
+    msq = mu1 * mu1 + mu2 * mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    m = ((2 * mu12 + c1) * (2 * (xy - mu12) + c2)) / (
+        (msq + c1) * ((sq - msq) + c2))
+    means = m.double().mean(dim=(1, 2, 3)).float()
+    pmeans, _ = kssim.ssim_plain(x, y)
+    torch.testing.assert_close(means, pmeans, rtol=0, atol=kssim.ATOL)

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vwfd_median3_fwd": [_P, _P, _I, _I, _I, _P],
     "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
-    "vwfd_f1_sweep": [_P, _P, _L, _FP, _I, _P, _I, _P],
-    "vwfd_ssim": [_P, _P, _I, _I, _I, _FP, _P, _P, _P, _P, _P, _P],
+    "vwfd_f1_sweep": [_P, _P, _L, _FP, _I, _I, _I, _P, _P, _P, _P],
+    "vwfd_ssim": [_P, _P, _I, _I, _I, _I, _I, _FP, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -173,6 +173,17 @@ def stream_scratch(cache: dict, dev: torch.device, specs):
            for t, (n, dt, zeroed) in zip(old, specs)]
     cache[key] = new
     return new
+
+
+_SMS: dict = {}  # streaming multiprocessors per device index
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SM count, queried once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def dtype_code(t: torch.Tensor) -> int:

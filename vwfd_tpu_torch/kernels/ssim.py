@@ -7,19 +7,25 @@ SSIM map with c1 = 0.01², c2 = 0.03², and its mean. Returns ``(means,
 mean)``: float32 (N,) and a 0-dim float32.
 
 Bound: operations. At the flagship eval step (64 frames of 256²×3 f32)
-about 243 f32 flops a value (two 11-tap passes of five sums, the products
-and the map), 3.1 GFLOP: 0.046 ms at 67 TFLOP/s, against 0.030 ms for the
-100.7 MB the inputs hold (H100 SXM data sheet, 700 W).
+about 196 f32 flops a value (two 11-tap passes of four sums, the products,
+the map and the mean's add; ``chip_smoke.py`` ``SSIM_FLOPS``), 2.47 GFLOP:
+0.037 ms at 67 TFLOP/s, against 0.030 ms for the 100.7 MB the inputs hold
+(H100 SXM data sheet, 700 W).
 
-Design (``csrc/ssim.cu``): the window is the outer product of the 1-D
-gaussian, so each windowed sum is a horizontal and then a vertical 11-tap
-pass. A CTA stages a 32×32 tile of one image (all three channels) plus a
-5-pixel zero halo in shared memory with 16-byte loads where rows allow; a
-thread walks one column's 26 staged rows, keeps the last 11 rows'
-horizontal sums in registers and forms each vertical sum and map value as
-soon as its window is complete. The map is summed in double per thread,
-warp and block; the last block (integer ticket, no float atomics) adds the
-blocks' partials per image in tile order and the images in order, so the
+Design (``csrc/ssim.cu``): the map needs σ1² + σ2² only as a sum, so four
+windowed sums do (μ1, μ2, E[x² + y²], E[xy]), each a vertical and then a
+horizontal 11-tap pass done once per value. A CTA of 224 threads walks a
+strip of 64 columns (all three channels) down ``rows`` rows, 14 a chunk:
+each thread owns one interleaved element of the 222-element span (the strip
+and a 5-pixel halo on each side), keeps the products of the last 10 rows in
+registers, writes the chunk's vertical sums to shared memory while the next
+chunk's inputs arrive by ``cp.async``, and then takes 4 adjacent pixels of
+one row (12 outputs) for the horizontal pass and the map (a reciprocal
+multiply). ``geometry`` splits the rows of an image only where that fills
+the card's two CTAs an SM better. A thread adds its 12 map values in a
+fixed float tree and those sums in double, then per warp and block in
+double; the last block (integer ticket, no float atomics) adds the
+blocks' partials per image in strip order and the images in order, so the
 means repeat bit for bit. The ticket and partials live in scratch kept per
 device and stream; the last block leaves the ticket at 0.
 
@@ -39,14 +45,44 @@ import torch
 
 from . import _lib
 
-__all__ = ["ssim", "ssim_plain", "window_1d", "window_2d", "ATOL", "COUNT"]
+__all__ = ["ssim", "ssim_plain", "window_1d", "window_2d", "geometry",
+           "scratch_sizes", "ATOL", "COUNT"]
 
 COUNT = _lib.LaunchCount("ssim")
 WINDOW = 11   # csrc/ssim.cu kWin
 SIGMA = 1.5
 ATOL = 1e-5   # kernel vs plain, on each per-image mean and on the mean
-_TILE = 32    # csrc/ssim.cu kTile
+_TW = 64          # csrc/ssim.cu kTW: output columns of a CTA
+_RC = 14          # csrc/ssim.cu kRC: output rows of a chunk
+_HALO = WINDOW // 2
+_CTAS_PER_SM = 2  # csrc/ssim.cu kCtasPerSm (its __launch_bounds__)
+_MAX_SPLITS = 64
 _SCRATCH: dict = {}  # per (device, stream): ticket, partials, image sums
+
+
+def geometry(n: int, h: int, w: int, sms: int) -> Tuple[int, int, int]:
+    """``(tiles, splits, rows)``: the grid is ``(tiles, splits, n)``, a CTA
+    takes 64 columns and ``rows`` rows (a multiple of 14) of one image. The split of the rows minimises the waves of CTAs times the rows
+    each walks (its own and the 10-row halo); ties keep fewer splits."""
+    def cdiv(a, b):
+        return -(-a // b)
+    tiles = cdiv(w, _TW)
+    best = None
+    for want in range(1, min(_MAX_SPLITS, cdiv(h, _RC)) + 1):
+        rows = _RC * cdiv(cdiv(h, want), _RC)
+        splits = cdiv(h, rows)
+        waves = cdiv(tiles * splits * n, _CTAS_PER_SM * sms)
+        cost = waves * (rows + 2 * _HALO)
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    return tiles, best[1], best[2]
+
+
+def scratch_sizes(n: int, tiles: int, splits: int) -> Tuple[int, int, int]:
+    """Elements of the ticket (u32, zeroed once), the partials (double, one
+    a CTA of the grid ``(tiles, splits, n)``) and the image sums
+    (double)."""
+    return 1, n * splits * tiles, n
 
 
 def _gauss(window_size: int, sigma: float):
@@ -69,6 +105,9 @@ def window_1d(window_size: int = WINDOW, sigma: float = SIGMA
               ) -> torch.Tensor:
     """The kernel's taps: the 1-D gaussian cast to float32."""
     return torch.tensor(_gauss(window_size, sigma), dtype=torch.float32)
+
+
+_TAPS = (ctypes.c_float * WINDOW)(*window_1d().tolist())
 
 
 def _check(img1: torch.Tensor, img2: torch.Tensor) -> None:
@@ -138,16 +177,17 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = WINDOW
     if n > 65535:
         raise ValueError(f"ssim kernel: at most 65535 images, got {n}")
     dev = img1.device
-    tiles = -(-h // _TILE) * -(-w // _TILE)
+    sms = _lib.sm_count(dev)
+    tiles, splits, rows = geometry(n, h, w, sms)
+    n_ticket, n_partial, n_img = scratch_sizes(n, tiles, splits)
     ticket, partial, img_sum = _lib.stream_scratch(
-        _SCRATCH, dev, [(1, torch.int32, True),
-                        (n * tiles, torch.float64, False),
-                        (n, torch.float64, False)])
+        _SCRATCH, dev, [(n_ticket, torch.int32, True),
+                        (n_partial, torch.float64, False),
+                        (n_img, torch.float64, False)])
     means = torch.empty(n, device=dev, dtype=torch.float32)
     mean = torch.empty((), device=dev, dtype=torch.float32)
-    taps = (ctypes.c_float * WINDOW)(*window_1d().tolist())
     _lib.launch("vwfd_ssim", dev, img1.data_ptr(), img2.data_ptr(), n, h, w,
-                taps, partial.data_ptr(), img_sum.data_ptr(),
+                splits, rows, _TAPS, partial.data_ptr(), img_sum.data_ptr(),
                 ticket.data_ptr(), means.data_ptr(), mean.data_ptr())
     COUNT.n += 1
     return means, mean

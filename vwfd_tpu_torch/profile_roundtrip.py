@@ -40,7 +40,7 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                          "u8_to_channels", "channels_to_u8", "u8_to_s2d"),
                 "mask_pack": ("mask_pack",),
                 "jpeg_pair": ("jpeg_pair",), "median3": ("median3",),
-                "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_tiles",)}
+                "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",)}
 
 
 def classify(name: str) -> str:
