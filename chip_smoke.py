@@ -37,7 +37,15 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    mean and the mean, bit-identical over calls, on ragged shapes and with
    a NaN pixel (NaN means where the plain version's are), each timed warm
    and with a cold L2 beside its plain version, K8 also beside a depthwise
-   11×11 ``F.conv2d`` yardstick;
+   11×11 ``F.conv2d`` yardstick; then K9 ``attack_mix`` at the training
+   shape (64 frames of 256²×3 f32, inputs outside [0, 1], half the frames
+   exact quantizer ties) with each epilogue, forward EQUAL to its plain
+   version and every input gradient within 1e-6 of the plain gradient's
+   max, timed forward + backward warm and cold beside its plain version
+   and a depthwise 3×3 ``F.conv2d`` yardstick (the blur alone); and K10
+   ``splice`` at the training shape (bf16 INN output, and f32 with exact
+   ties; a mask of 0/1 rectangles), both outputs and the gradient EQUAL to
+   its plain version, timed the same way;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -49,7 +57,8 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
 6. training at full width: the same model with a synthetic loader takes one
    ``train_step`` through ``KERNELS`` with the launch counts at 0 just
    before and read just after (K1 ×11: six maps forward, five backward,
-   the clip taking no gradient; K2 ×10; K5 ×2; K6 ×2), after the loss and
+   the clip taking no gradient; K2 ×10; K5, K6, K9 and K10 ×2 each), after
+   the loss and
    gradients of one step through ``KERNELS`` and through ``PLAIN`` from the
    same weights, batch, previous batch and draws are compared (loss terms
    within 1e-2 relative, each net's gradient with cosine ≥ 0.999); then 2
@@ -58,11 +67,21 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    step count and running statistic as it was, and the peak memory;
 7. evaluation at full width: the same model takes one ``eval_step``
    through ``KERNELS`` with the launch counts at 0 just before and read
-   just after (K1 ×6, K2 ×10, K5 ×1, K6 ×1, K7 ×1, K8 ×1), compared with
+   just after (K1 ×6, K2 ×10, K5 to K10 ×1 each), compared with
    ``PLAIN`` on the same batch, previous batch and draws (PSNR and SSIM
    within ``EVAL_PSNR_ATOL`` / ``EVAL_SSIM_ATOL``, each F1 within the
    bound its pixels that cross a level between the two paths allow); then
-   2 warm-up and 10 timed eval steps (p50 ms, frames/s) and the peak memory.
+   2 warm-up and 10 timed eval steps (p50 ms, frames/s) and the peak memory;
+8. the trainer at full width: a model's states written as the JAX
+   package's npz pretrain trees (``convert.params_to_jax``) and loaded into
+   a fresh model through ``model.pretrain_path`` (every tensor and the
+   embed EQUAL to the source's); ``fit`` for 4 steps with a
+   ``ScalarLogger`` and a montage every 2 steps (one finite JSONL record a
+   step; each PNG decodes, with the standard library, to the canvas
+   ``stitch_images`` made); then a checkpoint, served through
+   ``WatermarkServer(ckpt_dir=...)``: one roundtrip EQUAL to a server
+   built from the same weights. Its files live under ``build/`` and are
+   removed.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -72,7 +91,8 @@ The line before the last is a JSON object with one entry per kernel (its
 launches on its main path and on each path, its error against the plain
 version, its time warm and with a cold L2, the plain time, the bound, the
 library time and a yardstick's: per roundtrip for K1-K4, per train step for
-K5 and K6, per eval step for K7 and K8); the last line is ``{"ok": true,
+K5, K6, K9 and K10, per eval step for K7 and K8); the last line is
+``{"ok": true,
 "device": {...}}``.
 """
 
@@ -81,9 +101,11 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -93,14 +115,19 @@ from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
+from vwfd_tpu_torch.convert import params_to_jax
 from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, f1, jpeg,
-                                    launch_counts, mask, median,
-                                    reset_launch_counts, ssim, transition,
-                                    wire)
+                                    launch_counts, mask, median, mix,
+                                    reset_launch_counts, splice, ssim,
+                                    transition, wire)
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
+from vwfd_tpu_torch.models import video_model
+from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
+from vwfd_tpu_torch.ops.filters import gaussian_kernel_2d
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
+from vwfd_tpu_torch.utils import ScalarLogger, read_png
 
 # H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -136,6 +163,10 @@ KERNEL_SOURCES = {
     "f1_sweep": ("vwfd_tpu_torch/csrc/f1.cu",
                  "vwfd_tpu/metrics/metrics.py:96"),
     "ssim": ("vwfd_tpu_torch/csrc/ssim.cu", "vwfd_tpu/metrics/metrics.py:65"),
+    "attack_mix": ("vwfd_tpu_torch/csrc/mix.cu",
+                   "vwfd_tpu/attacks/combined.py:52"),
+    "splice": ("vwfd_tpu_torch/csrc/splice.cu",
+               "vwfd_tpu/models/video_model.py:186"),
 }
 # one PyTorch call beside a kernel that computes a related, not the same,
 # function (no single call computes the kernel's)
@@ -143,22 +174,26 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "wire": "Tensor.copy_ between the layouts of to_channels, "
                       "to_u8 and to_s2d",
               "ssim": "one depthwise 11x11 F.conv2d over the five stacked "
-                      "windowed quantities"}
+                      "windowed quantities",
+              "attack_mix": "one depthwise 3x3 F.conv2d (groups 3, NCHW "
+                            "input): the blur alone"}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
-                      "f1_sweep": 0, "ssim": 0}
+                      "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
+                      "splice": 0}
 # K1: six maps forward and five backward (the entry map's input, the clip,
 # takes no gradient)
 TRAIN_LAUNCHES = {"transition": 11, "coupling_head": 10, "wire": 0,
                   "mask_pack": 0, "jpeg_pair": 2, "median3": 2,
-                  "f1_sweep": 0, "ssim": 0}
+                  "f1_sweep": 0, "ssim": 0, "attack_mix": 2, "splice": 2}
 # the eval step: the embed's six maps, the attack pool's forward only
 EVAL_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 0,
                  "mask_pack": 0, "jpeg_pair": 1, "median3": 1,
-                 "f1_sweep": 1, "ssim": 1}
+                 "f1_sweep": 1, "ssim": 1, "attack_mix": 1, "splice": 1}
 # the rows' main paths: each row is timed per launch of its path
 ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
-            "f1_sweep": "eval_step", "ssim": "eval_step"}
+            "f1_sweep": "eval_step", "ssim": "eval_step",
+            "attack_mix": "train_step", "splice": "train_step"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -176,6 +211,12 @@ JPEG_FLIP_SHARE = 1e-4   # ... which are at most this share of all blocks
 JPEG_FLIP_BOUND = 1.0    # and differ by at most this anywhere
 TRAIN_LOSS_RTOL = 1e-2   # train step, KERNELS vs PLAIN, bf16
 TRAIN_GRAD_COS = 0.999
+FUSED_GRAD_RTOL = 1e-6   # K9/K10 gradients vs plain, of the plain max
+# operations per value (the bound's second term; bytes bound both): K9
+# forward 9 taps × 2 + the mix 6 + the quantizing epilogue 5, backward 9 ×
+# 2 + 3; K10 forward clamp 2, quantizer 3, splice 4, backward 3
+MIX_OPS = (29, 21)
+SPLICE_OPS = (9, 3)
 
 
 def check(cond, msg):
@@ -840,6 +881,178 @@ def check_ssim(rows, card):
           f"{bms / ms:.3f} cold_share={bms / cold:.3f} [{card}]")
 
 
+def ties_input(g, shape):
+    """Values in [-0.2, 1.2) with a quarter of them exact (k + 0.5)/255
+    ties of the 8-bit quantizer and a few exactly 0 and 1."""
+    x = -0.2 + 1.4 * torch.rand(shape, device="cuda", generator=g)
+    k = torch.randint(0, 255, shape, device="cuda", generator=g)
+    pick = torch.rand(shape, device="cuda", generator=g)
+    x = torch.where(pick < 0.25, (k.float() + 0.5) / 255.0, x)
+    return torch.where(pick > 0.97, (pick > 0.985).float(), x)
+
+
+def grads_of(fn, ins, needs, cot):
+    """(outputs, input gradients) of ``fn(*ins)`` for the inputs flagged in
+    ``needs``, with cotangent(s) ``cot``."""
+    ins = [t.clone().requires_grad_(True) if n else t
+           for t, n in zip(ins, needs)]
+    y = fn(*ins)
+    ys = y if isinstance(y, tuple) else (y,)
+    gs = torch.autograd.grad(ys, [t for t, n in zip(ins, needs) if n], cot)
+    return [t.detach() for t in ys], list(gs)
+
+
+def fused_times(fn, sets, needs):
+    """Device ms of ``fn``'s forward and backward, warm (on ``sets[0]``) and
+    with a cold L2 (rotating over ``sets``, each ``(*inputs, cotangent)``
+    and together ≥ ``COLD_BYTES``): (fwd, bwd, cold fwd, cold bwd)."""
+    graphs = []
+    for *ins, cot in sets:
+        ins = [t.clone().requires_grad_(True) if n else t
+               for t, n in zip(ins, needs)]
+        y = fn(*ins)
+        graphs.append((y if isinstance(y, tuple) else (y,),
+                       [t for t, n in zip(ins, needs) if n], cot))
+    ins0 = [t for t in sets[0][:-1]]
+    fwd = time_ms(lambda: fn(*ins0))
+
+    def back(ys, xs, cot):
+        return torch.autograd.grad(ys, xs, cot, retain_graph=True)
+    bwd = time_ms(lambda: back(*graphs[0]))
+    cfwd = time_cold_ms(lambda *a: fn(*a[:-1]), sets)
+    cbwd = time_cold_ms(back, graphs)
+    return fwd, bwd, cfwd, cbwd
+
+
+def check_mix(rows, card):
+    """K9 at the training shape: forward EQUAL to the plain version with
+    each epilogue, every input gradient within ``FUSED_GRAD_RTOL`` of the
+    plain gradient's max; timed with the train step's epilogue."""
+    row = rows["attack_mix"]
+    g = torch.Generator("cuda").manual_seed(8)
+    n = B * T
+    shape = (n, S, S, 3)
+
+    def inputs():
+        x, a0, aj, a3 = (ties_input(g, shape) for _ in range(4))
+        alpha = torch.softmax(torch.randn(n, 5, device="cuda", generator=g),
+                              -1)
+        # half the frames: α0 = α3 = α4 = 0 and x = 0, so the mix is a_jpeg
+        # itself and the quantizer meets its exact ties
+        half = torch.arange(n, device="cuda") >= n // 2
+        alpha[half] *= torch.tensor([0.0, 1, 1, 0, 0], device="cuda")
+        x[half] = 0.0
+        return [x, a0, aj, a3, alpha.contiguous()]
+
+    ins = inputs()
+    cot = torch.randn(shape, device="cuda", generator=g)
+    needs = (True, True, True, True, False)
+    err = 0.0
+    for epi in mix.EPILOGUES:
+        (yk,), gk = grads_of(lambda *a: mix.attack_mix(*a, epi), ins, needs,
+                             cot)
+        (yp,), gp = grads_of(lambda *a: mix.attack_mix_plain(*a, epi), ins,
+                             needs, cot)
+        torch.cuda.synchronize()
+        check(torch.equal(yk, yp), f"attack_mix {epi}: forward differs")
+        for name, a, b in zip(("x", "a0", "a_jpeg", "a3"), gk, gp):
+            d = float((a - b).abs().max())
+            check(d <= FUSED_GRAD_RTOL * float(b.abs().max()),
+                  f"attack_mix {epi} d{name}: {d}")
+            err = max(err, d)
+        print(f"check attack_mix {shape} f32 epilogue {epi}: forward equal "
+              f"to plain; gradient max_abs_err dx "
+              f"{float((gk[0] - gp[0]).abs().max()):.3g} (da0, da_jpeg, da3 "
+              f"{'equal' if all(torch.equal(a, b) for a, b in zip(gk[1:], gp[1:])) else 'within tol'})")
+    row.err = err
+    fn = lambda *a: mix.attack_mix(*a, "quantize")  # noqa: E731
+    pfn = lambda *a: mix.attack_mix_plain(*a, "quantize")  # noqa: E731
+    sets = [(*inputs(), torch.randn(shape, device="cuda", generator=g))
+            for _ in range(2)]  # each set moves ≥ 250 MB
+    kf, kb, cf, cb = fused_times(fn, sets, needs)
+    pf, pb, _, _ = fused_times(pfn, sets[:1], needs)
+    xc = ins[0].permute(0, 3, 1, 2).contiguous()
+    w = torch.from_numpy(gaussian_kernel_2d(3, 2.0)).to("cuda").expand(
+        3, 1, 3, 3).contiguous()
+    yard = time_ms(lambda: F.conv2d(xc, w, padding=1, groups=3))
+    fwd_bytes = nbytes(*ins[:4], ins[0]) + nbytes(ins[4])
+    bwd_bytes = nbytes(cot, *ins[:3]) + nbytes(ins[4])
+    ops = ins[0].numel() * sum(MIX_OPS)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, ops, yardstick_ms=yard,
+            cold_ms=cf + cb)
+    bf, bb = bound(fwd_bytes, 0)[0], bound(bwd_bytes, 0)[0]
+    print(f"check attack_mix ms fwd={kf:.4f} bwd={kb:.4f} cold fwd={cf:.4f} "
+          f"bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} conv2d_yardstick_ms"
+          f"={yard:.4f} bound_ms fwd={bf:.4f} bwd={bb:.4f} share_of_bound "
+          f"fwd={bf / kf:.3f} bwd={bb / kb:.3f} cold fwd={bf / cf:.3f} "
+          f"bwd={bb / cb:.3f} [{card}]")
+
+
+def rect_masks(g, b, t):
+    """(B, T, S, S, 1) masks of one random 0/1 rectangle per frame."""
+    m = torch.zeros((b, t, S, S, 1), device="cuda")
+    lo = torch.randint(0, S // 2, (b, t, 2), generator=g, device="cuda")
+    size = torch.randint(8, S // 2, (b, t, 2), generator=g, device="cuda")
+    for i in range(b):
+        for j in range(t):
+            y0, x0 = lo[i, j].tolist()
+            h, w = size[i, j].tolist()
+            m[i, j, y0:y0 + h, x0:x0 + w] = 1.0
+    return m
+
+
+def check_splice(rows, card):
+    """K10 at the training shape: both outputs and the INN output's
+    gradient EQUAL to the plain version's, bf16 (the flagship) and f32
+    (exact ties); the embed's form too; timed in bf16."""
+    row = rows["splice"]
+    g = torch.Generator("cuda").manual_seed(9)
+    shape5 = (B, T, S, S, 3)
+
+    def inputs(dt):
+        return [ties_input(g, (B, S, S, 3 * T)).to(dt), rect_masks(g, B, T),
+                torch.rand(shape5, device="cuda", generator=g)]
+
+    needs = (True, False, False)
+    for dt in (torch.bfloat16, torch.float32):
+        ins = inputs(dt)
+        cot = tuple(torch.randn(shape5, device="cuda", generator=g)
+                    for _ in range(2))
+        yk, (gk,) = grads_of(lambda x, m, p: splice.splice(x, T, m, p), ins,
+                             needs, cot)
+        yp, (gp,) = grads_of(lambda x, m, p: splice.splice_plain(x, T, m, p),
+                             ins, needs, cot)
+        ek, ep = splice.splice(ins[0], T), splice.splice_plain(ins[0], T)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(yk, yp))
+              and torch.equal(ek, ep), f"splice {dt}: forward differs")
+        d = float((gk.float() - gp.float()).abs().max())
+        check(d <= FUSED_GRAD_RTOL * float(gp.float().abs().max()),
+              f"splice {dt}: gradient {d}")
+        print(f"check splice {tuple(ins[0].shape)} {dt}: fwd_video, "
+              f"attacked_fwd and the embed form equal to plain; gradient "
+              f"max_abs_err {d:.3g} ({'equal' if torch.equal(gk, gp) else 'within tol'})")
+        row.err = max(row.err, d)
+    fn = lambda x, m, p: splice.splice(x, T, m, p)  # noqa: E731
+    pfn = lambda x, m, p: splice.splice_plain(x, T, m, p)  # noqa: E731
+    sets = [(*inputs(torch.bfloat16),
+             tuple(torch.randn(shape5, device="cuda", generator=g)
+                   for _ in range(2))) for _ in range(2)]
+    kf, kb, cf, cb = fused_times(fn, sets, needs)
+    pf, pb, _, _ = fused_times(pfn, sets[:1], needs)
+    x, m, p = sets[0][:3]
+    fwd_bytes = nbytes(x, m, p) + 2 * nbytes(p)
+    bwd_bytes = 2 * nbytes(p) + nbytes(m, x)
+    ops = p.numel() * sum(SPLICE_OPS)
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, ops, cold_ms=cf + cb)
+    bf, bb = bound(fwd_bytes, 0)[0], bound(bwd_bytes, 0)[0]
+    print(f"check splice ms fwd={kf:.4f} bwd={kb:.4f} cold fwd={cf:.4f} "
+          f"bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} bound_ms "
+          f"fwd={bf:.4f} bwd={bb:.4f} share_of_bound fwd={bf / kf:.3f} "
+          f"bwd={bb / kb:.3f} cold fwd={bf / cf:.3f} bwd={bb / cb:.3f} "
+          f"[{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1196,6 +1409,101 @@ def run_eval(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 8
+
+
+def run_trainer(card):
+    """The trainer at full width: npz pretrain, ``fit`` with telemetry and
+    montages, a checkpoint served through ``WatermarkServer(ckpt_dir=)``."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _run_trainer(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _run_trainer(root, card):
+    base = load_config(FLAGSHIP_CONFIG)
+    steps = 4
+    src = VideoWatermarkModel(base)
+    src.load_states(perturbed_states(base, seed=7))
+    netg, gen, stats = params_to_jax(src.inn.state_dict(),
+                                     src.unet.state_dict())
+    (root / "pretrain").mkdir(parents=True)
+    save_npz_tree(str(root / "pretrain" / "netG.npz"), {"params": netg})
+    save_npz_tree(str(root / "pretrain" / "generator.npz"),
+                  {"params": gen, "batch_stats": stats})
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model,
+                                        pretrain_path=str(root / "pretrain")),
+        train=dataclasses.replace(base.train, montage_interval=2))
+    model = VideoWatermarkModel(cfg)
+    model.init_states(3)
+    want = {k: v for net in ("netG", "generator")
+            for k, v in src.states()[net].items()
+            if not k.endswith("num_batches_tracked")}
+    got = {k: v for net in ("netG", "generator")
+           for k, v in model.states()[net].items()
+           if not k.endswith("num_batches_tracked")}
+    check(got.keys() == want.keys()
+          and all(torch.equal(got[k], want[k]) for k in want),
+          "pretrain: the loaded tensors differ from the source's")
+    loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=8 * B,
+                                          seed=cfg.train.seed), B,
+                    seed=cfg.train.seed)
+    video, _ = model.to_device(*next(iter(loader)))
+    check(torch.equal(model.embed(video), src.embed(video)),
+          "pretrain: the embed differs from the source model's")
+    del src
+
+    canvases = []
+    stitch = video_model.stitch_images
+
+    def recording(*groups, **kw):
+        canvases.append(stitch(*groups, **kw))
+        return canvases[-1]
+    video_model.stitch_images = recording
+    logger = ScalarLogger(str(root / "logs"))
+    try:
+        t0 = time.perf_counter()
+        _, logs = model.fit(loader, steps, scalar_logger=logger,
+                            montage_dir=str(root / "montage"))
+        fit_s = time.perf_counter() - t0
+    finally:
+        video_model.stitch_images = stitch
+        logger.close()
+    recs = [json.loads(line) for line in
+            (root / "logs" / "scalars.jsonl").read_text().splitlines()]
+    check([r["step"] for r in recs] == list(range(1, steps + 1))
+          and all(math.isfinite(v) for r in recs for v in r.values()),
+          f"scalar log {recs}")
+    pngs = sorted((root / "montage").glob("*.png"))
+    check([p.name for p in pngs] == ["00002.png", "00004.png"]
+          and len(canvases) == 2, f"montages {pngs}")
+    for p, c in zip(pngs, canvases):
+        check(c.shape == (B * S, 6 * (S + 5), 3)
+              and np.array_equal(read_png(str(p)), c),
+              f"{p.name} does not decode to the montage canvas")
+
+    save_checkpoint(str(root / "ckpt"), steps, model)
+    clip = np.random.default_rng(3).integers(0, 256, (B, T, S, S, 3),
+                                             dtype=np.uint8)
+    served = WatermarkServer(cfg, ckpt_dir=str(root / "ckpt"),
+                             modes=("roundtrip",)).serve(clip, "roundtrip")
+    direct = WatermarkServer(cfg, weights=model.states(),
+                             modes=("roundtrip",)).serve(clip, "roundtrip")
+    check(all(np.array_equal(getattr(served, k), getattr(direct, k))
+              for k in ("watermarked", "mask_bits", "tamper_fraction")),
+          "the server from the checkpoint differs from the weights' server")
+    print(f"trainer: npz pretrain loaded bit-equal ({len(want)} tensors, "
+          f"embed equal); fit {steps} steps in {fit_s:.2f} s, last "
+          f"{json.dumps(logs)}; {len(recs)} finite scalar records; montages "
+          f"{[p.name for p in pngs]} ({canvases[0].shape}) decode to their "
+          f"canvases; the checkpoint's server roundtrip equals the weights' "
+          f"[{card}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1222,6 +1530,8 @@ def main():
     check_median(rows, card)
     check_f1(rows, card)
     check_ssim(rows, card)
+    check_mix(rows, card)
+    check_splice(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -1230,6 +1540,7 @@ def main():
     del server, plain
     train_launches = run_train(card)
     eval_launches = run_eval(card)
+    run_trainer(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches}

@@ -16,6 +16,10 @@ blocks are counted and bounded. K6 ``median3`` is exact, forward and
 backward (same codes, same summation order). K7 ``f1_sweep``'s counts are
 exact (integer sums); K8 ``ssim`` is within ``ssim.ATOL`` (1e-5) on every
 per-image mean and on the mean (separable window sums in another order).
+K9 ``attack_mix`` and K10 ``splice`` forwards are EQUAL to their plain
+versions (every operation one IEEE rounding in the plain order); their
+backwards within 1e-6 of the plain gradient's max (K9's blur sums the nine
+products in another order than autograd; the rest is exact).
 """
 
 import dataclasses
@@ -27,9 +31,10 @@ import torch
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.kernels import (PLAIN, coupling, f1, jpeg,
-                                    launch_counts, mask, median,
-                                    reset_launch_counts, ssim, transition,
-                                    wire)
+                                    launch_counts, mask, median, mix,
+                                    reset_launch_counts, splice, ssim,
+                                    transition, wire)
+from vwfd_tpu_torch.ops.quantize import ste_quantize_255
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
@@ -276,7 +281,8 @@ def test_server_on_card_matches_plain_and_counts_launches(cuda):
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 2, "mask_pack": 1, "jpeg_pair": 0,
-                               "median3": 0, "f1_sweep": 0, "ssim": 0}
+                               "median3": 0, "f1_sweep": 0, "ssim": 0,
+                               "attack_mix": 0, "splice": 0}
     want = ref.serve(clip, "roundtrip")
     assert launch_counts()["transition"] == 6  # the plain server launches none
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
@@ -437,7 +443,8 @@ def test_train_step_kernels_match_plain(cuda):
     PLAIN from the same weights, batch and draws: loss terms within 1e-2
     relative, each net's gradient with cosine ≥ 0.999; the kernel step
     launches K1 ×11 (six maps forward, five backward: the entry map's
-    input, the clip, takes no gradient), K2 ×10, K5 ×2, K6 ×2."""
+    input, the clip, takes no gradient), K2 ×10, K5 ×2, K6 ×2, K9 ×2 and
+    K10 ×2; its forward alone K9 and K10 once each."""
     cfg = load_config(FLAGSHIP_CONFIG)
     cfg = dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64))
@@ -456,11 +463,17 @@ def test_train_step_kernels_match_plain(cuda):
     mask = (rng.random((2, 4, 64, 64, 1)) < 0.2).astype(np.float32)
     draws = km.sample_draws(2, 4)
     reset_launch_counts()
+    with torch.no_grad():
+        km._loss(*km.to_device(video, mask, prev), draws)
+    assert {k: launch_counts()[k] for k in ("attack_mix", "splice")} == {
+        "attack_mix": 1, "splice": 1}
+    reset_launch_counts()
     lk, ak, gk, _ = km.loss_and_grads(video, mask, prev, draws)
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 11, "coupling_head": 10,
                                "wire": 0, "mask_pack": 0, "jpeg_pair": 2,
-                               "median3": 2, "f1_sweep": 0, "ssim": 0}
+                               "median3": 2, "f1_sweep": 0, "ssim": 0,
+                               "attack_mix": 2, "splice": 2}
     lp, ap, gp, _ = pm.loss_and_grads(video, mask, prev, draws)
     for a, b in ((lk, lp), (ak["lF"], ap["lF"]), (ak["lB"], ap["lB"])):
         assert abs(float(a) - float(b)) <= 1e-2 * abs(float(b))
@@ -594,7 +607,8 @@ def test_ssim_kernel_matches_plain(cuda, shape):
 def test_eval_step_kernels_match_plain(cuda):
     """One bf16 eval step of the flagship model at 64² through KERNELS and
     PLAIN from the same weights, batch and draws: it launches K1 ×6, K2
-    ×10, K5 ×1, K6 ×1, K7 ×1, K8 ×1; PSNR within 0.01 dB, SSIM within
+    ×10, K5 ×1, K6 ×1, K7 ×1, K8 ×1, K9 ×1, K10 ×1; PSNR within 0.01 dB,
+    SSIM within
     1e-4 and each F1 within 0.05 (64² frames: a pixel that crosses a level
     between the paths moves an F1 by about 1e-4)."""
     cfg = load_config(FLAGSHIP_CONFIG)
@@ -619,9 +633,98 @@ def test_eval_step_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 0, "mask_pack": 0, "jpeg_pair": 1,
-                               "median3": 1, "f1_sweep": 1, "ssim": 1}
+                               "median3": 1, "f1_sweep": 1, "ssim": 1,
+                               "attack_mix": 1, "splice": 1}
     op = pm.eval_step(video, mask, prev, draws)
     assert abs(float(ok["psnr_forward"]) - float(op["psnr_forward"])) <= 0.01
     assert abs(float(ok["ssim_forward"]) - float(op["ssim_forward"])) <= 1e-4
     torch.testing.assert_close(ok["f1_sweep"], op["f1_sweep"], rtol=0,
                                atol=0.05)
+
+
+def _ties(shape, g, lo=-0.2, hi=1.2):
+    """Values in [lo, hi) with a quarter of them exact (k + 0.5)/255 ties
+    of the quantizer and some exactly 0 and 1."""
+    x = lo + (hi - lo) * torch.rand(shape, device="cuda", generator=g)
+    k = torch.randint(0, 255, shape, device="cuda", generator=g)
+    tie = (k.float() + 0.5) / 255.0
+    pick = torch.rand(shape, device="cuda", generator=g)
+    x = torch.where(pick < 0.25, tie, x)
+    return torch.where(pick > 0.97, (pick > 0.985).float(), x)
+
+
+def _within(got, want, rel=1e-6):
+    scale = float(want.abs().max()) or 1.0
+    assert float((got - want).abs().max()) <= rel * scale
+
+
+# (N, H, W): 16-byte rows; rows off the 16-byte grid (W % 4 != 0, the
+# scalar path); a single row; a single column
+@pytest.mark.parametrize("shape", [(8, 32, 40), (4, 17, 45), (3, 1, 12),
+                                   (2, 9, 1)])
+@pytest.mark.parametrize("epilogue", mix.EPILOGUES)
+def test_attack_mix_kernel_matches_plain(cuda, shape, epilogue):
+    """K9 forward EQUAL to the plain version with each epilogue, on inputs
+    outside [0, 1] and, in half the frames (α0 = α3 = α4 = 0, x = 0: the
+    output is a_jpeg itself), on exact quantizer ties; gradients of x, a0,
+    a_jpeg and a3 within 1e-6 of the plain version's max."""
+    n, h, w = shape
+    g = _gen(21)
+    x, a0, aj, a3 = (_ties((n, h, w, 3), g) for _ in range(4))
+    alpha = torch.softmax(torch.randn(n, 5, device=cuda, generator=g), -1)
+    half = torch.arange(n, device=cuda) >= n // 2
+    alpha[half] = alpha[half] * torch.tensor([0.0, 1, 1, 0, 0], device=cuda)
+    x[half] = 0.0
+    cot = torch.randn((n, h, w, 3), device=cuda, generator=g)
+    outs = []
+    for fn in (mix.attack_mix, mix.attack_mix_plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, a0, aj, a3)]
+        y = fn(*ins, alpha, epilogue)
+        outs.append((y.detach(), torch.autograd.grad(y, ins, cot)))
+    torch.cuda.synchronize()
+    (yk, gk), (yp, gp) = outs
+    assert torch.equal(yk, yp)
+    for a, b in zip(gk, gp):
+        _within(a, b)
+    assert torch.equal(gk[1], gp[1]) and torch.equal(gk[3], gp[3])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+# (B, T, H, W): the flagship's 4 frames; rows off the 16-byte grid; rows
+# over two 64-pixel chunks with a ragged second; a single frame
+@pytest.mark.parametrize("shape", [(2, 4, 16, 24), (1, 3, 7, 13),
+                                   (2, 2, 5, 70), (1, 1, 4, 8)])
+def test_splice_kernel_matches_plain(cuda, shape, dtype):
+    """K10: ``fwd_video`` and ``attacked_fwd`` EQUAL to the plain version's
+    (INN output outside [0, 1] with exact quantizer ties, a mask of 0/1
+    edges and soft values), the gradient of the INN output too; and the
+    embed's form (no mask) equal."""
+    b, t, h, w = shape
+    g = _gen(22)
+    x = _ties((b, h, w, 3 * t), g).to(dtype)
+    m = (torch.rand((b, t, h, w, 1), device=cuda, generator=g) < 0.3).float()
+    m[..., :2, :] = 0.37  # soft mask values in two columns
+    prev = torch.rand((b, t, h, w, 3), device=cuda, generator=g)
+    gf, ga = (torch.randn((b, t, h, w, 3), device=cuda, generator=g)
+              for _ in range(2))
+    outs = []
+    for fn in (splice.splice, splice.splice_plain):
+        xi = x.clone().requires_grad_(True)
+        fv, att = fn(xi, t, m, prev)
+        (gx,) = torch.autograd.grad((fv, att), xi, (gf, ga))
+        outs.append((fv.detach(), att.detach(), gx, fn(x, t)))
+    torch.cuda.synchronize()
+    (fk, ak, gk, ek), (fp, ap, gp, ep) = outs
+    assert torch.equal(fk, fp) and torch.equal(ak, ap) and torch.equal(ek, ep)
+    assert gk.dtype == dtype and gk.shape == x.shape
+    _within(gk.float(), gp.float())
+
+
+def test_ste_quantize_divides_by_255_on_the_card(cuda):
+    """The straight-through quantizer on a CUDA tensor is the IEEE x / 255
+    of every level (PyTorch's CUDA division by a Python scalar multiplies
+    by the reciprocal instead, one ulp off for 126 of 256 levels: F14)."""
+    k = torch.arange(256, dtype=torch.float32)
+    want = (k.numpy() / np.float32(255)).astype(np.float32)
+    got = ste_quantize_255((k / 255.0 + 1e-4).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)

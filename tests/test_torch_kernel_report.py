@@ -77,6 +77,23 @@ def test_profile_classes_name_every_kernel_in_csrc():
     assert classes == {f"port:{k}" for k in profile_roundtrip.PORT_KERNELS}
 
 
+def test_profile_classes_pin_the_fused_kernels():
+    """K9's and K10's CUDA kernels are named in their classes, and the
+    kernels of ``mix.cu`` and ``splice.cu`` carry those names (so that a
+    class never keeps naming a kernel that is gone)."""
+    assert profile_roundtrip.PORT_KERNELS["attack_mix"] == (
+        "attack_mix_fwd", "attack_mix_bwd")
+    assert profile_roundtrip.PORT_KERNELS["splice"] == ("splice_fwd",
+                                                        "splice_bwd")
+    for src, kernel in (("mix.cu", "attack_mix"), ("splice.cu", "splice")):
+        names = {m.group(1) for m in
+                 _GLOBAL.finditer((_lib.CSRC / src).read_text())}
+        assert names == {f"{kernel}_fwd", f"{kernel}_bwd"}, names
+        for n in names:  # as the profiler sees them: mangled, templated
+            mangled = f"void (anonymous namespace)::{n}<float, 4>(float*)"
+            assert profile_roundtrip.classify(mangled) == f"port:{kernel}"
+
+
 def test_ablate_ssim_patches_hold_on_the_source():
     """Each variant's patches find their line of ``ssim.cu`` exactly once
     and change it."""

@@ -282,8 +282,11 @@ def test_fit_seeds_the_previous_batch_buffer(monkeypatch):
 
 
 def test_train_cli_on_cpu(capsys):
+    # no scalar log or montages: they would land under the working
+    # directory (test_torch_trainer.py drives them into tmp_path)
     train_cli.main(["--synthetic", "--steps", "2", "--device", "cpu",
-                    "--batch", "2", "--size", "32", "--frames", "2"])
+                    "--batch", "2", "--size", "32", "--frames", "2",
+                    "--no-telemetry"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for k in ("loss", "lF", "lB", "PF", "ms_per_step", "frames_per_s"):
         assert np.isfinite(out[k]), k

@@ -5,16 +5,17 @@ Per frame: five attacked variants mixed by α = softmax(N(0,1)⁵) — the
 ``α0·resize + jpeg_pair(α1, α2) + α3·median + α4·gauss``. The random draws
 are an explicit ``AttackDraws``: ``sample_attack_draws`` makes them from a
 ``torch.Generator``; the tests derive them from a JAX key with the JAX
-package's own split sequence, so both sides see the same draws. The mix and
-the gaussian blur are plain PyTorch; the JPEG pair runs K5 and the median K6
-through the kernel set.
+package's own split sequence, so both sides see the same draws. The resize
+round trip is two batched ``torch.matmul``; the JPEG pair runs K5, the
+median K6, and the gaussian blur, the mix and the epilogue the train and
+eval steps put after the pool K9, through the kernel set.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from .blur import gaussian_blur_attack, median_blur_attack
+from .blur import median_blur_attack
 from .jpeg import QUALITIES, jpeg_pool_pair
 from .spatial import DEFAULT_RATIOS, resize_roundtrip
 
@@ -50,19 +51,24 @@ def sample_attack_draws(generator: torch.Generator, b: int, t: int,
 
 
 def attack_pool_video(video: torch.Tensor, draws: AttackDraws,
-                      ratios=None, kernels=None) -> torch.Tensor:
-    """(B, T, H, W, C) in [0, 1] → the per-frame α-mix of the five attacks.
+                      ratios=None, kernels=None,
+                      epilogue: str = "none") -> torch.Tensor:
+    """(B, T, H, W, 3) in [0, 1] → the per-frame α-mix of the five attacks.
     ``ratios`` is the resize pool (None: the 21 ``DEFAULT_RATIOS``);
-    ``kernels`` the kernel set (None: ``kernels.KERNELS``)."""
+    ``kernels`` the kernel set (None: ``kernels.KERNELS``); ``epilogue``
+    what follows the mix in the same pass (``kernels/mix.py``): ``"none"``
+    (the JAX function), ``"clamp"`` (the eval step) or ``"quantize"`` (the
+    train step's straight-through clamp and 8-bit quantizer)."""
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
     b, t = video.shape[0], video.shape[1]
-    flat = video.reshape((b * t,) + video.shape[2:])
-    alpha = draws.alpha.to(flat.dtype)
-    a = [alpha[:, i].view(-1, 1, 1, 1) for i in range(ATTACK_POOL_SIZE)]
+    flat = video.reshape((b * t,) + video.shape[2:]).contiguous()
+    alpha = draws.alpha.to(flat.dtype).contiguous()
     a0 = resize_roundtrip(flat, draws.ratio_idx,
                           DEFAULT_RATIOS if ratios is None else ratios)
     a_jpeg = jpeg_pool_pair(flat, draws.quality_idx, draws.mode,
                             alpha[:, 1], alpha[:, 2], kernels=kernels)
     a3 = median_blur_attack(flat, kernels=kernels)
-    a4 = gaussian_blur_attack(flat)
-    out = a[0] * a0 + a_jpeg + a[3] * a3 + a[4] * a4
+    out = kernels.attack_mix(flat, a0.contiguous(), a_jpeg, a3, alpha,
+                             epilogue)
     return out.reshape(video.shape)

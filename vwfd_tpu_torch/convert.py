@@ -11,15 +11,22 @@ Rules:
 * ``BatchNorm`` ``scale``/``bias`` + batch stats ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var`` (+
   ``num_batches_tracked``); flax's default epsilon 1e-5 is the port's.
+
+The optimizer state follows the parameters: optax's ``ScaleByAdamState``
+(``count``, ``mu``, ``nu``; ``vwfd_tpu/models/state.py:37-45``) holds two
+trees shaped like the params, which map to the port's ``AdamW.mu`` and
+``.nu`` (lists in the net's parameter order) by the same rules, and the
+count to ``AdamW.count``.
 """
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
+           "opt_state_from_jax", "opt_state_to_jax"]
 
 _CONVT = re.compile(r"(^|\.)up\d+$")  # UNetTPU's decoder ConvTransposes
 
@@ -45,12 +52,14 @@ def _tensor(a) -> torch.Tensor:
 
 def _module_to_torch(path: str, p: Mapping, stats: Mapping
                      ) -> Dict[str, torch.Tensor]:
-    if "scale" in p:  # BatchNorm
-        s = stats[path]
-        return {"weight": _tensor(p["scale"]), "bias": _tensor(p["bias"]),
-                "running_mean": _tensor(s["mean"]),
-                "running_var": _tensor(s["var"]),
-                "num_batches_tracked": torch.tensor(0, dtype=torch.long)}
+    if "scale" in p:  # BatchNorm (its running statistics where given)
+        out = {"weight": _tensor(p["scale"]), "bias": _tensor(p["bias"])}
+        if path in stats:
+            s = stats[path]
+            out.update(running_mean=_tensor(s["mean"]),
+                       running_var=_tensor(s["var"]),
+                       num_batches_tracked=torch.tensor(0, dtype=torch.long))
+        return out
     k = np.asarray(p["kernel"])
     w = (k[::-1, ::-1].transpose(2, 3, 0, 1) if _CONVT.search(path)
          else k.transpose(3, 2, 0, 1))
@@ -60,8 +69,9 @@ def _module_to_torch(path: str, p: Mapping, stats: Mapping
     return out
 
 
-def _tree_to_state_dict(tree: Mapping, stats: Mapping
+def state_dict_from_jax(tree: Mapping, stats: Optional[Mapping] = None
                         ) -> Dict[str, torch.Tensor]:
+    """One net's flax params (+ its ``batch_stats``) → its state dict."""
     flat_stats = _flatten(stats) if stats else {}
     sd = {}
     for path, p in _flatten(tree).items():
@@ -75,8 +85,8 @@ def params_from_jax(netG_tree: Mapping, generator_tree: Mapping,
                                                    Dict[str, torch.Tensor]]:
     """flax params of the INN and the extractor (+ the extractor's
     ``batch_stats``) → ``(netG_state_dict, generator_state_dict)``."""
-    return (_tree_to_state_dict(netG_tree, {}),
-            _tree_to_state_dict(generator_tree, batch_stats))
+    return (state_dict_from_jax(netG_tree),
+            state_dict_from_jax(generator_tree, batch_stats))
 
 
 def _set(tree: Dict, path: str, leaf: str, value: np.ndarray) -> None:
@@ -86,13 +96,15 @@ def _set(tree: Dict, path: str, leaf: str, value: np.ndarray) -> None:
     node[leaf] = value
 
 
-def _state_dict_to_tree(sd: Mapping[str, torch.Tensor]
-                        ) -> Tuple[Dict, Dict]:
+def _state_dict_to_tree(sd: Mapping[str, torch.Tensor],
+                        bn: Optional[Set[str]] = None) -> Tuple[Dict, Dict]:
+    """``bn``: the BatchNorm modules' paths (default: those with a
+    ``running_mean`` in ``sd``)."""
     params, stats = {}, {}
     for key, t in sd.items():
         path, name = key.rsplit(".", 1)
         a = t.detach().cpu().numpy()
-        is_bn = f"{path}.running_mean" in sd
+        is_bn = (f"{path}.running_mean" in sd) if bn is None else path in bn
         if name == "num_batches_tracked":
             continue
         if is_bn:
@@ -117,3 +129,37 @@ def params_to_jax(netG_sd: Mapping[str, torch.Tensor],
     netG, _ = _state_dict_to_tree(netG_sd)
     gen, stats = _state_dict_to_tree(generator_sd)
     return netG, gen, stats
+
+
+def _param_names(net: torch.nn.Module) -> List[str]:
+    return [n for n, _ in net.named_parameters()]
+
+
+def opt_state_from_jax(net: torch.nn.Module, mu: Mapping, nu: Mapping,
+                       count) -> Tuple[List[torch.Tensor],
+                                       List[torch.Tensor], torch.Tensor]:
+    """optax ``ScaleByAdamState`` of ``net``'s params (``mu``, ``nu`` trees
+    of numpy arrays, ``count``) → ``(mu, nu, count)`` for the port's
+    ``AdamW``: lists in ``net``'s parameter order and an int32 count."""
+    names = _param_names(net)
+    out = []
+    for what, tree in (("mu", mu), ("nu", nu)):
+        sd = state_dict_from_jax(tree)
+        if set(sd) != set(names):
+            raise ValueError(f"{what} does not fit the net: missing "
+                             f"{sorted(set(names) - set(sd))[:3]}, extra "
+                             f"{sorted(set(sd) - set(names))[:3]}")
+        out.append([sd[n] for n in names])
+    return out[0], out[1], torch.tensor(int(np.asarray(count)),
+                                        dtype=torch.int32)
+
+
+def opt_state_to_jax(net: torch.nn.Module, mu, nu, count
+                     ) -> Tuple[Dict, Dict, np.ndarray]:
+    """Inverse of ``opt_state_from_jax``: ``(mu_tree, nu_tree, count)``."""
+    names = _param_names(net)
+    bn = {k.rsplit(".", 1)[0] for k in net.state_dict()
+          if k.endswith(".running_mean")}
+    trees = [_state_dict_to_tree(dict(zip(names, ts)), bn)[0]
+             for ts in (mu, nu)]
+    return trees[0], trees[1], np.asarray(int(count), np.int32)

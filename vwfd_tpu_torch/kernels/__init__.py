@@ -12,11 +12,15 @@
   threshold, in one read (kernels/f1.py)
 * K8 ``ssim``            — windowed SSIM reduced to per-image means and the
   mean (kernels/ssim.py)
+* K9 ``attack_mix``      — the attack pool's α-mix with its gaussian blur and
+  the post-attack epilogue, forward and backward (kernels/mix.py)
+* K10 ``splice``         — the embed's clamp and quantizer with the splice
+  tamper and the frames relayout, forward and backward (kernels/splice.py)
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
-(K1's backward is K1 with ``transpose`` flipped); K5 and K6 launch their own
-backward kernels. ``KERNELS`` routes through the wrappers; ``PLAIN`` calls
+(K1's backward is K1 with ``transpose`` flipped); K5, K6, K9 and K10 launch
+their own backward kernels. ``KERNELS`` routes through the wrappers; ``PLAIN`` calls
 the plain versions on any device, so that a caller (the chip smoke script, a
 test) can run the same model, serving, training or evaluating, through both
 and compare.
@@ -24,12 +28,14 @@ and compare.
 
 from typing import Callable, Dict, NamedTuple
 
-from . import coupling, f1, jpeg, mask, median, ssim, transition, wire
+from . import (coupling, f1, jpeg, mask, median, mix, splice, ssim,
+               transition, wire)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
-MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim)
+MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
+           splice)
 
 
 class KernelSet(NamedTuple):
@@ -44,17 +50,20 @@ class KernelSet(NamedTuple):
     median3: Callable
     f1_sweep: Callable
     ssim: Callable
+    attack_mix: Callable
+    splice: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_channels, wire.to_u8, wire.to_s2d, wire.to_u8_s2d,
                     mask.mask_pack, jpeg.jpeg_pair, median.median3,
-                    f1.f1_sweep, ssim.ssim)
+                    f1.f1_sweep, ssim.ssim, mix.attack_mix, splice.splice)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
                   jpeg.jpeg_pool_pair_plain, median.median3_plain,
-                  f1.f1_sweep_plain, ssim.ssim_plain)
+                  f1.f1_sweep_plain, ssim.ssim_plain, mix.attack_mix_plain,
+                  splice.splice_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -49,6 +49,10 @@ _SIGNATURES = {
     "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
     "vwfd_f1_sweep": [_P, _P, _L, _FP, _I, _I, _I, _P, _P, _P, _P],
     "vwfd_ssim": [_P, _P, _I, _I, _I, _I, _I, _FP, _P, _P, _P, _P, _P, _P],
+    "vwfd_attack_mix_fwd": [_P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _P],
+    "vwfd_attack_mix_bwd": [_P, _P, _P, _P, _P, _FP, _I, _I, _I, _P],
+    "vwfd_splice_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_splice_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -16,21 +16,29 @@ Checkpoints (``save_checkpoint`` / ``restore_checkpoint`` / ``latest_step``,
 ``state.py:116-147``) are torch-native: one directory per step, named by
 the step's digits, holding every net's parameters and buffers (the
 BatchNorm running statistics) and each net's AdamW moments and step count,
-so a restored model continues bit for bit. Reading the JAX package's orbax
-checkpoints needs orbax, which the port does not import.
+so a restored model continues bit for bit. The JAX package's orbax
+checkpoints need orbax, which the port does not import:
+``tools/jax_checkpoint_to_torch.py`` (run where JAX is) converts one into
+this layout. ``apply_pretrain`` (``state.py:67-113``) loads the JAX
+package's npz pretrain trees.
 """
 
+import logging
 import os
 import shutil
-from typing import Callable, List, Optional, Sequence, Union
+from collections.abc import Mapping
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..convert import state_dict_from_jax
 from .schedules import cosine_restart, multistep_restart, with_warmup
 
 __all__ = ["AdamW", "make_optimizer", "save_checkpoint",
-           "restore_checkpoint", "latest_step", "CKPT_FILE"]
+           "restore_checkpoint", "load_nets", "latest_step", "CKPT_FILE",
+           "load_npz_tree", "save_npz_tree", "apply_pretrain"]
 
 _EPS = 1e-8  # optax.adamw's eps (eps_root 0)
 CKPT_FILE = "state.pt"  # the file in each step's directory
@@ -128,12 +136,23 @@ def save_checkpoint(ckpt_dir: str, step: int, model) -> str:
     return path
 
 
+def _load(ckpt_dir: str, step: int) -> dict:
+    return torch.load(os.path.join(ckpt_dir, str(step), CKPT_FILE),
+                      map_location="cpu", weights_only=True)
+
+
+def load_nets(ckpt_dir: str, step: int
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The nets' state dicts of ``ckpt_dir/<step>/`` (no optimizer state:
+    what a server needs)."""
+    return _load(ckpt_dir, step)["nets"]
+
+
 def restore_checkpoint(ckpt_dir: str, step: int, model) -> None:
     """Load ``ckpt_dir/<step>/`` into ``model`` in place: parameters,
     buffers and optimizer state, each of the same shape as the model's
     (raises otherwise)."""
-    payload = torch.load(os.path.join(ckpt_dir, str(step), CKPT_FILE),
-                         map_location="cpu", weights_only=True)
+    payload = _load(ckpt_dir, step)
     model.load_states(payload["nets"])
     with torch.no_grad():
         for name, opt in model.optimizers.items():
@@ -154,3 +173,66 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return None
     steps = [int(d) for d in os.listdir(ckpt_dir) if d.isdigit()]
     return max(steps) if steps else None
+
+
+def load_npz_tree(path: str) -> Dict:
+    """Nested dict of numpy arrays from a ``/``-flattened .npz (the JAX
+    package's interchange format, ``tools/convert_reference_checkpoint.py``)."""
+    tree: Dict = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
+    return tree
+
+
+def save_npz_tree(path: str, tree: Dict) -> None:
+    """Inverse of ``load_npz_tree``: write nested mappings of arrays as a
+    ``/``-flattened .npz."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def apply_pretrain(model, pretrain_path: str,
+                   logger: Optional[logging.Logger] = None) -> None:
+    """Load ``<pretrain_path>/<net>.npz`` (``params`` and, for the
+    extractor, optionally ``batch_stats``: flax trees) into ``model``'s
+    nets in place, as ``vwfd_tpu/models/state.py::apply_pretrain``. Shapes
+    are checked leaf by leaf (a ``ValueError`` names the first mismatch); a
+    missing file skips that net; a net whose file has no ``batch_stats``
+    keeps its running statistics."""
+    for name, net in model.nets().items():
+        path = os.path.join(pretrain_path, f"{name}.npz")
+        if not os.path.exists(path):
+            continue
+        tree = load_npz_tree(path)
+        own = net.state_dict()
+        sd = state_dict_from_jax(tree.pop("params"), tree.get("batch_stats",
+                                                              {}))
+        for key, t in own.items():
+            if key.endswith((".running_mean", ".running_var",
+                             ".num_batches_tracked")) and key not in sd:
+                sd[key] = t  # no batch_stats in the file: keep the net's
+        if set(sd) != set(own):
+            raise ValueError(f"pretrain tree of {name} does not fit: "
+                             f"missing {sorted(set(own) - set(sd))[:3]}, "
+                             f"extra {sorted(set(sd) - set(own))[:3]}")
+        for key, t in own.items():
+            if tuple(sd[key].shape) != tuple(t.shape):
+                raise ValueError(f"pretrain shape mismatch in {name}: {key} "
+                                 f"{tuple(sd[key].shape)} vs {tuple(t.shape)}")
+        net.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+        if logger is not None:
+            logger.info("loaded pretrain %s from %s", name, path)

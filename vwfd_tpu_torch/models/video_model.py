@@ -5,9 +5,10 @@ tamper mask, served, trained and evaluated.
 Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
 
 1. the INN embeds (bf16 through K1/K2), then ``clamp_with_grad`` and the
-   straight-through 8-bit quantizer;
-2. splice tamper: ``fwd·(1 − mask) + previous_batch·mask``;
-3. the 5-way per-frame attack pool (K5, K6), quantized again;
+   straight-through 8-bit quantizer, and
+2. the splice tamper ``fwd·(1 − mask) + previous_batch·mask``, both in K10;
+3. the 5-way per-frame attack pool (K5, K6, and K9 for the blur, the mix
+   and the second quantizer);
 4. the UNet in train mode predicts the per-frame mask;
 5. losses: the PSNR-gated forward fidelity (L1 by default) plus the mask
    BCE; one AdamW update per net (``models/state.py``, each clipped on its
@@ -16,23 +17,27 @@ Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
    counts and BatchNorm running statistics keep their pre-step values, by
    ``torch.where`` on the device (no host sync).
 
-Eval step (``video_model.py:257-275``): embed, splice, the attack pool on
-its draws, ``clip(·, 0, 1)`` with no quantizer, the UNet in eval mode, then
+Eval step (``video_model.py:257-275``): embed and splice (K10), the attack
+pool on its draws with ``clip(·, 0, 1)`` and no quantizer (K9), the UNet in
+eval mode, then
 the int-truncated PSNR, SSIM (K8) over the B·T frames and the F1 sweep (K7),
 all as device tensors. ``extract_f1`` (``:277-283``) and ``eval_real_jpeg``
 (``:285-305``, with the host JPEG codec an argument: the port reads no
 image library).
 
-Ported: ``_to_channels``, ``_to_frames``, ``__init__``, ``init_states``,
-``embed``, ``predict_mask``, ``_loss``, ``train_step``, ``fit`` (with the
-previous-batch buffer and checkpoints every ``save_interval`` steps),
-``eval_step``, ``extract_f1`` and ``eval_real_jpeg``. Not yet: montages
-(they need an image writer).
+Ported: ``_to_channels``, ``_to_frames``, ``__init__``, ``init_states``
+(with ``model.pretrain_path``), ``embed``, ``predict_mask``, ``_loss``,
+``train_step``, ``fit`` (the previous-batch buffer, checkpoints every
+``save_interval`` steps, the progress bar, the scalar log and a montage
+every ``montage_interval`` steps), ``_dump_montage``, ``eval_step``,
+``extract_f1`` and ``eval_real_jpeg``.
 """
 
 import logging
 import math
-from typing import Callable, Dict, Optional, Sequence
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,10 +47,11 @@ from ..attacks.spatial import DEFAULT_RATIOS
 from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..kernels import KERNELS, KernelSet
+from ..kernels.splice import to_frames as _to_frames
 from ..metrics import bce_with_logits, f1_sweep, l1_loss, psnr255_int, ssim
 from ..nets import InvertibleNet, UNetTPU
-from ..ops.quantize import clamp_with_grad, ste_quantize_255
-from .state import AdamW, make_optimizer, save_checkpoint
+from ..utils.images import save_png, stitch_images
+from .state import AdamW, apply_pretrain, make_optimizer, save_checkpoint
 
 __all__ = ["VideoWatermarkModel", "_to_channels", "_to_frames", "NETS"]
 
@@ -56,12 +62,6 @@ def _to_channels(video: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) → (B, H, W, T·C) — the 12-channel INN input layout."""
     b, t, h, w, c = video.shape
     return video.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
-
-
-def _to_frames(x: torch.Tensor, t: int) -> torch.Tensor:
-    """(B, H, W, T·C) → (B, T, H, W, C)."""
-    b, h, w, tc = x.shape
-    return x.reshape(b, h, w, t, tc // t).permute(0, 3, 1, 2, 4)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -81,9 +81,6 @@ def _check_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"ModelConfig.{key}={got!r} is not ported (the port runs "
                 f"{want!r})")
-    if mc.pretrain_path:
-        raise NotImplementedError("pretrain_path is not ported; pass "
-                                  "weights to WatermarkServer instead")
 
 
 class VideoWatermarkModel:
@@ -120,13 +117,18 @@ class VideoWatermarkModel:
 
     def init_states(self, seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
         """Fresh parameters from a seeded ``torch.Generator`` (zero-init
-        coupling heads: the INN starts at the identity) and fresh optimizer
-        states; returns the two nets' state dicts."""
+        coupling heads: the INN starts at the identity), then the npz
+        pretrain trees of ``model.pretrain_path`` if set
+        (``state.apply_pretrain``), and fresh optimizer states; returns the
+        two nets' state dicts."""
         gen = torch.Generator().manual_seed(seed)
         for net in (self.inn, self.unet):
             net.to("cpu")
             net.init_params(gen)
             net.to(self.device)
+        if self.cfg.model.pretrain_path:
+            apply_pretrain(self, self.cfg.model.pretrain_path,
+                           logging.getLogger("base"))
         self._opt = None
         return self.states()
 
@@ -159,15 +161,23 @@ class VideoWatermarkModel:
         return sample_attack_draws(self._draw_gen, b, t,
                                    len(self.attack_ratios))
 
+    def _inn(self, video: torch.Tensor) -> torch.Tensor:
+        """INN forward of a clip (B,T,H,W,3): (B,H,W,T·3) in the compute
+        dtype."""
+        x = _to_channels(video.to(self.device, self.compute_dtype))
+        return self.inn(x, out_f32=self.compute_dtype == torch.float32)
+
     @torch.no_grad()
     def embed(self, video: torch.Tensor) -> torch.Tensor:
         """Watermark-embed a clip (B,T,H,W,3) in [0,1]: INN forward, clamp,
-        8-bit quantize; f32 out."""
-        video = video.to(self.device, self.compute_dtype)
-        x = _to_channels(video)
-        fwd = self.inn(x, out_f32=self.compute_dtype == torch.float32)
-        fwd = _to_frames(fwd, self.frames)
-        return ste_quantize_255(clamp_with_grad(fwd.float()))
+        8-bit quantize (K10); f32 out."""
+        return self.kernels.splice(self._inn(video), self.frames)
+
+    @torch.no_grad()
+    def _embed_splice(self, video, mask, prev):
+        """``(embed(video), embed(video)·(1 − mask) + prev·mask)``, in one
+        K10 launch after the INN."""
+        return self.kernels.splice(self._inn(video), self.frames, mask, prev)
 
     @torch.no_grad()
     def predict_mask(self, video: torch.Tensor, train: bool = False):
@@ -189,14 +199,10 @@ class VideoWatermarkModel:
         "PF"}, the UNet's new BatchNorm running statistics)."""
         tc = self.cfg.train
         b, t = video.shape[0], video.shape[1]
-        x = _to_channels(video.to(self.compute_dtype))
-        fwd = self.inn(x, out_f32=self.compute_dtype == torch.float32)
-        fwd_video = ste_quantize_255(clamp_with_grad(
-            _to_frames(fwd, t).float()))
-        attacked_fwd = fwd_video * (1.0 - mask) + prev * mask
+        fwd_video, attacked_fwd = self.kernels.splice(self._inn(video), t,
+                                                      mask, prev)
         attacked = attack_pool_video(attacked_fwd, draws, self.attack_ratios,
-                                     self.kernels)
-        attacked = ste_quantize_255(clamp_with_grad(attacked))
+                                     self.kernels, epilogue="quantize")
         pred, stats = self.unet(attacked.reshape(b * t, *attacked.shape[2:]),
                                 train=True)
         pred_mask = pred.reshape(b, t, *pred.shape[1:])
@@ -268,11 +274,10 @@ class VideoWatermarkModel:
         video, mask, prev = self.to_device(video, mask, prev)
         if draws is None:
             draws = self.sample_draws(video.shape[0], video.shape[1])
-        fwd_video = self.embed(video)
-        attacked_fwd = fwd_video * (1.0 - mask) + prev * mask
+        fwd_video, attacked_fwd = self._embed_splice(video, mask, prev)
         attacked = attack_pool_video(attacked_fwd, draws.to(self.device),
-                                     self.attack_ratios, self.kernels)
-        attacked = torch.clamp(attacked, 0.0, 1.0)
+                                     self.attack_ratios, self.kernels,
+                                     epilogue="clamp")
         pred_mask = self.predict_mask(attacked)
         _, f1s = f1_sweep(pred_mask, mask, kernels=self.kernels)
         return {
@@ -305,8 +310,8 @@ class VideoWatermarkModel:
         image library, so the codec is the caller's (the tests pass
         ``vwfd_tpu.attacks.jpeg.jpeg_real``, i.e. PIL's libjpeg)."""
         video, mask, prev = self.to_device(video, mask, prev)
-        fwd = self.embed(video)
-        tampered = torch.clamp(fwd * (1.0 - mask) + prev * mask, 0.0, 1.0)
+        tampered = torch.clamp(self._embed_splice(video, mask, prev)[1], 0.0,
+                               1.0)
         b, t, h, w, c = tampered.shape
         frames = tampered.reshape(b * t, h, w, c).cpu().numpy()
         out = {"none": float(self.extract_f1(tampered, mask))}
@@ -318,34 +323,81 @@ class VideoWatermarkModel:
 
     # --------------------------------------------------------------- loop
 
-    def fit(self, loader, steps: int, ckpt_dir: Optional[str] = None):
-        """Epoch loop (train.py:91-109) with the previous-batch buffer: the
-        first batch only seeds it. With ``ckpt_dir``, a checkpoint is
-        written every ``TrainConfig.save_interval`` steps
-        (``video_model.py:356-357``). Returns ``(states, logs)`` with the
-        last step's logs as floats."""
+    def fit(self, loader, steps: int, ckpt_dir: Optional[str] = None,
+            progbar=None, scalar_logger=None,
+            montage_dir: Optional[str] = None, start_step: int = 0,
+            step_ms: Optional[List[float]] = None):
+        """Epoch loop (train.py:91-109, ``video_model.py:309-358``) with the
+        previous-batch buffer: the first batch only seeds it. Takes
+        ``steps`` steps, numbered on from ``start_step``. After each step:
+        ``progbar.add`` and ``scalar_logger.log`` of its logs; every
+        ``TrainConfig.montage_interval`` steps a montage PNG in
+        ``montage_dir`` (``_dump_montage``); with ``ckpt_dir``, a checkpoint
+        every ``TrainConfig.save_interval`` steps. ``step_ms``, if given,
+        receives each step's wall time (the step and its logs read back).
+        Returns ``(states, logs)`` with the last step's logs as floats."""
         log = logging.getLogger("base")
-        interval = self.cfg.train.save_interval
-        prev, step, logs_out = None, 0, {}
-        while step < steps:
+        tc = self.cfg.train
+        prev, step, logs_out = None, start_step, {}
+        while step < start_step + steps:
             seen = 0
             for video, mask in loader:
                 seen += 1
-                if step >= steps:
+                if step >= start_step + steps:
                     break
                 video, mask = self.to_device(video, mask)
                 if prev is None:
                     prev = video  # the first batch only seeds the buffer
                     continue
+                t0 = time.perf_counter()
                 logs = self.train_step(video, mask, prev)
-                step += 1
                 logs_out = {k: float(v) for k, v in logs.items()}
+                if step_ms is not None:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                step += 1
                 if not math.isfinite(logs_out["loss"]):
                     log.warning("non-finite loss at step %d: update skipped "
                                 "(the guard kept the pre-step state)", step)
+                if progbar is not None:
+                    progbar.add(1, values=list(logs_out.items()))
+                if scalar_logger is not None:
+                    scalar_logger.log(step, **logs_out)
+                if montage_dir and step % tc.montage_interval == 0:
+                    self._dump_montage(video, mask, prev, montage_dir, step)
                 prev = video
-                if ckpt_dir and step % interval == 0:
+                if ckpt_dir and step % tc.save_interval == 0:
                     save_checkpoint(ckpt_dir, step, self)
             if not seen:
                 raise ValueError("the loader yields no batches")
         return self.states(), logs_out
+
+    @torch.no_grad()
+    def _dump_montage(self, video, mask, prev, out_dir: str, step: int,
+                      draws: Optional[AttackDraws] = None) -> str:
+        """Qualitative dump (``video_model.py:360-381``,
+        IRNcrop_model.py:421-437): input / embedded / 10×|diff| / attacked
+        / predicted mask / ground-truth mask of frame 0 of each clip, one
+        row a clip, written as ``<out_dir>/<step:05d>.png``. ``draws``
+        default to draws from a generator of their own, seeded from
+        ``TrainConfig.seed`` and the step, so that a run's training draws
+        (``sample_draws``) do not depend on whether montages are on.
+        Returns the file's path."""
+        video, mask, prev = self.to_device(video, mask, prev)
+        if draws is None:
+            gen = torch.Generator(self.device).manual_seed(
+                self.cfg.train.seed * 1_000_003 + step)
+            draws = sample_attack_draws(gen, video.shape[0], video.shape[1],
+                                        len(self.attack_ratios))
+        fwd, tampered = self._embed_splice(video, mask, prev)
+        attacked = attack_pool_video(tampered, draws.to(self.device),
+                                     self.attack_ratios, self.kernels,
+                                     epilogue="clamp")
+        pred = self.predict_mask(attacked)
+        frames = [video[:, 0], fwd[:, 0],
+                  torch.clamp(10 * torch.abs(video[:, 0] - fwd[:, 0]), 0, 1),
+                  attacked[:, 0], pred[:, 0], mask[:, 0]]
+        canvas = stitch_images(*(f.cpu().numpy() for f in frames))
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{step:05d}.png")
+        save_png(path, canvas)
+        return path

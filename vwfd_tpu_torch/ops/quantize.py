@@ -17,7 +17,11 @@ __all__ = ["ste_quantize_255", "clamp_with_grad", "diff_round",
 class _SteQuantize255(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return torch.round(x * 255.0) / 255.0
+        # a tensor divisor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, one ulp off x / 255 for 126 of the
+        # 256 levels (F14); the JAX package and K9/K10 divide
+        return torch.round(x * 255.0) / torch.full((), 255.0, dtype=x.dtype,
+                                                     device=x.device)
 
     @staticmethod
     def backward(ctx, g):

@@ -40,7 +40,9 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                          "u8_to_channels", "channels_to_u8", "u8_to_s2d"),
                 "mask_pack": ("mask_pack",),
                 "jpeg_pair": ("jpeg_pair",), "median3": ("median3",),
-                "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",)}
+                "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",),
+                "attack_mix": ("attack_mix_fwd", "attack_mix_bwd"),
+                "splice": ("splice_fwd", "splice_bwd")}
 
 
 def classify(name: str) -> str:

@@ -2,13 +2,17 @@
 
     python -m vwfd_tpu_torch.serve --mode roundtrip --synthetic 32
     python -m vwfd_tpu_torch.serve --mode roundtrip --latency 50
+    python -m vwfd_tpu_torch.serve --mode roundtrip --synthetic 32 \\
+        --ckpt-dir checkpoints/video
     python -m vwfd_tpu_torch.serve --mode detect --synthetic 8 --device cpu \\
         --batch 2 --size 64
 
 Serves synthetic uint8 clips through ``WatermarkServer`` and prints one JSON
 line: clips and frames per second over the stream (``--synthetic N``) or
-per-request latency percentiles (``--latency N``). Runs on the CUDA card
-unless ``--device cpu``. Reading clips from a media folder is not ported
+per-request latency percentiles (``--latency N``), with the weights of a
+checkpoint directory (``--ckpt-dir``, its latest step or ``--step``), of a
+``--weights`` file, or random ones. Runs on the CUDA card unless
+``--device cpu``. Reading clips from a media folder is not ported
 yet.
 """
 
@@ -41,6 +45,10 @@ def main(argv=None):
                     help="YAML config (defaults to the packaged video.yaml)")
     ap.add_argument("--weights", default=None,
                     help="weights file written by serving.save_weights")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (models/state.py layout)")
+    ap.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: the latest)")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--size", type=int, default=None)
@@ -61,7 +69,8 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data))
     t0 = time.perf_counter()
     server = WatermarkServer(cfg, device=args.device, weights=args.weights,
-                             modes=(args.mode,), threshold=args.threshold)
+                             modes=(args.mode,), threshold=args.threshold,
+                             ckpt_dir=args.ckpt_dir, step=args.step)
     setup_s = time.perf_counter() - t0
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
     clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),

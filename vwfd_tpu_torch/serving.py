@@ -22,8 +22,11 @@ buffers with ``non_blocking`` copies; results come back the same way,
 behind a CUDA event, so ``serve`` returns without waiting for the card and
 ``serve_stream`` keeps a window of requests in flight.
 
-Not ported yet: AOT compile (CUDA graphs), ``mesh``, ``export_program``,
-the int8 options and orbax ``ckpt_dir``.
+Weights come from a checkpoint directory (``ckpt_dir``: the port's own
+layout, ``models/state.py``, which ``tools/jax_checkpoint_to_torch.py``
+writes from a JAX package's orbax checkpoint), a weights file or mapping,
+or a seed. Not ported yet: AOT compile (CUDA graphs), ``mesh``,
+``export_program`` and the int8 options.
 """
 
 from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
@@ -33,6 +36,7 @@ import torch
 
 from .config import Config
 from .kernels import KERNELS, KernelSet
+from .models.state import latest_step, load_nets
 from .models.video_model import VideoWatermarkModel
 
 __all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits",
@@ -119,7 +123,13 @@ class WatermarkServer:
     weights : str or mapping, optional
         A file written by ``save_weights`` or ``{"netG": state_dict,
         "generator": state_dict}`` (e.g. from ``convert.params_from_jax``).
-        Without it the server serves random-init params (seed 0).
+    ckpt_dir : str, optional
+        A checkpoint directory (``models/state.py``); the nets of its step
+        ``step`` (default: the latest) are served, and ``FileNotFoundError``
+        is raised when it holds none. Without ``weights`` or ``ckpt_dir``
+        the server serves random-init params (seed 0).
+    step : int, optional
+        The checkpoint step to serve from ``ckpt_dir``.
     modes : tuple of {"embed", "detect", "roundtrip"}
         The operations this server accepts.
     threshold : float
@@ -132,10 +142,19 @@ class WatermarkServer:
     def __init__(self, cfg: Config, device=None,
                  weights: Optional[Weights] = None,
                  modes: Tuple[str, ...] = ("embed", "detect"),
-                 threshold: float = 0.5, kernels: KernelSet = KERNELS):
+                 threshold: float = 0.5, kernels: KernelSet = KERNELS,
+                 ckpt_dir: Optional[str] = None, step: Optional[int] = None):
         unknown = set(modes) - set(MODES)
         if unknown:
             raise ValueError(f"unknown modes {sorted(unknown)}")
+        if weights is not None and ckpt_dir is not None:
+            raise ValueError("pass weights or ckpt_dir, not both")
+        if ckpt_dir is not None:
+            at = step if step is not None else latest_step(ckpt_dir)
+            if at is None:
+                raise FileNotFoundError(
+                    f"no checkpoint steps under {ckpt_dir!r}")
+            weights = load_nets(ckpt_dir, at)
         self.cfg = cfg
         self.batch = cfg.data.batch_size
         self.frames = cfg.data.frames
