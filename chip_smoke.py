@@ -45,7 +45,19 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    and a depthwise 3×3 ``F.conv2d`` yardstick (the blur alone); and K10
    ``splice`` at the training shape (bf16 INN output, and f32 with exact
    ties; a mask of 0/1 rectangles), both outputs and the gradient EQUAL to
-   its plain version, timed the same way;
+   its plain version, timed the same way; then the int8 serving kernels at
+   the flagship int8 roundtrip's shapes, each EQUAL to its plain version
+   (exact int32 sums in float64) and timed warm and cold beside it: K11
+   ``qconv`` at the UNet's twelve launches (Cin 12, the pool prologue, the
+   dual epilogue, the f32 head) and the INN trunk's (a bf16 quantize
+   prologue and the ELU requant) beside cuDNN's bf16 convolution of the
+   same shape and ``torch._int_mm`` on the im2col'd operands, plus ragged
+   shapes (signed, a float32 prologue); K12 ``qconv_t`` at the four
+   upsamples beside cuDNN's bf16 transposed convolution and
+   ``torch._int_mm``; K13 ``qcoupling_head`` at both coupling levels, bf16
+   and f32 (outputs off by one bf16 ulp counted), beside K2 at the same
+   shape; K3's int8 stem (``to_s2d_i8``, ``to_u8_s2d_i8``) on every byte
+   level, tiled and general;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -81,7 +93,18 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    ``stitch_images`` made); then a checkpoint, served through
    ``WatermarkServer(ckpt_dir=...)``: one roundtrip EQUAL to a server
    built from the same weights. Its files live under ``build/`` and are
-   removed.
+   removed;
+9. int8 serving at full width on phase 4's weights, calibrated on an
+   explicit clip: the launch counts of an int8 detect (K3's int8 stem ×1,
+   K11 ×12, K12 ×4, K4 ×1), of a roundtrip with ``int8_extract`` and of
+   one with both int8 paths (K1 ×6, K11 ×32, K12 ×4, K13 ×10, K3 ×2, K4
+   ×1, no K2), each with the counts at 0 just before and read just after;
+   the same trees through the plain versions (mask bits EQUAL, tamper
+   fraction within ``MEAN_ATOL``, watermarked bytes within 1 level on ≥
+   99.99 %); the int8 extractor against the bf16 net on the same bytes
+   (mean |Δp| and threshold agreement held to the JAX package's bounds);
+   a self-calibrated server; detect and roundtrip p50, streaming frames/s
+   and a roundtrip's peak memory beside the bf16 server's.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -91,7 +114,9 @@ The line before the last is a JSON object with one entry per kernel (its
 launches on its main path and on each path, its error against the plain
 version, its time warm and with a cold L2, the plain time, the bound, the
 library time and a yardstick's: per roundtrip for K1-K4, per train step for
-K5, K6, K9 and K10, per eval step for K7 and K8); the last line is
+K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
+K11-K13 and per int8 detect for K3's int8 stem, ``wire_i8``); the last
+line is
 ``{"ok": true,
 "device": {...}}``.
 """
@@ -117,13 +142,14 @@ from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
 from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, f1, jpeg,
-                                    launch_counts, mask, median, mix,
-                                    reset_launch_counts, splice, ssim,
-                                    transition, wire)
+                                    launch_counts, mask, median, mix, qconv,
+                                    qconv_t, qcoupling, reset_launch_counts,
+                                    splice, ssim, transition, wire)
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models import video_model
 from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
+from vwfd_tpu_torch.nets import unet_int8
 from vwfd_tpu_torch.ops.filters import gaussian_kernel_2d
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
@@ -133,6 +159,7 @@ from vwfd_tpu_torch.utils import ScalarLogger, read_png
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor-core f32: the kernels' arithmetic
 BF16_TC_OPS_PER_S = 989e12  # bf16 tensor-core flops: coupling_head's GEMM
+INT8_TC_OPS_PER_S = 1979e12  # int8 tensor-core operations: K11-K13
 
 # kernel vs plain tolerances, |kernel − plain| ≤ rtol·|plain| + atol·max|plain|
 TOL = {torch.bfloat16: (2.0 ** -7, 1e-6),   # one bf16 ulp relative
@@ -145,6 +172,10 @@ MEAN_ATOL = 1e-5         # tamper fraction
 EMBED_MAX_LEVELS = 1     # watermarked uint8 within 1 level ...
 EMBED_FRAC_EXACT = 0.9999  # ... and equal on ≥ 99.99% of pixels
 MASK_DISAGREE = 1e-4     # mask bits disagreeing on < 0.01%
+# int8 extract vs the bf16 net on the same weights and bytes: the JAX
+# package's own bounds (tests/test_unet_int8.py:52-57)
+INT8_MEAN_DP = 0.05      # mean |p_int8 − p_bf16|
+INT8_AGREE = 0.95        # agreement of p > 0.5
 
 B, T, S = 16, 4, 256
 COLD_BYTES = 100e6       # cold-L2 timing: working set of twice the L2
@@ -167,7 +198,17 @@ KERNEL_SOURCES = {
                    "vwfd_tpu/attacks/combined.py:52"),
     "splice": ("vwfd_tpu_torch/csrc/splice.cu",
                "vwfd_tpu/models/video_model.py:186"),
+    "qconv": ("vwfd_tpu_torch/csrc/qconv.cu",
+              "vwfd_tpu/nets/unet_int8.py:235"),
+    "qconv_t": ("vwfd_tpu_torch/csrc/qconv_t.cu",
+                "vwfd_tpu/nets/unet_int8.py:257"),
+    "qcoupling_head": ("vwfd_tpu_torch/csrc/qcoupling.cu",
+                       "vwfd_tpu/nets/inn_int8.py:257"),
+    "wire_i8": ("vwfd_tpu_torch/csrc/wire.cu",
+                "vwfd_tpu/nets/unet_int8.py:244"),
 }
+# a row counted under another kernel's launch count: K3's int8 stem
+COUNT_OF = {"wire_i8": "wire"}
 # one PyTorch call beside a kernel that computes a related, not the same,
 # function (no single call computes the kernel's)
 YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
@@ -176,24 +217,42 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "ssim": "one depthwise 11x11 F.conv2d over the five stacked "
                       "windowed quantities",
               "attack_mix": "one depthwise 3x3 F.conv2d (groups 3, NCHW "
-                            "input): the blur alone"}
+                            "input): the blur alone",
+              "qconv": "cuDNN bf16 F.conv2d of the same shape (TF32 off); "
+                       "int_mm_ms: torch._int_mm on the im2col'd operands "
+                       "where its shape rules allow",
+              "qconv_t": "cuDNN bf16 F.conv_transpose2d of the same shape; "
+                         "int_mm_ms: torch._int_mm of the same GEMM",
+              "qcoupling_head": "K2 coupling_head at the same shape (the "
+                                "bf16 embed's head)"}
+NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
-                      "splice": 0}
+                      "splice": 0, **NO_INT8}
 # K1: six maps forward and five backward (the entry map's input, the clip,
 # takes no gradient)
 TRAIN_LAUNCHES = {"transition": 11, "coupling_head": 10, "wire": 0,
                   "mask_pack": 0, "jpeg_pair": 2, "median3": 2,
-                  "f1_sweep": 0, "ssim": 0, "attack_mix": 2, "splice": 2}
+                  "f1_sweep": 0, "ssim": 0, "attack_mix": 2, "splice": 2,
+                  **NO_INT8}
 # the eval step: the embed's six maps, the attack pool's forward only
 EVAL_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 0,
                  "mask_pack": 0, "jpeg_pair": 1, "median3": 1,
-                 "f1_sweep": 1, "ssim": 1, "attack_mix": 1, "splice": 1}
+                 "f1_sweep": 1, "ssim": 1, "attack_mix": 1, "splice": 1,
+                 **NO_INT8}
+# the int8 detect (K3's int8 stem, K11 ×12, K12 ×4, K4) and the int8
+# roundtrip with both int8 paths (K1 ×6; K11 twice and K13 once per subnet
+# evaluation, 10 evaluations, where the bf16 embed launches K2 ×10)
+INT8_DETECT_LAUNCHES = {"wire": 1, "mask_pack": 1, "qconv": 12, "qconv_t": 4}
+INT8_ROUNDTRIP_LAUNCHES = {**ROUNDTRIP_LAUNCHES, "coupling_head": 0,
+                           "qconv": 32, "qconv_t": 4, "qcoupling_head": 10}
 # the rows' main paths: each row is timed per launch of its path
 ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "f1_sweep": "eval_step", "ssim": "eval_step",
-            "attack_mix": "train_step", "splice": "train_step"}
+            "attack_mix": "train_step", "splice": "train_step",
+            "qconv": "int8_roundtrip", "qconv_t": "int8_roundtrip",
+            "qcoupling_head": "int8_roundtrip", "wire_i8": "int8_detect"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -273,7 +332,7 @@ class Row:
         self.err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = self.yardstick_ms = None
-        self.cold_ms = None
+        self.cold_ms = self.int_mm_ms = None
         self.t_bytes = self.t_ops = 0.0  # ms at the memory / ops rate
 
     def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None,
@@ -294,17 +353,20 @@ class Row:
         by = "bytes" if self.t_bytes >= self.t_ops else "operations"
         src, rep = KERNEL_SOURCES[self.name]
         path = ROW_PATH.get(self.name, "roundtrip")
-        return {"name": self.name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": by_path[path][self.name],
-                "launches_by_path": {k: v[self.name]
-                                     for k, v in by_path.items()},
-                "timed_per": path,
-                "max_abs_err": self.err, "ms": self.ms,
-                "cold_ms": self.cold_ms,
-                "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
-                "library_ms": self.library_ms,
-                "yardstick_ms": self.yardstick_ms,
-                "yardstick": YARDSTICKS.get(self.name)}
+        count = COUNT_OF.get(self.name, self.name)
+        out = {"name": self.name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": by_path[path][count],
+               "launches_by_path": {k: v[count] for k, v in by_path.items()},
+               "timed_per": path,
+               "max_abs_err": self.err, "ms": self.ms,
+               "cold_ms": self.cold_ms,
+               "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
+               "library_ms": self.library_ms,
+               "yardstick_ms": self.yardstick_ms,
+               "yardstick": YARDSTICKS.get(self.name)}
+        if self.int_mm_ms is not None:
+            out["int_mm_ms"] = self.int_mm_ms
+        return out
 
 
 def card_line():
@@ -1053,6 +1115,358 @@ def check_splice(rows, card):
           f"[{card}]")
 
 
+# ------------------------------------------------------------ phase 3, int8
+
+
+def i8(g, shape, lo=-127):
+    return torch.randint(lo, 128, shape, device="cuda", generator=g,
+                         dtype=torch.int8)
+
+
+def qscale(g, n, k, spread):
+    """Per-channel multipliers that put float(acc)·m near ±spread (the sum
+    of k products of uniform int8 values has a spread of 5376·√k)."""
+    base = spread / (5376.0 * k ** 0.5)
+    return (base * (0.5 + torch.rand(n, device="cuda", generator=g))).float()
+
+
+def qconv_inputs(g, case):
+    """Inputs of one K11 launch: ``(x, w, m, b, epilogue, kwargs)``."""
+    _, _, n, h, w, cin, cout, k, epi, pool, cin2, xdt = case
+    kw = {"pool": pool}
+    if xdt is None:
+        hin, win = (2 * h, 2 * w) if pool else (h, w)
+        x = i8(g, (n, hin, win, cin), lo=0 if epi != "elu" else -127)
+    else:  # the coupling half, a channel slice of the coupling's input
+        full = torch.randn((n, h, w, 2 * cin), device="cuda", generator=g)
+        x = full.to(xdt)[..., cin:]
+        kw["x_scale"] = torch.tensor(0.02, device="cuda")
+    wt = i8(g, (cout, k, k, cin))
+    m = qscale(g, cout, k * k * cin, 1.0 if epi == "elu" else 80.0)
+    b = torch.randn(cout, device="cuda", generator=g)
+    if epi == "elu":
+        kw["out_scale"] = torch.tensor(0.015, device="cuda")
+    if cin2:
+        kw.update(x2=i8(g, (n, h, w, cin2), lo=0),
+                  w2=i8(g, (cout, k, k, cin2)),
+                  m2=qscale(g, cout, k * k * cin2, 80.0))
+    return x, wt, m, b, epi, kw
+
+
+def qconv_cases():
+    """K11's launches of one int8 roundtrip at the flagship (batch 16, T=4,
+    256²): the UNet's twelve (f = 64, s2d 2, plan (2, 2, 1, 1, 1), 64 frames
+    of 128²×12) and the INN trunk's two per subnet evaluation (the level-48
+    couplings' four evaluations at 64², the level-192/768 ones' six at 32²),
+    as (name, launches, N, H, W, Cin, Cout, k, epilogue, pool, Cin2, float
+    input dtype)."""
+    n, h, f = B * T, S // 2, 64
+    unet = [("enc1.0", 1, n, h, h, 12, f, 3, "relu", False, 0, None),
+            ("enc1.1", 1, n, h, h, f, f, 3, "relu", False, 0, None),
+            ("enc2.0", 1, n, h // 2, h // 2, f, 2 * f, 3, "relu", True, 0,
+             None),
+            ("enc2.1", 1, n, h // 2, h // 2, 2 * f, 2 * f, 3, "relu", False,
+             0, None)]
+    for lv, (name, cin) in enumerate((("enc3", 2 * f), ("enc4", 4 * f),
+                                      ("bottleneck", 8 * f)), start=2):
+        unet.append((name, 1, n, h >> lv, h >> lv, cin, 2 * cin, 3, "relu",
+                     True, 0, None))
+    for lv, c in ((3, 8 * f), (2, 4 * f), (1, 2 * f), (0, f)):
+        unet.append((f"dec{lv + 1}", 1, n, h >> lv, h >> lv, c, c, 3, "relu",
+                     False, c, None))
+    unet.append(("head", 1, n, h, h, f, 4, 1, "f32", False, 0, None))
+    inn = []
+    for reps, hw, c in ((4, S // 4, 96), (6, S // 8, 384)):
+        inn += [(f"inn.{c}.conv0", reps, B, hw, hw, c, 128, 3, "elu", False,
+                 0, torch.bfloat16),
+                (f"inn.{c}.conv1", reps, B, hw, hw, 128, 128, 3, "elu", False,
+                 0, None)]
+    return unet + inn
+
+
+def im2col_i8(x, k):
+    """(N, H, W, C) int8 → (N·H·W, k²·C), SAME padding, tap-major."""
+    if k == 1:
+        return x.reshape(-1, x.shape[-1])
+    n, h, w, c = x.shape
+    xp = torch.zeros((n, h + 2, w + 2, c), device=x.device, dtype=x.dtype)
+    xp[:, 1:-1, 1:-1] = x
+    cols = [xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+    return torch.stack(cols, 3).reshape(n * h * w, 9 * c)
+
+
+def int_mm_ok(m, k, n):
+    """torch._int_mm's shape rules on CUDA."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def qconv_yardsticks(x, wt, kw):
+    """(cuDNN bf16 F.conv2d ms, torch._int_mm ms or None) of the same
+    products: the conv's input pooled where K11 pools, the dual epilogue's
+    two operands as one conv over their concatenation."""
+    if kw.get("pool"):
+        x = qconv.max_pool2(x)
+    if x.dtype != torch.int8:
+        x = qconv.quantize_input(x, kw["x_scale"])
+    w = wt
+    if "x2" in kw:
+        x = torch.cat([x, kw["x2"]], -1)
+        w = torch.cat([wt, kw["w2"]], -1)
+    k = w.shape[1]
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    conv_ms = time_ms(lambda: F.conv2d(xb, wb, padding=k // 2))
+    a = im2col_i8(x.contiguous(), k)
+    bmat = w.reshape(w.shape[0], -1).t()
+    mm_ms = (time_ms(lambda: torch._int_mm(a, bmat))
+             if int_mm_ok(a.shape[0], a.shape[1], bmat.shape[1]) else None)
+    return conv_ms, mm_ms
+
+
+def qconv_work(x, wt, out, kw):
+    """(bytes, operations) of one K11 launch: each input read once, the
+    output written once; 2 operations per multiply-add."""
+    n, h, w, cout = out.shape
+    moved = nbytes(x, wt, out) + 12 * cout
+    macs = n * h * w * cout * wt[0].numel()
+    if "x2" in kw:
+        moved += nbytes(kw["x2"], kw["w2"])
+        macs += n * h * w * cout * kw["w2"][0].numel()
+    return moved, 2 * macs
+
+
+def check_qconv(rows, card):
+    """K11 at every launch of the flagship int8 roundtrip: EQUAL to its
+    plain version (every epilogue and prologue: relu with Cin 12 and with
+    the pool, dual, f32 head, ELU with a bf16 quantize prologue and with an
+    int8 input), timed warm and with a cold L2 beside its plain version,
+    cuDNN's bf16 convolution of the same shape (TF32 off) and torch._int_mm
+    on the im2col'd operands; then ragged shapes (H, W, Cout off the tiles,
+    Cin 12, a signed requant, a float32 prologue) equal too."""
+    row = rows["qconv"]
+    g = torch.Generator("cuda").manual_seed(20)
+    for case in qconv_cases():
+        name, reps = case[:2]
+        x, wt, m, b, epi, kw = qconv_inputs(g, case)
+        got = qconv.qconv(x, wt, m, b, epi, **kw)
+        want = qconv.qconv_plain(x, wt, m, b, epi, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"qconv {name}: "
+              f"{int((got != want).sum())} outputs differ from the plain")
+        ms = time_ms(lambda: qconv.qconv(x, wt, m, b, epi, **kw))
+        moved, ops = qconv_work(x, wt, got, kw)
+        cold = time_cold_ms(
+            lambda xx: qconv.qconv(xx, wt, m, b, epi, **kw),
+            cold_sets(lambda i: (qconv_inputs(g, case)[0],), moved))
+        pms = time_ms(lambda: qconv.qconv_plain(x, wt, m, b, epi, **kw),
+                      iters=2, warmup=1)
+        conv_ms, mm_ms = qconv_yardsticks(x, wt, kw)
+        row.add(reps * ms, reps * pms, reps * moved, reps * ops,
+                ops_per_s=INT8_TC_OPS_PER_S, yardstick_ms=reps * conv_ms,
+                cold_ms=reps * cold)
+        if mm_ms is not None:
+            row.int_mm_ms = (row.int_mm_ms or 0.0) + reps * mm_ms
+        bms, by = bound(moved, ops, INT8_TC_OPS_PER_S)
+        mm = f"{mm_ms:.4f}" if mm_ms is not None else "n/a"
+        print(f"check qconv {name} {epi}{' pool' if kw['pool'] else ''}"
+              f"{' dual' if 'x2' in kw else ''} {tuple(x.shape)}->"
+              f"{tuple(got.shape)} equal ms={ms:.4f} cold_ms={cold:.4f} "
+              f"plain_ms={pms:.4f} cudnn_bf16_ms={conv_ms:.4f} "
+              f"int_mm_ms={mm} bound_ms={bms:.4f} ({by}) "
+              f"share_of_bound={bms / ms:.3f} (x{reps} per roundtrip) "
+              f"[{card}]")
+    ragged = [("ragged.relu", 1, 3, 13, 21, 12, 70, 3, "relu", False, 0,
+               None),
+              ("ragged.pool", 1, 2, 9, 17, 64, 96, 3, "relu", True, 0, None),
+              ("ragged.dual", 1, 2, 7, 11, 64, 40, 3, "relu", False, 32,
+               None),
+              ("ragged.signed", 1, 1, 7, 9, 32, 70, 3, "signed", False, 0,
+               None),
+              ("ragged.elu_f32", 1, 2, 10, 12, 40, 72, 3, "elu", False, 0,
+               torch.float32),
+              ("ragged.1x1", 1, 3, 5, 6, 20, 24, 1, "relu", False, 0, None)]
+    for case in ragged:
+        x, wt, m, b, epi, kw = qconv_inputs(g, case)
+        if kw["pool"]:  # an odd input: the pool drops the last row/column
+            x = i8(g, (x.shape[0], x.shape[1] + 1, x.shape[2] + 1,
+                       x.shape[3]), lo=0)
+        got = qconv.qconv(x, wt, m, b, epi, **kw)
+        want = qconv.qconv_plain(x, wt, m, b, epi, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"qconv {case[0]} differs")
+    print(f"check qconv ragged shapes equal: {[c[0] for c in ragged]}")
+
+
+def check_qconv_t(rows, card):
+    """K12 at the four decoder upsamples of the flagship int8 detect, EQUAL
+    to its plain version, timed warm and cold beside its plain version,
+    cuDNN's bf16 F.conv_transpose2d and torch._int_mm of the same GEMM; a
+    ragged shape equal too."""
+    row = rows["qconv_t"]
+    g = torch.Generator("cuda").manual_seed(21)
+    n, f = B * T, 64
+
+    def make(h, cin, cout):
+        return (i8(g, (n, h, h, cin), lo=0), i8(g, (2, 2, cout, cin)),
+                qscale(g, cout, cin, 80.0),
+                torch.randn(cout, device="cuda", generator=g))
+
+    for lv, cin in ((4, 16 * f), (3, 8 * f), (2, 4 * f), (1, 2 * f)):
+        h = S // 2 >> lv
+        x, wt, m, b = make(h, cin, cin // 2)
+        got = qconv_t.qconv_t(x, wt, m, b)
+        want = qconv_t.qconv_t_plain(x, wt, m, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"qconv_t up{lv} differs")
+        ms = time_ms(lambda: qconv_t.qconv_t(x, wt, m, b))
+        moved = nbytes(x, wt, got) + 8 * (cin // 2)
+        ops = 2 * x.numel() * 2 * cin
+        cold = time_cold_ms(lambda xx: qconv_t.qconv_t(xx, wt, m, b),
+                            cold_sets(lambda i: (make(h, cin, cin // 2)[0],),
+                                      moved))
+        pms = time_ms(lambda: qconv_t.qconv_t_plain(x, wt, m, b), iters=2,
+                      warmup=1)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+        conv_ms = time_ms(lambda: F.conv_transpose2d(xb, wb, stride=2))
+        a, bmat = x.reshape(-1, cin), wt.reshape(-1, cin).t()
+        mm_ms = time_ms(lambda: torch._int_mm(a, bmat))
+        row.add(ms, pms, moved, ops, ops_per_s=INT8_TC_OPS_PER_S,
+                yardstick_ms=conv_ms, cold_ms=cold)
+        row.int_mm_ms = (row.int_mm_ms or 0.0) + mm_ms
+        bms, by = bound(moved, ops, INT8_TC_OPS_PER_S)
+        print(f"check qconv_t up{lv} {tuple(x.shape)}->{tuple(got.shape)} "
+              f"equal ms={ms:.4f} cold_ms={cold:.4f} plain_ms={pms:.4f} "
+              f"cudnn_bf16_ms={conv_ms:.4f} int_mm_ms={mm_ms:.4f} "
+              f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
+              f"[{card}]")
+    x = i8(g, (3, 5, 7, 40), lo=0)
+    wt, m = i8(g, (2, 2, 24, 40)), qscale(g, 24, 40, 80.0)
+    b = torch.randn(24, device="cuda", generator=g)
+    check(torch.equal(qconv_t.qconv_t(x, wt, m, b),
+                      qconv_t.qconv_t_plain(x, wt, m, b)),
+          "qconv_t ragged differs")
+
+
+def check_qcoupling(rows, card):
+    """K13 at the flagship couplings (level 48: 64², C 96, four launches a
+    roundtrip; levels 192/768: 32², C 384, six), bf16 and f32, against its
+    plain version (equal expected; the count of outputs off by one bf16
+    ulp is stated), timed in bf16 warm and cold beside its plain version and
+    K2 at the same shape (the bf16 embed's coupling head); a ragged width
+    equal too."""
+    row = rows["qcoupling_head"]
+    g = torch.Generator("cuda").manual_seed(22)
+
+    def make(n, hw, c, f, dt):
+        z = torch.randn((n, hw, hw, 2 * c), device="cuda", generator=g).to(dt)
+        p = {"w2x": i8(g, (2 * c, 1, 1, c)), "w2h": i8(g, (2 * c, 1, 1, f)),
+             "m2x": qscale(g, 2 * c, c + f, 1.0),
+             "m2h": qscale(g, 2 * c, c + f, 1.0),
+             "b2": 0.1 * torch.randn(2 * c, device="cuda", generator=g),
+             "s_x": torch.tensor(0.02, device="cuda")}
+        return z, i8(g, (n, hw, hw, f)), p
+
+    def ulps(got, want):
+        """Outputs that differ, and whether each is within one bf16 ulp."""
+        d = (got.float() - want.float()).abs()
+        n = int((d > 0).sum())
+        within = bool((d <= 2.0 ** -7 * want.float().abs()).all())
+        return n, within
+
+    for reps, hw, c, f, n in ((4, S // 4, 96, 128, B), (6, S // 8, 384, 128, B),
+                              (1, 5, 40, 24, 2)):
+        for dt in (torch.float32, torch.bfloat16):
+            z, h1i, p = make(n, hw, c, f, dt)
+            got, want = torch.zeros_like(z), torch.zeros_like(z)
+            qcoupling.qcoupling_head(z[..., c:], h1i, p, z[..., :c],
+                                     out=got[..., :c])
+            qcoupling.qcoupling_head_plain(z[..., c:], h1i, p, z[..., :c],
+                                           out=want[..., :c])
+            torch.cuda.synchronize()
+            off, within = ulps(got, want)
+            check(within, f"qcoupling_head C={c} {dt}: beyond one ulp")
+            print(f"check qcoupling_head C={c} {dt} outputs_differing={off} "
+                  f"(within one ulp)")
+            if dt == torch.float32 or reps == 1:
+                continue
+            row.err = max(row.err, float((got.float() - want.float()).abs()
+                                         .max()))
+            xin, x, o = z[..., c:], z[..., :c], got[..., :c]
+            ms = time_ms(lambda: qcoupling.qcoupling_head(xin, h1i, p, x,
+                                                          out=o))
+            moved = nbytes(xin, h1i, x, o, p["w2x"], p["w2h"]) + 12 * 2 * c
+            ops = 2 * n * hw * hw * 2 * c * (c + f)
+            cold = time_cold_ms(
+                lambda zz, hh, oo: qcoupling.qcoupling_head(
+                    zz[..., c:], hh, p, zz[..., :c], out=oo[..., :c]),
+                cold_sets(lambda i: make(n, hw, c, f, dt)[:2]
+                          + (torch.empty_like(z),), moved))
+            pms = time_ms(lambda: qcoupling.qcoupling_head_plain(
+                xin, h1i, p, x, out=o), iters=3, warmup=1)
+            hb = torch.randn((n, hw, hw, f), device="cuda",
+                             generator=g).to(dt)
+            pk = {"wh": (torch.randn(2 * c, c + f, device="cuda",
+                                     generator=g) / (c + f) ** 0.5).to(dt),
+                  "bh": 0.1 * torch.randn(2 * c, device="cuda", generator=g)}
+            k2 = time_ms(lambda: coupling.coupling_head(xin, hb, pk, x,
+                                                        out=o))
+            row.add(reps * ms, reps * pms, reps * moved, reps * ops,
+                    ops_per_s=INT8_TC_OPS_PER_S, yardstick_ms=reps * k2,
+                    cold_ms=reps * cold)
+            bms, by = bound(moved, ops, INT8_TC_OPS_PER_S)
+            print(f"check qcoupling_head C={c} bf16 M={n * hw * hw} "
+                  f"K={c}+{f} N={2 * c} ms={ms:.4f} cold_ms={cold:.4f} "
+                  f"plain_ms={pms:.4f} k2_same_shape_ms={k2:.4f} "
+                  f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
+                  f"(x{reps} per roundtrip) [{card}]")
+
+
+def check_stem(rows, card):
+    """K3's int8 stem (``to_s2d_i8``, and ``to_u8_s2d_i8``, the int8
+    roundtrip's hand-over) at the flagship, EQUAL to the plain versions,
+    tiled and general paths; timed warm and cold beside the plain
+    version."""
+    row = rows["wire_i8"]
+    g = torch.Generator("cuda").manual_seed(23)
+    for b, h, w in ((B, S, S), (2, 100, 100)):
+        clip, x = wire_inputs(b, h, w, torch.bfloat16, g)
+        flat = clip.reshape(b * T, h, w, 3)
+        flat.view(-1)[:256] = torch.arange(256, device="cuda",
+                                           dtype=torch.uint8)
+        check(torch.equal(wire.to_s2d_i8(flat, 2),
+                          wire.to_s2d_i8_plain(flat, 2)),
+              f"wire to_s2d_i8 {w} differs")
+        (u8, zi), (u8p, zip_) = (fn(x, T, 2) for fn in (
+            wire.to_u8_s2d_i8, wire.to_u8_s2d_i8_plain))
+        check(torch.equal(u8, u8p) and torch.equal(zi, zip_),
+              f"wire to_u8_s2d_i8 {w} differs")
+    print("check wire int8 stem exact: to_s2d_i8 to_u8_s2d_i8, tiled (256) "
+          "and general (100) paths, all 256 byte levels")
+    clip, x = wire_inputs(B, S, S, torch.bfloat16, g)
+    flat = clip.reshape(B * T, S, S, 3)
+    for name, fn, plain, args, make in (
+            ("to_s2d_i8", wire.to_s2d_i8, wire.to_s2d_i8_plain, (flat, 2),
+             lambda i: (wire_inputs(B, S, S, torch.bfloat16, g)[0].reshape(
+                 B * T, S, S, 3), 2)),
+            ("to_u8_s2d_i8", wire.to_u8_s2d_i8, wire.to_u8_s2d_i8_plain,
+             (x, T, 2), lambda i: (wire_inputs(B, S, S, torch.bfloat16,
+                                               g)[1], T, 2))):
+        out = fn(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        moved = nbytes(args[0], *outs)
+        ms = time_ms(lambda: fn(*args))
+        cold = time_cold_ms(fn, cold_sets(make, moved))
+        pms = time_ms(lambda: plain(*args))
+        if name == "to_s2d_i8":  # the int8 detect's launch
+            row.add(ms, pms, moved, 3 * flat.numel(), cold_ms=cold)
+        bms = bound(moved, 0)[0]
+        print(f"check wire {name} ms={ms:.4f} cold_ms={cold:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} "
+              f"share_of_bound={bms / ms:.3f} [{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1504,6 +1918,169 @@ def _run_trainer(root, card):
           f"[{card}]")
 
 
+# ------------------------------------------------------------ phase 9
+
+
+def int8_probs(server, u8):
+    """Per-pixel probabilities of a server's detect on ``u8`` (B,T,S,S,3):
+    the int8 tree's or the bf16 net's."""
+    m = server.model
+    flat = torch.from_numpy(u8).to("cuda").reshape(B * T, S, S, 3)
+    with torch.no_grad():
+        if server._qext is not None:
+            logits = unet_int8.body_int8(server._qext,
+                                         wire.to_s2d_i8(flat, 2))
+        else:
+            logits = m.unet.body(wire.to_s2d(flat, 2, m.compute_dtype))
+    return torch.sigmoid(depth_to_space(logits, 2).float()).cpu().numpy()
+
+
+def served_launches(server, clip, mode):
+    server.serve(clip, mode).prefetch()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = server.serve(clip, mode)
+    res.prefetch()
+    torch.cuda.synchronize()
+    return launch_counts(), res
+
+
+def p50_ms(server, clip, mode, n=20):
+    def one():
+        r = server.serve(clip, mode)
+        return [getattr(r, k) for k in r.keys()]
+    for _ in range(3):
+        one()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        one()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50))
+
+
+def stream_fps(server, clips, n=24):
+    t0 = time.perf_counter()
+    for r in server.serve_stream((clips[i % len(clips)] for i in range(n)),
+                                 "roundtrip", window=2):
+        [getattr(r, k) for k in r.keys()]
+    return n * B * T / (time.perf_counter() - t0)
+
+
+def run_int8(card):
+    """Phase 9: int8 serving at full width, on the perturbed random weights
+    of phase 4: launch counts of a detect and of roundtrips with the int8
+    extractor and with both int8 paths; KERNELS against PLAIN on the same
+    trees; int8 against the bf16 server; a self-calibrated server; p50
+    latency, streaming frames/s and peak memory beside the bf16 server."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    states = perturbed_states(cfg, seed=7)
+    rng = np.random.default_rng(9)
+    calib = rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+    clips = [rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+             for _ in range(3)]
+    modes = ("embed", "detect", "roundtrip")
+    t0 = time.perf_counter()
+    bf16 = WatermarkServer(cfg, weights=states, modes=modes)
+    ext = WatermarkServer(cfg, weights=states, modes=modes,
+                          int8_extract=True, int8_calib=calib)
+    both = WatermarkServer(cfg, weights=states, modes=modes,
+                           int8_extract=True, int8_embed=True,
+                           int8_calib=[calib])
+    setup_s = time.perf_counter() - t0
+
+    launches = {}
+    launches["int8_detect"], det = served_launches(ext, clips[0], "detect")
+    want = dict.fromkeys(launch_counts(), 0)
+    check(launches["int8_detect"] == {**want, **INT8_DETECT_LAUNCHES},
+          f"int8 detect launches {launches['int8_detect']}")
+    launches["int8x_roundtrip"], _ = served_launches(ext, clips[0],
+                                                     "roundtrip")
+    check(launches["int8x_roundtrip"] == {**ROUNDTRIP_LAUNCHES,
+                                          **INT8_DETECT_LAUNCHES,
+                                          "wire": 2},
+          f"int8-extract roundtrip launches {launches['int8x_roundtrip']}")
+    peak = {}  # a roundtrip's memory above what the three servers hold
+    for name, srv in (("bf16", bf16), ("int8", both)):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts, res = served_launches(srv, clips[0], "roundtrip")
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launches["int8_roundtrip"] = counts
+    check(launches["int8_roundtrip"] == INT8_ROUNDTRIP_LAUNCHES,
+          f"int8 roundtrip launches {launches['int8_roundtrip']}")
+    print(f"main path launches, int8 detect: "
+          f"{json.dumps(launches['int8_detect'])}; int8-extract roundtrip: "
+          f"{json.dumps(launches['int8x_roundtrip'])}; int8 roundtrip (both "
+          f"paths): {json.dumps(launches['int8_roundtrip'])}")
+    wm = res.watermarked
+    check(wm.shape == (B, T, S, S, 3) and wm.dtype == np.uint8, "int8 wm")
+    frac = res.tamper_fraction
+    check(frac.shape == (B,) and np.isfinite(frac).all()
+          and ((frac >= 0) & (frac <= 1)).all(), f"int8 fraction {frac}")
+    moved = np.abs(wm.astype(int) - clips[0].astype(int))
+    check(moved.max() > 0, "the int8 embed left the clip unchanged")
+
+    # KERNELS vs PLAIN on the same trees (the f64 plain server: 2 requests)
+    plain = WatermarkServer(cfg, weights=states, modes=modes, kernels=PLAIN)
+    plain._qext, plain._qemb = both._qext, both._qemb
+    pdet = plain.serve(clips[1], "detect")
+    kdet = both.serve(clips[1], "detect")
+    check(np.array_equal(kdet.mask_bits, pdet.mask_bits),
+          "int8 detect: mask bits differ from the plain versions'")
+    ferr = float(np.abs(kdet.tamper_fraction - pdet.tamper_fraction).max())
+    check(ferr <= MEAN_ATOL, f"int8 detect: tamper fraction err {ferr}")
+    prt = plain.serve(clips[0], "roundtrip")
+    d = np.abs(wm.astype(int) - prt.watermarked.astype(int))
+    exact = float((d == 0).mean())
+    check(d.max() <= EMBED_MAX_LEVELS and exact >= EMBED_FRAC_EXACT,
+          f"int8 embed: {d.max()} levels, {exact} exact vs plain")
+    vs_plain = {"detect_mask_bits_equal": True,
+                "detect_tamper_fraction_err": ferr,
+                "embed_max_levels": int(d.max()), "embed_exact": exact}
+    print(f"int8 vs plain server: {json.dumps(vs_plain)}")
+    del plain
+
+    # int8 vs the bf16 server on the same weights and bytes
+    ref_wm = bf16.serve(clips[0], "roundtrip").watermarked
+    p8, pb = int8_probs(ext, ref_wm), int8_probs(bf16, ref_wm)
+    dp = float(np.abs(p8 - pb).mean())
+    agree = float(((p8 > 0.5) == (pb > 0.5)).mean())
+    bits = float((ext.serve(ref_wm, "detect").mask
+                  == bf16.serve(ref_wm, "detect").mask).mean())
+    dwm = np.abs(wm.astype(int) - ref_wm.astype(int))
+    quality = {"mean_abs_dp": dp, "max_abs_dp": float(np.abs(p8 - pb).max()),
+               "threshold_agreement": agree, "served_mask_agreement": bits,
+               "embed_vs_bf16_mean_levels": float(dwm.mean()),
+               "embed_vs_bf16_max_levels": int(dwm.max()),
+               "watermark_mean_levels": float(moved.mean())}
+    print(f"int8 vs bf16 server (same weights): {json.dumps(quality)}")
+    check(dp < INT8_MEAN_DP and agree > INT8_AGREE,
+          f"int8 extract off the bf16 net: {quality}")
+
+    # self-calibration (no clips): serves, finite
+    selfcal = WatermarkServer(cfg, weights=states, modes=("roundtrip",),
+                              int8_extract=True, int8_embed=True)
+    sres = selfcal.serve(clips[0], "roundtrip")
+    check(np.isfinite(sres.tamper_fraction).all()
+          and sres.watermarked.shape == (B, T, S, S, 3), "self-calibrated")
+    del selfcal
+
+    timing = {}
+    for name, srv in (("bf16", bf16), ("int8_extract", ext),
+                      ("int8_both", both)):
+        timing[name] = {"detect_p50_ms": p50_ms(srv, clips[0], "detect"),
+                        "roundtrip_p50_ms": p50_ms(srv, clips[0],
+                                                   "roundtrip"),
+                        "stream_frames_per_s": stream_fps(srv, clips)}
+    print(json.dumps({"int8_serving": {
+        **timing, "roundtrip_peak_memory_gib_above_servers": peak,
+        "setup_s_three_servers": setup_s, "batch": B, "frames": T,
+        "size": S, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1532,6 +2109,10 @@ def main():
     check_ssim(rows, card)
     check_mix(rows, card)
     check_splice(rows, card)
+    check_qconv(rows, card)
+    check_qconv_t(rows, card)
+    check_qcoupling(rows, card)
+    check_stem(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -1541,9 +2122,10 @@ def main():
     train_launches = run_train(card)
     eval_launches = run_eval(card)
     run_trainer(card)
+    int8_launches = run_int8(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
-               "eval_step": eval_launches}
+               "eval_step": eval_launches, **int8_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

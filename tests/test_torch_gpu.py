@@ -19,7 +19,10 @@ per-image mean and on the mean (separable window sums in another order).
 K9 ``attack_mix`` and K10 ``splice`` forwards are EQUAL to their plain
 versions (every operation one IEEE rounding in the plain order); their
 backwards within 1e-6 of the plain gradient's max (K9's blur sums the nine
-products in another order than autograd; the rest is exact).
+products in another order than autograd; the rest is exact). K11 ``qconv``,
+K12 ``qconv_t``, K13 ``qcoupling_head`` and K3's int8 stem are EQUAL to
+their plain versions (exact int32 sums, the epilogues one IEEE rounding
+per operation in the plain order).
 """
 
 import dataclasses
@@ -31,9 +34,9 @@ import torch
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.kernels import (PLAIN, coupling, f1, jpeg,
-                                    launch_counts, mask, median, mix,
-                                    reset_launch_counts, splice, ssim,
-                                    transition, wire)
+                                    launch_counts, mask, median, mix, qconv,
+                                    qconv_t, qcoupling, reset_launch_counts,
+                                    splice, ssim, transition, wire)
 from vwfd_tpu_torch.ops.quantize import ste_quantize_255
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
@@ -42,6 +45,8 @@ from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
 pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.bfloat16]
+# the int8 kernels' counts on a path that runs none of them
+_NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0}
 
 
 @pytest.fixture
@@ -282,7 +287,7 @@ def test_server_on_card_matches_plain_and_counts_launches(cuda):
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 2, "mask_pack": 1, "jpeg_pair": 0,
                                "median3": 0, "f1_sweep": 0, "ssim": 0,
-                               "attack_mix": 0, "splice": 0}
+                               "attack_mix": 0, "splice": 0, **_NO_INT8}
     want = ref.serve(clip, "roundtrip")
     assert launch_counts()["transition"] == 6  # the plain server launches none
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
@@ -473,7 +478,8 @@ def test_train_step_kernels_match_plain(cuda):
     assert launch_counts() == {"transition": 11, "coupling_head": 10,
                                "wire": 0, "mask_pack": 0, "jpeg_pair": 2,
                                "median3": 2, "f1_sweep": 0, "ssim": 0,
-                               "attack_mix": 2, "splice": 2}
+                               "attack_mix": 2, "splice": 2,
+                               **_NO_INT8}
     lp, ap, gp, _ = pm.loss_and_grads(video, mask, prev, draws)
     for a, b in ((lk, lp), (ak["lF"], ap["lF"]), (ak["lB"], ap["lB"])):
         assert abs(float(a) - float(b)) <= 1e-2 * abs(float(b))
@@ -634,7 +640,7 @@ def test_eval_step_kernels_match_plain(cuda):
     assert launch_counts() == {"transition": 6, "coupling_head": 10,
                                "wire": 0, "mask_pack": 0, "jpeg_pair": 1,
                                "median3": 1, "f1_sweep": 1, "ssim": 1,
-                               "attack_mix": 1, "splice": 1}
+                               "attack_mix": 1, "splice": 1, **_NO_INT8}
     op = pm.eval_step(video, mask, prev, draws)
     assert abs(float(ok["psnr_forward"]) - float(op["psnr_forward"])) <= 0.01
     assert abs(float(ok["ssim_forward"]) - float(op["ssim_forward"])) <= 1e-4
@@ -728,3 +734,185 @@ def test_ste_quantize_divides_by_255_on_the_card(cuda):
     want = (k.numpy() / np.float32(255)).astype(np.float32)
     got = ste_quantize_255((k / 255.0 + 1e-4).to(cuda)).cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------- int8 (K11, K12, K13, stem)
+
+
+def _i8(g, shape, lo=-127):
+    return torch.randint(lo, 128, shape, device="cuda", generator=g,
+                         dtype=torch.int8)
+
+
+def _qscale(g, n, k, spread):
+    """Per-channel multipliers that put float(acc)·m near ±spread."""
+    base = spread / (5376.0 * k ** 0.5)  # std of a sum of k int8 products
+    return (base * (0.5 + torch.rand(n, device="cuda", generator=g))).float()
+
+
+# (N, H, W, Cin, Cout, k, epilogue, pool, dual Cin, float input dtype):
+# enc1's Cin 12, ragged H/W and Cout, the pool prologue on an odd input,
+# the dual epilogue, signed, ELU with int8 / bf16 / f32 inputs, the head
+_QCONVS = [(2, 13, 21, 12, 64, 3, "relu", False, 0, None),
+           (2, 9, 17, 64, 96, 3, "relu", True, 0, None),
+           (2, 8, 8, 64, 40, 3, "relu", False, 32, None),
+           (1, 7, 9, 32, 70, 3, "signed", False, 0, None),
+           (2, 16, 16, 96, 128, 3, "elu", False, 0, torch.bfloat16),
+           (2, 8, 8, 128, 128, 3, "elu", False, 0, None),
+           (2, 10, 12, 40, 72, 3, "elu", False, 0, torch.float32),
+           (2, 16, 16, 64, 4, 1, "f32", False, 0, None),
+           (3, 5, 6, 20, 24, 1, "relu", False, 0, None)]
+
+
+@pytest.mark.parametrize("case", _QCONVS)
+def test_qconv_kernel_equals_plain(cuda, case):
+    n, h, w, cin, cout, k, epi, pool, cin2, xdt = case
+    g = _gen(31)
+    hin, win = (2 * h + 1, 2 * w + 1) if pool else (h, w)
+    kw = {}
+    if xdt is None:
+        x = _i8(g, (n, hin, win, cin), lo=0 if pool else -127)
+    else:  # a channel slice, as the INN trunk reads its coupling half
+        full = torch.randn((n, h, w, 2 * cin), device=cuda, generator=g)
+        x = full.to(xdt)[..., cin:]
+        kw["x_scale"] = torch.tensor(0.02, device=cuda)
+    wt = _i8(g, (cout, k, k, cin))
+    m = _qscale(g, cout, k * k * cin, 1.0 if epi == "elu" else 80.0)
+    b = torch.randn(cout, device=cuda, generator=g)
+    if epi == "elu":
+        kw["out_scale"] = torch.tensor(0.015, device=cuda)
+    if cin2:
+        kw.update(x2=_i8(g, (n, h, w, cin2), lo=0), w2=_i8(g, (cout, k, k,
+                                                                cin2)),
+                  m2=_qscale(g, cout, k * k * cin2, 80.0))
+    before = launch_counts()["qconv"]
+    got = qconv.qconv(x, wt, m, b, epi, pool=pool, **kw)
+    assert launch_counts()["qconv"] == before + 1
+    want = qconv.qconv_plain(x, wt, m, b, epi, pool=pool, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape == (
+        n, h, w, cout)
+    assert torch.equal(got, want), int((got != want).sum())
+    if epi != "f32":  # the epilogue reaches its clip bounds
+        assert int(want.max()) == 127
+        if epi == "elu":  # ELU ≥ −1: levels down to about −1/0.015
+            assert int(want.min()) < -60
+        else:
+            assert int(want.min()) == (0 if epi == "relu" else -127)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 64, 40), (1, 8, 8, 512, 256),
+                                   (2, 3, 3, 24, 12)])
+def test_qconv_t_kernel_equals_plain(cuda, shape):
+    n, h, w, cin, cout = shape
+    g = _gen(32)
+    x = _i8(g, (n, h, w, cin), lo=0)
+    wt = _i8(g, (2, 2, cout, cin))
+    m, b = _qscale(g, cout, cin, 80.0), torch.randn(cout, device=cuda,
+                                                     generator=g)
+    before = launch_counts()["qconv_t"]
+    got = qconv_t.qconv_t(x, wt, m, b)
+    assert launch_counts()["qconv_t"] == before + 1
+    want = qconv_t.qconv_t_plain(x, wt, m, b)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 2 * h, 2 * w, cout)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+# (N, H, W, C, trunk width F): the flagship's packed level-48 and unpacked
+# 768-channel couplings at small sizes, and a ragged width
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 96, 128), (1, 8, 8, 384, 128),
+                                   (2, 5, 7, 40, 24)])
+def test_qcoupling_head_kernel_equals_plain(cuda, shape, dtype):
+    n, h, w, c, f = shape
+    g = _gen(33)
+    z = torch.randn((n, h, w, 2 * c), device=cuda, generator=g).to(dtype)
+    p = {"w2x": _i8(g, (2 * c, 1, 1, c)), "w2h": _i8(g, (2 * c, 1, 1, f)),
+         "m2x": _qscale(g, 2 * c, c + f, 1.0),
+         "m2h": _qscale(g, 2 * c, c + f, 1.0),
+         "b2": 0.1 * torch.randn(2 * c, device=cuda, generator=g),
+         "s_x": torch.tensor(0.02, device=cuda)}
+    h1i = _i8(g, (n, h, w, f))
+    outs = []
+    for fn in (qcoupling.qcoupling_head, qcoupling.qcoupling_head_plain):
+        out = torch.zeros_like(z)
+        fn(z[..., c:], h1i, p, z[..., :c], out=out[..., :c])
+        outs.append(out)
+    torch.cuda.synchronize()
+    got, want = outs
+    assert torch.equal(got[..., c:], torch.zeros_like(got[..., c:]))
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("b,t,h,w,s", [(2, 4, 32, 32, 2), (1, 2, 24, 40, 4),
+                                       (2, 3, 16, 36, 2)])
+def test_wire_int8_stem_is_exact(cuda, b, t, h, w, s):
+    """K3's int8 stem, on the tiled path and (36: rows off the 16-byte grid)
+    the general one, equal to the plain version, every byte level seen."""
+    g = _gen(34)
+    u8 = torch.randint(0, 256, (b * t, h, w, 3), device=cuda, generator=g,
+                       dtype=torch.uint8)
+    u8.view(-1)[:256] = torch.arange(256, device=cuda, dtype=torch.uint8)
+    got = wire.to_s2d_i8(u8, s)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, wire.to_s2d_i8_plain(u8, s))
+    for dtype in DTYPES:
+        x = torch.rand((b, h, w, 3 * t), device=cuda, generator=g).to(dtype)
+        (wk, sk), (wp, sp) = (fn(x, t, s) for fn in (
+            wire.to_u8_s2d_i8, wire.to_u8_s2d_i8_plain))
+        assert torch.equal(wk, wp) and torch.equal(sk, sp)
+
+
+def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
+    """A small flagship server (bf16, 64²) with both int8 options: one
+    roundtrip launches K1 ×6, K11 ×(12 + 2 per subnet evaluation = 32),
+    K12 ×4, K13 ×10, K3 ×2 (``to_channels``, ``to_u8_s2d_i8``), K4 ×1 and
+    no K2; a detect K3 ×1 (the stem), K11 ×12, K12 ×4, K4 ×1. The same
+    trees through the plain versions: watermarked bytes within 1 level on
+    ≥ 99.99 % (K1's bf16 transitions are within a bf16 ulp of theirs), the
+    detect's mask bits on the same bytes equal (K4 sums the tamper
+    fraction in its own order: within 1e-5)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64))
+    modes = ("roundtrip", "detect")
+    base = WatermarkServer(cfg, modes=modes)
+    with torch.no_grad():
+        for p in base.model.inn.parameters():
+            if p.dim() == 4 and p.shape[-1] == 1:  # perturb the zero heads
+                p.add_(1e-3 * torch.randn(p.shape, device=cuda,
+                                          generator=_gen(35)))
+    clip = np.random.default_rng(1).integers(0, 256, (2, 4, 64, 64, 3),
+                                             dtype=np.uint8)
+    kw = dict(modes=modes, weights=base.model.states(), int8_extract=True,
+              int8_embed=True, int8_calib=clip)
+    srv = WatermarkServer(cfg, **kw)
+    ref = WatermarkServer(cfg, kernels=PLAIN, modes=modes,
+                          weights=base.model.states())
+    ref._qext, ref._qemb = srv._qext, srv._qemb
+    srv.serve(clip, "roundtrip").prefetch()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = srv.serve(clip, "roundtrip")
+    got.prefetch()
+    torch.cuda.synchronize()
+    assert launch_counts() == {"transition": 6, "coupling_head": 0,
+                               "wire": 2, "mask_pack": 1, "jpeg_pair": 0,
+                               "median3": 0, "f1_sweep": 0, "ssim": 0,
+                               "attack_mix": 0, "splice": 0, "qconv": 32,
+                               "qconv_t": 4, "qcoupling_head": 10}
+    want = ref.serve(clip, "roundtrip")
+    diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
+    reset_launch_counts()
+    det = srv.serve(got.watermarked, "detect")
+    det.prefetch()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "wire": 1, "mask_pack": 1, "qconv": 12, "qconv_t": 4}
+    np.testing.assert_array_equal(det.mask_bits, got.mask_bits)
+    pdet = ref.serve(got.watermarked, "detect")
+    np.testing.assert_array_equal(det.mask_bits, pdet.mask_bits)
+    np.testing.assert_allclose(det.tamper_fraction, pdet.tamper_fraction,
+                               rtol=0, atol=1e-5)

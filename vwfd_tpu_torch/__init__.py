@@ -6,14 +6,14 @@ functions keep the JAX package's NHWC layout. Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``; without a card they raise.
 
 It serves the flagship embed → detect roundtrip
-(``serving.WatermarkServer``), trains the flagship
+(``serving.WatermarkServer``, in bf16 or int8), trains the flagship
 (``models.VideoWatermarkModel.train_step`` / ``fit`` with its telemetry
 and montages, on DAVIS or synthetic clips, ``python -m
 vwfd_tpu_torch.train``) and evaluates it (``eval_step``, ``extract_f1``,
-``eval_real_jpeg``, ``python -m vwfd_tpu_torch.train --val``) through ten
-hand-written CUDA kernels (``kernels``), and loads the JAX package's npz
-pretrain trees and (converted by ``tools/jax_checkpoint_to_torch.py``) its
-checkpoints.
+``eval_real_jpeg``, ``python -m vwfd_tpu_torch.train --val``) through
+thirteen hand-written CUDA kernels (``kernels``), and loads the JAX
+package's npz pretrain trees and (converted by
+``tools/jax_checkpoint_to_torch.py``) its checkpoints.
 """
 
 import os

@@ -12,6 +12,13 @@ Rules:
   ``weight``/``bias``/``running_mean``/``running_var`` (+
   ``num_batches_tracked``); flax's default epsilon 1e-5 is the port's.
 
+The int8 serving trees (``nets/unet_int8.py``, ``nets/inn_int8.py``) keep the
+JAX package's keys; their int8 conv kernels HWIO become the port's
+``(Cout, k, k, Cin)`` (``k.transpose(3, 0, 1, 2)``), and the UNet's int8
+transposed-conv kernels (2, 2, Cin, Cout) become ``(2, 2, Cout, Cin)`` with
+the same spatial flip as the float32 ones (``K[::-1, ::-1].transpose(0, 1,
+3, 2)``); ``unet_int8_from_jax`` / ``inn_int8_from_jax`` map them.
+
 The optimizer state follows the parameters: optax's ``ScaleByAdamState``
 (``count``, ``mu``, ``nu``; ``vwfd_tpu/models/state.py:37-45``) holds two
 trees shaped like the params, which map to the port's ``AdamW.mu`` and
@@ -26,7 +33,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
-           "opt_state_from_jax", "opt_state_to_jax"]
+           "opt_state_from_jax", "opt_state_to_jax", "unet_int8_from_jax",
+           "inn_int8_from_jax"]
 
 _CONVT = re.compile(r"(^|\.)up\d+$")  # UNetTPU's decoder ConvTransposes
 
@@ -163,3 +171,40 @@ def opt_state_to_jax(net: torch.nn.Module, mu, nu, count
     trees = [_state_dict_to_tree(dict(zip(names, ts)), bn)[0]
              for ts in (mu, nu)]
     return trees[0], trees[1], np.asarray(int(count), np.int32)
+
+
+def _leaf(a, conv: bool = False, flip: bool = False) -> torch.Tensor:
+    a = np.asarray(a)
+    if flip:   # flax ConvTranspose HWIO (2,2,Cin,Cout) → (2,2,Cout,Cin)
+        a = a[::-1, ::-1].transpose(0, 1, 3, 2)
+    elif conv:  # HWIO → (Cout, kh, kw, Cin)
+        a = a.transpose(3, 0, 1, 2)
+    return torch.from_numpy(np.array(a, order="C"))  # a writable copy
+
+
+def unet_int8_from_jax(qp: Mapping) -> Dict:
+    """The JAX package's int8 UNet tree (``unet_int8.quantize``; numpy or
+    jax leaves) → the port's (``nets/unet_int8.py``)."""
+    def conv(c):
+        return {"w": _leaf(c["w"], conv=True), "m": _leaf(c["m"]),
+                "b": _leaf(c["b"])}
+
+    return {
+        "enc": [[conv(c) for c in lv] for lv in qp["enc"]],
+        "dec": [{"up_w": _leaf(d["up_w"], flip=True),
+                 "up_m": _leaf(d["up_m"]), "up_b": _leaf(d["up_b"]),
+                 "w_up": _leaf(d["w_up"], conv=True),
+                 "w_skip": _leaf(d["w_skip"], conv=True),
+                 "m_up": _leaf(d["m_up"]), "m_skip": _leaf(d["m_skip"]),
+                 "b": _leaf(d["b"])} for d in qp["dec"]],
+        "head": conv(qp["head"]),
+    }
+
+
+def inn_int8_from_jax(q: Mapping) -> Dict:
+    """The JAX package's int8 INN tree (``inn_int8.quantize``) → the
+    port's (``nets/inn_int8.py``)."""
+    convs = ("w0", "w1", "w2x", "w2h")
+    return {blk: {st: {k: _leaf(v, conv=k in convs) for k, v in p.items()}
+                  for st, p in sub.items()}
+            for blk, sub in q.items()}

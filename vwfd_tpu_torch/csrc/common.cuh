@@ -14,8 +14,9 @@
 
 namespace vwfd {
 
-// dtype codes passed by the wrappers (kernels/_lib.py::DTYPE_CODES)
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed by the wrappers (kernels/_lib.py::DTYPE_CODES; kI8
+// only where a wrapper says so: K3's int8 detect stem)
+enum Dtype : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 constexpr int kThreads = 256;
 
@@ -31,6 +32,22 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as torch's cast
+}
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float v) {
+  return (int8_t)(int)v;  // v holds an integer level
+}
+
+// The RealNVP affine of a coupling half (vwfd_tpu/nets/inn.py::_e, clamp 1):
+// e = exp(2*sigmoid(s) - 1) + 1e-4; out = e*x + t (inverse: (x - t) / e).
+// Each operation is one IEEE rounding in the plain version's order (no FMA
+// contraction), so that K2 and K13 equal their plain versions.
+__device__ __forceinline__ float rnvp_affine(float s, float t, float xv,
+                                             int inverse) {
+  const float sig = __frcp_rn(__fadd_rn(1.f, expf(-s)));
+  const float e = __fadd_rn(expf(__fsub_rn(__fmul_rn(2.f, sig), 1.f)), 1e-4f);
+  return inverse ? __fdiv_rn(__fsub_rn(xv, t), e)
+                 : __fadd_rn(__fmul_rn(e, xv), t);
 }
 
 __device__ __forceinline__ long long global_index() {
@@ -73,6 +90,17 @@ struct Word<__nv_bfloat16> {
   static __device__ __forceinline__ uint32_t pack(const float* v) {
     return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[0])) |
            ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
+  }
+};
+
+template <>
+struct Word<int8_t> {  // four integer levels (stored only: store_vec)
+  static constexpr int kPer = 4;
+  static __device__ __forceinline__ uint32_t pack(const float* v) {
+    uint32_t w = 0;
+    for (int i = 0; i < 4; ++i)
+      w |= (uint32_t)(uint8_t)from_f32<int8_t>(v[i]) << (8 * i);
+    return w;
   }
 };
 

@@ -61,13 +61,7 @@ struct Args {
   int inverse;
 };
 
-__device__ __forceinline__ float affine(float s, float t, float xv,
-                                        int inverse) {
-  const float sig = __frcp_rn(__fadd_rn(1.f, expf(-s)));
-  const float e = __fadd_rn(expf(__fsub_rn(__fmul_rn(2.f, sig), 1.f)), 1e-4f);
-  return inverse ? __fdiv_rn(__fsub_rn(xv, t), e)
-                 : __fadd_rn(__fmul_rn(e, xv), t);
-}
+using vwfd::rnvp_affine;
 
 // ------------------------------------------------- bf16: TMA + wgmma (sm_90a)
 
@@ -328,8 +322,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
               __float2bfloat16_rn(d[8 * p + 2 * hf + e]));
           const float t = __bfloat162float(
               __float2bfloat16_rn(d[8 * p + 4 + 2 * hf + e]));
-          y[e] = affine(__fadd_rn(s, b[e]), __fadd_rn(t, b[2 + e]), xv[e],
-                        a.inverse);
+          y[e] = rnvp_affine(__fadd_rn(s, b[e]), __fadd_rn(t, b[2 + e]),
+                             xv[e], a.inverse);
         }
         *reinterpret_cast<uint32_t*>(op + (size_t)row * a.ldo + ch) =
             vwfd::Word<bf>::pack(y);
@@ -488,12 +482,12 @@ __global__ void __launch_bounds__(kFThreads) coupling_head_f32(const Args a) {
     if (row >= a.M) continue;
     const float2 xv =
         *reinterpret_cast<const float2*>(xp + (size_t)row * a.ldx + ch);
-    const float y0 = affine(__fadd_rn(acc[i][0][0], a.bias[gcs]),
-                            __fadd_rn(acc[i][0][1], a.bias[gcs + 8]), xv.x,
-                            a.inverse);
-    const float y1 = affine(__fadd_rn(acc[i][1][0], a.bias[gcs + 1]),
-                            __fadd_rn(acc[i][1][1], a.bias[gcs + 9]), xv.y,
-                            a.inverse);
+    const float y0 = rnvp_affine(__fadd_rn(acc[i][0][0], a.bias[gcs]),
+                                 __fadd_rn(acc[i][0][1], a.bias[gcs + 8]),
+                                 xv.x, a.inverse);
+    const float y1 = rnvp_affine(__fadd_rn(acc[i][1][0], a.bias[gcs + 1]),
+                                 __fadd_rn(acc[i][1][1], a.bias[gcs + 9]),
+                                 xv.y, a.inverse);
     *reinterpret_cast<float2*>(op + (size_t)row * a.ldo + ch) =
         make_float2(y0, y1);
   }

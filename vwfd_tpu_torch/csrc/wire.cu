@@ -16,6 +16,10 @@
 // (b) rounds half to even (rintf), as jnp.round / torch.round do; the
 // division by 255 is the IEEE __fdiv_rn, as the plain version's tensor
 // division, so every output is bit-equal to the plain version.
+// (c) and (d) also write the int8 detect stem (dtype kI8) of the int8
+// extractor (vwfd_tpu/serving.py:401 + nets/unet_int8.py:244-245): level
+// clip(rint(f32(v / 255) * 127), 0, 127), the quotient in float32 as the
+// JAX int8 detect feeds apply_int8 a float32 clip.
 //
 // Bound: bytes (a few operations per element). Design, the tiled path: one
 // block per output row (or per s input rows for (d)). The block stages the
@@ -35,6 +39,8 @@
 // memory, take the general path, one thread per output element
 // (u8_to_channels ...). The entry points check only what the tiled kernels
 // need to run safely (see tileable).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -65,10 +71,21 @@ __device__ __forceinline__ void fill_koff(int* koff, int K, int m, int rs) {
   }
 }
 
-// The 256 quotients v / 255 the decode reads.
-__device__ __forceinline__ void fill_div255(float* tab) {
+// What the decode writes for byte v, as a float: v / 255, or for the int8
+// stem the level clip(rint((v / 255) * 127), 0, 127).
+template <typename T>
+__device__ __forceinline__ float decode_value(int v) {
+  const float q = __fdiv_rn((float)v, 255.f);
+  if constexpr (std::is_same<T, int8_t>::value)
+    return fminf(fmaxf(rintf(__fmul_rn(q, 127.f)), 0.f), 127.f);
+  return q;
+}
+
+// The 256 decoded values the tiled decode reads.
+template <typename T>
+__device__ __forceinline__ void fill_tab(float* tab) {
   for (int v = threadIdx.x; v < 256; v += blockDim.x)
-    tab[v] = __fdiv_rn((float)v, 255.f);
+    tab[v] = decode_value<T>(v);
 }
 
 // One dtype row of n = Wo*K elements from staged bytes: element (j, k) =
@@ -136,7 +153,7 @@ __global__ void __launch_bounds__(kRowThreads)
         r_stride, rb, bb);
   }
   fill_koff(koff, K, m, rs);
-  fill_div255(tab);
+  fill_tab<T>(tab);
   __syncthreads();
   vwfd::mbar_wait(vwfd::smem_u32(&bar), 0);
   const int n = rb / (3 * m) * K;
@@ -146,11 +163,11 @@ __global__ void __launch_bounds__(kRowThreads)
 // (b) and, with kS2D, (d). Block (bb, i): the P input rows P*i + p of clip
 // bb of (B,H,W,3T) are quantized into staged rows (t, p), written to the u8
 // clip (B,T,H,W,3) and, with kS2D (P = s), decoded again into the T stem
-// rows (bb*T + t, i) of (B*T,H/s,W/s,3s^2).
-template <typename T, bool kS2D>
+// rows (bb*T + t, i) of (B*T,H/s,W/s,3s^2), of type S.
+template <typename T, typename S, bool kS2D>
 __global__ void __launch_bounds__(kRowThreads)
     wire_encode_rows(const T* __restrict__ in, uint8_t* __restrict__ out,
-                     T* __restrict__ s2d, int Tn, int H, int W, int P) {
+                     S* __restrict__ s2d, int Tn, int H, int W, int P) {
   extern __shared__ __align__(16) uint8_t rows[];
   __shared__ int koff_q[kMaxK], koff_s[kMaxK];
   __shared__ float tab[kS2D ? 256 : 1];
@@ -159,7 +176,7 @@ __global__ void __launch_bounds__(kRowThreads)
   fill_koff(koff_q, K, 1, P * rs);  // staged row t*P + p
   if (kS2D) {
     fill_koff(koff_s, 3 * P * P, P, rs);
-    fill_div255(tab);
+    fill_tab<S>(tab);
   }
   __syncthreads();
   for (int p = 0; p < P; ++p)
@@ -173,7 +190,7 @@ __global__ void __launch_bounds__(kRowThreads)
   if (kS2D) {
     const int n = 3 * W * P;  // (W/s) * 3s^2
     for (int t = 0; t < Tn; ++t)
-      decode_row<T>(s2d + ((bb * Tn + t) * Hb + i) * n, rows + t * P * rs,
+      decode_row<S>(s2d + ((bb * Tn + t) * Hb + i) * n, rows + t * P * rs,
                     koff_s, tab, 3 * P * P, 3 * P, n);
   }
   if (threadIdx.x == 0) vwfd::bulk_wait_read();
@@ -193,17 +210,17 @@ cudaError_t decode(const void* in, void* out, int blocks, int per_img,
   return cudaGetLastError();
 }
 
-template <typename T, bool kS2D>
+template <typename T, typename S, bool kS2D>
 cudaError_t encode(const void* in, void* out, void* s2d, int B, int Tn,
                    int H, int W, int P, cudaStream_t s) {
   const int smem = Tn * P * (3 * W + kRowPad);
   const cudaError_t e = cudaFuncSetAttribute(
-      wire_encode_rows<T, kS2D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      wire_encode_rows<T, S, kS2D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  wire_encode_rows<T, kS2D><<<B * (H / P), kRowThreads, smem, s>>>(
+  wire_encode_rows<T, S, kS2D><<<B * (H / P), kRowThreads, smem, s>>>(
       static_cast<const T*>(in), static_cast<uint8_t*>(out),
-      static_cast<T*>(s2d), Tn, H, W, P);
+      static_cast<S*>(s2d), Tn, H, W, P);
   return cudaGetLastError();
 }
 
@@ -224,7 +241,7 @@ __global__ void u8_to_channels(const uint8_t* __restrict__ in,
   const long long b = r / H;
   const int t = ch / 3, c = ch % 3;
   const uint8_t v = in[(((b * Tn + t) * H + y) * (long long)W + x) * 3 + c];
-  out[idx] = from_f32<T>(__fdiv_rn((float)v, 255.f));
+  out[idx] = from_f32<T>(decode_value<T>(v));
 }
 
 template <typename T>
@@ -261,7 +278,7 @@ __global__ void u8_to_s2d(const uint8_t* __restrict__ in, T* __restrict__ out,
   const int p = pq / s, q = pq % s;
   const uint8_t v =
       in[((n * H + (s * i + p)) * (long long)W + (s * j + q)) * 3 + c];
-  out[idx] = from_f32<T>(__fdiv_rn((float)v, 255.f));
+  out[idx] = from_f32<T>(decode_value<T>(v));
 }
 
 // What the tiled kernels need to run safely: 16-byte aligned tensors, u8
@@ -310,10 +327,10 @@ extern "C" int vwfd_wire_to_u8(const void* in, void* out, int B, int Tn, int H,
   if (tiled) {
     if (!tileable(in, out, W, 3 * Tn)) return (int)cudaErrorInvalidValue;
     return (int)(dtype == vwfd::kBF16
-                     ? encode<__nv_bfloat16, false>(in, out, nullptr, B, Tn,
-                                                    H, W, 1, s)
-                     : encode<float, false>(in, out, nullptr, B, Tn, H, W, 1,
-                                            s));
+                     ? encode<__nv_bfloat16, __nv_bfloat16, false>(
+                           in, out, nullptr, B, Tn, H, W, 1, s)
+                     : encode<float, float, false>(in, out, nullptr, B, Tn,
+                                                   H, W, 1, s));
   }
   uint8_t* dst = static_cast<uint8_t*>(out);
   if (dtype == vwfd::kBF16)
@@ -326,31 +343,36 @@ extern "C" int vwfd_wire_to_u8(const void* in, void* out, int B, int Tn, int H,
   return (int)cudaGetLastError();
 }
 
-// (c) in: u8 (N,H,W,3); out: (N,H/s,W/s,s*s*3)
+template <typename T>
+cudaError_t to_s2d(const void* in, void* out, int N, int H, int W, int sf,
+                   int tiled, cudaStream_t s) {
+  if (tiled) {
+    if (!tileable(in, out, W, 3 * sf * sf)) return cudaErrorInvalidValue;
+    const int rb = 3 * W;
+    return decode<T>(in, out, N * (H / sf), H / sf, H * rb, sf * rb, rb, sf,
+                     rb, sf, 3 * sf * sf, s);
+  }
+  const long long total = (long long)N * H * W * 3;
+  u8_to_s2d<T><<<vwfd::blocks_for(total), vwfd::kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(in), static_cast<T*>(out), total, H, W,
+      sf);
+  return cudaGetLastError();
+}
+
+// (c) in: u8 (N,H,W,3); out: (N,H/s,W/s,s*s*3) of dtype f32, bf16 or the
+// int8 stem (kI8)
 extern "C" int vwfd_wire_to_s2d(const void* in, void* out, int N, int H, int W,
                                 int sf, int dtype, int tiled, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)N * H * W * 3;
-  if (total == 0) return (int)cudaGetLastError();
-  if (tiled) {
-    if (!tileable(in, out, W, 3 * sf * sf)) return (int)cudaErrorInvalidValue;
-    const int rb = 3 * W;
-    return (int)(dtype == vwfd::kBF16
-                     ? decode<__nv_bfloat16>(in, out, N * (H / sf), H / sf,
-                                             H * rb, sf * rb, rb, sf, rb, sf,
-                                             3 * sf * sf, s)
-                     : decode<float>(in, out, N * (H / sf), H / sf, H * rb,
-                                     sf * rb, rb, sf, rb, sf, 3 * sf * sf,
-                                     s));
+  if ((long long)N * H * W == 0) return (int)cudaGetLastError();
+  switch (dtype) {
+    case vwfd::kBF16:
+      return (int)to_s2d<__nv_bfloat16>(in, out, N, H, W, sf, tiled, s);
+    case vwfd::kI8:
+      return (int)to_s2d<int8_t>(in, out, N, H, W, sf, tiled, s);
+    default:
+      return (int)to_s2d<float>(in, out, N, H, W, sf, tiled, s);
   }
-  const uint8_t* src = static_cast<const uint8_t*>(in);
-  if (dtype == vwfd::kBF16)
-    u8_to_s2d<__nv_bfloat16><<<vwfd::blocks_for(total), vwfd::kThreads, 0, s>>>(
-        src, static_cast<__nv_bfloat16*>(out), total, H, W, sf);
-  else
-    u8_to_s2d<float><<<vwfd::blocks_for(total), vwfd::kThreads, 0, s>>>(
-        src, static_cast<float*>(out), total, H, W, sf);
-  return (int)cudaGetLastError();
 }
 
 // (d) in: (B,H,W,3T); out: u8 (B,T,H,W,3); s2d: (B*T,H/s,W/s,3s^2), of
@@ -365,7 +387,25 @@ extern "C" int vwfd_wire_to_u8_s2d(const void* in, void* out, void* s2d, int B,
       !vwfd::aligned16({s2d}) || H % sf || W % sf)
     return (int)cudaErrorInvalidValue;
   return (int)(dtype == vwfd::kBF16
-                   ? encode<__nv_bfloat16, true>(in, out, s2d, B, Tn, H, W,
-                                                 sf, s)
-                   : encode<float, true>(in, out, s2d, B, Tn, H, W, sf, s));
+                   ? encode<__nv_bfloat16, __nv_bfloat16, true>(
+                         in, out, s2d, B, Tn, H, W, sf, s)
+                   : encode<float, float, true>(in, out, s2d, B, Tn, H, W, sf,
+                                                s));
+}
+
+// (d) with the int8 stem: in: (B,H,W,3T) of dtype; out: u8 (B,T,H,W,3);
+// s2d: int8 (B*T,H/s,W/s,3s^2). The tiled path only, as (d).
+extern "C" int vwfd_wire_to_u8_s2d_i8(const void* in, void* out, void* s2d,
+                                      int B, int Tn, int H, int W, int sf,
+                                      int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)B * Tn * H * W == 0) return (int)cudaGetLastError();
+  if (!tileable(in, out, W, 3 * (Tn > sf * sf ? Tn : sf * sf)) ||
+      !vwfd::aligned16({s2d}) || H % sf || W % sf)
+    return (int)cudaErrorInvalidValue;
+  return (int)(dtype == vwfd::kBF16
+                   ? encode<__nv_bfloat16, int8_t, true>(in, out, s2d, B, Tn,
+                                                         H, W, sf, s)
+                   : encode<float, int8_t, true>(in, out, s2d, B, Tn, H, W,
+                                                 sf, s));
 }

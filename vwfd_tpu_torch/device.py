@@ -5,6 +5,7 @@ name. There is no silent fallback: with no card and no explicit ``"cpu"``
 they raise.
 """
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -30,3 +31,19 @@ def compute_dtype(name: str) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return dtypes[name]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 convolutions and matrix products in full float32 on the card:
+    cuDNN's and cuBLAS's TF32 off inside, the caller's settings restored
+    after (TF32 keeps about three decimal digits)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = prev

@@ -16,6 +16,16 @@
   the post-attack epilogue, forward and backward (kernels/mix.py)
 * K10 ``splice``         — the embed's clamp and quantizer with the splice
   tamper and the frames relayout, forward and backward (kernels/splice.py)
+* K11 ``qconv``          — int8 3×3 / 1×1 convolution, exact int32 sums on
+  the tensor cores, with its requant epilogue and pool / quantize prologue
+  (kernels/qconv.py)
+* K12 ``qconv_t``        — int8 2×2 / stride-2 transposed convolution with
+  its requant, stored depth-to-space (kernels/qconv_t.py)
+* K13 ``qcoupling_head`` — the int8 embed's split coupling head and RealNVP
+  affine (kernels/qcoupling.py)
+
+K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
+``wire_to_u8_s2d_i8``), under K3's launch count.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
@@ -28,14 +38,14 @@ and compare.
 
 from typing import Callable, Dict, NamedTuple
 
-from . import (coupling, f1, jpeg, mask, median, mix, splice, ssim,
-               transition, wire)
+from . import (coupling, f1, jpeg, mask, median, mix, qconv, qconv_t,
+               qcoupling, splice, ssim, transition, wire)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
-           splice)
+           splice, qconv, qconv_t, qcoupling)
 
 
 class KernelSet(NamedTuple):
@@ -52,18 +62,27 @@ class KernelSet(NamedTuple):
     ssim: Callable
     attack_mix: Callable
     splice: Callable
+    qconv: Callable
+    qconv_t: Callable
+    qcoupling_head: Callable
+    wire_to_s2d_i8: Callable
+    wire_to_u8_s2d_i8: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_channels, wire.to_u8, wire.to_s2d, wire.to_u8_s2d,
                     mask.mask_pack, jpeg.jpeg_pair, median.median3,
-                    f1.f1_sweep, ssim.ssim, mix.attack_mix, splice.splice)
+                    f1.f1_sweep, ssim.ssim, mix.attack_mix, splice.splice,
+                    qconv.qconv, qconv_t.qconv_t, qcoupling.qcoupling_head,
+                    wire.to_s2d_i8, wire.to_u8_s2d_i8)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
                   jpeg.jpeg_pool_pair_plain, median.median3_plain,
                   f1.f1_sweep_plain, ssim.ssim_plain, mix.attack_mix_plain,
-                  splice.splice_plain)
+                  splice.splice_plain, qconv.qconv_plain,
+                  qconv_t.qconv_t_plain, qcoupling.qcoupling_head_plain,
+                  wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -53,6 +53,7 @@ import torch
 from . import _lib
 
 __all__ = ["coupling_head", "coupling_head_plain", "coupling_affine_plain",
+           "affine_e",
            "coupling_head_backward", "CouplingHeadFn", "interleave_index",
            "deinterleave_index", "COUNT"]
 
@@ -115,6 +116,12 @@ def _check_affine(head, bias, x, out):
     return code, _row_stride(x, "x"), _row_stride(out, "out")
 
 
+def affine_e(s: torch.Tensor) -> torch.Tensor:
+    """The affine's multiplier ``exp(2·sigmoid(s) − 1) + 1e-4``
+    (``vwfd_tpu/nets/inn.py::_e``, clamp 1), float32 torch ops."""
+    return torch.exp(2.0 * torch.sigmoid(s) - 1.0) + _EPS
+
+
 def coupling_affine_plain(head: torch.Tensor, bias: torch.Tensor,
                           x: torch.Tensor, out: Optional[torch.Tensor] = None,
                           inverse: bool = False) -> torch.Tensor:
@@ -125,7 +132,7 @@ def coupling_affine_plain(head: torch.Tensor, bias: torch.Tensor,
     c = x.shape[-1]
     st = head.float() + bias
     s, t = st[..., :c], st[..., c:]
-    e = torch.exp(2.0 * torch.sigmoid(s) - 1.0) + _EPS
+    e = affine_e(s)
     xf = x.float()
     out.copy_((xf - t) / e if inverse else e * xf + t)
     return out

@@ -14,7 +14,16 @@ Replaces the uint8 decode/encode of ``vwfd_tpu/serving.py::_embed_u8`` /
 * ``to_u8_s2d``: ``to_u8`` and ``to_s2d`` of its output in one pass, the
   roundtrip's hand-over from embed to detect (``vwfd_tpu/serving.py:427-434``,
   one XLA program there): the watermarked u8 clip and the detect stem's
-  input, decoded from the same bytes.
+  input, decoded from the same bytes;
+* ``to_s2d_i8`` and ``to_u8_s2d_i8``: the same with the int8 extractor's
+  stem (``vwfd_tpu/serving.py:401`` then ``nets/unet_int8.py:244-245``),
+  ``zi = clip(round(f32(u8 / 255) · 127), 0, 127)`` as int8 in s2d order.
+  The quotient is float32, as the JAX int8 detect feeds ``apply_int8`` a
+  float32 clip (a bf16 stem would be the wrong input). ``u·127/255`` is
+  never closer than 1/510 to a half-integer, so the level is the same
+  whether the quotient is the IEEE one or ``u·(1/255)``. The stem stays in
+  K3 (its own launch, the roundtrip's in the one-pass encode) rather than
+  in a K11 prologue, so the int8 UNet reads int8 from its first conv on.
 
 Bound: bytes, a handful of operations per element. At the flagship serving
 shapes (batch 16, T=4, 256²) each of the first three reads or writes 12.6 MB
@@ -39,9 +48,10 @@ import torch
 from ..ops.squeeze import space_to_depth
 from . import _lib
 
-__all__ = ["to_channels", "to_u8", "to_s2d", "to_u8_s2d", "to_channels_plain",
-           "to_u8_plain", "to_s2d_plain", "to_u8_s2d_plain", "tiled",
-           "COUNT"]
+__all__ = ["to_channels", "to_u8", "to_s2d", "to_u8_s2d", "to_s2d_i8",
+           "to_u8_s2d_i8", "to_channels_plain", "to_u8_plain", "to_s2d_plain",
+           "to_u8_s2d_plain", "to_s2d_i8_plain", "to_u8_s2d_i8_plain",
+           "stem_levels", "tiled", "COUNT"]
 
 COUNT = _lib.LaunchCount("wire")
 # csrc/wire.cu: channels of one dtype-side pixel the offset table holds
@@ -81,6 +91,9 @@ def _check_frames(x: torch.Tensor, frames: int) -> None:
 def _check_s2d(x: torch.Tensor, s: int) -> None:
     if s < 1 or x.shape[-3] % s or x.shape[-2] % s:
         raise ValueError(f"s2d: {tuple(x.shape)} not divisible by {s}")
+
+
+_I8 = 2  # csrc/common.cuh kI8: the int8 stem
 
 
 def _code(dtype: torch.dtype, name: str) -> int:
@@ -131,6 +144,26 @@ def to_u8_s2d_plain(x: torch.Tensor, frames: int, s: int
     return u8, to_s2d_plain(u8.reshape(b * t, h, w, c), s, x.dtype)
 
 
+def stem_levels(x: torch.Tensor) -> torch.Tensor:
+    """u8 → the int8 stem level ``clip(round((u8 / 255) · 127), 0, 127)``,
+    the quotient in float32."""
+    return torch.clamp(torch.round(_div255(x) * 127.0), 0, 127).to(
+        torch.int8)
+
+
+def to_s2d_i8_plain(x: torch.Tensor, s: int) -> torch.Tensor:
+    _check_u8(x, 4, "to_s2d_i8 input")
+    _check_s2d(x, s)
+    return space_to_depth(stem_levels(x), s).contiguous()
+
+
+def to_u8_s2d_i8_plain(x: torch.Tensor, frames: int, s: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    u8 = to_u8_plain(x, frames)
+    b, t, h, w, c = u8.shape
+    return u8, to_s2d_i8_plain(u8.reshape(b * t, h, w, c), s)
+
+
 def to_channels(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(a) u8 clip (B,T,H,W,3) → INN input (B,H,W,3T) in ``dtype``."""
     _check_u8(x, 5, "to_channels input")
@@ -168,6 +201,11 @@ def to_s2d(x: torch.Tensor, s: int, dtype: torch.dtype) -> torch.Tensor:
     code = _code(dtype, "to_s2d")
     if not _lib.on_cuda(x):
         return to_s2d_plain(x, s, dtype)
+    return _to_s2d(x, s, dtype, code)
+
+
+def _to_s2d(x: torch.Tensor, s: int, dtype: torch.dtype, code: int
+            ) -> torch.Tensor:
     n, h, w, _ = x.shape
     y = torch.empty((n, h // s, w // s, s * s * 3), device=x.device,
                     dtype=dtype)
@@ -198,5 +236,40 @@ def to_u8_s2d(x: torch.Tensor, frames: int, s: int
     _check_size(x, u8, y)
     _lib.launch("vwfd_wire_to_u8_s2d", x.device, x.data_ptr(), u8.data_ptr(),
                 y.data_ptr(), b, frames, h, w, s, _lib.dtype_code(x))
+    COUNT.n += 1
+    return u8, y
+
+
+def to_s2d_i8(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(c) with the int8 stem: u8 frames (N,H,W,3) → int8
+    (N,H/s,W/s,s²·3)."""
+    _check_u8(x, 4, "to_s2d_i8 input")
+    _check_s2d(x, s)
+    if not _lib.on_cuda(x):
+        return to_s2d_i8_plain(x, s)
+    return _to_s2d(x, s, torch.int8, _I8)
+
+
+def to_u8_s2d_i8(x: torch.Tensor, frames: int, s: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d) with the int8 stem: INN output (B,H,W,3T) → the watermarked u8
+    clip and the int8 detect stem (B·T,H/s,W/s,s²·3) decoded from its
+    bytes; one launch on the tiled path, ``to_u8`` then ``to_s2d_i8``
+    otherwise."""
+    _check_frames(x, frames)
+    _check_s2d(x, s)
+    if not _lib.on_cuda(x):
+        return to_u8_s2d_i8_plain(x, frames, s)
+    b, h, w, _ = x.shape
+    if not tiled(x, w, frames * s, 3 * max(frames, s * s)):
+        u8 = to_u8(x, frames)
+        return u8, to_s2d_i8(u8.reshape(b * frames, h, w, 3), s)
+    u8 = torch.empty((b, frames, h, w, 3), device=x.device, dtype=torch.uint8)
+    y = torch.empty((b * frames, h // s, w // s, s * s * 3), device=x.device,
+                    dtype=torch.int8)
+    _check_size(x, u8, y)
+    _lib.launch("vwfd_wire_to_u8_s2d_i8", x.device, x.data_ptr(),
+                u8.data_ptr(), y.data_ptr(), b, frames, h, w, s,
+                _lib.dtype_code(x))
     COUNT.n += 1
     return u8, y

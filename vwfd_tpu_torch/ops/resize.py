@@ -1,16 +1,21 @@
-"""Separable resampling matrices (port of vwfd_tpu/ops/resize.py:23-72).
+"""Separable resampling (port of vwfd_tpu/ops/resize.py:23-90).
 
-Numpy only: a dense (out, in) bicubic (a = −0.75) matrix, half-pixel centres
-and edge clamp as ``F.interpolate(align_corners=False)``. The JAX package's
-bilinear and Lanczos kernels and its antialias option serve attacks the
-port has not taken over, and are not ported.
+Dense (out, in) resampling matrices in numpy, half-pixel centres and edge
+clamp as ``F.interpolate(align_corners=False)``: bicubic (a = −0.75) and
+bilinear. ``resize_bilinear`` applies the bilinear matrices as two float32
+products, as the JAX package's two einsums at HIGHEST precision; the int8
+server's self-calibration clips use it (``serving.py``). The JAX package's
+Lanczos kernel and its antialias option serve attacks the port has not
+taken over, and are not ported.
 """
 
 import functools
+from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["resize_matrix"]
+__all__ = ["resize_matrix", "resize_bilinear"]
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -22,20 +27,40 @@ def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
     )
 
 
+def _linear_kernel(t: np.ndarray) -> np.ndarray:
+    t = np.abs(t)
+    return np.maximum(0.0, 1.0 - t)
+
+
+_KERNELS = {"bicubic": (_cubic_kernel, 2.0), "bilinear": (_linear_kernel, 1.0)}
+
+
 @functools.lru_cache(maxsize=None)
-def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """Dense (out_size, in_size) float32 bicubic resampling matrix."""
-    support = 2.0
+def resize_matrix(in_size: int, out_size: int,
+                  method: str = "bicubic") -> np.ndarray:
+    """Dense (out_size, in_size) float32 resampling matrix (``method``
+    ``"bicubic"`` or ``"bilinear"``)."""
+    kernel, support = _KERNELS[method]
     scale = in_size / out_size
     src = (np.arange(out_size) + 0.5) * scale - 0.5
     idx = np.arange(in_size)
-    w = _cubic_kernel(src[:, None] - idx[None, :])
+    w = kernel(src[:, None] - idx[None, :])
     if (src - support).min() < 0 or (src + support).max() > in_size - 1:
         # fold the out-of-range taps onto the clamped edge pixels
         reach = int(np.ceil(support)) + 1
         idx_ext = np.arange(-reach, in_size + reach)
-        w_ext = _cubic_kernel(src[:, None] - idx_ext[None, :])
+        w_ext = kernel(src[:, None] - idx_ext[None, :])
         w = np.zeros((out_size, in_size))
         np.add.at(w.T, np.clip(idx_ext, 0, in_size - 1), w_ext.T)
     w = w / w.sum(axis=1, keepdims=True)
     return w.astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32:
+    the rows' matrix, then the columns'."""
+    h, w = x.shape[-3], x.shape[-2]
+    mh = torch.from_numpy(resize_matrix(h, out_hw[0], "bilinear")).to(x.device)
+    mw = torch.from_numpy(resize_matrix(w, out_hw[1], "bilinear")).to(x.device)
+    x = torch.einsum("oh,...hwc->...owc", mh, x.float())
+    return torch.einsum("pw,...owc->...opc", mw, x)

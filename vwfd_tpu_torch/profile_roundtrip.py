@@ -4,11 +4,14 @@ goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
     python -m vwfd_tpu_torch.profile_roundtrip --mode train [--requests 5]
     python -m vwfd_tpu_torch.profile_roundtrip --mode eval [--requests 5]
+    python -m vwfd_tpu_torch.profile_roundtrip --int8 [--int8-embed]
 
 ``--mode roundtrip`` (the default) serves the flagship roundtrip
 (``configs/video.yaml``: batch 16, T=4, 256², bf16; random weights from a
 seed); ``--mode train`` runs the flagship ``train_step`` and ``--mode
-eval`` its ``eval_step`` on synthetic batches. Each runs under
+eval`` its ``eval_step`` on synthetic batches. ``--int8`` serves the
+roundtrip through the int8 extractor and ``--int8-embed`` through the int8
+embed (calibrated on one seeded random clip, off the clock). Each runs under
 ``torch.profiler`` after a warm-up, then prints one JSON line: the host
 wall time per request (or step), the device time per request by kernel
 class (the port's kernels, convolutions, GEMMs, BatchNorm, concatenations,
@@ -42,7 +45,9 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "jpeg_pair": ("jpeg_pair",), "median3": ("median3",),
                 "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",),
                 "attack_mix": ("attack_mix_fwd", "attack_mix_bwd"),
-                "splice": ("splice_fwd", "splice_bwd")}
+                "splice": ("splice_fwd", "splice_bwd"),
+                "qconv": ("qconv_kernel",), "qconv_t": ("qconv_t_kernel",),
+                "qcoupling_head": ("qcoupling_kernel",)}
 
 
 def classify(name: str) -> str:
@@ -72,6 +77,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="roundtrip through the int8 extractor")
+    ap.add_argument("--int8-embed", action="store_true",
+                    help="roundtrip through the int8 embed")
     args = ap.parse_args(argv)
 
     cfg = load_config(FLAGSHIP_CONFIG)
@@ -94,9 +103,12 @@ def main(argv=None):
             prev = batches[(i - 1) % len(batches)][0]
             return step_fn(video, mask, prev)
     else:
-        server = WatermarkServer(cfg, modes=("roundtrip",))
         clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
                                                  dtype=np.uint8)
+        server = WatermarkServer(cfg, modes=("roundtrip",),
+                                 int8_extract=args.int8,
+                                 int8_embed=args.int8_embed,
+                                 int8_calib=clip)
 
         def one():
             r = server.serve(clip, "roundtrip")
@@ -137,7 +149,8 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "card": card, "mode": args.mode, "requests": n, "batch": b,
+        "card": card, "mode": args.mode, "int8": args.int8,
+        "int8_embed": args.int8_embed, "requests": n, "batch": b,
         "frames": t, "size": s,
         "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy / n / 1e3,

@@ -6,12 +6,17 @@
         --ckpt-dir checkpoints/video
     python -m vwfd_tpu_torch.serve --mode detect --synthetic 8 --device cpu \\
         --batch 2 --size 64
+    python -m vwfd_tpu_torch.serve --mode roundtrip --synthetic 32 --int8 \\
+        --int8-embed
 
 Serves synthetic uint8 clips through ``WatermarkServer`` and prints one JSON
 line: clips and frames per second over the stream (``--synthetic N``) or
 per-request latency percentiles (``--latency N``), with the weights of a
 checkpoint directory (``--ckpt-dir``, its latest step or ``--step``), of a
-``--weights`` file, or random ones. Runs on the CUDA card unless
+``--weights`` file, or random ones. ``--int8`` serves detect / roundtrip
+through the int8 PTQ extractor and ``--int8-embed`` embed / roundtrip
+through the int8 PTQ INN, both self-calibrated at start-up
+(``WatermarkServer(int8_extract=, int8_embed=, int8_margin=)``). Runs on the CUDA card unless
 ``--device cpu``. Reading clips from a media folder is not ported
 yet.
 """
@@ -57,6 +62,14 @@ def main(argv=None):
                     help="in-flight request window (double-buffer = 2)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--int8", action="store_true",
+                    help="detect/roundtrip through the int8 PTQ extractor "
+                         "(nets/unet_int8.py)")
+    ap.add_argument("--int8-embed", action="store_true",
+                    help="embed/roundtrip through the int8 PTQ INN "
+                         "(nets/inn_int8.py)")
+    ap.add_argument("--int8-margin", type=float, default=1.0,
+                    help="calibration amax head-room multiplier")
     args = ap.parse_args(argv)
     if not (args.synthetic or args.latency):
         ap.error("need --synthetic N or --latency N (media folders are "
@@ -70,7 +83,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     server = WatermarkServer(cfg, device=args.device, weights=args.weights,
                              modes=(args.mode,), threshold=args.threshold,
-                             ckpt_dir=args.ckpt_dir, step=args.step)
+                             ckpt_dir=args.ckpt_dir, step=args.step,
+                             int8_extract=args.int8,
+                             int8_embed=args.int8_embed,
+                             int8_margin=args.int8_margin)
     setup_s = time.perf_counter() - t0
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
     clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
@@ -79,7 +95,8 @@ def main(argv=None):
             "device": str(server.device),
             "device_name": (torch.cuda.get_device_name(server.device)
                             if server.device.type == "cuda" else "cpu"),
-            "setup_s": setup_s}
+            "setup_s": setup_s, "int8": args.int8,
+            "int8_embed": args.int8_embed}
     for _ in range(3):  # warm-up: cuDNN/cuBLAS plans, kernel build
         _materialize(server.serve(clip, args.mode))
 

@@ -17,7 +17,17 @@ and the outputs trimmed (eval-mode nets are per-sample, so this is exact).
 On the card the uint8 decode/encode and relayouts run in K3
 (``kernels/wire.py``; the roundtrip's encode and the detect stem's decode
 in one pass), the INN in K1/K2 plus cuDNN/cuBLAS, and the detect
-epilogue in K4 (``kernels/mask.py``). Uploads go through pinned host
+epilogue in K4 (``kernels/mask.py``).
+
+Int8 serving (``int8_extract``, ``int8_embed``; vwfd_tpu/serving.py:212-338):
+at construction, off the serving clock, the extractor and/or the embed INN
+are calibrated on representative clips and quantized
+(``nets/unet_int8.py``, ``nets/inn_int8.py``); the embed first, so that the
+detect's self-calibration watermarks its clips through the int8 embed
+when both are on. The int8 detect reads K3's int8 stem, runs the UNet in
+K11 ``qconv`` and K12 ``qconv_t`` and hands the head's float32 logits to K4;
+the int8 embed runs K1, K11 and K13 ``qcoupling_head``, and its output
+goes through K3 as the bf16 INN's does. Uploads go through pinned host
 buffers with ``non_blocking`` copies; results come back the same way,
 behind a CUDA event, so ``serve`` returns without waiting for the card and
 ``serve_stream`` keeps a window of requests in flight.
@@ -26,7 +36,7 @@ Weights come from a checkpoint directory (``ckpt_dir``: the port's own
 layout, ``models/state.py``, which ``tools/jax_checkpoint_to_torch.py``
 writes from a JAX package's orbax checkpoint), a weights file or mapping,
 or a seed. Not ported yet: AOT compile (CUDA graphs), ``mesh``,
-``export_program`` and the int8 options.
+``export_program``, ``cost_analysis`` and serving media folders.
 """
 
 from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
@@ -37,7 +47,9 @@ import torch
 from .config import Config
 from .kernels import KERNELS, KernelSet
 from .models.state import latest_step, load_nets
-from .models.video_model import VideoWatermarkModel
+from .models.video_model import VideoWatermarkModel, _to_channels
+from .nets import inn_int8, unet_int8
+from .ops.resize import resize_bilinear
 
 __all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits",
            "save_weights"]
@@ -51,6 +63,31 @@ def unpack_mask_bits(packed) -> np.ndarray:
     uint8 {0,255} (...,S,S,1)."""
     bits = np.unpackbits(np.asarray(packed), axis=-1)
     return (bits[..., None] * np.uint8(255)).astype(np.uint8)
+
+
+def _smooth_synthetic_clips(rng: np.random.Generator, shape) -> np.ndarray:
+    """Bilinear-upsampled coarse noise plus a per-frame drift, in [0, 1]:
+    the "natural video"-like family the int8 self-calibration uses (smooth
+    content matches natural activation statistics far better than uniform
+    pixel noise). Drawn from ``rng`` (the JAX package draws from
+    ``jax.random``; the two cannot give the same clips, F15)."""
+    b, t, s, _, c = shape
+    coarse = rng.uniform(size=(b, 1, 16, 16, c)).astype(np.float32)
+    drift = (0.05 * rng.standard_normal((b, t, 1, 1, c))).astype(np.float32)
+    up = resize_bilinear(torch.from_numpy(coarse), (s, s)).numpy()
+    return np.broadcast_to(np.clip(up + drift, 0.0, 1.0), shape)
+
+
+def _materialize(calib):
+    """A one-shot iterable of calibration clips, listed once, so that both
+    int8 paths can read it."""
+    if calib is None or isinstance(calib, np.ndarray):
+        return calib
+    return list(calib)
+
+
+def _clips(calib):
+    return [calib] if isinstance(calib, np.ndarray) else list(calib)
 
 
 def save_weights(states: Mapping[str, Mapping[str, torch.Tensor]],
@@ -137,16 +174,52 @@ class WatermarkServer:
     kernels : KernelSet
         ``kernels.KERNELS`` (default) or ``kernels.PLAIN`` (the plain
         versions on any device, for comparisons).
+    int8_extract : bool
+        Run detect / roundtrip's extractor through the int8 PTQ path
+        (``nets/unet_int8.py``). Requires ``extractor='unet_tpu'`` (or
+        ``unet_tpu2``) with the default head (``d2s``) and upsample
+        (``convt``) lowerings.
+    int8_embed : bool
+        Run embed / roundtrip's INN through the int8 PTQ path
+        (``nets/inn_int8.py``). Requires the packed flagship embed
+        (``inn_packed=True``).
+    int8_calib : np.ndarray or iterable of np.ndarray, optional
+        Calibration traffic, uint8 clips ``(n, T, S, S, 3)``, shared by both
+        int8 paths (clean clips for the embed; watermarked and/or attacked
+        frames for the detect). Default: self-generated smooth clips
+        (numpy generators seeded 0 for the embed, 1 for the detect, whose
+        clips are watermarked by this server's embed first).
+    int8_calib_embed, int8_calib_detect : optional
+        Path-specific calibration clips; each falls back to ``int8_calib``.
+    int8_margin : float
+        Calibration amax head-room multiplier.
     """
 
     def __init__(self, cfg: Config, device=None,
                  weights: Optional[Weights] = None,
                  modes: Tuple[str, ...] = ("embed", "detect"),
                  threshold: float = 0.5, kernels: KernelSet = KERNELS,
-                 ckpt_dir: Optional[str] = None, step: Optional[int] = None):
+                 ckpt_dir: Optional[str] = None, step: Optional[int] = None,
+                 int8_extract: bool = False, int8_embed: bool = False,
+                 int8_calib=None, int8_calib_embed=None,
+                 int8_calib_detect=None, int8_margin: float = 1.0):
         unknown = set(modes) - set(MODES)
         if unknown:
             raise ValueError(f"unknown modes {sorted(unknown)}")
+        mc = cfg.model
+        if int8_embed and not mc.inn_packed:
+            raise ValueError(
+                "int8_embed requires the packed flagship embed "
+                "(ModelConfig.inn_packed=True — nets/inn_int8.py quantizes "
+                "the packed executor's learned convs)")
+        if int8_extract and (mc.extractor not in ("unet_tpu", "unet_tpu2")
+                             or mc.extractor_head != "d2s"
+                             or mc.extractor_up != "convt"):
+            raise ValueError(
+                "int8_extract supports the UNetTPU extractor with the "
+                "default head ('d2s') and upsample ('convt') lowerings "
+                f"(got extractor={mc.extractor!r}, "
+                f"head={mc.extractor_head!r}, up={mc.extractor_up!r})")
         if weights is not None and ckpt_dir is not None:
             raise ValueError("pass weights or ckpt_dir, not both")
         if ckpt_dir is not None:
@@ -173,20 +246,72 @@ class WatermarkServer:
             self.model.load_states(weights)
         self._fns = {"embed": self._embed_u8, "detect": self._detect_u8,
                      "roundtrip": self._roundtrip_u8}
+        self._qemb = self._qext = None
+        int8_calib = _materialize(int8_calib)
+        if int8_embed:  # first: the detect's self-calibration embeds with it
+            self._qemb = self._quantize_embed(
+                _materialize(int8_calib_embed)
+                if int8_calib_embed is not None else int8_calib, int8_margin)
+        if int8_extract:
+            self._qext = self._quantize_extract(
+                _materialize(int8_calib_detect)
+                if int8_calib_detect is not None else int8_calib, int8_margin)
+
+    # ------------------------------------------------------ int8 conversion
+
+    def _smooth_u8(self, seed: int) -> np.ndarray:
+        shape = (self.batch, self.frames, self.size, self.size, 3)
+        clip = _smooth_synthetic_clips(np.random.default_rng(seed), shape)
+        return np.ascontiguousarray((clip * 255).astype(np.uint8))
+
+    def _quantize_embed(self, calib, margin: float) -> Dict:
+        """Calibrate the INN on clean clips (default: smooth synthetic ones)
+        and quantize it (``nets/inn_int8.py``)."""
+        clips = [self._smooth_u8(0)] if calib is None else _clips(calib)
+        batches = [_to_channels(torch.from_numpy(
+            np.asarray(c).astype(np.float32) / 255.0)) for c in clips]
+        inn = self.model.inn
+        scales = inn_int8.calibrate(inn, batches, margin, self.kernels)
+        return inn_int8.quantize(inn, scales, self.device)
+
+    def _quantize_extract(self, calib, margin: float) -> Dict:
+        """Calibrate the UNet on detect traffic (default: smooth synthetic
+        clips watermarked by this server's embed, the roundtrip's own
+        traffic) and quantize it (``nets/unet_int8.py``)."""
+        if calib is None:
+            with torch.no_grad():
+                wm = self._embed_u8(torch.from_numpy(self._smooth_u8(1)).to(
+                    self.device))["watermarked"]
+            clips = [wm.cpu().numpy()]
+        else:
+            clips = _clips(calib)
+        batches = [np.asarray(c).astype(np.float32).reshape(
+            -1, self.size, self.size, 3) / 255.0 for c in clips]
+        unet = self.model.unet
+        scales = unet_int8.calibrate(unet, batches, margin)
+        return unet_int8.quantize(unet, scales, self.device)
 
     # ---------------------------------------------------------- device fns
 
     def _inn_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """u8 clip → INN output (B,H,W,3T) in the compute dtype."""
-        m = self.model
-        return m.inn(self.kernels.wire_to_channels(x_u8, m.compute_dtype),
-                     out_f32=False)
+        m, k = self.model, self.kernels
+        x = k.wire_to_channels(x_u8, m.compute_dtype)
+        if self._qemb is None:
+            return m.inn(x, out_f32=False)
+        dt = None if m.compute_dtype == torch.float32 else m.compute_dtype
+        return inn_int8.forward_int8(
+            self._qemb, x, channels=3 * self.frames, down_num=m.inn.down_num,
+            dtype=dt, out_f32=False, kernels=k)
 
     def _detect_s2d(self, xs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Detect stem input (B·T,H/s,W/s,3s²) → mask and tamper fraction."""
+        """Detect stem (B·T,H/s,W/s,3s²), the compute dtype or, for the int8
+        extractor, int8 → mask and tamper fraction."""
         m = self.model
-        mask, frac = self.kernels.mask_pack(m.unet.body(xs), self.frames,
-                                            m.unet.s2d, self.threshold)
+        logits = (m.unet.body(xs) if self._qext is None
+                  else unet_int8.body_int8(self._qext, xs, self.kernels))
+        mask, frac = self.kernels.mask_pack(logits, self.frames, m.unet.s2d,
+                                            self.threshold)
         key = "mask_bits" if self.size % 8 == 0 else "mask"
         return {key: mask, "tamper_fraction": frac}
 
@@ -195,17 +320,19 @@ class WatermarkServer:
                                                        self.frames)}
 
     def _detect_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        m = self.model
+        m, k = self.model, self.kernels
         b, t, h, w, c = x_u8.shape
-        return self._detect_s2d(self.kernels.wire_to_s2d(
-            x_u8.reshape(b * t, h, w, c), m.unet.s2d, m.compute_dtype))
+        frames = x_u8.reshape(b * t, h, w, c)
+        xs = (k.wire_to_s2d(frames, m.unet.s2d, m.compute_dtype)
+              if self._qext is None else k.wire_to_s2d_i8(frames, m.unet.s2d))
+        return self._detect_s2d(xs)
 
     def _roundtrip_u8(self, x_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Embed then detect; the detector reads the stem input decoded
         from the watermarked bytes in the same pass that writes them."""
-        m = self.model
-        wm, xs = self.kernels.wire_to_u8_s2d(self._inn_u8(x_u8), self.frames,
-                                             m.unet.s2d)
+        m, k = self.model, self.kernels
+        to = k.wire_to_u8_s2d if self._qext is None else k.wire_to_u8_s2d_i8
+        wm, xs = to(self._inn_u8(x_u8), self.frames, m.unet.s2d)
         return {"watermarked": wm, **self._detect_s2d(xs)}
 
     # ------------------------------------------------------------- serving
