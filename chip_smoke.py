@@ -50,14 +50,18 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    (exact int32 sums in float64) and timed warm and cold beside it: K11
    ``qconv`` at the UNet's twelve launches (Cin 12, the pool prologue, the
    dual epilogue, the f32 head) and the INN trunk's (a bf16 quantize
-   prologue and the ELU requant) beside cuDNN's bf16 convolution of the
-   same shape and ``torch._int_mm`` on the im2col'd operands, plus ragged
-   shapes (signed, a float32 prologue); K12 ``qconv_t`` at the four
-   upsamples beside cuDNN's bf16 transposed convolution and
-   ``torch._int_mm``; K13 ``qcoupling_head`` at both coupling levels, bf16
-   and f32 (outputs off by one bf16 ulp counted), beside K2 at the same
-   shape; K3's int8 stem (``to_s2d_i8``, ``to_u8_s2d_i8``) on every byte
-   level, tiled and general;
+   prologue writing ``xi`` and the ELU requant) beside cuDNN's bf16
+   convolution of the same shape and ``torch._int_mm`` on the im2col'd
+   operands, plus ragged shapes (signed, a float32 prologue), each
+   launch's plan printed (``kernels/qconv.py::plan``: loaders, BN, ring
+   stages, grid); K12 ``qconv_t`` at the four upsamples beside cuDNN's bf16
+   transposed convolution and ``torch._int_mm``; K13 ``qcoupling_head`` at
+   both coupling levels, bf16 and f32, on ``xi`` and quantizing itself
+   (outputs that differ counted: 0 expected), beside K2 at the same shape;
+   K11's and K13's registers, local memory and ``wgmma`` s8 / ``mma.sync``
+   counts read from the built library (``kernel_report``; local memory,
+   where spills go, or an ``mma.sync`` fails); K3's int8 stem (``to_s2d_i8``, ``to_u8_s2d_i8``)
+   on every byte level, tiled and general;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -113,7 +117,8 @@ compare full-float32 paths.
 The line before the last is a JSON object with one entry per kernel (its
 launches on its main path and on each path, its error against the plain
 version, its time warm and with a cold L2, the plain time, the bound, the
-library time and a yardstick's: per roundtrip for K1-K4, per train step for
+library time and a yardstick's; the bound is the sum of each launch's
+bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
 K11-K13 and per int8 detect for K3's int8 stem, ``wire_i8``); the last
 line is
@@ -136,7 +141,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
+from vwfd_tpu_torch import FLAGSHIP_CONFIG, kernel_report, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
@@ -333,14 +338,18 @@ class Row:
         self.ms = self.plain_ms = 0.0
         self.library_ms = self.yardstick_ms = None
         self.cold_ms = self.int_mm_ms = None
-        self.t_bytes = self.t_ops = 0.0  # ms at the memory / ops rate
+        # the sum over launches of each launch's bound, and the part of it
+        # from launches that bytes bound
+        self.bound_ms = self.bytes_bound_ms = 0.0
 
     def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None,
             ops_per_s=F32_OPS_PER_S, yardstick_ms=None, cold_ms=None):
         self.ms += ms
         self.plain_ms += plain_ms
-        self.t_bytes += bound(bytes_moved, 0)[0]
-        self.t_ops += ops / ops_per_s * 1e3
+        b, by = bound(bytes_moved, ops, ops_per_s)
+        self.bound_ms += b
+        if by == "bytes":
+            self.bytes_bound_ms += b
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
         if yardstick_ms is not None:
@@ -349,8 +358,8 @@ class Row:
             self.cold_ms = (self.cold_ms or 0.0) + cold_ms
 
     def json(self, by_path):
-        b = max(self.t_bytes, self.t_ops)
-        by = "bytes" if self.t_bytes >= self.t_ops else "operations"
+        b = self.bound_ms
+        by = "bytes" if 2 * self.bytes_bound_ms >= b else "operations"
         src, rep = KERNEL_SOURCES[self.name]
         path = ROW_PATH.get(self.name, "roundtrip")
         count = COUNT_OF.get(self.name, self.name)
@@ -1137,10 +1146,12 @@ def qconv_inputs(g, case):
     if xdt is None:
         hin, win = (2 * h, 2 * w) if pool else (h, w)
         x = i8(g, (n, hin, win, cin), lo=0 if epi != "elu" else -127)
-    else:  # the coupling half, a channel slice of the coupling's input
+    else:  # the coupling half, a channel slice of the coupling's input,
+        # quantized once into xi for K13 (the trunk's first conv)
         full = torch.randn((n, h, w, 2 * cin), device="cuda", generator=g)
         x = full.to(xdt)[..., cin:]
         kw["x_scale"] = torch.tensor(0.02, device="cuda")
+        kw["xi_out"] = torch.empty(x.shape, device="cuda", dtype=torch.int8)
     wt = i8(g, (cout, k, k, cin))
     m = qscale(g, cout, k * k * cin, 1.0 if epi == "elu" else 80.0)
     b = torch.randn(cout, device="cuda", generator=g)
@@ -1229,6 +1240,8 @@ def qconv_work(x, wt, out, kw):
     output written once; 2 operations per multiply-add."""
     n, h, w, cout = out.shape
     moved = nbytes(x, wt, out) + 12 * cout
+    if "xi_out" in kw:
+        moved += nbytes(kw["xi_out"])
     macs = n * h * w * cout * wt[0].numel()
     if "x2" in kw:
         moved += nbytes(kw["x2"], kw["w2"])
@@ -1236,11 +1249,32 @@ def qconv_work(x, wt, out, kw):
     return moved, 2 * macs
 
 
+def plan_line(pl):
+    return (f"plan bn={pl.bn} kc={pl.kc} stages={pl.stages} grid={pl.grid} "
+            f"smem={pl.smem} loaders={'/'.join('+'.join(o) for o in pl.loaders)}")
+
+
+def equal_plain(fn, plain, x, wt, m, b, epi, kw):
+    """K11 and its plain version on the same inputs, each writing its own
+    ``xi_out``: (kernel output, whether outputs and xi are equal)."""
+    kp = dict(kw)
+    if "xi_out" in kw:
+        kp["xi_out"] = torch.empty_like(kw["xi_out"])
+    got = fn(x, wt, m, b, epi, **kw)
+    want = plain(x, wt, m, b, epi, **kp)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    if "xi_out" in kw:
+        same = same and torch.equal(kw["xi_out"], kp["xi_out"])
+    return got, want, same
+
+
 def check_qconv(rows, card):
     """K11 at every launch of the flagship int8 roundtrip: EQUAL to its
     plain version (every epilogue and prologue: relu with Cin 12 and with
-    the pool, dual, f32 head, ELU with a bf16 quantize prologue and with an
-    int8 input), timed warm and with a cold L2 beside its plain version,
+    the pool, dual, f32 head, ELU with a bf16 quantize prologue writing
+    ``xi`` and with an int8 input), each launch's plan printed, timed warm
+    and with a cold L2 beside its plain version,
     cuDNN's bf16 convolution of the same shape (TF32 off) and torch._int_mm
     on the im2col'd operands; then ragged shapes (H, W, Cout off the tiles,
     Cin 12, a signed requant, a float32 prologue) equal too."""
@@ -1249,11 +1283,12 @@ def check_qconv(rows, card):
     for case in qconv_cases():
         name, reps = case[:2]
         x, wt, m, b, epi, kw = qconv_inputs(g, case)
-        got = qconv.qconv(x, wt, m, b, epi, **kw)
-        want = qconv.qconv_plain(x, wt, m, b, epi, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"qconv {name}: "
-              f"{int((got != want).sum())} outputs differ from the plain")
+        got, want, same = equal_plain(qconv.qconv, qconv.qconv_plain, x, wt,
+                                      m, b, epi, kw)
+        check(same, f"qconv {name}: {int((got != want).sum())} outputs "
+              f"differ from the plain (or xi does)")
+        pl = qconv.plan_of(x, wt, epi, pool=kw["pool"], x2=kw.get("x2"),
+                           w2=kw.get("w2"))
         ms = time_ms(lambda: qconv.qconv(x, wt, m, b, epi, **kw))
         moved, ops = qconv_work(x, wt, got, kw)
         cold = time_cold_ms(
@@ -1275,7 +1310,7 @@ def check_qconv(rows, card):
               f"plain_ms={pms:.4f} cudnn_bf16_ms={conv_ms:.4f} "
               f"int_mm_ms={mm} bound_ms={bms:.4f} ({by}) "
               f"share_of_bound={bms / ms:.3f} (x{reps} per roundtrip) "
-              f"[{card}]")
+              f"{plan_line(pl)} [{card}]")
     ragged = [("ragged.relu", 1, 3, 13, 21, 12, 70, 3, "relu", False, 0,
                None),
               ("ragged.pool", 1, 2, 9, 17, 64, 96, 3, "relu", True, 0, None),
@@ -1291,10 +1326,12 @@ def check_qconv(rows, card):
         if kw["pool"]:  # an odd input: the pool drops the last row/column
             x = i8(g, (x.shape[0], x.shape[1] + 1, x.shape[2] + 1,
                        x.shape[3]), lo=0)
-        got = qconv.qconv(x, wt, m, b, epi, **kw)
-        want = qconv.qconv_plain(x, wt, m, b, epi, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"qconv {case[0]} differs")
+        _, _, same = equal_plain(qconv.qconv, qconv.qconv_plain, x, wt, m, b,
+                                 epi, kw)
+        check(same, f"qconv {case[0]} differs")
+        pl = qconv.plan_of(x, wt, epi, pool=kw["pool"], x2=kw.get("x2"),
+                           w2=kw.get("w2"))
+        print(f"check qconv {case[0]} {tuple(x.shape)} equal {plan_line(pl)}")
     print(f"check qconv ragged shapes equal: {[c[0] for c in ragged]}")
 
 
@@ -1351,11 +1388,12 @@ def check_qconv_t(rows, card):
 
 def check_qcoupling(rows, card):
     """K13 at the flagship couplings (level 48: 64², C 96, four launches a
-    roundtrip; levels 192/768: 32², C 384, six), bf16 and f32, against its
-    plain version (equal expected; the count of outputs off by one bf16
-    ulp is stated), timed in bf16 warm and cold beside its plain version and
-    K2 at the same shape (the bf16 embed's coupling head); a ragged width
-    equal too."""
+    roundtrip; levels 192/768: 32², C 384, six), bf16 and f32, on the int8
+    ``xi`` K11's trunk conv writes (the main path) and quantizing the half
+    itself, EQUAL to its plain version (the count of outputs that differ is
+    stated), each plan printed; timed in bf16 on ``xi``, warm and cold,
+    beside its plain version and K2 at the same shape (the bf16 embed's
+    coupling head); a ragged width equal too."""
     row = rows["qcoupling_head"]
     g = torch.Generator("cuda").manual_seed(22)
 
@@ -1366,45 +1404,45 @@ def check_qcoupling(rows, card):
              "m2h": qscale(g, 2 * c, c + f, 1.0),
              "b2": 0.1 * torch.randn(2 * c, device="cuda", generator=g),
              "s_x": torch.tensor(0.02, device="cuda")}
-        return z, i8(g, (n, hw, hw, f)), p
-
-    def ulps(got, want):
-        """Outputs that differ, and whether each is within one bf16 ulp."""
-        d = (got.float() - want.float()).abs()
-        n = int((d > 0).sum())
-        within = bool((d <= 2.0 ** -7 * want.float().abs()).all())
-        return n, within
+        xi = qconv.quantize_input(z[..., c:], p["s_x"]).contiguous()
+        return z, i8(g, (n, hw, hw, f)), p, xi
 
     for reps, hw, c, f, n in ((4, S // 4, 96, 128, B), (6, S // 8, 384, 128, B),
                               (1, 5, 40, 24, 2)):
         for dt in (torch.float32, torch.bfloat16):
-            z, h1i, p = make(n, hw, c, f, dt)
-            got, want = torch.zeros_like(z), torch.zeros_like(z)
-            qcoupling.qcoupling_head(z[..., c:], h1i, p, z[..., :c],
-                                     out=got[..., :c])
-            qcoupling.qcoupling_head_plain(z[..., c:], h1i, p, z[..., :c],
-                                           out=want[..., :c])
-            torch.cuda.synchronize()
-            off, within = ulps(got, want)
-            check(within, f"qcoupling_head C={c} {dt}: beyond one ulp")
-            print(f"check qcoupling_head C={c} {dt} outputs_differing={off} "
-                  f"(within one ulp)")
+            z, h1i, p, xi = make(n, hw, c, f, dt)
+            xin, x = z[..., c:], z[..., :c]
+            want = torch.zeros_like(z)
+            qcoupling.qcoupling_head_plain(xin, h1i, p, x, out=want[..., :c])
+            for src in (xi, None):
+                got = torch.zeros_like(z)
+                qcoupling.qcoupling_head(xin, h1i, p, x, out=got[..., :c],
+                                         xi=src)
+                torch.cuda.synchronize()
+                off = int((got != want).sum())
+                check(off == 0, f"qcoupling_head C={c} {dt} "
+                      f"{'xi' if src is not None else 'quantizing'}: {off} "
+                      f"outputs differ from the plain")
+            print(f"check qcoupling_head C={c} {dt} outputs_differing=0 on "
+                  f"xi and quantizing "
+                  f"{plan_line(qcoupling.plan_of(xin, h1i, p, x, xi))}")
             if dt == torch.float32 or reps == 1:
                 continue
-            row.err = max(row.err, float((got.float() - want.float()).abs()
-                                         .max()))
-            xin, x, o = z[..., c:], z[..., :c], got[..., :c]
+            o = got[..., :c]
             ms = time_ms(lambda: qcoupling.qcoupling_head(xin, h1i, p, x,
-                                                          out=o))
-            moved = nbytes(xin, h1i, x, o, p["w2x"], p["w2h"]) + 12 * 2 * c
+                                                          out=o, xi=xi))
+            moved = nbytes(xi, h1i, x, o, p["w2x"], p["w2h"]) + 12 * 2 * c
             ops = 2 * n * hw * hw * 2 * c * (c + f)
+
+            def cold_set(i):
+                zz, hh, _, xx = make(n, hw, c, f, dt)
+                return zz, hh, xx, torch.empty_like(zz)
             cold = time_cold_ms(
-                lambda zz, hh, oo: qcoupling.qcoupling_head(
-                    zz[..., c:], hh, p, zz[..., :c], out=oo[..., :c]),
-                cold_sets(lambda i: make(n, hw, c, f, dt)[:2]
-                          + (torch.empty_like(z),), moved))
+                lambda zz, hh, xx, oo: qcoupling.qcoupling_head(
+                    zz[..., c:], hh, p, zz[..., :c], out=oo[..., :c], xi=xx),
+                cold_sets(cold_set, moved))
             pms = time_ms(lambda: qcoupling.qcoupling_head_plain(
-                xin, h1i, p, x, out=o), iters=3, warmup=1)
+                xin, h1i, p, x, out=o, xi=xi), iters=3, warmup=1)
             hb = torch.randn((n, hw, hw, f), device="cuda",
                              generator=g).to(dt)
             pk = {"wh": (torch.randn(2 * c, c + f, device="cuda",
@@ -1421,6 +1459,26 @@ def check_qcoupling(rows, card):
                   f"plain_ms={pms:.4f} k2_same_shape_ms={k2:.4f} "
                   f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
                   f"(x{reps} per roundtrip) [{card}]")
+
+
+def check_int8_build(card):
+    """Registers, local memory (spills and stack) and the int8 tensor-core
+    instructions (IGMMA: ``wgmma`` s8; IMMA: ``mma.sync``) of K11's and K13's
+    kernels in the built library (``kernel_report.library_report``:
+    ``cuobjdump``, nothing compiled); fails on local memory or an
+    ``mma.sync``, or without ``wgmma``."""
+    rows = kernel_report.library_report(_lib.library_path(),
+                                        ("qconv_wgmma", "qcoupling_wgmma"))
+    check(len(rows) == 8, f"expected 8 K11/K13 kernels, found {len(rows)}")
+    for r in rows:
+        ops = r["ops"]
+        print(f"kernel_report {r['kernel']} registers={r['registers']} "
+              f"local_bytes={r['local_bytes']} stack_bytes={r['stack_bytes']} "
+              f"IGMMA={ops['IGMMA']} IMMA={ops['IMMA']} [{card}]")
+        check(ops["IGMMA"] > 0 and ops["IMMA"] == 0,
+              f"{r['kernel']}: expected wgmma s8 and no mma.sync")
+        check(r["local_bytes"] == 0 and r["stack_bytes"] == 0,
+              f"{r['kernel']} spills (local memory)")
 
 
 def check_stem(rows, card):
@@ -2112,6 +2170,7 @@ def main():
     check_qconv(rows, card)
     check_qconv_t(rows, card)
     check_qcoupling(rows, card)
+    check_int8_build(card)
     check_stem(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")

@@ -916,3 +916,98 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
     np.testing.assert_array_equal(det.mask_bits, pdet.mask_bits)
     np.testing.assert_allclose(det.tamper_fraction, pdet.tamper_fraction,
                                rtol=0, atol=1e-5)
+
+
+# K11 on the wgmma core (csrc/qwgmma.cuh): (N, H, W, Cin, Cout, k, epilogue,
+# input kind, Cin2, pixel stride or None). Cin within one 32-channel stage,
+# two stages and many (384); H, W off the 16 × 8 tiles so that tiles touch
+# every image border; 8 frames of 64² = 256 tiles against at most 132
+# blocks, so a persistent block walks several; each loader: TMA, cp.async
+# (Cin 12, 20), byte copies (Cin 7), the pool, the quantize prologue in
+# 16-byte loads (bf16, f32) and in 4-value units (Cin 12 f32); each
+# epilogue (relu, signed, elu, f32, dual).
+_QCORE = [(2, 9, 11, 32, 48, 3, "relu", "int8", 0, None),
+          (2, 17, 19, 64, 64, 3, "signed", "int8", 0, None),
+          (1, 13, 7, 384, 128, 3, "relu", "int8", 0, None),
+          (8, 64, 64, 64, 128, 3, "relu", "int8", 0, None),
+          (3, 21, 17, 12, 70, 3, "relu", "int8", 0, None),
+          (2, 11, 13, 7, 24, 3, "signed", "int8", 0, None),
+          (2, 9, 10, 48, 80, 3, "relu", "pool", 0, None),
+          (2, 10, 12, 96, 128, 3, "elu", "bfloat16", 0, 192),
+          (2, 9, 13, 40, 72, 3, "elu", "float32", 0, 80),
+          (2, 9, 13, 12, 32, 3, "elu", "float32", 0, 24),
+          (2, 19, 15, 64, 96, 3, "relu", "int8", 96, None),
+          (2, 17, 9, 64, 4, 1, "f32", "int8", 0, None),
+          (3, 18, 10, 20, 136, 1, "relu", "int8", 0, None),
+          (2, 12, 20, 96, 128, 1, "elu", "bfloat16", 0, 192)]
+
+
+@pytest.mark.parametrize("case", _QCORE)
+def test_qconv_core_equals_plain(cuda, case):
+    """K11 equal to its plain version across stage counts, borders,
+    persistent tiles, loaders, prologues and epilogues; the quantize
+    prologue's side output ``xi`` equal to the plain one."""
+    n, h, w, cin, cout, k, epi, kind, cin2, ld = case
+    g = _gen(36)
+    kw = {}
+    if kind in ("int8", "pool"):
+        hin, win = (2 * h + 1, 2 * w + 1) if kind == "pool" else (h, w)
+        x = _i8(g, (n, hin, win, cin), lo=-127 if epi != "relu" else 0)
+        kw["pool"] = kind == "pool"
+    else:  # a channel slice, as the INN trunk reads its coupling half
+        full = torch.randn((n, h, w, ld), device=cuda, generator=g)
+        x = full.to(getattr(torch, kind))[..., ld - cin:]
+        kw["x_scale"] = torch.tensor(0.02, device=cuda)
+    wt = _i8(g, (cout, k, k, cin))
+    m = _qscale(g, cout, k * k * cin, 1.0 if epi == "elu" else 80.0)
+    b = torch.randn(cout, device=cuda, generator=g)
+    if epi == "elu":
+        kw["out_scale"] = torch.tensor(0.015, device=cuda)
+    if cin2:
+        kw.update(x2=_i8(g, (n, h, w, cin2), lo=0),
+                  w2=_i8(g, (cout, k, k, cin2)),
+                  m2=_qscale(g, cout, k * k * cin2, 80.0))
+    xi = xi_plain = None
+    if "x_scale" in kw:
+        xi = torch.empty(x.shape, device=cuda, dtype=torch.int8)
+        xi_plain = torch.empty_like(xi)
+    before = launch_counts()["qconv"]
+    got = qconv.qconv(x, wt, m, b, epi, xi_out=xi, **kw)
+    assert launch_counts()["qconv"] == before + 1
+    want = qconv.qconv_plain(x, wt, m, b, epi, xi_out=xi_plain, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    if xi is not None:
+        assert torch.equal(xi, xi_plain), int((xi != xi_plain).sum())
+    pl = qconv.plan_of(x, wt, epi, pool=kw.get("pool", False),
+                       x2=kw.get("x2"), w2=kw.get("w2"))
+    if (n, h, w) == (8, 64, 64):  # more tiles than blocks
+        assert 8 * 4 * 8 > pl.grid
+
+
+# K13: the flagship's level-48 and level-192/768 couplings at small sizes,
+# a ragged even width, and odd widths (no paired accesses, no TMA rows)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 96, 128), (1, 8, 8, 384, 128),
+                                   (2, 5, 7, 40, 24), (2, 9, 11, 21, 40)])
+def test_qcoupling_head_on_xi_equals_plain(cuda, shape, dtype):
+    """K13 on the ``xi`` K11 writes (the main path) and quantizing the half
+    itself, equal to its plain version, bf16 and f32."""
+    n, h, w, c, f = shape
+    g = _gen(37)
+    z = torch.randn((n, h, w, 2 * c), device=cuda, generator=g).to(dtype)
+    p = {"w2x": _i8(g, (2 * c, 1, 1, c)), "w2h": _i8(g, (2 * c, 1, 1, f)),
+         "m2x": _qscale(g, 2 * c, c + f, 1.0),
+         "m2h": _qscale(g, 2 * c, c + f, 1.0),
+         "b2": 0.1 * torch.randn(2 * c, device=cuda, generator=g),
+         "s_x": torch.tensor(0.02, device=cuda)}
+    h1i = _i8(g, (n, h, w, f))
+    xin, x = z[..., c:], z[..., :c]
+    xi = qconv.quantize_input(xin, p["s_x"]).contiguous()
+    want = torch.zeros_like(z)
+    qcoupling.qcoupling_head_plain(xin, h1i, p, x, out=want[..., :c])
+    for src in (xi, None):
+        got = torch.zeros_like(z)
+        qcoupling.qcoupling_head(xin, h1i, p, x, out=got[..., :c], xi=src)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), int((got != want).sum())

@@ -61,6 +61,35 @@ def test_parse_sass_counts_opcodes_per_kernel():
     assert fwd == {"FFMA": 1, "STS": 1}
 
 
+RES_USAGE = """\
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,8]
+host = linux
+compile_size = 64bit
+
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN12_GLOBAL__N_111qconv_wgmmaILi3ELi128ELb1EEEvNS_4ArgsE:
+  REG:168 STACK:0 SHARED:96 LOCAL:0 CONSTANT[0]:1536 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN12_GLOBAL__N_114qconv_t_kernelENS_4ArgsE:
+  REG:126 STACK:8 SHARED:9216 LOCAL:8 CONSTANT[0]:480 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def test_parse_res_usage_reads_registers_and_local_memory():
+    info = kr.parse_res_usage(RES_USAGE)
+    assert info == {
+        "_ZN12_GLOBAL__N_111qconv_wgmmaILi3ELi128ELb1EEEvNS_4ArgsE": {
+            "registers": 168, "stack_bytes": 0, "smem_bytes": 96,
+            "local_bytes": 0},
+        "_ZN12_GLOBAL__N_114qconv_t_kernelENS_4ArgsE": {
+            "registers": 126, "stack_bytes": 8, "smem_bytes": 9216,
+            "local_bytes": 8}}
+
+
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
 

@@ -1,25 +1,36 @@
-"""What limits K11 ``qconv`` (and the int8 core ``csrc/qmma.cuh`` that K12 and
-K13 share): the kernel timed whole and with one part cut out, each variant
-compiled from a patched copy of ``csrc/qconv.cu`` with ``csrc/qmma.cuh``.
+"""What limits K11 ``qconv`` on the int8 wgmma core (``csrc/qwgmma.cuh``):
+the kernel timed whole, with one part cut out, and with its plan changed,
+each variant compiled from a patched copy of ``csrc/qconv.cu`` and
+``csrc/qwgmma.cuh``.
 
     python -m vwfd_tpu_torch.ablate_qconv [--reps 30] [--variant NAME ...]
 
-Needs one CUDA card and ``nvcc``. Variants: ``base``; ``occ2`` (two blocks
-an SM: at most 128 registers a thread); ``no_mma`` (the stages are loaded
-but never multiplied); ``no_stage`` (the products run on whatever shared
-memory holds: no loads, no quantizing, the barriers kept). The cut
-variants compute wrong outputs; only their time means anything. Shapes,
-from the flagship int8 roundtrip (batch 16, T=4, 256²): ``enc2.1`` (3×3,
-64 frames of 64²×128 → 128), ``dec2`` (the dual decoder conv, 2 × 128 →
-128), ``gemm1x1`` (1×1, 64²×128 → 256 signed: the GEMM K12's up1 runs)
+Needs one CUDA card and ``nvcc``. Variants: ``base``; ``no_mma`` (the
+stages are loaded but never multiplied); ``no_tma`` (the producer issues no
+TMA loads and arrives on the stage barriers at once, so the consumers
+multiply whatever the ring holds: what is left is the products, the
+barriers and the epilogue); ``no_epi`` (no epilogue: nothing is stored,
+and the compiler then drops the products whose sums nobody reads, so what
+is left is the loads, the barriers and the tile loop);
+``stages2`` (the plan's ring cut to 2 slots:
+loads in flight against the plan's 3–6; null where the producer's threads
+load, which need 3); ``a_cpasync`` (int8 activations
+through the producer threads' ``cp.async`` instead of TMA's 16-byte rows).
+The cut variants compute wrong outputs; only their time means anything.
+Shapes, from the flagship int8 roundtrip (batch 16, T=4, 256²):
+``enc1.0`` (Cin 12 by ``cp.async``, 64 frames of 128² → 64), ``enc1.1``
+(3×3, 128²×64 → 64), ``enc2.1`` (64²×128 →
+128), ``enc2.0`` (the pool prologue, 128²×64 pooled → 128), ``dec2`` (the
+dual decoder conv, 2 × 128 → 128), ``head`` (1×1, 128²×64 → 4, float32)
 and ``inn.conv0`` (3×3 on a bf16 coupling half quantized on load, 16
-frames of 64²×96 → 128, ELU). Each is timed with CUDA events over
-``--reps`` launches behind a device sleep. Prints one JSON line: ms per
-variant and shape, registers and spill bytes per variant (``ptxas -v``),
-and the card. The patches name lines of the sources; when a source
-changes under them, the script stops and says which. ``--variant`` runs
-only the named variants (one process each keeps a variant that faults
-from taking the others with it).
+frames of 64²×96 → 128, ELU, writing ``xi``) and ``inn.conv1`` (its int8
+64²×128 → 128). Each is timed with CUDA
+events over ``--reps`` launches behind a device sleep. Prints one JSON
+line: ms per variant and shape, registers and spill bytes per variant
+(``ptxas -v``), and the card. The patches name lines of the sources; when
+a source changes under them, the script stops and says which.
+``--variant`` runs only the named variants (one process each keeps a
+variant that faults from taking the others with it).
 """
 
 import argparse
@@ -27,6 +38,7 @@ import ctypes
 import json
 import re
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -35,14 +47,20 @@ import torch
 from .ablate_median import _time_ms
 from .kernels import _lib, qconv
 
+# name -> (patches of qwgmma.cuh as (old, new), launch_args overrides)
 _VARIANTS = {
-    "base": [],
-    "occ2": [("qconv.cu", "__global__ void __launch_bounds__(kThreads) "
-              "qconv_kernel", "__global__ void __launch_bounds__(kThreads, "
-              "2) qconv_kernel")],
-    "no_mma": [("qmma.cuh", "    mma_stage<KS>(sa, sb, acc);\n", "")],
-    "no_stage": [("qmma.cuh",
-                  "    stage<KS>(sa, sb, s, g, n0, rows, st_c, c0);\n", "")],
+    "base": ([], {}),
+    "no_mma": ([("  if constexpr (BN == 64)\n    wgmma_n64(d, da, db);\n  else\n"
+                 "    wgmma_n128(d, da, db);\n", "")], {}),
+    "no_tma": ([("          if (bytes)\n            mbar_expect_tx(bar, bytes);",
+                 "          if (false)\n            mbar_expect_tx(bar, bytes);"),
+                ("          if (op.a_tma) {", "          if (false) {"),
+                ("          if (op.b_tma && load_b) {",
+                 "          if (false) {")], {}),
+    "no_epi": ([("    epi(c, tl, wg, acc, acc2, staging, params, pre);\n", "")],
+               {}),
+    "stages2": ([], {"stages": 2}),
+    "a_cpasync": ([], {"a_threads": True}),
 }
 _PTXAS = re.compile(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill "
                     r"stores.*?Used (\d+) registers", re.S)
@@ -60,31 +78,42 @@ def _shapes(g):
     half = torch.randn((16, 64, 64, 192), device="cuda",
                        generator=g).to(torch.bfloat16)[..., 96:]
     return [
+        ("enc1.0", (i8((64, 128, 128, 12), 0), i8((64, 3, 3, 12)),
+                    vec(64, 1e-3), vec(64, 1.0), "relu"), {}),
+        ("enc1.1", (i8((64, 128, 128, 64), 0), i8((64, 3, 3, 64)),
+                    vec(64, 1e-3), vec(64, 1.0), "relu"), {}),
         ("enc2.1", (i8((64, 64, 64, 128), 0), i8((128, 3, 3, 128)),
                     vec(128, 1e-3), vec(128, 1.0), "relu"), {}),
+        ("enc2.0", (i8((64, 128, 128, 64), 0), i8((128, 3, 3, 64)),
+                    vec(128, 1e-3), vec(128, 1.0), "relu"), {"pool": True}),
         ("dec2", (i8((64, 64, 64, 128), -127), i8((128, 3, 3, 128)),
                   vec(128, 1e-3), vec(128, 1.0), "relu"),
          {"x2": i8((64, 64, 64, 128), 0), "w2": i8((128, 3, 3, 128)),
           "m2": vec(128, 1e-3)}),
-        ("gemm1x1", (i8((64, 64, 64, 128), 0), i8((256, 1, 1, 128)),
-                     vec(256, 1e-3), vec(256, 1.0), "signed"), {}),
+        ("head", (i8((64, 128, 128, 64), 0), i8((4, 1, 1, 64)),
+                  vec(4, 1e-3), vec(4, 1.0), "f32"), {}),
+        ("inn.conv1", (i8((16, 64, 64, 128)), i8((128, 3, 3, 128)),
+                       vec(128, 1e-5), vec(128, 0.1), "elu"),
+         {"out_scale": torch.tensor(0.015, device="cuda")}),
         ("inn.conv0", (half, i8((128, 3, 3, 96)), vec(128, 1e-5),
                        vec(128, 0.1), "elu"),
          {"x_scale": torch.tensor(0.02, device="cuda"),
-          "out_scale": torch.tensor(0.015, device="cuda")}),
+          "out_scale": torch.tensor(0.015, device="cuda"),
+          "xi_out": torch.empty(half.shape, device="cuda",
+                                dtype=torch.int8)}),
     ]
 
 
-def _source(name):
-    """qconv.cu with qmma.cuh pasted in place of its include, patched."""
-    text = {f: (_lib.CSRC / f).read_text() for f in ("qconv.cu", "qmma.cuh")}
-    for where, old, new in _VARIANTS[name]:
-        if old not in text[where]:
-            raise SystemExit(f"ablate_qconv: {name}: {where} no longer "
-                             f"holds {old[:60]!r}")
-        text[where] = text[where].replace(old, new)
-    head = text["qmma.cuh"].replace("#pragma once\n", "")
-    return text["qconv.cu"].replace('#include "qmma.cuh"\n', head)
+def _sources(name):
+    """{file: text}: qconv.cu and qwgmma.cuh, the latter patched."""
+    text = {f: (_lib.CSRC / f).read_text() for f in ("qconv.cu",
+                                                     "qwgmma.cuh")}
+    for old, new in _VARIANTS[name][0]:
+        if text["qwgmma.cuh"].count(old) != 1:
+            raise SystemExit(f"ablate_qconv: {name}: qwgmma.cuh no longer "
+                             f"holds {old[:60]!r} once")
+        text["qwgmma.cuh"] = text["qwgmma.cuh"].replace(old, new)
+    return text
 
 
 def main(argv=None):
@@ -102,10 +131,14 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         builds = {}
         for name in names:
-            cu, so = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
-            cu.write_text(_source(name))
+            d = Path(tmp) / name
+            d.mkdir()
+            for f, text in _sources(name).items():
+                (d / f).write_text(text)
+            so = d / "qconv.so"
             cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v",
-                   "-shared", "-I", str(_lib.CSRC), "-o", str(so), str(cu)]
+                   "-shared", "-I", str(_lib.CSRC), "-o", str(so),
+                   str(d / "qconv.cu")]
             builds[name] = so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)
@@ -120,7 +153,12 @@ def main(argv=None):
             fn.restype = ctypes.c_int
             out[name] = {}
             for shape, a, kw in shapes:
-                dst, cargs = qconv.launch_args(*a, **kw)  # dst: kept alive
+                try:  # dst: kept alive while the launches run
+                    dst, cargs = qconv.launch_args(*a, **kw,
+                                                   **_VARIANTS[name][1])
+                except ValueError:  # a plan this shape cannot take
+                    out[name][shape] = None
+                    continue
 
                 def call():
                     rc = fn(*cargs, stream)
@@ -128,6 +166,8 @@ def main(argv=None):
                         raise RuntimeError(f"{name} {shape}: launch failed "
                                            f"({rc})")
                 out[name][shape] = _time_ms(call, args.reps)
+                print(f"ablate_qconv {name} {shape} {out[name][shape]:.4f} ms",
+                      file=sys.stderr, flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]

@@ -1,5 +1,9 @@
-// The int8 implicit-GEMM core shared by K11 `qconv` (qconv.cu), K12
-// `qconv_t` (qconv_t.cu) and K13 `qcoupling_head` (qcoupling.cu).
+// The first-version int8 implicit-GEMM core of K12 `qconv_t` (qconv_t.cu),
+// and the prologue loads (Src, load_a: int8 copy, 2x2 max-pool, quantize)
+// and epilogue helpers that K11 and K13's wgmma core (qwgmma.cuh) reuses.
+// Its 3x3, dual-source and split-row paths served K11 and K13 before they
+// moved to qwgmma.cuh; they go when K12 moves too and this file is retired
+// (ROADMAP).
 //
 // One block computes exact int32 products of kBM output pixels x kBN output
 // columns: A is the im2col view of an int8 NHWC activation (3x3 SAME or
@@ -29,8 +33,7 @@
 // core equals a plain version that sums in float64 bit for bit.
 //
 // First version, simple and right: one stage buffer, the loads through
-// registers, two barriers a stage. wgmma s8, TMA and persistent tiles are
-// later work (ROADMAP queue 2).
+// registers, two barriers a stage.
 #pragma once
 
 #include "common.cuh"

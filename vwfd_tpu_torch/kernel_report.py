@@ -3,16 +3,24 @@ spills and shared memory from ``ptxas -v``, and static counts of the
 memory instructions in each kernel's SASS (``cuobjdump -sass``).
 
     python -m vwfd_tpu_torch.kernel_report [--csrc DIR] [--match NAME ...]
+        [--files NAME.cu ...]
+    python -m vwfd_tpu_torch.kernel_report --library [--match NAME ...]
 
 Compiles each ``*.cu`` of ``--csrc`` (default: the package's ``csrc``) for
 ``sm_90a`` with the build's own flags, one ``nvcc`` per source, all at once,
-into a temporary directory. Needs the CUDA toolkit (``nvcc``,
-``cuobjdump``), not a card. Prints one JSON object per kernel whose name
-contains one of ``--match`` (all kernels without it): ``kernel``, ``file``,
+into a temporary directory (only the ``--files`` named, when given). Needs
+the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card. Prints one JSON
+object per kernel whose name contains one of ``--match`` (all kernels
+without it): ``kernel``, ``file``,
 ``registers``, ``stack_bytes``, ``spill_store_bytes``,
-``spill_load_bytes``, ``smem_bytes`` (static), ``sass`` (instructions) and
-``ops``, the count of each of LDS, STS, LDL, STL, LDG, STG, LDC, SHFL, BAR
-and FFMA by opcode, suffixes ignored.
+``spill_load_bytes``, ``smem_bytes`` (static), ``warnings`` (the
+compiler's warnings for the kernel's file), ``sass`` (instructions) and
+``ops``, the count of each of LDS, STS, LDL, STL, LDG, STG, LDC, SHFL, BAR,
+FFMA, IMMA (``mma.sync`` int8) and IGMMA (``wgmma`` int8) by opcode,
+suffixes ignored. ``--library`` reads the library the port built (and
+builds it first if needed) instead of compiling anew: registers, stack,
+static shared and local memory (where spills go) from ``cuobjdump
+-res-usage``, and the same opcode counts.
 """
 
 import argparse
@@ -26,13 +34,15 @@ from pathlib import Path
 from .kernels import _lib
 
 OPS = ("LDS", "STS", "LDL", "STL", "LDG", "STG", "LDC", "SHFL", "BAR",
-       "FFMA")
+       "FFMA", "IMMA", "IGMMA")
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
+_RES = re.compile(r"Function\s+(\S+?):\s*\n\s*REG:(\d+)\s+STACK:(\d+)\s+"
+                  r"SHARED:(\d+)\s+LOCAL:(\d+)")
 _INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)")
 
 
@@ -73,13 +83,47 @@ def parse_sass(text: str):
     return out
 
 
-def report(csrc: Path, match=()):
+def parse_res_usage(text: str):
+    """{mangled kernel: {registers, stack_bytes, smem_bytes, local_bytes}}
+    from ``cuobjdump -res-usage``."""
+    return {m.group(1): {"registers": int(m.group(2)),
+                         "stack_bytes": int(m.group(3)),
+                         "smem_bytes": int(m.group(4)),
+                         "local_bytes": int(m.group(5))}
+            for m in _RES.finditer(text)}
+
+
+def library_report(lib: Path, match=()):
+    """Rows of the kernels in the built library ``lib`` whose names
+    contain one of ``match``: ``cuobjdump`` only, nothing is compiled."""
+    cuobjdump = str(Path(_lib._nvcc()).with_name("cuobjdump"))
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+
+    res, sass = parse_res_usage(dump("-res-usage")), parse_sass(dump("-sass"))
+    rows = []
+    for name in sorted(res):
+        if match and not any(m in name for m in match):
+            continue
+        ops = sass.get(name, collections.Counter())
+        rows.append({"kernel": name, **res[name], "sass": sum(ops.values()),
+                     "ops": {k: ops.get(k, 0) for k in OPS}})
+    return rows
+
+
+def report(csrc: Path, match=(), files=None):
+    """Rows of the kernels of ``csrc``'s ``*.cu`` (only the named ``files``
+    when given) whose names contain one of ``match``."""
     nvcc = _lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for src in sorted(Path(csrc).glob("*.cu")):
+            if files is not None and src.name not in files:
+                continue
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [nvcc, *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                    str(obj), str(src)]
@@ -91,6 +135,8 @@ def report(csrc: Path, match=()):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{out}{err}")
             info = parse_ptxas(out + err)
+            warnings = sorted({ln.strip() for ln in (out + err).splitlines()
+                               if "warning" in ln.lower()})
             sass = parse_sass(subprocess.run(
                 [cuobjdump, "-sass", str(obj)], capture_output=True,
                 text=True, check=True).stdout)
@@ -101,7 +147,8 @@ def report(csrc: Path, match=()):
                 rows.append({"kernel": name, "file": src.name,
                              **info.get(name, {}),
                              "sass": sum(ops.values()),
-                             "ops": {k: ops.get(k, 0) for k in OPS}})
+                             "ops": {k: ops.get(k, 0) for k in OPS},
+                             "warnings": warnings})
     return rows
 
 
@@ -109,8 +156,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=Path, default=_lib.CSRC)
     ap.add_argument("--match", nargs="*", default=())
+    ap.add_argument("--files", nargs="*", default=None)
+    ap.add_argument("--library", action="store_true")
     args = ap.parse_args(argv)
-    for row in report(args.csrc, args.match):
+    rows = (library_report(_lib.build(), args.match) if args.library
+            else report(args.csrc, args.match, args.files))
+    for row in rows:
         print(json.dumps(row))
 
 

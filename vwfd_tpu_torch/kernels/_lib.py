@@ -55,10 +55,12 @@ _SIGNATURES = {
     "vwfd_splice_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_wire_to_u8_s2d_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_qconv": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
-                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                   _I, _P],
     "vwfd_qconv_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vwfd_qcoupling_head": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_qcoupling_head": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,8 +17,9 @@ invertibility structure is untouched.
   the CPU in float32 in the JAX package's order, so the tree equals its;
 * ``forward_int8``: the int8 walk through a ``KernelSet``: per subnet
   evaluation two K11 ``qconv`` (the first quantizes the coupling half on
-  load; both apply the ELU requant) and one K13 ``qcoupling_head`` (the
-  split head and the affine), the transitions in K1.
+  load and writes it, JAX's ``xi``, as a side output; both apply the ELU
+  requant) and one K13 ``qcoupling_head`` (the split head on ``xi`` and
+  the trunk output, and the affine), the transitions in K1.
 
 The tree mirrors the parameter tree one level down: block → ``st1`` /
 ``st2`` → ``{s_x, s_h0, s_h1, w0, m0, b0, w1, m1, b1, w2x, w2h, m2x, m2h,
@@ -194,9 +195,9 @@ def forward_int8(q: Dict, x: torch.Tensor, *, channels: int = 12,
     shape, float32 (or ``dtype`` when ``out_f32`` is False). Learned convs
     sum int8×int8 → int32; transitions and affines run in ``dtype`` (None:
     float32) as the executor's."""
-    def trunk(p, xin):
+    def trunk(p, xin, xi):
         h0 = kernels.qconv(xin, p["w0"], p["m0"], p["b0"], "elu",
-                           x_scale=p["s_x"], out_scale=p["s_h0"])
+                           x_scale=p["s_x"], out_scale=p["s_h0"], xi_out=xi)
         return kernels.qconv(h0, p["w1"], p["m1"], p["b1"], "elu",
                              out_scale=p["s_h1"])
 
@@ -205,8 +206,13 @@ def forward_int8(q: Dict, x: torch.Tensor, *, channels: int = 12,
         out = torch.empty_like(z)
         x1, x2 = z[..., :half], z[..., half:]
         y1, y2 = out[..., :half], out[..., half:]
-        kernels.qcoupling_head(x2, trunk(p["st2"], x2), p["st2"], x1, out=y1)
-        kernels.qcoupling_head(y1, trunk(p["st1"], y1), p["st1"], x2, out=y2)
+        # xi: the quantized coupling half, written by the trunk's first
+        # conv and read by the head (JAX's xi, computed once)
+        xi = torch.empty(x2.shape, dtype=torch.int8, device=z.device)
+        kernels.qcoupling_head(x2, trunk(p["st2"], x2, xi), p["st2"], x1,
+                               out=y1, xi=xi)
+        kernels.qcoupling_head(y1, trunk(p["st1"], y1, xi), p["st1"], x2,
+                               out=y2, xi=xi)
         return out
 
     y = _walk(q, x, coupling, channels, down_num, dtype, kernels)

@@ -46,8 +46,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",),
                 "attack_mix": ("attack_mix_fwd", "attack_mix_bwd"),
                 "splice": ("splice_fwd", "splice_bwd"),
-                "qconv": ("qconv_kernel",), "qconv_t": ("qconv_t_kernel",),
-                "qcoupling_head": ("qcoupling_kernel",)}
+                "qconv": ("qconv_wgmma",), "qconv_t": ("qconv_t_kernel",),
+                "qcoupling_head": ("qcoupling_wgmma",)}
 
 
 def classify(name: str) -> str:
