@@ -54,14 +54,16 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    convolution of the same shape and ``torch._int_mm`` on the im2col'd
    operands, plus ragged shapes (signed, a float32 prologue), each
    launch's plan printed (``kernels/qconv.py::plan``: loaders, BN, ring
-   stages, grid); K12 ``qconv_t`` at the four upsamples beside cuDNN's bf16
-   transposed convolution and ``torch._int_mm``; K13 ``qcoupling_head`` at
+   stages, grid); K12 ``qconv_t`` at the four upsamples, each plan printed,
+   beside cuDNN's bf16 transposed convolution and ``torch._int_mm``, plus
+   ragged shapes and tiles across images; K13 ``qcoupling_head`` at
    both coupling levels, bf16 and f32, on ``xi`` and quantizing itself
    (outputs that differ counted: 0 expected), beside K2 at the same shape;
-   K11's and K13's registers, local memory and ``wgmma`` s8 / ``mma.sync``
-   counts read from the built library (``kernel_report``; local memory,
-   where spills go, or an ``mma.sync`` fails); K3's int8 stem (``to_s2d_i8``, ``to_u8_s2d_i8``)
-   on every byte level, tiled and general;
+   K11's, K12's and K13's registers, local memory and ``wgmma`` s8 /
+   ``mma.sync`` counts read from the built library (``kernel_report``;
+   local memory, where spills go, or an ``mma.sync`` fails); K3's int8
+   stem (``to_s2d_i8``, ``to_u8_s2d_i8``) on every byte level, tiled and
+   general;
 4. the slice: ``WatermarkServer`` from the port's ``configs/video.yaml`` (bf16,
    random weights from a seed with the zero-init heads perturbed) serves one
    roundtrip with the launch counts at 0 just before and read just after
@@ -1335,11 +1337,20 @@ def check_qconv(rows, card):
     print(f"check qconv ragged shapes equal: {[c[0] for c in ragged]}")
 
 
+def qconv_t_plan_line(x, wt):
+    pl = qconv_t.plan_of(x, wt)
+    return (f"{plan_line(pl)} "
+            f"store={qconv_t.store_route(wt.shape[2], pl.bn)}")
+
+
 def check_qconv_t(rows, card):
     """K12 at the four decoder upsamples of the flagship int8 detect, EQUAL
-    to its plain version, timed warm and cold beside its plain version,
-    cuDNN's bf16 F.conv_transpose2d and torch._int_mm of the same GEMM; a
-    ragged shape equal too."""
+    to its plain version, each launch's plan printed, timed warm and cold
+    beside its plain version, cuDNN's bf16 F.conv_transpose2d and
+    torch._int_mm of the same GEMM; then ragged shapes (odd h and w, Cin off
+    the 16-byte grid, Cout off the 8-column grid: byte stores, BN 64, TMA
+    stores clipped at odd h and w) and 16-row tiles across images of 8 × 8
+    equal too."""
     row = rows["qconv_t"]
     g = torch.Generator("cuda").manual_seed(21)
     n, f = B * T, 64
@@ -1377,13 +1388,23 @@ def check_qconv_t(rows, card):
               f"equal ms={ms:.4f} cold_ms={cold:.4f} plain_ms={pms:.4f} "
               f"cudnn_bf16_ms={conv_ms:.4f} int_mm_ms={mm_ms:.4f} "
               f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
-              f"[{card}]")
-    x = i8(g, (3, 5, 7, 40), lo=0)
-    wt, m = i8(g, (2, 2, 24, 40)), qscale(g, 24, 40, 80.0)
-    b = torch.randn(24, device="cuda", generator=g)
-    check(torch.equal(qconv_t.qconv_t(x, wt, m, b),
-                      qconv_t.qconv_t_plain(x, wt, m, b)),
-          "qconv_t ragged differs")
+              f"{qconv_t_plan_line(x, wt)} [{card}]")
+    # (name, N, h, w, Cin, Cout)
+    for name, n, h, w, cin, cout in (("ragged", 3, 5, 7, 40, 24),
+                                     ("cout20", 3, 5, 7, 40, 20),
+                                     ("bn64", 2, 3, 3, 24, 12),
+                                     ("tma_clipped", 3, 5, 7, 128, 64),
+                                     ("across_images", 3, 8, 8, 1024, 512)):
+        x = i8(g, (n, h, w, cin), lo=0)
+        wt, m = i8(g, (2, 2, cout, cin)), qscale(g, cout, cin, 80.0)
+        b = torch.randn(cout, device="cuda", generator=g)
+        got = qconv_t.qconv_t(x, wt, m, b)
+        want = qconv_t.qconv_t_plain(x, wt, m, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"qconv_t {name}: "
+              f"{int((got != want).sum())} outputs differ from the plain")
+        print(f"check qconv_t {name} {tuple(x.shape)}->{tuple(got.shape)} "
+              f"equal {qconv_t_plan_line(x, wt)}")
 
 
 def check_qcoupling(rows, card):
@@ -1463,13 +1484,15 @@ def check_qcoupling(rows, card):
 
 def check_int8_build(card):
     """Registers, local memory (spills and stack) and the int8 tensor-core
-    instructions (IGMMA: ``wgmma`` s8; IMMA: ``mma.sync``) of K11's and K13's
-    kernels in the built library (``kernel_report.library_report``:
+    instructions (IGMMA: ``wgmma`` s8; IMMA: ``mma.sync``) of K11's, K12's
+    and K13's kernels in the built library (``kernel_report.library_report``:
     ``cuobjdump``, nothing compiled); fails on local memory or an
     ``mma.sync``, or without ``wgmma``."""
-    rows = kernel_report.library_report(_lib.library_path(),
-                                        ("qconv_wgmma", "qcoupling_wgmma"))
-    check(len(rows) == 8, f"expected 8 K11/K13 kernels, found {len(rows)}")
+    rows = kernel_report.library_report(
+        _lib.library_path(), ("qconv_wgmma", "qconv_t_wgmma",
+                              "qcoupling_wgmma"))
+    check(len(rows) == 10, f"expected 10 K11/K12/K13 kernels, found "
+          f"{len(rows)}")
     for r in rows:
         ops = r["ops"]
         print(f"kernel_report {r['kernel']} registers={r['registers']} "

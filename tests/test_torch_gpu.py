@@ -801,8 +801,15 @@ def test_qconv_kernel_equals_plain(cuda, case):
             assert int(want.min()) == (0 if epi == "relu" else -127)
 
 
+# (N, h, w, Cin, Cout): ragged tiles (16-byte stores); up3's 4 resident
+# stages (TMA stores); Cin off the 16-byte grid with BN 64 and Cout % 8 != 0
+# (byte stores); an up1-shaped launch (h 64, Cin 128, one stage); 16-row
+# tiles across images of h = w = 8 with up4's 8 streamed stages; Cin 40 by
+# cp.async with Cout 20 % 8 != 0; TMA stores clipped at odd h and w
 @pytest.mark.parametrize("shape", [(2, 5, 7, 64, 40), (1, 8, 8, 512, 256),
-                                   (2, 3, 3, 24, 12)])
+                                   (2, 3, 3, 24, 12), (2, 64, 64, 128, 64),
+                                   (3, 8, 8, 1024, 512), (3, 5, 7, 40, 20),
+                                   (3, 5, 7, 128, 64)])
 def test_qconv_t_kernel_equals_plain(cuda, shape):
     n, h, w, cin, cout = shape
     g = _gen(32)

@@ -1,7 +1,8 @@
 """The host plan of the int8 wgmma core (``kernels/qconv.py::plan``) at every
-K11 and K13 launch of the flagship int8 detect and roundtrip (batch 16,
+K11, K12 and K13 launch of the flagship int8 detect and roundtrip (batch 16,
 T = 4, 256²) and at the ragged shapes the card checks use, against TMA's
-rules and the block's shared memory; and the quantized input ``xi`` that
+rules and the block's shared memory; K12's output address function against
+its plain version's scatter; and the quantized input ``xi`` that
 K11's trunk conv writes for K13, against JAX's ``xi``
 (``vwfd_tpu/nets/inn_int8.py:248-250``)."""
 
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from vwfd_tpu_torch.kernels import PLAIN, qconv, qcoupling
+from vwfd_tpu_torch.kernels import PLAIN, qconv, qconv_t, qcoupling
 from vwfd_tpu_torch.nets import inn_int8
 
 _BASE = 0x7F00_0000_0000  # a 256-byte aligned device address
@@ -235,18 +236,123 @@ def test_forward_int8_threads_xi_from_conv0_to_the_head():
         assert xi0 is not None and xi1 is None and xi2 is xi0
 
 
-def test_ablate_qconv_patches_hold_on_the_source():
-    """Each variant's patches find their text of ``qwgmma.cuh`` exactly
+@pytest.mark.parametrize("kernel", ["qconv", "qconv_t"])
+def test_ablate_qconv_patches_hold_on_the_source(kernel):
+    """Each variant's patches find their text of ``qwgmma.cuh`` or of the
+    kernel's own source (K11's ``qconv.cu``, K12's ``qconv_t.cu``) exactly
     once and change it; the plan overrides are ``launch_args`` keywords."""
     import inspect
 
     from vwfd_tpu_torch import ablate_qconv
-    src = (qconv._lib.CSRC / "qwgmma.cuh").read_text()
-    assert {"base", "no_mma", "no_tma", "no_epi", "stages2",
+    src_name, _, launch_args = ablate_qconv._KERNELS[kernel]
+    src = {f: (qconv._lib.CSRC / f).read_text()
+           for f in ("qwgmma.cuh", src_name)}
+    assert {"base", "no_mma", "no_tma", "no_store", "no_epi", "stages2",
             "a_cpasync"} == set(ablate_qconv._VARIANTS)
-    params = inspect.signature(qconv.launch_args).parameters
+    params = inspect.signature(launch_args).parameters
     for name, (patches, overrides) in ablate_qconv._VARIANTS.items():
-        for old, new in patches:
-            assert src.count(old) == 1 and old != new, (name, old)
+        patched = ablate_qconv._sources(name, kernel)
+        for f, old, new in patches:
+            assert f in ("qwgmma.cuh", "qconv.cu", "qconv_t.cu"), f
+            if f not in src:  # the other kernel's patch
+                continue
+            assert src[f].count(old) == 1 and old != new, (name, old)
+            assert patched[f] != src[f], (name, f)
         assert set(overrides) <= set(params), name
-        assert ablate_qconv._sources(name)["qwgmma.cuh"] != src or not patches
+    # the store cut reaches each kernel
+    assert ablate_qconv._sources("no_store", kernel)[src_name] != \
+        src[src_name]
+
+
+# K12's launches of the flagship int8 detect, (name, N, h, w, Cin, Cout)
+_UPS = [("up4", _N, 8, 8, 16 * _F, 8 * _F),
+        ("up3", _N, 16, 16, 8 * _F, 4 * _F),
+        ("up2", _N, 32, 32, 4 * _F, 2 * _F),
+        ("up1", _N, 64, 64, 2 * _F, _F)]
+
+
+@pytest.mark.parametrize("case", _UPS, ids=lambda c: c[0])
+def test_qconv_t_plan_is_the_stacked_1x1_gemm(case):
+    """K12's plan at the flagship's four upsamples: both operands by TMA
+    (16-byte rules), shared memory within the limit, the batch stacked as
+    one (1, N·h, w) image, 4·Cout columns in 128-byte swizzled rows, and
+    the weights resident where a tile's stages divide the ring (up1–up3;
+    up4's eight stages stream)."""
+    name, n, h, w, cin, cout = case
+    pl = qconv_t.plan(n, h, w, cin, cout, x_ptr=_BASE,
+                      w_ptr=_BASE + 0x100_0000)
+    assert pl.ks == 1 and pl.kc == 128 and pl.bn == 128
+    assert pl.loaders == (("tma", "tma"),) and pl.tma == 3
+    assert pl.smem + 256 <= qconv.SMEM_LIMIT
+    assert 2 <= pl.stages <= qconv.MAX_STAGES
+    maps = {m[0]: m for m in pl.maps}
+    assert maps["a0"][2:] == ((cin, w, n * h, 1),
+                              (cin, cin * w, cin * w * n * h),
+                              (128, 8, 16, 1))
+    assert maps["b0"][2:] == ((cin, 4 * cout), (cin,), (128, 128))
+    for _, base, dims, strides, box in pl.maps:
+        assert base % 16 == 0 and all(s % 16 == 0 for s in strides)
+        assert all(1 <= d < 2 ** 32 for d in dims)
+    per_tile = -(-cin // 128)
+    assert pl.b_resident == (name != "up4")
+    assert pl.b_resident == (pl.stages % per_tile == 0)
+    tiles = -(-n * h // 16) * -(-w // 8)
+    nblk = 4 * cout // 128
+    assert pl.groups == min(tiles, 132 // nblk)
+    assert pl.grid == pl.groups * nblk <= 132
+
+
+def test_qconv_t_store_route():
+    """The flagship's four launches (Cout 512 .. 64) leave by TMA stores;
+    Cout off the 64-column grid by 16-byte runs, off the 8-column grid by
+    bytes; BN 64 never by TMA."""
+    for *_, cout in _UPS:
+        assert qconv_t.store_route(cout, 128) == "tma"
+    assert qconv_t.store_route(24, 128) == "16-byte"
+    assert qconv_t.store_route(20, 128) == "bytes"
+    assert qconv_t.store_route(64, 64) == "16-byte"
+
+
+def test_qconv_t_plan_routes_ragged_widths_to_threads():
+    """Cin off the 16-byte grid goes by ``cp.async`` (4-byte units), with
+    the three slots the producer's threads need; 4·Cout ≤ 64 takes BN 64."""
+    pl = qconv_t.plan(3, 5, 7, 40, 24, x_ptr=_BASE, w_ptr=_BASE)
+    assert pl.loaders == (("cp.async", "cp.async"),) and pl.tma == 0
+    assert pl.stages >= 3 and pl.bn == 128
+    assert qconv_t.plan(2, 3, 3, 24, 12, x_ptr=_BASE, w_ptr=_BASE).bn == 64
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 8, 8, 32, 16),
+                                            (3, 5, 7, 24, 12),
+                                            (2, 3, 9, 16, 20)])
+def test_qconv_t_out_index_is_the_plain_versions_scatter(n, h, w, cin, cout):
+    """``qconv_t.out_index`` (the epilogue's address function) sends every
+    (stacked row, column, GEMM column) of the stacked GEMM's requantized
+    result to the element ``qconv_t_plain`` writes: the scattered GEMM
+    equals the plain version, and the map is a bijection onto the output.
+    The shapes put image boundaries inside a 16-row tile (h 8, 5 and 3)
+    and take a Cout off the 8-column grid."""
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin),
+                                      dtype=np.int8))
+    wt = torch.from_numpy(rng.integers(-127, 128, (2, 2, cout, cin),
+                                       dtype=np.int8))
+    m = torch.from_numpy((0.02 * (0.5 + rng.random(cout))).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    assert (n * h) % 16 and h % 16  # a 16-row tile spans images
+    acc = x.reshape(-1, cin).long() @ wt.reshape(4 * cout, cin).long().t()
+    cols = torch.arange(4 * cout)
+    vals = qconv.requant(acc.float() * m[cols % cout] + b[cols % cout], -127)
+    r = torch.arange(n * h).repeat_interleave(w)[:, None]
+    j = torch.arange(w).repeat(n * h)[:, None]
+    idx = qconv_t.out_index(r, j, cols[None, :], w, cout)
+    out = torch.zeros(n * 2 * h * 2 * w * cout, dtype=torch.int8)
+    out[idx.reshape(-1)] = vals.reshape(-1)
+    assert torch.equal(torch.sort(idx.reshape(-1)).values,
+                       torch.arange(out.numel()))
+    want = qconv_t.qconv_t_plain(x, wt, m, b)
+    assert torch.equal(out.reshape(want.shape), want)
+    # one element by hand: image 1, pixel (i, j) = (h - 1, 2), p = q = 1
+    i0, j0, co = h - 1, 2 % w, cout - 1
+    flat = qconv_t.out_index(h + i0, j0, 3 * cout + co, w, cout)
+    assert flat == ((1 * 2 * h + 2 * i0 + 1) * 2 * w + 2 * j0 + 1) * cout + co

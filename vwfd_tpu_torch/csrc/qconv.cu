@@ -36,8 +36,6 @@
 namespace {
 
 using namespace vwfd::qwg;
-using vwfd::qmma::requant;
-using vwfd::qmma::scaled;
 
 enum Epi : int { kRelu = 0, kSigned = 1, kElu = 2, kF32 = 3 };
 
@@ -193,9 +191,9 @@ extern "C" int vwfd_qconv(const void* x, int kind, int ldx, int hin, int win,
   if ((long long)N * H * W * cout == 0) return (int)cudaGetLastError();
   const bool dual = x2 != nullptr;
   if ((ks != 1 && ks != 3) || epi < kRelu || epi > kF32 ||
-      kind < vwfd::qmma::kI8 || kind > vwfd::qmma::kQuantBF16 || cin < 1 ||
+      kind < vwfd::qwg::kI8 || kind > vwfd::qwg::kQuantBF16 || cin < 1 ||
       (dual && (cin2 < 1 || epi != kRelu || ks != 3)) ||
-      (xi && kind < vwfd::qmma::kQuantF32) || (bn != 64 && bn != 128))
+      (xi && kind < vwfd::qwg::kQuantF32) || (bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
   Args a = {m, m2, bias, out_scale, out, cout, epi};
   Core c = {};
@@ -204,7 +202,7 @@ extern "C" int vwfd_qconv(const void* x, int kind, int ldx, int hin, int win,
                          tma);
   c.op[0].xi = static_cast<int8_t*>(xi);
   if (dual)
-    c.op[1] = make_operand(x2, vwfd::qmma::kI8, ld2, H, W, w2, cin2, cout,
+    c.op[1] = make_operand(x2, vwfd::qwg::kI8, ld2, H, W, w2, cin2, cout,
                            nullptr, kc, tma >> 2);
   c.st_c = 0;
   c.stages = stages;

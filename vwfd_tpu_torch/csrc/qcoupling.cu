@@ -32,7 +32,6 @@
 namespace {
 
 using namespace vwfd::qwg;
-using vwfd::qmma::scaled;
 
 constexpr int kBN = 128;  // weight rows a block: s and t of 64 channels
 
@@ -204,13 +203,13 @@ extern "C" int vwfd_qcoupling_head(const void* xin, int ldxin, int kx,
   Args a = {m2x, m2h, b2, x, out, ldx, ldo, C, pairs};
   Core c = {};
   if (xi)
-    c.op[0] = make_operand(xi, vwfd::qmma::kI8, kx, H, W, w2x, kx, 2 * C,
+    c.op[0] = make_operand(xi, vwfd::qwg::kI8, kx, H, W, w2x, kx, 2 * C,
                            nullptr, 128, tma);
   else
     c.op[0] = make_operand(xin,
-                           bf ? vwfd::qmma::kQuantBF16 : vwfd::qmma::kQuantF32,
+                           bf ? vwfd::qwg::kQuantBF16 : vwfd::qwg::kQuantF32,
                            ldxin, H, W, w2x, kx, 2 * C, s_x, 128, tma);
-  c.op[1] = make_operand(h, vwfd::qmma::kI8, f, H, W, w2h, f, 2 * C, nullptr,
+  c.op[1] = make_operand(h, vwfd::qwg::kI8, f, H, W, w2h, f, 2 * C, nullptr,
                          128, tma >> 2);
   c.st_c = C;
   c.stages = stages;

@@ -1,5 +1,7 @@
-// The Hopper int8 implicit-GEMM core of K11 `qconv` (qconv.cu) and K13
-// `qcoupling_head` (qcoupling.cu): wgmma s8 fed by a TMA ring.
+// The Hopper int8 implicit-GEMM core of K11 `qconv` (qconv.cu), K12
+// `qconv_t` (qconv_t.cu) and K13 `qcoupling_head` (qcoupling.cu): wgmma s8
+// fed by a TMA ring, with the sources' prologue loads (Src, load_a) and the
+// epilogues' requant helpers.
 //
 // A persistent block walks output tiles of kTH x kTW = 16 x 8 pixels of one
 // image and BN output columns (one column block per block: grid = groups x
@@ -7,7 +9,9 @@
 // activation (3x3 SAME or 1x1) and an int8 weight matrix, rows x (taps x
 // cin), K contiguous in (tap, channel) order (OHWI). With two operands
 // (kDual) a block keeps one accumulator set each: the two carry their own
-// scales (the split decoder conv, the split coupling head).
+// scales (the split decoder conv, the split coupling head). A 1x1 product
+// has no halo, so K12 hands the core its batch stacked as one tall image
+// (1, N*H, W): a tile may then span images.
 //
 // * Warp specialisation: warpgroup 2 is the producer, warpgroups 0 and 1 the
 //   consumers (8 tile rows each, one wgmma M of 64 pixels). setmaxnreg
@@ -67,12 +71,130 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
                    // through the CUDA runtime, so no -lcuda
 
-#include "qmma.cuh"  // the prologues' loads (qmma::load_a) and Src
+#include "common.cuh"
 
 namespace vwfd {
 namespace qwg {
 
-using qmma::Src;
+// ------------------------------------------------- sources and epilogues
+
+// What a source's loader applies to its input (kernels/qconv.py::_KINDS).
+enum Kind : int { kI8 = 0, kI8Pool = 1, kQuantF32 = 2, kQuantBF16 = 3 };
+
+struct Src {
+  const void* x;       // NHWC activations: pixel stride ld, channel stride 1
+  const int8_t* w;     // (rows, ks*ks*cin) int8, K contiguous
+  const float* scale;  // kQuant*: the device scalar s of x / s
+  int kind;
+  int ld;              // elements between pixels of x
+  int cin;
+  int hin, win;        // x's spatial size (kI8Pool: pooled to H x W)
+  int va, vb;          // bytes a load unit of A / B: 16, 4 or 1 (host picks)
+};
+
+__device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
+  return __vmaxs4(a, b);
+}
+__device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y),
+                    __vmaxs4(a.z, b.z), __vmaxs4(a.w, b.w));
+}
+__device__ __forceinline__ uint8_t vmax(uint8_t a, uint8_t b) {
+  return (int8_t)a > (int8_t)b ? a : b;
+}
+
+template <int V>
+struct Unit;
+template <>
+struct Unit<16> {
+  using T = uint4;
+  static __device__ __forceinline__ T zero() { return make_uint4(0, 0, 0, 0); }
+};
+template <>
+struct Unit<4> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T zero() { return 0u; }
+};
+template <>
+struct Unit<1> {
+  using T = uint8_t;
+  static __device__ __forceinline__ T zero() { return 0; }
+};
+
+// clip(rint(v / s), -127, 127) as a byte (jnp.round / torch.round: half to
+// even), with an IEEE division as the plain version's by a 0-dim tensor.
+__device__ __forceinline__ uint32_t quant_byte(float v, float s) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+  return (uint32_t)(uint8_t)(int8_t)(int)q;
+}
+
+// V channels (c .. c+V-1, all < cin) of the conv-input pixel (img, y, x),
+// through the source's prologue: a plain int8 copy, the 2x2 max-pool of an
+// int8 input (byte-wise signed max) or the quantization of a float32 / bf16
+// input.
+template <int V>
+__device__ __forceinline__ typename Unit<V>::T load_a(const Src& s, int img,
+                                                      int y, int x, int c) {
+  using T = typename Unit<V>::T;
+  if (s.kind == kI8) {
+    const long long pix = ((long long)img * s.hin + y) * s.win + x;
+    return *reinterpret_cast<const T*>(
+        static_cast<const int8_t*>(s.x) + pix * s.ld + c);
+  }
+  if (s.kind == kI8Pool) {  // the max of input pixels (2y|2y+1, 2x|2x+1)
+    const int8_t* p = static_cast<const int8_t*>(s.x) +
+                      (((long long)img * s.hin + 2 * y) * s.win + 2 * x) *
+                          s.ld + c;
+    const long long down = (long long)s.win * s.ld;
+    const T v00 = *reinterpret_cast<const T*>(p);
+    const T v01 = *reinterpret_cast<const T*>(p + s.ld);
+    const T v10 = *reinterpret_cast<const T*>(p + down);
+    const T v11 = *reinterpret_cast<const T*>(p + down + s.ld);
+    return vmax(vmax(v00, v01), vmax(v10, v11));
+  }
+  const long long off =
+      (((long long)img * s.hin + y) * s.win + x) * s.ld + c;
+  const float sc = *s.scale;
+  uint32_t w[(V + 3) / 4] = {};
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float v =
+        s.kind == kQuantF32
+            ? static_cast<const float*>(s.x)[off + i]
+            : __bfloat162float(static_cast<const __nv_bfloat16*>(s.x)[off + i]);
+    w[i / 4] |= quant_byte(v, sc) << (8 * (i % 4));
+  }
+  T out;
+  if constexpr (V == 16)
+    out = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (V == 4)
+    out = w[0];
+  else
+    out = (uint8_t)w[0];
+  return out;
+}
+
+// float(acc) * m, rounded (no contraction with a following add).
+__device__ __forceinline__ float scaled(int acc, float m) {
+  return __fmul_rn(__int2float_rn(acc), m);
+}
+
+// clip(rint(y), lo, 127) as an int8.
+__device__ __forceinline__ int8_t requant(float y, float lo) {
+  return (int8_t)(int)fminf(fmaxf(rintf(y), lo), 127.f);
+}
+
+// Host side: the widest load unit (16, 4 or 1 bytes) that divides cin, the
+// pixel stride and the address; for a float input, elements (4 or 1).
+inline int unit_bytes(const void* p, int cin, int ld, int elem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (elem > 1) return (cin % 4 == 0 && ld % 4 == 0) ? 4 : 1;
+  for (int v : {16, 4})
+    if (cin % v == 0 && ld % v == 0 && a % v == 0) return v;
+  return 1;
+}
+
+// ------------------------------------------------------------ the core
 
 constexpr int kTH = 16, kTW = 8;  // output tile: rows x columns of pixels
 constexpr int kConsumers = 2;     // warpgroups of 8 tile rows (64 pixels)
@@ -342,7 +464,7 @@ __device__ __forceinline__ void thread_a(uint8_t* sa, const Operand& op,
                                          const Core& c, const Tile& tl,
                                          int c0, int t) {
   using R = Ring<KS, BN, KC>;
-  using T = typename qmma::Unit<V>::T;
+  using T = typename Unit<V>::T;
   constexpr int kUnits = KC / V, kTotal = R::kHaloPix * kUnits;
   constexpr int kBatch = V == 16 ? 1 : 2;
   const Src& s = op.s;
@@ -365,7 +487,7 @@ __device__ __forceinline__ void thread_a(uint8_t* sa, const Operand& op,
       dst[i] = sa + (R::kSw ? R::sw(p, cc)
                             : (cc >> 4) * R::kPlane + p * 16 + (cc & 15));
       if constexpr (V >= 4) {
-        if (s.kind == qmma::kI8) {  // cp.async, zero-filled when out
+        if (s.kind == kI8) {  // cp.async, zero-filled when out
           const int8_t* src = static_cast<const int8_t*>(s.x);
           if (in)
             src += ((long long)(tl.img * s.hin + y) * s.win + x) * s.ld + ch;
@@ -374,8 +496,8 @@ __device__ __forceinline__ void thread_a(uint8_t* sa, const Operand& op,
           continue;
         }
       }
-      v[i] = qmma::Unit<V>::zero();
-      if (in) v[i] = qmma::load_a<V>(s, tl.img, y, x, ch);
+      v[i] = Unit<V>::zero();
+      if (in) v[i] = load_a<V>(s, tl.img, y, x, ch);
       if (xi && in && r >= R::kPad && r < R::kPad + kTH && col >= R::kPad &&
           col < R::kPad + kTW)
         xo[i] = op.xi + ((long long)(tl.img * c.H + y) * c.W + x) * s.cin + ch;
@@ -451,8 +573,8 @@ __device__ __forceinline__ void thread_quant8(uint8_t* sa, const Operand& op,
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          q.x |= qmma::quant_byte(v[k], sc) << (8 * k);
-          q.y |= qmma::quant_byte(v[4 + k], sc) << (8 * k);
+          q.x |= quant_byte(v[k], sc) << (8 * k);
+          q.y |= quant_byte(v[4 + k], sc) << (8 * k);
         }
       }
       *reinterpret_cast<uint2*>(sa + off[i]) = q;
@@ -550,7 +672,7 @@ __device__ __forceinline__ void produce(const Core& c, const Maps& maps,
         }
         if (!c.threads_load) continue;
         if (!op.a_tma && op.q16) {
-          if (op.s.kind == qmma::kQuantBF16)
+          if (op.s.kind == kQuantBF16)
             thread_quant8<KS, BN, KC, __nv_bfloat16>(sa, op, c, tl, c0, t);
           else
             thread_quant8<KS, BN, KC, float>(sa, op, c, tl, c0, t);
@@ -575,7 +697,7 @@ __device__ __forceinline__ void produce(const Core& c, const Maps& maps,
         // issued; loads through registers are stored already and arrive
         // now
         const bool copies =
-            (!op.a_tma && op.s.kind == qmma::kI8 && op.s.va >= 4) ||
+            (!op.a_tma && op.s.kind == kI8 && op.s.va >= 4) ||
             (!op.b_tma && load_b && op.s.vb >= 4);
         if (copies) {
           cp_async_commit();
@@ -650,7 +772,16 @@ __device__ __forceinline__ void mainloop(const Core& c, const Operand& op,
 // Shared memory: the ring from a 1024-byte boundary, the epilogue's
 // per-column parameters (filled once by `epi.init(core, nb, params)`: a
 // block keeps its column block), then the epilogue's staging.
-template <int KS, int BN, int KC, bool kDual, class Epi>
+// kOrdered: the consumers take turns to issue a tile's products (named
+// barriers 4 and 5), so that the tensor cores finish one consumer's rows
+// before the other's and one consumer's epilogue runs while the other's
+// products do (both consumers otherwise finish their products together,
+// then leave the tensor cores idle through their epilogues). Only where the
+// ring holds a whole tile's stages (up4's eight stream through six slots:
+// no turns): consumer 0 takes all of a tile's stages before consumer 1
+// takes any, and a slot is refilled only once both have released it.
+template <int KS, int BN, int KC, bool kDual, bool kOrdered = false,
+          class Epi>
 __device__ __forceinline__ void run(const Core& c, const Maps& maps,
                                     const Epi& epi) {
   using R = Ring<KS, BN, KC>;
@@ -683,6 +814,9 @@ __device__ __forceinline__ void run(const Core& c, const Maps& maps,
   epi.init(c, blockIdx.x % c.nblk, params);
   asm volatile("bar.sync 3, %0;\n" ::"n"(128 * kConsumers) : "memory");
   const int mine = tiles_of_block(c);
+  // (stages the producer's threads load arrive one late: one slot more)
+  const bool turns =
+      kOrdered && c.op[0].stages + c.threads_load <= c.stages;
   int acc[BN / 2], acc2[kDual ? BN / 2 : 1];
   int it = 0, prev = -1;
   for (int j = 0; j < mine; ++j) {
@@ -691,7 +825,14 @@ __device__ __forceinline__ void run(const Core& c, const Maps& maps,
     const typename Epi::Pre pre = epi.prefetch(c, tl, wg);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    // kOrdered: consumer 0 issues tile j's products first, then consumer 1
+    if (turns && (wg == 1 || j > 0))
+      asm volatile("bar.sync %0, %1;\n" ::"r"(4 + wg), "n"(128 * kConsumers)
+                   : "memory");
     mainloop<KS, BN, KC>(c, c.op[0], wg, ring, full, empty, acc, it, prev);
+    if (turns && (wg == 0 || j + 1 < mine))  // the other's turn, if any
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(5 - wg),
+                   "n"(128 * kConsumers) : "memory");
     if constexpr (kDual) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc2[i] = 0;
@@ -719,7 +860,7 @@ __device__ __forceinline__ bool acc_pixel(const Core& c, const Tile& tl,
 
 // ------------------------------------------------------------ host side
 
-// One operand: x (NHWC, pixel stride ld; kind: qmma::Kind; hin x win its
+// One operand: x (NHWC, pixel stride ld; kind: Kind; hin x win its
 // spatial size, pooled to the output's for kI8Pool; scale for a quantize
 // prologue), w (rows x ks*ks*cin int8), stages of kc channels; tma: bit 0
 // A by TMA, bit 1 B by TMA.
@@ -735,10 +876,10 @@ inline Operand make_operand(const void* x, int kind, int ld, int hin, int win,
   o.s.cin = cin;
   o.s.hin = hin;
   o.s.win = win;
-  const bool quant = kind == qmma::kQuantF32 || kind == qmma::kQuantBF16;
-  const int elem = kind == qmma::kQuantF32 ? 4 : quant ? 2 : 1;
-  o.s.va = qmma::unit_bytes(x, cin, ld, elem);
-  o.s.vb = qmma::unit_bytes(w, cin, cin, 1);
+  const bool quant = kind == kQuantF32 || kind == kQuantBF16;
+  const int elem = kind == kQuantF32 ? 4 : quant ? 2 : 1;
+  o.s.va = unit_bytes(x, cin, ld, elem);
+  o.s.vb = unit_bytes(w, cin, cin, 1);
   o.a_tma = tma & 1;
   o.b_tma = (tma >> 1) & 1;
   o.stages = (cin + kc - 1) / kc;
@@ -797,7 +938,7 @@ cudaError_t encode_operand(Maps& m, int o, const Core& c) {
   using R = Ring<KS, BN, KC>;
   const Operand& op = c.op[o];
   if (op.a_tma) {
-    if (op.s.kind != qmma::kI8 || op.s.ld % 16 ||
+    if (op.s.kind != kI8 || op.s.ld % 16 ||
         reinterpret_cast<uintptr_t>(op.s.x) % 16)
       return cudaErrorInvalidValue;
     const cuuint64_t dims[4] = {(cuuint64_t)op.s.cin, (cuuint64_t)c.W,

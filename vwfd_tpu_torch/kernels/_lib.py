@@ -57,7 +57,8 @@ _SIGNATURES = {
     "vwfd_qconv": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                    _I, _P],
-    "vwfd_qconv_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_qconv_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
     "vwfd_qcoupling_head": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                             _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],

@@ -66,7 +66,7 @@ __all__ = ["qconv", "qconv_plain", "launch_args", "exact_conv", "EPILOGUES",
 
 COUNT = _lib.LaunchCount("qconv")
 EPILOGUES = {"relu": 0, "signed": 1, "elu": 2, "f32": 3}
-# csrc/qmma.cuh Kind: what the loader applies to the input
+# csrc/qwgmma.cuh Kind: what the loader applies to the input
 _KINDS = {torch.int8: 0, "pool": 1, torch.float32: 2, torch.bfloat16: 3}
 
 # csrc/qwgmma.cuh: the tile, the ring's limits and a block's shared memory
@@ -80,7 +80,8 @@ _UNIT = {"int8": 1, "pool": 1, "float32": 4, "bfloat16": 2}
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the int8 wgmma core (K11, and K13 with ``split``).
+    """One launch of the int8 wgmma core (K11, K12 through
+    ``qconv_t.plan``, and K13 with ``split``).
 
     ``loaders``: per operand (activation, weights), each ``"tma"``,
     ``"cp.async"`` (int8 copies of 16 or 4 bytes by the producer's
@@ -102,7 +103,8 @@ class Plan:
 
 
 def _unit(ptr: int, cin: int, ld: int, elem: int) -> int:
-    """csrc/qmma.cuh::unit_bytes: the load unit of the producer's threads."""
+    """csrc/qwgmma.cuh::unit_bytes: the load unit of the producer's
+    threads."""
     if elem > 1:
         return 4 if cin % 4 == 0 and ld % 4 == 0 else 1
     for v in (16, 4):

@@ -1,16 +1,18 @@
-"""Where the serving roundtrip's, the train step's or the eval step's time
-goes on the card.
+"""Where the serving roundtrip's or detect's, the train step's or the eval
+step's time goes on the card.
 
     python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
+    python -m vwfd_tpu_torch.profile_roundtrip --mode detect [--int8]
     python -m vwfd_tpu_torch.profile_roundtrip --mode train [--requests 5]
     python -m vwfd_tpu_torch.profile_roundtrip --mode eval [--requests 5]
     python -m vwfd_tpu_torch.profile_roundtrip --int8 [--int8-embed]
 
 ``--mode roundtrip`` (the default) serves the flagship roundtrip
 (``configs/video.yaml``: batch 16, T=4, 256², bf16; random weights from a
-seed); ``--mode train`` runs the flagship ``train_step`` and ``--mode
-eval`` its ``eval_step`` on synthetic batches. ``--int8`` serves the
-roundtrip through the int8 extractor and ``--int8-embed`` through the int8
+seed); ``--mode detect`` serves the detect alone; ``--mode train`` runs
+the flagship ``train_step`` and ``--mode eval`` its ``eval_step`` on
+synthetic batches. ``--int8`` serves the roundtrip or the detect through
+the int8 extractor and ``--int8-embed`` the roundtrip through the int8
 embed (calibrated on one seeded random clip, off the clock). Each runs under
 ``torch.profiler`` after a warm-up, then prints one JSON line: the host
 wall time per request (or step), the device time per request by kernel
@@ -46,7 +48,7 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "f1_sweep": ("f1_sweep_counts",), "ssim": ("ssim_strips",),
                 "attack_mix": ("attack_mix_fwd", "attack_mix_bwd"),
                 "splice": ("splice_fwd", "splice_bwd"),
-                "qconv": ("qconv_wgmma",), "qconv_t": ("qconv_t_kernel",),
+                "qconv": ("qconv_wgmma",), "qconv_t": ("qconv_t_wgmma",),
                 "qcoupling_head": ("qcoupling_wgmma",)}
 
 
@@ -73,12 +75,12 @@ def classify(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="roundtrip",
-                    choices=["roundtrip", "train", "eval"])
+                    choices=["roundtrip", "detect", "train", "eval"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--int8", action="store_true",
-                    help="roundtrip through the int8 extractor")
+                    help="roundtrip or detect through the int8 extractor")
     ap.add_argument("--int8-embed", action="store_true",
                     help="roundtrip through the int8 embed")
     args = ap.parse_args(argv)
@@ -105,14 +107,14 @@ def main(argv=None):
     else:
         clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
                                                  dtype=np.uint8)
-        server = WatermarkServer(cfg, modes=("roundtrip",),
+        server = WatermarkServer(cfg, modes=(args.mode,),
                                  int8_extract=args.int8,
                                  int8_embed=args.int8_embed,
                                  int8_calib=clip)
 
-        def one():
-            r = server.serve(clip, "roundtrip")
-            return r.watermarked, r.mask_bits, r.tamper_fraction
+        def one():  # every output, on the host
+            r = server.serve(clip, args.mode)
+            return [getattr(r, k) for k in r.keys()]
 
     for _ in range(3):
         one()
