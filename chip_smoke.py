@@ -110,7 +110,17 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    99.99 %); the int8 extractor against the bf16 net on the same bytes
    (mean |Δp| and threshold agreement held to the JAX package's bounds);
    a self-calibrated server; detect and roundtrip p50, streaming frames/s
-   and a roundtrip's peak memory beside the bf16 server's.
+   and a roundtrip's peak memory beside the bf16 server's;
+10. the convergence runner (``vwfd_tpu_torch.run_convergence``) at full
+   width, batch 8, from phase 4's weights: 20 steps with an eval at the
+   last, with the launch counts at 0 just before and read just after (20
+   train steps' and one eval step's); the same run stopped at step 10 and
+   resumed, its clips, masks, previous clips and attack draws at steps
+   11-20 EQUAL to the unbroken run's and its records finite; then
+   ``vwfd_tpu_torch.int8_eval`` on the unbroken run's checkpoint, 2
+   batches, without and with ``--int8-embed``, each kernel of its path
+   launched (K1, K2, K5-K7, K9-K12, and K13 with the int8 embed), its
+   means finite and mean |Δprob| within phase 9's bound.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -2162,6 +2172,131 @@ def run_int8(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 10
+
+
+CONV_B = 8        # the convergence run's batch (the JAX record's)
+CONV_STEPS = 20   # steps of each run, with an eval at the last
+CONV_STOP = 10    # the segment boundary of the resumed run
+# the convergence runner's path per run: CONV_STEPS train steps and one
+# eval step (``--libjpeg-batches 0``: no libjpeg line)
+CONV_LAUNCHES = {k: CONV_STEPS * TRAIN_LAUNCHES[k] + EVAL_LAUNCHES[k]
+                 for k in TRAIN_LAUNCHES}
+# int8_eval's kernels: embed, splice, the attack pool, the F1 sweep and the
+# int8 UNet; with the int8 embed also the int8 INN's
+INT8_EVAL_KERNELS = ("transition", "coupling_head", "splice", "jpeg_pair",
+                     "median3", "attack_mix", "f1_sweep", "qconv", "qconv_t")
+
+
+def conv_args(root, name, *extra):
+    return ["--steps", str(CONV_STEPS), "--eval-every", str(CONV_STEPS),
+            "--batch", str(CONV_B), "--econvs", "2,2,1,1,1",
+            "--init-nets", str(root / "init"),
+            "--out", str(root / f"{name}.jsonl"),
+            "--ckpt-dir", str(root / name), *extra]
+
+
+def conv_records(path):
+    recs = [json.loads(line) for line in open(path)]
+    steps = [r for r in recs if "loss" in r]
+    check(list(recs[0]) == ["config"] and [r["step"] for r in steps]
+          == [1, CONV_STEPS] and "f1_best" in steps[-1]
+          and all(math.isfinite(v) for r in steps for k, v in r.items()
+                  if isinstance(v, float)), f"{path}: {recs}")
+    return steps
+
+
+def run_convergence_phase(card):
+    """Phase 10: the convergence runner at full width (b8, 256², T4) from
+    phase 4's weights, 20 steps with an eval at the last, with the launch
+    counts at 0 just before and read just after; the same run in two
+    segments (a stop at step 10, then ``--resume``), its clips, masks,
+    previous clips and attack draws at steps 11-20 EQUAL to the unbroken
+    run's and its logs finite (weights are not compared: cuDNN's backward
+    is not deterministic); then ``int8_eval`` on the unbroken run's
+    checkpoint, 2 batches, without and with ``--int8-embed``."""
+    from vwfd_tpu_torch import int8_eval, run_convergence as rc
+    from vwfd_tpu_torch.models.state import save_nets
+
+    root = Path("build") / "chip_smoke_convergence"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = load_config(FLAGSHIP_CONFIG)
+    model = VideoWatermarkModel(cfg)
+    model.load_states(perturbed_states(cfg, seed=7))
+    save_nets(str(root / "init"), 0, model)
+    del model
+    gc.collect()
+
+    seen = {"a": {}, "b": {}}
+
+    def recorder(name):
+        def on_step(step, video, mask_, prev, draws):
+            if step > CONV_STOP:
+                seen[name][step] = (video, mask_, prev, *draws)
+        return on_step
+
+    launches = {}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    check(rc.run(rc.parse_args(conv_args(root, "a", "--libjpeg-batches",
+                                         "0")), recorder("a")) == "done",
+          "convergence run a")
+    torch.cuda.synchronize()
+    launches["convergence"] = launch_counts()
+    wall_a = time.perf_counter() - t0
+    print(f"main path launches, convergence runner ({CONV_STEPS} steps, "
+          f"1 eval): {json.dumps(launches['convergence'])}")
+    check(launches["convergence"] == CONV_LAUNCHES,
+          f"convergence launches {launches['convergence']}")
+    steps_a = conv_records(root / "a.jsonl")
+
+    check(rc.run(rc.parse_args(conv_args(
+        root, "b", "--stop-at-step", str(CONV_STOP), "--resume")),
+        recorder("b")) == "stopped", "segment 1 did not stop")
+    check(rc.run(rc.parse_args(conv_args(root, "b", "--resume")),
+                 recorder("b")) == "done", "segment 2")
+    steps_b = conv_records(root / "b.jsonl")
+    want = list(range(CONV_STOP + 1, CONV_STEPS + 1))
+    check(sorted(seen["a"]) == want and sorted(seen["b"]) == want,
+          f"steps seen {sorted(seen['a'])} {sorted(seen['b'])}")
+    same = all(torch.equal(x, y) for k in want
+               for x, y in zip(seen["a"][k], seen["b"][k]))
+    check(same, "the resumed run's clips or draws differ from the "
+          "unbroken run's")
+    del seen
+    print(f"convergence runner b{CONV_B}x{T}x{S}x{S}: {CONV_STEPS} steps in "
+          f"{wall_a:.1f} s with the model's set-up; step {CONV_STEPS} "
+          f"unbroken {json.dumps(steps_a[-1])}; resumed at step {CONV_STOP} "
+          f"{json.dumps(steps_b[-1])}; clips, masks, previous clips and "
+          f"draws at steps {want[0]}-{want[-1]} equal")
+
+    gates = {}
+    for name, extra in (("int8_eval", []),
+                        ("int8_eval_embed", ["--int8-embed"])):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        gates[name] = int8_eval.main(
+            ["--ckpt-dir", str(root / "a"), "--calib-batches", "1",
+             "--eval-batches", "2", *extra])
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        need = INT8_EVAL_KERNELS + (("qcoupling_head",) if extra else ())
+        idle = [k for k in need if launches[name][k] == 0]
+        check(not idle, f"{name} launched none of {idle}")
+        g = gates[name]
+        check(all(math.isfinite(v) for v in g.values())
+              and g["mean_abs_dprob"] < INT8_MEAN_DP, f"{name}: {g}")
+    print(f"main path launches, int8_eval: {json.dumps(launches['int8_eval'])}"
+          f"; with --int8-embed: {json.dumps(launches['int8_eval_embed'])}")
+    print(json.dumps({"convergence": {
+        "steps": CONV_STEPS, "batch": CONV_B, "frames": T, "size": S,
+        "wall_s_20_steps": wall_a, "unbroken": steps_a[-1],
+        "resumed": steps_b[-1], "int8_eval": gates, "card": card}}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2205,9 +2340,11 @@ def main():
     eval_launches = run_eval(card)
     run_trainer(card)
     int8_launches = run_int8(card)
+    conv_launches = run_convergence_phase(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
-               "eval_step": eval_launches, **int8_launches}
+               "eval_step": eval_launches, **int8_launches,
+               **conv_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@
 DCT and IDCT run once, through K5 (``kernels/jpeg.py``). The draws are
 explicit tensors: the quality index into ``QUALITIES`` and the mode, 0 hard
 round, 1 x³ soft round, 2 zonal 5×5/3×3 keep. Quality Q means the table
-scale 2 − 0.02·Q (Q ≥ 50).
+scale 2 − 0.02·Q (Q ≥ 50). ``jpeg_real`` is the real libjpeg round trip
+(``:261-280``), on the host through PIL, the evaluation's oracle.
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ from ..ops.dct import block_merge, block_split, dct_blocks, idct_blocks
 from ..ops.quantize import jpeg_scale_factor, round_only_at_0
 
 __all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables", "jpeg_pool",
-           "jpeg_pool_pair"]
+           "jpeg_pool_pair", "jpeg_real"]
 
 QUALITIES = (50, 60, 70, 80, 90)
 
@@ -84,3 +85,33 @@ def jpeg_pool_pair(img: torch.Tensor, q_idx: torch.Tensor,
     qt = quant_tables(q_idx).contiguous()
     w = torch.stack([w1, w2], -1).float().contiguous()
     return kernels.jpeg_pair(img, qt, mode.to(torch.int32).contiguous(), w)
+
+
+def jpeg_real(img01: np.ndarray, quality: int, subsampling: int = 0
+              ) -> np.ndarray:
+    """Real libjpeg round trip through PIL (port of
+    vwfd_tpu/attacks/jpeg.py:261-280): the non-differentiable oracle the
+    reference calls ``JpegTest``. Host only, numpy in and out: frames (H, W,
+    3) or (N, H, W, 3) in [0, 1], each rounded to uint8, encoded at
+    ``quality`` with chroma ``subsampling`` and decoded, back in [0, 1].
+    PIL is imported here, not with the module: without it this raises an
+    ``ImportError`` that names it."""
+    import io
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("jpeg_real needs PIL (Pillow) for libjpeg, and it "
+                          "does not import here") from e
+
+    x = np.asarray(img01)
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    out = np.empty_like(x)
+    for i in range(x.shape[0]):
+        u8 = (np.clip(x[i], 0, 1) * 255).round().astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(u8).save(buf, format="JPEG", quality=int(quality),
+                                 subsampling=subsampling)
+        out[i] = np.asarray(Image.open(buf), np.float32) / 255.0
+    return out[0] if squeeze else out

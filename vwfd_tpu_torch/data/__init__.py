@@ -1,12 +1,17 @@
 """Data pipeline of the port (counterparts of vwfd_tpu/data): the DAVIS and
-synthetic video datasets, the tamper masks and the batching loader. Numpy
-only (DAVIS takes its image readers from the caller)."""
+synthetic video datasets, the tamper masks and the batching loader (numpy
+only; DAVIS takes its image readers from the caller), and the convergence
+runner's clip generator on the device (``ondevice.py``)."""
 
 from .davis import DavisVideoDataset, cv2_readers
 from .loader import Loader
 from .masks import free_form_stroke_mask, random_rect_mask
+from .ondevice import (ClipDraws, clips_from_draws, rect_mask,
+                       sample_clip_draws, seeded_generator, synthetic_clips)
 from .synthetic import SyntheticVideoDataset
 
 __all__ = ["DavisVideoDataset", "cv2_readers", "Loader",
            "free_form_stroke_mask", "random_rect_mask",
-           "SyntheticVideoDataset"]
+           "SyntheticVideoDataset", "ClipDraws", "clips_from_draws",
+           "rect_mask", "sample_clip_draws", "seeded_generator",
+           "synthetic_clips"]

@@ -36,7 +36,7 @@ from ..config import TrainConfig
 from ..convert import state_dict_from_jax
 from .schedules import cosine_restart, multistep_restart, with_warmup
 
-__all__ = ["AdamW", "make_optimizer", "save_checkpoint",
+__all__ = ["AdamW", "make_optimizer", "save_checkpoint", "save_nets",
            "restore_checkpoint", "load_nets", "latest_step", "CKPT_FILE",
            "load_npz_tree", "save_npz_tree", "apply_pretrain"]
 
@@ -116,7 +116,6 @@ def save_checkpoint(ckpt_dir: str, step: int, model) -> str:
     state dicts and its optimizers' ``mu``, ``nu`` and ``count``) to
     ``ckpt_dir/<step>/``, replacing a checkpoint of the same step. The
     directory appears whole or not at all. Returns its path."""
-    path = os.path.abspath(os.path.join(ckpt_dir, str(step)))
     payload = {
         "step": int(step),
         "nets": {name: {k: v.detach().cpu()
@@ -127,6 +126,13 @@ def save_checkpoint(ckpt_dir: str, step: int, model) -> str:
                               "count": opt.count.cpu()}
                        for name, opt in model.optimizers.items()},
     }
+    return _write(ckpt_dir, step, payload)
+
+
+def _write(ckpt_dir: str, step: int, payload: dict) -> str:
+    """``payload`` as ``ckpt_dir/<step>/state.pt``, replacing a checkpoint
+    of the same step; the directory appears whole or not at all."""
+    path = os.path.abspath(os.path.join(ckpt_dir, str(step)))
     tmp = f"{path}.{os.getpid()}.tmp"
     os.makedirs(tmp, exist_ok=True)
     torch.save(payload, os.path.join(tmp, CKPT_FILE))
@@ -134,6 +140,26 @@ def save_checkpoint(ckpt_dir: str, step: int, model) -> str:
         shutil.rmtree(path)
     os.replace(tmp, path)
     return path
+
+
+def save_nets(ckpt_dir: str, step: int, model, compact: bool = False) -> str:
+    """Write only ``model``'s nets (parameters and buffers) to
+    ``ckpt_dir/<step>/``, in ``save_checkpoint``'s layout without the
+    optimizers: what ``load_nets`` reads (``restore_checkpoint`` needs a
+    full checkpoint). With ``compact``, the extractor's convolution weights
+    and biases are stored in the model's compute dtype, the dtype its
+    forward casts them to: the same forward from half their bytes (the
+    flagship's nets: 60 MB for 91). Returns the directory's path."""
+    nets = {name: {k: v.detach().cpu() for k, v in net.state_dict().items()}
+            for name, net in model.nets().items()}
+    if compact:
+        for name, mod in model.unet.named_modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                for k, _ in mod.named_parameters():
+                    key = f"{name}.{k}"
+                    nets["generator"][key] = nets["generator"][key].to(
+                        model.compute_dtype)
+    return _write(ckpt_dir, step, {"step": int(step), "nets": nets})
 
 
 def _load(ckpt_dir: str, step: int) -> dict:

@@ -306,9 +306,9 @@ class VideoWatermarkModel:
         """Robustness to a real JPEG codec: embed, splice-tamper, clip, then
         ``codec(frames, quality)`` (float32 NHWC frames in [0, 1] → the
         decoded frames, on the host) at each quality before localization.
-        Returns ``{"none": f1, "qf50": f1, ...}``. The card machine has no
-        image library, so the codec is the caller's (the tests pass
-        ``vwfd_tpu.attacks.jpeg.jpeg_real``, i.e. PIL's libjpeg)."""
+        Returns ``{"none": f1, "qf50": f1, ...}``. The port imports no
+        image library with its modules, so the codec is the caller's
+        (``attacks.jpeg_real``, PIL's libjpeg)."""
         video, mask, prev = self.to_device(video, mask, prev)
         tampered = torch.clamp(self._embed_splice(video, mask, prev)[1], 0.0,
                                1.0)
