@@ -120,7 +120,24 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    ``vwfd_tpu_torch.int8_eval`` on the unbroken run's checkpoint, 2
    batches, without and with ``--int8-embed``, each kernel of its path
    launched (K1, K2, K5-K7, K9-K12, and K13 with the int8 embed), its
-   means finite and mean |Δprob| within phase 9's bound.
+   means finite and mean |Δprob| within phase 9's bound;
+11. the reference-shaped model (``configs/refshape.yaml``: the INN module
+   path with res subnets and the lifting Haar, the reference UNet, f 32)
+   at full width: a b16 roundtrip with the launch counts at 0 just before
+   and read just after (K14 ×6, K15 ×10, K3 ×2, K4 ×1) held to the plain
+   server within F7's rule; one b8 ``train_step`` (K14 ×11, K15 ×20) with
+   its loss terms and gradients held to ``PLAIN`` as phase 6's; one
+   ``eval_step``; p50 of the roundtrip, the train step and the eval step.
+   Phase 3 also holds K14 ``haar`` (EQUAL to its plain version, at the
+   refshape's three levels and at 3072 channels; up(down(x)) within one
+   f32 ulp) and K15 ``coupling_affine`` (its five coupling shapes, fused and
+   split, forward and inverse, within one ulp; gradients within 1e-6 of the
+   plain max in f32, one bf16 ulp in bf16), each timed warm and cold beside
+   its plain version and, for K14, the grouped ``F.conv2d`` with the ±½
+   bank; K3 at s = 1 and K4 at s = 1 (the reference UNet's stem and
+   logits); and the packed INN at ``down_num`` 4 (K14 at its 3072-channel
+   level, K2 on that level's head in f32; in bf16 K2 refuses the head,
+   ROADMAP F20).
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -132,7 +149,8 @@ version, its time warm and with a cold L2, the plain time, the bound, the
 library time and a yardstick's; the bound is the sum of each launch's
 bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
-K11-K13 and per int8 detect for K3's int8 stem, ``wire_i8``); the last
+K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, and per refshape
+roundtrip for K14 and K15); the last
 line is
 ``{"ok": true,
 "device": {...}}``.
@@ -153,12 +171,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vwfd_tpu_torch import FLAGSHIP_CONFIG, kernel_report, load_config
+from vwfd_tpu_torch import (FLAGSHIP_CONFIG, REFSHAPE_CONFIG, kernel_report,
+                            load_config)
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
-from vwfd_tpu_torch.kernels import (PLAIN, _lib, coupling, f1, jpeg,
+from vwfd_tpu_torch.kernels import (PLAIN, _lib, affine, coupling, f1, haar,
+                                    jpeg,
                                     launch_counts, mask, median, mix, qconv,
                                     qconv_t, qcoupling, reset_launch_counts,
                                     splice, ssim, transition, wire)
@@ -167,6 +187,8 @@ from vwfd_tpu_torch.models import video_model
 from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
 from vwfd_tpu_torch.nets import unet_int8
+from vwfd_tpu_torch.kernels.coupling import affine_e
+from vwfd_tpu_torch.ops import haar as ops_haar
 from vwfd_tpu_torch.ops.filters import gaussian_kernel_2d
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
@@ -223,6 +245,9 @@ KERNEL_SOURCES = {
                        "vwfd_tpu/nets/inn_int8.py:257"),
     "wire_i8": ("vwfd_tpu_torch/csrc/wire.cu",
                 "vwfd_tpu/nets/unet_int8.py:244"),
+    "haar": ("vwfd_tpu_torch/csrc/haar.cu", "vwfd_tpu/ops/haar.py:20"),
+    "coupling_affine": ("vwfd_tpu_torch/csrc/affine.cu",
+                        "vwfd_tpu/nets/inn.py:235"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -241,8 +266,12 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "qconv_t": "cuDNN bf16 F.conv_transpose2d of the same shape; "
                          "int_mm_ms: torch._int_mm of the same GEMM",
               "qcoupling_head": "K2 coupling_head at the same shape (the "
-                                "bf16 embed's head)"}
-NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0}
+                                "bf16 embed's head)",
+              "coupling_affine": "torch.addcmul(t, affine_e(s), x) (the "
+                                 "forward in two calls)"}
+# K14 and K15 run on the INN module path only (the refshape phase)
+NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
+           "coupling_affine": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -269,7 +298,9 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "f1_sweep": "eval_step", "ssim": "eval_step",
             "attack_mix": "train_step", "splice": "train_step",
             "qconv": "int8_roundtrip", "qconv_t": "int8_roundtrip",
-            "qcoupling_head": "int8_roundtrip", "wire_i8": "int8_detect"}
+            "qcoupling_head": "int8_roundtrip", "wire_i8": "int8_detect",
+            "haar": "refshape_roundtrip",
+            "coupling_affine": "refshape_roundtrip"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -353,6 +384,7 @@ class Row:
         # the sum over launches of each launch's bound, and the part of it
         # from launches that bytes bound
         self.bound_ms = self.bytes_bound_ms = 0.0
+        self.extra = {}  # further keys of the row's JSON entry
 
     def add(self, ms, plain_ms, bytes_moved, ops, library_ms=None,
             ops_per_s=F32_OPS_PER_S, yardstick_ms=None, cold_ms=None):
@@ -387,6 +419,7 @@ class Row:
                "yardstick": YARDSTICKS.get(self.name)}
         if self.int_mm_ms is not None:
             out["int_mm_ms"] = self.int_mm_ms
+        out.update(self.extra)
         return out
 
 
@@ -578,20 +611,22 @@ def check_wire(rows, card):
             check(torch.equal(wire.to_channels(clip, dt),
                               wire.to_channels_plain(clip, dt)),
                   f"wire to_channels {path} {dt} differs")
-            check(torch.equal(wire.to_s2d(flat, 2, dt),
-                              wire.to_s2d_plain(flat, 2, dt)),
-                  f"wire to_s2d {path} {dt} differs")
             check(torch.equal(wire.to_u8(x, T), wire.to_u8_plain(x, T)),
                   f"wire to_u8 {path} {dt} differs")
-            u8, xs = wire.to_u8_s2d(x, T, 2)
-            u8_ref, xs_ref = wire.to_u8_s2d_plain(x, T, 2)
-            check(torch.equal(u8, u8_ref) and torch.equal(xs, xs_ref),
-                  f"wire to_u8_s2d {path} {dt} differs")
+            # s = 2: the flagship's stem; s = 1: the reference UNet's
+            for sf in (2, 1):
+                check(torch.equal(wire.to_s2d(flat, sf, dt),
+                                  wire.to_s2d_plain(flat, sf, dt)),
+                      f"wire to_s2d s={sf} {path} {dt} differs")
+                u8, xs = wire.to_u8_s2d(x, T, sf)
+                u8_ref, xs_ref = wire.to_u8_s2d_plain(x, T, sf)
+                check(torch.equal(u8, u8_ref) and torch.equal(xs, xs_ref),
+                      f"wire to_u8_s2d s={sf} {path} {dt} differs")
             ties = int(((x.float().clamp(0, 1) * 255.0) % 1 == 0.5).sum())
             check(ties > 0, "no exact ties in the to_u8 input")
             print(f"check wire {path} {(b, T, h, w)} {dt} exact: to_channels "
-                  f"to_u8 to_s2d to_u8_s2d (to_u8 inputs with {ties} exact "
-                  f".5 ties)")
+                  f"to_u8 to_s2d to_u8_s2d at s = 2 and 1 (to_u8 inputs with "
+                  f"{ties} exact .5 ties)")
 
     dt = torch.bfloat16
     clip, x = wire_inputs(B, S, S, dt, g)
@@ -677,6 +712,31 @@ def check_mask(rows, card):
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} "
                   f"share_of_bound={bms / ms:.3f} cold_share={bms / cold:.3f}"
                   f" [{card}]")
+
+    # s = 1, the reference UNet's full-resolution logits (the refshape
+    # detect): K4's general path, one thread per output byte
+    logits = torch.randn(B * T, S, S, 1, device="cuda", generator=g).to(
+        torch.bfloat16)
+    logits.view(-1)[::97] = 0.0
+    m, frac = mask.mask_pack(logits, T, 1, 0.5)
+    m_ref, frac_ref = mask.mask_pack_plain(logits, T, 1, 0.5)
+    torch.cuda.synchronize()
+    p = torch.sigmoid(logits.float()).reshape(B, T, S, S, 1)
+    near = ((p - 0.5).abs() < MASK_NEAR).cpu().numpy()
+    differ = (unpack_mask_bits(m.cpu().numpy())
+              != unpack_mask_bits(m_ref.cpu().numpy()))
+    mean_err = float((frac - frac_ref).abs().max())
+    check(not (differ & ~near).any() and mean_err <= MEAN_ATOL,
+          f"mask_pack s=1: bits differ away from the threshold or mean err "
+          f"{mean_err}")
+    moved = nbytes(logits, m, frac)
+    ms = time_ms(lambda: mask.mask_pack(logits, T, 1, 0.5))
+    pms = time_ms(lambda: mask.mask_pack_plain(logits, T, 1, 0.5))
+    bms = bound(moved, 0)[0]
+    print(f"check mask_pack s=1 bf16 {tuple(logits.shape)} bits_differ="
+          f"{int(differ.sum())} mean_err={mean_err} ms={ms:.4f} "
+          f"plain_ms={pms:.4f} bound_ms={bms:.4f} share_of_bound="
+          f"{bms / ms:.3f} (the refshape detect's, general path) [{card}]")
 
 
 def train_shape_input(g, levels=256):
@@ -1558,6 +1618,254 @@ def check_stem(rows, card):
               f"share_of_bound={bms / ms:.3f} [{card}]")
 
 
+# ------------------------------------------------------------ phase 3, INN
+# module path
+
+
+# the refshape embed's Haar levels, each with one down and one up per
+# roundtrip, by their full-resolution side (batch 16): 12 channels at 256²,
+# 48 at 128², 192 at 64²; and down_num 4's 768 → 3072 level at a small
+# N·H·W
+HAAR_LEVELS = [(B, S, S, 3 * T), (B, S // 2, S // 2, 12 * T),
+               (B, S // 4, S // 4, 48 * T)]
+HAAR_WIDE = (2, 16, 16, 768)
+HAAR_OPS = 5  # per output: four adds or subtractions and the product by ½
+
+
+def ulp_f32(x):
+    """One float32 ulp at max|x|."""
+    return 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 23)
+
+
+def check_haar(rows, card):
+    """K14 at the refshape serving shapes and at 3072 channels: down and up,
+    f32 and bf16, EQUAL to the plain version; up(down(x)) within one f32
+    ulp of max|x|; bf16 timed warm and with a cold L2 beside the plain
+    version and the library call, one grouped ``F.conv2d`` /
+    ``F.conv_transpose2d`` with the fixed ±½ bank."""
+    row = rows["haar"]
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(31)
+    for full in HAAR_LEVELS + [HAAR_WIDE]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(full, device=dev, generator=g).to(dt)
+            y = haar.haar(x)
+            back = haar.haar(y, transpose=True)
+            yp, bp = haar.haar_plain(x), haar.haar_plain(y, transpose=True)
+            torch.cuda.synchronize()
+            check(torch.equal(y, yp) and torch.equal(back, bp),
+                  f"haar {full} {dt} differs from its plain version")
+            if dt == torch.float32:
+                inv, ulp = float((back - x).abs().max()), ulp_f32(x)
+                check(inv <= ulp, f"haar {full}: up(down(x)) off by {inv}, "
+                      f"more than one ulp ({ulp})")
+                print(f"check haar {full} f32 equal (down and up); "
+                      f"|up(down(x)) - x| max {inv:.3g} <= ulp {ulp:.3g}")
+                continue
+            c = full[-1]
+            w = torch.from_numpy(ops_haar._bank(c)).to(dev, dt)
+            for transpose, src, out in ((False, x, y), (True, y, back)):
+                xc = src.permute(0, 3, 1, 2)
+                lib = ((lambda: F.conv_transpose2d(xc, w, stride=2, groups=c))
+                       if transpose else
+                       (lambda: F.conv2d(xc, w, stride=2, groups=c)))
+                ms = time_ms(lambda: haar.haar(src, transpose))
+                cold = time_cold_ms(
+                    lambda v: haar.haar(v, transpose),
+                    cold_sets(lambda i: (torch.randn(
+                        src.shape, device=dev, generator=g).to(dt),),
+                        nbytes(src, out)))
+                pms = time_ms(lambda: haar.haar_plain(src, transpose))
+                lms = time_ms(lib)
+                moved, ops = nbytes(src, out), HAAR_OPS * out.numel()
+                if full != HAAR_WIDE:  # the roundtrip's six launches
+                    row.add(ms, pms, moved, ops, lms, cold_ms=cold)
+                bms = bound(moved, ops)[0]
+                print(f"check haar {'up' if transpose else 'down'} bf16 "
+                      f"{tuple(src.shape)}->{tuple(out.shape)} equal "
+                      f"ms={ms:.4f} cold_ms={cold:.4f} plain_ms={pms:.4f} "
+                      f"library_ms={lms:.4f} bound_ms={bms:.4f} "
+                      f"share_of_bound={bms / ms:.3f} [{card}]")
+
+
+# the refshape embed's ten affines: per coupling (batch 16) the spatial
+# size and the half's channels, down 24 @128², 96 @64², 384 @32², up 96
+# @64², 24 @128²; two launches a coupling
+AFFINE_LEVELS = [(S // 2, 24), (S // 4, 96), (S // 8, 384), (S // 4, 96),
+                 (S // 2, 24)]
+AFFINE_OPS = (20, 24)  # per value: forward, backward
+AFFINE_GRAD_RTOL = 1e-6  # f32 gradients, of the plain gradient's max
+
+
+def within_ulp(got, want, dtype):
+    """|got − want| ≤ one ulp of want, elementwise (bf16 keeps 7 stored
+    mantissa bits, f32 23)."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    want, got = want.float(), got.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), (e - 1 - bits))
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def affine_case(g, hw, c, dt, fused):
+    """A coupling input z (its first half x) and a subnet output: one head
+    tensor (s ‖ t) or two."""
+    z = torch.randn(B, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
+    head = torch.randn(B, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
+    st = head if fused else (head[..., :c].contiguous(),
+                             head[..., c:].contiguous())
+    return z, st
+
+
+def affine_grads(fn, st, x, inverse, cot):
+    """∂x, then ∂head (fused) or ∂s, ∂t, of ``fn``'s output against
+    ``cot``."""
+    leaves = [x.detach().clone().requires_grad_()]
+    if isinstance(st, torch.Tensor):
+        leaves.append(st.detach().clone().requires_grad_())
+        arg = leaves[1]
+    else:
+        leaves += [v.detach().clone().requires_grad_() for v in st]
+        arg = (leaves[1], leaves[2])
+    out = fn(arg, leaves[0], inverse=inverse)
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def check_affine(rows, card):
+    """K15 at the five refshape coupling shapes: forward and inverse, fused
+    and split (s, t), f32 and bf16, the output within one ulp of the plain
+    version and every gradient within ``AFFINE_GRAD_RTOL`` of the plain
+    gradient's max (f32) or within ``TOL`` (one bf16 ulp); the bf16 fused
+    forward and its backward kernel timed warm and with a cold L2 beside
+    the plain version and ``torch.addcmul``."""
+    row = rows["coupling_affine"]
+    g = torch.Generator("cuda").manual_seed(37)
+    seen, bwd_ms, bwd_bound = {}, 0.0, 0.0
+    for hw, c in AFFINE_LEVELS:
+        if (hw, c) not in seen:
+            for dt in (torch.float32, torch.bfloat16):
+                for fused in (True, False):
+                    z, st = affine_case(g, hw, c, dt, fused)
+                    x = z[..., :c]
+                    for inverse in (False, True):
+                        out, ref = torch.empty_like(z), torch.empty_like(z)
+                        affine.coupling_affine(st, x, out=out[..., c:],
+                                               inverse=inverse)
+                        affine.coupling_affine_plain(st, x, out=ref[..., c:],
+                                                     inverse=inverse)
+                        cot = torch.randn(x.shape, device="cuda",
+                                          generator=g).to(dt)
+                        gk = affine_grads(affine.coupling_affine, st, x,
+                                          inverse, cot)
+                        gp = affine_grads(affine.coupling_affine_plain, st, x,
+                                          inverse, cot)
+                        torch.cuda.synchronize()
+                        what = (f"coupling_affine {(B, hw, hw, c)} {dt} "
+                                f"{'fused' if fused else 'split'} "
+                                f"{'inverse' if inverse else 'forward'}")
+                        check(within_ulp(out[..., c:], ref[..., c:], dt),
+                              f"{what}: more than one ulp from plain")
+                        err = float((out[..., c:].float()
+                                     - ref[..., c:].float()).abs().max())
+                        gerr = 0.0
+                        for a, b in zip(gk, gp):
+                            d = float((a.float() - b.float()).abs().max())
+                            scale = float(b.float().abs().max()) or 1.0
+                            gerr = max(gerr, d / scale)
+                            ok = (d <= AFFINE_GRAD_RTOL * scale
+                                  if dt == torch.float32
+                                  else rel_err(a, b, dt)[1])
+                            check(ok, f"{what}: gradient off by {d} (max "
+                                  f"{scale})")
+                        if dt == torch.bfloat16:
+                            row.err = max(row.err, err)
+                        print(f"check {what} max_abs_err={err} "
+                              f"grad_err_of_max={gerr:.3g}")
+            # timing, bf16, fused (the refshape subnets' heads)
+            dt = torch.bfloat16
+            z, head = affine_case(g, hw, c, dt, True)
+            x, o = z[..., :c], torch.empty_like(z)[..., c:]
+            s_, t_ = affine.split_head(head)
+            ms = time_ms(lambda: affine.coupling_affine(head, x, out=o))
+            cold = time_cold_ms(
+                lambda zz, hd, oo: affine.coupling_affine(
+                    hd, zz[..., :c], out=oo[..., c:]),
+                cold_sets(lambda i: affine_case(g, hw, c, dt, True)
+                          + (torch.empty_like(z),), nbytes(z, head)))
+            pms = time_ms(lambda: affine.coupling_affine_plain(head, x,
+                                                               out=o))
+            yms = time_ms(lambda: torch.addcmul(t_, affine_e(s_), x))
+            moved = nbytes(s_, t_, x, o)
+            cot = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+            dhead, dx = torch.empty_like(head), torch.empty_like(x)
+            ds_, dt_ = affine.split_head(dhead)
+            bms_ = time_ms(lambda: affine._launch_backward(
+                cot, s_, t_, x, ds_, dt_, False))
+            b_moved = nbytes(cot, s_, x, dx, ds_, dt_)
+            seen[(hw, c)] = (ms, pms, moved, cold, yms, bms_, b_moved)
+            bd, bb = bound(moved, AFFINE_OPS[0] * x.numel()), bound(
+                b_moved, AFFINE_OPS[1] * x.numel())
+            print(f"check coupling_affine bf16 fused {(B, hw, hw, c)} "
+                  f"ms={ms:.4f} cold_ms={cold:.4f} plain_ms={pms:.4f} "
+                  f"addcmul_ms={yms:.4f} bound_ms={bd[0]:.4f} "
+                  f"share_of_bound={bd[0] / ms:.3f}; backward ms={bms_:.4f} "
+                  f"bound_ms={bb[0]:.4f} share_of_bound={bb[0] / bms_:.3f} "
+                  f"[{card}]")
+        ms, pms, moved, cold, yms, bms_, b_moved = seen[(hw, c)]
+        n = x_numel = B * hw * hw * c
+        row.add(2 * ms, 2 * pms, 2 * moved, 2 * AFFINE_OPS[0] * n,
+                yardstick_ms=2 * yms, cold_ms=2 * cold)
+        bwd_ms += 2 * bms_
+        bwd_bound += 2 * bound(b_moved, AFFINE_OPS[1] * x_numel)[0]
+    row.extra = {"backward_ms": bwd_ms, "backward_bound_ms": bwd_bound,
+                 "backward_timed_per": "refshape_train_step at batch 16"}
+
+
+def check_down_num_4(card):
+    """F20: the packed INN at down_num 4 (its 768 → 3072-channel level is
+    K14, that coupling an unpacked K2 head with K = 1664) at batch 2, 64²:
+    float32 within ``TOL`` of the plain versions with its launch counts;
+    in bf16 K2 either refuses the 3072-channel head (its column slice of
+    the head does not fit shared memory: the wrapper raises, ROADMAP §3
+    F20) or matches the plain versions within ``TOL``."""
+    from vwfd_tpu_torch.nets import InvertibleNet
+    g = torch.Generator("cuda").manual_seed(47)
+    x = torch.rand(2, 64, 64, 12, device="cuda", generator=g)
+    for dt in (torch.float32, torch.bfloat16):
+        cdt = None if dt == torch.float32 else dt
+        net = InvertibleNet(12, 4, (1, 1, 1, 1), dtype=cdt)
+        net.init_params(torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                if ".Conv_2." in k:
+                    v.add_(1e-3 * torch.randn(v.shape, generator=torch.
+                                              Generator().manual_seed(6)))
+        ref = InvertibleNet(12, 4, (1, 1, 1, 1), dtype=cdt, kernels=PLAIN)
+        ref.load_state_dict(net.state_dict())
+        net, ref = net.cuda(), ref.cuda()
+        reset_launch_counts()
+        try:
+            with torch.no_grad():
+                y = net(x, out_f32=False)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            check(dt == torch.bfloat16 and "vwfd_coupling_head" in str(e),
+                  f"down_num 4 {dt}: {e}")
+            print(f"check down_num 4 bf16: K2 refuses the 3072-channel "
+                  f"head and the wrapper raises (F20): {e}")
+            continue
+        counts = {k: v for k, v in launch_counts().items() if v}
+        with torch.no_grad():
+            want = ref(x, out_f32=False)
+        err, ok = rel_err(y, want, dt)
+        check(ok and counts == {"transition": 6, "coupling_head": 14,
+                                "haar": 2},
+              f"down_num 4 {dt}: err {err}, launches {counts}")
+        print(f"check down_num 4 {dt} (2, 64, 64, 12): max_abs_err={err} "
+              f"vs the plain versions; launches {json.dumps(counts)} "
+              f"[{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1565,16 +1873,19 @@ HEAD_PERTURB = 5e-4  # moves pixels by about 2 levels: a faint watermark
 
 
 def perturbed_states(cfg, seed):
-    """Random weights from ``seed`` with the zero-init coupling heads
+    """Random weights from ``seed`` with the zero-init coupling heads (each
+    subnet's last conv, the INN's convs whose weights are all zero)
     perturbed (``HEAD_PERTURB``·N(0,1)), so that the INN is not the
     identity. Larger heads saturate the random INN and turn the output
     into noise."""
     model = VideoWatermarkModel(cfg)
     states = model.init_states(seed)
     gen = torch.Generator().manual_seed(seed + 1)
+    heads = {k.rsplit(".", 1)[0] for k, v in states["netG"].items()
+             if k.endswith(".weight") and not v.any()}
     netG = {}
     for k, v in states["netG"].items():
-        if ".Conv_2." in k:
+        if k.rsplit(".", 1)[0] in heads:
             v = v + HEAD_PERTURB * torch.randn(v.shape, generator=gen).to(
                 v.device)
         netG[k] = v
@@ -2188,9 +2499,15 @@ INT8_EVAL_KERNELS = ("transition", "coupling_head", "splice", "jpeg_pair",
                      "median3", "attack_mix", "f1_sweep", "qconv", "qconv_t")
 
 
+# the flagship's model options (the runner's defaults are the reference
+# shapes)
+FLAGSHIP_OPTIONS = ["--subnet", "res_tpu2", "--extractor", "unet_tpu",
+                    "--haar", "conv", "--packed", "--econvs", "2,2,1,1,1"]
+
+
 def conv_args(root, name, *extra):
     return ["--steps", str(CONV_STEPS), "--eval-every", str(CONV_STEPS),
-            "--batch", str(CONV_B), "--econvs", "2,2,1,1,1",
+            "--batch", str(CONV_B), *FLAGSHIP_OPTIONS,
             "--init-nets", str(root / "init"),
             "--out", str(root / f"{name}.jsonl"),
             "--ckpt-dir", str(root / name), *extra]
@@ -2277,8 +2594,8 @@ def run_convergence_phase(card):
         torch.cuda.synchronize()
         reset_launch_counts()
         gates[name] = int8_eval.main(
-            ["--ckpt-dir", str(root / "a"), "--calib-batches", "1",
-             "--eval-batches", "2", *extra])
+            ["--ckpt-dir", str(root / "a"), *FLAGSHIP_OPTIONS,
+             "--calib-batches", "1", "--eval-batches", "2", *extra])
         torch.cuda.synchronize()
         launches[name] = launch_counts()
         need = INT8_EVAL_KERNELS + (("qcoupling_head",) if extra else ())
@@ -2294,6 +2611,213 @@ def run_convergence_phase(card):
         "wall_s_20_steps": wall_a, "unbroken": steps_a[-1],
         "resumed": steps_b[-1], "int8_eval": gates, "card": card}}))
     shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 11
+
+
+REF_TRAIN_B = 8   # the JAX refshape record's batch
+ZERO_LAUNCHES = {k: 0 for k in ROUNDTRIP_LAUNCHES}
+# the refshape roundtrip: K14 ×6 (three levels down and up), K15 ×10 (five
+# couplings, two halves each), K3 ×2 (to_channels, to_u8_s2d at s = 1), K4
+REFSHAPE_ROUNDTRIP = {**ZERO_LAUNCHES, "wire": 2, "mask_pack": 1, "haar": 6,
+                      "coupling_affine": 10}
+# the train step: K14 six forward and five backward (the clip takes no
+# gradient), K15 ten forward and ten backward, the attack pool and splice
+# as the flagship's
+REFSHAPE_TRAIN = {**ZERO_LAUNCHES, "jpeg_pair": 2, "median3": 2,
+                  "attack_mix": 2, "splice": 2, "haar": 11,
+                  "coupling_affine": 20}
+REFSHAPE_EVAL = {**ZERO_LAUNCHES, "jpeg_pair": 1, "median3": 1,
+                 "f1_sweep": 1, "ssim": 1, "attack_mix": 1, "splice": 1,
+                 "haar": 6, "coupling_affine": 10}
+
+
+def p50_of(fn, n, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50))
+
+
+def run_refshape(card):
+    """Phase 11: the reference-shaped model (``configs/refshape.yaml``:
+    ``ModelConfig()``'s nets, the INN module path with res subnets and the
+    lifting Haar, the reference UNet) at full width, random weights with the
+    zero-init heads perturbed. A b16 ``WatermarkServer`` roundtrip with the
+    launch counts at 0 just before and read just after (K14 ×6, K15 ×10,
+    K3 ×2, K4 ×1), held to the same server on ``PLAIN`` (F7's rule); one
+    b8 ``train_step`` through ``KERNELS`` with its counts, its loss terms and
+    gradients held to ``PLAIN`` as phase 6 holds the flagship's, and K14's
+    and K15's forward and backward counts; one ``eval_step`` with its
+    counts; p50 of the roundtrip, the train step and the eval step."""
+    cfg = load_config(REFSHAPE_CONFIG)
+    mc = cfg.model
+    check((cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size,
+           cfg.train.dtype, mc.inn_subnet, mc.inn_haar, mc.inn_packed,
+           mc.extractor) == (B, T, S, "bfloat16", "res", "lift", False,
+                             "unet"), "refshape config")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    states = perturbed_states(cfg, seed=7)
+    modes = ("embed", "detect", "roundtrip")
+    server = WatermarkServer(cfg, weights=states, modes=modes)
+    plain = WatermarkServer(cfg, weights=states, modes=modes, kernels=PLAIN)
+    rng = np.random.default_rng(3)
+    clips = [rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+             for _ in range(2)]
+    server.serve(clips[0], "roundtrip").prefetch()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = server.serve(clips[0], "roundtrip")
+    res.prefetch()
+    torch.cuda.synchronize()
+    launches = {"refshape_roundtrip": launch_counts()}
+    print(f"main path launches per refshape roundtrip: "
+          f"{json.dumps(launches['refshape_roundtrip'])}")
+    check(launches["refshape_roundtrip"] == REFSHAPE_ROUNDTRIP,
+          f"refshape roundtrip launches {launches['refshape_roundtrip']}")
+    wm = res.watermarked
+    check(wm.shape == (B, T, S, S, 3) and res.mask_bits.shape
+          == (B, T, S, S // 8), "refshape roundtrip shapes")
+    frac = res.tamper_fraction
+    check(np.isfinite(frac).all() and ((frac >= 0) & (frac <= 1)).all(),
+          f"refshape tamper_fraction {frac}")
+    moved = np.abs(wm.astype(int) - clips[0].astype(int))
+    check(moved.max() > 0, "the perturbed refshape INN left the clip as it "
+          "was")
+    stats = {"roundtrip": compare(res, plain.serve(clips[0], "roundtrip"),
+                                  "refshape roundtrip"),
+             "embed": compare(server.serve(clips[1], "embed"),
+                              plain.serve(clips[1], "embed"),
+                              "refshape embed")}
+    det = server.serve(wm, "detect")
+    stats["detect"] = compare(det, plain.serve(wm, "detect"),
+                              "refshape detect")
+    check(np.array_equal(det.mask_bits, res.mask_bits),
+          "refshape detect(watermarked) differs from the roundtrip's mask")
+    print(f"refshape roundtrip: watermark moves pixels by mean "
+          f"{moved.mean():.4f} max {moved.max()} levels; vs the plain "
+          f"server {json.dumps(stats)}")
+    def one(srv):  # every output, on the host
+        r = srv.serve(clips[0], "roundtrip")
+        return r.watermarked, r.mask_bits, r.tamper_fraction
+
+    p50 = {name: p50_of(lambda: one(srv), 10)
+           for name, srv in (("kernels", server), ("plain", plain))}
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del server, plain, det, res
+    gc.collect()
+
+    tcfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=REF_TRAIN_B))
+    model = VideoWatermarkModel(tcfg)
+    model.load_states(states)
+    ref = VideoWatermarkModel(tcfg, kernels=PLAIN)
+    ref.load_states(states)
+    loader = Loader(SyntheticVideoDataset(size=S, frames=T,
+                                          length=8 * REF_TRAIN_B,
+                                          seed=cfg.train.seed), REF_TRAIN_B,
+                    seed=cfg.train.seed)
+    batches = [model.to_device(v, m) for v, m in loader]  # 8 batches
+    prev, (video, mask_) = batches[0][0], batches[1]
+    draws = model.sample_draws(REF_TRAIN_B, T)
+    res_ = {}
+    for name, m in (("kernels", model), ("plain", ref)):
+        loss, aux, grads, _ = m.loss_and_grads(video, mask_, prev, draws)
+        res_[name] = ({"loss": float(loss), "lF": float(aux["lF"]),
+                       "lB": float(aux["lB"]), "PF": float(aux["PF"])},
+                      grads)
+    (lk, gk), (lp, gp) = res_["kernels"], res_["plain"]
+    for k in ("loss", "lF", "lB"):
+        check(abs(lk[k] - lp[k]) <= TRAIN_LOSS_RTOL * abs(lp[k]),
+              f"refshape train {k}: kernels {lk[k]} plain {lp[k]}")
+    grad_stats = {}
+    for net in gk:
+        cos = cosine(torch.cat([t.flatten() for t in gk[net]]),
+                     torch.cat([t.flatten() for t in gp[net]]))
+        grad_stats[net] = {"cosine": cos}
+        check(cos >= TRAIN_GRAD_COS, f"refshape {net} gradient cosine {cos}")
+    del ref, res_, gk, gp
+    print(f"refshape train step bf16 {REF_TRAIN_B}x{T}x{S}x{S}: kernels "
+          f"{json.dumps(lk)} plain {json.dumps(lp)}; gradients kernels vs "
+          f"plain {json.dumps(grad_stats)}")
+
+    # K14 and K15 forward and backward
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.enable_grad():
+        loss, _, _ = model._loss(video, mask_, prev, draws.to(model.device))
+        fwd = launch_counts()
+        params = [p for net in model.nets().values()
+                  for p in net.parameters()]
+        torch.autograd.grad(loss, params, allow_unused=True)
+    both = launch_counts()
+    split = {k: {"forward": fwd[k], "backward": both[k] - fwd[k]}
+             for k in ("haar", "coupling_affine")}
+    print(f"refshape train step K14/K15 launches: {json.dumps(split)}")
+    check(split == {"haar": {"forward": 6, "backward": 5},
+                    "coupling_affine": {"forward": 10, "backward": 10}},
+          f"refshape K14/K15 forward/backward launches {split}")
+
+    # the main paths, with the launch counts at 0 just before
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logs = model.train_step(video, mask_, prev, draws)
+    torch.cuda.synchronize()
+    launches["refshape_train_step"] = launch_counts()
+    print(f"main path launches per refshape train step: "
+          f"{json.dumps(launches['refshape_train_step'])}")
+    check(launches["refshape_train_step"] == REFSHAPE_TRAIN,
+          f"refshape train launches {launches['refshape_train_step']}")
+    first = {k: float(v) for k, v in logs.items()}
+    check(all(math.isfinite(v) for v in first.values()),
+          f"refshape train {first}")
+    model.eval_step(video, mask_, prev, draws)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ev = model.eval_step(video, mask_, prev, draws)
+    torch.cuda.synchronize()
+    launches["refshape_eval_step"] = launch_counts()
+    print(f"main path launches per refshape eval step: "
+          f"{json.dumps(launches['refshape_eval_step'])}")
+    check(launches["refshape_eval_step"] == REFSHAPE_EVAL,
+          f"refshape eval launches {launches['refshape_eval_step']}")
+    mk = {k: v.tolist() for k, v in ev.items()}
+    check(all(np.isfinite(np.asarray(v)).all() for v in mk.values())
+          and mk["psnr_forward"] > 30.0, f"refshape eval {mk}")
+
+    it = iter(range(10 ** 6))
+
+    def train_one():
+        i = 2 + next(it) % (len(batches) - 2)
+        return model.train_step(batches[i][0], batches[i][1],
+                                batches[i - 1][0])["loss"].item()
+
+    train_p50 = p50_of(train_one, 8)
+    eval_p50 = p50_of(lambda: model.eval_step(video, mask_, prev,
+                                              draws)["f1_best"].item(), 8)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"roundtrip_p50_ms": p50["kernels"],
+           "plain_roundtrip_p50_ms": p50["plain"],
+           "train_step_p50_ms": train_p50, "eval_step_p50_ms": eval_p50,
+           "serve_batch": B, "train_batch": REF_TRAIN_B, "frames": T,
+           "size": S, "peak_memory_gib": peak,
+           "serve_peak_memory_gib": serve_peak,
+           "loss_terms": {"kernels": lk, "plain": lp},
+           "gradients": grad_stats, "eval": mk, "card": card}
+    print(f"refshape p50: roundtrip {p50['kernels']:.3f} ms (plain "
+          f"{p50['plain']:.3f}) at b{B}; train step {train_p50:.3f} ms and "
+          f"eval step {eval_p50:.3f} ms at b{REF_TRAIN_B}; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    print(json.dumps({"refshape": out}))
     return launches
 
 
@@ -2330,6 +2854,9 @@ def main():
     check_qcoupling(rows, card)
     check_int8_build(card)
     check_stem(rows, card)
+    check_haar(rows, card)
+    check_affine(rows, card)
+    check_down_num_4(card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -2341,10 +2868,11 @@ def main():
     run_trainer(card)
     int8_launches = run_int8(card)
     conv_launches = run_convergence_phase(card)
+    ref_launches = run_refshape(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
-               **conv_launches}
+               **conv_launches, **ref_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,14 @@ from vwfd_tpu_torch.models.state import load_nets
 
 RECORD = os.path.join(os.path.dirname(__file__), "..", "runs",
                       "conv_r4_flagship_10k.jsonl")
+# the flagship's options, spelled out: the runner's defaults are the JAX
+# runner's reference shapes
+FLAGSHIP = ["--subnet", "res_tpu2", "--extractor", "unet_tpu", "--haar",
+            "conv", "--packed", "--econvs", "2,2,1,1,1"]
 TINY = ["--batch", "2", "--size", "32", "--frames", "2", "--efeatures", "8",
-        "--down-num", "2", "--width", "16", "--econvs", "2,2,1,1,1"]
+        "--down-num", "2", "--width", "16", *FLAGSHIP]
+REFSHAPE_RECORD = os.path.join(os.path.dirname(__file__), "..", "runs",
+                               "conv_r4_refshape_10k.jsonl")
 
 
 @pytest.fixture(autouse=True)
@@ -261,10 +267,35 @@ def test_record_keys_match_the_jax_record(tmp_path):
 
 def test_runner_refuses_reference_shapes_and_needs_a_card_or_cpu(
         tmp_path, monkeypatch):
-    for opt in (["--subnet", "res"], ["--extractor", "unet"],
-                ["--haar", "lift"]):
-        with pytest.raises(NotImplementedError):
-            _run(tmp_path, "ref", *opt)
+    """The runner refuses the reference shapes only where the JAX package does:
+    on the packed executor. With no model options the runner builds the JAX
+    runner's defaults (the reference shapes: res subnets, lifting Haar, the
+    INN module path, the reference UNet) and takes a tiny CPU step; its
+    config line is the JAX refshape record's key for key, with the same
+    model values (the device and its name added). ``--packed`` keeps JAX's
+    own rule, and without a card and ``--device cpu`` the runner and the
+    gate raise."""
+    tiny = ["--batch", "2", "--size", "32", "--frames", "2", "--down-num",
+            "2", "--width", "8"]
+    assert rc.main(["--steps", "1", "--eval-every", "1", "--libjpeg-batches",
+                    "0", "--device", "cpu", *tiny, "--out",
+                    str(tmp_path / "ref.jsonl")]) == "done"
+    ours = _records(tmp_path / "ref.jsonl")
+    ref = _records(REFSHAPE_RECORD)[0]["config"]
+    cfg = ours[0]["config"]
+    assert list(cfg) == list(ref) + ["device", "device_name"]
+    for k in ("subnet", "extractor", "s2d", "efeatures", "haar",
+              "criterion"):
+        assert cfg[k] == ref[k], k
+    assert cfg["block_num"] == "1,1" and cfg["device"] == "cpu"
+    assert [r["step"] for r in ours[1:]] == [1]
+    assert all(np.isfinite(v) for v in ours[1].values()
+               if isinstance(v, float))
+    model = VideoWatermarkModel(rc.build_config(rc.parse_args(tiny)),
+                                device="cpu")
+    assert not model.inn.packed and type(model.unet).__name__ == "UNet"
+    with pytest.raises(ValueError, match="inn_packed requires"):
+        _run(tmp_path, "packed_res", "--subnet", "res")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         rc.main(["--steps", "1", *TINY, "--out", str(tmp_path / "x.jsonl")])

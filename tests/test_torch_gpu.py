@@ -22,7 +22,12 @@ backwards within 1e-6 of the plain gradient's max (K9's blur sums the nine
 products in another order than autograd; the rest is exact). K11 ``qconv``,
 K12 ``qconv_t``, K13 ``qcoupling_head`` and K3's int8 stem are EQUAL to
 their plain versions (exact int32 sums, the epilogues one IEEE rounding
-per operation in the plain order).
+per operation in the plain order). K14 ``haar`` is EQUAL to its plain
+version (the same four-term sums, one rounding). K15 ``coupling_affine``'s
+forward is within one ulp of its plain version (``expf`` of the two
+libraries may differ in the last place), its gradients within 1e-6 of the
+plain gradient's max in f32 and one bf16 ulp relative in bf16 (autograd
+rounds the same f32 values in another order).
 """
 
 import dataclasses
@@ -33,7 +38,7 @@ import torch
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
-from vwfd_tpu_torch.kernels import (PLAIN, coupling, f1, jpeg,
+from vwfd_tpu_torch.kernels import (PLAIN, affine, coupling, f1, haar, jpeg,
                                     launch_counts, mask, median, mix, qconv,
                                     qconv_t, qcoupling, reset_launch_counts,
                                     splice, ssim, transition, wire)
@@ -45,8 +50,10 @@ from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
 pytestmark = pytest.mark.gpu
 
 DTYPES = [torch.float32, torch.bfloat16]
-# the int8 kernels' counts on a path that runs none of them
-_NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0}
+# the counts of the int8 kernels and of the INN module path's K14/K15 on a
+# path that runs none of them
+_NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
+            "coupling_affine": 0}
 
 
 @pytest.fixture
@@ -908,7 +915,8 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "wire": 2, "mask_pack": 1, "jpeg_pair": 0,
                                "median3": 0, "f1_sweep": 0, "ssim": 0,
                                "attack_mix": 0, "splice": 0, "qconv": 32,
-                               "qconv_t": 4, "qcoupling_head": 10}
+                               "qconv_t": 4, "qcoupling_head": 10,
+                               "haar": 0, "coupling_affine": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -1018,3 +1026,107 @@ def test_qcoupling_head_on_xi_equals_plain(cuda, shape, dtype):
         qcoupling.qcoupling_head(xin, h1i, p, x, out=got[..., :c], xi=src)
         torch.cuda.synchronize()
         assert torch.equal(got, want), int((got != want).sum())
+
+
+# K14: the refshape levels' channel counts, a count that is not a multiple
+# of 8 (8-byte and one-value accesses) and odd N·H·W
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 12), (1, 8, 8, 192),
+                                   (3, 6, 10, 5), (1, 2, 6, 7),
+                                   (1, 4, 4, 768)])
+def test_haar_equals_plain(cuda, shape, dtype):
+    g = _gen(41)
+    x = torch.randn(shape, device=cuda, generator=g).to(dtype)
+    before = launch_counts()["haar"]
+    y = haar.haar(x)
+    back = haar.haar(y, transpose=True)
+    assert launch_counts()["haar"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(y, haar.haar_plain(x))
+    assert torch.equal(back, haar.haar_plain(y, transpose=True))
+    # the backward of down is up (K14 again)
+    xr = x.clone().requires_grad_()
+    cot = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    (gx,) = torch.autograd.grad(haar.haar(xr), xr, cot)
+    assert torch.equal(gx, haar.haar_plain(cot, transpose=True))
+
+
+def _affine_grads(fn, st, x, inverse, cot):
+    leaves = [x.detach().clone().requires_grad_()]
+    if isinstance(st, torch.Tensor):
+        leaves.append(st.detach().clone().requires_grad_())
+        arg = leaves[1]
+    else:
+        leaves += [v.detach().clone().requires_grad_() for v in st]
+        arg = (leaves[1], leaves[2])
+    return torch.autograd.grad(fn(arg, leaves[0], inverse=inverse), leaves,
+                               cot)
+
+
+# K15: the refshape halves' widths, ragged widths (one value a thread) and
+# odd N·H·W; x and out channel slices of wider tensors, s and t the halves
+# of one head or two tensors
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 24), (1, 8, 8, 96),
+                                   (3, 5, 7, 13), (1, 3, 3, 8)])
+def test_coupling_affine_equals_plain(cuda, shape, dtype, fused, inverse):
+    n, h, w, c = shape
+    g = _gen(43)
+    z = torch.randn(n, h, w, 2 * c, device=cuda, generator=g).to(dtype)
+    head = torch.randn(n, h, w, 2 * c, device=cuda, generator=g).to(dtype)
+    st = head if fused else (head[..., :c].contiguous(),
+                             head[..., c:].contiguous())
+    x = z[..., c:]
+    got = torch.zeros(n, h, w, 3 * c, device=cuda, dtype=dtype)
+    want = torch.zeros_like(got)
+    before = launch_counts()["coupling_affine"]
+    affine.coupling_affine(st, x, out=got[..., c:2 * c], inverse=inverse)
+    assert launch_counts()["coupling_affine"] == before + 1
+    affine.coupling_affine_plain(st, x, out=want[..., c:2 * c],
+                                 inverse=inverse)
+    torch.cuda.synchronize()
+    bits = 7 if dtype == torch.bfloat16 else 23
+    ref = want[..., c:2 * c].float()
+    _, e = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), e - 1 - bits)
+    assert bool(((got[..., c:2 * c].float() - ref).abs() <= ulp).all())
+    assert not got[..., :c].any() and not got[..., 2 * c:].any()
+    cot = torch.randn(x.shape, device=cuda, generator=g).to(dtype)
+    gk = _affine_grads(affine.coupling_affine, st, x, inverse, cot)
+    gp = _affine_grads(affine.coupling_affine_plain, st, x, inverse, cot)
+    for a, b in zip(gk, gp):
+        scale = float(b.float().abs().max())
+        d = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            assert float(d.max()) <= 1e-6 * scale
+        else:
+            assert bool((d <= 2.0 ** -7 * b.float().abs()
+                         + 1e-6 * scale).all())
+
+
+def test_refshape_server_equals_plain_on_the_card(cuda):
+    """The reference-shaped model (``configs/refshape.yaml``) served on the
+    card at a small size: a roundtrip launches K14 ×6, K15 ×10, K3 ×2 and
+    K4 ×1, and its bytes and mask bits EQUAL the plain server's."""
+    from vwfd_tpu_torch import REFSHAPE_CONFIG
+    cfg = load_config(REFSHAPE_CONFIG)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=2, gt_size=64))
+    model = VideoWatermarkModel(cfg, device="cpu")
+    states = model.init_states(3)
+    srv = WatermarkServer(cfg, weights=states, modes=("roundtrip",))
+    ref = WatermarkServer(cfg, weights=states, modes=("roundtrip",),
+                          kernels=PLAIN)
+    clip = np.random.default_rng(5).integers(0, 256, (2, 4, 64, 64, 3),
+                                             dtype=np.uint8)
+    reset_launch_counts()
+    got = srv.serve(clip, "roundtrip")
+    got.prefetch()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "haar": 6, "coupling_affine": 10, "wire": 2, "mask_pack": 1}
+    want = ref.serve(clip, "roundtrip")
+    assert np.array_equal(got.watermarked, want.watermarked)
+    assert np.array_equal(got.mask_bits, want.mask_bits)

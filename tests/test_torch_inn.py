@@ -108,9 +108,17 @@ def test_packed_weights_follow_loaded_state(nets):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        InvertibleNet(subnet="res")
-    with pytest.raises(NotImplementedError):
-        InvertibleNet(fused_st=False)
-    with pytest.raises(NotImplementedError):
-        InvertibleNet(haar="lift")
+    """Every subnet, split and Haar is ported (tests/test_torch_inn_module.py
+    holds them against JAX); what raises is the JAX package's own rule: the
+    packed executor takes ``res_tpu2`` with ``fused_st`` only."""
+    for kw in ({"subnet": "res"}, {"fused_st": False},
+               {"subnet": "dense", "fused_st": False}):
+        with pytest.raises(ValueError, match="inn_packed requires"):
+            InvertibleNet(packed=True, **kw)
+        InvertibleNet(packed=False, **kw)  # the module path takes them
+    with pytest.raises(ValueError, match="unknown haar"):
+        InvertibleNet(haar="wavelet")
+    with pytest.raises(ValueError, match="unknown subnet"):
+        InvertibleNet(subnet="res_tpu3", packed=False)
+    # the packed executor ignores the Haar setting: one linear map
+    assert InvertibleNet(haar="lift").packed

@@ -5,14 +5,17 @@ A second package beside the JAX one, which stays the reference. It imports
 functions keep the JAX package's NHWC layout. Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``; without a card they raise.
 
-It serves the flagship embed → detect roundtrip
-(``serving.WatermarkServer``, in bf16 or int8), trains the flagship
-(``models.VideoWatermarkModel.train_step`` / ``fit`` with its telemetry
-and montages, on DAVIS or synthetic clips, ``python -m
-vwfd_tpu_torch.train``) and evaluates it (``eval_step``, ``extract_f1``,
-``eval_real_jpeg``, ``python -m vwfd_tpu_torch.train --val``) through
-thirteen hand-written CUDA kernels (``kernels``), and loads the JAX
-package's npz pretrain trees and (converted by
+It serves the embed → detect roundtrip (``serving.WatermarkServer``, in
+bf16 or, for the flagship, int8), trains (``models.VideoWatermarkModel.
+train_step`` / ``fit`` with its telemetry and montages, on DAVIS or
+synthetic clips, ``python -m vwfd_tpu_torch.train``) and evaluates
+(``eval_step``, ``extract_f1``, ``eval_real_jpeg``, ``python -m
+vwfd_tpu_torch.train --val``) the flagship (``configs/video.yaml``: the
+packed ``res_tpu2`` INN and ``UNetTPU``) and the reference-shaped model
+(``configs/refshape.yaml``: the INN module path and the reference
+``UNet``), with every subnet, Haar and extractor option of the JAX
+package, through fifteen hand-written CUDA kernels (``kernels``); and it
+loads the JAX package's npz pretrain trees and (converted by
 ``tools/jax_checkpoint_to_torch.py``) its checkpoints.
 """
 
@@ -21,7 +24,10 @@ import os
 from .config import Config, DataConfig, ModelConfig, TrainConfig, load_config
 
 __all__ = ["Config", "DataConfig", "ModelConfig", "TrainConfig",
-           "load_config", "FLAGSHIP_CONFIG"]
+           "load_config", "FLAGSHIP_CONFIG", "REFSHAPE_CONFIG"]
 
 FLAGSHIP_CONFIG = os.path.join(os.path.dirname(__file__), "configs",
                                "video.yaml")
+# ModelConfig()'s nets: the INN module path and the reference UNet
+REFSHAPE_CONFIG = os.path.join(os.path.dirname(__file__), "configs",
+                               "refshape.yaml")

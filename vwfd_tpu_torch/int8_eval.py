@@ -4,8 +4,9 @@ of tools/exp_int8_eval.py:24-209).
 
     python -m vwfd_tpu_torch.run_convergence --steps 10000 ... \\
         --ckpt-dir build/conv_ckpt
-    python -m vwfd_tpu_torch.int8_eval --ckpt-dir build/conv_ckpt \\
-        [--int8-embed]
+    python -m vwfd_tpu_torch.int8_eval --subnet res_tpu2 --extractor \\
+        unet_tpu --haar conv --packed --econvs 2,2,1,1,1 \\
+        --ckpt-dir build/conv_ckpt [--int8-embed]
 
 Restores the nets of the latest checkpoint in ``--ckpt-dir``
 (``models.state.load_nets``: a full checkpoint or ``save_nets``'s), then,
@@ -26,11 +27,13 @@ as the JAX script:
 It prints the JAX script's lines: one per batch, then the means. Clips and
 attack draws are the runner's ``Streams`` on the gate's own streams, each
 batch a function of its index alone. The model options are the runner's
-(``run_convergence.model_options``), ``--econvs`` defaulting to the
-flagship's plan. On the card everything runs through the port's kernels:
-K1 and K2 (embed), K10 (splice), K5, K6 and K9 (attack pool), K7 (F1
-sweep), K11 and K12 (int8 UNet), and with ``--int8-embed`` K11 and K13
-(int8 INN). Runs on the CUDA card unless ``--device cpu``; without a card
+(``run_convergence.model_options``), with the JAX runner's defaults, the
+reference shapes, where the int8 paths raise as the JAX package's do (the
+int8 extractor needs ``UNetTPU``, the int8 embed the packed INN): pass the
+flagship's options, as above. On the card everything runs through the
+port's kernels: K1 and K2 (embed), K10 (splice), K5, K6 and K9 (attack
+pool), K7 (F1 sweep), K11 and K12 (int8 UNet), and with ``--int8-embed``
+K11 and K13 (int8 INN). Runs on the CUDA card unless ``--device cpu``; without a card
 it raises.
 """
 
@@ -48,6 +51,7 @@ from .models.state import latest_step, load_nets
 from .models.video_model import _to_channels
 from .nets import inn_int8, unet_int8
 from .run_convergence import SEED, Streams, build_config, model_options
+from .serving import check_int8
 
 __all__ = ["attacked", "quantize_extract", "quantize_embed", "eval_both",
            "eval_embed", "parse_args", "main"]
@@ -154,7 +158,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="calibration amax head-room multiplier")
     ap.add_argument("--int8-embed", action="store_true",
                     help="also gate the int8 PTQ embed (nets/inn_int8.py)")
-    ap.set_defaults(econvs="2,2,1,1,1")
     args = ap.parse_args(argv)
     if min(args.calib_batches, args.eval_batches) < 1:
         ap.error("--calib-batches and --eval-batches take at least 1")
@@ -164,8 +167,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> Dict[str, float]:
     """Runs the gate; returns the means printed last."""
     args = parse_args(argv)
-    model = VideoWatermarkModel(build_config(args),
-                                device=resolve_device(args.device))
+    cfg = build_config(args)
+    check_int8(cfg.model, True, args.int8_embed)
+    model = VideoWatermarkModel(cfg, device=resolve_device(args.device))
     at = latest_step(args.ckpt_dir)
     if at is None:
         raise FileNotFoundError(f"no checkpoint in {args.ckpt_dir}")

@@ -23,29 +23,34 @@
   its requant, stored depth-to-space (kernels/qconv_t.py)
 * K13 ``qcoupling_head`` — the int8 embed's split coupling head and RealNVP
   affine (kernels/qcoupling.py)
+* K14 ``haar``           — the INN module path's Haar squeeze and its inverse
+  (kernels/haar.py)
+* K15 ``coupling_affine`` — the INN module path's RealNVP affine, forward and
+  backward (kernels/affine.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
-(K1's backward is K1 with ``transpose`` flipped); K5, K6, K9 and K10 launch
-their own backward kernels. ``KERNELS`` routes through the wrappers; ``PLAIN`` calls
-the plain versions on any device, so that a caller (the chip smoke script, a
-test) can run the same model, serving, training or evaluating, through both
-and compare.
+(K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
+backward is K14 in the other direction) and K15; K5, K6, K9, K10 and K15
+launch their own backward kernels. ``KERNELS`` routes through the
+wrappers; ``PLAIN`` calls the plain versions on any device, so that a
+caller (the chip smoke script, a test) can run the same model, serving,
+training or evaluating, through both and compare.
 """
 
 from typing import Callable, Dict, NamedTuple
 
-from . import (coupling, f1, jpeg, mask, median, mix, qconv, qconv_t,
-               qcoupling, splice, ssim, transition, wire)
+from . import (affine, coupling, f1, haar, jpeg, mask, median, mix, qconv,
+               qconv_t, qcoupling, splice, ssim, transition, wire)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
-           splice, qconv, qconv_t, qcoupling)
+           splice, qconv, qconv_t, qcoupling, haar, affine)
 
 
 class KernelSet(NamedTuple):
@@ -67,6 +72,8 @@ class KernelSet(NamedTuple):
     qcoupling_head: Callable
     wire_to_s2d_i8: Callable
     wire_to_u8_s2d_i8: Callable
+    haar: Callable
+    coupling_affine: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -74,7 +81,8 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     mask.mask_pack, jpeg.jpeg_pair, median.median3,
                     f1.f1_sweep, ssim.ssim, mix.attack_mix, splice.splice,
                     qconv.qconv, qconv_t.qconv_t, qcoupling.qcoupling_head,
-                    wire.to_s2d_i8, wire.to_u8_s2d_i8)
+                    wire.to_s2d_i8, wire.to_u8_s2d_i8, haar.haar,
+                    affine.coupling_affine)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -82,7 +90,8 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   f1.f1_sweep_plain, ssim.ssim_plain, mix.attack_mix_plain,
                   splice.splice_plain, qconv.qconv_plain,
                   qconv_t.qconv_t_plain, qcoupling.qcoupling_head_plain,
-                  wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain)
+                  wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain,
+                  haar.haar_plain, affine.coupling_affine_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -62,6 +62,11 @@ _SIGNATURES = {
     "vwfd_qcoupling_head": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                             _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],
+    "vwfd_haar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_coupling_affine": [_P, _I, _P, _I, _P, _I, _P, _I, _L, _I, _I, _I,
+                             _I, _P],
+    "vwfd_coupling_affine_bwd": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                 _I, _P, _I, _L, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

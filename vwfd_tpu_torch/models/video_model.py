@@ -1,10 +1,14 @@
-"""Flagship video watermarking model (port of vwfd_tpu/models/video_model.py):
-the INN that embeds the watermark and the UNet that predicts the per-frame
-tamper mask, served, trained and evaluated.
+"""Video watermarking model (port of vwfd_tpu/models/video_model.py): the
+INN that embeds the watermark and the UNet that predicts the per-frame
+tamper mask, served, trained and evaluated, for every configuration the
+JAX package builds: the flagship (packed ``res_tpu2`` INN, ``UNetTPU``)
+and the reference shapes (``ModelConfig()``'s defaults: the INN module
+path with ``res`` subnets and the lifting Haar, the reference ``UNet``).
 
 Train step (IRNcrop_model.py:325-451, ``video_model.py:174-253``):
 
-1. the INN embeds (bf16 through K1/K2), then ``clamp_with_grad`` and the
+1. the INN embeds (bf16; the packed executor through K1/K2, the module
+   path through K14/K15), then ``clamp_with_grad`` and the
    straight-through 8-bit quantizer, and
 2. the splice tamper ``fwd·(1 − mask) + previous_batch·mask``, both in K10;
 3. the 5-way per-frame attack pool (K5, K6, and K9 for the blur, the mix
@@ -49,7 +53,7 @@ from ..device import compute_dtype, resolve_device
 from ..kernels import KERNELS, KernelSet
 from ..kernels.splice import to_frames as _to_frames
 from ..metrics import bce_with_logits, f1_sweep, l1_loss, psnr255_int, ssim
-from ..nets import InvertibleNet, UNetTPU
+from ..nets import InvertibleNet, UNet, UNetTPU
 from ..utils.images import save_png, stitch_images
 from .state import AdamW, apply_pretrain, make_optimizer, save_checkpoint
 
@@ -64,34 +68,33 @@ def _to_channels(video: torch.Tensor) -> torch.Tensor:
     return video.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
 
 
-def _check_supported(cfg: Config) -> None:
-    mc = cfg.model
-    if mc.inn_packed and not (mc.inn_subnet == "res_tpu2" and mc.fused_st):
-        raise ValueError("inn_packed requires inn_subnet='res_tpu2' "
-                         "with fused_st=True (nets/inn_packed.py)")
-    unported = {
-        "inn_packed": (mc.inn_packed, True),
-        "extractor": (mc.extractor, "unet_tpu"),
-        "extractor_head": (mc.extractor_head, "d2s"),
-        "extractor_up": (mc.extractor_up, "convt"),
-        "extractor_dec": (mc.extractor_dec, "concat"),
-    }
-    for key, (got, want) in unported.items():
-        if got != want:
-            raise NotImplementedError(
-                f"ModelConfig.{key}={got!r} is not ported (the port runs "
-                f"{want!r})")
+def _build_extractor(mc, dtype):
+    """The extractor ``ModelConfig`` names (``video_model.py:84-103``):
+    ``UNetTPU`` for ``unet_tpu``, ``unet_tpu_slim`` (1×1 skip projections)
+    and ``unet_tpu2`` (single-conv encoder levels), the reference ``UNet``
+    otherwise."""
+    if mc.extractor in ("unet_tpu", "unet_tpu_slim", "unet_tpu2"):
+        plan = (mc.extractor_enc_convs if mc.extractor_enc_convs is not None
+                else 1 if mc.extractor == "unet_tpu2" else 2)
+        return UNetTPU(out_channels=1, init_features=mc.extractor_features,
+                       s2d=mc.extractor_s2d, enc_convs=plan, dtype=dtype,
+                       slim_skip=mc.extractor == "unet_tpu_slim",
+                       head_impl=mc.extractor_head, up_impl=mc.extractor_up,
+                       dec_impl=mc.extractor_dec)
+    return UNet(out_channels=1, init_features=mc.unet_features, dtype=dtype)
 
 
 class VideoWatermarkModel:
-    """Builds netG (``InvertibleNet``) and the ``generator`` extractor
-    (``UNetTPU``) on ``device`` (``None`` → the CUDA card; raises without
-    one unless ``device="cpu"``). ``kernels`` is the kernel set both nets
+    """Builds netG (``InvertibleNet``, on the packed executor or the module
+    path as ``ModelConfig.inn_packed`` says, which needs ``res_tpu2`` with
+    ``fused_st``: ``ValueError`` otherwise, as in the JAX package) and the
+    ``generator`` extractor (``UNetTPU`` or ``UNet``) on ``device``
+    (``None`` → the CUDA card; raises without one unless
+    ``device="cpu"``). ``kernels`` is the kernel set both nets
     call: ``kernels.KERNELS`` (the wrappers) or ``kernels.PLAIN``."""
 
     def __init__(self, cfg: Config, device=None,
                  kernels: KernelSet = KERNELS):
-        _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.frames = cfg.data.frames
@@ -108,12 +111,9 @@ class VideoWatermarkModel:
             channels=3 * self.frames, down_num=mc.inn_down_num,
             block_num=mc.inn_block_num, subnet=mc.inn_subnet,
             fused_st=mc.fused_st, width=mc.inn_width, haar=mc.inn_haar,
-            dtype=dt, kernels=kernels).to(self.device).eval()
-        plan = (mc.extractor_enc_convs if mc.extractor_enc_convs is not None
-                else 2)
-        self.unet = UNetTPU(out_channels=1, init_features=mc.extractor_features,
-                            s2d=mc.extractor_s2d, enc_convs=plan,
-                            dtype=dt).to(self.device).eval()
+            dtype=dt, kernels=kernels,
+            packed=mc.inn_packed).to(self.device).eval()
+        self.unet = _build_extractor(mc, dt).to(self.device).eval()
 
     def init_states(self, seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
         """Fresh parameters from a seeded ``torch.Generator`` (zero-init
@@ -183,7 +183,7 @@ class VideoWatermarkModel:
     def predict_mask(self, video: torch.Tensor, train: bool = False):
         """Tamper probabilities per frame (B,T,H,W,1); frames folded into
         the batch. ``train=True`` also returns the new BatchNorm running
-        statistics (``UNetTPU.forward``)."""
+        statistics (the extractor's ``forward``)."""
         b, t, h, w, c = video.shape
         out = self.unet(video.to(self.device).reshape(b * t, h, w, c),
                         train=train)

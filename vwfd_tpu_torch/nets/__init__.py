@@ -1,7 +1,8 @@
 """Networks of the port (counterparts of vwfd_tpu/nets)."""
 
-from .inn import InvertibleNet, RNVPCoupling, ResSubnetTPU, ResSubnetTPUS2
-from .unet import UNetTPU
+from .inn import (DenseSubnet, InvertibleNet, RNVPCoupling, ResSubnet,
+                  ResSubnetTPU, ResSubnetTPUS2)
+from .unet import UNet, UNetTPU
 
-__all__ = ["InvertibleNet", "RNVPCoupling", "ResSubnetTPU", "ResSubnetTPUS2",
-           "UNetTPU"]
+__all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
+           "ResSubnetTPU", "ResSubnetTPUS2", "UNet", "UNetTPU"]

@@ -11,7 +11,10 @@ c·4 + g, g = 2p + q the sub-pixel):
   once per weight version), so the parameters are the module tree's own;
 * the Haar levels are fixed orthogonal transitions (K1, ``kernels/
   transition.py``): entry 4×4/s4, packed→packed 2×2/s2, packed→unpacked
-  1×1, and their exact transposes on the way up;
+  1×1, and their exact transposes on the way up; the unpacked→unpacked
+  levels past 768 channels (``down_num`` ≥ 4) are the plain Haar squeeze,
+  K14 (``kernels/haar.py``), as the JAX package calls
+  ``haar_downsample_conv`` / ``haar_upsample_conv`` there;
 * each coupling half's 1×1 head GEMM, bias and affine run in K2
   (``kernels/coupling.py``), which reads the input half and the trunk output
   in place (no concat) and writes its half straight into the coupling's
@@ -223,8 +226,7 @@ def _levels(channels, down_num):
 
 def _down_transition(z, src_packed, dst_packed, k: KernelSet):
     if not src_packed and not dst_packed:
-        raise NotImplementedError(
-            "unpacked→unpacked Haar (levels past 768 channels) is not ported")
+        return k.haar(z)  # levels past 768 channels: the plain Haar (K14)
     if not src_packed:
         return k.transition(z, "entry")
     if dst_packed:
@@ -235,8 +237,7 @@ def _down_transition(z, src_packed, dst_packed, k: KernelSet):
 def _up_transition(z, src_packed, dst_packed, k: KernelSet):
     """Exact inverse of ``_down_transition(·, dst_packed, src_packed)``."""
     if not dst_packed and not src_packed:
-        raise NotImplementedError(
-            "unpacked→unpacked Haar (levels past 768 channels) is not ported")
+        return k.haar(z, transpose=True)
     if not dst_packed:
         return k.transition(z, "entry", transpose=True)
     if src_packed:

@@ -1,19 +1,28 @@
 """Where the serving roundtrip's or detect's, the train step's or the eval
 step's time goes on the card.
 
-    python -m vwfd_tpu_torch.profile_roundtrip [--requests 10] [--trace PATH]
-    python -m vwfd_tpu_torch.profile_roundtrip --mode detect [--int8]
-    python -m vwfd_tpu_torch.profile_roundtrip --mode train [--requests 5]
-    python -m vwfd_tpu_torch.profile_roundtrip --mode eval [--requests 5]
-    python -m vwfd_tpu_torch.profile_roundtrip --int8 [--int8-embed]
+    FLAG="--subnet res_tpu2 --extractor unet_tpu --haar conv --packed \
+          --econvs 2,2,1,1,1"
+    python -m vwfd_tpu_torch.profile_roundtrip $FLAG [--requests 10] \
+        [--trace PATH]
+    python -m vwfd_tpu_torch.profile_roundtrip $FLAG --mode detect [--int8]
+    python -m vwfd_tpu_torch.profile_roundtrip $FLAG --mode train \
+        [--requests 5]
+    python -m vwfd_tpu_torch.profile_roundtrip $FLAG --mode eval
+    python -m vwfd_tpu_torch.profile_roundtrip $FLAG --int8 [--int8-embed]
+    # the reference shapes (the runner's defaults), training at batch 8
+    python -m vwfd_tpu_torch.profile_roundtrip [--mode train --batch 8]
 
-``--mode roundtrip`` (the default) serves the flagship roundtrip
-(``configs/video.yaml``: batch 16, T=4, 256², bf16; random weights from a
-seed); ``--mode detect`` serves the detect alone; ``--mode train`` runs
-the flagship ``train_step`` and ``--mode eval`` its ``eval_step`` on
-synthetic batches. ``--int8`` serves the roundtrip or the detect through
-the int8 extractor and ``--int8-embed`` the roundtrip through the int8
-embed (calibrated on one seeded random clip, off the clock). Each runs under
+The model options are the convergence runner's
+(``run_convergence.model_options``, the JAX runner's names and defaults:
+without them the reference shapes), at batch 16 unless ``--batch`` says
+otherwise (T=4, 256², bf16; random weights from a seed). ``--mode
+roundtrip`` (the default) serves the roundtrip; ``--mode detect`` serves
+the detect alone; ``--mode train`` runs ``train_step`` and ``--mode eval``
+``eval_step`` on synthetic batches. ``--int8`` serves the roundtrip or the
+detect through the int8 extractor and ``--int8-embed`` the roundtrip
+through the int8 embed (calibrated on one seeded random clip, off the
+clock). Each runs under
 ``torch.profiler`` after a warm-up, then prints one JSON line: the host
 wall time per request (or step), the device time per request by kernel
 class (the port's kernels, convolutions, GEMMs, BatchNorm, concatenations,
@@ -32,9 +41,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import FLAGSHIP_CONFIG, load_config
 from .data import Loader, SyntheticVideoDataset
 from .models import VideoWatermarkModel
+from .run_convergence import build_config, model_options
 from .serving import WatermarkServer
 
 # substrings of the port's kernel names (csrc/*.cu), by kernel
@@ -49,7 +58,9 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "attack_mix": ("attack_mix_fwd", "attack_mix_bwd"),
                 "splice": ("splice_fwd", "splice_bwd"),
                 "qconv": ("qconv_wgmma",), "qconv_t": ("qconv_t_wgmma",),
-                "qcoupling_head": ("qcoupling_wgmma",)}
+                "qcoupling_head": ("qcoupling_wgmma",),
+                "haar": ("haar_kernel",),
+                "coupling_affine": ("affine_fwd", "affine_bwd")}
 
 
 def classify(name: str) -> str:
@@ -73,7 +84,8 @@ def classify(name: str) -> str:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
+                                 parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval"])
     ap.add_argument("--requests", type=int, default=10,
@@ -83,14 +95,15 @@ def main(argv=None):
                     help="roundtrip or detect through the int8 extractor")
     ap.add_argument("--int8-embed", action="store_true",
                     help="roundtrip through the int8 embed")
+    ap.set_defaults(batch=16)
     args = ap.parse_args(argv)
 
-    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = build_config(args)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
     if args.mode in ("train", "eval"):
-        model = VideoWatermarkModel(cfg)
+        model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)
         loader = Loader(SyntheticVideoDataset(size=s, frames=t, length=4 * b),
                         b)
@@ -107,7 +120,7 @@ def main(argv=None):
     else:
         clip = np.random.default_rng(0).integers(0, 256, (b, t, s, s, 3),
                                                  dtype=np.uint8)
-        server = WatermarkServer(cfg, modes=(args.mode,),
+        server = WatermarkServer(cfg, device=args.device, modes=(args.mode,),
                                  int8_extract=args.int8,
                                  int8_embed=args.int8_embed,
                                  int8_calib=clip)
@@ -151,7 +164,9 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "card": card, "mode": args.mode, "int8": args.int8,
+        "card": card, "mode": args.mode, "subnet": args.subnet,
+        "extractor": args.extractor, "haar": args.haar,
+        "packed": args.packed, "int8": args.int8,
         "int8_embed": args.int8_embed, "requests": n, "batch": b,
         "frames": t, "size": s,
         "wall_ms_per_request": wall_us / n / 1e3,

@@ -1,16 +1,23 @@
-"""Convergence run of the flagship trainer (port of
+"""Convergence run of the video trainer (port of
 tools/run_convergence.py:24-217).
 
+    # the reference shapes, the JAX runner's defaults (ModelConfig()'s nets:
+    # res subnets, lifting Haar, the INN module path, the reference UNet)
     python -m vwfd_tpu_torch.run_convergence --steps 10000 --criterion l1 \\
-        --eval-every 500 --econvs 2,2,1,1,1 --ckpt-dir build/conv_ckpt \\
-        --out build/conv.jsonl [--nets-out DIR]
+        --eval-every 500 --ckpt-dir build/conv_ckpt --out build/conv.jsonl \\
+        [--nets-out DIR]
+    # the flagship: packed res_tpu2 INN with conv Haar, UNetTPU
+    python -m vwfd_tpu_torch.run_convergence --steps 10000 --criterion l1 \\
+        --eval-every 500 --subnet res_tpu2 --extractor unet_tpu --haar conv \\
+        --packed --econvs 2,2,1,1,1 --ckpt-dir build/conv_ckpt \\
+        --out build/conv.jsonl
     # the same run in segments: each ends cleanly with a checkpoint
     python -m vwfd_tpu_torch.run_convergence ... --resume --stop-at-step 5000
     # the libjpeg line of a saved checkpoint, where PIL is
     python -m vwfd_tpu_torch.run_convergence --libjpeg-only \\
         --ckpt-dir DIR --device cpu --out build/conv.jsonl
 
-Trains the flagship on synthetic clips made on the device
+Trains on synthetic clips made on the device
 (``data/ondevice.py``: the JAX runner's clip family) and writes the JAX
 runner's JSONL record, key for key: first the config line (with the
 device and its name added), then every 20 steps (``LOG_EVERY``) and at
@@ -35,10 +42,13 @@ latest checkpoint in ``--ckpt-dir`` is kept. ``--nets-out`` also writes
 the final nets alone, the extractor's convolutions in the compute dtype
 (``models.state.save_nets``).
 
-The model options are the JAX runner's names; the port runs the flagship
-shapes, so ``--subnet res|dense``, ``--haar lift|mixed`` and ``--extractor
-unet`` raise ``NotImplementedError``. Runs on the CUDA card unless
-``--device cpu``; without a card it raises.
+The model options and their defaults are the JAX runner's
+(tools/run_convergence.py:34-52): ``--extractor unet --subnet res --haar
+lift``, ``--packed`` off; ``--down-num`` and ``--width`` are the port's own
+(``ModelConfig.inn_down_num`` and ``inn_width``, at their defaults the
+JAX runner's nets). ``--packed`` needs ``--subnet res_tpu2`` (the JAX
+package's rule, ``ValueError``). Runs on the CUDA card unless ``--device
+cpu``; without a card it raises.
 """
 
 import argparse
@@ -77,20 +87,27 @@ def model_options() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--frames", type=int, default=4)
-    ap.add_argument("--extractor", default="unet_tpu")
-    ap.add_argument("--subnet", default="res_tpu2")
-    ap.add_argument("--s2d", type=int, default=2)
-    ap.add_argument("--efeatures", type=int, default=64)
+    ap.add_argument("--extractor", default="unet",
+                    help="unet (reference-exact) | unet_tpu | unet_tpu_slim "
+                         "| unet_tpu2")
+    ap.add_argument("--subnet", default="res",
+                    help="INN coupling subnet: res (reference-exact) | "
+                         "res_tpu | res_tpu2 | dense")
+    ap.add_argument("--s2d", type=int, default=2,
+                    help="UNetTPU space-to-depth stem factor")
+    ap.add_argument("--efeatures", type=int, default=64,
+                    help="UNetTPU channel base")
     ap.add_argument("--block-num", default=None,
                     help="INN coupling schedule, e.g. '1,1,1'")
     ap.add_argument("--down-num", type=int, default=3,
                     help="INN Haar levels")
     ap.add_argument("--width", type=int, default=0,
                     help="INN coupling trunk width (0: the default)")
-    ap.add_argument("--haar", default="conv")
+    ap.add_argument("--haar", default="lift",
+                    help="INN Haar: lift | conv | mixed")
     ap.add_argument("--packed", action="store_true",
-                    help="packed-space INN executor (the port's only one; "
-                         "on for res_tpu2 without this flag)")
+                    help="packed-space INN executor (nets/inn_packed.py; "
+                         "needs --subnet res_tpu2)")
     ap.add_argument("--econvs", default=None,
                     help="UNetTPU per-level encoder-conv plan, e.g. "
                          "'2,2,1,1,1'")
@@ -152,8 +169,7 @@ def build_config(args, criterion: str = "l1") -> Config:
         model=ModelConfig(
             extractor=args.extractor, inn_subnet=args.subnet,
             extractor_s2d=args.s2d, extractor_features=args.efeatures,
-            inn_haar=args.haar,
-            inn_packed=args.packed or args.subnet == "res_tpu2",
+            inn_haar=args.haar, inn_packed=args.packed,
             extractor_enc_convs=(tuple(int(s) for s in args.econvs.split(","))
                                  if args.econvs else None), **mc),
         train=TrainConfig(forward_criterion=criterion))

@@ -16,8 +16,12 @@ and the outputs trimmed (eval-mode nets are per-sample, so this is exact).
 
 On the card the uint8 decode/encode and relayouts run in K3
 (``kernels/wire.py``; the roundtrip's encode and the detect stem's decode
-in one pass), the INN in K1/K2 plus cuDNN/cuBLAS, and the detect
-epilogue in K4 (``kernels/mask.py``).
+in one pass), the INN in K1/K2 (the packed executor) or K14/K15 (the
+module path) plus cuDNN/cuBLAS, and the detect epilogue in K4
+(``kernels/mask.py``). Every configuration of ``VideoWatermarkModel`` is
+served: with the reference ``UNet`` (or ``UNetTPU``'s ``convt`` head) the
+stem is the frames themselves (K3 at s = 1) and K4 reads full-resolution
+logits (s = 1).
 
 Int8 serving (``int8_extract``, ``int8_embed``; vwfd_tpu/serving.py:212-338):
 at construction, off the serving clock, the extractor and/or the embed INN
@@ -51,11 +55,30 @@ from .models.video_model import VideoWatermarkModel, _to_channels
 from .nets import inn_int8, unet_int8
 from .ops.resize import resize_bilinear
 
-__all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits",
+__all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits", "check_int8",
            "save_weights"]
 
 MODES = ("embed", "detect", "roundtrip")
 Weights = Union[str, Mapping[str, Mapping[str, torch.Tensor]]]
+
+
+def check_int8(mc, int8_extract: bool, int8_embed: bool) -> None:
+    """The JAX server's int8 rules (vwfd_tpu/serving.py:263-267, 298-306):
+    the int8 embed needs the packed INN, the int8 extractor ``UNetTPU``
+    with the ``d2s`` head and ``convt`` upsample."""
+    if int8_embed and not mc.inn_packed:
+        raise ValueError(
+            "int8_embed requires the packed flagship embed "
+            "(ModelConfig.inn_packed=True — nets/inn_int8.py quantizes "
+            "the packed executor's learned convs)")
+    if int8_extract and (mc.extractor not in ("unet_tpu", "unet_tpu2")
+                         or mc.extractor_head != "d2s"
+                         or mc.extractor_up != "convt"):
+        raise ValueError(
+            "int8_extract supports the UNetTPU extractor with the "
+            "default head ('d2s') and upsample ('convt') lowerings "
+            f"(got extractor={mc.extractor!r}, "
+            f"head={mc.extractor_head!r}, up={mc.extractor_up!r})")
 
 
 def unpack_mask_bits(packed) -> np.ndarray:
@@ -206,20 +229,7 @@ class WatermarkServer:
         unknown = set(modes) - set(MODES)
         if unknown:
             raise ValueError(f"unknown modes {sorted(unknown)}")
-        mc = cfg.model
-        if int8_embed and not mc.inn_packed:
-            raise ValueError(
-                "int8_embed requires the packed flagship embed "
-                "(ModelConfig.inn_packed=True — nets/inn_int8.py quantizes "
-                "the packed executor's learned convs)")
-        if int8_extract and (mc.extractor not in ("unet_tpu", "unet_tpu2")
-                             or mc.extractor_head != "d2s"
-                             or mc.extractor_up != "convt"):
-            raise ValueError(
-                "int8_extract supports the UNetTPU extractor with the "
-                "default head ('d2s') and upsample ('convt') lowerings "
-                f"(got extractor={mc.extractor!r}, "
-                f"head={mc.extractor_head!r}, up={mc.extractor_up!r})")
+        check_int8(cfg.model, int8_extract, int8_embed)
         if weights is not None and ckpt_dir is not None:
             raise ValueError("pass weights or ckpt_dir, not both")
         if ckpt_dir is not None:
@@ -310,7 +320,8 @@ class WatermarkServer:
         m = self.model
         logits = (m.unet.body(xs) if self._qext is None
                   else unet_int8.body_int8(self._qext, xs, self.kernels))
-        mask, frac = self.kernels.mask_pack(logits, self.frames, m.unet.s2d,
+        mask, frac = self.kernels.mask_pack(logits, self.frames,
+                                            m.unet.head_s2d,
                                             self.threshold)
         key = "mask_bits" if self.size % 8 == 0 else "mask"
         return {key: mask, "tamper_fraction": frac}
