@@ -136,8 +136,24 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    its plain version and, for K14, the grouped ``F.conv2d`` with the ±½
    bank; K3 at s = 1 and K4 at s = 1 (the reference UNet's stem and
    logits); and the packed INN at ``down_num`` 4 (K14 at its 3072-channel
-   level, K2 on that level's head in f32; in bf16 K2 refuses the head,
-   ROADMAP F20).
+   level, K2 on that level's head in f32 and bf16, its W streamed through
+   the ring in bf16: F20 repaired), with K2 alone on that head in bf16,
+   timed at M = 4096;
+12. HiDDeN at full width (message 30, 64 channels, 4 / 7 / 3 blocks, 128²,
+   b8, f32): one ``train_step`` per noise member through ``KERNELS`` and
+   ``PLAIN`` from the same state and draws (loss terms within 1e-5
+   relative, gradient cosines ≥ 0.9999), each with the launch counts at 0
+   just before and read just after (K16 ``zigzag_jpeg`` ×2 on jpeg_mask,
+   K17 ``crop_resize`` ×2 on crop, forward and backward); a NaN batch that
+   moves nothing; ``infer`` of every member on the committed step-23,000
+   nets (``checkpoints_hidden_r5_torch``), decoded bits equal to
+   ``PLAIN``'s except within 1e-5 of 0.5; p50 of train steps and of an
+   ``infer``, images/s and peak memory. Phase 3 holds K16 (forward within
+   2e-6, gradients within 1e-6 of the plain max, the clip's ½ tie) and K17
+   (forward EQUAL, gradients within 1e-6 of the plain max) at (8, 128,
+   128, 3) and a ragged shape, each timed forward + backward warm and cold
+   beside its plain version and K16's JAX form (yardstick) or K17's
+   ``F.interpolate`` of the sliced window (library).
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -149,8 +165,9 @@ version, its time warm and with a cold L2, the plain time, the bound, the
 library time and a yardstick's; the bound is the sum of each launch's
 bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
-K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, and per refshape
-roundtrip for K14 and K15); the last
+K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
+roundtrip for K14 and K15, and per HiDDeN train step of the member that
+runs it for K16 and K17); the last
 line is
 ``{"ok": true,
 "device": {...}}``.
@@ -177,8 +194,8 @@ from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
-from vwfd_tpu_torch.kernels import (PLAIN, _lib, affine, coupling, f1, haar,
-                                    jpeg,
+from vwfd_tpu_torch.kernels import (PLAIN, _lib, affine, coupling,
+                                    crop_resize, f1, haar, jpeg, zigzag,
                                     launch_counts, mask, median, mix, qconv,
                                     qconv_t, qcoupling, reset_launch_counts,
                                     splice, ssim, transition, wire)
@@ -248,6 +265,10 @@ KERNEL_SOURCES = {
     "haar": ("vwfd_tpu_torch/csrc/haar.cu", "vwfd_tpu/ops/haar.py:20"),
     "coupling_affine": ("vwfd_tpu_torch/csrc/affine.cu",
                         "vwfd_tpu/nets/inn.py:235"),
+    "zigzag_jpeg": ("vwfd_tpu_torch/csrc/zigzag.cu",
+                    "vwfd_tpu/attacks/jpeg.py:249"),
+    "crop_resize": ("vwfd_tpu_torch/csrc/crop_resize.cu",
+                    "vwfd_tpu/ops/resize.py:135"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -268,10 +289,15 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "qcoupling_head": "K2 coupling_head at the same shape (the "
                                 "bf16 embed's head)",
               "coupling_affine": "torch.addcmul(t, affine_e(s), x) (the "
-                                 "forward in two calls)"}
-# K14 and K15 run on the INN module path only (the refshape phase)
+                                 "forward in two calls)",
+              "zigzag_jpeg": "the JAX package's form: the analog colour "
+                             "maps, two dense block-diagonal torch.matmul "
+                             "(I⊗C8) per direction, the mask and the clip, "
+                             "forward and backward"}
+# K14 and K15 run on the INN module path only (the refshape phase), K16
+# and K17 on HiDDeN's (phase 12)
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
-           "coupling_affine": 0}
+           "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -300,7 +326,9 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "qconv": "int8_roundtrip", "qconv_t": "int8_roundtrip",
             "qcoupling_head": "int8_roundtrip", "wire_i8": "int8_detect",
             "haar": "refshape_roundtrip",
-            "coupling_affine": "refshape_roundtrip"}
+            "coupling_affine": "refshape_roundtrip",
+            "zigzag_jpeg": "hidden_train_jpeg_mask",
+            "crop_resize": "hidden_train_crop"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -1821,13 +1849,14 @@ def check_affine(rows, card):
                  "backward_timed_per": "refshape_train_step at batch 16"}
 
 
-def check_down_num_4(card):
-    """F20: the packed INN at down_num 4 (its 768 → 3072-channel level is
-    K14, that coupling an unpacked K2 head with K = 1664) at batch 2, 64²:
-    float32 within ``TOL`` of the plain versions with its launch counts;
-    in bf16 K2 either refuses the 3072-channel head (its column slice of
-    the head does not fit shared memory: the wrapper raises, ROADMAP §3
-    F20) or matches the plain versions within ``TOL``."""
+def check_down_num_4(rows, card):
+    """F20, repaired: the packed INN at down_num 4 (its 768 → 3072-channel
+    level is K14, that coupling an unpacked K2 head with K = 1664) at batch
+    2, 64², in float32 and bf16, each within ``TOL`` of the plain versions
+    with its launch counts; then K2 alone on the 3072-channel head in bf16
+    (W streamed through the ring beside A: its column slice does not fit
+    shared memory), forward and inverse against the plain version, and
+    timed at the level's size for a 256² clip at batch 16 (M = 4096)."""
     from vwfd_tpu_torch.nets import InvertibleNet
     g = torch.Generator("cuda").manual_seed(47)
     x = torch.rand(2, 64, 64, 12, device="cuda", generator=g)
@@ -1844,16 +1873,9 @@ def check_down_num_4(card):
         ref.load_state_dict(net.state_dict())
         net, ref = net.cuda(), ref.cuda()
         reset_launch_counts()
-        try:
-            with torch.no_grad():
-                y = net(x, out_f32=False)
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            check(dt == torch.bfloat16 and "vwfd_coupling_head" in str(e),
-                  f"down_num 4 {dt}: {e}")
-            print(f"check down_num 4 bf16: K2 refuses the 3072-channel "
-                  f"head and the wrapper raises (F20): {e}")
-            continue
+        with torch.no_grad():
+            y = net(x, out_f32=False)
+        torch.cuda.synchronize()
         counts = {k: v for k, v in launch_counts().items() if v}
         with torch.no_grad():
             want = ref(x, out_f32=False)
@@ -1864,6 +1886,210 @@ def check_down_num_4(card):
         print(f"check down_num 4 {dt} (2, 64, 64, 12): max_abs_err={err} "
               f"vs the plain versions; launches {json.dumps(counts)} "
               f"[{card}]")
+
+    row = rows["coupling_head"]
+    c, f, hw = 1536, 128, 16
+    k = c + f
+    dt = torch.bfloat16
+    z = torch.randn(B, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
+    h = torch.randn(B, hw, hw, f, device="cuda", generator=g).to(dt)
+    p = {"wh": (torch.randn(2 * c, k, device="cuda", generator=g)
+                / k ** 0.5).to(dt),
+         "bh": 0.1 * torch.randn(2 * c, device="cuda", generator=g)}
+    xin, xx = z[..., c:], z[..., :c]
+    err = 0.0
+    for inverse in (False, True):
+        out, ref = torch.empty_like(z), torch.empty_like(z)
+        coupling.coupling_head(xin, h, p, xx, out=out[..., :c],
+                               inverse=inverse)
+        coupling.coupling_head_plain(xin, h, p, xx, out=ref[..., :c],
+                                     inverse=inverse)
+        torch.cuda.synchronize()
+        e, ok = rel_err(out[..., :c], ref[..., :c], dt)
+        check(ok, f"coupling_head 3072 bf16 inverse={inverse}: {e}")
+        err = max(err, e)
+    o = out[..., :c]
+    ms = time_ms(lambda: coupling.coupling_head(xin, h, p, xx, out=o))
+    pms = time_ms(lambda: coupling.coupling_head_plain(xin, h, p, xx, out=o))
+    cat_mm = time_ms(lambda: torch.matmul(
+        torch.cat([xin, h], -1).reshape(-1, k), p["wh"].t()))
+    m = B * hw * hw
+    bms, by = bound(nbytes(xin, h, xx, o, p["wh"], p["bh"]),
+                    2 * m * k * 2 * c, BF16_TC_OPS_PER_S)
+    row.extra["f20_3072_bf16"] = {
+        "M": m, "K": k, "N": 2 * c, "max_abs_err": err, "ms": ms,
+        "plain_ms": pms, "yardstick_ms": cat_mm, "bound_ms": bms,
+        "bound_by": by}
+    print(f"check coupling_head z=3072 bf16 (F20, W streamed) M={m} K={k} "
+          f"N={2 * c}: max_abs_err={err} ms={ms:.4f} plain_ms={pms:.4f} "
+          f"cat_matmul_ms={cat_mm:.4f} bound_ms={bms:.4f} ({by}) "
+          f"share_of_bound={bms / ms:.3f} [{card}]")
+
+
+# ------------------------------------------------------------ phase 3,
+# HiDDeN
+
+# K16 vs plain: forward within ZIGZAG_ATOL (the DCT sums in another order
+# than torch.matmul), gradients within FUSED_GRAD_RTOL of the plain max
+ZIGZAG_ATOL = 2e-6
+HID_B, HID_S = 8, 128            # HiDDeN's path: b8, 128², f32
+HID_SHAPE = (HID_B, HID_S, HID_S, 3)
+# per value: colour 5, four 8-term DCT passes 64, mask 1, colour 5, clip 2
+# forward; the backward recomputes the forward and runs the transposed chain
+ZIGZAG_OPS = (77, 154)
+CROP_OPS = (9, 9)                # per output: 6 products, 3 sums
+
+
+def zigzag_input(g, shape):
+    """Values in [-0.1, 1.1) (the clip acts on both sides) with the first
+    8×8 block of frame 0 all 0 (z = 0 exactly: the clip's ½ tie) and the
+    second all 2 (z far above 1: gradient 0)."""
+    x = torch.rand(shape, device="cuda", generator=g) * 1.2 - 0.1
+    x[0, :8, :8] = 0.0
+    x[0, :8, 8:16] = 2.0
+    return x
+
+
+def zigzag_jax_form(x, clip=True):
+    """The yardstick: the JAX package's own form of the same function, the
+    analog colour maps around two dense block-diagonal products (I ⊗ C8)
+    per direction, the tiled mask and the clip."""
+    from vwfd_tpu_torch.ops.color import rgb_to_yuv_analog, yuv_to_rgb_analog
+    from vwfd_tpu_torch.ops.dct import dct_matrix, zigzag_keep_mask
+    n, hh, ww, _ = x.shape
+    c8 = dct_matrix(x.device)
+    dh = torch.kron(torch.eye(hh // 8, device=x.device), c8)
+    dw = torch.kron(torch.eye(ww // 8, device=x.device), c8)
+    m = torch.from_numpy(np.stack([zigzag_keep_mask(8, kk, hh, ww)
+                                   for kk in zigzag.HIDDEN_KEEP])).to(x.device)
+    yuv = rgb_to_yuv_analog(x).movedim(-1, -3)
+    coeff = torch.matmul(torch.matmul(dh, yuv), dw.t()) * m
+    out = torch.matmul(torch.matmul(dh.t(), coeff), dw).movedim(-3, -1)
+    rgb = yuv_to_rgb_analog(out)
+    return zigzag.clip01(rgb) if clip else rgb
+
+
+def check_zigzag(rows, card):
+    """K16: forward within ``ZIGZAG_ATOL`` and the input gradient within
+    ``FUSED_GRAD_RTOL`` of the plain max, with and without the clip, at
+    HiDDeN's shape and a ragged one, the clip's ½ tie and its 0 included;
+    timed forward + backward (the train step's launches) warm and with a
+    cold L2 beside the plain version and the JAX form (yardstick)."""
+    row = rows["zigzag_jpeg"]
+    g = torch.Generator("cuda").manual_seed(61)
+    err = 0.0
+    for shape in (HID_SHAPE, (3, 40, 24, 3)):
+        x = zigzag_input(g, shape)
+        cot = torch.randn(shape, device="cuda", generator=g)
+        for clip in (False, True):
+            (yk,), (gk,) = grads_of(lambda v: zigzag.zigzag_jpeg(
+                v, clip=clip), [x], [True], cot)
+            (yp,), (gp,) = grads_of(lambda v: zigzag.zigzag_jpeg_plain(
+                v, clip=clip), [x], [True], cot)
+            torch.cuda.synchronize()
+            fe = float((yk - yp).abs().max())
+            ge = float((gk - gp).abs().max())
+            check(fe <= ZIGZAG_ATOL, f"zigzag {shape} clip={clip}: {fe}")
+            check(ge <= FUSED_GRAD_RTOL * float(gp.abs().max()),
+                  f"zigzag {shape} clip={clip} gradient: {ge}")
+            if clip:
+                # the zero block's z is exactly 0 on both paths: its
+                # gradient is exactly ½ of the unclipped one (jnp.clip's
+                # tie; the block's map is linear and ½ rounds nothing); the
+                # block of 2s has none
+                for fn, g_ in ((zigzag.zigzag_jpeg, gk),
+                               (zigzag.zigzag_jpeg_plain, gp)):
+                    _, (free,) = grads_of(fn, [x], [True], cot)
+                    check(torch.equal(g_[0, :8, :8], 0.5 * free[0, :8, :8])
+                          and not bool(g_[0, :8, 8:16].any()),
+                          f"zigzag clip ties: {fn.__name__}")
+            err = max(err, fe, ge)
+            print(f"check zigzag_jpeg {shape} f32 clip={clip}: forward "
+                  f"max_abs_err={fe:.3g} gradient max_abs_err={ge:.3g} "
+                  f"(plain max {float(gp.abs().max()):.3g})")
+    row.err = err
+    nb = nbytes(torch.empty(HID_SHAPE))
+    sets = cold_sets(lambda i: (zigzag_input(g, HID_SHAPE), torch.randn(
+        HID_SHAPE, device="cuda", generator=g)), 3 * nb)
+    fn = lambda v: zigzag.zigzag_jpeg(v, clip=True)  # noqa: E731
+    kf, kb, cf, cb = fused_times(fn, sets, [True])
+    pf, pb, _, _ = fused_times(lambda v: zigzag.zigzag_jpeg_plain(
+        v, clip=True), sets[:1], [True])
+    yf, yb, _, _ = fused_times(zigzag_jax_form, sets[:1], [True])
+    moved = 2 * nb + 3 * nb  # forward x, y; backward x, g, gx
+    ops = HID_B * HID_S * HID_S * 3 * sum(ZIGZAG_OPS)
+    row.add(kf + kb, pf + pb, moved, ops, yardstick_ms=yf + yb,
+            cold_ms=cf + cb)
+    bf, bb = bound(2 * nb, 0)[0], bound(3 * nb, 0)[0]
+    print(f"check zigzag_jpeg {HID_SHAPE} ms fwd={kf:.4f} bwd={kb:.4f} cold "
+          f"fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} "
+          f"jax_form_yardstick fwd={yf:.4f} bwd={yb:.4f} bound_ms "
+          f"fwd={bf:.5f} bwd={bb:.5f} share_of_bound fwd={bf / kf:.3f} "
+          f"bwd={bb / kb:.3f} [{card}]")
+
+
+CROP_APEXES = [(10.0, 100.0, 3.0, 128.0), (0.0, 128.0, 0.0, 128.0),
+               (57.0, 128.0, 0.0, 71.0), (30.0, 31.0, 64.0, 65.0)]
+
+
+def check_crop_resize(rows, card):
+    """K17: forward EQUAL to the plain version and the input gradient
+    within ``FUSED_GRAD_RTOL`` of the plain max, at HiDDeN's shape (windows
+    at the edges, the whole image and a single pixel) and a ragged one;
+    timed forward + backward warm and with a cold L2 beside the plain
+    version and ``F.interpolate`` of the sliced window (the library call of
+    the same function, its window on the host)."""
+    row = rows["crop_resize"]
+    g = torch.Generator("cuda").manual_seed(62)
+    err = 0.0
+    cases = [(HID_SHAPE, a) for a in CROP_APEXES] + [
+        ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0))]
+    for shape, apex in cases:
+        x = torch.rand(shape, device="cuda", generator=g)
+        cot = torch.randn(shape, device="cuda", generator=g)
+        ap = torch.tensor(apex, device="cuda")
+        (yk,), (gk,) = grads_of(lambda v: crop_resize.crop_resize(v, ap),
+                                [x], [True], cot)
+        (yp,), (gp,) = grads_of(lambda v: crop_resize.crop_resize_plain(
+            v, ap), [x], [True], cot)
+        torch.cuda.synchronize()
+        ge = float((gk - gp).abs().max())
+        check(torch.equal(yk, yp), f"crop_resize {shape} {apex}: forward "
+              f"differs by {float((yk - yp).abs().max())}")
+        check(ge <= FUSED_GRAD_RTOL * float(gp.abs().max()),
+              f"crop_resize {shape} {apex} gradient: {ge}")
+        err = max(err, ge)
+        print(f"check crop_resize {shape} apex {apex}: forward equal to "
+              f"plain; gradient max_abs_err={ge:.3g} (plain max "
+              f"{float(gp.abs().max()):.3g})")
+    row.err = err
+    apex = CROP_APEXES[0]
+    ap = torch.tensor(apex, device="cuda")
+    nb = nbytes(torch.empty(HID_SHAPE))
+    sets = cold_sets(lambda i: (torch.rand(HID_SHAPE, device="cuda",
+                                           generator=g),
+                                torch.randn(HID_SHAPE, device="cuda",
+                                            generator=g)), 3 * nb)
+    kf, kb, cf, cb = fused_times(lambda v: crop_resize.crop_resize(v, ap),
+                                 sets, [True])
+    pf, pb, _, _ = fused_times(lambda v: crop_resize.crop_resize_plain(
+        v, ap), sets[:1], [True])
+    h0, h1, w0, w1 = (int(a) for a in apex)
+    lf, lb, _, _ = fused_times(lambda v: F.interpolate(
+        v.permute(0, 3, 1, 2)[..., h0:h1, w0:w1], size=(HID_S, HID_S),
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1),
+        sets[:1], [True])
+    window = nb * (h1 - h0) * (w1 - w0) // (HID_S * HID_S)
+    moved = window + nb + 2 * nb  # forward window, y; backward g, gx
+    ops = HID_B * HID_S * HID_S * 3 * sum(CROP_OPS)
+    row.add(kf + kb, pf + pb, moved, ops, library_ms=lf + lb,
+            cold_ms=cf + cb)
+    bf, bb = bound(window + nb, 0)[0], bound(2 * nb, 0)[0]
+    print(f"check crop_resize {HID_SHAPE} apex {apex} ms fwd={kf:.4f} "
+          f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} "
+          f"bwd={pb:.4f} F.interpolate_library fwd={lf:.4f} bwd={lb:.4f} "
+          f"bound_ms fwd={bf:.5f} bwd={bb:.5f} share_of_bound "
+          f"fwd={bf / kf:.3f} bwd={bb / kb:.3f} [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -2821,6 +3047,188 @@ def run_refshape(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+# HiDDeN at full width: message 30, 64 channels, 4 / 7 / 3 blocks, 128², b8,
+# f32 (TF32 off: HiddenModel runs under device.full_f32)
+
+HID_LOSS_RTOL = 1e-5     # loss terms, KERNELS vs PLAIN
+HID_GRAD_COS = 0.9999    # each net's gradient, KERNELS vs PLAIN
+HID_BIT_NEAR = 1e-5      # decoded bits may differ only within this of 0.5
+HID_CKPT = Path("checkpoints_hidden_r5_torch")  # the step-23,000 nets
+# each train step's launches of K16 and K17 by member: forward + backward
+HID_TRAIN = {m: {**ZERO_LAUNCHES,
+                 **({"zigzag_jpeg": 2} if m == "jpeg_mask" else {}),
+                 **({"crop_resize": 2} if m == "crop" else {})}
+             for m in ("identity", "crop", "cropout", "dropout", "gaussian",
+                       "jpeg_mask")}
+# one eval batch through the seven members: one launch of each
+HID_EVAL = {**ZERO_LAUNCHES, "zigzag_jpeg": 1, "crop_resize": 1}
+
+
+def hidden_tensors(model):
+    return [t for n in model.nets() for t in model._tensors(n)]
+
+
+def copy_hidden(dst, src):
+    """Every parameter, BatchNorm statistic, Adam moment and count of
+    ``src`` into ``dst``."""
+    with torch.no_grad():
+        for d, s_ in zip(hidden_tensors(dst), hidden_tensors(src)):
+            d.copy_(s_)
+
+
+def run_hidden(card):
+    """HiDDeN at full width (message 30, 64 channels, 4 / 7 / 3 blocks,
+    128², b8, f32): one ``train_step`` per member through ``KERNELS`` and
+    through ``PLAIN`` from the same state, batch, messages and draws (loss
+    terms within ``HID_LOSS_RTOL``, each net's gradient cosine ≥
+    ``HID_GRAD_COS``), each with the launch counts at 0 just before and
+    read just after (K16 ×2 on jpeg_mask, K17 ×2 on crop); a batch with a
+    NaN pixel that leaves every tensor as it was; ``infer`` on the
+    committed step-23,000 nets with two batches of ``eval_hidden``'s images
+    and messages through every member, ``KERNELS`` against ``PLAIN``
+    (decoded bits EQUAL except within ``HID_BIT_NEAR`` of 0.5, counted;
+    K16 and K17 once a batch); p50 of 10 train steps after 2 warm-up and
+    of an ``infer``, images/s, the peak memory."""
+    from vwfd_tpu_torch.data import SyntheticImageDataset
+    from vwfd_tpu_torch.metrics import bitwise_message_error
+    from vwfd_tpu_torch.models.hidden_model import (
+        EVAL_MEMBERS, NOISE_POOL, HiddenModel, HiddenSampler, apply_noise)
+    from vwfd_tpu_torch.models.state import load_nets
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    model = HiddenModel(image_size=HID_S, encoder_loss_weight=1.0)
+    model.init_states(14)
+    ref = HiddenModel(image_size=HID_S, encoder_loss_weight=1.0,
+                      kernels=PLAIN)
+    ds = SyntheticImageDataset(size=HID_S, length=16 * HID_B, seed=10)
+    rng = np.random.default_rng(10)
+    batches = [(np.stack([ds[i * HID_B + j] for j in range(HID_B)]),
+                (rng.random((HID_B, 30)) > 0.5).astype(np.float32))
+               for i in range(16)]
+    sampler = HiddenSampler(14, "cuda", [0.5, 2, 3, 1, 0.5, 1])
+    launches, terms, cosines = {}, {}, {}
+    for i, member in enumerate(NOISE_POOL):
+        imgs, msgs = batches[i]
+        d = sampler(HID_SHAPE, member)
+        copy_hidden(ref, model)
+        gp_ = {}
+        lp = {k: float(v) for k, v in ref.train_step(imgs, msgs, d,
+                                                     gp_).items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        gk_ = {}
+        logs = model.train_step(imgs, msgs, d, gk_)
+        torch.cuda.synchronize()
+        launches[f"hidden_train_{member}"] = launch_counts()
+        lk = {k: float(v) for k, v in logs.items()}
+        check(launches[f"hidden_train_{member}"] == HID_TRAIN[member],
+              f"hidden train {member} launches "
+              f"{launches[f'hidden_train_{member}']}")
+        for k in ("loss", "encoder_mse", "dec_mse", "adversarial_bce",
+                  "discr_cover_bce", "discr_encod_bce"):
+            check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+                  <= HID_LOSS_RTOL * abs(lp[k]),
+                  f"hidden {member} {k}: kernels {lk[k]} plain {lp[k]}")
+        cos = {net: cosine(torch.cat([t.flatten() for t in gk_[net]]),
+                           torch.cat([t.flatten() for t in gp_[net]]))
+               for net in gk_}
+        check(all(c >= HID_GRAD_COS for c in cos.values()),
+              f"hidden {member} gradient cosines {cos}")
+        terms[member] = {"kernels": lk, "plain": lp}
+        cosines[member] = cos
+        print(f"hidden train step {member} {HID_SHAPE}: loss kernels "
+              f"{lk['loss']:.7g} plain {lp['loss']:.7g}; gradient cosines "
+              f"{json.dumps(cos)}; launches K16 "
+              f"{launches[f'hidden_train_{member}']['zigzag_jpeg']}, K17 "
+              f"{launches[f'hidden_train_{member}']['crop_resize']}")
+
+    # the guard: a NaN pixel leaves every tensor as it was
+    imgs = batches[6][0].copy()
+    imgs[0, 5, 7, 1] = np.nan
+    before = [t.clone() for t in hidden_tensors(model)]
+    logs = model.train_step(imgs, batches[6][1], sampler(HID_SHAPE))
+    check(not math.isfinite(float(logs["loss"])), "NaN batch: finite loss")
+    check(all(torch.equal(a, b) for a, b in zip(before,
+                                                hidden_tensors(model))),
+          "NaN batch moved a parameter, statistic, moment or count")
+    print("hidden guard: a NaN pixel left every parameter, BatchNorm "
+          "statistic, Adam moment and count as it was")
+
+    # p50 of train steps (the weighted pool's members)
+    it = iter(range(10 ** 6))
+
+    def train_one():
+        imgs, msgs = batches[next(it) % len(batches)]
+        return model.train_step(imgs, msgs, sampler(HID_SHAPE))[
+            "loss"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # infer on the committed step-23,000 nets, every member, both paths
+    nets = load_nets(str(HID_CKPT), 23000)
+    model.load_states(nets)
+    ref.load_states(nets)
+    eds = SyntheticImageDataset(size=HID_S, length=2 * HID_B, seed=123)
+    erng = np.random.default_rng(0)
+    esampler = HiddenSampler(42, "cuda", members=EVAL_MEMBERS)
+    near, errs = 0, {}
+    for bi in range(2):
+        imgs = np.stack([eds[bi * HID_B + j] for j in range(HID_B)])
+        msgs = (erng.random((HID_B, 30)) > 0.5).astype(np.float32)
+        it_, mt_ = model.to_device(imgs, msgs)
+        reset_launch_counts()
+        enc = model.encode(it_, mt_)
+        decs = {}
+        draws = {m: esampler(HID_SHAPE, m) for m in EVAL_MEMBERS}
+        for m in EVAL_MEMBERS:
+            decs[m] = model.decode(apply_noise(enc, it_, draws[m],
+                                               model.kernels))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == HID_EVAL, f"hidden eval launches {counts}")
+        launches["hidden_eval"] = counts
+        enc_p = ref.encode(it_, mt_)
+        check(float((enc - enc_p).abs().max()) <= 1e-5,
+              "hidden encode kernels vs plain")
+        for m in EVAL_MEMBERS:
+            dp = ref.decode(apply_noise(enc, it_, draws[m], PLAIN))
+            bk = torch.round(torch.clamp(decs[m], 0, 1))
+            bp = torch.round(torch.clamp(dp, 0, 1))
+            diff = bk != bp
+            close = (dp - 0.5).abs() < HID_BIT_NEAR
+            check(not bool((diff & ~close).any()),
+                  f"hidden infer {m}: bits differ away from 0.5")
+            near += int(diff.sum())
+            errs.setdefault(m, []).append(float(bitwise_message_error(
+                decs[m], mt_)))
+    print(f"hidden infer on step 23000, 2 batches x {len(EVAL_MEMBERS)} "
+          f"members: decoded bits equal KERNELS vs PLAIN except {near} "
+          f"within {HID_BIT_NEAR} of 0.5; bitwise errors "
+          f"{json.dumps({m: float(np.mean(v)) for m, v in errs.items()})}")
+    imgs, msgs = batches[0]
+    d = esampler(HID_SHAPE, "jpeg_mask")
+    infer_p50 = p50_of(lambda: model.infer(imgs, msgs, d)[2].sum().item(),
+                       10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"train_step_p50_ms": train_p50,
+           "images_per_s": HID_B / train_p50 * 1e3,
+           "infer_p50_ms": infer_p50,
+           "infer_images_per_s": HID_B / infer_p50 * 1e3,
+           "batch": HID_B, "size": HID_S, "train_peak_memory_gib": train_peak,
+           "peak_memory_gib": peak,
+           "loss": {m: terms[m]["kernels"]["loss"] for m in terms},
+           "min_gradient_cosine": min(min(c.values())
+                                      for c in cosines.values()),
+           "bits_near_half_differing": near, "card": card}
+    print(f"hidden p50: train step {train_p50:.3f} ms "
+          f"({HID_B / train_p50 * 1e3:.1f} images/s), infer (jpeg_mask) "
+          f"{infer_p50:.3f} ms at b{HID_B}, {HID_S}²; peak memory "
+          f"{peak:.3f} GiB [{card}]")
+    print(json.dumps({"hidden": out}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2856,7 +3264,9 @@ def main():
     check_stem(rows, card)
     check_haar(rows, card)
     check_affine(rows, card)
-    check_down_num_4(card)
+    check_down_num_4(rows, card)
+    check_zigzag(rows, card)
+    check_crop_resize(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -2869,10 +3279,11 @@ def main():
     int8_launches = run_int8(card)
     conv_launches = run_convergence_phase(card)
     ref_launches = run_refshape(card)
+    hid_launches = run_hidden(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
-               **conv_launches, **ref_launches}
+               **conv_launches, **ref_launches, **hid_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,15 @@ version (the same four-term sums, one rounding). K15 ``coupling_affine``'s
 forward is within one ulp of its plain version (``expf`` of the two
 libraries may differ in the last place), its gradients within 1e-6 of the
 plain gradient's max in f32 and one bf16 ulp relative in bf16 (autograd
-rounds the same f32 values in another order).
+rounds the same f32 values in another order). K2 on down_num 4's
+3072-channel head in bf16 (W streamed through the ring beside A) is held
+as K2's other shapes are. K16 ``zigzag_jpeg``'s forward is within 2e-6 of
+its plain version (the DCT sums in another order than ``torch.matmul``)
+and its gradient within 1e-6 of the plain max, and on a block whose z is
+exactly 0 its gradient is exactly ½ of the unclipped one (``jnp.clip``'s
+tie); K17 ``crop_resize``'s forward is EQUAL to its plain version (each tap
+one IEEE rounding in the plain order) and its gradient within 1e-6 of the
+plain max (autograd's scatter-adds sum in another order).
 """
 
 import dataclasses
@@ -38,10 +46,11 @@ import torch
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
-from vwfd_tpu_torch.kernels import (PLAIN, affine, coupling, f1, haar, jpeg,
-                                    launch_counts, mask, median, mix, qconv,
-                                    qconv_t, qcoupling, reset_launch_counts,
-                                    splice, ssim, transition, wire)
+from vwfd_tpu_torch.kernels import (PLAIN, affine, coupling, crop_resize, f1,
+                                    haar, jpeg, launch_counts, mask, median,
+                                    mix, qconv, qconv_t, qcoupling,
+                                    reset_launch_counts, splice, ssim,
+                                    transition, wire, zigzag)
 from vwfd_tpu_torch.ops.quantize import ste_quantize_255
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
@@ -52,7 +61,8 @@ pytestmark = pytest.mark.gpu
 DTYPES = [torch.float32, torch.bfloat16]
 # the counts of the int8 kernels and of the INN module path's K14/K15 on a
 # path that runs none of them
-_NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
+_NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
+            "qcoupling_head": 0, "haar": 0,
             "coupling_affine": 0}
 
 
@@ -115,8 +125,10 @@ def test_transition_p2u_is_its_own_transpose(cuda, dtype):
 
 
 # (N, H, W, channels of z): the flagship's level-48 packed coupling and its
-# 768-channel ones, at row counts that are no multiple of the 64-row tile
-_COUPLINGS = [(3, 9, 7, 192), (2, 5, 6, 768)]
+# 768-channel ones, at row counts that are no multiple of the 64-row tile,
+# and down_num 4's 3072-channel head (K = 1664: in bf16 its W column slice
+# does not fit shared memory and streams through the ring, F20)
+_COUPLINGS = [(3, 9, 7, 192), (2, 5, 6, 768), (2, 5, 6, 3072)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -916,7 +928,8 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "median3": 0, "f1_sweep": 0, "ssim": 0,
                                "attack_mix": 0, "splice": 0, "qconv": 32,
                                "qconv_t": 4, "qcoupling_head": 10,
-                               "haar": 0, "coupling_affine": 0}
+                               "haar": 0, "coupling_affine": 0,
+                               "zigzag_jpeg": 0, "crop_resize": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -1130,3 +1143,54 @@ def test_refshape_server_equals_plain_on_the_card(cuda):
     want = ref.serve(clip, "roundtrip")
     assert np.array_equal(got.watermarked, want.watermarked)
     assert np.array_equal(got.mask_bits, want.mask_bits)
+
+
+def _grads(fn, x, cot):
+    xr = x.clone().requires_grad_()
+    y = fn(xr)
+    (g,) = torch.autograd.grad(y, xr, cot)
+    return y.detach(), g
+
+
+# K16 at HiDDeN's path shape (b8, 128²) and a ragged batch and size
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("shape", [(8, 128, 128, 3), (3, 40, 24, 3)])
+def test_zigzag_jpeg_matches_plain(cuda, shape, clip):
+    g = _gen(61)
+    x = torch.rand(shape, device=cuda, generator=g) * 1.2 - 0.1
+    x[0, :8, :8] = 0.0          # z exactly 0: the clip's ½ tie
+    cot = torch.randn(shape, device=cuda, generator=g)
+    before = launch_counts()["zigzag_jpeg"]
+    yk, gk = _grads(lambda v: zigzag.zigzag_jpeg(v, clip=clip), x, cot)
+    assert launch_counts()["zigzag_jpeg"] == before + 2
+    yp, gp = _grads(lambda v: zigzag.zigzag_jpeg_plain(v, clip=clip), x, cot)
+    torch.cuda.synchronize()
+    assert float((yk - yp).abs().max()) <= 2e-6
+    assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+    if clip:
+        _, free = _grads(zigzag.zigzag_jpeg, x, cot)
+        assert torch.equal(gk[0, :8, :8], 0.5 * free[0, :8, :8])
+
+
+# K17: windows inside, whole, at the edges and of one pixel, at HiDDeN's
+# path shape, and a ragged batch and size
+@pytest.mark.parametrize("shape,apex", [
+    ((8, 128, 128, 3), (10.0, 100.0, 3.0, 128.0)),
+    ((8, 128, 128, 3), (0.0, 128.0, 0.0, 128.0)),
+    ((8, 128, 128, 3), (30.0, 31.0, 64.0, 65.0)),
+    ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0))])
+def test_crop_resize_matches_plain(cuda, shape, apex):
+    g = _gen(62)
+    x = torch.rand(shape, device=cuda, generator=g)
+    cot = torch.randn(shape, device=cuda, generator=g)
+    ap = torch.tensor(apex, device=cuda)
+    before = launch_counts()["crop_resize"]
+    yk, gk = _grads(lambda v: crop_resize.crop_resize(v, ap), x, cot)
+    assert launch_counts()["crop_resize"] == before + 2
+    yp, gp = _grads(lambda v: crop_resize.crop_resize_plain(v, ap), x, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp)
+    assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+    # the gradient is deterministic (no float atomics)
+    assert torch.equal(gk, _grads(lambda v: crop_resize.crop_resize(v, ap),
+                                  x, cot)[1])

@@ -214,9 +214,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vwfd_tpu', 'cv2', "
         "'PIL')]\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 40  # every module was imported
+    names = set(proc.stdout.split())
+    assert len(names) >= 70  # every module was imported
+    assert {f"vwfd_tpu_torch.{m}" for m in (
+        "kernels.zigzag", "kernels.crop_resize", "attacks.noise",
+        "nets.blocks", "nets.hidden", "models.hidden_model", "data.images",
+        "eval_hidden", "continue_hidden")} <= names

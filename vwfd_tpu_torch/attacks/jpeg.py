@@ -9,17 +9,25 @@ explicit tensors: the quality index into ``QUALITIES`` and the mode, 0 hard
 round, 1 x³ soft round, 2 zonal 5×5/3×3 keep. Quality Q means the table
 scale 2 − 0.02·Q (Q ≥ 50). ``jpeg_real`` is the real libjpeg round trip
 (``:261-280``), on the host through PIL, the evaluation's oracle.
+
+``hidden_jpeg_mask_compression`` (``:249-258``) is HiDDeN's JpegCompression:
+analog YUV, blockwise DCT, the zig-zag keep masks (``zigzag_keep_mask``,
+``:236-246``; 25 / 9 / 9 coefficients), IDCT and back, with the clip of
+``vwfd_tpu/models/hidden_model.py:40-42`` as an option, through K16
+(``kernels/zigzag.py``).
 """
 
 import numpy as np
 import torch
 
 from ..ops.color import rgb_to_yuv_jpegbasic, yuv_to_rgb_jpegbasic
-from ..ops.dct import block_merge, block_split, dct_blocks, idct_blocks
+from ..ops.dct import (block_merge, block_split, dct_blocks, idct_blocks,
+                       zigzag_keep_mask)
 from ..ops.quantize import jpeg_scale_factor, round_only_at_0
 
 __all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables", "jpeg_pool",
-           "jpeg_pool_pair", "jpeg_real"]
+           "jpeg_pool_pair", "jpeg_real", "zigzag_keep_mask",
+           "hidden_jpeg_mask_compression"]
 
 QUALITIES = (50, 60, 70, 80, 90)
 
@@ -85,6 +93,18 @@ def jpeg_pool_pair(img: torch.Tensor, q_idx: torch.Tensor,
     qt = quant_tables(q_idx).contiguous()
     w = torch.stack([w1, w2], -1).float().contiguous()
     return kernels.jpeg_pair(img, qt, mode.to(torch.int32).contiguous(), w)
+
+
+def hidden_jpeg_mask_compression(img: torch.Tensor, yuv_keep=(25, 9, 9),
+                                  clip: bool = False, kernels=None
+                                  ) -> torch.Tensor:
+    """HiDDeN's JPEG-mask compression of (N, H, W, 3) float32, H and W
+    multiples of 8, any scale; with ``clip`` the result is clipped to
+    [0, 1] (``jnp.clip``: gradient ½ at the ends). Runs
+    ``kernels.zigzag_jpeg`` (K16; default ``kernels.KERNELS``)."""
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
+    return kernels.zigzag_jpeg(img, tuple(yuv_keep), clip)
 
 
 def jpeg_real(img01: np.ndarray, quality: int, subsampling: int = 0

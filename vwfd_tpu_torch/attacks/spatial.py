@@ -1,5 +1,16 @@
-"""Resize round trip (port of vwfd_tpu/attacks/spatial.py:22-50).
+"""Spatial attacks (port of vwfd_tpu/attacks/spatial.py:22-108).
 
+HiDDeN's members take their draws as explicit tensors (the JAX package
+draws them from a key inside the call): ``sample_crop_apex`` (:53-67) maps
+four U[0, 1) draws to a crop window with the reference's coupled ratios,
+``crop_attack`` (:70-77) crops and resamples it back through K17
+(``kernels/crop_resize.py``) with the window on the device, ``cropout``
+(:89-98) pastes a window of the image onto the cover, ``dropout_mix``
+(:101-108) mixes image and cover pixels through one keep ratio and one
+(H, W) mask shared by the batch; ``rect_mask`` (:80-86) is
+``data/ondevice.py``'s.
+
+Resize round trip (:22-50):
 The reference picks a random ratio in [0.5, 1.5] and runs two
 ``F.interpolate`` calls (noise_layers/resize.py:15-55). As in the JAX
 package, the pool of ratios is fixed and each ratio's down∘up resampling
@@ -13,9 +24,12 @@ import functools
 import numpy as np
 import torch
 
+from ..data.ondevice import rect_mask
 from ..ops.resize import resize_matrix
 
-__all__ = ["DEFAULT_RATIOS", "make_resize_roundtrip_pool", "resize_roundtrip"]
+__all__ = ["DEFAULT_RATIOS", "make_resize_roundtrip_pool", "resize_roundtrip",
+           "sample_crop_apex", "crop_attack", "rect_mask", "cropout",
+           "cropout_apex", "dropout_mix"]
 
 DEFAULT_RATIOS = tuple(np.round(np.arange(0.5, 1.51, 0.05), 2))
 
@@ -52,3 +66,71 @@ def resize_roundtrip(img: torch.Tensor, ratio_idx: torch.Tensor,
     out = out.reshape(n, w, h, c).transpose(1, 2)
     return torch.minimum(torch.maximum(out, out.new_zeros(())),
                          out.new_ones(()))
+
+
+def _uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jax.random.uniform(key, minval=lo, maxval=hi)`` from its raw
+    U[0, 1) draw ``u``, with its float32 operations."""
+    lo_t = torch.full((), lo, dtype=torch.float32, device=u.device)
+    span = torch.full((), hi, dtype=torch.float32, device=u.device) - lo_t
+    return torch.maximum(lo_t, u * span + lo_t)
+
+
+def sample_crop_apex(u: torch.Tensor, hw, min_rate: float = 0.5,
+                     max_rate: float = 1.0) -> torch.Tensor:
+    """Crop window (h0, h1, w0, w1), a (4,) float32 tensor of integer
+    pixel bounds, from ``u`` (4,) U[0, 1) draws (the height ratio, the
+    width ratio, the row and the column offset): each ratio is clipped to
+    within 0.2 of the other (noise_layers/crop.py:32-44)."""
+    h, w = hw
+    hr = _uniform(u[0], min_rate, max_rate)
+    wr = _uniform(u[1], min_rate, max_rate)
+    hr = torch.minimum(hr, wr + 0.2)
+    wr = torch.minimum(wr, hr + 0.2)
+    ch = torch.floor(hr * h)
+    cw = torch.floor(wr * w)
+    h0 = torch.floor(u[2] * (h - ch + 1))
+    w0 = torch.floor(u[3] * (w - cw + 1))
+    return torch.stack([h0, h0 + ch, w0, w0 + cw])
+
+
+def crop_attack(img: torch.Tensor, apex: torch.Tensor,
+                kernels=None) -> torch.Tensor:
+    """Crop ``apex`` of (N, H, W, 3) and resample it bilinearly back to
+    (H, W) (noise_layers/crop.py:32-52), through ``kernels.crop_resize``
+    (K17; default ``kernels.KERNELS``)."""
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
+    return kernels.crop_resize(img, apex)
+
+
+def cropout_apex(u: torch.Tensor, hw, height_ratio: float = 0.5,
+                 width_ratio: float = 0.5) -> torch.Tensor:
+    """The cropout window from ``u`` (2,) U[0, 1) draws (the JAX package's
+    ``key`` and ``fold_in(key, 1)``)."""
+    h, w = hw
+    h0 = torch.floor(u[0] * (h * (1 - height_ratio)))
+    w0 = torch.floor(u[1] * (w * (1 - width_ratio)))
+    return torch.stack([h0, h0 + h * height_ratio, w0, w0 + w * width_ratio])
+
+
+def cropout(img: torch.Tensor, cover: torch.Tensor, u: torch.Tensor,
+            height_ratio: float = 0.5, width_ratio: float = 0.5
+            ) -> torch.Tensor:
+    """Paste a window of ``img`` onto ``cover`` (noise_layers/crop.py
+    Cropout:121-133); ``height_ratio = width_ratio = 0.5477`` keeps the
+    paper's 30 % of the area."""
+    apex = cropout_apex(u, img.shape[-3:-1], height_ratio, width_ratio)
+    m = rect_mask(tuple(img.shape[-3:-1]), apex.unbind())[..., None]
+    return img * m + cover * (1 - m)
+
+
+def dropout_mix(img: torch.Tensor, cover: torch.Tensor, keep_u: torch.Tensor,
+                mask_u: torch.Tensor, keep_min: float = 0.5,
+                keep_max: float = 1.0) -> torch.Tensor:
+    """Keep a pixel of ``img`` where the (H, W) draw ``mask_u`` lies below
+    the keep ratio drawn from ``keep_u`` in [keep_min, keep_max), else the
+    cover's (noise_layers/dropout.py:4-26)."""
+    keep = _uniform(keep_u, keep_min, keep_max)
+    mask = (mask_u < keep).to(img.dtype)[..., None]
+    return img * mask + cover * (1 - mask)

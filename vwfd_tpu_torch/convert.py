@@ -10,7 +10,8 @@ Rules:
   applies the kernel spatially flipped relative to PyTorch;
 * ``BatchNorm`` ``scale``/``bias`` + batch stats ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var`` (+
-  ``num_batches_tracked``); flax's default epsilon 1e-5 is the port's.
+  ``num_batches_tracked``); flax's default epsilon 1e-5 is the port's;
+* ``Dense`` kernel (in, out) → ``Linear`` ``weight`` (out, in).
 
 The int8 serving trees (``nets/unet_int8.py``, ``nets/inn_int8.py``) keep the
 JAX package's keys; their int8 conv kernels HWIO become the port's
@@ -24,6 +25,10 @@ The optimizer state follows the parameters: optax's ``ScaleByAdamState``
 trees shaped like the params, which map to the port's ``AdamW.mu`` and
 ``.nu`` (lists in the net's parameter order) by the same rules, and the
 count to ``AdamW.count``.
+
+``states_from_jax`` / ``states_to_jax`` carry a whole model's nets (the
+HiDDeN family's encoder, decoder and discriminator: params, batch stats and
+Adam ``mu`` / ``nu`` / ``count`` of each) both ways.
 """
 
 import re
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
-           "opt_state_from_jax", "opt_state_to_jax", "unet_int8_from_jax",
+           "state_dict_to_jax", "opt_state_from_jax", "opt_state_to_jax",
+           "states_from_jax", "states_to_jax", "unet_int8_from_jax",
            "inn_int8_from_jax"]
 
 _CONVT = re.compile(r"(^|\.)up\d+$")  # UNetTPU's decoder ConvTransposes
@@ -69,7 +75,8 @@ def _module_to_torch(path: str, p: Mapping, stats: Mapping
                        num_batches_tracked=torch.tensor(0, dtype=torch.long))
         return out
     k = np.asarray(p["kernel"])
-    w = (k[::-1, ::-1].transpose(2, 3, 0, 1) if _CONVT.search(path)
+    w = (k.T if k.ndim == 2
+         else k[::-1, ::-1].transpose(2, 3, 0, 1) if _CONVT.search(path)
          else k.transpose(3, 2, 0, 1))
     out = {"weight": _tensor(w)}
     if "bias" in p:
@@ -121,12 +128,18 @@ def _state_dict_to_tree(sd: Mapping[str, torch.Tensor],
                          "running_var": ("var", stats)}[name]
             _set(dst, path, leaf, a)
         elif name == "weight":
-            k = (a.transpose(2, 3, 0, 1)[::-1, ::-1] if _CONVT.search(path)
-                 else a.transpose(2, 3, 1, 0))
+            k = (a.T if a.ndim == 2
+                 else a.transpose(2, 3, 0, 1)[::-1, ::-1]
+                 if _CONVT.search(path) else a.transpose(2, 3, 1, 0))
             _set(params, path, "kernel", np.ascontiguousarray(k))
         else:
             _set(params, path, name, a)
     return params, stats
+
+
+def state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """Inverse of ``state_dict_from_jax``: ``(params, batch_stats)``."""
+    return _state_dict_to_tree(sd)
 
 
 def params_to_jax(netG_sd: Mapping[str, torch.Tensor],
@@ -171,6 +184,42 @@ def opt_state_to_jax(net: torch.nn.Module, mu, nu, count
     trees = [_state_dict_to_tree(dict(zip(names, ts)), bn)[0]
              for ts in (mu, nu)]
     return trees[0], trees[1], np.asarray(int(count), np.int32)
+
+
+def states_from_jax(model, trees: Mapping[str, Mapping]) -> None:
+    """Load each net of ``model`` (``model.nets()``, ``model.optimizers``)
+    from ``trees[name]``: ``params``, ``batch_stats`` (where the net has
+    BatchNorms) and, where given, the Adam state ``mu``, ``nu``, ``count``;
+    shapes are checked by ``load_state_dict`` and ``opt_state_from_jax``."""
+    with torch.no_grad():
+        for name, net in model.nets().items():
+            t = trees[name]
+            sd = state_dict_from_jax(t["params"], t.get("batch_stats"))
+            own = net.state_dict()
+            sd.update({k: v for k, v in own.items()
+                       if k.endswith("num_batches_tracked")})
+            net.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+            if "mu" in t:
+                opt = model.optimizers[name]
+                mu, nu, count = opt_state_from_jax(net, t["mu"], t["nu"],
+                                                   t["count"])
+                for dst, src in zip(opt.mu + opt.nu, mu + nu):
+                    dst.copy_(src)
+                opt.count.copy_(count)
+
+
+def states_to_jax(model, optimizer: bool = True) -> Dict[str, Dict]:
+    """Inverse of ``states_from_jax``: per net ``params``, ``batch_stats``
+    and (with ``optimizer``) ``mu``, ``nu``, ``count``, numpy trees."""
+    out = {}
+    for name, net in model.nets().items():
+        params, stats = _state_dict_to_tree(net.state_dict())
+        out[name] = {"params": params, "batch_stats": stats}
+        if optimizer:
+            opt = model.optimizers[name]
+            mu, nu, count = opt_state_to_jax(net, opt.mu, opt.nu, opt.count)
+            out[name].update(mu=mu, nu=nu, count=count)
+    return out
 
 
 def _leaf(a, conv: bool = False, flip: bool = False) -> torch.Tensor:

@@ -231,4 +231,45 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// The orthonormal DCT-II matrix C[k][i] of ops/dct.py::_dct_matrix_np,
+// built in float64 and rounded to float32 (tests/test_torch_attacks.py
+// checks these literals bit for bit; K5 and K16 share it). Read with
+// indices known at compile time, so each entry is an immediate operand of
+// its FMA: no load, and no register holds the matrix.
+__device__ __forceinline__ float dct_c(int k, int i) {
+  constexpr float kDct[8][8] = {
+      {0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+       0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.6a09e6p-2f},
+      {0x1.f6297cp-2f, 0x1.a9b662p-2f, 0x1.1c73b4p-2f, 0x1.8f8b84p-4f,
+       -0x1.8f8b84p-4f, -0x1.1c73b4p-2f, -0x1.a9b662p-2f, -0x1.f6297cp-2f},
+      {0x1.d906bcp-2f, 0x1.87de2ap-3f, -0x1.87de2ap-3f, -0x1.d906bcp-2f,
+       -0x1.d906bcp-2f, -0x1.87de2ap-3f, 0x1.87de2ap-3f, 0x1.d906bcp-2f},
+      {0x1.a9b662p-2f, -0x1.8f8b84p-4f, -0x1.f6297cp-2f, -0x1.1c73b4p-2f,
+       0x1.1c73b4p-2f, 0x1.f6297cp-2f, 0x1.8f8b84p-4f, -0x1.a9b662p-2f},
+      {0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f,
+       0x1.6a09e6p-2f, -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.6a09e6p-2f},
+      {0x1.1c73b4p-2f, -0x1.f6297cp-2f, 0x1.8f8b84p-4f, 0x1.a9b662p-2f,
+       -0x1.a9b662p-2f, -0x1.8f8b84p-4f, 0x1.f6297cp-2f, -0x1.1c73b4p-2f},
+      {0x1.87de2ap-3f, -0x1.d906bcp-2f, 0x1.d906bcp-2f, -0x1.87de2ap-3f,
+       -0x1.87de2ap-3f, 0x1.d906bcp-2f, -0x1.d906bcp-2f, 0x1.87de2ap-3f},
+      {0x1.8f8b84p-4f, -0x1.1c73b4p-2f, 0x1.a9b662p-2f, -0x1.f6297cp-2f,
+       0x1.f6297cp-2f, -0x1.a9b662p-2f, 0x1.1c73b4p-2f, -0x1.8f8b84p-4f},
+  };
+  return kDct[k][i];
+}
+
+// out[k] = sum_i C[k][i]·in[i] (forward), or sum_i C[i][k]·in[i] (inverse):
+// one 8-term FMA chain per output, i ascending
+template <bool kInverse>
+__device__ __forceinline__ void dct8(const float* in, float* out) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      acc = fmaf(kInverse ? dct_c(i, k) : dct_c(k, i), in[i], acc);
+    out[k] = acc;
+  }
+}
+
 }  // namespace vwfd

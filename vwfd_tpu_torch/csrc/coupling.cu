@@ -20,7 +20,13 @@
 // N = 192) or bytes ~ tensor-core flops (levels 192/768: M = 16384, K = 512,
 // N = 768). Design (bf16): no concat and no head in device memory.
 // * W stationary: each persistent block owns one BN-column slice of W and
-//   keeps all of it in shared memory, loaded once; only A streams.
+//   keeps all of it in shared memory, loaded once; only A streams. Where
+//   the slice does not fit beside two ring stages a consumer (down_num 4's
+//   3072-channel head: K = 1,664, 426 KB at BN 128), W streams through the
+//   ring instead: each stage carries the A boxes and the W boxes of the same
+//   K columns, so the wgmma sequence, and with it the order of the sums, is
+//   the resident path's (ROADMAP F20). The resident path's code is the
+//   kStreamW = false instantiation, unchanged.
 // * A is read in place from its two sources: TMA loads 32-column boxes from
 //   xin's tensor map below kx and from h's above (and W's slice from the
 //   matching two maps of W), 64-byte swizzled, into a ring of shared-memory
@@ -182,18 +188,21 @@ struct Plan {
 
 // Shared memory from a 1024-byte boundary: the W slice (boxes x BN rows x
 // 64 bytes), then the consumers' rings (NC x `ring` stages of two 4 KB A
-// boxes); the barriers in static shared memory.
-template <int BN, int NC>
+// boxes); the barriers in static shared memory. With kStreamW there is no
+// resident slice, and a stage holds its two A boxes, then the two W boxes
+// of the same K columns.
+template <int BN, int NC, bool kStreamW>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
     coupling_head_bf16(const Args a, const Plan pl,
                        const __grid_constant__ Maps maps) {
   using bf = __nv_bfloat16;
   constexpr int kWBox = BN * kBoxK * 2;  // bytes of one W box
+  constexpr int kSlot = kStageBytes + (kStreamW ? 2 * kWBox : 0);
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages],
       wready;
   const uint32_t wsm = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t ring = wsm + pl.boxes * kWBox;
+  const uint32_t ring = wsm + (kStreamW ? 0 : pl.boxes * kWBox);
   const int tiles_m = (a.M + kRows - 1) / kRows;
   const int g0 = blockIdx.x / pl.n_tiles;
   const int mine = g0 < tiles_m ? (tiles_m - 1 - g0) / pl.groups + 1 : 0;
@@ -215,11 +224,13 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
 
   if (wg == NC) {  // the producer warp: one thread issues the loads
     if (threadIdx.x != NC * 128) return;
-    const uint32_t wb = smem_u32(&wready);
-    mbar_expect_tx(wb, pl.boxes * kWBox);
-    for (int q = 0; q < pl.boxes; ++q)
-      tma_load(wsm + q * kWBox, q < pl.qx ? &maps.wx : &maps.wh,
-               (q < pl.qx ? q : q - pl.qx) * kBoxK, n0, wb);
+    if constexpr (!kStreamW) {
+      const uint32_t wb = smem_u32(&wready);
+      mbar_expect_tx(wb, pl.boxes * kWBox);
+      for (int q = 0; q < pl.boxes; ++q)
+        tma_load(wsm + q * kWBox, q < pl.qx ? &maps.wx : &maps.wh,
+                 (q < pl.qx ? q : q - pl.qx) * kBoxK, n0, wb);
+    }
     for (int j = 0; j < mine; ++j) {
       const int m0 = (g0 + j * pl.groups) * kRows;
       for (int s = 0; s < pl.stages_per_tile; ++s) {
@@ -228,12 +239,15 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
         mbar_wait(smem_u32(&empty[slot]), ((ls / pl.ring) & 1) ^ 1);
         const int nq = min(2, pl.boxes - 2 * s);
         const uint32_t fb = smem_u32(&full[slot]);
-        mbar_expect_tx(fb, nq * kSubBytes);
+        mbar_expect_tx(fb, nq * (kSubBytes + (kStreamW ? kWBox : 0)));
         for (int u = 0; u < nq; ++u) {
           const int q = 2 * s + u;
-          tma_load(ring + slot * kStageBytes + u * kSubBytes,
-                   q < pl.qx ? &maps.xin : &maps.h,
-                   (q < pl.qx ? q : q - pl.qx) * kBoxK, m0, fb);
+          const int kq = (q < pl.qx ? q : q - pl.qx) * kBoxK;
+          tma_load(ring + slot * kSlot + u * kSubBytes,
+                   q < pl.qx ? &maps.xin : &maps.h, kq, m0, fb);
+          if constexpr (kStreamW)
+            tma_load(ring + slot * kSlot + kStageBytes + u * kWBox,
+                     q < pl.qx ? &maps.wx : &maps.wh, kq, n0, fb);
         }
       }
     }
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const bf* xp = static_cast<const bf*>(a.x);
   bf* op = static_cast<bf*>(a.out);
-  mbar_wait(smem_u32(&wready), 0);
+  if constexpr (!kStreamW) mbar_wait(smem_u32(&wready), 0);
   float d[BN / 2];
   for (int j = wg; j < mine; j += NC) {
 #pragma unroll
@@ -258,8 +272,10 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
       fence_regs<BN / 2>(d);
       wgmma_fence();
       for (int u = 0; u < nq; ++u) {
-        const uint32_t ta = ring + slot * kStageBytes + u * kSubBytes;
-        const uint32_t tb = wsm + (2 * s + u) * kWBox;
+        const uint32_t ta = ring + slot * kSlot + u * kSubBytes;
+        const uint32_t tb = kStreamW
+                                ? ring + slot * kSlot + kStageBytes + u * kWBox
+                                : wsm + (2 * s + u) * kWBox;
 #pragma unroll
         for (int kk = 0; kk < kBoxK / 16; ++kk) {
           const uint64_t da = smem_desc(ta + kk * 32);
@@ -397,11 +413,20 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
   const int tiles_m = (a.M + kRows - 1) / kRows;
   pl.groups = sms / pl.n_tiles > 0 ? sms / pl.n_tiles : 1;
   if (pl.groups > tiles_m) pl.groups = tiles_m;
+  // the resident W slice where it leaves each consumer two ring stages,
+  // else W streamed beside A (stages of kStageBytes + two W boxes)
   const int wbytes = pl.boxes * BN * kBoxK * 2;
   int slots = (kSmemBudget - wbytes) / kStageBytes;
   if (slots > kMaxStages) slots = kMaxStages;
   pl.ring = slots / NC;
-  if (pl.ring < 2) return cudaErrorInvalidValue;  // W slice too large
+  const bool stream_w = pl.ring < 2;
+  const int slot_bytes = kStageBytes + (stream_w ? 2 * BN * kBoxK * 2 : 0);
+  if (stream_w) {
+    slots = kSmemBudget / slot_bytes;
+    if (slots > kMaxStages) slots = kMaxStages;
+    pl.ring = slots / NC;
+    if (pl.ring < 2) return cudaErrorInvalidValue;
+  }
   Maps m;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
   cudaError_t rc = encode_map(&m.xin, a.xin, a.kx, a.M, a.ldxin, kRows);
@@ -411,9 +436,10 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
   if (rc == cudaSuccess)
     rc = encode_map(&m.wh, w + a.kx, a.K - a.kx, a.N, a.K, BN);
   if (rc != cudaSuccess) return rc;
-  const size_t smem =
-      (size_t)wbytes + (size_t)NC * pl.ring * kStageBytes + 1024;
-  auto kern = coupling_head_bf16<BN, NC>;
+  const size_t smem = (size_t)(stream_w ? 0 : wbytes) +
+                      (size_t)NC * pl.ring * slot_bytes + 1024;
+  auto kern = stream_w ? coupling_head_bf16<BN, NC, true>
+                       : coupling_head_bf16<BN, NC, false>;
   rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                             (int)smem);
   if (rc != cudaSuccess) return rc;

@@ -1,16 +1,19 @@
 """Data pipeline of the port (counterparts of vwfd_tpu/data): the DAVIS and
-synthetic video datasets, the tamper masks and the batching loader (numpy
-only; DAVIS takes its image readers from the caller), and the convergence
-runner's clip generator on the device (``ondevice.py``)."""
+synthetic video datasets, the synthetic images and the image folder of the
+message families, the tamper masks and the batching loader (numpy only;
+DAVIS and the image folder take their image readers from the caller), and
+the convergence runner's clip generator on the device (``ondevice.py``)."""
 
 from .davis import DavisVideoDataset, cv2_readers
+from .images import ImageFolderDataset
 from .loader import Loader
 from .masks import free_form_stroke_mask, random_rect_mask
 from .ondevice import (ClipDraws, clips_from_draws, rect_mask,
                        sample_clip_draws, seeded_generator, synthetic_clips)
-from .synthetic import SyntheticVideoDataset
+from .synthetic import SyntheticImageDataset, SyntheticVideoDataset
 
-__all__ = ["DavisVideoDataset", "cv2_readers", "Loader",
+__all__ = ["DavisVideoDataset", "cv2_readers", "ImageFolderDataset",
+           "SyntheticImageDataset", "Loader",
            "free_form_stroke_mask", "random_rect_mask",
            "SyntheticVideoDataset", "ClipDraws", "clips_from_draws",
            "rect_mask", "sample_clip_draws", "seeded_generator",

@@ -1,4 +1,5 @@
-"""Synthetic video clips (port of vwfd_tpu/data/synthetic.py:10-41): smooth
+"""Synthetic video clips and still images (port of
+vwfd_tpu/data/synthetic.py:10-61). Video: smooth
 random frames with a per-clip tamper mask, the DVDataset batch contract
 ``(video (T,H,W,3), mask (T,H,W,1))`` in [0, 1], float32. The frames and the
 rectangle masks equal the JAX package's for the same seed and index; the
@@ -8,7 +9,7 @@ import numpy as np
 
 from .masks import free_form_stroke_mask, random_rect_mask
 
-__all__ = ["SyntheticVideoDataset"]
+__all__ = ["SyntheticVideoDataset", "SyntheticImageDataset"]
 
 
 class SyntheticVideoDataset:
@@ -44,3 +45,24 @@ class SyntheticVideoDataset:
             m = random_rect_mask(rng, (h, w), 0.05, self.mask_rate_max)
         mask = np.repeat(m[None, :, :, None], self.frames, axis=0)
         return video.astype(np.float32), mask.astype(np.float32)
+
+
+class SyntheticImageDataset:
+    """Blocky 8×8 random images plus 5 % fine noise (synthetic.py:44-61)."""
+
+    def __init__(self, size=256, length=1000, seed=0):
+        self.size = size
+        self.length = length
+        self.seed = seed
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed * 99991 + idx)
+        h = w = self.size
+        base = rng.random((h // 8, w // 8, 3)).astype(np.float32)
+        img = np.repeat(np.repeat(base, 8, axis=0), 8, axis=1)
+        img = np.clip(img + 0.05 * rng.random((h, w, 3)), 0,
+                      1).astype(np.float32)
+        return img

@@ -27,6 +27,10 @@
   (kernels/haar.py)
 * K15 ``coupling_affine`` — the INN module path's RealNVP affine, forward and
   backward (kernels/affine.py)
+* K16 ``zigzag_jpeg``    — HiDDeN's zig-zag JPEG-mask compression with its
+  clip, forward and backward (kernels/zigzag.py)
+* K17 ``crop_resize``    — HiDDeN's crop: a window resampled bilinearly back
+  to the full grid, forward and backward (kernels/crop_resize.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -34,8 +38,8 @@ K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
-backward is K14 in the other direction) and K15; K5, K6, K9, K10 and K15
-launch their own backward kernels. ``KERNELS`` routes through the
+backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
+K16 and K17 launch their own backward kernels. ``KERNELS`` routes through the
 wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare.
@@ -43,14 +47,16 @@ training or evaluating, through both and compare.
 
 from typing import Callable, Dict, NamedTuple
 
-from . import (affine, coupling, f1, haar, jpeg, mask, median, mix, qconv,
-               qconv_t, qcoupling, splice, ssim, transition, wire)
+from . import (affine, coupling, crop_resize, f1, haar, jpeg, mask, median,
+               mix, qconv, qconv_t, qcoupling, splice, ssim, transition, wire,
+               zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
-           splice, qconv, qconv_t, qcoupling, haar, affine)
+           splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
+           crop_resize)
 
 
 class KernelSet(NamedTuple):
@@ -74,6 +80,8 @@ class KernelSet(NamedTuple):
     wire_to_u8_s2d_i8: Callable
     haar: Callable
     coupling_affine: Callable
+    zigzag_jpeg: Callable
+    crop_resize: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -82,7 +90,8 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     f1.f1_sweep, ssim.ssim, mix.attack_mix, splice.splice,
                     qconv.qconv, qconv_t.qconv_t, qcoupling.qcoupling_head,
                     wire.to_s2d_i8, wire.to_u8_s2d_i8, haar.haar,
-                    affine.coupling_affine)
+                    affine.coupling_affine, zigzag.zigzag_jpeg,
+                    crop_resize.crop_resize)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -91,7 +100,8 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   splice.splice_plain, qconv.qconv_plain,
                   qconv_t.qconv_t_plain, qcoupling.qcoupling_head_plain,
                   wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain,
-                  haar.haar_plain, affine.coupling_affine_plain)
+                  haar.haar_plain, affine.coupling_affine_plain,
+                  zigzag.zigzag_jpeg_plain, crop_resize.crop_resize_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -30,6 +30,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_U64 = ctypes.c_ulonglong
 _FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
 # The C interface, one entry per exported function: argtypes (the trailing
 # void* is the CUDA stream); every launcher returns a cudaError_t as int.
@@ -67,6 +68,10 @@ _SIGNATURES = {
                              _I, _P],
     "vwfd_coupling_affine_bwd": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P,
                                  _I, _P, _I, _L, _I, _I, _I, _I, _P],
+    "vwfd_zigzag_jpeg": [_P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _I, _I,
+                         _P],
+    "vwfd_crop_resize_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_crop_resize_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

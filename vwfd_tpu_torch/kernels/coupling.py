@@ -28,7 +28,9 @@ Design (``csrc/coupling.cu``): a persistent tensor-core GEMM (``wgmma``,
 f32 accumulators) whose blocks each keep one column slice of ``Wh`` in
 shared memory and stream A in place from its two sources, ``xin`` then
 ``h``, through TMA tensor maps, so no concat and no head tensor touch device
-memory; a producer warp feeds the rings of three or four consumer
+memory (where a slice does not fit beside two ring stages a consumer, as
+at ``down_num`` 4's 3072-channel head with K = 1664, ``Wh`` streams
+through the ring beside A in the same K order, so the sums keep theirs); a producer warp feeds the rings of three or four consumer
 warpgroups, which take 64-row tiles in turn so that one's epilogue overlaps
 the others' products. The epilogue rounds the accumulator to the compute dtype,
 adds the f32 bias and applies the affine with explicitly rounded

@@ -7,7 +7,7 @@ package's where the argument is exactly 0.
 
 import torch
 
-__all__ = ["absolute", "bce_with_logits", "l1_loss"]
+__all__ = ["absolute", "bce_with_logits", "l1_loss", "l2_loss"]
 
 
 def absolute(x: torch.Tensor) -> torch.Tensor:
@@ -27,3 +27,8 @@ def bce_with_logits(logits: torch.Tensor, target: torch.Tensor
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(absolute(pred - target))
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``mean((pred − target)²)`` (losses.py:36-37)."""
+    return torch.mean((pred - target) ** 2)

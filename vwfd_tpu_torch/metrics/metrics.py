@@ -31,6 +31,7 @@ from ..kernels.ssim import window_2d as _ssim_window
 __all__ = ["postprocess_int", "psnr", "psnr255_int", "ssim", "edge_accuracy",
            "threshold_level", "mask_confusion", "f1_from_confusion",
            "mask_scores", "f1_sweep", "DEFAULT_THRESHOLDS",
+           "bitwise_message_error",
            "_ssim_window", "_depthwise_same_conv"]
 
 # calculate_f1.py:52-72: 0.1, 0.2, ..., 0.9 (float64, cast to float32 at use)
@@ -143,3 +144,11 @@ def f1_sweep(pred01: torch.Tensor, gt01: torch.Tensor,
     tp, fp, fn = counts.unbind(-1)
     return (torch.from_numpy(ts).to(pred01.device),
             f1_from_confusion(None, tp, fn, fp))
+
+
+def bitwise_message_error(decoded: torch.Tensor, messages: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean |round(clip(decoded, 0, 1)) − message|, rounding half to even
+    as ``jnp.round`` (metrics.py:143-146; hidden_models/hidden.py:105-107)."""
+    d = torch.round(torch.clamp(decoded, 0.0, 1.0))
+    return torch.mean(torch.abs(d - messages))

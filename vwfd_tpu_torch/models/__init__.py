@@ -1,5 +1,6 @@
 """Models of the port (counterparts of vwfd_tpu/models)."""
 
+from .hidden_model import HiddenModel
 from .video_model import VideoWatermarkModel
 
-__all__ = ["VideoWatermarkModel"]
+__all__ = ["HiddenModel", "VideoWatermarkModel"]

@@ -6,6 +6,9 @@ weight_decay))`` with optax's arithmetic: the clip scales by
 adds 1e-6); the moments are ``(1−b)·g + b·m``; the bias corrections divide
 by ``1 − b^t``; the update is ``m̂ / (√v̂ + ε) + wd·p``, times −lr. Each net
 owns one, so each is clipped on its own (models/video_model.py:241-244).
+With ``clip=None`` and ``weight_decay=0`` it is ``optax.adam``, bit for bit
+(the HiDDeN family's optimizer): the decay term is left out, not added as
+``0·p``.
 
 The state (moments and step count) lives in tensors on the parameters'
 device, and ``step`` takes a 0-dim bool ``good``: where it is False every
@@ -84,7 +87,8 @@ class AdamW:
             m_new = (1 - self.b1) * g + self.b1 * m
             v_new = (1 - self.b2) * g ** 2 + self.b2 * v
             u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + _EPS)
-            u = u + self.wd * p
+            if self.wd:  # optax.adam has no decay term: no + 0·p
+                u = u + self.wd * p
             p_new = p + (-lr) * u
             for dst, new in ((p, p_new), (m, m_new), (v, v_new)):
                 dst.copy_(new if good is None else torch.where(good, new, dst))

@@ -2,7 +2,12 @@
 
 from .inn import (DenseSubnet, InvertibleNet, RNVPCoupling, ResSubnet,
                   ResSubnetTPU, ResSubnetTPUS2)
+from .blocks import ConvBNRelu
+from .hidden import (HiddenDecoder, HiddenDiscriminator, HiddenEncoder,
+                     HiddenEncoderDecoder)
 from .unet import UNet, UNetTPU
 
 __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
-           "ResSubnetTPU", "ResSubnetTPUS2", "UNet", "UNetTPU"]
+           "ResSubnetTPU", "ResSubnetTPUS2", "UNet", "UNetTPU", "ConvBNRelu",
+           "HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
+           "HiddenEncoderDecoder"]

@@ -1,17 +1,22 @@
-"""JPEG colour pair (port of vwfd_tpu/ops/color.py:21-31, 61-75).
+"""Colour pairs (port of vwfd_tpu/ops/color.py:21-31, 47-58, 61-75, 87-94).
 
 The Jpeg/JpegSS/JpegMask coefficient set of the reference
-(noise_layers/jpeg.py:147-163). Each output channel is the 3-term sum
+(noise_layers/jpeg.py:147-163), and the analog BT.601 set of HiDDeN's
+JpegCompression (noise_layers/jpeg_compression.py:52-63), whose two
+matrices are the reference's constants and not each other's inverse. Each
+output channel is the 3-term sum
 ``x0·m[o][0] + x1·m[o][1] + x2·m[o][2]`` in float32, left to right, one
 rounding per operation: the JAX package's HIGHEST-precision 3×3
-contraction, in an order that K5 (``csrc/jpeg.cu``) repeats.
+contraction, in an order that K5 (``csrc/jpeg.cu``) and K16
+(``csrc/zigzag.cu``) repeat.
 """
 
 import numpy as np
 import torch
 
 __all__ = ["rgb_to_yuv_jpegbasic", "yuv_to_rgb_jpegbasic",
-           "RGB2YUV_JPEGBASIC", "YUV2RGB_JPEGBASIC"]
+           "rgb_to_yuv_analog", "yuv_to_rgb_analog", "RGB2YUV_JPEGBASIC",
+           "YUV2RGB_JPEGBASIC", "RGB2YUV_ANALOG", "YUV2RGB_ANALOG"]
 
 RGB2YUV_JPEGBASIC = np.array([
     [0.299, 0.587, 0.114],
@@ -23,6 +28,18 @@ YUV2RGB_JPEGBASIC = np.array([
     [1.0, 0.0, 1.40198758],
     [1.0, -0.344113281, -0.714103821],
     [1.0, 1.77197812, 0.0],
+], dtype=np.float32)
+
+RGB2YUV_ANALOG = np.array([
+    [0.299, 0.587, 0.114],
+    [-0.14713, -0.28886, 0.436],
+    [0.615, -0.51499, -0.10001],
+], dtype=np.float32)
+
+YUV2RGB_ANALOG = np.array([
+    [1.0, 0.0, 1.13983],
+    [1.0, -0.39465, -0.58060],
+    [1.0, 2.03211, 0.0],
 ], dtype=np.float32)
 
 
@@ -40,3 +57,15 @@ def rgb_to_yuv_jpegbasic(x: torch.Tensor) -> torch.Tensor:
 def yuv_to_rgb_jpegbasic(x: torch.Tensor) -> torch.Tensor:
     """YUV → RGB, (..., 3) float32 (jpeg.py:157-163)."""
     return _apply(x, YUV2RGB_JPEGBASIC)
+
+
+def rgb_to_yuv_analog(x: torch.Tensor) -> torch.Tensor:
+    """RGB → YUV, analog BT.601, (..., 3) float32
+    (jpeg_compression.py:52-58)."""
+    return _apply(x, RGB2YUV_ANALOG)
+
+
+def yuv_to_rgb_analog(x: torch.Tensor) -> torch.Tensor:
+    """YUV → RGB, the reference's analog BT.601 "inverse", (..., 3) float32
+    (jpeg_compression.py:60-63)."""
+    return _apply(x, YUV2RGB_ANALOG)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["dct_matrix", "block_split", "block_merge", "dct_blocks",
-           "idct_blocks", "dct8x8", "idct8x8"]
+           "idct_blocks", "dct8x8", "idct8x8", "zigzag_keep_mask"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,13 +52,13 @@ def block_merge(x: torch.Tensor) -> torch.Tensor:
 
 def dct_blocks(b: torch.Tensor) -> torch.Tensor:
     """DCT of every 8×8 block of (..., 8, 8): ``C @ B @ Cᵀ``."""
-    c = dct_matrix(b.device)
+    c = dct_matrix(b.device).to(b.dtype)
     return torch.matmul(torch.matmul(c, b), c.t())
 
 
 def idct_blocks(b: torch.Tensor) -> torch.Tensor:
     """Inverse of ``dct_blocks``: ``Cᵀ @ B @ C``."""
-    c = dct_matrix(b.device)
+    c = dct_matrix(b.device).to(b.dtype)
     return torch.matmul(torch.matmul(c.t(), b), c)
 
 
@@ -74,3 +74,19 @@ def idct8x8(x: torch.Tensor, center: bool = False) -> torch.Tensor:
     """Inverse blockwise 2-D DCT; ``center=True`` adds 128 back."""
     out = block_merge(idct_blocks(block_split(x)))
     return out + 128.0 if center else out
+
+
+@functools.lru_cache(maxsize=None)
+def zigzag_keep_mask(window: int, keep: int, h: int, w: int) -> np.ndarray:
+    """(h, w) float32: 1 on the first ``keep`` coefficients of each
+    ``window``² block in zig-zag order, tiled (vwfd_tpu/attacks/jpeg.py:
+    236-246, the reference's noise_layers/jpeg_compression.py:30-43)."""
+    mask = np.zeros((window, window), dtype=np.float32)
+    order = sorted(((x, y) for x in range(window) for y in range(window)),
+                   key=lambda p: (p[0] + p[1],
+                                  -p[1] if (p[0] + p[1]) % 2 else p[1]))
+    for i, j in order[:keep]:
+        mask[i, j] = 1
+    tiled = np.tile(mask, (int(np.ceil(h / window)),
+                           int(np.ceil(w / window))))
+    return tiled[:h, :w]

@@ -12,6 +12,8 @@ step's time goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip $FLAG --int8 [--int8-embed]
     # the reference shapes (the runner's defaults), training at batch 8
     python -m vwfd_tpu_torch.profile_roundtrip [--mode train --batch 8]
+    # HiDDeN's train step (message 30, 64 channels, 128², f32)
+    python -m vwfd_tpu_torch.profile_roundtrip --mode hidden --batch 8
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -19,7 +21,10 @@ without them the reference shapes), at batch 16 unless ``--batch`` says
 otherwise (T=4, 256², bf16; random weights from a seed). ``--mode
 roundtrip`` (the default) serves the roundtrip; ``--mode detect`` serves
 the detect alone; ``--mode train`` runs ``train_step`` and ``--mode eval``
-``eval_step`` on synthetic batches. ``--int8`` serves the roundtrip or the
+``eval_step`` on synthetic batches; ``--mode hidden`` runs the HiDDeN
+family's ``train_step`` (``models/hidden_model.py``, the published widths,
+128², float32, continue_hidden's weighted pool; the video model options
+do not apply) on synthetic images. ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
 through the int8 embed (calibrated on one seeded random clip, off the
 clock). Each runs under
@@ -60,7 +65,9 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "qconv": ("qconv_wgmma",), "qconv_t": ("qconv_t_wgmma",),
                 "qcoupling_head": ("qcoupling_wgmma",),
                 "haar": ("haar_kernel",),
-                "coupling_affine": ("affine_fwd", "affine_bwd")}
+                "coupling_affine": ("affine_fwd", "affine_bwd"),
+                "zigzag_jpeg": ("zigzag_kernel",),
+                "crop_resize": ("crop_resize_fwd", "crop_resize_bwd")}
 
 
 def classify(name: str) -> str:
@@ -87,7 +94,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
-                    choices=["roundtrip", "detect", "train", "eval"])
+                    choices=["roundtrip", "detect", "train", "eval",
+                             "hidden"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -102,7 +110,29 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
-    if args.mode in ("train", "eval"):
+    if args.mode == "hidden":
+        from .data import SyntheticImageDataset
+        from .models import HiddenModel
+        from .models.hidden_model import HiddenSampler
+        t, s = 1, 128
+        model = HiddenModel(image_size=s, encoder_loss_weight=1.0,
+                            device=args.device)
+        model.init_states(cfg.train.seed)
+        ds = SyntheticImageDataset(size=s, length=4 * b, seed=10)
+        rng = np.random.default_rng(10)
+        batches = [model.to_device(
+            np.stack([ds[i * b + j] for j in range(b)]),
+            (rng.random((b, model.message_length)) > 0.5).astype(np.float32))
+            for i in range(4)]
+        sampler = HiddenSampler(cfg.train.seed, model.device,
+                                [0.5, 2, 3, 1, 0.5, 1])
+        step = [0]
+
+        def one():
+            step[0] += 1
+            imgs, msgs = batches[step[0] % len(batches)]
+            return model.train_step(imgs, msgs, sampler(imgs.shape))
+    elif args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)
         loader = Loader(SyntheticVideoDataset(size=s, frames=t, length=4 * b),

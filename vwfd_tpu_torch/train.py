@@ -1,5 +1,5 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video [--root DIR | --synthetic] [--steps N | --val] [--resume]``).
+video|hidden [--root DIR | --synthetic] [--steps N | --val] [--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
     python -m vwfd_tpu_torch.train --synthetic --steps 100
@@ -30,6 +30,21 @@ batches (default 10) and prints one JSON line: the means of
 ``psnr_forward``, ``ssim_forward`` and ``f1_best``, ms per eval step and
 frames/s over the steps after the first, the restored step and the device.
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
+
+``--task hidden`` trains the HiDDeN family (``models/hidden_model.py``; the
+JAX ``train.py``'s ``_message_loop``, :219-284) on synthetic images
+(``--synthetic``: ``SyntheticImageDataset(seed=train.seed)``) or an image
+folder (``--root``, read through OpenCV), with the JAX defaults of
+``Config()`` unless ``--config`` (``--size`` and ``--batch`` override):
+messages from ``default_rng(train.seed)``, the uniform noise pool from the
+port's sampler, a progress bar, the scalar log and a checkpoint every
+``save_interval`` steps; it prints one JSON line (the last step's logs, ms
+per step and images/s over the steps after the first). ``--val`` is the
+video model's; HiDDeN's per-member eval is ``vwfd_tpu_torch.eval_hidden``.
+``--task mbrs`` is not ported yet.
+
+    python -m vwfd_tpu_torch.train --task hidden --synthetic --steps 3 \
+        --device cpu --batch 2 --size 32
 """
 
 import argparse
@@ -41,10 +56,12 @@ import time
 import numpy as np
 import torch
 
-from . import FLAGSHIP_CONFIG, load_config
-from .data import DavisVideoDataset, Loader, SyntheticVideoDataset, cv2_readers
-from .models import VideoWatermarkModel
-from .models.state import latest_step, restore_checkpoint
+from . import FLAGSHIP_CONFIG, Config, load_config
+from .data import (DavisVideoDataset, ImageFolderDataset, Loader,
+                   SyntheticImageDataset, SyntheticVideoDataset, cv2_readers)
+from .models import HiddenModel, VideoWatermarkModel
+from .models.hidden_model import HiddenSampler
+from .models.state import latest_step, restore_checkpoint, save_checkpoint
 from .utils import Progbar, ScalarLogger, setup_logger
 
 
@@ -86,12 +103,100 @@ def _dataset(cfg, synthetic: bool, ap):
                              seed=cfg.train.seed)
 
 
+class _ImagesOnly:
+    """An image folder's items without their dict (``train.py:242-249``)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        return self.base[i]["image"]
+
+
+def _hidden(args, ap, logger):
+    """``--task hidden``: the message loop of the JAX ``train.py``."""
+    if args.val:
+        ap.error("--val is the video model's; HiDDeN's per-member eval is "
+                 "python -m vwfd_tpu_torch.eval_hidden")
+    cfg = load_config(args.config) if args.config else Config()
+    data = dict(batch_size=args.batch or cfg.data.batch_size,
+                gt_size=args.size or cfg.data.gt_size,
+                root=args.root or cfg.data.root, synthetic=args.synthetic)
+    cfg = dataclasses.replace(cfg, task="hidden",
+                              data=dataclasses.replace(cfg.data, **data),
+                              ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
+    b, s = cfg.data.batch_size, cfg.data.gt_size
+    if args.synthetic:
+        dataset = SyntheticImageDataset(size=s, length=2000,
+                                        seed=cfg.train.seed)
+    elif cfg.data.root:
+        try:
+            read_image, _ = cv2_readers()
+        except ImportError:
+            ap.error("--root needs OpenCV (cv2) to read the images, and it "
+                     "does not import here")
+        dataset = _ImagesOnly(ImageFolderDataset(cfg.data.root, read_image,
+                                                 size=s))
+    else:
+        ap.error("no data: pass --root (an image folder) or --synthetic")
+    model = HiddenModel(image_size=s, device=args.device)
+    model.init_states(cfg.train.seed)
+    step0 = latest_step(cfg.ckpt_dir) if args.resume else None
+    if step0 is not None:
+        logger.info("resuming hidden from step %d", step0)
+        restore_checkpoint(cfg.ckpt_dir, step0, model)
+    loader = Loader(dataset, b, seed=cfg.train.seed, ratio=cfg.data.ratio)
+    sampler = HiddenSampler(cfg.train.seed, model.device)
+    rng = np.random.default_rng(cfg.train.seed)
+    scalar_logger = None if args.no_telemetry else ScalarLogger(
+        args.logdir or os.path.join("runs", f"{cfg.name}_hidden"))
+    pb = Progbar(args.steps, stateful_metrics=["bitwise_error"])
+    cuda = model.device.type == "cuda"
+    step, end, times, vals = step0 or 0, (step0 or 0) + args.steps, [], {}
+    try:
+        while step < end:
+            for imgs in loader:
+                if step >= end:
+                    break
+                msgs = (rng.random((imgs.shape[0], model.message_length))
+                        > 0.5).astype(np.float32)
+                t0 = time.perf_counter()
+                logs = model.train_step(imgs, msgs, sampler(imgs.shape))
+                vals = {k: float(v) for k, v in logs.items()}  # syncs
+                times.append((time.perf_counter() - t0) * 1e3)
+                step += 1
+                pb.add(1, values=list(vals.items()))
+                if scalar_logger is not None:
+                    scalar_logger.log(step, **vals)
+                if step % cfg.train.save_interval == 0:
+                    save_checkpoint(cfg.ckpt_dir, step, model)
+    finally:
+        if scalar_logger is not None:
+            scalar_logger.close()
+    ms = float(np.median(times[1:] or times))
+    logger.info("done: %s", vals)
+    print(json.dumps({
+        **vals, "steps": args.steps, "ms_per_step": ms,
+        "images_per_s": b / ms * 1e3, "batch": b, "size": s,
+        "data": "synthetic" if args.synthetic else "images",
+        "resumed_step": step0, "device": str(model.device),
+        "device_name": (torch.cuda.get_device_name(model.device) if cuda
+                        else "cpu")}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--task", default="video",
+                    choices=("video", "hidden", "mbrs"),
+                    help="video (default) or hidden; mbrs is not ported yet")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
-                    help="a DAVIS tree (JPEGImages/480p, Annotations/480p)")
+                    help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
+                         "with --task hidden an image folder")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--val", action="store_true",
                     help="evaluate with eval_step instead of training")
@@ -117,6 +222,10 @@ def main(argv=None):
         ap.error("--synthetic and --root exclude each other")
 
     logger = setup_logger("base")
+    if args.task == "mbrs":
+        raise NotImplementedError("--task mbrs is not ported yet")
+    if args.task == "hidden":
+        return _hidden(args, ap, logger)
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
