@@ -149,11 +149,18 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    nets (``checkpoints_hidden_r5_torch``), decoded bits equal to
    ``PLAIN``'s except within 1e-5 of 0.5; p50 of train steps and of an
    ``infer``, images/s and peak memory. Phase 3 holds K16 (forward within
-   2e-6, gradients within 1e-6 of the plain max, the clip's ½ tie) and K17
-   (forward EQUAL, gradients within 1e-6 of the plain max) at (8, 128,
-   128, 3) and a ragged shape, each timed forward + backward warm and cold
-   beside its plain version and K16's JAX form (yardstick) or K17's
-   ``F.interpolate`` of the sliced window (library).
+   2e-6, gradients within 1e-6 of the plain max, the clip's ½ tie) at
+   (8, 128, 128, 3), a ragged shape and one 8×8 block, and K17 (forward
+   EQUAL, gradients within 1e-6 of the plain max and bit-identical over
+   two calls) at (8, 128, 128, 3), a ragged shape, rows of 120 bytes (its
+   element-wise copies) and another output size; both with NaN and Inf
+   pixels and a NaN cotangent (NaN where the plain version's are); each
+   timed forward + backward warm and cold beside its plain version, K16's
+   JAX form
+   (yardstick) or K17's ``F.interpolate`` of the sliced window (library),
+   and the copy yardsticks of the launch floor (``Tensor.copy_``,
+   ``torch.add(out=)``); K16's and K17's kernels spill-free
+   (``kernel_report``).
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -1935,8 +1942,8 @@ ZIGZAG_ATOL = 2e-6
 HID_B, HID_S = 8, 128            # HiDDeN's path: b8, 128², f32
 HID_SHAPE = (HID_B, HID_S, HID_S, 3)
 # per value: colour 5, four 8-term DCT passes 64, mask 1, colour 5, clip 2
-# forward; the backward recomputes the forward and runs the transposed chain
-ZIGZAG_OPS = (77, 154)
+# forward; backward the clip's derivative 1, then the transposed chain 75
+ZIGZAG_OPS = (77, 76)
 CROP_OPS = (9, 9)                # per output: 6 products, 3 sums
 
 
@@ -1946,7 +1953,8 @@ def zigzag_input(g, shape):
     second all 2 (z far above 1: gradient 0)."""
     x = torch.rand(shape, device="cuda", generator=g) * 1.2 - 0.1
     x[0, :8, :8] = 0.0
-    x[0, :8, 8:16] = 2.0
+    if shape[2] >= 16:
+        x[0, :8, 8:16] = 2.0
     return x
 
 
@@ -1969,16 +1977,67 @@ def zigzag_jax_form(x, clip=True):
     return zigzag.clip01(rgb) if clip else rgb
 
 
+def copy_yardsticks(shape):
+    """The launch floor at ``shape`` f32, timed as the kernels are: a
+    forward's (``Tensor.copy_``: one read, one write) and a backward's
+    (``torch.add(a, b, out=c)``: two reads, one write)."""
+    a, b, c = (torch.rand(shape, device="cuda") for _ in range(3))
+    return time_ms(lambda: c.copy_(a)), time_ms(
+        lambda: torch.add(a, b, out=c))
+
+
+def nonfinite_input(g, shape, nan_at, inf_at, cot_nan_at, lo=0.0, hi=1.0,
+                    out_shape=None):
+    """(x, cotangent of ``out_shape``, default x's) with a NaN and an +Inf
+    value in x and a NaN in the cotangent."""
+    x = lo + (hi - lo) * torch.rand(shape, device="cuda", generator=g)
+    cot = torch.randn(out_shape or shape, device="cuda", generator=g)
+    x[nan_at] = float("nan")
+    x[inf_at] = float("inf")
+    cot[cot_nan_at] = float("nan")
+    return x, cot
+
+
+def check_nonfinite(what, fn, plain, x, cot, fwd_atol):
+    """Kernel and plain version at a non-finite input: forward and
+    gradient NaN at the same places (and ±Inf where the plain version's
+    are), the rest within ``fwd_atol`` (0: EQUAL) forward and
+    ``FUSED_GRAD_RTOL`` of the plain gradient's finite max backward."""
+    (yk,), (gk,) = grads_of(fn, [x], [True], cot)
+    (yp,), (gp,) = grads_of(plain, [x], [True], cot)
+    torch.cuda.synchronize()
+    for name, k, p in (("forward", yk, yp), ("gradient", gk, gp)):
+        check(torch.equal(k.isnan(), p.isnan()) and torch.equal(
+            k.isinf(), p.isinf()) and torch.equal(k[k.isinf()], p[p.isinf()]),
+            f"{what} {name}: NaN or Inf at other places than the plain "
+            f"version's ({int(k.isnan().sum())} vs {int(p.isnan().sum())} "
+            f"NaN)")
+    fin = yp.isfinite()
+    fe = float((yk[fin] - yp[fin]).abs().max())
+    check(fe <= fwd_atol, f"{what} forward: {fe}")
+    fin = gp.isfinite()
+    ge = float((gk[fin] - gp[fin]).abs().max())
+    gmax = float(gp[fin].abs().max())
+    check(ge <= FUSED_GRAD_RTOL * gmax, f"{what} gradient: {ge}")
+    print(f"check {what}: NaN {int(yp.isnan().sum())} forward, "
+          f"{int(gp.isnan().sum())} gradient, at the plain version's "
+          f"places; finite forward max_abs_err={fe:.3g}, gradient "
+          f"{ge:.3g} (plain max {gmax:.3g})")
+    return max(fe, ge)
+
+
 def check_zigzag(rows, card):
     """K16: forward within ``ZIGZAG_ATOL`` and the input gradient within
     ``FUSED_GRAD_RTOL`` of the plain max, with and without the clip, at
-    HiDDeN's shape and a ragged one, the clip's ½ tie and its 0 included;
-    timed forward + backward (the train step's launches) warm and with a
-    cold L2 beside the plain version and the JAX form (yardstick)."""
+    HiDDeN's shape, a ragged one and one 8×8 block, the clip's ½ tie and
+    its 0 included; NaN / Inf pixels and a NaN cotangent NaN where the
+    plain version's are; timed forward + backward (the train step's
+    launches) warm and with a cold L2 beside the plain version, the JAX
+    form (yardstick) and the copy yardsticks."""
     row = rows["zigzag_jpeg"]
     g = torch.Generator("cuda").manual_seed(61)
     err = 0.0
-    for shape in (HID_SHAPE, (3, 40, 24, 3)):
+    for shape in (HID_SHAPE, (3, 40, 24, 3), (1, 8, 8, 3)):
         x = zigzag_input(g, shape)
         cot = torch.randn(shape, device="cuda", generator=g)
         for clip in (False, True):
@@ -2007,6 +2066,14 @@ def check_zigzag(rows, card):
             print(f"check zigzag_jpeg {shape} f32 clip={clip}: forward "
                   f"max_abs_err={fe:.3g} gradient max_abs_err={ge:.3g} "
                   f"(plain max {float(gp.abs().max()):.3g})")
+    for clip in (False, True):
+        x, cot = nonfinite_input(g, HID_SHAPE, (0, 3, 5, 1), (2, 70, 33, 0),
+                                 (5, 100, 17, 2), -0.1, 1.1)
+        err = max(err, check_nonfinite(
+            f"zigzag_jpeg non-finite clip={clip}",
+            lambda v: zigzag.zigzag_jpeg(v, clip=clip),
+            lambda v: zigzag.zigzag_jpeg_plain(v, clip=clip), x, cot,
+            ZIGZAG_ATOL))
     row.err = err
     nb = nbytes(torch.empty(HID_SHAPE))
     sets = cold_sets(lambda i: (zigzag_input(g, HID_SHAPE), torch.randn(
@@ -2016,52 +2083,84 @@ def check_zigzag(rows, card):
     pf, pb, _, _ = fused_times(lambda v: zigzag.zigzag_jpeg_plain(
         v, clip=True), sets[:1], [True])
     yf, yb, _, _ = fused_times(zigzag_jax_form, sets[:1], [True])
-    moved = 2 * nb + 3 * nb  # forward x, y; backward x, g, gx
+    copy_ms, add_ms = copy_yardsticks(HID_SHAPE)
+    # the bytes the design moves: forward x, y and the clip's byte codes
+    # (nb / 4); backward the codes, g and gx
+    launch_bytes = 2 * nb + nb // 4
+    moved = 2 * launch_bytes
     ops = HID_B * HID_S * HID_S * 3 * sum(ZIGZAG_OPS)
     row.add(kf + kb, pf + pb, moved, ops, yardstick_ms=yf + yb,
             cold_ms=cf + cb)
-    bf, bb = bound(2 * nb, 0)[0], bound(3 * nb, 0)[0]
-    print(f"check zigzag_jpeg {HID_SHAPE} ms fwd={kf:.4f} bwd={kb:.4f} cold "
-          f"fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} bwd={pb:.4f} "
-          f"jax_form_yardstick fwd={yf:.4f} bwd={yb:.4f} bound_ms "
-          f"fwd={bf:.5f} bwd={bb:.5f} share_of_bound fwd={bf / kf:.3f} "
-          f"bwd={bb / kb:.3f} [{card}]")
+    row.extra.update({"copy_yardstick_ms": {"fwd": copy_ms, "bwd": add_ms},
+                      "fwd_ms": kf, "bwd_ms": kb})
+    bf = bb = bound(launch_bytes, 0)[0]
+    print(f"check zigzag_jpeg {HID_SHAPE} ms fwd={kf:.5f} bwd={kb:.5f} cold "
+          f"fwd={cf:.5f} bwd={cb:.5f} plain fwd={pf:.4f} bwd={pb:.4f} "
+          f"jax_form_yardstick fwd={yf:.4f} bwd={yb:.4f} copy_yardstick "
+          f"fwd={copy_ms:.5f} bwd={add_ms:.5f} bound_ms fwd={bf:.5f} "
+          f"bwd={bb:.5f} share_of_bound fwd={bf / kf:.3f} bwd={bb / kb:.3f} "
+          f"[{card}]")
 
 
 CROP_APEXES = [(10.0, 100.0, 3.0, 128.0), (0.0, 128.0, 0.0, 128.0),
                (57.0, 128.0, 0.0, 71.0), (30.0, 31.0, 64.0, 65.0)]
+# (shape, apex, out_hw): HiDDeN's shape at each window above; a ragged
+# batch and size; rows of 120 bytes (not a multiple of 16: the element-wise
+# copies) with the window at the right edge; another output size
+CROP_CASES = [(HID_SHAPE, a, None) for a in CROP_APEXES] + [
+    ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0), None),
+    ((2, 24, 10, 3), (3.0, 20.0, 4.0, 10.0), None),
+    ((2, 40, 24, 3), (6.0, 38.0, 2.0, 21.0), (32, 48))]
 
 
 def check_crop_resize(rows, card):
     """K17: forward EQUAL to the plain version and the input gradient
-    within ``FUSED_GRAD_RTOL`` of the plain max, at HiDDeN's shape (windows
-    at the edges, the whole image and a single pixel) and a ragged one;
-    timed forward + backward warm and with a cold L2 beside the plain
-    version and ``F.interpolate`` of the sliced window (the library call of
-    the same function, its window on the host)."""
+    within ``FUSED_GRAD_RTOL`` of the plain max and bit-identical over two
+    calls, at ``CROP_CASES`` (HiDDeN's shape at windows at the edges, the
+    whole image and a single pixel; a ragged one; rows off the 16-byte grid;
+    another output size); NaN / Inf pixels and a NaN cotangent NaN where
+    the plain version's are; timed forward + backward warm and with a cold
+    L2 beside the plain version, ``F.interpolate`` of the sliced window
+    (the library call of the same function, its window on the host) and
+    the copy yardsticks."""
     row = rows["crop_resize"]
     g = torch.Generator("cuda").manual_seed(62)
     err = 0.0
-    cases = [(HID_SHAPE, a) for a in CROP_APEXES] + [
-        ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0))]
-    for shape, apex in cases:
+    for shape, apex, out_hw in CROP_CASES:
         x = torch.rand(shape, device="cuda", generator=g)
-        cot = torch.randn(shape, device="cuda", generator=g)
+        oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+        cot = torch.randn(oshape, device="cuda", generator=g)
         ap = torch.tensor(apex, device="cuda")
-        (yk,), (gk,) = grads_of(lambda v: crop_resize.crop_resize(v, ap),
-                                [x], [True], cot)
+        fn = lambda v: crop_resize.crop_resize(v, ap, out_hw)  # noqa: E731
+        (yk,), (gk,) = grads_of(fn, [x], [True], cot)
         (yp,), (gp,) = grads_of(lambda v: crop_resize.crop_resize_plain(
-            v, ap), [x], [True], cot)
+            v, ap, out_hw), [x], [True], cot)
+        _, (gk2,) = grads_of(fn, [x], [True], cot)
         torch.cuda.synchronize()
         ge = float((gk - gp).abs().max())
-        check(torch.equal(yk, yp), f"crop_resize {shape} {apex}: forward "
-              f"differs by {float((yk - yp).abs().max())}")
+        what = f"crop_resize {shape} apex {apex} out_hw {out_hw}"
+        check(torch.equal(yk, yp), f"{what}: forward differs by "
+              f"{float((yk - yp).abs().max())}")
         check(ge <= FUSED_GRAD_RTOL * float(gp.abs().max()),
-              f"crop_resize {shape} {apex} gradient: {ge}")
+              f"{what} gradient: {ge}")
+        check(torch.equal(gk, gk2), f"{what}: gradient not deterministic")
         err = max(err, ge)
-        print(f"check crop_resize {shape} apex {apex}: forward equal to "
-              f"plain; gradient max_abs_err={ge:.3g} (plain max "
-              f"{float(gp.abs().max()):.3g})")
+        print(f"check {what}: forward equal to plain; gradient "
+              f"max_abs_err={ge:.3g} (plain max {float(gp.abs().max()):.3g}),"
+              f" equal over two calls")
+    for shape, apex, out_hw, at in (
+            (HID_SHAPE, CROP_APEXES[0], None,
+             ((1, 40, 50, 0), (3, 99, 3, 2), (6, 20, 127, 1))),
+            ((2, 40, 24, 3), (6.0, 38.0, 2.0, 21.0), (32, 48),
+             ((0, 6, 2, 1), (1, 37, 20, 0), (1, 31, 47, 2)))):
+        oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+        x, cot = nonfinite_input(g, shape, *at, out_shape=oshape)
+        ap = torch.tensor(apex, device="cuda")
+        err = max(err, check_nonfinite(
+            f"crop_resize non-finite {shape} apex {apex} out_hw {out_hw}",
+            lambda v: crop_resize.crop_resize(v, ap, out_hw),
+            lambda v: crop_resize.crop_resize_plain(v, ap, out_hw), x, cot,
+            0.0))
     row.err = err
     apex = CROP_APEXES[0]
     ap = torch.tensor(apex, device="cuda")
@@ -2079,17 +2178,37 @@ def check_crop_resize(rows, card):
         v.permute(0, 3, 1, 2)[..., h0:h1, w0:w1], size=(HID_S, HID_S),
         mode="bilinear", align_corners=False).permute(0, 2, 3, 1),
         sets[:1], [True])
+    copy_ms, add_ms = copy_yardsticks(HID_SHAPE)
     window = nb * (h1 - h0) * (w1 - w0) // (HID_S * HID_S)
     moved = window + nb + 2 * nb  # forward window, y; backward g, gx
     ops = HID_B * HID_S * HID_S * 3 * sum(CROP_OPS)
     row.add(kf + kb, pf + pb, moved, ops, library_ms=lf + lb,
             cold_ms=cf + cb)
+    row.extra.update({"copy_yardstick_ms": {"fwd": copy_ms, "bwd": add_ms},
+                      "fwd_ms": kf, "bwd_ms": kb})
     bf, bb = bound(window + nb, 0)[0], bound(2 * nb, 0)[0]
-    print(f"check crop_resize {HID_SHAPE} apex {apex} ms fwd={kf:.4f} "
-          f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} "
+    print(f"check crop_resize {HID_SHAPE} apex {apex} ms fwd={kf:.5f} "
+          f"bwd={kb:.5f} cold fwd={cf:.5f} bwd={cb:.5f} plain fwd={pf:.4f} "
           f"bwd={pb:.4f} F.interpolate_library fwd={lf:.4f} bwd={lb:.4f} "
+          f"copy_yardstick fwd={copy_ms:.5f} bwd={add_ms:.5f} "
           f"bound_ms fwd={bf:.5f} bwd={bb:.5f} share_of_bound "
           f"fwd={bf / kf:.3f} bwd={bb / kb:.3f} [{card}]")
+
+
+def check_hidden_build(card):
+    """Registers and local memory (spills and stack) of K16's and K17's
+    kernels in the built library (``kernel_report.library_report``); fails
+    on local memory."""
+    found = kernel_report.library_report(
+        _lib.library_path(), ("zigzag_kernel", "crop_resize_fwd",
+                              "crop_resize_bwd"))
+    check(len(found) == 6, f"expected 6 K16/K17 kernels, found {len(found)}")
+    for r in found:
+        print(f"kernel_report {r['kernel']} registers={r['registers']} "
+              f"local_bytes={r['local_bytes']} stack_bytes={r['stack_bytes']} "
+              f"[{card}]")
+        check(r["local_bytes"] == 0 and r["stack_bytes"] == 0,
+              f"{r['kernel']} spills (local memory)")
 
 
 # ------------------------------------------------------------ phase 4
@@ -3267,6 +3386,7 @@ def main():
     check_down_num_4(rows, card)
     check_zigzag(rows, card)
     check_crop_resize(rows, card)
+    check_hidden_build(card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 

@@ -33,9 +33,15 @@ as K2's other shapes are. K16 ``zigzag_jpeg``'s forward is within 2e-6 of
 its plain version (the DCT sums in another order than ``torch.matmul``)
 and its gradient within 1e-6 of the plain max, and on a block whose z is
 exactly 0 its gradient is exactly ½ of the unclipped one (``jnp.clip``'s
-tie); K17 ``crop_resize``'s forward is EQUAL to its plain version (each tap
-one IEEE rounding in the plain order) and its gradient within 1e-6 of the
-plain max (autograd's scatter-adds sum in another order).
+tie); K17
+``crop_resize``'s forward is EQUAL to its plain version (each tap one IEEE
+rounding in the plain order) and its gradient within 1e-6 of the plain max
+(autograd's scatter-adds sum in another order), on rows off the 16-byte
+grid, to another output size and at its width limit too (one pixel wider
+raises before any launch); K16 on a view off the 16-byte grid too (the
+wrapper copies it onto the grid). With NaN and Inf pixels and a NaN
+cotangent, K16's and K17's outputs and gradients are NaN (and ±Inf) where
+their plain versions' are, and within those tolerances elsewhere.
 """
 
 import dataclasses
@@ -1173,24 +1179,145 @@ def test_zigzag_jpeg_matches_plain(cuda, shape, clip):
 
 
 # K17: windows inside, whole, at the edges and of one pixel, at HiDDeN's
-# path shape, and a ragged batch and size
-@pytest.mark.parametrize("shape,apex", [
-    ((8, 128, 128, 3), (10.0, 100.0, 3.0, 128.0)),
-    ((8, 128, 128, 3), (0.0, 128.0, 0.0, 128.0)),
-    ((8, 128, 128, 3), (30.0, 31.0, 64.0, 65.0)),
-    ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0))])
-def test_crop_resize_matches_plain(cuda, shape, apex):
+# path shape; a ragged batch and size; rows of 120 bytes (not a multiple of
+# 16: the kernels' element-wise copies) with the window at the right edge;
+# another output size
+@pytest.mark.parametrize("shape,apex,out_hw", [
+    ((8, 128, 128, 3), (10.0, 100.0, 3.0, 128.0), None),
+    ((8, 128, 128, 3), (0.0, 128.0, 0.0, 128.0), None),
+    ((8, 128, 128, 3), (30.0, 31.0, 64.0, 65.0), None),
+    ((3, 40, 24, 3), (5.0, 27.0, 0.0, 13.0), None),
+    ((2, 24, 10, 3), (3.0, 20.0, 4.0, 10.0), None),
+    ((2, 40, 24, 3), (6.0, 38.0, 2.0, 21.0), (32, 48))])
+def test_crop_resize_matches_plain(cuda, shape, apex, out_hw):
     g = _gen(62)
     x = torch.rand(shape, device=cuda, generator=g)
-    cot = torch.randn(shape, device=cuda, generator=g)
+    oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+    cot = torch.randn(oshape, device=cuda, generator=g)
     ap = torch.tensor(apex, device=cuda)
+    fn = lambda v: crop_resize.crop_resize(v, ap, out_hw)  # noqa: E731
     before = launch_counts()["crop_resize"]
-    yk, gk = _grads(lambda v: crop_resize.crop_resize(v, ap), x, cot)
+    yk, gk = _grads(fn, x, cot)
     assert launch_counts()["crop_resize"] == before + 2
+    yp, gp = _grads(lambda v: crop_resize.crop_resize_plain(v, ap, out_hw),
+                    x, cot)
+    torch.cuda.synchronize()
+    assert yk.shape == oshape and torch.equal(yk, yp)
+    assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+    # the gradient is deterministic (no float atomics)
+    assert torch.equal(gk, _grads(fn, x, cot)[1])
+
+
+# K17 at its size limit: the widest 8-row RGB image whose CTAs fit the
+# card's shared memory (one row a CTA, 227 KB), on rows off the 16-byte grid
+# and on it; one pixel wider is refused before any launch
+@pytest.mark.parametrize("aligned", [False, True])
+def test_crop_resize_at_the_width_limit(cuda, aligned):
+    w = crop_resize.max_width(8, 3, 8)
+    if aligned:
+        w -= w % 4  # rows of 12·w bytes on the 16-byte grid
+    assert max(crop_resize.smem_bytes(8, w, 3, 8, w)) <= crop_resize.SMEM_CTA
+    g = _gen(67)
+    x = torch.rand((1, 8, w, 3), device=cuda, generator=g)
+    cot = torch.randn((1, 8, w, 3), device=cuda, generator=g)
+    ap = torch.tensor((1.0, 7.0, 5.0, w - 3.0), device=cuda)
+    yk, gk = _grads(lambda v: crop_resize.crop_resize(v, ap), x, cot)
     yp, gp = _grads(lambda v: crop_resize.crop_resize_plain(v, ap), x, cot)
     torch.cuda.synchronize()
     assert torch.equal(yk, yp)
     assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
-    # the gradient is deterministic (no float atomics)
-    assert torch.equal(gk, _grads(lambda v: crop_resize.crop_resize(v, ap),
-                                  x, cot)[1])
+    wide = torch.rand((1, 8, crop_resize.max_width(8, 3, 8) + 1, 3),
+                      device=cuda, generator=g).requires_grad_()
+    before = launch_counts()["crop_resize"]
+    with pytest.raises(ValueError, match="rows too wide"):
+        crop_resize.crop_resize(wide, ap)
+    assert launch_counts()["crop_resize"] == before
+
+
+def _nonfinite(shape, out_shape, nan_at, inf_at, cot_nan_at, lo, hi, seed):
+    g = _gen(seed)
+    x = lo + (hi - lo) * torch.rand(shape, device="cuda", generator=g)
+    cot = torch.randn(out_shape, device="cuda", generator=g)
+    x[nan_at], x[inf_at], cot[cot_nan_at] = (float("nan"), float("inf"),
+                                              float("nan"))
+    return x, cot
+
+
+def _same_nonfinite(got, want, atol, rel):
+    """NaN and ±Inf at the same places; the rest within ``atol`` plus
+    ``rel`` of the finite max."""
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    err = float((got[fin] - want[fin]).abs().max())
+    assert err <= atol + rel * float(want[fin].abs().max()), err
+
+
+# a NaN and an Inf pixel inside the window, a NaN in the cotangent: NaN
+# where the plain version's are, forward and backward
+@pytest.mark.parametrize("shape,apex,out_hw", [
+    ((8, 128, 128, 3), (10.0, 100.0, 3.0, 128.0), None),
+    ((2, 40, 24, 3), (6.0, 38.0, 2.0, 21.0), (32, 48))])
+def test_crop_resize_nonfinite_as_plain(cuda, shape, apex, out_hw):
+    oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+    x, cot = _nonfinite(shape, oshape, (1, 30, 12, 0), (0, 6, 2, 2),
+                        (1, 31, 20, 1), 0.0, 1.0, 64)
+    ap = torch.tensor(apex, device=cuda)
+    yk, gk = _grads(lambda v: crop_resize.crop_resize(v, ap, out_hw), x, cot)
+    yp, gp = _grads(lambda v: crop_resize.crop_resize_plain(v, ap, out_hw),
+                    x, cot)
+    torch.cuda.synchronize()
+    assert bool(yp.isnan().any()) and bool(gp.isnan().any())
+    _same_nonfinite(yk, yp, 0.0, 0.0)
+    _same_nonfinite(gk, gp, 0.0, 1e-6)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_zigzag_jpeg_nonfinite_as_plain(cuda, clip):
+    shape = (8, 128, 128, 3)
+    x, cot = _nonfinite(shape, shape, (0, 3, 5, 1), (2, 70, 33, 0),
+                        (5, 100, 17, 2), -0.1, 1.1, 65)
+    yk, gk = _grads(lambda v: zigzag.zigzag_jpeg(v, clip=clip), x, cot)
+    yp, gp = _grads(lambda v: zigzag.zigzag_jpeg_plain(v, clip=clip), x, cot)
+    torch.cuda.synchronize()
+    assert int(yp.isnan().sum()) == 2 * 192  # two 8×8 blocks × 3 channels
+    _same_nonfinite(yk, yp, 2e-6, 0.0)
+    _same_nonfinite(gk, gp, 0.0, 1e-6)
+
+
+# K16 on a view 4 bytes off the 16-byte grid, forward and backward: the
+# wrapper hands the kernel an aligned copy
+def test_zigzag_jpeg_off_the_16_byte_grid_matches_plain(cuda):
+    g = _gen(68)
+    shape = (2, 16, 24, 3)
+    n = int(np.prod(shape))
+    x = (torch.rand(n + 1, device=cuda, generator=g) * 1.2 - 0.1)[1:]
+    x = x.view(shape)
+    cot = torch.randn(n + 1, device=cuda, generator=g)[1:].view(shape)
+    assert x.data_ptr() % 16 and cot.data_ptr() % 16
+    for clip in (False, True):
+        xr = x.detach().requires_grad_()  # the view itself, off the grid
+        yk = zigzag.zigzag_jpeg(xr, clip=clip)
+        (gk,) = torch.autograd.grad(yk, xr, cot)
+        yk = yk.detach()
+        yp, gp = _grads(lambda v: zigzag.zigzag_jpeg_plain(v, clip=clip), x,
+                        cot)
+        torch.cuda.synchronize()
+        assert float((yk - yp).abs().max()) <= 2e-6
+        assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+
+
+# K16 on one 8×8 block: a unit mostly empty
+def test_zigzag_jpeg_one_block_matches_plain(cuda):
+    g = _gen(66)
+    shape = (1, 8, 8, 3)
+    x = torch.rand(shape, device=cuda, generator=g) * 1.2 - 0.1
+    cot = torch.randn(shape, device=cuda, generator=g)
+    for clip in (False, True):
+        yk, gk = _grads(lambda v: zigzag.zigzag_jpeg(v, clip=clip), x, cot)
+        yp, gp = _grads(lambda v: zigzag.zigzag_jpeg_plain(v, clip=clip), x,
+                        cot)
+        torch.cuda.synchronize()
+        assert float((yk - yp).abs().max()) <= 2e-6
+        assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())

@@ -453,6 +453,31 @@ def test_guard_keeps_every_tensor_on_a_nan_batch(jmodel, jstates):
         np.testing.assert_array_equal(a, b)
 
 
+def test_guard_keeps_every_tensor_on_an_inf_pixel_through_jpeg_mask(
+        jmodel, jstates):
+    """F21 at the caller: one Inf pixel in one image on the jpeg_mask
+    member, whose NaN footprint is the pixel's 8×8 block in the port and
+    the whole image in JAX. Both report a non-finite loss and keep every
+    parameter, BatchNorm statistic, Adam moment and count of the three
+    nets: no caller sees the difference."""
+    images, msgs = _images(9), _messages(9)
+    images[0, 5, 6, 1] = np.inf
+    port = _port(TOOL.trees_of(jstates))
+    before = [t.clone() for n in port.nets() for t in port._tensors(n)]
+    logs = port.train_step(images, msgs, HiddenDraws("jpeg_mask"))
+    assert not np.isfinite(float(logs["loss"]))
+    after = [t for n in port.nets() for t in port._tensors(n)]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    key, _ = _KEYS["jpeg_mask"]
+    new, jlogs = jmodel.train_step(
+        jax.tree_util.tree_map(jnp.array, jstates), jnp.asarray(images),
+        jnp.asarray(msgs), key)
+    assert not np.isfinite(float(jlogs["loss"]))
+    for a, b in zip(jax.tree_util.tree_leaves(TOOL.trees_of(new)),
+                    jax.tree_util.tree_leaves(TOOL.trees_of(jstates))):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.fixture(scope="module")
 def trained():
     """The committed step-23,000 orbax checkpoint, converted in-test."""

@@ -21,7 +21,11 @@ Tolerances and why:
   (``jnp.clip``'s tie), on a block of 2s exactly 0;
 * ``crop_resize`` forward within 1e-6 absolute (XLA may fuse the tap
   products) and its gradient within 1e-6 of the JAX gradient's max
-  (scatter-adds in another order);
+  (scatter-adds in another order); with NaN and Inf pixels the same, and
+  NaN and ±Inf at the same places;
+* F21: a NaN or Inf pixel makes ``zigzag_jpeg``'s 8×8 block NaN in the
+  port and the whole image NaN in JAX (dense block-diagonal products):
+  both footprints are pinned;
 * cropout, dropout and the pixel-noise members: EQUAL.
 """
 
@@ -133,6 +137,35 @@ def test_clip01_gradient_is_jnp_clip_s():
     assert torch.isnan(zigzag.clip01(torch.tensor([float("nan")]))).all()
 
 
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_zigzag_jpeg_nonfinite_footprint_f21(bad):
+    """F21, pinned both ways: a NaN or Inf value in image 0 makes the
+    port's ``zigzag_jpeg(clip=True)`` (K16's plain version, blockwise like
+    K16) NaN on exactly its 8×8 block × 3 channels, forward and in the
+    gradient of a squared error, and JAX's (dense block-diagonal ``dct8x8``,
+    whose zeros multiply the NaN) NaN on the whole image; image 1 agrees
+    with JAX within the tolerances above."""
+    x = _image(6)
+    x[0, 10, 13, 1] = bad
+    target = np.random.default_rng(7).random(x.shape).astype(np.float32)
+    want = np.asarray(_JIT_JPEG_CLIP(x))
+    gwant = np.asarray(jax.grad(lambda v: jnp.sum(
+        (_JIT_JPEG_CLIP(v) - target) ** 2))(x))
+    xt = _t(x).requires_grad_(True)
+    y = hidden_jpeg_mask_compression(xt, clip=True)
+    ((y - _t(target)) ** 2).sum().backward()
+    block = np.zeros(x.shape, bool)
+    block[0, 8:16, 8:16] = True
+    np.testing.assert_array_equal(np.isnan(y.detach().numpy()), block)
+    np.testing.assert_array_equal(np.isnan(xt.grad.numpy()), block)
+    assert np.isnan(want[0]).all() and np.isnan(gwant[0]).all()
+    assert np.isfinite(want[1]).all() and np.isfinite(gwant[1]).all()
+    np.testing.assert_allclose(y.detach().numpy()[1], want[1], rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(xt.grad.numpy()[1], gwant[1], rtol=0,
+                               atol=1e-6 * np.abs(gwant[1]).max())
+
+
 def test_zigzag_wrapper_takes_the_plain_version_on_the_cpu():
     x = _t(_image(3, (1, 16, 8, 3)))
     before = launch_counts()
@@ -172,6 +205,49 @@ def test_crop_resize_matches_jax(apex):
     assert torch.equal(crop_resize.crop_resize(_t(x), apex),
                        crop_resize.crop_resize_plain(_t(x),
                                                      torch.tensor(apex)))
+
+
+# XLA's algsimp turns the division by an output side into a product with
+# its reciprocal (one ulp off the coordinates); the plain version divides
+_NO_ALGSIMP = {"xla_disable_hlo_passes": "algsimp"}
+
+
+@pytest.mark.parametrize("apex,out_hw", [((3.0, 20.0, 5.0, 29.0), None),
+                                         ((3.0, 20.0, 5.0, 29.0), (24, 40)),
+                                         ((0.0, 32.0, 0.0, 32.0), (40, 16))])
+def test_crop_resize_nonfinite_matches_jax(apex, out_hw):
+    """A NaN and an Inf pixel inside the window and a NaN in the
+    cotangent, also to another output size: K17's plain version is NaN
+    (and ±Inf) exactly where JAX's is, forward and gradient (each tap
+    multiplies, a weight of 0 too), and within 1e-6 elsewhere."""
+    x = _image(8, lo=0.0, hi=1.0)
+    x[0, 7, 9, 1] = np.nan
+    x[1, 12, 20, 0] = np.inf
+    oshape = x.shape if out_hw is None else (2, *out_hw, 3)
+    cot = np.random.default_rng(9).standard_normal(oshape).astype(np.float32)
+    cot[1, 5, 6, 2] = np.nan
+    a = jnp.asarray(apex, jnp.float32)
+
+    def ref(v, a):
+        return jresize.crop_resize(v, a, out_hw)
+    want = np.asarray(jax.jit(ref).lower(x, a).compile(
+        compiler_options=_NO_ALGSIMP)(x, a))
+    grad = jax.grad(lambda v, a, c: jnp.sum(ref(v, a) * c))
+    gwant = np.asarray(jax.jit(grad).lower(x, a, cot).compile(
+        compiler_options=_NO_ALGSIMP)(x, a, cot))
+    xt = _t(x).requires_grad_(True)
+    y = crop_resize.crop_resize(xt, torch.tensor(apex), out_hw)
+    (y * _t(cot)).sum().backward()
+    for got, ref_, scale in ((y.detach().numpy(), want, False),
+                             (xt.grad.numpy(), gwant, True)):
+        assert np.isnan(ref_).any()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref_))
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(ref_))
+        fin = np.isfinite(ref_)
+        np.testing.assert_array_equal(got[np.isinf(got)],
+                                      ref_[np.isinf(ref_)])
+        atol = 1e-6 * (np.abs(ref_[fin]).max() if scale else 1.0)
+        np.testing.assert_allclose(got[fin], ref_[fin], rtol=0, atol=atol)
 
 
 def _uniforms(keys, shape=()):

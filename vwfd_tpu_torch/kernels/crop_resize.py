@@ -11,20 +11,33 @@ serves the same end). Half-pixel centres; each output row's two taps clamp
 to the window (``bounds=(h0, h1 − 1)``), not to the image; rows first, then
 columns. The plain version is ``ops/resize.py::crop_resize``.
 
-Bound: bytes. At the HiDDeN path's (8, 3, 128, 128) f32 the forward reads
+Bound: bytes. At the HiDDeN path's (8, 128, 128, 3) f32 the forward reads
 at most the whole image and writes 1.57 MB, under a microsecond at 3.35 TB/s
 (H100 SXM data sheet, 700 W): below a launch's fixed cost. On the path it
 replaces a gather chain (coordinates, floors, clamps, four gathers, the
 products and sums) with one launch.
 
-Design (``csrc/crop_resize.cu``): a thread per output pixel, its channels in
-a loop, its taps recomputed from the apex with the plain version's float32
-operations, each product and sum one IEEE rounding in the plain order: the
-forward is EQUAL to the plain version. The backward is the transpose in
-gather form, a thread per input pixel summing over the output rows and
-columns that tap it (found by binary search; the taps are monotone):
-deterministic, no float atomics, within 1e-6 of the plain gradient's max
-(autograd sums the same products in another order).
+Design (``csrc/crop_resize.cu``): a CTA owns a band of 4 rows of one image
+(256 CTAs at HiDDeN's shape) and builds the tap tables it needs once, in
+shared memory, with the plain version's float32 operations. The forward
+bulk-copies the run of window rows its output band taps into shared memory,
+gathers each output pixel's four taps there, each product and sum one IEEE
+rounding in the plain order (EQUAL to the plain version), and bulk-stores
+the band. The backward is the separable transpose in autograd's order: the
+band of input rows finds the output rows and columns that tap it from the
+monotone tables (no search, no division per pixel), bulk-copies that run of
+g, sums the W transpose and then the H transpose in shared memory, each
+tap's terms apart as autograd's two index_adds keep them (a NaN in g
+reaches the same pixels), and bulk-stores the band: deterministic, no
+float atomics, within 1e-6 of the plain gradient's max (autograd sums the
+same products in another order). Rows not a multiple of 16 bytes take
+element-wise copies in the same kernels.
+
+Size limit: a CTA holds whole rows in shared memory, at least one row of
+each kind and the tap tables of both axes, within the card's 227 KB a CTA
+(``max_width``). RGB images fit up to 2,234 pixels square (1920 × 1080
+too); a larger CUDA input raises ``ValueError`` before any launch. The
+plain version (CPU tensors) has no limit.
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -34,7 +47,8 @@ import torch
 from . import _lib
 from ..ops.resize import crop_resize as crop_resize_plain
 
-__all__ = ["crop_resize", "crop_resize_plain", "as_apex", "COUNT"]
+__all__ = ["crop_resize", "crop_resize_plain", "as_apex", "smem_bytes",
+           "max_width", "COUNT"]
 
 COUNT = _lib.LaunchCount("crop_resize")
 
@@ -59,8 +73,49 @@ def _check(x: torch.Tensor) -> None:
         raise TypeError(f"crop_resize takes a float tensor, got {x.dtype}")
 
 
+SMEM_CTA = 227 * 1024  # sm_90's shared memory a CTA
+
+
+def smem_bytes(h: int, w: int, c: int, oh: int, ow: int) -> Tuple[int, int]:
+    """The shared memory of the kernels' smallest CTAs, (forward,
+    backward): one band row, its three staged input rows and its output row;
+    one band row, one staged g row and their sums, with the tables of both
+    axes (``fwd_smem`` and ``bwd_smem`` of ``csrc/crop_resize.cu`` at one
+    row)."""
+    head, taps = 64, 16
+    fwd = head + (ow + 1) * taps + (min(h, 3) * w + ow) * c * 4
+    bwd = (head + (oh + ow + w + 1) * taps + (2 * ow * 4 + 15) // 16 * 16
+           + (3 * w + ow) * c * 4)
+    return fwd, bwd
+
+
+def max_width(h: int, c: int, oh: int) -> int:
+    """The widest input (and output, of the same width) whose forward and
+    backward fit the kernels, for ``h`` rows, ``c`` channels and ``oh``
+    output rows."""
+    lo, hi = 0, SMEM_CTA
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if max(smem_bytes(h, mid, c, oh, mid)) <= SMEM_CTA:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _check_fits(shape, oh: int, ow: int, backward: bool) -> None:
+    _, h, w, c = shape
+    need = smem_bytes(h, w, c, oh, ow)[int(backward)]
+    if need > SMEM_CTA:
+        raise ValueError(
+            f"crop_resize kernel: rows too wide for shared memory: "
+            f"{tuple(shape)} to ({oh}, {ow}) needs {need} bytes a CTA "
+            f"{'backward' if backward else 'forward'}, the card holds "
+            f"{SMEM_CTA} (max_width)")
+
+
 class _CropResizeFn(torch.autograd.Function):
-    """K17 under autograd: the backward is K17's gather-form transpose."""
+    """K17 under autograd: the backward is K17's separable transpose."""
 
     @staticmethod
     def forward(ctx, x, apex, oh, ow):
@@ -98,5 +153,9 @@ def crop_resize(x: torch.Tensor, apex,
         return crop_resize_plain(x, apex, out_hw)
     if x.dtype != torch.float32:
         raise TypeError(f"the crop_resize kernel takes float32, got {x.dtype}")
-    oh, ow = out_hw if out_hw is not None else x.shape[1:3]
-    return _CropResizeFn.apply(x, apex, int(oh), int(ow))
+    oh, ow = (int(v) for v in (out_hw if out_hw is not None
+                               else x.shape[1:3]))
+    _check_fits(x.shape, oh, ow, False)
+    if torch.is_grad_enabled() and x.requires_grad:
+        _check_fits(x.shape, oh, ow, True)
+    return _CropResizeFn.apply(x, apex, oh, ow)

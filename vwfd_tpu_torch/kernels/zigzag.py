@@ -23,14 +23,24 @@ and writes 1.57 MB each, about 0.94 µs at 3.35 TB/s (H100 SXM data sheet,
 the plain version is about ten (colour, relayout, two products, the mask,
 two products, relayout, colour, clip).
 
-Design (``csrc/zigzag.cu``): a thread per column of an 8×8 block, 32 blocks
-a CTA; the DCT passes are 8-term FMA chains on the immediate matrix that K5
-shares (``csrc/common.cuh``), turned through a padded shared-memory tile.
-The backward recomputes z from x for the clip's derivative and runs the
-transposed chain (the transposed colour matrices around the same DCT, mask
-and IDCT, the DCT being orthonormal). The kernel sums the DCT in another
-order than ``torch.matmul``: within 2e-6 of the plain version forward and
-1e-6 of the plain gradient's max backward.
+Design (``csrc/zigzag.cu``, K5 ``jpeg_pair``'s): a CTA owns a unit of 8
+image rows × up to 8 blocks (256 CTAs at HiDDeN's shape), a thread per
+block column and channel; one thread moves the unit's rows into shared
+memory with 1-D bulk copies on an mbarrier and stores the result from the
+same stage. The DCT passes are 8-term FMA chains on the immediate matrix
+that K5 shares (``csrc/common.cuh``), in registers, turned through a padded
+shared-memory tile. The masked coefficients are multiplied by
+0, so a NaN or Inf pixel makes its 8×8 block NaN, as in the plain version
+(F21: JAX's dense block-diagonal einsum spreads it over the image). The
+backward runs the transposed chain (the transposed colour matrices around
+the same DCT, mask and IDCT, the DCT being orthonormal) on ``g·clip'(z)``,
+``clip'`` as the plain version's autograd gives it (½ at 0 and 1, 1 at NaN,
+exactly 0 outside [0, 1]), which the forward writes as a byte per value for
+it (recomputing z from x timed slower on the card, PERF.md §6). The kernel
+sums the DCT in another order than ``torch.matmul``: within 2e-6 of the
+plain version forward and 1e-6 of the plain gradient's max backward. The
+bulk copies need the image (or the cotangent) on a 16-byte boundary; a view
+off it is copied first.
 """
 
 import functools
@@ -96,29 +106,43 @@ def zigzag_jpeg_plain(x: torch.Tensor, keep=HIDDEN_KEEP, clip: bool = False
     return clip01(rgb) if clip else rgb
 
 
-def _launch(x, g, keep, clip):
-    out = torch.empty_like(x)
-    n, h, w, _ = x.shape
-    _lib.launch("vwfd_zigzag_jpeg", x.device, x.data_ptr(),
-                0 if g is None else g.data_ptr(), out.data_ptr(),
-                *keep_bits(keep), n, h, w, int(clip), int(g is not None))
+def _on_16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it is off a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, g, code, keep, clip):
+    """One launch: the forward (``g`` None) of x, writing the clip's codes
+    where ``code`` is given; the backward of g, reading them. ``x`` or ``g``
+    is on a 16-byte boundary; ``out`` is new, so it is too."""
+    src = x if g is None else g
+    out = torch.empty_like(src)
+    n, h, w, _ = src.shape
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    _lib.launch("vwfd_zigzag_jpeg", src.device, ptr(x), ptr(g), ptr(out),
+                ptr(code), *keep_bits(keep), n, h, w, int(clip),
+                int(g is not None))
     COUNT.n += 1
     return out
 
 
 class _ZigzagFn(torch.autograd.Function):
-    """K16 under autograd: the backward is K16's backward kernel."""
+    """K16 under autograd: the backward is K16's backward kernel, on the
+    clip's derivative that the forward saved as a byte per value."""
 
     @staticmethod
     def forward(ctx, x, keep, clip):
         ctx.keep, ctx.clip = keep, clip
-        ctx.save_for_backward(x)
-        return _launch(x, None, keep, clip)
+        code = (torch.empty(x.shape, device=x.device, dtype=torch.uint8)
+                if clip and ctx.needs_input_grad[0] else None)
+        ctx.save_for_backward(code)
+        return _launch(_on_16(x), None, code, keep, clip)
 
     @staticmethod
     def backward(ctx, g):
-        x, = ctx.saved_tensors
-        return _launch(x, g.contiguous(), ctx.keep, ctx.clip), None, None
+        code, = ctx.saved_tensors
+        return _launch(None, _on_16(g.contiguous()), code, ctx.keep,
+                       ctx.clip), None, None
 
 
 def zigzag_jpeg(x: torch.Tensor, keep=HIDDEN_KEEP, clip: bool = False
