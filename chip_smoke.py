@@ -160,7 +160,31 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    (yardstick) or K17's ``F.interpolate`` of the sliced window (library),
    and the copy yardsticks of the launch floor (``Tensor.copy_``,
    ``torch.add(out=)``); K16's and K17's kernels spill-free
-   (``kernel_report``).
+   (``kernel_report``). K17 also past its whole-row width (F22, repaired:
+   column tiles) at (1, 8, 2·``max_width``, 3) and on a 3840 × 2160 RGB
+   frame with an off-centre window, forward EQUAL, gradient within 1e-6 of
+   the plain max and bit-identical over two calls, each timed beside the
+   plain version and ``F.interpolate``;
+13. MBRS at full width (128², b16, message 30, 64 channels, 4 SE blocks,
+   diffusion 256, f32, random weights from a seed): one ``train_step`` per
+   noise mode (identity; hard JPEG at Q50 with its straight-through
+   gradient; soft JPEG at Q90) through ``KERNELS`` and ``PLAIN`` from the
+   same state, batch, messages and draws (the JPEG's flipped 8×8 blocks
+   between K5 and the plain DCT counted; loss terms within 1e-5 relative
+   and gradient cosines ≥ 0.9999 where none flipped, 1e-3 and 0.99 a
+   flipped block where some did), each with the launch counts at 0 just
+   before and read just after (K5 ``jpeg_pair`` ×0, ×1, ×2); an Inf pixel that moves
+   nothing; ``infer`` of each mode (K5 ×0, ×1, ×1); p50 of 10 train steps
+   after 2 warm-up, images/s, ``infer`` p50 and peak memory; the runner
+   (``run_family_convergence --task mbrs``) for 20 steps with an eval at
+   the last (PIL's libjpeg at QF 50, 70, 90), and the same run stopped at
+   step 10 and resumed, its images, messages and draws at steps 11-20
+   EQUAL to the unbroken run's. Phase 3 holds K5 as MBRS's ``jpeg_basic``
+   (weights (1, 0)) at (16, 128, 128, 3): modes 0 and 1 at Q50, 70 and 90,
+   forward and gradient within 1e-4 outside flipped blocks (counted); with
+   a NaN and an Inf pixel forward and gradient NaN where the plain
+   version's are (F23); timed forward + backward warm and cold beside the
+   plain version.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -174,7 +198,9 @@ bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
 K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
 roundtrip for K14 and K15, and per HiDDeN train step of the member that
-runs it for K16 and K17); the last
+runs it for K16 and K17; ``launches_by_path`` holds MBRS's paths, K5's
+entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
+whole-row width); the last
 line is
 ``{"ok": true,
 "device": {...}}``.
@@ -872,6 +898,108 @@ def check_jpeg(rows, card):
           f"(fwd {bound(fwd_bytes, 0)[0]:.4f} + bwd "
           f"{bound(bwd_bytes, 0)[0]:.4f}) share_of_bound={bms / (kf + kb):.3f}"
           f" cold_share={bms / (cf + cb):.3f} [{card}]")
+
+
+MBRS_B, MBRS_S = 16, 128         # MBRS's path: b16, 128², f32
+MBRS_SHAPE = (MBRS_B, MBRS_S, MBRS_S, 3)
+# K5 as jpeg_basic vs plain at MBRS's shape: 1e-4 outside flipped 8×8
+# blocks, which are at most this share of the 4,096 blocks (its inputs are
+# continuous, not 8-bit levels: more coefficients lie within rounding of a
+# .5 boundary than at the flagship's)
+MBRS_FLIP_SHARE = 1e-3
+
+
+def jpeg_basic_fns(q, rounding):
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    return (lambda v: jpeg_basic(v, q, rounding),
+            lambda v: jpeg_basic(v, q, rounding, kernels=PLAIN))
+
+
+def k5_against_plain(what, fn, plain, x, cot):
+    """Forward and gradient of K5 (``fn``) and its plain version at x: NaN
+    where the plain version's are, 1e-4 (of the gradient's max) outside
+    flipped blocks, at most ``MBRS_FLIP_SHARE`` of them; returns the
+    flipped blocks (forward, gradient) and the largest difference outside
+    them."""
+    (yk,), (gk,) = grads_of(fn, [x], [True], cot)
+    (yp,), (gp,) = grads_of(plain, [x], [True], cot)
+    torch.cuda.synchronize()
+    for name, k, p in (("forward", yk, yp), ("gradient", gk, gp)):
+        check(torch.equal(k.isnan(), p.isnan()),
+              f"{what} {name}: NaN at other places than the plain version's "
+              f"({int(k.isnan().sum())} vs {int(p.isnan().sum())})")
+    yk, yp, gk, gp = (torch.nan_to_num(t, nan=0.0) for t in (yk, yp, gk, gp))
+    gscale = float(gp.abs().max())
+    fb, blocks = flipped_blocks(yk, yp, JPEG_FLIP_ATOL)
+    gfb, _ = flipped_blocks(gk, gp, JPEG_FLIP_ATOL * gscale)
+    check(max(fb, gfb) <= max(1, MBRS_FLIP_SHARE * blocks),
+          f"{what}: {fb} / {gfb} of {blocks} blocks differ (forward / "
+          f"gradient)")
+    check(float((yk - yp).abs().max()) <= JPEG_FLIP_BOUND, f"{what}: max err")
+    n, h, w, c = yk.shape
+    d = (yk - yp).abs().reshape(n, h // 8, 8, w // 8, 8, c).amax(
+        dim=(2, 4, 5))
+    calm = float(d[d <= JPEG_FLIP_ATOL].max()) if fb < blocks else 0.0
+    return fb, gfb, calm
+
+
+def check_jpeg_basic(rows, card):
+    """K5 as MBRS's ``jpeg_basic`` (weights (1, 0)) at MBRS's shape: modes
+    0 ("round") and 1 ("ss") at each of MBRS's three qualities, forward and
+    input gradient against the plain ``jpeg_basic`` (``k5_against_plain``),
+    then with a NaN and an Inf pixel; timed forward + backward (the soft
+    mode's two launches) warm and with a cold L2 beside the plain version,
+    with its bound."""
+    from vwfd_tpu_torch.models.mbrs_model import QUALITY_INDICES
+    row = rows["jpeg_pair"]
+    g = torch.Generator("cuda").manual_seed(70)
+    x = torch.rand(MBRS_SHAPE, device="cuda", generator=g)
+    cot = torch.randn(MBRS_SHAPE, device="cuda", generator=g)
+    flips, calm = {}, 0.0
+    for rounding in ("round", "ss"):
+        for q in QUALITY_INDICES:
+            what = f"jpeg_basic {rounding} q_idx {q}"
+            fb, gfb, c = k5_against_plain(what, *jpeg_basic_fns(q, rounding),
+                                          x, cot)
+            flips[f"{rounding}_{q}"] = [fb, gfb]
+            calm = max(calm, c)
+    bad = x.clone()
+    bad[0, 5, 9, 1] = float("nan")
+    bad[3, 70, 33, 0] = float("inf")
+    for rounding in ("round", "ss"):
+        k5_against_plain(f"jpeg_basic {rounding} non-finite",
+                         *jpeg_basic_fns(2, rounding), bad, cot)
+    print(f"check jpeg_basic (K5, w = (1, 0)) {MBRS_SHAPE} f32 round/ss x "
+          f"Q50/70/90: flipped blocks (forward, gradient) of "
+          f"{MBRS_B * (MBRS_S // 8) ** 2} {json.dumps(flips)}; max_abs_err "
+          f"outside them {calm:.3g}; with NaN and Inf pixels NaN where the "
+          f"plain version's are, forward and gradient")
+    # the soft mode's two launches at Q90, on the draws jpeg_basic passes
+    n = MBRS_B
+    qt = quant_tables(torch.full((n, 2), 4, device="cuda")).contiguous()
+    mode = torch.ones((n, 2), dtype=torch.int32, device="cuda")
+    w = torch.tensor([[1.0, 0.0]], device="cuda").expand(n, 2).contiguous()
+    fn = lambda v: jpeg.jpeg_pair(v, qt, mode, w)  # noqa: E731
+    pfn = lambda v: jpeg.jpeg_pool_pair_plain(v, qt, mode, w)  # noqa: E731
+    nb = nbytes(x)
+    sets = cold_sets(lambda i: (torch.rand(MBRS_SHAPE, device="cuda",
+                                           generator=g),
+                                torch.randn(MBRS_SHAPE, device="cuda",
+                                            generator=g)), 3 * nb)
+    kf, kb, cf, cb = fused_times(fn, sets, [True])
+    pf, pb, _, _ = fused_times(pfn, sets[:1], [True])
+    # forward x and y, backward x, g and gx; per value the flagship's ops
+    moved, ops = 5 * nb, x.numel() * (64 + 20 + 96 + 30)
+    bms, by = bound(moved, ops)
+    row.extra["mbrs"] = {
+        "shape": list(MBRS_SHAPE), "mode": "ss (fwd + bwd)",
+        "ms": kf + kb, "fwd_ms": kf, "bwd_ms": kb, "cold_ms": cf + cb,
+        "plain_ms": pf + pb, "bound_ms": bms, "bound_by": by,
+        "flipped_blocks": flips, "max_abs_err_outside_flips": calm}
+    print(f"check jpeg_basic {MBRS_SHAPE} ms fwd={kf:.5f} bwd={kb:.5f} cold "
+          f"fwd={cf:.5f} bwd={cb:.5f} plain fwd={pf:.4f} bwd={pb:.4f} "
+          f"bound_ms={bms:.5f} ({by}) share_of_bound={bms / (kf + kb):.3f} "
+          f"[{card}]")
 
 
 def median_both(x, cot):
@@ -2193,6 +2321,67 @@ def check_crop_resize(rows, card):
           f"copy_yardstick fwd={copy_ms:.5f} bwd={add_ms:.5f} "
           f"bound_ms fwd={bf:.5f} bwd={bb:.5f} share_of_bound "
           f"fwd={bf / kf:.3f} bwd={bb / kb:.3f} [{card}]")
+    row.extra["wide"] = check_crop_resize_wide(g, card)
+
+
+def check_crop_resize_wide(g, card):
+    """K17 past the whole-row limit on column tiles (F22): twice the widest
+    8-row RGB rows a CTA holds whole and a 3840 × 2160 frame with an
+    off-centre window, forward EQUAL, gradient within ``FUSED_GRAD_RTOL``
+    of the plain max and bit-identical over two calls; each timed forward +
+    backward warm and cold beside the plain version and ``F.interpolate``
+    of the sliced window, with its bytes bound."""
+    mw = crop_resize.max_width(8, 3, 8)
+    out = {}
+    for name, shape, apex in (
+            ("2*max_width", (1, 8, 2 * mw, 3), (1.0, 7.0, 5.0, 2 * mw - 3.0)),
+            ("3840x2160", (1, 2160, 3840, 3), (301.0, 1901.0, 517.0,
+                                               3333.0))):
+        _, h, w, c = shape
+        tw, tq = crop_resize.tiles(h, w, c, h, w)
+        x = torch.rand(shape, device="cuda", generator=g)
+        cot = torch.randn(shape, device="cuda", generator=g)
+        ap = torch.tensor(apex, device="cuda")
+        fn = lambda v: crop_resize.crop_resize(v, ap)  # noqa: E731
+        pfn = lambda v: crop_resize.crop_resize_plain(v, ap)  # noqa: E731
+        (yk,), (gk,) = grads_of(fn, [x], [True], cot)
+        (yp,), (gp,) = grads_of(pfn, [x], [True], cot)
+        _, (gk2,) = grads_of(fn, [x], [True], cot)
+        torch.cuda.synchronize()
+        ge = float((gk - gp).abs().max())
+        check(torch.equal(yk, yp), f"crop_resize {name}: forward differs")
+        check(ge <= FUSED_GRAD_RTOL * float(gp.abs().max()),
+              f"crop_resize {name} gradient: {ge}")
+        check(torch.equal(gk, gk2), f"crop_resize {name}: gradient not "
+              f"deterministic")
+        nb = nbytes(x)
+        sets = cold_sets(lambda i: (torch.rand(shape, device="cuda",
+                                               generator=g),
+                                    torch.randn(shape, device="cuda",
+                                                generator=g)), 3 * nb)
+        kf, kb, cf, cb = fused_times(fn, sets, [True])
+        pf, pb, _, _ = fused_times(pfn, sets[:1], [True])
+        h0, h1, w0, w1 = (int(a) for a in apex)
+        lf, lb, _, _ = fused_times(lambda v: F.interpolate(
+            v.permute(0, 3, 1, 2)[..., h0:h1, w0:w1], size=(h, w),
+            mode="bilinear", align_corners=False).permute(0, 2, 3, 1),
+            sets[:1], [True])
+        window = nb * (h1 - h0) * (w1 - w0) // (h * w)
+        bms, by = bound(window + 3 * nb, x.numel() * sum(CROP_OPS))
+        out[name] = {"shape": list(shape), "apex": list(apex),
+                     "tiles": [tw, tq], "ms": kf + kb, "fwd_ms": kf,
+                     "bwd_ms": kb, "cold_ms": cf + cb, "plain_ms": pf + pb,
+                     "library_ms": lf + lb, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": ge}
+        print(f"check crop_resize {name} {shape} apex {apex} column tiles "
+              f"fwd {tw} bwd {tq} of {w}: forward equal to plain; gradient "
+              f"max_abs_err={ge:.3g} (plain max {float(gp.abs().max()):.3g}),"
+              f" equal over two calls; ms fwd={kf:.5f} bwd={kb:.5f} cold "
+              f"fwd={cf:.5f} bwd={cb:.5f} plain {pf + pb:.4f} "
+              f"F.interpolate_library {lf + lb:.4f} bound_ms={bms:.5f} "
+              f"share_of_bound={bms / (kf + kb):.3f} [{card}]")
+        del x, cot, yk, yp, gk, gp, gk2, sets
+    return out
 
 
 def check_hidden_build(card):
@@ -2202,7 +2391,9 @@ def check_hidden_build(card):
     found = kernel_report.library_report(
         _lib.library_path(), ("zigzag_kernel", "crop_resize_fwd",
                               "crop_resize_bwd"))
-    check(len(found) == 6, f"expected 6 K16/K17 kernels, found {len(found)}")
+    # K16's two; K17's whole-row forward and backward, each with bulk and
+    # element-wise copies, and its two column-tiled kernels
+    check(len(found) == 8, f"expected 8 K16/K17 kernels, found {len(found)}")
     for r in found:
         print(f"kernel_report {r['kernel']} registers={r['registers']} "
               f"local_bytes={r['local_bytes']} stack_bytes={r['stack_bytes']} "
@@ -3348,6 +3539,232 @@ def run_hidden(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+# MBRS at full width: 128², b16, message 30, 64 channels, 4 SE blocks,
+# diffusion 256, f32 (TF32 off: MBRSModel runs under device.full_f32)
+
+MBRS_LOSS_RTOL = 1e-5    # loss terms, KERNELS vs PLAIN
+MBRS_GRAD_COS = 0.9999   # each net's gradient, KERNELS vs PLAIN
+# ... where no 8×8 block of the step's JPEG flipped between K5 and the
+# plain DCT. A flipped block (a coefficient within rounding of a rint .5
+# boundary, or of the soft round's ½ step, rounds the other way: a jump of
+# up to a table step in one block; clipped encodings hold exact .5 DC
+# quotients) moves the untrained decoder's logits: one flipped block of
+# 4,096 moved a hard step's message_mse by 4.8e-4 relative and its
+# gradient cosines to 0.9963 / 0.9967 (an H100 SXM at 700 W). Then each
+# flipped block allows these:
+MBRS_FLIP_LOSS_RTOL = 1e-3
+MBRS_FLIP_GRAD_COS = 0.99
+# one step per noise mode (mode, quality index): identity; hard at Q50;
+# soft at Q90. K5 launches: none, the hard JPEG's forward, the soft JPEG's
+# forward and backward; an infer with a JPEG mode launches one
+MBRS_STEPS = (("identity", 0), ("hard", 0), ("soft", 4))
+MBRS_TRAIN = {m: {**ZERO_LAUNCHES, "jpeg_pair": n}
+              for m, n in (("identity", 0), ("hard", 1), ("soft", 2))}
+MBRS_INFER = {m: {**ZERO_LAUNCHES, "jpeg_pair": int(m != "identity")}
+              for m in MBRS_TRAIN}
+MBRS_CONV_STEPS, MBRS_CONV_STOP = 20, 10
+
+
+def mbrs_runner_args(root, name, *extra):
+    return ["--task", "mbrs", "--steps", str(MBRS_CONV_STEPS),
+            "--eval-every", str(MBRS_CONV_STEPS), "--log-every", "5",
+            "--out", str(root / f"{name}.jsonl"),
+            "--ckpt-dir", str(root / name), *extra]
+
+
+def run_mbrs(card):
+    """MBRS at full width (128², b16, message 30, 64 channels, 4 blocks,
+    diffusion 256, f32, random weights from a seed): one ``train_step`` per
+    noise mode (identity; hard at Q50; soft at Q90) through ``KERNELS`` and
+    ``PLAIN`` from the same state, batch, messages and draws, cuDNN
+    deterministic (the step's JPEG's flipped 8×8 blocks between K5 and the
+    plain DCT counted; loss terms within ``MBRS_LOSS_RTOL`` and each net's
+    gradient cosine ≥ ``MBRS_GRAD_COS`` where none flipped, else
+    ``MBRS_FLIP_LOSS_RTOL`` and 1 − (1 − ``MBRS_FLIP_GRAD_COS``) a flipped
+    block), each with the launch counts at 0 just before
+    and read just after (K5 ×0, ×1, ×2); a batch with an Inf pixel that
+    moves nothing; ``infer`` of each mode (K5 ×0, ×1, ×1); p50 of 10 train
+    steps after 2 warm-up, images/s, ``infer`` p50, the peak memory; then
+    the runner (``run_family_convergence --task mbrs``), 20 steps with an
+    eval at the last, and the same run stopped at step 10 and resumed, its
+    images, messages and draws at steps 11-20 EQUAL to the unbroken run's
+    and its records finite (weights are not compared: cuDNN's backward is
+    not deterministic)."""
+    from vwfd_tpu_torch import run_family_convergence as rfc
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    from vwfd_tpu_torch.data import SyntheticImageDataset
+    from vwfd_tpu_torch.device import full_f32
+    from vwfd_tpu_torch.kernels.zigzag import clip01
+    from vwfd_tpu_torch.models.mbrs_model import (MODES, MBRSDraws,
+                                                  MBRSModel, MBRSSampler)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    model = MBRSModel()
+    model.init_states(16)
+    ref = MBRSModel(kernels=PLAIN)
+    ds = SyntheticImageDataset(size=MBRS_S, length=16 * MBRS_B, seed=10)
+    rng = np.random.default_rng(10)
+    batches = [(np.stack([ds[i * MBRS_B + j] for j in range(MBRS_B)]),
+                (rng.random((MBRS_B, 30)) > 0.5).astype(np.float32))
+               for i in range(16)]
+    launches, terms, cosines = {}, {}, {}
+    for i, (mode, q) in enumerate(MBRS_STEPS):
+        d = MBRSDraws(MODES.index(mode), q)
+        imgs, msgs = batches[i]
+        copy_hidden(ref, model)
+        flips = None
+        if mode != "identity":  # the JPEG of this step's clipped encoding
+            rounding = "round" if mode == "hard" else "ss"
+            it, mt = model.to_device(imgs, msgs)
+            with torch.no_grad(), full_f32():
+                enc = clip01(model.encoder(it, mt, train=True)[0])
+                hk = jpeg_basic(enc, q, rounding)
+                hp = jpeg_basic(enc, q, rounding, kernels=PLAIN)
+            flips = flipped_blocks(hk, hp, JPEG_FLIP_ATOL)
+        # cuDNN's deterministic algorithms on both paths: only K5 against
+        # its plain version may part them
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            gp_ = {}
+            lp = {k: float(v) for k, v in ref.train_step(imgs, msgs, d,
+                                                         gp_).items()}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            gk_ = {}
+            logs = model.train_step(imgs, msgs, d, gk_)
+            torch.cuda.synchronize()
+        launches[f"mbrs_train_{mode}"] = launch_counts()
+        lk = {k: float(v) for k, v in logs.items()}
+        cos = {net: cosine(torch.cat([t.flatten() for t in gk_[net]]),
+                           torch.cat([t.flatten() for t in gp_[net]]))
+               for net in gk_}
+        print(f"mbrs train step {mode} Q{(50, 60, 70, 80, 90)[q]} "
+              f"{MBRS_SHAPE}: kernels {json.dumps(lk)} plain "
+              f"{json.dumps(lp)}; gradient cosines {json.dumps(cos)}; "
+              f"launches K5 {launches[f'mbrs_train_{mode}']['jpeg_pair']}"
+              + ("" if flips is None else f"; {mode} JPEG flipped blocks K5 "
+                 f"vs plain {flips[0]} of {flips[1]}"))
+        check(launches[f"mbrs_train_{mode}"] == MBRS_TRAIN[mode],
+              f"mbrs train {mode} launches "
+              f"{launches[f'mbrs_train_{mode}']}")
+        nflip = flips[0] if flips else 0
+        rtol = MBRS_FLIP_LOSS_RTOL * nflip if nflip else MBRS_LOSS_RTOL
+        min_cos = 1 - (1 - MBRS_FLIP_GRAD_COS) * nflip if nflip \
+            else MBRS_GRAD_COS
+        for k in ("loss", "encoder_mse", "message_mse"):
+            check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+                  <= rtol * abs(lp[k]),
+                  f"mbrs {mode} {k}: kernels {lk[k]} plain {lp[k]}")
+        check(all(c >= min_cos for c in cos.values()),
+              f"mbrs {mode} gradient cosines {cos}")
+        terms[mode] = {"kernels": lk, "plain": lp, "flipped_blocks": nflip}
+        cosines[mode] = cos
+
+    # the guard: an Inf pixel through the soft JPEG leaves every tensor
+    imgs = batches[6][0].copy()
+    imgs[0, 5, 7, 1] = np.inf
+    before = [t.clone() for t in hidden_tensors(model)]
+    logs = model.train_step(imgs, batches[6][1], MBRSDraws(2, 2))
+    check(not math.isfinite(float(logs["loss"])), "Inf batch: finite loss")
+    check(all(torch.equal(a, b) for a, b in zip(before,
+                                                hidden_tensors(model))),
+          "Inf batch moved a parameter, statistic, moment or count")
+    print("mbrs guard: an Inf pixel left every parameter, BatchNorm "
+          "statistic, Adam moment and count as it was")
+
+    # infer of each mode, then the p50s
+    imgs, msgs = batches[7]
+    infer_ms = {}
+    for mode, q in MBRS_STEPS:
+        d = MBRSDraws(MODES.index(mode), q)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = model.infer(imgs, msgs, d)
+        torch.cuda.synchronize()
+        launches[f"mbrs_infer_{mode}"] = launch_counts()
+        check(launches[f"mbrs_infer_{mode}"] == MBRS_INFER[mode]
+              and all(bool(t.isfinite().all()) for t in out),
+              f"mbrs infer {mode}: launches "
+              f"{launches[f'mbrs_infer_{mode}']}")
+        infer_ms[mode] = p50_of(lambda: model.infer(imgs, msgs, d)[2].sum()
+                                .item(), 10, warmup=2)
+    sampler = MBRSSampler(0)
+    it_ = iter(range(10 ** 6))
+
+    def train_one():
+        imgs, msgs = batches[next(it_) % len(batches)]
+        return model.train_step(imgs, msgs, sampler())["loss"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mbrs p50: train step {train_p50:.3f} ms "
+          f"({MBRS_B / train_p50 * 1e3:.1f} images/s), infer "
+          f"{json.dumps(infer_ms)} ms at b{MBRS_B}, {MBRS_S}²; peak memory "
+          f"{peak:.3f} GiB [{card}]")
+    del model, ref
+    gc.collect()
+
+    # the runner: 20 steps, and the same run stopped at step 10 and resumed
+    root = Path("build") / "chip_smoke_mbrs"
+    shutil.rmtree(root, ignore_errors=True)
+    seen = {"a": {}, "b": {}}
+
+    def recorder(name):
+        def on_step(step, imgs, msgs, draws):
+            if step > MBRS_CONV_STOP:
+                seen[name][step] = (imgs, msgs, draws)
+        return on_step
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    check(rfc.run(rfc.parse_args(mbrs_runner_args(root, "a")),
+                  recorder("a")) == "done", "mbrs runner a")
+    torch.cuda.synchronize()
+    launches["mbrs_runner"] = launch_counts()
+    wall_a = time.perf_counter() - t0
+    check(rfc.run(rfc.parse_args(mbrs_runner_args(
+        root, "b", "--stop-at-step", str(MBRS_CONV_STOP))),
+        recorder("b")) == "stopped", "mbrs runner segment 1 did not stop")
+    check(rfc.run(rfc.parse_args(mbrs_runner_args(root, "b", "--resume")),
+                  recorder("b")) == "done", "mbrs runner segment 2")
+    want = list(range(MBRS_CONV_STOP + 1, MBRS_CONV_STEPS + 1))
+    check(sorted(seen["a"]) == want and sorted(seen["b"]) == want,
+          f"mbrs steps seen {sorted(seen['a'])} {sorted(seen['b'])}")
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              and a[2] == b[2] for a, b in ((seen["a"][k], seen["b"][k])
+                                            for k in want)),
+          "the resumed MBRS run's images, messages or draws differ")
+    recs = {}
+    for name in ("a", "b"):
+        with open(root / f"{name}.jsonl") as f:
+            recs[name] = [json.loads(x) for x in f if x.strip()]
+        check(all(math.isfinite(v) for r in recs[name] for v in r.values()
+                  if isinstance(v, float)), f"mbrs runner {name}: a record "
+              f"is not finite")
+    evals = [r for r in recs["a"] if r.get("eval")]
+    check([r["step"] for r in evals] == [MBRS_CONV_STEPS],
+          f"mbrs runner evals {evals}")
+    print(f"main path launches, mbrs runner ({MBRS_CONV_STEPS} steps, 1 "
+          f"eval): {json.dumps(launches['mbrs_runner'])}")
+    print(f"mbrs runner b{MBRS_B}x{MBRS_S}x{MBRS_S}: {MBRS_CONV_STEPS} steps "
+          f"in {wall_a:.1f} s with the model's set-up; eval "
+          f"{json.dumps(evals[-1])}; resumed at step {MBRS_CONV_STOP}: "
+          f"images, messages and draws at steps {want[0]}-{want[-1]} equal")
+    check(launches["mbrs_runner"]["jpeg_pair"] > 0,
+          "the mbrs runner launched no K5")
+    print(json.dumps({"mbrs": {
+        "train_step_p50_ms": train_p50,
+        "images_per_s": MBRS_B / train_p50 * 1e3,
+        "infer_p50_ms": infer_ms, "batch": MBRS_B, "size": MBRS_S,
+        "peak_memory_gib": peak, "terms": terms,
+        "min_gradient_cosine": min(min(c.values())
+                                   for c in cosines.values()),
+        "runner_wall_s_20_steps": wall_a, "runner_eval": evals[-1],
+        "card": card}}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3387,6 +3804,7 @@ def main():
     check_zigzag(rows, card)
     check_crop_resize(rows, card)
     check_hidden_build(card)
+    check_jpeg_basic(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -3400,10 +3818,12 @@ def main():
     conv_launches = run_convergence_phase(card)
     ref_launches = run_refshape(card)
     hid_launches = run_hidden(card)
+    mbrs_launches = run_mbrs(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
-               **conv_launches, **ref_launches, **hid_launches}
+               **conv_launches, **ref_launches, **hid_launches,
+               **mbrs_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

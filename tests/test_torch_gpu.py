@@ -37,9 +37,13 @@ tie); K17
 ``crop_resize``'s forward is EQUAL to its plain version (each tap one IEEE
 rounding in the plain order) and its gradient within 1e-6 of the plain max
 (autograd's scatter-adds sum in another order), on rows off the 16-byte
-grid, to another output size and at its width limit too (one pixel wider
-raises before any launch); K16 on a view off the 16-byte grid too (the
-wrapper copies it onto the grid). With NaN and Inf pixels and a NaN
+grid, to another output size and past the whole-row width limit on column
+tiles (F22: one pixel past it, twice it and 3840 × 2160); K16 on a view off
+the 16-byte grid too (the wrapper copies it onto the grid). MBRS:
+``jpeg_basic`` through K5 (weights (1, 0)) at its train shape as K5's
+tolerance allows, and one MBRS train step per noise mode through the
+kernels against ``PLAIN`` (loss terms within 1e-5 relative, gradient
+cosines ≥ 0.9999; K5 ×0, ×1, ×2). With NaN and Inf pixels and a NaN
 cotangent, K16's and K17's outputs and gradients are NaN (and ±Inf) where
 their plain versions' are, and within those tolerances elsewhere.
 """
@@ -1208,30 +1212,34 @@ def test_crop_resize_matches_plain(cuda, shape, apex, out_hw):
     assert torch.equal(gk, _grads(fn, x, cot)[1])
 
 
-# K17 at its size limit: the widest 8-row RGB image whose CTAs fit the
-# card's shared memory (one row a CTA, 227 KB), on rows off the 16-byte grid
-# and on it; one pixel wider is refused before any launch
-@pytest.mark.parametrize("aligned", [False, True])
-def test_crop_resize_at_the_width_limit(cuda, aligned):
-    w = crop_resize.max_width(8, 3, 8)
-    if aligned:
-        w -= w % 4  # rows of 12·w bytes on the 16-byte grid
-    assert max(crop_resize.smem_bytes(8, w, 3, 8, w)) <= crop_resize.SMEM_CTA
+# K17 past the whole-row limit (F22, repaired): one pixel wider than the
+# widest 8-row RGB rows a CTA holds whole, twice that width, and a 3840 ×
+# 2160 frame with an off-centre window, the backward (and where whole rows
+# do not fit, the forward) on column tiles: forward EQUAL, gradient within
+# 1e-6 of the plain max and bit-identical over two calls
+@pytest.mark.parametrize("case", ["max_width+1", "2*max_width", "3840x2160"])
+def test_crop_resize_at_the_width_limit(cuda, case):
+    mw = crop_resize.max_width(8, 3, 8)
+    shape, apex = {
+        "max_width+1": ((1, 8, mw + 1, 3), (1.0, 7.0, 5.0, mw - 2.0)),
+        "2*max_width": ((1, 8, 2 * mw, 3), (1.0, 7.0, 5.0, 2 * mw - 3.0)),
+        "3840x2160": ((1, 2160, 3840, 3), (301.0, 1901.0, 517.0, 3333.0)),
+    }[case]
+    _, h, w, c = shape
+    assert crop_resize.tiles(h, w, c, h, w) < (w, w)  # column tiles
     g = _gen(67)
-    x = torch.rand((1, 8, w, 3), device=cuda, generator=g)
-    cot = torch.randn((1, 8, w, 3), device=cuda, generator=g)
-    ap = torch.tensor((1.0, 7.0, 5.0, w - 3.0), device=cuda)
-    yk, gk = _grads(lambda v: crop_resize.crop_resize(v, ap), x, cot)
+    x = torch.rand(shape, device=cuda, generator=g)
+    cot = torch.randn(shape, device=cuda, generator=g)
+    ap = torch.tensor(apex, device=cuda)
+    fn = lambda v: crop_resize.crop_resize(v, ap)  # noqa: E731
+    before = launch_counts()["crop_resize"]
+    yk, gk = _grads(fn, x, cot)
+    assert launch_counts()["crop_resize"] == before + 2
     yp, gp = _grads(lambda v: crop_resize.crop_resize_plain(v, ap), x, cot)
     torch.cuda.synchronize()
     assert torch.equal(yk, yp)
     assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
-    wide = torch.rand((1, 8, crop_resize.max_width(8, 3, 8) + 1, 3),
-                      device=cuda, generator=g).requires_grad_()
-    before = launch_counts()["crop_resize"]
-    with pytest.raises(ValueError, match="rows too wide"):
-        crop_resize.crop_resize(wide, ap)
-    assert launch_counts()["crop_resize"] == before
+    assert torch.equal(gk, _grads(fn, x, cot)[1])
 
 
 def _nonfinite(shape, out_shape, nan_at, inf_at, cot_nan_at, lo, hi, seed):
@@ -1321,3 +1329,63 @@ def test_zigzag_jpeg_one_block_matches_plain(cuda):
         torch.cuda.synchronize()
         assert float((yk - yp).abs().max()) <= 2e-6
         assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+
+
+# MBRS's JPEG: jpeg_basic through K5 with weights (1, 0), both roundings at
+# each of MBRS's qualities, at its train shape (b16, 128²)
+@pytest.mark.parametrize("rounding", ["round", "ss"])
+def test_jpeg_basic_on_k5_matches_plain(cuda, rounding):
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    from vwfd_tpu_torch.models.mbrs_model import QUALITY_INDICES
+    g = _gen(71)
+    x = torch.rand(16, 128, 128, 3, device=cuda, generator=g)
+    cot = torch.randn(x.shape, device=cuda, generator=g)
+    for q in QUALITY_INDICES:
+        before = launch_counts()["jpeg_pair"]
+        yk, gk = _grads(lambda v: jpeg_basic(v, q, rounding), x, cot)
+        assert launch_counts()["jpeg_pair"] == before + 2
+        yp, gp = _grads(lambda v: jpeg_basic(v, q, rounding, kernels=PLAIN),
+                        x, cot)
+        torch.cuda.synchronize()
+        bad, blocks = _flipped_blocks(yk, yp, 1e-4)
+        assert bad <= max(1, blocks // 1000), (q, bad, blocks)
+        assert float((yk - yp).abs().max()) < 1.0
+        gbad, _ = _flipped_blocks(gk, gp, 1e-4 * float(gp.abs().max()))
+        assert gbad <= max(1, blocks // 1000), (q, gbad, blocks)
+    # F23: a NaN and an Inf pixel, NaN where the plain version's are: the
+    # forward on their 8×8 blocks, the gradient too (autograd's 0·NaN)
+    x[0, 5, 9, 1] = float("nan")
+    x[3, 70, 33, 0] = float("inf")
+    yk, gk = _grads(lambda v: jpeg_basic(v, 2, rounding), x, cot)
+    yp, gp = _grads(lambda v: jpeg_basic(v, 2, rounding, kernels=PLAIN), x,
+                    cot)
+    torch.cuda.synchronize()
+    assert torch.equal(yk.isnan(), yp.isnan()) and int(yp.isnan().sum())
+    assert torch.equal(gk.isnan(), gp.isnan()) and int(gp.isnan().sum())
+
+
+# one MBRS train step per noise mode at full width, KERNELS against PLAIN
+# from the same state, batch, messages and draws
+@pytest.mark.parametrize("mode", ["identity", "hard", "soft"])
+def test_mbrs_step_on_the_card_matches_plain(cuda, mode):
+    from vwfd_tpu_torch.models.mbrs_model import MODES, MBRSDraws, MBRSModel
+    model = MBRSModel(device=cuda)
+    model.init_states(16)
+    ref = MBRSModel(device=cuda, kernels=PLAIN)
+    ref.load_states({n: net.state_dict() for n, net in model.nets().items()})
+    g = _gen(72)
+    imgs = torch.rand(16, 128, 128, 3, device=cuda, generator=g)
+    msgs = (torch.rand(16, 30, device=cuda, generator=g) > 0.5).float()
+    draws = MBRSDraws(MODES.index(mode), 2)
+    gp, gk = {}, {}
+    lp = ref.train_step(imgs, msgs, draws, gp)
+    reset_launch_counts()
+    lk = model.train_step(imgs, msgs, draws, gk)
+    torch.cuda.synchronize()
+    assert launch_counts()["jpeg_pair"] == MODES.index(mode)
+    for k in ("loss", "encoder_mse", "message_mse"):
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-5 * abs(float(lp[k]))
+    for net in gk:
+        a = torch.cat([t.flatten() for t in gk[net]])
+        b = torch.cat([t.flatten() for t in gp[net]])
+        assert float(torch.dot(a, b) / (a.norm() * b.norm())) >= 0.9999

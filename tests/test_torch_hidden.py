@@ -605,8 +605,13 @@ def test_train_cli_hidden_runs_and_resumes(tmp_path, capsys):
     save_checkpoint(str(ckpt), 5, save)
     train_cli.main(args + ["--steps", "1", "--resume"])
     assert _last_json(capsys.readouterr().out)["resumed_step"] == 5
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["--task", "mbrs", "--synthetic", "--device", "cpu"])
+    # the same message loop trains MBRS (ported since; its own tests are
+    # tests/test_torch_mbrs*.py)
+    train_cli.main(["--task", "mbrs", "--synthetic", "--device", "cpu",
+                    "--batch", "2", "--size", "32", "--steps", "1",
+                    "--no-telemetry", "--ckpt-dir", str(tmp_path / "mb")])
+    res = _last_json(capsys.readouterr().out)
+    assert res["resumed_step"] is None and np.isfinite(res["loss"])
 
 
 def test_eval_hidden_writes_the_jax_tools_record(tmp_path, capsys):

@@ -310,3 +310,29 @@ def test_pixel_noise_members_equal_jax():
     np.testing.assert_array_equal(
         dropout_pixelwise(_t(e), _t(c), rdn).numpy(),
         np.asarray(jnoise.dropout_pixelwise(key, e, c)))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (8, 2 * 2639), (2160, 3840),
+                                   (8, 2640)])
+def test_crop_resize_tiles_cover_any_width(shape):
+    """K17's column tiles (F22), picked on the host: whole rows (one tile a
+    row, the whole-row kernels) where they fit, as at HiDDeN's 128²; past
+    ``max_width`` the widest tile whose CTA fits two an SM, the tiles of
+    even width covering the row; only a pixel of too many channels is
+    refused."""
+    h, w = shape
+    tw, tq = crop_resize.tiles(h, w, 3, h, w)
+    fwd, bwd = crop_resize.smem_bytes(h, w, 3, h, w)
+    assert (tw == w) == (fwd <= crop_resize.SMEM_CTA)
+    assert (tq == w) == (bwd <= crop_resize.SMEM_CTA)
+    assert (tw, tq) == (w, w) or w > crop_resize.max_width(h, 3, h)
+    for t, smem_of in ((tw, lambda t: crop_resize._fwd_tiled_smem(
+            h, w, 3, h, w, t)), (tq, lambda t: crop_resize._bwd_tiled_smem(
+            3, h, w, t))):
+        if t < w:
+            n = -(-w // t)
+            assert smem_of(t) <= crop_resize.SMEM_PAIR
+            assert n * t >= w and (n - 1) * t < w
+            assert smem_of(-(-w // (n - 1))) > crop_resize.SMEM_PAIR
+    with pytest.raises(ValueError, match="too many channels"):
+        crop_resize.tiles(h, w, 7000, h, w)

@@ -224,4 +224,5 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {f"vwfd_tpu_torch.{m}" for m in (
         "kernels.zigzag", "kernels.crop_resize", "attacks.noise",
         "nets.blocks", "nets.hidden", "models.hidden_model", "data.images",
-        "eval_hidden", "continue_hidden")} <= names
+        "eval_hidden", "continue_hidden", "nets.mbrs", "models.mbrs_model",
+        "run_family_convergence")} <= names

@@ -14,8 +14,11 @@ vwfd_tpu_torch.train --val``) the flagship (``configs/video.yaml``: the
 packed ``res_tpu2`` INN and ``UNetTPU``) and the reference-shaped model
 (``configs/refshape.yaml``: the INN module path and the reference
 ``UNet``), with every subnet, Haar and extractor option of the JAX
-package, through fifteen hand-written CUDA kernels (``kernels``); and it
-loads the JAX package's npz pretrain trees and (converted by
+package, through seventeen hand-written CUDA kernels (``kernels``); it
+trains the HiDDeN and MBRS message families (``models.HiddenModel``,
+``models.MBRSModel``, ``python -m vwfd_tpu_torch.train --task
+hidden|mbrs``, ``run_family_convergence``); and it loads the JAX
+package's npz pretrain trees and (converted by
 ``tools/jax_checkpoint_to_torch.py``) its checkpoints.
 """
 

@@ -10,6 +10,9 @@ round, 1 x³ soft round, 2 zonal 5×5/3×3 keep. Quality Q means the table
 scale 2 − 0.02·Q (Q ≥ 50). ``jpeg_real`` is the real libjpeg round trip
 (``:261-280``), on the host through PIL, the evaluation's oracle.
 
+``jpeg_basic`` (``:53-90``) is MBRS's JPEG: one draw of the pool at mode 0
+or 1, through K5 with weights (1, 0).
+
 ``hidden_jpeg_mask_compression`` (``:249-258``) is HiDDeN's JpegCompression:
 analog YUV, blockwise DCT, the zig-zag keep masks (``zigzag_keep_mask``,
 ``:236-246``; 25 / 9 / 9 coefficients), IDCT and back, with the clip of
@@ -26,7 +29,7 @@ from ..ops.dct import (block_merge, block_split, dct_blocks, idct_blocks,
 from ..ops.quantize import jpeg_scale_factor, round_only_at_0
 
 __all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables", "jpeg_pool",
-           "jpeg_pool_pair", "jpeg_real", "zigzag_keep_mask",
+           "jpeg_pool_pair", "jpeg_basic", "jpeg_real", "zigzag_keep_mask",
            "hidden_jpeg_mask_compression"]
 
 QUALITIES = (50, 60, 70, 80, 90)
@@ -93,6 +96,45 @@ def jpeg_pool_pair(img: torch.Tensor, q_idx: torch.Tensor,
     qt = quant_tables(q_idx).contiguous()
     w = torch.stack([w1, w2], -1).float().contiguous()
     return kernels.jpeg_pair(img, qt, mode.to(torch.int32).contiguous(), w)
+
+
+_ROUNDING = {"round": 0, "ss": 1}  # jpeg_pair's modes
+
+
+def jpeg_basic(img: torch.Tensor, q_idx: torch.Tensor,
+               rounding: str = "round", subsample: int = 0,
+               kernels=None) -> torch.Tensor:
+    """The reference's Jpeg / JpegSS (``vwfd_tpu/attacks/jpeg.py:53-90``)
+    of (N, H, W, 3) float32 in [0, 1], H and W multiples of 8: YUV of
+    255·img (``rgb_to_yuv_jpegbasic``), the un-centred blockwise DCT,
+    division by the tables ``max(round(T·s), 1)`` of the quality indices
+    ``q_idx`` ((N,) or one, into ``QUALITIES``; s = 2 − 0.02·Q), ``rint``
+    (``"round"``) or the x³ soft round (``"ss"``), the tables back, IDCT,
+    RGB, /255; differentiable in img.
+
+    This is one draw of ``jpeg_pool`` at mode 0 or 1, so it runs
+    ``kernels.jpeg_pair`` (K5; default ``kernels.KERNELS``) unchanged: both
+    draws carry the quality and the mode, the weights are (1, 0), and K5's
+    mix ``(1·d + 0·d)/1`` is ``d`` and its ``(w1 + w2)·rgb/255`` is
+    ``rgb/255``, exactly (both in its plain version too, which a CPU tensor
+    takes). 4:2:0 chroma (``subsample=2``) is not ported: ROADMAP.md §1
+    lists it with the family that runs it."""
+    if subsample:
+        raise NotImplementedError(
+            "jpeg_basic(subsample=2) is not ported yet (ROADMAP.md §1, the "
+            "ops and attacks the families bring)")
+    if rounding not in _ROUNDING:
+        raise ValueError(f"rounding must be 'round' or 'ss', got {rounding!r}")
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
+    n = img.shape[0]
+    q = torch.as_tensor(q_idx, device=img.device).expand(n)
+    qt = quant_tables(torch.stack([q, q], -1)).contiguous()
+    mode = torch.full((n, 2), _ROUNDING[rounding], dtype=torch.int32,
+                      device=img.device)
+    w = torch.tensor([1.0, 0.0], device=img.device,
+                     dtype=torch.float32).expand(n, 2).contiguous()
+    return kernels.jpeg_pair(img, qt, mode, w)
 
 
 def hidden_jpeg_mask_compression(img: torch.Tensor, yuv_keep=(25, 9, 9),

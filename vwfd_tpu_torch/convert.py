@@ -27,8 +27,10 @@ trees shaped like the params, which map to the port's ``AdamW.mu`` and
 count to ``AdamW.count``.
 
 ``states_from_jax`` / ``states_to_jax`` carry a whole model's nets (the
-HiDDeN family's encoder, decoder and discriminator: params, batch stats and
-Adam ``mu`` / ``nu`` / ``count`` of each) both ways.
+HiDDeN family's encoder, decoder and discriminator, MBRS's encoder and
+decoder: params, batch stats and Adam ``mu`` / ``nu`` / ``count`` of each)
+both ways. MBRS's ExpandNet transposed convs are ``message_expand.up{i}``,
+which the ConvTranspose rule's name pattern matches.
 """
 
 import re
@@ -42,7 +44,8 @@ __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
            "states_from_jax", "states_to_jax", "unet_int8_from_jax",
            "inn_int8_from_jax"]
 
-_CONVT = re.compile(r"(^|\.)up\d+$")  # UNetTPU's decoder ConvTransposes
+# the ConvTransposes: UNetTPU's decoder's, MBRS's message_expand's
+_CONVT = re.compile(r"(^|\.)up\d+$")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Mapping]:

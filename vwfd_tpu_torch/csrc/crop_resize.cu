@@ -53,12 +53,29 @@
 // - Rows whose byte length is not a multiple of 16, or tensors not on a
 //   16-byte boundary, take the same kernels with element-wise copies in
 //   place of the bulk copies.
-// - Size: a CTA holds whole rows, so the width is bounded. Bands shrink to
-//   one row (and one staged g row) before a CTA asks for more than 110 KB
-//   (two an SM); past that it takes up to the card's 227 KB a CTA (one an
-//   SM), which holds RGB rows up to 2,234 pixels square (the backward's
-//   `bwd_smem`; 1920 × 1080 fits). Larger rows are refused
-//   (cudaErrorInvalidValue); the wrapper states the limit first.
+// - Size: the kernels above hold whole rows. Bands shrink to one row (and
+//   one staged g row) before a CTA asks for more than 110 KB (two an SM);
+//   past that it takes up to the card's 227 KB a CTA (one an SM), which
+//   holds RGB rows up to 2,234 pixels square (the backward's `bwd_smem`;
+//   1920 × 1080 fits).
+// - Column tiles (F22): wider rows take the `_tiled` kernels, whose grid
+//   has a second dimension of column tiles, each tile's tables and index
+//   ranges limited to the tile. The forward CTA owns a band of R output
+//   rows × a run of TW output columns and stages only the input columns
+//   its taps reach: the tables are monotone, so they are one run, at most
+//   (TW − 1)·W/OW + 3 columns. The backward CTA owns a band of R input
+//   rows × a run of TQ input columns; a first small kernel writes the
+//   whole tap tables to global memory, and the CTA finds the output rows
+//   and columns that tap its tile by binary search of those monotone
+//   tables (no division in the kernel) and walks them in chunks of KI rows × KJ columns
+//   with the sums of each tap carried across chunks, j and i ascending:
+//   the same terms summed in the same order as the whole-row kernel, so
+//   the result is bit-identical to it, and the same NaN footprint.
+//   Copies are element-wise (coalesced within a row). A tile of one
+//   column stages 3 × 3 pixels, so no width or height is refused; only a
+//   pixel of more than about 6,000 channels (3 × 3 of it past 227 KB) is.
+//   The wrapper (`kernels/crop_resize.py::tiles`) passes the tile widths:
+//   a width at least the row's launches the whole-row kernel.
 #include "common.cuh"
 
 namespace {
@@ -71,6 +88,7 @@ constexpr int kSmemMax = 110 * 1024;  // two CTAs an SM
 constexpr int kSmemCta = 227 * 1024;  // sm_90's most a CTA (one an SM)
 constexpr int kBand = 4;              // rows a CTA owns (fewer if too large)
 constexpr int kChunk = 16;            // g rows staged at once (backward)
+constexpr int kChunkTiled = 8;        // and in the tiled backward
 constexpr int kHead = 64;             // apex, mbarrier, run bounds
 
 struct Taps {
@@ -426,6 +444,237 @@ __global__ void __launch_bounds__(kThrB)
   }
 }
 
+// The whole tap tables of both axes, OH rows then OW columns, into global
+// memory (a thread an entry): the tiled backward reads them and divides
+// nothing itself.
+__global__ void crop_resize_taps(const float* __restrict__ apex,
+                                 Taps* __restrict__ tab, int OH, int OW) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < OH) tab[t] = taps(t, OH, apex[0], apex[1]);
+  else if (t < OH + OW) tab[t] = taps(t - OH, OW, apex[2], apex[3]);
+}
+
+// The first index in [0, O) of the monotone table whose tap (kTap 0: the
+// first, 1: the second) is at least v, O if none: a binary search.
+template <int kTap>
+__device__ __forceinline__ int first_tapping(const Taps* tab, int v, int O) {
+  int a = 0, b = O;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if ((kTap ? tab[m].i1 : tab[m].i0) >= v) b = m;
+    else a = m + 1;
+  }
+  return a;
+}
+
+// The output indices whose first / second tap is v: [x, y] and [z, w]
+// (empty where x > y), one of the four searches per call (`which`).
+__device__ __forceinline__ int tapping(const Taps* tab, int which, int v,
+                                       int O) {
+  switch (which) {
+    case 0: return first_tapping<0>(tab, v, O);
+    case 1: return first_tapping<0>(tab, v + 1, O) - 1;
+    case 2: return first_tapping<1>(tab, v, O);
+    default: return first_tapping<1>(tab, v + 1, O) - 1;
+  }
+}
+
+// Shared memory of the tiled forward: header, the tile's column and the
+// band's row tables, KX staged rows of KWC floats.
+__host__ __device__ inline int fwd_tiled_smem(int R, int KX, int TW,
+                                              int KWC) {
+  return kHead + (TW + R) * (int)sizeof(Taps) + KX * KWC * 4;
+}
+
+// Shared memory of the tiled backward: header, the band rows' and the tile
+// columns' output ranges, a chunk's row taps and column weights, the g
+// chunk (KI × KJ·C), the W transpose's two tap sums (KI × TQ·C each) and
+// the band's two (R × TQ·C each).
+__host__ __device__ inline int bwd_tiled_smem(int R, int KI, int TQ, int KJ,
+                                              int C) {
+  return kHead + (R + TQ + KI) * 16 + align16(2 * KJ * 4) +
+         (KI * KJ + 2 * KI * TQ + 2 * R * TQ) * C * 4;
+}
+
+__global__ void __launch_bounds__(kThrF)
+    crop_resize_fwd_tiled(const float* __restrict__ x,
+                          const float* __restrict__ apex,
+                          float* __restrict__ out, int H, int W, int C,
+                          int OH, int OW, int R, int KX, int TW, int KWC) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sapex = reinterpret_cast<float*>(smem);
+  int* srun = reinterpret_cast<int*>(smem + 16);  // r_lo, rows, e_lo, sw
+  Taps* ctab = reinterpret_cast<Taps*>(smem + kHead);
+  Taps* rtab = ctab + TW;
+  float* xs = reinterpret_cast<float*>(rtab + R);
+  const int WC = W * C;
+  const int bands = (OH + R - 1) / R;
+  const int n = blockIdx.x / bands;
+  const int i_first = (blockIdx.x - n * bands) * R;
+  const int nr = min(R, OH - i_first);
+  const int ja = blockIdx.y * TW, nw = min(TW, OW - ja);
+  const float* xn = x + (long long)n * H * WC;
+
+  if (threadIdx.x == 0) {
+    const float h0 = apex[0], h1 = apex[1], w0 = apex[2], w1 = apex[3];
+    sapex[0] = h0, sapex[1] = h1, sapex[2] = w0, sapex[3] = w1;
+    const int r_lo = min(max(taps(i_first, OH, h0, h1).i0, 0), H - 1);
+    srun[0] = r_lo;
+    srun[1] = min(min(taps(i_first + nr - 1, OH, h0, h1).i1 - r_lo + 1, KX),
+                  H - r_lo);
+    // the tile's run of input columns, as floats of a row
+    const int c_lo = min(max(taps(ja, OW, w0, w1).i0, 0), W - 1);
+    const int c_hi = min(max(taps(ja + nw - 1, OW, w0, w1).i1, c_lo), W - 1);
+    srun[2] = c_lo * C;
+    srun[3] = min((c_hi - c_lo + 1) * C, KWC);
+  }
+  __syncthreads();
+  const float h0 = sapex[0], h1 = sapex[1], w0 = sapex[2], w1 = sapex[3];
+  const int r_lo = srun[0], rows = srun[1], e_lo = srun[2], sw = srun[3];
+  for (int r = 0; r < rows; ++r) {
+    const float* src = xn + (long long)(r_lo + r) * WC + e_lo;
+    for (int e = threadIdx.x; e < sw; e += kThrF) xs[r * sw + e] = src[e];
+  }
+  for (int t = threadIdx.x; t < nw + nr; t += kThrF) {
+    if (t < nw) {
+      Taps c = taps(ja + t, OW, w0, w1);
+      c.i0 = min(max(c.i0 * C - e_lo, 0), sw - C);
+      c.i1 = min(max(c.i1 * C - e_lo, 0), sw - C);
+      ctab[t] = c;
+    } else {
+      Taps r = taps(i_first + t - nw, OH, h0, h1);
+      r.i0 = min(max(r.i0 - r_lo, 0), rows - 1) * sw;
+      r.i1 = min(max(r.i1 - r_lo, 0), rows - 1) * sw;
+      rtab[t - nw] = r;
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < nr * nw; p += kThrF) {
+    const int k = p / nw, j = p - k * nw;
+    const Taps ty = rtab[k], tx = ctab[j];
+    const float* r0 = xs + ty.i0;
+    const float* r1 = xs + ty.i1;
+    float* o = out + (((long long)n * OH + i_first + k) * OW + ja + j) * C;
+    for (int c = 0; c < C; ++c) {
+      const float a = __fadd_rn(__fmul_rn(r0[tx.i0 + c], ty.w0),
+                                __fmul_rn(r1[tx.i0 + c], ty.w1));
+      const float b = __fadd_rn(__fmul_rn(r0[tx.i1 + c], ty.w0),
+                                __fmul_rn(r1[tx.i1 + c], ty.w1));
+      o[c] = __fadd_rn(__fmul_rn(a, tx.w0), __fmul_rn(b, tx.w1));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThrB)
+    crop_resize_bwd_tiled(const float* __restrict__ g,
+                          const Taps* __restrict__ tab,
+                          float* __restrict__ gx, int H, int W, int C,
+                          int OH, int OW, int R, int KI, int TQ, int KJ) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* rrange = reinterpret_cast<int*>(smem + kHead);  // 4 a band row
+  int4* crange = reinterpret_cast<int4*>(rrange + 4 * R);  // a tile column
+  Taps* rtaps = reinterpret_cast<Taps*>(crange + TQ);     // a chunk row
+  float* cw0 = reinterpret_cast<float*>(rtaps + KI);      // a chunk column
+  float* cw1 = cw0 + KJ;
+  const int WC = W * C, OWC = OW * C, TQC = TQ * C, KJC = KJ * C;
+  float* gs = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(cw0) +
+                                       align16(2 * KJ * 4));
+  float* t0 = gs + KI * KJC;  // the W transpose: first taps' sums, then T
+  float* t1 = t0 + KI * TQC;  // second taps' sums
+  float* os = t1 + KI * TQC;  // the band: first taps' sums, then gx
+  float* acc1 = os + R * TQC;
+  const int bands = (H + R - 1) / R;
+  const int n = blockIdx.x / bands;
+  const int ra = (blockIdx.x - n * bands) * R;
+  const int nr = min(R, H - ra);
+  const int qa = blockIdx.y * TQ, nq = min(TQ, W - qa);
+  const float* gn = g + (long long)n * OH * OWC;
+  const Taps* ctab = tab + OH;  // the column table after the rows'
+  int* cr = reinterpret_cast<int*>(crange);
+  for (int t = threadIdx.x; t < 4 * (nr + nq); t += kThrB) {
+    if (t < 4 * nr) rrange[t] = tapping(tab, t & 3, ra + (t >> 2), OH);
+    else cr[t - 4 * nr] = tapping(ctab, t & 3, qa + ((t - 4 * nr) >> 2), OW);
+  }
+  __syncthreads();
+  // the output rows and columns that tap the tile: from the first whose
+  // second tap reaches its first row (column) to the last whose first tap
+  // reaches its last
+  const int i_lo = rrange[2], i_hi = rrange[4 * (nr - 1) + 1];
+  const int j_lo = crange[0].z, j_hi = crange[nq - 1].y;
+  if (i_lo > i_hi || j_lo > j_hi) {
+    for (int e = threadIdx.x; e < nr * TQC; e += kThrB) os[e] = 0.f;
+  }
+  const int di = kThrB / nq, dq = kThrB - di * nq;  // the grid steps
+  for (int c0 = i_lo; c0 <= i_hi && j_lo <= j_hi; c0 += KI) {
+    const int rows = min(KI, i_hi - c0 + 1);
+    for (int t = threadIdx.x; t < rows; t += kThrB) rtaps[t] = tab[c0 + t];
+    for (int jc = j_lo; jc <= j_hi; jc += KJ) {
+      const int cols = min(KJ, j_hi - jc + 1);
+      for (int r = 0; r < rows; ++r) {
+        const float* src = gn + (long long)(c0 + r) * OWC + jc * C;
+        for (int e = threadIdx.x; e < cols * C; e += kThrB)
+          gs[r * KJC + e] = src[e];
+      }
+      for (int t = threadIdx.x; t < cols; t += kThrB) {
+        const Taps c = ctab[jc + t];
+        cw0[t] = c.w0, cw1[t] = c.w1;
+      }
+      __syncthreads();
+      // the W transpose of the chunk, a thread per (row, tile column), each
+      // tap's terms apart, j ascending, carried from column chunk to chunk
+      const bool first = jc == j_lo, last = jc + KJ > j_hi;
+      for (int i = threadIdx.x / nq, q = threadIdx.x - i * nq; i < rows;
+           q += dq, i += di + (q >= nq), q -= q >= nq ? nq : 0) {
+        const int4 rq = crange[q];
+        const int a0 = max(rq.x, jc) - jc, b0 = min(rq.y, jc + cols - 1) - jc;
+        const int a1 = max(rq.z, jc) - jc, b1 = min(rq.w, jc + cols - 1) - jc;
+        const float* gr = gs + i * KJC;
+        const int e = (i * TQ + q) * C;
+        for (int c = 0; c < C; ++c) {
+          float s0 = first ? 0.f : t0[e + c], s1 = first ? 0.f : t1[e + c];
+          tap_sums<1>(gr + c, C, cw0, 1, a0, b0, &s0);
+          tap_sums<1>(gr + c, C, cw1, 1, a1, b1, &s1);
+          if (last) {
+            t0[e + c] = __fadd_rn(s0, s1);
+          } else {
+            t0[e + c] = s0;
+            t1[e + c] = s1;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // the H transpose into the band, a thread per (band row, tile column),
+    // the two taps' sums carried from row chunk to chunk, i ascending
+    const bool first = c0 == i_lo, last = c0 + KI > i_hi;
+    constexpr int kWs = sizeof(Taps) / 4;
+    for (int k = threadIdx.x / nq, q = threadIdx.x - k * nq; k < nr;
+         q += dq, k += di + (q >= nq), q -= q >= nq ? nq : 0) {
+      const int* rr = rrange + 4 * k;
+      const int a0 = max(rr[0], c0) - c0, b0 = min(rr[1], c0 + rows - 1) - c0;
+      const int a1 = max(rr[2], c0) - c0, b1 = min(rr[3], c0 + rows - 1) - c0;
+      const int e = (k * TQ + q) * C;
+      for (int c = 0; c < C; ++c) {
+        float s0 = first ? 0.f : os[e + c], s1 = first ? 0.f : acc1[e + c];
+        tap_sums<1>(t0 + q * C + c, TQC, &rtaps[0].w0, kWs, a0, b0, &s0);
+        tap_sums<1>(t0 + q * C + c, TQC, &rtaps[0].w1, kWs, a1, b1, &s1);
+        if (last) {
+          os[e + c] = __fadd_rn(s0, s1);
+        } else {
+          os[e + c] = s0;
+          acc1[e + c] = s1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int k = 0; k < nr; ++k) {
+    float* dst = gx + ((long long)n * H + ra + k) * WC + qa * C;
+    for (int e = threadIdx.x; e < nq * C; e += kThrB) dst[e] = os[k * TQC + e];
+  }
+}
+
 // Dynamic shared memory above 48 KB (the attribute belongs to the current
 // device: set on every launch, which costs no measurable time).
 template <typename K>
@@ -440,20 +689,42 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 // x: (N, H, W, C) f32 contiguous; apex: 4 f32 on the device, (h0, h1, w0,
 // w1) with 0 <= h0 < h1 <= H and 0 <= w0 < w1 <= W, integer-valued; out:
-// (N, OH, OW, C).
+// (N, OH, OW, C). TW: the output columns a CTA owns; TW >= OW launches the
+// whole-row kernel.
 extern "C" int vwfd_crop_resize_fwd(const void* x, const void* apex,
                                     void* out, int N, int H, int W, int C,
-                                    int OH, int OW, void* stream) {
+                                    int OH, int OW, int TW, void* stream) {
   if ((long long)N * OH * OW * C == 0) return (int)cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // R output rows a CTA; the rows they tap, bounded from the largest
   // window (the image): (R − 1)·H/OH + 3
   int R = kBand, KX = 0;
+  auto rows_of = [&](int r) {
+    return min(H, ((r - 1) * H + OH - 1) / OH + 3);
+  };
+  if (TW < OW) {  // column tiles
+    if (TW < 1) return (int)cudaErrorInvalidValue;
+    const int KWC = min(W, ((TW - 1) * W + OW - 1) / OW + 3) * C;
+    while (fwd_tiled_smem(R, rows_of(R), TW, KWC) > kSmemMax && R > 1) R /= 2;
+    KX = rows_of(R);
+    const int smem = fwd_tiled_smem(R, KX, TW, KWC);
+    const long long grid = (long long)N * ((OH + R - 1) / R);
+    const int tiles = (OW + TW - 1) / TW;
+    if (smem > kSmemCta || grid > 0x7fffffff || tiles > 65535)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem(crop_resize_fwd_tiled, smem);
+    if (e != cudaSuccess) return (int)e;
+    crop_resize_fwd_tiled<<<dim3((unsigned)grid, tiles), kThrF, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(apex),
+        static_cast<float*>(out), H, W, C, OH, OW, R, KX, TW, KWC);
+    return (int)cudaGetLastError();
+  }
   for (;; R /= 2) {
-    KX = min(H, ((R - 1) * H + OH - 1) / OH + 3);
+    KX = rows_of(R);
     if (fwd_smem(R, KX, W, C, OW) <= kSmemMax || R == 1) break;
   }
   if (fwd_smem(R, KX, W, C, OW) > kSmemCta)
-    return (int)cudaErrorInvalidValue;  // rows too wide
+    return (int)cudaErrorInvalidValue;  // whole rows do not fit: tiles do
   const bool bulk = (W * C * 4) % 16 == 0 && (OW * C * 4) % 16 == 0 &&
                     vwfd::aligned16({x, out});
   const long long grid = (long long)N * ((OH + R - 1) / R);
@@ -462,25 +733,47 @@ extern "C" int vwfd_crop_resize_fwd(const void* x, const void* apex,
   auto kernel = bulk ? crop_resize_fwd<true> : crop_resize_fwd<false>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)grid, kThrF, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)grid, kThrF, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(apex),
       static_cast<float*>(out), H, W, C, OH, OW, R, KX);
   return (int)cudaGetLastError();
 }
 
-// g: (N, OH, OW, C) the output's cotangent; gx: (N, H, W, C).
+// g: (N, OH, OW, C) the output's cotangent; gx: (N, H, W, C). TQ: the
+// input columns a CTA owns; TQ >= W launches the whole-row kernel, and
+// otherwise `tables`, 16·(OH + OW) bytes on the device, receives the tap
+// tables first.
 extern "C" int vwfd_crop_resize_bwd(const void* g, const void* apex, void* gx,
-                                    int N, int H, int W, int C, int OH,
-                                    int OW, void* stream) {
+                                    void* tables, int N, int H, int W, int C,
+                                    int OH, int OW, int TQ, void* stream) {
   if ((long long)N * H * W * C == 0) return (int)cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (TQ < W) {  // column tiles
+    if (TQ < 1) return (int)cudaErrorInvalidValue;
+    const int R = kBand, KI = min(OH, kChunkTiled);
+    const int KJ = min(OW, 2 * TQ + 8);
+    const int smem = bwd_tiled_smem(R, KI, TQ, KJ, C);
+    const long long grid = (long long)N * ((H + R - 1) / R);
+    const int tiles = (W + TQ - 1) / TQ;
+    if (smem > kSmemCta || grid > 0x7fffffff || tiles > 65535 || !tables)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem(crop_resize_bwd_tiled, smem);
+    if (e != cudaSuccess) return (int)e;
+    Taps* tab = static_cast<Taps*>(tables);
+    crop_resize_taps<<<(OH + OW + 255) / 256, 256, 0, st>>>(
+        static_cast<const float*>(apex), tab, OH, OW);
+    crop_resize_bwd_tiled<<<dim3((unsigned)grid, tiles), kThrB, smem, st>>>(
+        static_cast<const float*>(g), tab, static_cast<float*>(gx), H, W, C,
+        OH, OW, R, KI, TQ, KJ);
+    return (int)cudaGetLastError();
+  }
   int R = kBand, KI = min(OH, kChunk);
   while (bwd_smem(R, KI, W, C, OH, OW) > kSmemMax && (KI > 1 || R > 1)) {
     if (KI > 1) KI = (KI + 1) / 2;
     else R /= 2;
   }
   if (bwd_smem(R, KI, W, C, OH, OW) > kSmemCta)
-    return (int)cudaErrorInvalidValue;  // rows too wide
+    return (int)cudaErrorInvalidValue;  // whole rows do not fit: tiles do
   const bool bulk = (W * C * 4) % 16 == 0 && (OW * C * 4) % 16 == 0 &&
                     vwfd::aligned16({g, gx});
   const long long grid = (long long)N * ((H + R - 1) / R);
@@ -489,8 +782,7 @@ extern "C" int vwfd_crop_resize_bwd(const void* g, const void* apex, void* gx,
   auto kernel = bulk ? crop_resize_bwd<true> : crop_resize_bwd<false>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)grid, kThrB, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)grid, kThrB, smem, st>>>(
       static_cast<const float*>(g), static_cast<const float*>(apex),
       static_cast<float*>(gx), H, W, C, OH, OW, R, KI);
   return (int)cudaGetLastError();

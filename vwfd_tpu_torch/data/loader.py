@@ -4,6 +4,8 @@ One process assembles each batch as numpy arrays: the item order is the
 JAX package's (``np.arange(len·ratio) % len``, shuffled by a seeded
 ``default_rng``), items are fetched over a thread pool, and a thread keeps
 ``prefetch`` batches ready. The model moves a batch to the card.
+``stream(start)`` yields the batches of successive epochs from batch
+``start`` on, for a resumed run.
 """
 
 import queue
@@ -34,16 +36,37 @@ class Loader:
         return np.stack(items)
 
     def __iter__(self):
+        """One epoch: its order drawn from the loader's generator."""
+        return self._epoch(0)
+
+    def stream(self, start: int = 0):
+        """The batches of epoch after epoch, as repeated iteration yields
+        them, from batch ``start`` on: the epochs before it draw their
+        orders and make no batch, so a resumed run sees the batches an
+        unbroken one sees."""
+        per = len(self)
+        for _ in range(start // per):
+            self._order()
+        yield from self._epoch(start % per)
+        while True:
+            yield from self._epoch(0)
+
+    def _order(self):
         n = len(self.dataset) * self.ratio
         order = np.arange(n) % len(self.dataset)
         if self.shuffle:
             self.rng.shuffle(order)
+        return order
+
+    def _epoch(self, first: int):
+        order = self._order()
+        n = len(order)
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def worker():
             with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                for b in range(n // self.batch_size):
+                for b in range(first, n // self.batch_size):
                     if stop.is_set():
                         break
                     q.put(self._make_batch(

@@ -5,7 +5,7 @@
 * K3 ``wire``            — uint8 wire format + relayouts (kernels/wire.py)
 * K4 ``mask_pack``       — detect epilogue, bits + tamper fraction (kernels/mask.py)
 * K5 ``jpeg_pair``       — the attack pool's two fused JPEG draws, forward
-  and backward (kernels/jpeg.py)
+  and backward (kernels/jpeg.py); MBRS's ``jpeg_basic`` is one draw of it
 * K6 ``median3``         — 3×3 median filter, forward and first-match
   backward (kernels/median.py)
 * K7 ``f1_sweep``        — the eval step's confusion counts at every F1
@@ -30,7 +30,8 @@
 * K16 ``zigzag_jpeg``    — HiDDeN's zig-zag JPEG-mask compression with its
   clip, forward and backward (kernels/zigzag.py)
 * K17 ``crop_resize``    — HiDDeN's crop: a window resampled bilinearly back
-  to the full grid, forward and backward (kernels/crop_resize.py)
+  to the full grid, forward and backward, rows of any width (column tiles
+  past a CTA's whole rows) (kernels/crop_resize.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.

@@ -70,8 +70,9 @@ _SIGNATURES = {
                                  _I, _P, _I, _L, _I, _I, _I, _I, _P],
     "vwfd_zigzag_jpeg": [_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _I,
                          _I, _P],
-    "vwfd_crop_resize_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vwfd_crop_resize_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_crop_resize_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_crop_resize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
 }
 
 _lock = threading.Lock()

@@ -70,10 +70,10 @@ def zonal_mask(device) -> torch.Tensor:
     return torch.from_numpy(_zonal_np()).to(device)
 
 
-def _check(x, qt, mode, w) -> None:
+def _check(x, qt, mode, w, dtypes=(torch.float32,)) -> None:
     _lib.check_nhwc(x, "jpeg_pair input")
-    if x.dtype != torch.float32:
-        raise TypeError(f"jpeg_pair takes float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"jpeg_pair takes {dtypes}, got {x.dtype}")
     n, h, wd, c = x.shape
     if c != 3 or h % 8 or wd % 8:
         raise ValueError(f"jpeg_pair: expected (N, H, W, 3) with H and W "
@@ -93,8 +93,9 @@ def _check(x, qt, mode, w) -> None:
 def jpeg_pool_pair_plain(x: torch.Tensor, qt: torch.Tensor,
                          mode: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version (gradients by autograd through the torch ops):
-    ``jpeg_pool_pair`` of the JAX package on explicit draws."""
-    _check(x, qt, mode, w)
+    ``jpeg_pool_pair`` of the JAX package on explicit draws; float32, or
+    float64 for the CPU parity tests' float64 steps."""
+    _check(x, qt, mode, w, (torch.float32, torch.float64))
     n = x.shape[0]
     yuv = rgb_to_yuv_jpegbasic(x * 255.0)
     coeff = dct_blocks(block_split(yuv.movedim(-1, -3)))  # (N,3,hb,wb,8,8)
@@ -146,8 +147,8 @@ def jpeg_pair(x: torch.Tensor, qt: torch.Tensor, mode: torch.Tensor,
     """The two-draw JPEG attack of an NHWC float32 RGB batch, differentiable
     in x: the CUDA kernels (forward and backward) for CUDA tensors, the
     plain version for CPU tensors."""
-    _check(x, qt, mode, w)
     if not _lib.on_cuda(x, qt, mode, w):
         return jpeg_pool_pair_plain(x, qt, mode, w)
+    _check(x, qt, mode, w)
     _lib.check_aligned(x, "jpeg_pair input")
     return _JpegPairKernel.apply(x, qt, mode, w.detach())

@@ -1,6 +1,7 @@
 """Models of the port (counterparts of vwfd_tpu/models)."""
 
 from .hidden_model import HiddenModel
+from .mbrs_model import MBRSModel
 from .video_model import VideoWatermarkModel
 
-__all__ = ["HiddenModel", "VideoWatermarkModel"]
+__all__ = ["HiddenModel", "MBRSModel", "VideoWatermarkModel"]

@@ -5,9 +5,14 @@ from .inn import (DenseSubnet, InvertibleNet, RNVPCoupling, ResSubnet,
 from .blocks import ConvBNRelu
 from .hidden import (HiddenDecoder, HiddenDiscriminator, HiddenEncoder,
                      HiddenEncoderDecoder)
+from .mbrs import (BalujaHiding, BalujaPrep, BalujaReveal, ExpandNet,
+                   MBRSDecoder, MBRSEncoder, MBRSPlainDecoder, SEBottleneck,
+                   SENet, SENetDecoder)
 from .unet import UNet, UNetTPU
 
 __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
            "ResSubnetTPU", "ResSubnetTPUS2", "UNet", "UNetTPU", "ConvBNRelu",
            "HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
-           "HiddenEncoderDecoder"]
+           "HiddenEncoderDecoder", "SEBottleneck", "SENet", "SENetDecoder",
+           "ExpandNet", "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder",
+           "BalujaPrep", "BalujaHiding", "BalujaReveal"]

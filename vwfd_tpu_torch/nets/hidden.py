@@ -25,36 +25,15 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from .blocks import ConvBNRelu
-from .unet import _conv, _trunc_normal_
+from .blocks import ConvBNRelu, FlaxNet
+from .unet import _conv
 
 __all__ = ["HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
            "HiddenEncoderDecoder"]
 
 
-class _HiddenNet(nn.Module):
-    """flax's initialisers and the BatchNorm statistics, shared."""
-
-    def init_params(self, gen: torch.Generator) -> None:
-        """kaiming-normal (truncated, fan-in) ConvBNRelu convs, lecun-normal
-        1×1 convs and Dense layers, zero biases, identity BatchNorm."""
-        kaiming = {id(b.Conv_0) for b in self.modules()
-                   if isinstance(b, ConvBNRelu)}
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                _trunc_normal_(m.weight, 2.0 if id(m) in kaiming else 1.0,
-                               m.weight[0].numel(), gen)
-                with torch.no_grad():
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-
-    def load_stats(self, stats, good=None) -> None:
-        """Write the running statistics of a train-mode forward; where
-        ``good`` (a 0-dim bool tensor) is False, keep the old ones."""
-        for bn, (mean, var) in stats.items():
-            for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
-                buf.copy_(new if good is None else torch.where(good, new, buf))
+class _HiddenNet(FlaxNet):
+    """The HiDDeN nets' stack of ConvBNRelu blocks."""
 
     def _blocks(self, h, n, stats):
         for i in range(n):

@@ -69,16 +69,16 @@ def _conv(x, conv: nn.Conv2d, dt, padding):
 _MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9): ra ← 0.9·ra + 0.1·batch
 
 
-def _bn_relu(x, bn: nn.BatchNorm2d, stats=None):
-    """BatchNorm + ReLU (flax computes it in f32 and casts to the compute
-    dtype; PyTorch does the same for a bf16 input with f32 statistics).
-    ``stats`` None: eval mode, running statistics. Otherwise train mode:
-    batch statistics, and ``stats[bn]`` receives the updated running
-    (mean, var)."""
+def _bn(x, bn: nn.BatchNorm2d, stats=None):
+    """BatchNorm of NHWC ``x`` (flax computes it in f32 and casts to the
+    compute dtype; PyTorch does the same for a bf16 input with f32
+    statistics). ``stats`` None: eval mode, running statistics. Otherwise
+    train mode: batch statistics, and ``stats[bn]`` receives the updated
+    running (mean, var)."""
     if stats is None:
         y = F.batch_norm(_nchw(x), bn.running_mean, bn.running_var,
                          bn.weight, bn.bias, False, 0.0, bn.eps)
-        return F.relu(_nhwc(y))
+        return _nhwc(y)
     c = x.shape[-1]
     mean = torch.zeros(c, device=x.device)
     var = torch.ones(c, device=x.device)
@@ -90,7 +90,12 @@ def _bn_relu(x, bn: nn.BatchNorm2d, stats=None):
         biased = var * ((n - 1) / n)
         stats[bn] = (_MOMENTUM * bn.running_mean + (1 - _MOMENTUM) * mean,
                      _MOMENTUM * bn.running_var + (1 - _MOMENTUM) * biased)
-    return F.relu(_nhwc(y))
+    return _nhwc(y)
+
+
+def _bn_relu(x, bn: nn.BatchNorm2d, stats=None):
+    """``_bn`` then ReLU."""
+    return F.relu(_bn(x, bn, stats))
 
 
 class _DoubleConv(nn.Module):

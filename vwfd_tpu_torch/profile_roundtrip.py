@@ -14,6 +14,8 @@ step's time goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip [--mode train --batch 8]
     # HiDDeN's train step (message 30, 64 channels, 128², f32)
     python -m vwfd_tpu_torch.profile_roundtrip --mode hidden --batch 8
+    # MBRS's train step (message 30, 64 channels, 4 SE blocks, 128², f32)
+    python -m vwfd_tpu_torch.profile_roundtrip --mode mbrs
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -24,7 +26,9 @@ the detect alone; ``--mode train`` runs ``train_step`` and ``--mode eval``
 ``eval_step`` on synthetic batches; ``--mode hidden`` runs the HiDDeN
 family's ``train_step`` (``models/hidden_model.py``, the published widths,
 128², float32, continue_hidden's weighted pool; the video model options
-do not apply) on synthetic images. ``--int8`` serves the roundtrip or the
+do not apply) on synthetic images, ``--mode mbrs`` the MBRS family's
+(``models/mbrs_model.py``, the published widths, 128², float32, the
+noise draws of ``MBRSSampler``) on the runner's synthetic images. ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
 through the int8 embed (calibrated on one seeded random clip, off the
 clock). Each runs under
@@ -67,7 +71,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "haar": ("haar_kernel",),
                 "coupling_affine": ("affine_fwd", "affine_bwd"),
                 "zigzag_jpeg": ("zigzag_kernel",),
-                "crop_resize": ("crop_resize_fwd", "crop_resize_bwd")}
+                "crop_resize": ("crop_resize_fwd", "crop_resize_bwd",
+                                "crop_resize_taps")}
 
 
 def classify(name: str) -> str:
@@ -95,7 +100,7 @@ def main(argv=None):
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval",
-                             "hidden"])
+                             "hidden", "mbrs"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -132,6 +137,26 @@ def main(argv=None):
             step[0] += 1
             imgs, msgs = batches[step[0] % len(batches)]
             return model.train_step(imgs, msgs, sampler(imgs.shape))
+    elif args.mode == "mbrs":
+        from .data import SyntheticImageDataset
+        from .models import MBRSModel
+        from .models.mbrs_model import MBRSSampler
+        t, s = 1, 128
+        model = MBRSModel(image_size=s, device=args.device)
+        model.init_states(0)
+        ds = SyntheticImageDataset(size=s, length=4 * b, seed=10)
+        rng = np.random.default_rng(10)
+        batches = [model.to_device(
+            np.stack([ds[i * b + j] for j in range(b)]),
+            (rng.random((b, model.message_length)) > 0.5).astype(np.float32))
+            for i in range(4)]
+        sampler = MBRSSampler(0)
+        step = [0]
+
+        def one():
+            step[0] += 1
+            imgs, msgs = batches[step[0] % len(batches)]
+            return model.train_step(imgs, msgs, sampler())
     elif args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)

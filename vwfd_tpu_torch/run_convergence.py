@@ -233,9 +233,9 @@ def _has_pil() -> bool:
     return True
 
 
-def _keep_upto(path: str, step: int) -> float:
+def _keep_upto(path: str, step: int, wall: str = "wall_s") -> float:
     """Drop the records of ``path`` past ``step`` (a segment cut off after
-    its last checkpoint); returns the last kept record's ``wall_s``."""
+    its last checkpoint); returns the last kept record's ``wall``."""
     if not os.path.exists(path):
         return 0.0
     with open(path) as f:
@@ -243,7 +243,7 @@ def _keep_upto(path: str, step: int) -> float:
     kept = [r for r in recs if r.get("step", -1) <= step]
     with open(path, "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in kept)
-    walls = [r["wall_s"] for r in kept if "wall_s" in r]
+    walls = [r[wall] for r in kept if wall in r]
     return walls[-1] if walls else 0.0
 
 

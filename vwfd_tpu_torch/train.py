@@ -1,5 +1,5 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video|hidden [--root DIR | --synthetic] [--steps N | --val] [--resume]``).
+video|hidden|mbrs [--root DIR | --synthetic] [--steps N | --val] [--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
     python -m vwfd_tpu_torch.train --synthetic --steps 100
@@ -32,18 +32,21 @@ frames/s over the steps after the first, the restored step and the device.
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 
 ``--task hidden`` trains the HiDDeN family (``models/hidden_model.py``; the
-JAX ``train.py``'s ``_message_loop``, :219-284) on synthetic images
+JAX ``train.py``'s ``_message_loop``, :219-284), ``--task mbrs`` the MBRS
+family (``models/mbrs_model.py``, the same loop), on synthetic images
 (``--synthetic``: ``SyntheticImageDataset(seed=train.seed)``) or an image
 folder (``--root``, read through OpenCV), with the JAX defaults of
 ``Config()`` unless ``--config`` (``--size`` and ``--batch`` override):
-messages from ``default_rng(train.seed)``, the uniform noise pool from the
-port's sampler, a progress bar, the scalar log and a checkpoint every
+messages from ``default_rng(train.seed)``, the noise draws from the
+task's sampler seeded ``train.seed``, a progress bar, the scalar log and a checkpoint every
 ``save_interval`` steps; it prints one JSON line (the last step's logs, ms
 per step and images/s over the steps after the first). ``--val`` is the
-video model's; HiDDeN's per-member eval is ``vwfd_tpu_torch.eval_hidden``.
-``--task mbrs`` is not ported yet.
+video model's; HiDDeN's per-member eval is ``vwfd_tpu_torch.eval_hidden``,
+MBRS's libjpeg eval ``vwfd_tpu_torch.run_family_convergence``.
 
     python -m vwfd_tpu_torch.train --task hidden --synthetic --steps 3 \
+        --device cpu --batch 2 --size 32
+    python -m vwfd_tpu_torch.train --task mbrs --synthetic --steps 3 \
         --device cpu --batch 2 --size 32
 """
 
@@ -59,8 +62,9 @@ import torch
 from . import FLAGSHIP_CONFIG, Config, load_config
 from .data import (DavisVideoDataset, ImageFolderDataset, Loader,
                    SyntheticImageDataset, SyntheticVideoDataset, cv2_readers)
-from .models import HiddenModel, VideoWatermarkModel
+from .models import HiddenModel, MBRSModel, VideoWatermarkModel
 from .models.hidden_model import HiddenSampler
+from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint, save_checkpoint
 from .utils import Progbar, ScalarLogger, setup_logger
 
@@ -116,16 +120,19 @@ class _ImagesOnly:
         return self.base[i]["image"]
 
 
-def _hidden(args, ap, logger):
-    """``--task hidden``: the message loop of the JAX ``train.py``."""
+def _message(args, ap, logger):
+    """``--task hidden`` or ``mbrs``: the message loop of the JAX
+    ``train.py``."""
     if args.val:
         ap.error("--val is the video model's; HiDDeN's per-member eval is "
-                 "python -m vwfd_tpu_torch.eval_hidden")
+                 "python -m vwfd_tpu_torch.eval_hidden, MBRS's "
+                 "python -m vwfd_tpu_torch.run_family_convergence")
+    task = args.task
     cfg = load_config(args.config) if args.config else Config()
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 gt_size=args.size or cfg.data.gt_size,
                 root=args.root or cfg.data.root, synthetic=args.synthetic)
-    cfg = dataclasses.replace(cfg, task="hidden",
+    cfg = dataclasses.replace(cfg, task=task,
                               data=dataclasses.replace(cfg.data, **data),
                               ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
     b, s = cfg.data.batch_size, cfg.data.gt_size
@@ -142,17 +149,21 @@ def _hidden(args, ap, logger):
                                                  size=s))
     else:
         ap.error("no data: pass --root (an image folder) or --synthetic")
-    model = HiddenModel(image_size=s, device=args.device)
+    if task == "hidden":
+        model = HiddenModel(image_size=s, device=args.device)
+        sampler = HiddenSampler(cfg.train.seed, model.device)
+    else:
+        model = MBRSModel(image_size=s, device=args.device)
+        sampler = MBRSSampler(cfg.train.seed)
     model.init_states(cfg.train.seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
-        logger.info("resuming hidden from step %d", step0)
+        logger.info("resuming %s from step %d", task, step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
     loader = Loader(dataset, b, seed=cfg.train.seed, ratio=cfg.data.ratio)
-    sampler = HiddenSampler(cfg.train.seed, model.device)
     rng = np.random.default_rng(cfg.train.seed)
     scalar_logger = None if args.no_telemetry else ScalarLogger(
-        args.logdir or os.path.join("runs", f"{cfg.name}_hidden"))
+        args.logdir or os.path.join("runs", f"{cfg.name}_{task}"))
     pb = Progbar(args.steps, stateful_metrics=["bitwise_error"])
     cuda = model.device.type == "cuda"
     step, end, times, vals = step0 or 0, (step0 or 0) + args.steps, [], {}
@@ -191,12 +202,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="video",
                     choices=("video", "hidden", "mbrs"),
-                    help="video (default) or hidden; mbrs is not ported yet")
+                    help="video (default), hidden or mbrs")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
                     help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
-                         "with --task hidden an image folder")
+                         "with --task hidden or mbrs an image folder")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--val", action="store_true",
                     help="evaluate with eval_step instead of training")
@@ -222,10 +233,8 @@ def main(argv=None):
         ap.error("--synthetic and --root exclude each other")
 
     logger = setup_logger("base")
-    if args.task == "mbrs":
-        raise NotImplementedError("--task mbrs is not ported yet")
-    if args.task == "hidden":
-        return _hidden(args, ap, logger)
+    if args.task in ("hidden", "mbrs"):
+        return _message(args, ap, logger)
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
