@@ -184,7 +184,31 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    forward and gradient within 1e-4 outside flipped blocks (counted); with
    a NaN and an Inf pixel forward and gradient NaN where the plain
    version's are (F23); timed forward + backward warm and cold beside the
-   plain version.
+   plain version. Phase 3 also holds K18 ``window_attention`` (forward,
+   dqkv and the bias table's gradient within 1e-5 of the plain max, the
+   gradients bit-identical over two calls) at SUNet's four stage shapes
+   of 256² b8, shifted and not, and at N = 16, d = 16 and d = 64; a NaN
+   and an Inf in q give NaN where the plain version has it; shapes it
+   does not take raise; each stage timed forward + backward warm and cold
+   beside the plain version and ``F.scaled_dot_product_attention`` with
+   the additive bias + mask (library); its kernels spill-free;
+14. serving's remainder: ``serve --root --out`` on a PNG tree (OpenCV's
+   reader and writer where it imports, else PIL's on PNGs written at the
+   serving size), its frames, masks and ``verdicts.json`` under the CPU
+   test's names; ``--stream 8``'s lines at windows 1, 2 and 4; a roundtrip
+   at ``extractor_s2d`` 4 (K3 and K4 at s = 4) with the launch counts at 0
+   just before and read just after, held to the plain server by F7's
+   rule;
+15. Tianchi at the published widths (SUNet embed 96, depths 2/2/2/2, heads
+   3/6/12/24, window 8; 256², b8, f32, random weights from a seed): one
+   ``train_step`` per JPEG mode through ``KERNELS`` and ``PLAIN`` from the
+   same state, batch and draws (CE and CE1 within 1e-5 relative, both
+   updates' gradient cosines ≥ 0.9999, or MBRS's per-flip rule where K5
+   flips a block), each with the launch counts at 0 just before and read
+   just after (K18 ×56: 28 forward, 28 backward; K5 ×1); an ``eval_step``
+   (K18 ×14, K7 ×1); an Inf pixel that moves nothing; one step at 512²
+   b4, where every stage shifts; the p50 of train and eval steps,
+   images/s and the peak memory.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -198,7 +222,8 @@ bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
 K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
 roundtrip for K14 and K15, and per HiDDeN train step of the member that
-runs it for K16 and K17; ``launches_by_path`` holds MBRS's paths, K5's
+runs it for K16 and K17, per Tianchi train step for K18;
+``launches_by_path`` holds MBRS's, serving's and Tianchi's paths, K5's
 entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
 whole-row width); the last
 line is
@@ -231,7 +256,8 @@ from vwfd_tpu_torch.kernels import (PLAIN, _lib, affine, coupling,
                                     crop_resize, f1, haar, jpeg, zigzag,
                                     launch_counts, mask, median, mix, qconv,
                                     qconv_t, qcoupling, reset_launch_counts,
-                                    splice, ssim, transition, wire)
+                                    splice, ssim, transition,
+                                    window_attention, wire)
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models import video_model
 from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
@@ -302,6 +328,8 @@ KERNEL_SOURCES = {
                     "vwfd_tpu/attacks/jpeg.py:249"),
     "crop_resize": ("vwfd_tpu_torch/csrc/crop_resize.cu",
                     "vwfd_tpu/ops/resize.py:135"),
+    "window_attention": ("vwfd_tpu_torch/csrc/window_attention.cu",
+                         "vwfd_tpu/nets/sunet.py:32"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -330,7 +358,8 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
 # K14 and K15 run on the INN module path only (the refshape phase), K16
 # and K17 on HiDDeN's (phase 12)
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
-           "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0}
+           "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0,
+           "window_attention": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -361,7 +390,8 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "haar": "refshape_roundtrip",
             "coupling_affine": "refshape_roundtrip",
             "zigzag_jpeg": "hidden_train_jpeg_mask",
-            "crop_resize": "hidden_train_crop"}
+            "crop_resize": "hidden_train_crop",
+            "window_attention": "tianchi_train_step"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -2402,6 +2432,193 @@ def check_hidden_build(card):
               f"{r['kernel']} spills (local memory)")
 
 
+# ------------------------------------------------------------ phase 3,
+# Tianchi's SUNet
+
+# K18 vs plain: forward and every gradient within WINATT_RTOL of the plain
+# tensor's max-abs (float32 sums in another order than the CPU einsums)
+WINATT_RTOL = 1e-5
+# SUNet at 256² b8 (published widths): per stage (qkv shape, window grid);
+# a SUNet pass runs stages 0-2 four times (two encoder, two decoder
+# blocks, every second one shifted by 4) and stage 3 twice, unshifted
+# (its window covers the 8 × 8 map)
+TC_B, TC_S = 8, 256
+WINATT_STAGES = [((TC_B * (TC_S // 32 >> i) ** 2, 64, 3, 3 * 2 ** i, 32),
+                  (TC_S // 32 >> i, TC_S // 32 >> i)) for i in range(4)]
+# further shapes the kernel takes: N = 16 (a 128² input's stage 3, and
+# window 4 shifted), d = 16 and d = 64
+WINATT_EXTRA = [((8, 16, 3, 24, 32), (1, 1), 0),
+                ((32, 16, 3, 2, 32), (2, 2), 2),
+                ((16, 16, 3, 4, 16), (2, 2), 2),
+                ((8, 64, 3, 2, 64), (2, 2), 4)]
+
+
+def winatt_inputs(g, shape):
+    bnw, n, _, h, d = shape
+    ws = int(round(n ** 0.5))
+    qkv = torch.randn(shape, device="cuda", generator=g)
+    table = 0.02 * torch.randn(((2 * ws - 1) ** 2, h), device="cuda",
+                               generator=g)
+    cot = torch.randn((bnw, n, h * d), device="cuda", generator=g)
+    return qkv, table, cot
+
+
+def winatt_grads(fn, qkv, table, cot, grid, shift):
+    q = qkv.clone().requires_grad_(True)
+    t = table.clone().requires_grad_(True)
+    y = fn(q, t, grid, shift)
+    dq, dt = torch.autograd.grad(y, (q, t), cot)
+    return y.detach(), dq, dt
+
+
+def winatt_check(g, shape, grid, shift):
+    """K18 against its plain version at one shape: forward, dqkv and the
+    table's gradient within ``WINATT_RTOL`` of the plain max; the table's
+    gradient bit-identical over two calls. Returns the largest error."""
+    qkv, table, cot = winatt_inputs(g, shape)
+    k = winatt_grads(window_attention.window_attention, qkv, table, cot,
+                     grid, shift)
+    k2 = winatt_grads(window_attention.window_attention, qkv, table, cot,
+                      grid, shift)
+    p = winatt_grads(window_attention.window_attention_plain, qkv, table,
+                     cot, grid, shift)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip(("forward", "dqkv", "dtable"), k, p):
+        e = float((a - b).abs().max())
+        m = float(b.abs().max())
+        check(e <= WINATT_RTOL * m, f"window_attention {shape} shift "
+              f"{shift} {name}: max_abs_err {e} (plain max {m})")
+        errs.append(e)
+    check(torch.equal(k[2], k2[2]) and torch.equal(k[1], k2[1]),
+          f"window_attention {shape}: gradients differ over two calls")
+    print(f"check window_attention qkv {shape} grid {grid} shift {shift}: "
+          f"max_abs_err forward {errs[0]:.3g} dqkv {errs[1]:.3g} dtable "
+          f"{errs[2]:.3g}; gradients bit-identical over two calls")
+    return max(errs)
+
+
+def winatt_times(g, shape, grid, shift):
+    """(K18, plain, SDPA) forward + backward ms warm, K18 cold, at one
+    shape. SDPA: ``F.scaled_dot_product_attention(q, k, v,
+    attn_mask=B+M)`` on contiguous (nW·B, heads, N, d) q, k, v with the
+    additive (nW·B, heads, N, N) mask built outside the timing, its
+    backward to q, k and v (the mask takes no gradient)."""
+    qkv, table, cot = winatt_inputs(g, shape)
+    bnw, n, _, h, d = shape
+    ms = {}
+    for name, fn in (("kernel", window_attention.window_attention),
+                     ("plain", window_attention.window_attention_plain)):
+        f = lambda q, t, fn=fn: fn(q, t, grid, shift)
+        fwd, bwd, _, _ = fused_times(f, [(qkv, table, cot)], [True, True])
+        ms[name] = fwd + bwd
+    per = nbytes(qkv, cot) * 3
+    sets = cold_sets(lambda i: winatt_inputs(g, shape), per)
+    f = lambda q, t: window_attention.window_attention(q, t, grid, shift)
+    _, _, cf, cb = fused_times(f, sets, [True, True])
+    ms["cold"] = cf + cb
+    ws = int(round(n ** 0.5))
+    idx = torch.from_numpy(window_attention.relative_index(ws).reshape(-1)
+                           ).cuda()
+    mask = table[idx].reshape(n, n, h).permute(2, 0, 1)[None]
+    if shift:  # (nW, heads, N, N), repeated for the images
+        m = torch.from_numpy(window_attention.shift_mask(
+            ws, grid[0] * ws, grid[1] * ws, shift)).cuda()
+        mask = (mask + m[:, None]).repeat(bnw // (grid[0] * grid[1]), 1, 1,
+                                           1)
+    else:
+        mask = mask.expand(bnw, h, n, n)
+    mask = mask.contiguous()
+    q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous().requires_grad_(True)
+               for i in range(3))
+    cot4 = cot.reshape(bnw, n, h, d).transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    y = sdpa()
+    ms["library"] = time_ms(sdpa) + time_ms(
+        lambda: torch.autograd.grad(y, (q, k, v), cot4, retain_graph=True))
+    return ms
+
+
+def check_window_attention(rows, card):
+    """K18 at the four SUNet stage shapes of 256² b8 (stages 0-2 shifted
+    and not, stage 3 not) and at N = 16, d = 16 and d = 64: forward, dqkv
+    and the table's gradient within ``WINATT_RTOL`` of the plain max,
+    gradients bit-identical over two calls; a NaN and an Inf in q give NaN
+    where the plain version has it, forward and gradients; a shape it does
+    not take raises. Timed forward + backward warm and cold beside the
+    plain version and SDPA at each stage shape; the row sums a train
+    step's 28 + 28 launches (two SUNet passes)."""
+    row = rows["window_attention"]
+    g = torch.Generator("cuda").manual_seed(18)
+    err = 0.0
+    cases = [(shape, grid, s) for shape, grid in WINATT_STAGES
+             for s in ((0, 4) if grid[0] > 1 else (0,))] + WINATT_EXTRA
+    for shape, grid, shift in cases:
+        err = max(err, winatt_check(g, shape, grid, shift))
+    # non-finite q: NaN where the plain version has it, forward and back
+    qkv, table, cot = winatt_inputs(g, (8, 64, 3, 3, 32))
+    qkv[1, 5, 0, 2, 7] = float("nan")
+    qkv[3, 60, 0, 0, 1] = float("inf")
+    k = winatt_grads(window_attention.window_attention, qkv, table, cot,
+                     (2, 2), 4)
+    p = winatt_grads(window_attention.window_attention_plain, qkv, table,
+                     cot, (2, 2), 4)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("forward", "dqkv", "dtable"), k, p):
+        check(torch.equal(a.isnan(), b.isnan()),
+              f"window_attention non-finite q {name}: NaN at "
+              f"{int(a.isnan().sum())} places, plain {int(b.isnan().sum())}")
+        fin = b.isfinite()
+        if bool(fin.any()):
+            e = float((a[fin] - b[fin]).abs().max())
+            check(e <= WINATT_RTOL * float(b[fin].abs().max()),
+                  f"window_attention non-finite q {name}: finite part "
+                  f"{e}")
+    print(f"check window_attention NaN and Inf in q: NaN forward "
+          f"{int(p[0].isnan().sum())}, dqkv {int(p[1].isnan().sum())}, "
+          f"dtable {int(p[2].isnan().sum())}, at the plain version's places")
+    for bad in ((8, 81, 3, 1, 32), (8, 64, 3, 1, 48)):
+        t = torch.zeros((225, 1), device="cuda")
+        q = torch.zeros(bad, device="cuda")
+        try:
+            window_attention.window_attention(q, t, (1, 1), 0)
+        except ValueError as e:
+            print(f"window_attention refuses qkv {bad}: {e}")
+        else:
+            raise AssertionError(f"window_attention took qkv {bad}")
+    row.err = err
+    tot = collections.Counter()
+    for i, (shape, grid) in enumerate(WINATT_STAGES):
+        for shift in ((0, 4) if i < 3 else (0,)):
+            ms = winatt_times(g, shape, grid, shift)
+            # launches of this block kind in a train step: two passes,
+            # stages 0-2 two blocks of each kind, stage 3 two unshifted
+            mult = 2 * 2
+            bf, of = window_attention.work(shape)
+            bb, ob = window_attention.work(shape, backward=True)
+            for _ in range(mult):
+                row.add(ms["kernel"], ms["plain"], bf + bb, of + ob,
+                        library_ms=ms["library"], cold_ms=ms["cold"])
+            tot["pass"] += mult // 2 * ms["kernel"]
+            print(f"window_attention qkv {shape} shift {shift} fwd+bwd: "
+                  f"kernel {ms['kernel']:.4f} ms (cold {ms['cold']:.4f}), "
+                  f"plain {ms['plain']:.4f}, SDPA {ms['library']:.4f}, bound "
+                  f"{bound(bf + bb, of + ob)[0]:.4f} ms [{card}]")
+    print(f"window_attention per SUNet pass at {TC_S}² b{TC_B}, fwd+bwd: "
+          f"{tot['pass']:.4f} ms over 14 + 14 launches [{card}]")
+    found = kernel_report.library_report(_lib.library_path(),
+                                         ("window_attention",))
+    check(len(found) == 7, f"expected 7 K18 kernels, found {len(found)}")
+    for r in found:
+        print(f"kernel_report {r['kernel']} registers={r['registers']} "
+              f"local_bytes={r['local_bytes']} stack_bytes={r['stack_bytes']} "
+              f"[{card}]")
+        check(r["local_bytes"] == 0 and r["stack_bytes"] == 0,
+              f"{r['kernel']} spills (local memory)")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -3765,6 +3982,320 @@ def run_mbrs(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 14
+# serving's remainder: media folders, --stream, --s2d
+
+
+def pil_io():
+    """PIL's PNG reader and writer for a tree written at the serving size
+    (no resize: the pixels are the ones OpenCV would read)."""
+    from PIL import Image
+
+    def read_image(path, size):
+        try:
+            img = np.asarray(Image.open(path).convert("RGB"))
+        except OSError:
+            return None
+        check(img.shape == (size, size, 3), f"{path}: {img.shape}")
+        return img
+
+    def write_image(path, arr):
+        Image.fromarray(arr if arr.shape[-1] == 3 else arr[..., 0]).save(path)
+    return read_image, write_image
+
+
+def run_serving_remainder(card):
+    """``serve --root --out`` on a PNG tree (two clips of 9 and 5 frames at
+    the serving size, batch 2, T = 4: 3 requests, batches of 2 and 1): its
+    frames, masks and ``verdicts.json`` under the CPU test's names, each
+    PNG decoding to its shape and the masks to {0, 255}; ``--stream 8``'s
+    three lines; a roundtrip at ``--s2d 4`` (K3 at s = 4 ×2, K4 at s = 4
+    ×1) held to the plain server by F7's rule."""
+    from vwfd_tpu_torch import serve
+    try:
+        read_image, write_image = serve.cv2_io()
+        io = "cv2"
+    except ImportError:
+        read_image, write_image = pil_io()
+        io = "PIL (cv2 does not import on this machine)"
+    root = Path("build") / "chip_smoke_media"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(14)
+    _, writer = pil_io()
+    for clip, n in (("clipA", 9), ("clipB", 5)):
+        (root / "in" / clip).mkdir(parents=True)
+        for i in range(n):
+            writer(str(root / "in" / clip / f"{i:05d}.png"),
+                   rng.integers(0, 256, (S, S, 3), dtype=np.uint8))
+    out = root / "out"
+    reset_launch_counts()
+    serve.main(["--mode", "roundtrip", "--root", str(root / "in"), "--out",
+                str(out), "--batch", "2"], read_image=read_image,
+               write_image=write_image)
+    torch.cuda.synchronize()
+    served = launch_counts()
+    names = ["clipA/00000..00003", "clipA/00004..00007",
+             "clipB/00000..00003"]
+    want = {"verdicts.json"}
+    for name in names:
+        safe = name.replace("/", "_")
+        want |= {f"{safe}_f{t}{k}.png" for t in range(T)
+                 for k in ("", "_mask")}
+    got = set(p.name for p in out.iterdir())
+    check(got == want, f"served tree {sorted(got ^ want)}")
+    with open(out / "verdicts.json") as f:
+        verdicts = json.load(f)
+    check(sorted(verdicts) == ["clipA/00000..00003#0",
+                               "clipA/00004..00007#1",
+                               "clipB/00000..00003#0"]
+          and all(0.0 <= v <= 1.0 for v in verdicts.values()),
+          f"verdicts {verdicts}")
+    for p in out.iterdir():
+        if p.suffix != ".png":
+            continue
+        from PIL import Image
+        a = np.asarray(Image.open(p))
+        if p.name.endswith("_mask.png"):
+            check(a.shape == (S, S) and set(np.unique(a)) <= {0, 255},
+                  f"{p.name} {a.shape}")
+        else:
+            check(a.shape == (S, S, 3), f"{p.name} {a.shape}")
+    check(served["wire"] == 4 and served["mask_pack"] == 2,
+          f"served launches {served}")
+    print(f"serve --root --out ({io}): {len(got) - 1} PNGs and "
+          f"verdicts.json {json.dumps(verdicts)}; launches K3 "
+          f"{served['wire']}, K4 {served['mask_pack']} over 2 batches "
+          f"[{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+
+    import contextlib
+    import io as io_
+    buf = io_.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--mode", "roundtrip", "--stream", "8"])
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    check([r["window"] for r in lines] == [1, 2, 4]
+          and all(r["clips"] == 8 * B and r["frames_per_s"] > 0
+                  for r in lines), f"--stream 8: {lines}")
+    for r in lines:
+        print(json.dumps({"stream": r, "card": card}))
+
+    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, extractor_s2d=4))
+    states = perturbed_states(cfg, seed=14)
+    server = WatermarkServer(cfg, weights=states, modes=("roundtrip",))
+    plain = WatermarkServer(cfg, weights=states, modes=("roundtrip",),
+                            kernels=PLAIN)
+    check(server.model.unet.s2d == 4, "s2d 4 server")
+    clip = rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+    server.serve(clip, "roundtrip").prefetch()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = server.serve(clip, "roundtrip")
+    res.prefetch()
+    torch.cuda.synchronize()
+    s2d = launch_counts()
+    check(s2d == {**ROUNDTRIP_LAUNCHES}, f"s2d 4 roundtrip launches {s2d}")
+    stats = compare(res, plain.serve(clip, "roundtrip"), "s2d 4 roundtrip")
+    print(f"main path launches, s2d 4 roundtrip: {json.dumps(s2d)}; vs the "
+          f"plain server {json.dumps(stats)} [{card}]")
+    return {"s2d4_roundtrip": s2d}
+
+
+# ------------------------------------------------------------ phase 15
+# Tianchi at the published widths: SUNet (embed 96, depths 2/2/2/2, heads
+# 3/6/12/24, window 8), 256², b8, f32 (TF32 off: TianchiModel runs under
+# device.full_f32)
+
+TC_LOSS_RTOL = 1e-5      # CE, CE1: KERNELS vs PLAIN
+TC_GRAD_COS = 0.9999     # each update's gradient: KERNELS vs PLAIN
+# a train step: two SUNet passes with their backwards, 14 blocks each (K18
+# 28 forward + 28 backward), one K5 forward (the robustness image, no
+# gradient); an eval step: one pass and the F1 sweep
+TC_TRAIN = {**ZERO_LAUNCHES, "window_attention": 56, "jpeg_pair": 1}
+TC_EVAL = {**ZERO_LAUNCHES, "window_attention": 14, "f1_sweep": 1}
+# one step per JPEG mode: (band index, mode): hard Q45, soft Q40, zonal Q55
+TC_DRAWS = ((1, 0), (0, 1), (3, 2))
+
+
+def tianchi_cfg(size, batch):
+    from vwfd_tpu_torch import TIANCHI_CONFIG
+    cfg = load_config(TIANCHI_CONFIG)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gt_size=size, batch_size=batch),
+        train=dataclasses.replace(cfg.train, lr=1e-4))
+
+
+def tianchi_batches(model, n, seed=10):
+    from vwfd_tpu_torch.data import SpliceForgeryDataset
+    b, s = model.cfg.data.batch_size, model.image_size
+    ds = SpliceForgeryDataset(size=s, length=n * b, seed=seed)
+    return [[np.stack(x) for x in zip(*[ds[i * b + j] for j in range(b)])]
+            for i in range(n)]
+
+
+def copy_tianchi(dst, src):
+    with torch.no_grad():
+        for a, b in zip(dst._tensors(), src._tensors()):
+            a.copy_(b)
+
+
+def run_tianchi(card):
+    """Tianchi at the published widths, 256² b8, random weights from a
+    seed: one ``train_step`` per JPEG mode through ``KERNELS`` and
+    ``PLAIN`` from the same state, batch and draws, each with the launch
+    counts at 0 just before and read just after (K18 ×56: 28 forward and
+    28 backward; K5 ×1); CE and CE1 within ``TC_LOSS_RTOL`` and both
+    updates' gradient cosines ≥ ``TC_GRAD_COS`` where no 8×8 block of the
+    step's JPEG flipped between K5 and the plain DCT (else MBRS's
+    per-flip rule); an ``eval_step`` (K18 ×14, K7 ×1) beside the plain
+    one; a batch with an Inf pixel that moves nothing; one step at 512² b4,
+    where every stage shifts; the p50 of train and eval steps, images/s
+    and the peak memory."""
+    from vwfd_tpu_torch.attacks import jpeg_pool_draw
+    from vwfd_tpu_torch.device import full_f32
+    from vwfd_tpu_torch.models.tianchi_model import (TianchiDraws,
+                                                     TianchiModel)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tianchi_cfg(TC_S, TC_B)
+    model = TianchiModel(cfg)
+    model.init_states(17)
+    ref = TianchiModel(cfg, kernels=PLAIN)
+    batches = tianchi_batches(model, 8)
+    launches, terms, cosines = {}, {}, {}
+    for i, (q, mode) in enumerate(TC_DRAWS):
+        d = TianchiDraws(q, mode)
+        imgs, masks = batches[i]
+        copy_tianchi(ref, model)
+        it = model.to_device(imgs)[0]
+        with torch.no_grad(), full_f32():
+            qv = model.band[q]
+            flips = flipped_blocks(jpeg_pool_draw(it, qv, mode),
+                                   jpeg_pool_draw(it, qv, mode,
+                                                  kernels=PLAIN),
+                                   JPEG_FLIP_ATOL)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            gp_, gk_ = [], []
+            lp = {k: float(v) for k, v in ref.train_step(imgs, masks, d,
+                                                         gp_).items()}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            logs = model.train_step(imgs, masks, d, gk_)
+            torch.cuda.synchronize()
+        key = f"tianchi_train_{('hard', 'soft', 'zonal')[mode]}"
+        launches[key] = launch_counts()
+        lk = {k: float(v) for k, v in logs.items()}
+        cos = [cosine(torch.cat([t.flatten() for t in a]),
+                      torch.cat([t.flatten() for t in b]))
+               for a, b in zip(gk_, gp_)]
+        nflip = flips[0]
+        print(f"tianchi train step {key[14:]} Q{model.band[q]} "
+              f"(b{TC_B}, {TC_S}²): kernels {json.dumps(lk)} plain "
+              f"{json.dumps(lp)}; gradient cosines {cos}; JPEG flipped "
+              f"blocks K5 vs plain {flips[0]} of {flips[1]}; launches "
+              f"{json.dumps({k: v for k, v in launches[key].items() if v})}")
+        check(launches[key] == TC_TRAIN, f"{key} launches {launches[key]}")
+        rtol = MBRS_FLIP_LOSS_RTOL * nflip if nflip else TC_LOSS_RTOL
+        min_cos = (1 - (1 - MBRS_FLIP_GRAD_COS) * nflip if nflip
+                   else TC_GRAD_COS)
+        for k in ("CE", "CE1"):
+            check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+                  <= rtol * abs(lp[k]),
+                  f"tianchi {key} {k}: kernels {lk[k]} plain {lp[k]}")
+        check(all(c >= min_cos for c in cos),
+              f"tianchi {key} gradient cosines {cos}")
+        terms[key] = {"kernels": lk, "plain": lp, "flipped_blocks": nflip}
+        cosines[key] = cos
+    launches["tianchi_train_step"] = launches["tianchi_train_hard"]
+
+    # the eval step
+    imgs, masks = batches[4]
+    copy_tianchi(ref, model)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = model.eval_step(imgs, masks)
+    torch.cuda.synchronize()
+    launches["tianchi_eval_step"] = launch_counts()
+    check(launches["tianchi_eval_step"] == TC_EVAL,
+          f"tianchi eval launches {launches['tianchi_eval_step']}")
+    outp = ref.eval_step(imgs, masks)
+    f1k, f1p = float(out["f1_best"]), float(outp["f1_best"])
+    perr = float((out["predicted"] - outp["predicted"]).abs().max())
+    check(0.0 <= f1k <= 1.0 and perr <= 1e-4, f"tianchi eval: f1 {f1k} vs "
+          f"{f1p}, prediction err {perr}")
+    print(f"tianchi eval step: f1_best kernels {f1k} plain {f1p}; "
+          f"prediction max_abs_err {perr:.3g}; launches "
+          f"{json.dumps({k: v for k, v in launches['tianchi_eval_step'].items() if v})}")
+
+    # the guard: an Inf pixel leaves every tensor
+    imgs = batches[5][0].copy()
+    imgs[2, 7, 9, 1] = np.inf
+    before = [t.clone() for t in model._tensors()]
+    logs = model.train_step(imgs, batches[5][1], TianchiDraws(2, 1))
+    check(not math.isfinite(float(logs["CE"])), "Inf batch: finite CE")
+    check(all(torch.equal(a, b) for a, b in zip(before, model._tensors())),
+          "Inf batch moved a parameter, moment or count")
+    print("tianchi guard: an Inf pixel left every parameter, Adam moment "
+          "and count as it was")
+
+    # p50s and the peak
+    sampler = model.sampler(0)
+    it_ = iter(range(10 ** 6))
+
+    def train_one():
+        imgs, masks = batches[next(it_) % len(batches)]
+        return model.train_step(imgs, masks, sampler())["CE"].item()
+
+    def eval_one():
+        imgs, masks = batches[next(it_) % len(batches)]
+        return model.eval_step(imgs, masks)["f1_best"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    eval_p50 = p50_of(eval_one, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"tianchi p50 at b{TC_B}, {TC_S}²: train step {train_p50:.3f} ms "
+          f"({TC_B / train_p50 * 1e3:.1f} images/s), eval step "
+          f"{eval_p50:.3f} ms ({TC_B / eval_p50 * 1e3:.1f} images/s); peak "
+          f"memory {peak:.3f} GiB [{card}]")
+    del model, ref
+    gc.collect()
+
+    # 512² b4 (the runner's default, training.yaml's size): every stage
+    # shifts (maps 128, 64, 32, 16)
+    cfg512 = tianchi_cfg(512, 4)
+    big = TianchiModel(cfg512)
+    big.init_states(18)
+    imgs, masks = tianchi_batches(big, 1)[0]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logs = big.train_step(imgs, masks, TianchiDraws(0, 0))
+    torch.cuda.synchronize()
+    launches["tianchi_train_512"] = launch_counts()
+    lk = {k: float(v) for k, v in logs.items()}
+    check(launches["tianchi_train_512"] == TC_TRAIN
+          and all(math.isfinite(v) for v in lk.values()),
+          f"tianchi 512² step {lk} {launches['tianchi_train_512']}")
+    shifted = [blk.attn.rel_pos_bias.shape[0] for name, blk in
+               big.net.named_children() if name.endswith("_blk1")]
+    train512 = p50_of(lambda: big.train_step(
+        imgs, masks, TianchiDraws(1, 1))["CE"].item(), 3, warmup=1)
+    print(f"tianchi 512² b4 train step: {json.dumps(lk)}; p50 "
+          f"{train512:.3f} ms; shifted blocks' tables {shifted} [{card}]")
+    del big
+    gc.collect()
+    print(json.dumps({"tianchi": {
+        "train_step_p50_ms": train_p50,
+        "train_images_per_s": TC_B / train_p50 * 1e3,
+        "eval_step_p50_ms": eval_p50,
+        "eval_images_per_s": TC_B / eval_p50 * 1e3, "batch": TC_B,
+        "size": TC_S, "peak_memory_gib": peak, "terms": terms,
+        "min_gradient_cosine": min(min(c) for c in cosines.values()),
+        "train_step_512_b4_p50_ms": train512, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3805,6 +4336,7 @@ def main():
     check_crop_resize(rows, card)
     check_hidden_build(card)
     check_jpeg_basic(rows, card)
+    check_window_attention(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -3819,11 +4351,13 @@ def main():
     ref_launches = run_refshape(card)
     hid_launches = run_hidden(card)
     mbrs_launches = run_mbrs(card)
+    serve_launches = run_serving_remainder(card)
+    tc_launches = run_tianchi(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
-               **mbrs_launches}
+               **mbrs_launches, **serve_launches, **tc_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,16 @@ tolerance allows, and one MBRS train step per noise mode through the
 kernels against ``PLAIN`` (loss terms within 1e-5 relative, gradient
 cosines ≥ 0.9999; K5 ×0, ×1, ×2). With NaN and Inf pixels and a NaN
 cotangent, K16's and K17's outputs and gradients are NaN (and ±Inf) where
-their plain versions' are, and within those tolerances elsewhere.
+their plain versions' are, and within those tolerances elsewhere. K18
+``window_attention``'s forward, dqkv and table gradient are within 1e-5 of
+the plain tensor's max-abs (float32 sums in another order than the
+plain version's einsums) at SUNet's four stage shapes of 256² b8 (shifted
+and not), N = 16 and d = 16 and 64; its gradients are bit-identical over
+two calls (no float atomics); a NaN and an Inf in q give NaN where the
+plain version has it; it raises on a window past 8 or d outside {16, 32,
+64}. K3 and K4 at s = 4 in a server (``extractor_s2d`` 4): a roundtrip
+with K3 ×2 and K4 ×1 against the plain server, mask bits EQUAL but within
+1e-6 of the threshold.
 """
 
 import dataclasses
@@ -60,7 +69,8 @@ from vwfd_tpu_torch.kernels import (PLAIN, affine, coupling, crop_resize, f1,
                                     haar, jpeg, launch_counts, mask, median,
                                     mix, qconv, qconv_t, qcoupling,
                                     reset_launch_counts, splice, ssim,
-                                    transition, wire, zigzag)
+                                    transition, window_attention, wire,
+                                    zigzag)
 from vwfd_tpu_torch.ops.quantize import ste_quantize_255
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
@@ -73,7 +83,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 # path that runs none of them
 _NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
             "qcoupling_head": 0, "haar": 0,
-            "coupling_affine": 0}
+            "coupling_affine": 0, "window_attention": 0}
 
 
 @pytest.fixture
@@ -939,7 +949,8 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "attack_mix": 0, "splice": 0, "qconv": 32,
                                "qconv_t": 4, "qcoupling_head": 10,
                                "haar": 0, "coupling_affine": 0,
-                               "zigzag_jpeg": 0, "crop_resize": 0}
+                               "zigzag_jpeg": 0, "crop_resize": 0,
+                               "window_attention": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -1389,3 +1400,103 @@ def test_mbrs_step_on_the_card_matches_plain(cuda, mode):
         a = torch.cat([t.flatten() for t in gk[net]])
         b = torch.cat([t.flatten() for t in gp[net]])
         assert float(torch.dot(a, b) / (a.norm() * b.norm())) >= 0.9999
+
+
+# K18 at SUNet's stage shapes of 256² b8 (qkv, window grid, shift) and at
+# N = 16, d = 16 and d = 64
+_WINATT = [((512, 64, 3, 3, 32), (8, 8), 4), ((512, 64, 3, 3, 32), (8, 8), 0),
+           ((128, 64, 3, 6, 32), (4, 4), 4), ((32, 64, 3, 12, 32), (2, 2), 4),
+           ((8, 64, 3, 24, 32), (1, 1), 0), ((32, 16, 3, 2, 32), (2, 2), 2),
+           ((16, 16, 3, 4, 16), (2, 2), 2), ((8, 64, 3, 2, 64), (2, 2), 4)]
+
+
+def _winatt(fn, qkv, table, cot, grid, shift):
+    q = qkv.clone().requires_grad_(True)
+    t = table.clone().requires_grad_(True)
+    y = fn(q, t, grid, shift)
+    return (y.detach(), *torch.autograd.grad(y, (q, t), cot))
+
+
+def _winatt_inputs(shape, seed):
+    g = _gen(seed)
+    bnw, n, _, h, d = shape
+    ws = int(round(n ** 0.5))
+    return (torch.randn(shape, device="cuda", generator=g),
+            0.02 * torch.randn(((2 * ws - 1) ** 2, h), device="cuda",
+                               generator=g),
+            torch.randn((bnw, n, h * d), device="cuda", generator=g))
+
+
+@pytest.mark.parametrize("shape,grid,shift", _WINATT)
+def test_window_attention_matches_plain(cuda, shape, grid, shift):
+    qkv, table, cot = _winatt_inputs(shape, 18)
+    before = launch_counts()["window_attention"]
+    got = _winatt(window_attention.window_attention, qkv, table, cot, grid,
+                  shift)
+    assert launch_counts()["window_attention"] == before + 2
+    again = _winatt(window_attention.window_attention, qkv, table, cot,
+                    grid, shift)
+    want = _winatt(window_attention.window_attention_plain, qkv, table, cot,
+                   grid, shift)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+def test_window_attention_nonfinite_as_plain(cuda):
+    qkv, table, cot = _winatt_inputs((8, 64, 3, 3, 32), 19)
+    qkv[1, 5, 0, 2, 7] = float("nan")
+    qkv[3, 60, 0, 0, 1] = float("inf")
+    got = _winatt(window_attention.window_attention, qkv, table, cot, (2, 2),
+                  4)
+    want = _winatt(window_attention.window_attention_plain, qkv, table, cot,
+                   (2, 2), 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a.isnan(), b.isnan())
+        fin = b.isfinite()
+        if bool(fin.any()):
+            assert float((a[fin] - b[fin]).abs().max()) <= 1e-5 * float(
+                b[fin].abs().max())
+
+
+@pytest.mark.parametrize("shape", [(8, 81, 3, 1, 32), (8, 64, 3, 1, 48),
+                                   (8, 60, 3, 1, 32)])
+def test_window_attention_refuses_other_shapes(cuda, shape):
+    n = shape[1]
+    ws = int(round(n ** 0.5))
+    table = torch.zeros(((2 * ws - 1) ** 2, 1), device=cuda)
+    with pytest.raises(ValueError):
+        window_attention.window_attention(torch.zeros(shape, device=cuda),
+                                          table, (1, 1), 0)
+    with pytest.raises(TypeError):
+        window_attention.window_attention(
+            torch.zeros((8, 16, 3, 1, 32), device=cuda,
+                        dtype=torch.float64),
+            torch.zeros((49, 1), device=cuda, dtype=torch.float64), (1, 1),
+            0)
+
+
+def test_s2d_4_roundtrip_matches_plain(cuda):
+    """K3 and K4 at s = 4: a roundtrip of a server at ``extractor_s2d`` 4
+    launches K3 ×2 and K4 ×1 and agrees with the plain server (f32)."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2, gt_size=64),
+        model=dataclasses.replace(cfg.model, extractor_s2d=4),
+        train=dataclasses.replace(cfg.train, dtype="float32"))
+    srv = WatermarkServer(cfg, modes=("roundtrip",))
+    ref = WatermarkServer(cfg, modes=("roundtrip",), kernels=PLAIN,
+                          weights=srv.model.states())
+    clip = np.random.default_rng(1).integers(0, 256, (2, 4, 64, 64, 3),
+                                             dtype=np.uint8)
+    reset_launch_counts()
+    got = srv.serve(clip, "roundtrip")
+    got.prefetch()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["wire"] == 2 and counts["mask_pack"] == 1
+    want = ref.serve(clip, "roundtrip")
+    diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
+    assert diff.max() <= 1
+    assert (unpack_mask_bits(got.mask_bits)
+            != unpack_mask_bits(want.mask_bits)).mean() < 1e-3

@@ -225,4 +225,32 @@ def test_port_imports_no_jax_and_no_reference_package():
         "kernels.zigzag", "kernels.crop_resize", "attacks.noise",
         "nets.blocks", "nets.hidden", "models.hidden_model", "data.images",
         "eval_hidden", "continue_hidden", "nets.mbrs", "models.mbrs_model",
-        "run_family_convergence")} <= names
+        "run_family_convergence", "nets.sunet", "models.tianchi_model",
+        "kernels.window_attention", "serve")} <= names
+
+
+def test_serve_imports_and_parses_without_cv2():
+    """With OpenCV absent (``sys.modules['cv2'] = None``, in a fresh
+    interpreter) ``vwfd_tpu_torch.serve`` and the Tianchi modules import,
+    and a media folder without a reader stops with cv2's name."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "import vwfd_tpu_torch.serve as serve\n"
+        "import vwfd_tpu_torch.models.tianchi_model\n"
+        "import vwfd_tpu_torch.nets.sunet\n"
+        "import vwfd_tpu_torch.kernels.window_attention\n"
+        "try:\n"
+        "    serve.cv2_io()\n"
+        "except ImportError as e:\n"
+        "    assert 'cv2' in str(e), e\n"
+        "    print('refused')\n"
+        "try:\n"
+        "    serve.main(['--root', '.', '--device', 'cpu'])\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["refused", "exit", "2"]
+    assert "cv2" in proc.stderr

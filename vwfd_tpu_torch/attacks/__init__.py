@@ -1,19 +1,22 @@
 """Attacks of the port (counterparts of vwfd_tpu/attacks): the flagship
-video pool and its members, HiDDeN's noise members and MBRS's JPEG, every
+video pool and its members, HiDDeN's noise members, MBRS's JPEG and
+Tianchi's banded pool draw, every
 random draw an explicit tensor."""
 
 from .blur import gaussian_blur_attack, median_blur_attack
 from .combined import (ATTACK_POOL_SIZE, AttackDraws, attack_pool_video,
                        sample_attack_draws)
 from .jpeg import (hidden_jpeg_mask_compression, jpeg_basic, jpeg_pool,
-                   jpeg_pool_pair, jpeg_real, quant_tables, zigzag_keep_mask)
+                   jpeg_pool_draw, jpeg_pool_pair, jpeg_real, quality_tables,
+                   quant_tables, zigzag_keep_mask)
 from .noise import dropout_pixelwise, gaussian_noise, identity, salt_pepper
 from .spatial import (DEFAULT_RATIOS, crop_attack, cropout, dropout_mix,
                       rect_mask, resize_roundtrip, sample_crop_apex)
 
 __all__ = ["gaussian_blur_attack", "median_blur_attack", "ATTACK_POOL_SIZE",
            "AttackDraws", "attack_pool_video", "sample_attack_draws",
-           "jpeg_pool", "jpeg_pool_pair", "jpeg_basic", "jpeg_real", "quant_tables",
+           "jpeg_pool", "jpeg_pool_draw", "jpeg_pool_pair", "jpeg_basic",
+           "jpeg_real", "quant_tables", "quality_tables",
            "DEFAULT_RATIOS", "resize_roundtrip",
            "hidden_jpeg_mask_compression", "zigzag_keep_mask", "identity",
            "gaussian_noise", "salt_pepper", "dropout_pixelwise",

@@ -11,7 +11,11 @@ scale 2 − 0.02·Q (Q ≥ 50). ``jpeg_real`` is the real libjpeg round trip
 (``:261-280``), on the host through PIL, the evaluation's oracle.
 
 ``jpeg_basic`` (``:53-90``) is MBRS's JPEG: one draw of the pool at mode 0
-or 1, through K5 with weights (1, 0).
+or 1, through K5 with weights (1, 0). ``jpeg_pool_draw`` is one draw of
+the pool at any quality value and mode for a whole batch, through K5 the
+same way: the JAX ``jpeg_pool(key, img, qualities)`` of Tianchi's QF
+bands (``quality_tables`` builds tables from quality values, Q < 50
+scaling by 50/Q).
 
 ``hidden_jpeg_mask_compression`` (``:249-258``) is HiDDeN's JpegCompression:
 analog YUV, blockwise DCT, the zig-zag keep masks (``zigzag_keep_mask``,
@@ -28,8 +32,8 @@ from ..ops.dct import (block_merge, block_split, dct_blocks, idct_blocks,
                        zigzag_keep_mask)
 from ..ops.quantize import jpeg_scale_factor, round_only_at_0
 
-__all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables", "jpeg_pool",
-           "jpeg_pool_pair", "jpeg_basic", "jpeg_real", "zigzag_keep_mask",
+__all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables",
+           "quality_tables", "jpeg_pool", "jpeg_pool_draw", "jpeg_pool_pair", "jpeg_basic", "jpeg_real", "zigzag_keep_mask",
            "hidden_jpeg_mask_compression"]
 
 QUALITIES = (50, 60, 70, 80, 90)
@@ -52,15 +56,24 @@ C_TABLE[:4, :4] = np.array(
     dtype=np.float32)
 
 
-def quant_tables(q_idx: torch.Tensor) -> torch.Tensor:
-    """Quality indices (...) into ``QUALITIES`` → tables (..., 2 (Y, C), 8,
-    8) float32: ``max(round(T·scale), 1)`` with the JAX package's float32
-    ops."""
-    dev = q_idx.device
-    q = torch.tensor(QUALITIES, dtype=torch.float32, device=dev)[q_idx]
-    scale = jpeg_scale_factor(q)[..., None, None, None]
-    tabs = torch.from_numpy(np.stack([Y_TABLE, C_TABLE])).to(dev)
+def quality_tables(q: torch.Tensor) -> torch.Tensor:
+    """Quality values (...) float32, any quality (Q < 50 scales the tables
+    by 50/Q) → tables (..., 2 (Y, C), 8, 8) float32: ``max(round(T·scale),
+    1)`` with the JAX package's float32 ops (``jpeg.py:149-180``)."""
+    scale = jpeg_scale_factor(q.float())[..., None, None, None]
+    tabs = torch.from_numpy(np.stack([Y_TABLE, C_TABLE])).to(q.device)
     return torch.clamp(torch.round(tabs * scale), min=1.0)
+
+
+def _quality(q_idx: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(QUALITIES, dtype=torch.float32,
+                        device=q_idx.device)[q_idx]
+
+
+def quant_tables(q_idx: torch.Tensor) -> torch.Tensor:
+    """Quality indices (...) into ``QUALITIES`` → ``quality_tables`` of
+    those qualities."""
+    return quality_tables(_quality(q_idx))
 
 
 def jpeg_pool(img: torch.Tensor, q_idx: torch.Tensor, mode: torch.Tensor
@@ -98,6 +111,28 @@ def jpeg_pool_pair(img: torch.Tensor, q_idx: torch.Tensor,
     return kernels.jpeg_pair(img, qt, mode.to(torch.int32).contiguous(), w)
 
 
+def jpeg_pool_draw(img: torch.Tensor, quality, mode, kernels=None
+                   ) -> torch.Tensor:
+    """One draw of the JAX ``jpeg_pool(key, img, qualities)`` for the whole
+    batch (N, H, W, 3), H and W multiples of 8, at the drawn quality
+    *value* ``quality`` (any, e.g. Tianchi's band 40-55) and ``mode`` (0
+    hard round, 1 x³ soft round, 2 zonal keep), each a number, a 0-dim
+    tensor or one per frame: K5 ``jpeg_pair`` (default
+    ``kernels.KERNELS``) with both draws set to it and weights (1, 0),
+    which is the draw exactly (see ``jpeg_basic``), differentiable in
+    img."""
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
+    n, dev = img.shape[0], img.device
+    q = torch.as_tensor(quality, dtype=torch.float32, device=dev)
+    qt = quality_tables(q.reshape(-1, 1).expand(n, 2)).contiguous()
+    m = torch.as_tensor(mode, dtype=torch.int32, device=dev).reshape(
+        -1, 1).expand(n, 2).contiguous()
+    w = torch.tensor([1.0, 0.0], device=dev,
+                     dtype=torch.float32).expand(n, 2).contiguous()
+    return kernels.jpeg_pair(img, qt, m, w)
+
+
 _ROUNDING = {"round": 0, "ss": 1}  # jpeg_pair's modes
 
 
@@ -125,16 +160,8 @@ def jpeg_basic(img: torch.Tensor, q_idx: torch.Tensor,
             "ops and attacks the families bring)")
     if rounding not in _ROUNDING:
         raise ValueError(f"rounding must be 'round' or 'ss', got {rounding!r}")
-    if kernels is None:
-        from ..kernels import KERNELS as kernels
-    n = img.shape[0]
-    q = torch.as_tensor(q_idx, device=img.device).expand(n)
-    qt = quant_tables(torch.stack([q, q], -1)).contiguous()
-    mode = torch.full((n, 2), _ROUNDING[rounding], dtype=torch.int32,
-                      device=img.device)
-    w = torch.tensor([1.0, 0.0], device=img.device,
-                     dtype=torch.float32).expand(n, 2).contiguous()
-    return kernels.jpeg_pair(img, qt, mode, w)
+    q = _quality(torch.as_tensor(q_idx, device=img.device))
+    return jpeg_pool_draw(img, q, _ROUNDING[rounding], kernels)
 
 
 def hidden_jpeg_mask_compression(img: torch.Tensor, yuv_keep=(25, 9, 9),

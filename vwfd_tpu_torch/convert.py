@@ -11,7 +11,14 @@ Rules:
 * ``BatchNorm`` ``scale``/``bias`` + batch stats ``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var`` (+
   ``num_batches_tracked``); flax's default epsilon 1e-5 is the port's;
-* ``Dense`` kernel (in, out) → ``Linear`` ``weight`` (out, in).
+* ``Dense`` kernel (in, out) → ``Linear`` ``weight`` (out, in);
+* ``LayerNorm`` ``scale``/``bias`` → ``weight``/``bias``, as BatchNorm's
+  without statistics (flax's epsilon 1e-6 is the port's ``nn.LayerNorm``'s
+  there: ``nets/sunet.py``);
+* arrays of a module that has no ``kernel`` keep their names and layout:
+  SUNet's ``PReLU_i.negative_slope`` (a scalar) and its attention's
+  ``rel_pos_bias`` ((2·ws − 1)², heads), which sits beside the ``qkv`` and
+  ``proj`` submodules.
 
 The int8 serving trees (``nets/unet_int8.py``, ``nets/inn_int8.py``) keep the
 JAX package's keys; their int8 conv kernels HWIO become the port's
@@ -28,8 +35,8 @@ count to ``AdamW.count``.
 
 ``states_from_jax`` / ``states_to_jax`` carry a whole model's nets (the
 HiDDeN family's encoder, decoder and discriminator, MBRS's encoder and
-decoder: params, batch stats and Adam ``mu`` / ``nu`` / ``count`` of each)
-both ways. MBRS's ExpandNet transposed convs are ``message_expand.up{i}``,
+decoder, Tianchi's SUNet ``netG``: params, batch stats and Adam ``mu`` /
+``nu`` / ``count`` of each) both ways. MBRS's ExpandNet transposed convs are ``message_expand.up{i}``,
 which the ConvTranspose rule's name pattern matches.
 """
 
@@ -49,17 +56,16 @@ _CONVT = re.compile(r"(^|\.)up\d+$")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Mapping]:
-    """Leaf modules (dicts whose values are arrays) by dotted path."""
+    """Each module's own arrays by dotted path: a dict's arrays belong to
+    it (SUNet's ``attn`` holds its ``rel_pos_bias`` beside its ``qkv`` and
+    ``proj`` submodules), its dicts are submodules."""
     out = {}
+    own = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if own:
+        out[prefix] = own  # "" : the root module's own arrays
     for k, v in tree.items():
-        path = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, Mapping) and any(isinstance(x, Mapping)
-                                          for x in v.values()):
-            out.update(_flatten(v, path))
-        elif isinstance(v, Mapping):
-            out[path] = v
-        else:
-            raise ValueError(f"{path}: expected a module dict, got an array")
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}.{k}" if prefix else k))
     return out
 
 
@@ -69,7 +75,7 @@ def _tensor(a) -> torch.Tensor:
 
 def _module_to_torch(path: str, p: Mapping, stats: Mapping
                      ) -> Dict[str, torch.Tensor]:
-    if "scale" in p:  # BatchNorm (its running statistics where given)
+    if "scale" in p:  # BatchNorm or LayerNorm (running statistics if given)
         out = {"weight": _tensor(p["scale"]), "bias": _tensor(p["bias"])}
         if path in stats:
             s = stats[path]
@@ -77,6 +83,8 @@ def _module_to_torch(path: str, p: Mapping, stats: Mapping
                        running_var=_tensor(s["var"]),
                        num_batches_tracked=torch.tensor(0, dtype=torch.long))
         return out
+    if "kernel" not in p:  # a PReLU's slope, a relative-position table
+        return {name: _tensor(a) for name, a in p.items()}
     k = np.asarray(p["kernel"])
     w = (k.T if k.ndim == 2
          else k[::-1, ::-1].transpose(2, 3, 0, 1) if _CONVT.search(path)
@@ -94,7 +102,7 @@ def state_dict_from_jax(tree: Mapping, stats: Optional[Mapping] = None
     sd = {}
     for path, p in _flatten(tree).items():
         for name, t in _module_to_torch(path, p, flat_stats).items():
-            sd[f"{path}.{name}"] = t
+            sd[f"{path}.{name}" if path else name] = t
     return sd
 
 
@@ -109,7 +117,7 @@ def params_from_jax(netG_tree: Mapping, generator_tree: Mapping,
 
 def _set(tree: Dict, path: str, leaf: str, value: np.ndarray) -> None:
     node = tree
-    for k in path.split("."):
+    for k in path.split(".") if path else ():
         node = node.setdefault(k, {})
     node[leaf] = value
 
@@ -120,7 +128,7 @@ def _state_dict_to_tree(sd: Mapping[str, torch.Tensor],
     ``running_mean`` in ``sd``)."""
     params, stats = {}, {}
     for key, t in sd.items():
-        path, name = key.rsplit(".", 1)
+        path, name = key.rsplit(".", 1) if "." in key else ("", key)
         a = t.detach().cpu().numpy()
         is_bn = (f"{path}.running_mean" in sd) if bn is None else path in bn
         if name == "num_batches_tracked":
@@ -130,6 +138,8 @@ def _state_dict_to_tree(sd: Mapping[str, torch.Tensor],
                          "running_mean": ("mean", stats),
                          "running_var": ("var", stats)}[name]
             _set(dst, path, leaf, a)
+        elif name == "weight" and a.ndim == 1:  # LayerNorm
+            _set(params, path, "scale", a)
         elif name == "weight":
             k = (a.T if a.ndim == 2
                  else a.transpose(2, 3, 0, 1)[::-1, ::-1]

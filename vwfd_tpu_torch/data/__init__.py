@@ -5,14 +5,16 @@ DAVIS and the image folder take their image readers from the caller), and
 the convergence runner's clip generator on the device (``ondevice.py``)."""
 
 from .davis import DavisVideoDataset, cv2_readers
-from .images import ImageFolderDataset
+from .images import ImageFolderDataset, cv2_mask_reader
 from .loader import Loader
 from .masks import free_form_stroke_mask, random_rect_mask
 from .ondevice import (ClipDraws, clips_from_draws, rect_mask,
                        sample_clip_draws, seeded_generator, synthetic_clips)
-from .synthetic import SyntheticImageDataset, SyntheticVideoDataset
+from .synthetic import (SpliceForgeryDataset, SyntheticImageDataset,
+                        SyntheticVideoDataset)
 
 __all__ = ["DavisVideoDataset", "cv2_readers", "ImageFolderDataset",
+           "cv2_mask_reader", "SpliceForgeryDataset",
            "SyntheticImageDataset", "Loader",
            "free_form_stroke_mask", "random_rect_mask",
            "SyntheticVideoDataset", "ClipDraws", "clips_from_draws",

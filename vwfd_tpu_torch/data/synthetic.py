@@ -9,7 +9,8 @@ import numpy as np
 
 from .masks import free_form_stroke_mask, random_rect_mask
 
-__all__ = ["SyntheticVideoDataset", "SyntheticImageDataset"]
+__all__ = ["SyntheticVideoDataset", "SyntheticImageDataset",
+           "SpliceForgeryDataset"]
 
 
 class SyntheticVideoDataset:
@@ -66,3 +67,28 @@ class SyntheticImageDataset:
         img = np.clip(img + 0.05 * rng.random((h, w, 3)), 0,
                       1).astype(np.float32)
         return img
+
+
+class SpliceForgeryDataset:
+    """Composed splice forgeries of the Tianchi family: a one-frame
+    ``SyntheticVideoDataset`` item with the content of the donor item
+    ``(i·7919 + 1) mod length`` pasted through its mask, ``(image (H, W,
+    3), mask (H, W, 1))`` float32 (the JAX ``train.py::_tianchi_loop`` and
+    ``tools/run_family_convergence.py::_tianchi``'s ``_Img``; the
+    reference's tianchi data are forged images and their masks,
+    tianchi_dataset.py:16-77). The stroke masks are the port's rasteriser's
+    (F11: each stroke within IoU 0.9 of cv2's pixels), so the images
+    differ from the JAX runner's where the two masks differ."""
+
+    def __init__(self, size=256, length=2000, seed=0):
+        self.base = SyntheticVideoDataset(size=size, frames=1, length=length,
+                                          seed=seed)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        video, mask = self.base[i]
+        donor, _ = self.base[(i * 7919 + 1) % len(self.base)]
+        img = video[0] * (1 - mask[0]) + donor[0] * mask[0]
+        return img.astype(np.float32), mask[0]

@@ -32,6 +32,9 @@
 * K17 ``crop_resize``    — HiDDeN's crop: a window resampled bilinearly back
   to the full grid, forward and backward, rows of any width (column tiles
   past a CTA's whole rows) (kernels/crop_resize.py)
+* K18 ``window_attention`` — SUNet's shifted-window attention between its
+  qkv and proj Dense layers, forward and backward, the bias table's
+  gradient summed deterministically (kernels/window_attention.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -40,7 +43,7 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16 and K17 launch their own backward kernels. ``KERNELS`` routes through the
+K16, K17 and K18 launch their own backward kernels. ``KERNELS`` routes through the
 wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare.
@@ -50,14 +53,14 @@ from typing import Callable, Dict, NamedTuple
 
 from . import (affine, coupling, crop_resize, f1, haar, jpeg, mask, median,
                mix, qconv, qconv_t, qcoupling, splice, ssim, transition, wire,
-               zigzag)
+               window_attention, zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
            splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
-           crop_resize)
+           crop_resize, window_attention)
 
 
 class KernelSet(NamedTuple):
@@ -83,6 +86,7 @@ class KernelSet(NamedTuple):
     coupling_affine: Callable
     zigzag_jpeg: Callable
     crop_resize: Callable
+    window_attention: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -92,7 +96,8 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     qconv.qconv, qconv_t.qconv_t, qcoupling.qcoupling_head,
                     wire.to_s2d_i8, wire.to_u8_s2d_i8, haar.haar,
                     affine.coupling_affine, zigzag.zigzag_jpeg,
-                    crop_resize.crop_resize)
+                    crop_resize.crop_resize,
+                    window_attention.window_attention)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -102,7 +107,8 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   qconv_t.qconv_t_plain, qcoupling.qcoupling_head_plain,
                   wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain,
                   haar.haar_plain, affine.coupling_affine_plain,
-                  zigzag.zigzag_jpeg_plain, crop_resize.crop_resize_plain)
+                  zigzag.zigzag_jpeg_plain, crop_resize.crop_resize_plain,
+                  window_attention.window_attention_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -73,6 +73,10 @@ _SIGNATURES = {
     "vwfd_crop_resize_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_crop_resize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P],
+    "vwfd_window_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _P],
+    "vwfd_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -2,6 +2,7 @@
 
 from .hidden_model import HiddenModel
 from .mbrs_model import MBRSModel
+from .tianchi_model import TianchiModel
 from .video_model import VideoWatermarkModel
 
-__all__ = ["HiddenModel", "MBRSModel", "VideoWatermarkModel"]
+__all__ = ["HiddenModel", "MBRSModel", "TianchiModel", "VideoWatermarkModel"]

@@ -73,7 +73,10 @@ class AdamW:
         """One update from ``grads`` (one per parameter, in order)."""
         grads = list(grads)
         if self.clip:
-            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+            # bf16 gradients summed in float32; float64 (the CPU parity
+            # tests' steps) stays float64
+            norm = torch.sqrt(sum(torch.sum(g.to(torch.promote_types(
+                g.dtype, torch.float32)) ** 2) for g in grads))
             trigger = norm < self.clip
             grads = [torch.where(trigger, g, g / norm * self.clip)
                      for g in grads]

@@ -8,6 +8,7 @@ from .hidden import (HiddenDecoder, HiddenDiscriminator, HiddenEncoder,
 from .mbrs import (BalujaHiding, BalujaPrep, BalujaReveal, ExpandNet,
                    MBRSDecoder, MBRSEncoder, MBRSPlainDecoder, SEBottleneck,
                    SENet, SENetDecoder)
+from .sunet import SUNet
 from .unet import UNet, UNetTPU
 
 __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
@@ -15,4 +16,4 @@ __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
            "HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
            "HiddenEncoderDecoder", "SEBottleneck", "SENet", "SENetDecoder",
            "ExpandNet", "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder",
-           "BalujaPrep", "BalujaHiding", "BalujaReveal"]
+           "BalujaPrep", "BalujaHiding", "BalujaReveal", "SUNet"]

@@ -64,12 +64,16 @@ def resize_matrix(in_size: int, out_size: int,
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32:
-    the rows' matrix, then the columns'."""
+    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32
+    (float64 stays float64, for the CPU parity tests): the rows' matrix,
+    then the columns'."""
     h, w = x.shape[-3], x.shape[-2]
-    mh = torch.from_numpy(resize_matrix(h, out_hw[0], "bilinear")).to(x.device)
-    mw = torch.from_numpy(resize_matrix(w, out_hw[1], "bilinear")).to(x.device)
-    x = torch.einsum("oh,...hwc->...owc", mh, x.float())
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    mh = torch.from_numpy(resize_matrix(h, out_hw[0], "bilinear")).to(
+        x.device, dt)
+    mw = torch.from_numpy(resize_matrix(w, out_hw[1], "bilinear")).to(
+        x.device, dt)
+    x = torch.einsum("oh,...hwc->...owc", mh, x.to(dt))
     return torch.einsum("pw,...owc->...opc", mw, x)
 
 

@@ -16,6 +16,8 @@ step's time goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip --mode hidden --batch 8
     # MBRS's train step (message 30, 64 channels, 4 SE blocks, 128², f32)
     python -m vwfd_tpu_torch.profile_roundtrip --mode mbrs
+    # Tianchi's train step, then its eval step (SUNet, 256², b8, f32)
+    python -m vwfd_tpu_torch.profile_roundtrip --mode tianchi
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -28,7 +30,12 @@ family's ``train_step`` (``models/hidden_model.py``, the published widths,
 128², float32, continue_hidden's weighted pool; the video model options
 do not apply) on synthetic images, ``--mode mbrs`` the MBRS family's
 (``models/mbrs_model.py``, the published widths, 128², float32, the
-noise draws of ``MBRSSampler``) on the runner's synthetic images. ``--int8`` serves the roundtrip or the
+noise draws of ``MBRSSampler``) on the runner's synthetic images, and
+``--mode tianchi`` the Tianchi family's ``train_step`` and then its
+``eval_step`` (``models/tianchi_model.py``, SUNet at the published widths,
+the port's ``configs/tianchi.yaml``, 256², batch 8 unless ``--batch``,
+float32, the JPEG draws of ``TianchiSampler``) on the runner's splice
+forgeries, one JSON line each. ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
 through the int8 embed (calibrated on one seeded random clip, off the
 clock). Each runs under
@@ -72,7 +79,10 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "coupling_affine": ("affine_fwd", "affine_bwd"),
                 "zigzag_jpeg": ("zigzag_kernel",),
                 "crop_resize": ("crop_resize_fwd", "crop_resize_bwd",
-                                "crop_resize_taps")}
+                                "crop_resize_taps"),
+                "window_attention": ("window_attention_fwd",
+                                     "window_attention_bwd",
+                                     "window_attention_bias_grad")}
 
 
 def classify(name: str) -> str:
@@ -100,7 +110,7 @@ def main(argv=None):
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval",
-                             "hidden", "mbrs"])
+                             "hidden", "mbrs", "tianchi"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -108,8 +118,10 @@ def main(argv=None):
                     help="roundtrip or detect through the int8 extractor")
     ap.add_argument("--int8-embed", action="store_true",
                     help="roundtrip through the int8 embed")
-    ap.set_defaults(batch=16)
+    ap.set_defaults(batch=None)
     args = ap.parse_args(argv)
+    if args.batch is None:  # Tianchi's record's batch; the video model's
+        args.batch = 8 if args.mode == "tianchi" else 16
 
     cfg = build_config(args)
     torch.backends.cudnn.allow_tf32 = False
@@ -157,6 +169,31 @@ def main(argv=None):
             step[0] += 1
             imgs, msgs = batches[step[0] % len(batches)]
             return model.train_step(imgs, msgs, sampler())
+    elif args.mode == "tianchi":
+        import dataclasses
+        from . import TIANCHI_CONFIG, load_config
+        from .data import SpliceForgeryDataset
+        from .models import TianchiModel
+        t = 1
+        tcfg = load_config(TIANCHI_CONFIG)
+        tcfg = dataclasses.replace(tcfg, data=dataclasses.replace(
+            tcfg.data, gt_size=s, batch_size=b))
+        model = TianchiModel(tcfg, device=args.device)
+        model.init_states(0)
+        ds = SpliceForgeryDataset(size=s, length=4 * b, seed=10)
+        batches = [model.to_device(*(np.stack(x) for x in zip(
+            *[ds[i * b + j] for j in range(b)]))) for i in range(4)]
+        sampler = model.sampler(0)
+        step = [0]
+
+        def train_one():
+            step[0] += 1
+            imgs, masks = batches[step[0] % len(batches)]
+            return model.train_step(imgs, masks, sampler())
+
+        def eval_one():
+            step[0] += 1
+            return model.eval_step(*batches[step[0] % len(batches)])
     elif args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)
@@ -184,18 +221,42 @@ def main(argv=None):
             r = server.serve(clip, args.mode)
             return [getattr(r, k) for k in r.keys()]
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    head = {"card": card, "mode": args.mode, "subnet": args.subnet,
+            "extractor": args.extractor, "haar": args.haar,
+            "packed": args.packed, "int8": args.int8,
+            "int8_embed": args.int8_embed, "requests": args.requests,
+            "batch": b, "frames": t, "size": s}
+    if args.mode == "tianchi":
+        for what, fn in (("train_step", train_one), ("eval_step", eval_one)):
+            print(json.dumps({**head, "step": what,
+                              **profile_window(fn, args.requests,
+                                               args.trace and
+                                               f"{args.trace}.{what}")}))
+        return
+    print(json.dumps({**head, **profile_window(one, args.requests,
+                                               args.trace)}))
+
+
+def profile_window(one, n: int, trace=None) -> dict:
+    """``one()`` 3 times to warm up, then ``n`` times under
+    ``torch.profiler``: host wall time, device busy time and idle share,
+    device time by kernel class and the longest kernels, per call."""
     for _ in range(3):
         one()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.requests):
+        for _ in range(n):
             one()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
 
     spans, by_name = [], {}
     for e in prof.events():
@@ -212,18 +273,8 @@ def main(argv=None):
     for name, us in by_name.items():
         c = classify(name)
         by_class[c] = by_class.get(c, 0.0) + us
-    n = args.requests
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(json.dumps({
-        "card": card, "mode": args.mode, "subnet": args.subnet,
-        "extractor": args.extractor, "haar": args.haar,
-        "packed": args.packed, "int8": args.int8,
-        "int8_embed": args.int8_embed, "requests": n, "batch": b,
-        "frames": t, "size": s,
+    return {
         "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy / n / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
@@ -234,7 +285,7 @@ def main(argv=None):
             k[:90]: v / n / 1e3 for k, v in by_name.items()
             if classify(k) == "gemm"},
         "top_kernels_ms_per_request": {k[:90]: v / n / 1e3 for k, v in top},
-    }))
+    }
 
 
 if __name__ == "__main__":

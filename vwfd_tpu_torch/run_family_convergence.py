@@ -1,9 +1,13 @@
 """Convergence runs of the message and image families (port of
-tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420).
+tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
+``_tianchi``, :279-341).
 
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs \\
         --steps 15000 --eval-every 500 --out runs/conv_torch_mbrs.jsonl \\
         --ckpt-dir build/mbrs_ckpt
+    python -m vwfd_tpu_torch.run_family_convergence --task tianchi \\
+        --steps 3000 --size 256 --batch 8 --lr 1e-4 --eval-every 250 \\
+        --out runs/conv_torch_tianchi.jsonl --ckpt-dir build/tianchi_ckpt
     # the same run in segments: each ends cleanly with a checkpoint
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs ... \\
         --resume --stop-at-step 5000
@@ -17,33 +21,54 @@ tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420).
 ``default_rng(10)`` (10 is the JAX runner's ``cfg.train.seed``), so its
 batches and messages are the JAX run's. The weights and the noise draws
 (``MBRSSampler``) come from ``--seed`` (default 0): ``jax.random`` cannot
-be replayed. Adam runs at the model's 1e-3, the rate the JAX record
-trained at (its config line's ``"lr": 1e-05`` is a config value its runner
-never passed); the config line here states the rate used.
+be replayed. Adam runs at the model's 1e-3 unless ``--lr``, the rate the
+JAX record trained at (its config line's ``"lr": 1e-05`` is a config value
+its runner never passed); the config line here states the rate used.
+
+``--task tianchi`` trains ``TianchiModel`` (SUNet at the published widths;
+512², b4 unless ``--size`` / ``--batch``, the JAX runner's defaults; the
+port's ``configs/tianchi.yaml``, AdamW at the config's rate unless
+``--lr``) on the JAX runner's composed splice forgeries
+(``data.SpliceForgeryDataset(size, 2000, 10)``: a one-frame
+``SyntheticVideoDataset`` item with the donor ``(i·7919 + 1) mod 2000``
+pasted through its mask) through ``Loader(..., seed=10, ratio=200)``. The
+frames and the order are the JAX run's; the stroke masks are the port's
+rasteriser's (F11: each stroke within IoU 0.9 of cv2's pixels, not the
+same pixels), and with them the pasted regions. The JPEG draws
+(``TianchiSampler``) and the weights come from ``--seed``. Every
+``--eval-every`` steps and at the last the mean ``f1_best`` of
+``--eval-batches`` (4) batches of ``--eval-batch`` (the train batch)
+held-out forgeries (``SpliceForgeryDataset(size, 64, 10 + 7777)`` through
+``Loader(..., seed=10 + 7777, ratio=200)``, a fresh epoch order each eval,
+as the JAX runner's loop draws them).
 
 The JSONL record is the JAX runner's, key for key: a config line (with the
 device, its name and the seeds), at step 1 and every ``--log-every`` steps
-the logs (``loss``, ``encoder_mse``, ``message_mse``, ``bitwise_error``)
-and ``wall`` (seconds since the start), and at every ``--eval-every`` step
-and the last an eval record on 16 held-out images (``SyntheticImageDataset
-(size, 16, 10 + 7777)``, messages from ``default_rng(7777)``): the encoded
-PSNR (``psnr255_int`` of the clipped encoding) and the bitwise error on it
+the logs (MBRS: ``loss``, ``encoder_mse``, ``message_mse``,
+``bitwise_error``; Tianchi: ``CE``, ``CE1``) and ``wall`` (seconds since
+the start), and at every ``--eval-every`` step and the last an eval
+record. MBRS's is on 16 held-out images (``SyntheticImageDataset (size,
+16, 10 + 7777)``, messages from ``default_rng(7777)``): the encoded PSNR
+(``psnr255_int`` of the clipped encoding) and the bitwise error on it
 (``bitwise_error_identity``) and after PIL's libjpeg at QF 50, 70 and 90
-(``bitwise_error_jpeg{q}``, ``attacks.jpeg_real``). A last line gives
-``wall_s`` and ``ms_per_step`` (the run's wall time over its steps, evals
-included).
+(``bitwise_error_jpeg{q}``, ``attacks.jpeg_real``); Tianchi's is
+``f1_best``. A last line gives ``wall_s`` and ``ms_per_step`` (the run's
+wall time over its steps, evals included).
 
 ``--resume`` restores the latest checkpoint of ``--ckpt-dir`` (parameters,
 BatchNorm statistics, Adam moments and count), keeps ``--out`` up to that
-step and continues with the batches, messages and draws an unbroken run
-would see (the loader's order, the message and draw generators replayed
-to the step). ``--stop-at-step`` ends a segment with a checkpoint. Only
-the latest checkpoint is kept. Runs on the CUDA card unless ``--device
-cpu``; without a card it raises. The other tasks are not ported yet: each
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+step and continues with the batches, messages, draws and eval orders an
+unbroken run would see (the loaders' orders, the message and draw
+generators replayed to the step). ``--stop-at-step`` ends a segment with a
+checkpoint. Only the latest checkpoint is kept. Runs on the CUDA card
+unless ``--device cpu``; without a card it raises. The image family's
+tasks and KD-JPEG are not ported yet: each raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
 import argparse
+import dataclasses
+import itertools
 import json
 import os
 import time
@@ -52,22 +77,24 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import TIANCHI_CONFIG, load_config
 from .attacks import jpeg_real
-from .data import Loader, SyntheticImageDataset
+from .data import Loader, SpliceForgeryDataset, SyntheticImageDataset
 from .metrics import bitwise_message_error, psnr255_int
-from .models import MBRSModel
+from .models import MBRSModel, TianchiModel
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint
 from .run_convergence import _keep_upto, _save
 from .utils import setup_logger
 
-__all__ = ["DATA_SEED", "EVAL_QUALITIES", "NOT_PORTED", "MBRSStreams",
-           "parse_args", "run", "main"]
+__all__ = ["DATA_SEED", "EVAL_QUALITIES", "NOT_PORTED", "DEFAULTS",
+           "MBRSStreams", "TianchiStreams", "parse_args", "run", "main"]
 
 DATA_SEED = 10  # the JAX runner's cfg.train.seed: data and messages
 EVAL_QUALITIES = (50, 70, 90)
-NOT_PORTED = {"tianchi": "ROADMAP.md §1, its Tianchi item",
-              "pami": "ROADMAP.md §1, its image family item",
+# (size, batch) unless --size / --batch: the JAX runner's geometry
+DEFAULTS = {"mbrs": (128, 16), "tianchi": (512, 4)}
+NOT_PORTED = {"pami": "ROADMAP.md §1, its image family item",
               "clr": "ROADMAP.md §1, its image family item",
               "imuge": "ROADMAP.md §1, its image family item",
               "kdjpeg": "ROADMAP.md §1, its KD-JPEG item"}
@@ -76,14 +103,23 @@ NOT_PORTED = {"tianchi": "ROADMAP.md §1, its Tianchi item",
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", required=True,
-                    choices=("mbrs", *NOT_PORTED))
+                    choices=(*DEFAULTS, *NOT_PORTED))
     ap.add_argument("--steps", type=int, default=4000)
-    ap.add_argument("--size", type=int, default=128)
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--size", type=int, default=None,
+                    help="image side (default: 128 mbrs, 512 tianchi)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="train batch (default: 16 mbrs, 4 tianchi)")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default: MBRS's 1e-3, the "
+                         "tianchi config's)")
     ap.add_argument("--seed", type=int, default=0,
                     help="the weights' and the noise draws' seed")
     ap.add_argument("--eval-every", type=int, default=250)
-    ap.add_argument("--eval-batch", type=int, default=16)
+    ap.add_argument("--eval-batch", type=int, default=None,
+                    help="held-out batch (default: 16 mbrs, the train "
+                         "batch tianchi)")
+    ap.add_argument("--eval-batches", type=int, default=4,
+                    help="tianchi: held-out batches an eval")
     ap.add_argument("--log-every", type=int, default=25)
     ap.add_argument("--save-every", type=int, default=1000)
     ap.add_argument("--out", default=None)
@@ -96,6 +132,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if (args.resume or args.stop_at_step) and not args.ckpt_dir:
         ap.error("--resume and --stop-at-step need --ckpt-dir")
+    size, batch = DEFAULTS.get(args.task, (128, 16))
+    args.size = args.size or size
+    args.batch = args.batch or batch
+    if args.eval_batch is None:
+        args.eval_batch = args.batch if args.task == "tianchi" else 16
     return args
 
 
@@ -145,6 +186,45 @@ def mbrs_eval(model: MBRSModel, imgs: np.ndarray, msgs: np.ndarray) -> dict:
     return rec
 
 
+class TianchiStreams:
+    """The run's batches and JPEG draws from step ``start + 1`` on, as an
+    unbroken run sees them."""
+
+    def __init__(self, model: TianchiModel, batch: int, seed: int,
+                 start: int = 0):
+        ds = SpliceForgeryDataset(size=model.image_size, length=2000,
+                                  seed=DATA_SEED)
+        self.batches = Loader(ds, batch, seed=DATA_SEED,
+                              ratio=200).stream(start)
+        self.sampler = model.sampler(seed)
+        for _ in range(start):
+            self.sampler()
+
+    def __next__(self):
+        imgs, masks = next(self.batches)
+        return imgs, masks, self.sampler()
+
+
+def tianchi_eval_loader(size: int, batch: int, evals_done: int = 0
+                        ) -> Loader:
+    """The held-out forgeries' loader, its order generator moved past the
+    epochs of ``evals_done`` earlier evals (each draws one)."""
+    held = SpliceForgeryDataset(size=size, length=64,
+                                seed=DATA_SEED + 7777)
+    loader = Loader(held, batch, seed=DATA_SEED + 7777, ratio=200)
+    for _ in range(evals_done):
+        loader._order()
+    return loader
+
+
+def tianchi_eval(model: TianchiModel, loader: Loader, batches: int) -> dict:
+    """Mean ``f1_best`` over the first ``batches`` batches of a fresh
+    epoch of ``loader``."""
+    f1s = [float(model.eval_step(img, mask)["f1_best"])
+           for img, mask in itertools.islice(iter(loader), batches)]
+    return {"f1_best": float(np.mean(f1s))}
+
+
 def _emit(f, rec: dict) -> None:
     line = json.dumps(rec)
     f.write(line + "\n")
@@ -152,18 +232,35 @@ def _emit(f, rec: dict) -> None:
     print(line, flush=True)
 
 
+def _model(args):
+    """The task's model, fresh from ``--seed``."""
+    if args.task == "mbrs":
+        model = MBRSModel(image_size=args.size, lr=args.lr or 1e-3,
+                          device=args.device)
+    else:
+        cfg = load_config(TIANCHI_CONFIG)
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, gt_size=args.size,
+                                          batch_size=args.batch,
+                                          synthetic=True),
+            train=dataclasses.replace(cfg.train, lr=args.lr or cfg.train.lr))
+        model = TianchiModel(cfg, device=args.device)
+    model.init_states(args.seed)
+    return model
+
+
 def run(args: argparse.Namespace,
         on_step: Optional[Callable] = None) -> str:
     """The run of ``args`` (``parse_args``); ``on_step(step, images,
-    messages, draws)``, if given, sees each train step's inputs. Returns
-    ``"done"`` or ``"stopped"`` (a segment's end)."""
+    messages or masks, draws)``, if given, sees each train step's inputs.
+    Returns ``"done"`` or ``"stopped"`` (a segment's end)."""
     if args.task in NOT_PORTED:
         raise NotImplementedError(f"--task {args.task} is not ported yet: "
                                   f"{NOT_PORTED[args.task]}")
     log = setup_logger("base")
-    model = MBRSModel(image_size=args.size, device=args.device)
-    model.init_states(args.seed)
-    out_path = args.out or os.path.join("build", "conv_torch_mbrs.jsonl")
+    model = _model(args)
+    out_path = args.out or os.path.join("build",
+                                        f"conv_torch_{args.task}.jsonl")
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     start = latest_step(args.ckpt_dir) if args.resume else None
     if start is not None:
@@ -176,26 +273,37 @@ def run(args: argparse.Namespace,
         with open(out_path, "w") as f:
             _emit(f, {"config": True, "task": args.task, "size": args.size,
                       "batch": args.batch, "steps": args.steps,
-                      "lr": model.lr, "seed": args.seed,
+                      "lr": (model.lr if args.task == "mbrs"
+                             else model.cfg.train.lr), "seed": args.seed,
                       "data_seed": DATA_SEED, "device": model.device.type,
                       "device_name": (torch.cuda.get_device_name(
                           model.device) if cuda else "cpu")})
-    streams = MBRSStreams(model, args.batch, args.seed, start)
-    held = eval_set(args.size, args.eval_batch, model.message_length)
+    if args.task == "mbrs":
+        streams = MBRSStreams(model, args.batch, args.seed, start)
+        held = eval_set(args.size, args.eval_batch, model.message_length)
+
+        def evaluate():
+            return mbrs_eval(model, *held)
+    else:
+        streams = TianchiStreams(model, args.batch, args.seed, start)
+        held = tianchi_eval_loader(args.size, args.eval_batch,
+                                   start // args.eval_every)
+
+        def evaluate():
+            return tianchi_eval(model, held, args.eval_batches)
     t0 = time.time()
     step = start
     with open(out_path, "a") as f:
         for step in range(start + 1, args.steps + 1):
-            imgs, msgs, draws = next(streams)
+            inputs = next(streams)
             if on_step is not None:
-                on_step(step, imgs, msgs, draws)
-            logs = model.train_step(imgs, msgs, draws)
+                on_step(step, *inputs)
+            logs = model.train_step(*inputs)
             if step % args.log_every == 0 or step == 1:
                 _emit(f, {"step": step, "wall": wall0 + time.time() - t0,
                           **{k: float(v) for k, v in logs.items()}})
             if step % args.eval_every == 0 or step == args.steps:
-                _emit(f, {"step": step, "eval": True,
-                          **mbrs_eval(model, *held)})
+                _emit(f, {"step": step, "eval": True, **evaluate()})
             if args.ckpt_dir and step % args.save_every == 0:
                 _save(model, args.ckpt_dir, step, log)
             if step == args.stop_at_step and step < args.steps:

@@ -39,8 +39,9 @@ behind a CUDA event, so ``serve`` returns without waiting for the card and
 Weights come from a checkpoint directory (``ckpt_dir``: the port's own
 layout, ``models/state.py``, which ``tools/jax_checkpoint_to_torch.py``
 writes from a JAX package's orbax checkpoint), a weights file or mapping,
-or a seed. Not ported yet: AOT compile (CUDA graphs), ``mesh``,
-``export_program``, ``cost_analysis`` and serving media folders.
+or a seed. Media folders, ``--stream`` and ``--s2d`` are the CLI's
+(``serve.py``). Not ported yet: AOT compile (CUDA graphs), ``mesh``,
+``export_program`` and ``cost_analysis`` (ROADMAP.md §1).
 """
 
 from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union

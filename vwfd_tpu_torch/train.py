@@ -1,5 +1,6 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video|hidden|mbrs [--root DIR | --synthetic] [--steps N | --val] [--resume]``).
+video|hidden|mbrs|tianchi [--root DIR | --synthetic] [--steps N | --val]
+[--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
     python -m vwfd_tpu_torch.train --synthetic --steps 100
@@ -48,6 +49,24 @@ MBRS's libjpeg eval ``vwfd_tpu_torch.run_family_convergence``.
         --device cpu --batch 2 --size 32
     python -m vwfd_tpu_torch.train --task mbrs --synthetic --steps 3 \
         --device cpu --batch 2 --size 32
+
+``--task tianchi`` trains the Tianchi forgery-segmentation family
+(``models/tianchi_model.py``: SUNet, two AdamW updates a step; the JAX
+``train.py``'s ``_tianchi_loop``, :339-412) with the port's
+``configs/tianchi.yaml`` unless ``--config`` (``--size``, ``--batch``
+override): on the composed splice forgeries (``--synthetic``:
+``SpliceForgeryDataset(seed=train.seed)``) or on image and forgery-mask
+folders (``--root`` and ``--mask-root``, or the config's ``data.root`` /
+``data.mask_root``: each mask the image's base name under the mask
+folder, read through OpenCV), the JPEG draws from ``TianchiSampler``
+seeded ``train.seed``, a progress bar, the scalar log and a checkpoint
+every ``save_interval`` steps; it prints one JSON line (the last step's
+``CE`` and ``CE1``, ms per step and images/s over the steps after the
+first). Its held-out F1 is ``vwfd_tpu_torch.run_family_convergence --task
+tianchi``'s.
+
+    python -m vwfd_tpu_torch.train --task tianchi --synthetic --steps 3 \
+        --device cpu --batch 2 --size 64
 """
 
 import argparse
@@ -59,10 +78,11 @@ import time
 import numpy as np
 import torch
 
-from . import FLAGSHIP_CONFIG, Config, load_config
+from . import FLAGSHIP_CONFIG, TIANCHI_CONFIG, Config, load_config
 from .data import (DavisVideoDataset, ImageFolderDataset, Loader,
-                   SyntheticImageDataset, SyntheticVideoDataset, cv2_readers)
-from .models import HiddenModel, MBRSModel, VideoWatermarkModel
+                   SpliceForgeryDataset, SyntheticImageDataset,
+                   SyntheticVideoDataset, cv2_mask_reader, cv2_readers)
+from .models import HiddenModel, MBRSModel, TianchiModel, VideoWatermarkModel
 from .models.hidden_model import HiddenSampler
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint, save_checkpoint
@@ -198,16 +218,112 @@ def _message(args, ap, logger):
                         else "cpu")}))
 
 
+class _ImageMask:
+    """An image folder's items as ``(image, mask)`` (``train.py:
+    358-359``)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        item = self.base[i]
+        return item["image"], item["mask"]
+
+
+def _tianchi(args, ap, logger):
+    """``--task tianchi``: the JAX ``train.py``'s ``_tianchi_loop``."""
+    if args.val:
+        ap.error("--val is the video model's; Tianchi's held-out F1 is "
+                 "python -m vwfd_tpu_torch.run_family_convergence --task "
+                 "tianchi")
+    cfg = load_config(args.config or TIANCHI_CONFIG)
+    data = dict(batch_size=args.batch or cfg.data.batch_size,
+                gt_size=args.size or cfg.data.gt_size,
+                root=args.root or cfg.data.root,
+                mask_root=args.mask_root or cfg.data.mask_root,
+                synthetic=args.synthetic or (cfg.data.synthetic
+                                             and not args.root))
+    cfg = dataclasses.replace(cfg, task="tianchi",
+                              data=dataclasses.replace(cfg.data, **data),
+                              ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
+    d = cfg.data
+    if d.root and not d.synthetic:
+        if not d.mask_root:
+            ap.error("tianchi with --root needs --mask-root (the forgery "
+                     "masks, tianchi_dataset.py:16-77)")
+        try:
+            read_image, _ = cv2_readers()
+            read_mask = cv2_mask_reader()
+        except ImportError:
+            ap.error("--root needs OpenCV (cv2) to read the images and "
+                     "masks, and it does not import here")
+        dataset = _ImageMask(ImageFolderDataset(
+            d.root, read_image, size=d.gt_size, augment=False,
+            mask_root=d.mask_root, read_mask=read_mask))
+    elif d.synthetic:
+        dataset = SpliceForgeryDataset(size=d.gt_size, length=2000,
+                                       seed=cfg.train.seed)
+    else:
+        ap.error("no data: pass --root and --mask-root or --synthetic")
+    model = TianchiModel(cfg, device=args.device)
+    model.init_states(cfg.train.seed)
+    step0 = latest_step(cfg.ckpt_dir) if args.resume else None
+    if step0 is not None:
+        logger.info("resuming tianchi from step %d", step0)
+        restore_checkpoint(cfg.ckpt_dir, step0, model)
+    sampler = model.sampler(cfg.train.seed)
+    loader = Loader(dataset, d.batch_size, seed=cfg.train.seed,
+                    ratio=d.ratio)
+    scalar_logger = None if args.no_telemetry else ScalarLogger(
+        args.logdir or os.path.join("runs", f"{cfg.name}_tianchi"))
+    pb = Progbar(args.steps)
+    step, end, times, vals = step0 or 0, (step0 or 0) + args.steps, [], {}
+    try:
+        for imgs, masks in loader.stream():
+            if step >= end:
+                break
+            t0 = time.perf_counter()
+            logs = model.train_step(imgs, masks, sampler())
+            vals = {k: float(v) for k, v in logs.items()}  # syncs
+            times.append((time.perf_counter() - t0) * 1e3)
+            step += 1
+            pb.add(1, values=list(vals.items()))
+            if scalar_logger is not None:
+                scalar_logger.log(step, **vals)
+            if step % cfg.train.save_interval == 0:
+                save_checkpoint(cfg.ckpt_dir, step, model)
+    finally:
+        if scalar_logger is not None:
+            scalar_logger.close()
+    ms = float(np.median(times[1:] or times))
+    logger.info("done: %s", vals)
+    cuda = model.device.type == "cuda"
+    print(json.dumps({
+        **vals, "steps": args.steps, "ms_per_step": ms,
+        "images_per_s": d.batch_size / ms * 1e3, "batch": d.batch_size,
+        "size": d.gt_size, "data": "synthetic" if d.synthetic else "images",
+        "resumed_step": step0, "device": str(model.device),
+        "device_name": (torch.cuda.get_device_name(model.device) if cuda
+                        else "cpu")}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="video",
-                    choices=("video", "hidden", "mbrs"),
-                    help="video (default), hidden or mbrs")
+                    choices=("video", "hidden", "mbrs", "tianchi"),
+                    help="video (default), hidden, mbrs or tianchi")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
                     help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
-                         "with --task hidden or mbrs an image folder")
+                         "with --task hidden, mbrs or tianchi an image "
+                         "folder")
+    ap.add_argument("--mask-root", default=None,
+                    help="--task tianchi: the forgery-mask folder (each "
+                         "mask the image's base name)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--val", action="store_true",
                     help="evaluate with eval_step instead of training")
@@ -235,6 +351,8 @@ def main(argv=None):
     logger = setup_logger("base")
     if args.task in ("hidden", "mbrs"):
         return _message(args, ap, logger)
+    if args.task == "tianchi":
+        return _tianchi(args, ap, logger)
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
