@@ -46,13 +46,14 @@ kernels against ``PLAIN`` (loss terms within 1e-5 relative, gradient
 cosines ≥ 0.9999; K5 ×0, ×1, ×2). With NaN and Inf pixels and a NaN
 cotangent, K16's and K17's outputs and gradients are NaN (and ±Inf) where
 their plain versions' are, and within those tolerances elsewhere. K18
-``window_attention``'s forward, dqkv and table gradient are within 1e-5 of
-the plain tensor's max-abs (float32 sums in another order than the
-plain version's einsums) at SUNet's four stage shapes of 256² b8 (shifted
-and not), N = 16 and d = 16 and 64; its gradients are bit-identical over
-two calls (no float atomics); a NaN and an Inf in q give NaN where the
-plain version has it; it raises on a window past 8 or d outside {16, 32,
-64}. K3 and K4 at s = 4 in a server (``extractor_s2d`` 4): a roundtrip
+``window_attention`` on the map: its forward, dqkv and table gradient
+are within 1e-5 of the plain tensor's max-abs (3×TF32 products and
+float32 sums in another order than the plain version's einsums) at
+SUNet's four stage shapes of 256² b8 (shifted and not), N = 16, 25 and
+49, d = 16 and 64, and a non-square map whose shift wraps both edges; its
+outputs are bit-identical over two calls (no float atomics); a NaN and an
+Inf in q give NaN where the plain version has it; it raises on a window
+past 8, d outside {16, 32, 64} or windows that do not tile the map. K3 and K4 at s = 4 in a server (``extractor_s2d`` 4): a roundtrip
 with K3 ×2 and K4 ×1 against the plain server, mask bits EQUAL but within
 1e-6 of the threshold.
 """
@@ -1402,55 +1403,56 @@ def test_mbrs_step_on_the_card_matches_plain(cuda, mode):
         assert float(torch.dot(a, b) / (a.norm() * b.norm())) >= 0.9999
 
 
-# K18 at SUNet's stage shapes of 256² b8 (qkv, window grid, shift) and at
-# N = 16, d = 16 and d = 64
-_WINATT = [((512, 64, 3, 3, 32), (8, 8), 4), ((512, 64, 3, 3, 32), (8, 8), 0),
-           ((128, 64, 3, 6, 32), (4, 4), 4), ((32, 64, 3, 12, 32), (2, 2), 4),
-           ((8, 64, 3, 24, 32), (1, 1), 0), ((32, 16, 3, 2, 32), (2, 2), 2),
-           ((16, 16, 3, 4, 16), (2, 2), 2), ((8, 64, 3, 2, 64), (2, 2), 4)]
+# K18 at SUNet's stage shapes of 256² b8 on the map (qkv, window, shift),
+# at N = 16, 25 and 49, d = 16 and d = 64, and on a non-square map whose
+# shift wraps both edges
+_WINATT = [((8, 64, 64, 3, 3, 32), 8, 4), ((8, 64, 64, 3, 3, 32), 8, 0),
+           ((8, 32, 32, 3, 6, 32), 8, 4), ((8, 16, 16, 3, 12, 32), 8, 4),
+           ((8, 8, 8, 3, 24, 32), 8, 0), ((8, 8, 8, 3, 2, 32), 4, 2),
+           ((4, 8, 8, 3, 4, 16), 4, 2), ((2, 16, 16, 3, 2, 64), 8, 4),
+           ((2, 16, 24, 3, 2, 32), 8, 4), ((2, 10, 15, 3, 2, 32), 5, 2),
+           ((1, 14, 14, 3, 3, 16), 7, 3)]
 
 
-def _winatt(fn, qkv, table, cot, grid, shift):
+def _winatt(fn, qkv, table, cot, ws, shift):
     q = qkv.clone().requires_grad_(True)
     t = table.clone().requires_grad_(True)
-    y = fn(q, t, grid, shift)
+    y = fn(q, t, ws, shift)
     return (y.detach(), *torch.autograd.grad(y, (q, t), cot))
 
 
-def _winatt_inputs(shape, seed):
+def _winatt_inputs(shape, ws, seed):
     g = _gen(seed)
-    bnw, n, _, h, d = shape
-    ws = int(round(n ** 0.5))
+    b, hm, wm, _, h, d = shape
     return (torch.randn(shape, device="cuda", generator=g),
             0.02 * torch.randn(((2 * ws - 1) ** 2, h), device="cuda",
                                generator=g),
-            torch.randn((bnw, n, h * d), device="cuda", generator=g))
+            torch.randn((b, hm, wm, h * d), device="cuda", generator=g))
 
 
-@pytest.mark.parametrize("shape,grid,shift", _WINATT)
-def test_window_attention_matches_plain(cuda, shape, grid, shift):
-    qkv, table, cot = _winatt_inputs(shape, 18)
+@pytest.mark.parametrize("shape,ws,shift", _WINATT)
+def test_window_attention_matches_plain(cuda, shape, ws, shift):
+    qkv, table, cot = _winatt_inputs(shape, ws, 18)
     before = launch_counts()["window_attention"]
-    got = _winatt(window_attention.window_attention, qkv, table, cot, grid,
+    got = _winatt(window_attention.window_attention, qkv, table, cot, ws,
                   shift)
     assert launch_counts()["window_attention"] == before + 2
-    again = _winatt(window_attention.window_attention, qkv, table, cot,
-                    grid, shift)
+    again = _winatt(window_attention.window_attention, qkv, table, cot, ws,
+                    shift)
     want = _winatt(window_attention.window_attention_plain, qkv, table, cot,
-                   grid, shift)
+                   ws, shift)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_window_attention_nonfinite_as_plain(cuda):
-    qkv, table, cot = _winatt_inputs((8, 64, 3, 3, 32), 19)
-    qkv[1, 5, 0, 2, 7] = float("nan")
-    qkv[3, 60, 0, 0, 1] = float("inf")
-    got = _winatt(window_attention.window_attention, qkv, table, cot, (2, 2),
-                  4)
+    qkv, table, cot = _winatt_inputs((2, 16, 16, 3, 3, 32), 8, 19)
+    qkv[0, 1, 5, 0, 2, 7] = float("nan")
+    qkv[1, 7, 4, 0, 0, 1] = float("inf")
+    got = _winatt(window_attention.window_attention, qkv, table, cot, 8, 4)
     want = _winatt(window_attention.window_attention_plain, qkv, table, cot,
-                   (2, 2), 4)
+                   8, 4)
     for a, b in zip(got, want):
         assert torch.equal(a.isnan(), b.isnan())
         fin = b.isfinite()
@@ -1459,21 +1461,19 @@ def test_window_attention_nonfinite_as_plain(cuda):
                 b[fin].abs().max())
 
 
-@pytest.mark.parametrize("shape", [(8, 81, 3, 1, 32), (8, 64, 3, 1, 48),
-                                   (8, 60, 3, 1, 32)])
-def test_window_attention_refuses_other_shapes(cuda, shape):
-    n = shape[1]
-    ws = int(round(n ** 0.5))
+@pytest.mark.parametrize("shape,ws", [((1, 9, 9, 3, 1, 32), 9),
+                                      ((1, 8, 8, 3, 1, 48), 8),
+                                      ((1, 8, 12, 3, 1, 32), 8)])
+def test_window_attention_refuses_other_shapes(cuda, shape, ws):
     table = torch.zeros(((2 * ws - 1) ** 2, 1), device=cuda)
     with pytest.raises(ValueError):
         window_attention.window_attention(torch.zeros(shape, device=cuda),
-                                          table, (1, 1), 0)
+                                          table, ws, 0)
     with pytest.raises(TypeError):
         window_attention.window_attention(
-            torch.zeros((8, 16, 3, 1, 32), device=cuda,
+            torch.zeros((1, 4, 4, 3, 1, 32), device=cuda,
                         dtype=torch.float64),
-            torch.zeros((49, 1), device=cuda, dtype=torch.float64), (1, 1),
-            0)
+            torch.zeros((49, 1), device=cuda, dtype=torch.float64), 4, 0)
 
 
 def test_s2d_4_roundtrip_matches_plain(cuda):

@@ -7,10 +7,11 @@ Tolerances and why (float32 CPU einsums and matrix products sum in another
 order than XLA's; flax's LayerNorm variance is E[x²] − E[x]², PyTorch's
 two-pass):
 
-* ``WindowAttention`` (qkv Dense, K18's plain version, proj Dense), forward
-  and every gradient (the input's, both Dense layers', the bias table's):
-  within 1e-5 of the tensor's max-abs, shifted and unshifted, N = 16 and
-  64;
+* ``WindowAttention`` on the map (qkv Dense, K18's plain version in the
+  map layout, proj Dense) against JAX's roll, partition, attention,
+  reverse and roll back, forward and every gradient (the input's, both
+  Dense layers', the bias table's): within 1e-5 of the tensor's max-abs,
+  shifted and unshifted, N = 16 and 64, square and non-square maps;
 * ``SUNet`` at a narrow width (embed 32, depths (2, 2), heads (1, 2),
   window 4, 32², batch 2: stage 0 shifts, stage 1 does not), output within
   1e-5 of its max, every parameter's gradient within 1e-4 of its tensor's
@@ -76,19 +77,22 @@ def _grads_close(port_net, jgrads, rel):
 
 @pytest.mark.parametrize("ws,grid,shift,heads", [
     (8, (2, 3), 0, 2), (8, (2, 2), 4, 3), (4, (2, 2), 2, 2),
-    (4, (1, 1), 0, 1)])
+    (4, (1, 1), 0, 1), (8, (3, 2), 4, 2)])
 def test_window_attention_matches_jax(ws, grid, shift, heads):
-    """The port's ``WindowAttention`` (K18's plain version between the two
-    Dense layers) against JAX's, forward and VJP, with JAX's mask for the
-    window grid and shift: N = ws², batch 2 images."""
-    c, n = 32 * heads, ws * ws
-    bnw = 2 * grid[0] * grid[1]
-    rng = np.random.default_rng(ws * 10 + shift)
-    x = rng.standard_normal((bnw, n, c)).astype(np.float32)
-    cot = rng.standard_normal((bnw, n, c)).astype(np.float32)
+    """The port's ``WindowAttention`` on the map (the qkv Dense, K18's plain
+    version in the map layout, proj) against JAX's roll by −shift →
+    ``window_partition`` → ``WindowAttention`` (JAX's mask for the window
+    grid and shift) → ``window_reverse`` → roll back on the same map,
+    forward and VJP: N = ws², batch 2 images of ``grid`` windows. The last
+    case's shift wraps both edges of a non-square map."""
+    c = 32 * heads
+    hh, ww = grid[0] * ws, grid[1] * ws
+    rng = np.random.default_rng(ws * 10 + shift + grid[0])
+    x = rng.standard_normal((2, hh, ww, c)).astype(np.float32)
+    cot = rng.standard_normal((2, hh, ww, c)).astype(np.float32)
     mod = jsunet.WindowAttention(c, heads, ws)
-    mask = (jnp.asarray(k18.shift_mask(ws, grid[0] * ws, grid[1] * ws,
-                                       shift)) if shift else None)
+    mask = (jnp.asarray(k18.shift_mask(ws, hh, ww, shift)) if shift
+            else None)
     port = sunet.WindowAttention(c, heads, ws)
     with torch.no_grad():  # a table far from 0, so that its gradient counts
         for t in port.parameters():
@@ -97,7 +101,6 @@ def test_window_attention_matches_jax(ws, grid, shift, heads):
     params = jax.tree_util.tree_map(jnp.asarray,
                                     state_dict_to_jax(port.state_dict())[0])
     if shift:  # the JAX mask equals the port's, from JAX's own code
-        hh, ww = grid[0] * ws, grid[1] * ws
         img = np.zeros((1, hh, ww, 1))
         cnt = 0
         for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
@@ -111,15 +114,21 @@ def test_window_attention_matches_jax(ws, grid, shift, heads):
             np.where(mw[:, None, :] != mw[:, :, None], -100.0, 0.0),
             k18.shift_mask(ws, hh, ww, shift))
 
+    def on_map(p_, x_):  # SwinBlock's moves around JAX's WindowAttention
+        y = jnp.roll(x_, (-shift, -shift), axis=(1, 2)) if shift else x_
+        wins = jsunet.window_partition(y, ws).reshape(-1, ws * ws, c)
+        out = mod.apply({"params": p_}, wins, mask)
+        y = jsunet.window_reverse(out.reshape(-1, ws, ws, c), ws, hh, ww)
+        return jnp.roll(y, (shift, shift), axis=(1, 2)) if shift else y
+
     @jax.jit
     def f(p, xx, cc):
-        out, vjp = jax.vjp(lambda p_, x_: mod.apply({"params": p_}, x_, mask),
-                           p, xx)
+        out, vjp = jax.vjp(on_map, p, xx)
         return out, vjp(cc)
     want, (gp, gx) = f(params, jnp.asarray(x), jnp.asarray(cot))
 
     xt = torch.from_numpy(x).requires_grad_(True)
-    got = port(xt, grid, shift, PLAIN)
+    got = port(xt, ws, shift, PLAIN)
     got.backward(torch.from_numpy(cot))
     _close(_np(got), want, RTOL, "forward")
     _close(_np(xt.grad), gx, RTOL, "input gradient")
@@ -128,33 +137,43 @@ def test_window_attention_matches_jax(ws, grid, shift, heads):
 
 def test_window_attention_plain_routes_cpu_tensors():
     """``KERNELS.window_attention`` on CPU tensors is the plain version,
-    bit for bit; K18's shape rules raise only on a CUDA tensor."""
+    bit for bit, and the plain version on the map is the window attention
+    of the rolled, partitioned map put back; K18's shape rules raise only
+    on a CUDA tensor."""
     rng = np.random.default_rng(1)
-    qkv = torch.from_numpy(rng.standard_normal((4, 16, 3, 2, 32)).astype(
+    qkv = torch.from_numpy(rng.standard_normal((1, 8, 12, 3, 2, 32)).astype(
         np.float32))
     table = torch.from_numpy(rng.standard_normal((49, 2)).astype(np.float32))
-    want = k18.window_attention_plain(qkv, table, (2, 2), 2)
-    assert torch.equal(k18.window_attention(qkv, table, (2, 2), 2), want)
-    assert want.shape == (4, 16, 64)
-    with pytest.raises(ValueError, match="square"):
-        k18._check(qkv[:, :15], table, (2, 2), 0)
+    want = k18.window_attention_plain(qkv, table, 4, 2)
+    assert torch.equal(k18.window_attention(qkv, table, 4, 2), want)
+    assert want.shape == (1, 8, 12, 64)
+    rolled = torch.roll(qkv, (-2, -2), dims=(1, 2)).reshape(1, 8, 12, -1)
+    wins = k18.window_partition(rolled, 4).reshape(6, 16, 3, 2, 32)
+    body = k18._windows_plain(wins, table, (2, 3), 2)
+    back = torch.roll(k18.window_reverse(body.reshape(6, 4, 4, 64), 4, 8, 12),
+                      (2, 2), dims=(1, 2))
+    assert torch.equal(back, want)
+    with pytest.raises(ValueError, match="tile"):
+        k18._check(qkv[:, :7], table, 4, 0)
     with pytest.raises(ValueError, match="d in"):
-        k18._check(qkv[..., :8].contiguous(), table, (2, 2), 0)
+        k18._check(qkv[..., :8].contiguous(), table, 4, 0)
     with pytest.raises(ValueError, match="table"):
-        k18._check(qkv, table[:9], (2, 2), 0)
-    with pytest.raises(ValueError, match="images"):
-        k18._check(qkv, table, (1, 3), 0)
+        k18._check(qkv, table[:9], 4, 0)
+    with pytest.raises(ValueError, match="shift"):
+        k18._check(qkv, table, 4, 4)
+    with pytest.raises(ValueError, match=r"\(B, Hm, Wm"):
+        k18._check(qkv[0], table, 4, 0)
     with pytest.raises(TypeError):
-        k18._check(qkv.double(), table, (2, 2), 0)
-    big = torch.zeros(2, 81, 3, 1, 32)
+        k18._check(qkv.double(), table, 4, 0)
+    big = torch.zeros(1, 9, 9, 3, 1, 32)
     with pytest.raises(ValueError, match="windows up to"):
-        k18._check(big, torch.zeros(289, 1), (1, 2), 0)
+        k18._check(big, torch.zeros(289, 1), 9, 0)
 
 
 def test_work_counts_stage_0_at_256_b8():
-    """The bound's inputs at 256² b8 stage 0: 37.7 + 12.6 MB and 0.805
-    GFLOP forward."""
-    b, f = k18.work((512, 64, 3, 3, 32))
+    """The bound's inputs at 256² b8 stage 0 (the 64 × 64 map, windows of
+    8): 37.7 + 12.6 MB and 0.805 GFLOP forward."""
+    b, f = k18.work((8, 64, 64, 3, 3, 32), 8)
     assert abs(b - (37.7e6 + 12.6e6)) < 0.1e6
     assert abs(f - 0.805e9) < 0.001e9
 

@@ -16,7 +16,8 @@ without it): ``kernel``, ``file``,
 ``spill_load_bytes``, ``smem_bytes`` (static), ``warnings`` (the
 compiler's warnings for the kernel's file), ``sass`` (instructions) and
 ``ops``, the count of each of LDS, STS, LDL, STL, LDG, STG, LDC, SHFL, BAR,
-FFMA, IMMA (``mma.sync`` int8) and IGMMA (``wgmma`` int8) by opcode,
+FFMA, HMMA and HGMMA (``mma.sync`` and ``wgmma`` on floats: K18's TF32),
+IMMA (``mma.sync`` int8) and IGMMA (``wgmma`` int8) by opcode,
 suffixes ignored. ``--library`` reads the library the port built (and
 builds it first if needed) instead of compiling anew: registers, stack,
 static shared and local memory (where spills go) from ``cuobjdump
@@ -34,7 +35,7 @@ from pathlib import Path
 from .kernels import _lib
 
 OPS = ("LDS", "STS", "LDL", "STL", "LDG", "STG", "LDC", "SHFL", "BAR",
-       "FFMA", "IMMA", "IGMMA")
+       "FFMA", "HMMA", "HGMMA", "IMMA", "IGMMA")
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

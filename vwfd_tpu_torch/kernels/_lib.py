@@ -32,8 +32,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
-# The C interface, one entry per exported function: argtypes (the trailing
-# void* is the CUDA stream); every launcher returns a cudaError_t as int.
+# The C interface, one entry per exported function: argtypes (a launcher's
+# trailing void* is the CUDA stream); every launcher returns a cudaError_t as
+# int (vwfd_window_attention_ctas, no launcher, returns a count).
 _SIGNATURES = {
     "vwfd_transition": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_coupling_head": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I,
@@ -73,10 +74,11 @@ _SIGNATURES = {
     "vwfd_crop_resize_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_crop_resize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P],
-    "vwfd_window_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                  _P],
-    "vwfd_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _P],
+    "vwfd_window_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _P],
+    "vwfd_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _P],
+    "vwfd_window_attention_ctas": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,17 @@
 """SUNet, the Swin U-Net of the tianchi forgery-segmentation family (port of
 vwfd_tpu/nets/sunet.py:19-212), NHWC float32.
 
-* ``window_partition`` / ``window_reverse`` (:19-29): (B, H, W, C) ↔
-  (B·nH·nW, ws, ws, C), windows ordered (image, row, column);
-* ``WindowAttention`` (:32-71): the ``qkv`` Dense, K18 ``window_attention``
-  (``kernels/window_attention.py``: the relative-position bias from the
-  ``rel_pos_bias`` table ((2·ws − 1)², heads), the shift mask, softmax) and
-  the ``proj`` Dense;
-* ``SwinBlock`` (:74-114): LayerNorm, a roll by −shift, window attention, the
-  roll back, the residual; LayerNorm, Dense(4C), GELU, Dense(C), the
-  residual. The window is min(ws, H, W) and the shift 0 where that window
-  covers the map (:84-85);
+* ``WindowAttention`` (:32-71) on the map: the ``qkv`` Dense, K18
+  ``window_attention`` (``kernels/window_attention.py``: each window's
+  tokens read from and written to their places in the map rolled by
+  −shift, the relative-position bias from the ``rel_pos_bias`` table
+  ((2·ws − 1)², heads), the shift mask, softmax) and the ``proj`` Dense;
+* ``SwinBlock`` (:74-114): LayerNorm, window attention, the residual;
+  LayerNorm, Dense(4C), GELU, Dense(C), the residual. JAX's roll by
+  −shift, ``window_partition``, ``window_reverse`` and roll back around the
+  attention are K18's addressing: the Dense layers work token by token,
+  so they commute with those moves. The window is min(ws, H, W) and the
+  shift 0 where that window covers the map (:84-85);
 * ``pixel_shuffle`` (:117-124): torch's channel order, in NHWC;
 * ``DualUpSample`` (:127-160): the pixel-shuffle and the bilinear branch
   (``ops/resize.py::resize_bilinear``), each between 1×1 convs with a
@@ -42,25 +43,10 @@ from ..kernels import KERNELS, KernelSet
 from ..ops.resize import resize_bilinear
 from .unet import _trunc_normal_
 
-__all__ = ["window_partition", "window_reverse", "pixel_shuffle",
-           "PReLU", "WindowAttention", "SwinBlock", "DualUpSample", "SUNet",
+__all__ = ["pixel_shuffle", "PReLU", "WindowAttention", "SwinBlock", "DualUpSample", "SUNet",
            "LN_EPS"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
-
-
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    """(B, H, W, C) → (B·nH·nW, ws, ws, C)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws, ws, c)
-
-
-def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int
-                   ) -> torch.Tensor:
-    b = windows.shape[0] // (h * w // ws // ws)
-    x = windows.reshape(b, h // ws, w // ws, ws, ws, -1)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -97,14 +83,14 @@ class WindowAttention(nn.Module):
         self.rel_pos_bias = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
 
-    def forward(self, x: torch.Tensor, grid: Tuple[int, int], shift: int,
+    def forward(self, x: torch.Tensor, ws: int, shift: int,
                 kernels: KernelSet = KERNELS) -> torch.Tensor:
-        """``x`` (nW·B, N, C) → (nW·B, N, C); ``grid`` the windows of one
-        image (rows, columns), ``shift`` the block's (0: no mask)."""
-        bnw, n, c = x.shape
+        """``x`` (B, H, W, C) on the map → (B, H, W, C); windows of ``ws``
+        on the map rolled by −``shift`` (0: no roll, no mask)."""
+        b, hh, ww, c = x.shape
         h = self.num_heads
-        qkv = self.qkv(x).reshape(bnw, n, 3, h, c // h)
-        out = kernels.window_attention(qkv, self.rel_pos_bias, grid, shift)
+        qkv = self.qkv(x).reshape(b, hh, ww, 3, h, c // h)
+        out = kernels.window_attention(qkv, self.rel_pos_bias, ws, shift)
         return self.proj(out)
 
 
@@ -123,18 +109,10 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor, kernels: KernelSet = KERNELS
                 ) -> torch.Tensor:
         """x: (B, H, W, C)."""
-        b, h, w, c = x.shape
+        _, h, w, _ = x.shape
         ws = min(self.window_size, h, w)
         shift = self.shift_size if ws < min(h, w) else 0
-        y = self.norm1(x)
-        if shift:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-        wins = window_partition(y, ws).reshape(-1, ws * ws, c)
-        attn = self.attn(wins, (h // ws, w // ws), shift, kernels)
-        y = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
-        if shift:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + y
+        x = x + self.attn(self.norm1(x), ws, shift, kernels)
         z = self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="tanh"))
         return x + z
 

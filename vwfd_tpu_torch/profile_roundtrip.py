@@ -42,9 +42,12 @@ clock). Each runs under
 ``torch.profiler`` after a warm-up, then prints one JSON line: the host
 wall time per request (or step), the device time per request by kernel
 class (the port's kernels, convolutions, GEMMs, BatchNorm, concatenations,
-other elementwise work, copies), the kernels of the GEMM class and the
+other elementwise work, copies (memcpy, memset), copy kernels (PyTorch's
+permuted copies, casts and rolls)), the kernels of the GEMM class and the
 twelve longest kernels by name, and the device's idle share over the
-window (1 − device busy time / host wall time).
+window (1 − device busy time / host wall time), and the device
+operations per request counted from the profiler's events: kernels, and
+memcpy / memset operations apart.
 Needs the CUDA card; ``--trace`` also writes a Chrome trace.
 """
 
@@ -81,8 +84,7 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "crop_resize": ("crop_resize_fwd", "crop_resize_bwd",
                                 "crop_resize_taps"),
                 "window_attention": ("window_attention_fwd",
-                                     "window_attention_bwd",
-                                     "window_attention_bias_grad")}
+                                     "window_attention_bwd")}
 
 
 def classify(name: str) -> str:
@@ -92,6 +94,10 @@ def classify(name: str) -> str:
             return f"port:{kernel}"
     if "memcpy" in low or "memset" in low:
         return "copies"
+    # PyTorch's copy kernels: permuted or strided copies to contiguous,
+    # casts, torch.roll
+    if "direct_copy_kernel" in low or "roll_cuda_kernel" in low:
+        return "copy_kernels"
     if "catarray" in low:  # torch.cat
         return "concat"
     if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
@@ -258,12 +264,13 @@ def profile_window(one, n: int, trace=None) -> dict:
     if trace:
         prof.export_chrome_trace(trace)
 
-    spans, by_name = [], {}
+    spans, by_name, memops = [], {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        memops += classify(e.name) == "copies"
     busy, end = 0.0, float("-inf")
     for a, z in sorted(spans):  # union of device intervals
         if z > end:
@@ -278,6 +285,8 @@ def profile_window(one, n: int, trace=None) -> dict:
         "wall_ms_per_request": wall_us / n / 1e3,
         "device_busy_ms_per_request": busy / n / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
+        "device_kernels_per_request": (len(spans) - memops) / n,
+        "device_memcpy_memset_per_request": memops / n,
         "device_ms_per_request_by_class": {
             k: v / n / 1e3 for k, v in sorted(by_class.items(),
                                                key=lambda kv: -kv[1])},
