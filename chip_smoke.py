@@ -224,7 +224,8 @@ bound: per roundtrip for K1-K4, per train step for
 K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
 K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
 roundtrip for K14 and K15, and per HiDDeN train step of the member that
-runs it for K16 and K17, per Tianchi train step for K18;
+runs it for K16 and K17, per Tianchi train step for K18, per PAMI train
+step for K19;
 ``launches_by_path`` holds MBRS's, serving's and Tianchi's paths, K5's
 entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
 whole-row width); the last
@@ -235,6 +236,7 @@ line is
 
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -248,18 +250,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vwfd_tpu_torch import (FLAGSHIP_CONFIG, REFSHAPE_CONFIG, kernel_report,
-                            load_config)
+from vwfd_tpu_torch import (FLAGSHIP_CONFIG, PAMI_CONFIG, REFSHAPE_CONFIG,
+                            kernel_report, load_config)
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
-from vwfd_tpu_torch.kernels import (PLAIN, _lib, affine, coupling,
-                                    crop_resize, f1, haar, jpeg, zigzag,
+from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, _lib, affine, canny,
+                                    coupling, crop_resize, f1, haar, jpeg,
                                     launch_counts, mask, median, mix, qconv,
                                     qconv_t, qcoupling, reset_launch_counts,
                                     splice, ssim, transition,
-                                    window_attention, wire)
+                                    window_attention, wire, zigzag)
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models import video_model
 from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
@@ -332,6 +334,8 @@ KERNEL_SOURCES = {
                     "vwfd_tpu/ops/resize.py:135"),
     "window_attention": ("vwfd_tpu_torch/csrc/window_attention.cu",
                          "vwfd_tpu/nets/sunet.py:32"),
+    "canny_soft": ("vwfd_tpu_torch/csrc/canny.cu",
+                   "vwfd_tpu/ops/canny.py:39"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -356,12 +360,14 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "zigzag_jpeg": "the JAX package's form: the analog colour "
                              "maps, two dense block-diagonal torch.matmul "
                              "(I⊗C8) per direction, the mask and the clip, "
-                             "forward and backward"}
+                             "forward and backward",
+              "canny_soft": "one depthwise 5x5 F.conv2d on the gray image "
+                            "(the gaussian alone), forward and backward"}
 # K14 and K15 run on the INN module path only (the refshape phase), K16
 # and K17 on HiDDeN's (phase 12)
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
            "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0,
-           "window_attention": 0}
+           "window_attention": 0, "canny_soft": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -393,7 +399,8 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "coupling_affine": "refshape_roundtrip",
             "zigzag_jpeg": "hidden_train_jpeg_mask",
             "crop_resize": "hidden_train_crop",
-            "window_attention": "tianchi_train_step"}
+            "window_attention": "tianchi_train_step",
+            "canny_soft": "pami_train_step"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -1902,11 +1909,12 @@ def within_ulp(got, want, dtype):
     return bool(((got - want).abs() <= ulp).all())
 
 
-def affine_case(g, hw, c, dt, fused):
+def affine_case(g, hw, c, dt, fused, batch=B):
     """A coupling input z (its first half x) and a subnet output: one head
     tensor (s ‖ t) or two."""
-    z = torch.randn(B, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
-    head = torch.randn(B, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
+    z = torch.randn(batch, hw, hw, 2 * c, device="cuda", generator=g).to(dt)
+    head = torch.randn(batch, hw, hw, 2 * c, device="cuda",
+                       generator=g).to(dt)
     st = head if fused else (head[..., :c].contiguous(),
                              head[..., c:].contiguous())
     return z, st
@@ -2635,6 +2643,151 @@ def check_window_attention(rows, card):
               f"HGMMA={r['ops']['HGMMA']} HMMA={r['ops']['HMMA']} [{card}]")
         check(r["local_bytes"] == 0 and r["stack_bytes"] == 0,
               f"{r['kernel']} spills (local memory)")
+
+
+# ------------------------------------------------------------ phase 3,
+# the image family
+
+# the PAMI step's fan-out at pami.yaml's width: k·B = 6·8 attacked copies
+IMG_B, IMG_S, IMG_K = 8, 256, 6
+CANNY_SHAPE = (IMG_K * IMG_B, IMG_S, IMG_S, 3)
+CANNY_FWD_ATOL = 1e-6     # K19 vs plain, forward
+CANNY_GRAD_RTOL = 1e-5    # and the input gradient, of the plain max
+# per pixel, the least work: gray 5, gaussian 50, Sobel 12, magnitude 4,
+# NMS and the thresholds ~30 forward; the backward about twice that
+CANNY_OPS = (100, 200)
+# the image INN at batch 48 (the reverse of every copy): Haar levels by
+# their full-resolution side, and the couplings' (side, half channels)
+IMAGE_HAAR_LEVELS = [(48, 256, 256, 4), (48, 128, 128, 16),
+                     (48, 64, 64, 64)]
+IMAGE_AFFINE_LEVELS = [(128, 8), (64, 32), (32, 128)]
+IMG_BIG = (512, 3, 3)  # the JAX PAMI record's size, batch and reverse_k
+
+
+def canny_input(g, kind):
+    if kind == "levels":   # 8-bit levels: ties in the NMS and the clip
+        return torch.randint(0, 256, CANNY_SHAPE, device="cuda",
+                             generator=g).float() / 255.0
+    if kind == "flat":     # every pixel tied at the per-image max
+        return torch.full(CANNY_SHAPE, 0.3, device="cuda")
+    return torch.rand(CANNY_SHAPE, device="cuda", generator=g)
+
+
+def check_canny(rows, card):
+    """K19 at the PAMI step's (48, 256, 256, 3) on 8-bit, continuous and
+    flat inputs: forward within ``CANNY_FWD_ATOL`` and the input gradient
+    within ``CANNY_GRAD_RTOL`` of the plain version's max (the plain
+    version with ``exact_border``, F24; the JAX form's own corner noise is
+    printed beside it); NaN and Inf pixels and a NaN cotangent NaN where the
+    plain version's are; timed forward + backward (a train step's two
+    launches) warm and with a cold L2 beside the plain version and a
+    depthwise 5×5 ``F.conv2d`` on the gray image (yardstick)."""
+    row = rows["canny_soft"]
+    g = torch.Generator("cuda").manual_seed(71)
+    exact = functools.partial(canny.canny_soft_plain, exact_border=True)
+    for kind in ("levels", "rand", "flat"):
+        x = canny_input(g, kind)
+        cot = torch.randn(CANNY_SHAPE[:3] + (1,), device="cuda",
+                          generator=g)
+        (yk,), (gk,) = grads_of(canny.canny_soft, [x], [True], cot)
+        (yp,), (gp,) = grads_of(exact, [x], [True], cot)
+        (_,), (gj,) = grads_of(canny.canny_soft_plain, [x], [True], cot)
+        torch.cuda.synchronize()
+        fe = float((yk - yp).abs().max())
+        gmax = float(gp.abs().max()) or 1.0
+        ge = float((gk - gp).abs().max())
+        check(fe <= CANNY_FWD_ATOL, f"canny_soft {kind} forward: {fe}")
+        check(ge <= CANNY_GRAD_RTOL * gmax,
+              f"canny_soft {kind} gradient: {ge} (plain max {gmax})")
+        row.err = max(row.err, fe)
+        print(f"check canny_soft {CANNY_SHAPE} {kind}: forward "
+              f"max_abs_err={fe:.3g}, gradient {ge:.3g} of plain max "
+              f"{gmax:.3g}; the JAX form's gradient (exact_border off) "
+              f"{float((gj - gp).abs().max()) / gmax:.3g} of the max from "
+              f"the exact-border one (F24)")
+    shape = (4, 64, 64, 3)
+    x, cot = nonfinite_input(g, shape, (1, 5, 6, 0), (2, 30, 31, 2),
+                             (3, 10, 10, 0), out_shape=shape[:3] + (1,))
+    check_nonfinite("canny_soft", canny.canny_soft, exact, x, cot,
+                    CANNY_FWD_ATOL)
+    x = canny_input(g, "levels")
+    cot = torch.randn(CANNY_SHAPE[:3] + (1,), device="cuda", generator=g)
+    kf, kb = fwd_bwd_ms(canny.canny_soft, x, cot)
+    cf, cb = fwd_bwd_cold_ms(canny.canny_soft, lambda i: (
+        canny_input(g, "levels"), torch.randn(cot.shape, device="cuda",
+                                              generator=g)))
+    pf, pb = fwd_bwd_ms(exact, x, cot)
+    gray = canny.gray(x)[:, None]
+    w = torch.from_numpy(gaussian_kernel_2d(5, 1.0)).to("cuda")[None, None]
+    yf, yb = fwd_bwd_ms(lambda v: F.conv2d(v, w, padding=2), gray,
+                        torch.randn(gray.shape, device="cuda", generator=g))
+    y = torch.empty(CANNY_SHAPE[:3] + (1,), device="cuda")
+    fwd_bytes, bwd_bytes = nbytes(x, y), nbytes(x, cot, x)
+    px = y.numel()
+    ops = px * (CANNY_OPS[0] + CANNY_OPS[1])
+    row.add(kf + kb, pf + pb, fwd_bytes + bwd_bytes, ops,
+            yardstick_ms=yf + yb, cold_ms=cf + cb)
+    bf, bb = (bound(fwd_bytes, px * CANNY_OPS[0])[0],
+              bound(bwd_bytes, px * CANNY_OPS[1])[0])
+    row.extra = {"forward_ms": kf, "backward_ms": kb,
+                 "forward_bound_ms": bf, "backward_bound_ms": bb}
+    print(f"check canny_soft {CANNY_SHAPE} f32: ms fwd={kf:.4f} "
+          f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} "
+          f"bwd={pb:.4f} yardstick (5x5 conv on gray) fwd={yf:.4f} "
+          f"bwd={yb:.4f} bound fwd={bf:.4f} bwd={bb:.4f} share_of_bound="
+          f"{(bf + bb) / (kf + kb):.3f} [{card}]")
+
+
+def check_image_inn_shapes(card):
+    """K14 and K15 at the image INN's shapes (4 → 16 → 64 → 256 channels,
+    batch 48: the reverse of every attacked copy), f32 and bf16: K14 EQUAL
+    to its plain version down and up; K15 (fused s ‖ t, forward and
+    inverse) within one ulp and its gradients within
+    ``AFFINE_GRAD_RTOL`` of the plain max (f32) or ``TOL`` (bf16); the
+    8-channel halves are one 16-byte word in bf16."""
+    g = torch.Generator("cuda").manual_seed(73)
+    for full in IMAGE_HAAR_LEVELS:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(full, device="cuda", generator=g).to(dt)
+            y = haar.haar(x)
+            back = haar.haar(y, transpose=True)
+            check(torch.equal(y, haar.haar_plain(x)) and torch.equal(
+                back, haar.haar_plain(y, transpose=True)),
+                f"haar {full} {dt} differs from its plain version")
+    print(f"check haar at the image INN's levels {IMAGE_HAAR_LEVELS} f32 "
+          f"and bf16: down and up equal to plain")
+    worst = 0.0
+    for hw, c in IMAGE_AFFINE_LEVELS:
+        for dt in (torch.float32, torch.bfloat16):
+            z, st = affine_case(g, hw, c, dt, True, batch=48)
+            x = z[..., :c]
+            for inverse in (False, True):
+                out, ref = torch.empty_like(z), torch.empty_like(z)
+                affine.coupling_affine(st, x, out=out[..., c:],
+                                       inverse=inverse)
+                affine.coupling_affine_plain(st, x, out=ref[..., c:],
+                                             inverse=inverse)
+                cot = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+                gk = affine_grads(affine.coupling_affine, st, x, inverse,
+                                  cot)
+                gp = affine_grads(affine.coupling_affine_plain, st, x,
+                                  inverse, cot)
+                torch.cuda.synchronize()
+                what = (f"coupling_affine {(48, hw, hw, c)} {dt} "
+                        f"{'inverse' if inverse else 'forward'}")
+                check(within_ulp(out[..., c:], ref[..., c:], dt),
+                      f"{what}: more than one ulp from plain")
+                for a, b in zip(gk, gp):
+                    d = float((a.float() - b.float()).abs().max())
+                    scale = float(b.float().abs().max()) or 1.0
+                    worst = max(worst, d / scale)
+                    check(d <= AFFINE_GRAD_RTOL * scale
+                          if dt == torch.float32 else rel_err(a, b, dt)[1],
+                          f"{what}: gradient off by {d} (max {scale})")
+    print(f"check coupling_affine at the image INN's couplings "
+          f"{IMAGE_AFFINE_LEVELS} (batch 48) f32 and bf16, forward and "
+          f"inverse: within one ulp; gradients within {worst:.3g} of the "
+          f"plain max")
 
 
 # ------------------------------------------------------------ phase 4
@@ -4314,6 +4467,239 @@ def run_tianchi(card):
     return launches
 
 
+
+# ------------------------------------------------------------ phase 16
+# the image family's PAMI at pami.yaml's width
+
+IMG_HEAD_PERTURB = 2e-4  # the INN's zero-init heads: the reverse moves
+# KERNELS vs PLAIN pooled F1: a fresh localizer's probabilities sit near
+# 0.5, and bf16 rounding in the embed (F7) moves pixels across levels
+IMG_F1_ATOL = 0.05
+# a PAMI train step: the INN forward (6 Haar maps, 5 couplings = 10 affine
+# launches), its inverse over every copy (the same), their backwards (the
+# entry map's input, the batch, takes no gradient: 5 + 6 Haar, 20 affine),
+# the two JPEG branches and the median, forward and backward, K19 once
+# each way
+IMG_TRAIN = {**ZERO_LAUNCHES, "haar": 23, "coupling_affine": 40,
+             "jpeg_pair": 4, "median3": 2, "canny_soft": 2}
+# the eval step: the forward passes, the F1 sweep per branch and pooled,
+# SSIM
+IMG_EVAL = {**ZERO_LAUNCHES, "haar": 12, "coupling_affine": 20,
+            "jpeg_pair": 2, "median3": 1, "canny_soft": 1,
+            "f1_sweep": IMG_K + 1, "ssim": 1}
+
+
+def image_cfg(s, b):
+    cfg = load_config(PAMI_CONFIG)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gt_size=s, batch_size=b))
+
+
+def image_batches(model, n, seed=10):
+    """``n`` batches of the runner's synthetic images with their host canny
+    maps and stroke masks, on the device."""
+    from vwfd_tpu_torch.data import (CannyImages, SyntheticImageDataset,
+                                     stroke_masks)
+    from vwfd_tpu_torch.models.image_model import ImageBatch
+    b, s = model.cfg.data.batch_size, model.cfg.data.gt_size
+    ds = CannyImages(SyntheticImageDataset(size=s, length=n * b, seed=seed))
+    out = []
+    for i in range(n):
+        imgs, canny_ = (np.stack(x) for x in zip(*[ds[i * b + j]
+                                                   for j in range(b)]))
+        out.append(ImageBatch(*model.to_device(
+            imgs, canny_, stroke_masks((seed, i), b, (s, s)))))
+    return out
+
+
+def image_model(cfg, seed, kernels=None, **kw):
+    from vwfd_tpu_torch.models import ImageImmunizationModel
+    model = ImageImmunizationModel(cfg, kernels=kernels or KERNELS, **kw)
+    model.init_states(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.netG.named_parameters():
+            if ".Conv_4." in name:
+                p.add_(IMG_HEAD_PERTURB * torch.randn(
+                    p.shape, generator=gen).to(p.device))
+    return model
+
+
+def copy_image(dst, src):
+    with torch.no_grad():
+        for a, b in zip(dst._tensors(), src._tensors()):
+            a.copy_(b)
+
+
+def run_image(card):
+    """Phase 16: PAMI at pami.yaml's width (256², b8, k 6, bf16 INN),
+    random weights from a seed with the INN heads perturbed: a
+    ``train_step`` for each tamper through ``KERNELS`` and ``PLAIN`` from
+    the same state, batch, previous batch and draws (loss terms within
+    ``TRAIN_LOSS_RTOL``, each net's gradient cosine ≥ ``TRAIN_GRAD_COS``),
+    with the launch counts at 0 just before and read just after; an
+    ``eval_step`` with its counts beside the plain one; an ImugeV2 step;
+    an Inf pixel that moves nothing; p50s, images/s and the peak memory;
+    one PAMI step at 512² b3, ``reverse_k`` 3."""
+    from vwfd_tpu_torch.models.image_model import ImageBatch, ImageDraws
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = image_cfg(IMG_S, IMG_B)
+    mc = cfg.model
+    check((mc.inn_subnet, mc.inn_haar, mc.inn_down_num, mc.n_attacks,
+           mc.localizer_dim, mc.localizer_residual_blocks, cfg.train.dtype)
+          == ("res", "mixed", 3, IMG_K, 16, 2, "bfloat16"), "pami config")
+    model = image_model(cfg, 31)
+    ref = image_model(cfg, 31, kernels=PLAIN)
+    batches = image_batches(model, 6)
+    sampler = model.sampler(5)
+    launches, terms, cosines = {}, {}, {}
+    for i, use_cm in enumerate((False, True)):
+        d = sampler((IMG_B, IMG_S, IMG_S))
+        d = ImageDraws(d.shift, use_cm, ((None, (0, 0), 4, None, None,
+                                          (4, 1)) if i == 0 else d.branch))
+        batch, prev = batches[i + 1], batches[i].image
+        copy_image(ref, model)
+        gp_, gk_ = {}, {}
+        lp = {k: float(v) for k, v in ref.train_step(batch, prev, d,
+                                                     gp_).items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        logs = model.train_step(batch, prev, d, gk_)
+        torch.cuda.synchronize()
+        key = f"pami_train_{'copymove' if use_cm else 'splice'}"
+        launches[key] = launch_counts()
+        lk = {k: float(v) for k, v in logs.items()}
+        cos = {n: cosine(torch.cat([t.flatten() for t in gk_[n]]),
+                         torch.cat([t.flatten() for t in gp_[n]]))
+               for n in gk_}
+        print(f"pami train step {key[11:]} (b{IMG_B}, {IMG_S}², draws "
+              f"{d.branch}, shift {d.shift}): kernels {json.dumps(lk)} "
+              f"plain {json.dumps(lp)}; gradient cosines {cos}; launches "
+              f"{json.dumps({k: v for k, v in launches[key].items() if v})}")
+        check(launches[key] == IMG_TRAIN, f"{key} launches {launches[key]}")
+        for k in ("loss", "lF", "lB", "l_mask"):
+            check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+                  <= TRAIN_LOSS_RTOL * abs(lp[k]),
+                  f"pami {key} {k}: kernels {lk[k]} plain {lp[k]}")
+        check(all(c >= TRAIN_GRAD_COS for c in cos.values()),
+              f"pami {key} gradient cosines {cos}")
+        terms[key], cosines[key] = {"kernels": lk, "plain": lp}, cos
+    launches["pami_train_step"] = launches["pami_train_splice"]
+
+    # the eval step, KERNELS against PLAIN
+    copy_image(ref, model)
+    batch, prev = batches[4], batches[3].image
+    d = sampler((IMG_B, IMG_S, IMG_S))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = model.eval_step(batch, prev, d)
+    torch.cuda.synchronize()
+    launches["pami_eval_step"] = launch_counts()
+    check(launches["pami_eval_step"] == IMG_EVAL,
+          f"pami eval launches {launches['pami_eval_step']}")
+    outp = ref.eval_step(batch, prev, d)
+    ek = {k: float(v) for k, v in out.items() if v.dim() == 0}
+    ep = {k: float(v) for k, v in outp.items() if v.dim() == 0}
+    for k, atol in (("psnr_forward", EVAL_PSNR_ATOL),
+                    ("psnr_backward", EVAL_PSNR_ATOL),
+                    ("ssim_forward", EVAL_SSIM_ATOL)):
+        check(abs(ek[k] - ep[k]) <= atol, f"pami eval {k}: {ek[k]} vs "
+              f"{ep[k]}")
+    _, flips = f1_bounds(out["predicted_mask"], outp["predicted_mask"],
+                         batch.mask)
+    k_sweep = [float(v) for v in out["f1_sweep"]]
+    used = {k: v for k, v in launches["pami_eval_step"].items() if v}
+    print(f"pami eval step: kernels {json.dumps(ek)} plain "
+          f"{json.dumps(ep)}; branch 0 pixels across a level {flips}; "
+          f"launches {json.dumps(used)}")
+    check(all(math.isfinite(v) for v in k_sweep) and 0.0 <= ek["f1_best"]
+          <= 1.0, f"pami eval f1 {k_sweep}")
+    check(abs(ek["f1_best"] - ep["f1_best"]) <= IMG_F1_ATOL,
+          f"pami eval f1_best {ek['f1_best']} vs {ep['f1_best']}")
+
+    # ImugeV2: one step from the same nets
+    imuge = image_model(cfg, 31, task="imuge")
+    reset_launch_counts()
+    li = {k: float(v) for k, v in imuge.train_step(
+        batches[2], batches[1].image, sampler((IMG_B, IMG_S,
+                                               IMG_S))).items()}
+    torch.cuda.synchronize()
+    launches["imuge_train_step"] = launch_counts()
+    check(all(math.isfinite(v) for v in li.values())
+          and launches["imuge_train_step"] == IMG_TRAIN,
+          f"imuge step {li} {launches['imuge_train_step']}")
+    print(f"imuge train step: {json.dumps(li)}")
+    del imuge
+
+    # the guard: an Inf pixel through the JPEG branches
+    bad = batches[5].image.clone()
+    bad[1, 7, 9, 2] = float("inf")
+    before = [t.clone() for t in model._tensors()]
+    logs = model.train_step(ImageBatch(bad, batches[5].canny,
+                                       batches[5].mask), batches[4].image,
+                            sampler((IMG_B, IMG_S, IMG_S)))
+    check(not math.isfinite(float(logs["loss"])), "Inf batch: finite loss")
+    check(all(torch.equal(a, b) for a, b in zip(before, model._tensors())),
+          "Inf batch moved a parameter, moment, count or spectral vector")
+    print("pami guard: an Inf pixel left every parameter, Adam moment, "
+          "count and spectral vector as it was")
+    del ref, before
+    gc.collect()
+
+    it_ = iter(range(10 ** 6))
+
+    def train_one():
+        i = next(it_) % 5 + 1
+        return model.train_step(batches[i], batches[i - 1].image, sampler(
+            (IMG_B, IMG_S, IMG_S)))["loss"].item()
+
+    def eval_one():
+        i = next(it_) % 5 + 1
+        return model.eval_step(batches[i], batches[i - 1].image, sampler(
+            (IMG_B, IMG_S, IMG_S)))["f1_best"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    eval_p50 = p50_of(eval_one, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"pami p50 at b{IMG_B}, {IMG_S}², k {IMG_K}: train step "
+          f"{train_p50:.3f} ms ({IMG_B / train_p50 * 1e3:.1f} images/s), "
+          f"eval step {eval_p50:.3f} ms ({IMG_B / eval_p50 * 1e3:.1f} "
+          f"images/s); peak memory {peak:.3f} GiB [{card}]")
+    del model, batches
+    gc.collect()
+
+    # 512² b3 with reverse_k 3: the JAX record's configuration
+    bs, bn, bk = IMG_BIG
+    big = image_model(image_cfg(bs, bn), 32, reverse_k=bk)
+    bb = image_batches(big, 2)
+    sampler = big.sampler(6)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lb = {k: float(v) for k, v in big.train_step(
+        bb[1], bb[0].image, sampler((bn, bs, bs))).items()}
+    torch.cuda.synchronize()
+    launches["pami_train_512"] = launch_counts()
+    check(all(math.isfinite(v) for v in lb.values())
+          and launches["pami_train_512"] == IMG_TRAIN,
+          f"pami 512² step {lb} {launches['pami_train_512']}")
+    p512 = p50_of(lambda: big.train_step(bb[1], bb[0].image, sampler(
+        (bn, bs, bs)))["loss"].item(), 3, warmup=1)
+    print(f"pami 512² b3 reverse_k 3 train step: {json.dumps(lb)}; p50 "
+          f"{p512:.3f} ms [{card}]")
+    del big, bb
+    gc.collect()
+    print(json.dumps({"pami": {
+        "train_step_p50_ms": train_p50,
+        "train_images_per_s": IMG_B / train_p50 * 1e3,
+        "eval_step_p50_ms": eval_p50,
+        "eval_images_per_s": IMG_B / eval_p50 * 1e3, "batch": IMG_B,
+        "size": IMG_S, "attacks": IMG_K, "peak_memory_gib": peak,
+        "terms": terms, "gradient_cosines": cosines,
+        "eval": {"kernels": ek, "plain": ep},
+        "train_step_512_b3_reverse_k3_p50_ms": p512, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -4355,6 +4741,8 @@ def main():
     check_hidden_build(card)
     check_jpeg_basic(rows, card)
     check_window_attention(rows, card)
+    check_canny(rows, card)
+    check_image_inn_shapes(card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -4371,11 +4759,13 @@ def main():
     mbrs_launches = run_mbrs(card)
     serve_launches = run_serving_remainder(card)
     tc_launches = run_tianchi(card)
+    img_launches = run_image(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
-               **mbrs_launches, **serve_launches, **tc_launches}
+               **mbrs_launches, **serve_launches, **tc_launches,
+               **img_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

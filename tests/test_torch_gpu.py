@@ -55,7 +55,13 @@ outputs are bit-identical over two calls (no float atomics); a NaN and an
 Inf in q give NaN where the plain version has it; it raises on a window
 past 8, d outside {16, 32, 64} or windows that do not tile the map. K3 and K4 at s = 4 in a server (``extractor_s2d`` 4): a roundtrip
 with K3 ×2 and K4 ×1 against the plain server, mask bits EQUAL but within
-1e-6 of the threshold.
+1e-6 of the threshold. K19 ``canny_soft``: its forward within 1e-6 of the
+plain version and its input gradient within 1e-5 of the plain max (the
+plain version with ``exact_border``, F24), on 8-bit, continuous and flat
+images (every pixel tied at the max), ragged shapes and the image step's
+(48, 256, 256, 3); NaN where the plain version has NaN with NaN and Inf
+pixels and a NaN cotangent; one forward and one backward launch. K14 and
+K15 at the image INN's shapes (4 → 16 → 64 → 256 channels) as above.
 """
 
 import dataclasses
@@ -66,8 +72,9 @@ import torch
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
-from vwfd_tpu_torch.kernels import (PLAIN, affine, coupling, crop_resize, f1,
-                                    haar, jpeg, launch_counts, mask, median,
+from vwfd_tpu_torch.kernels import (PLAIN, affine, canny, coupling,
+                                    crop_resize, f1, haar, jpeg,
+                                    launch_counts, mask, median,
                                     mix, qconv, qconv_t, qcoupling,
                                     reset_launch_counts, splice, ssim,
                                     transition, window_attention, wire,
@@ -84,7 +91,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 # path that runs none of them
 _NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
             "qcoupling_head": 0, "haar": 0,
-            "coupling_affine": 0, "window_attention": 0}
+            "coupling_affine": 0, "window_attention": 0, "canny_soft": 0}
 
 
 @pytest.fixture
@@ -1068,7 +1075,8 @@ def test_qcoupling_head_on_xi_equals_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 16, 12), (1, 8, 8, 192),
                                    (3, 6, 10, 5), (1, 2, 6, 7),
-                                   (1, 4, 4, 768)])
+                                   (1, 4, 4, 768), (48, 256, 256, 4),
+                                   (48, 128, 128, 16), (48, 64, 64, 64)])
 def test_haar_equals_plain(cuda, shape, dtype):
     g = _gen(41)
     x = torch.randn(shape, device=cuda, generator=g).to(dtype)
@@ -1105,7 +1113,9 @@ def _affine_grads(fn, st, x, inverse, cot):
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 16, 24), (1, 8, 8, 96),
-                                   (3, 5, 7, 13), (1, 3, 3, 8)])
+                                   (3, 5, 7, 13), (1, 3, 3, 8),
+                                   (48, 128, 128, 8), (48, 64, 64, 32),
+                                   (48, 32, 32, 128)])
 def test_coupling_affine_equals_plain(cuda, shape, dtype, fused, inverse):
     n, h, w, c = shape
     g = _gen(43)
@@ -1500,3 +1510,43 @@ def test_s2d_4_roundtrip_matches_plain(cuda):
     assert diff.max() <= 1
     assert (unpack_mask_bits(got.mask_bits)
             != unpack_mask_bits(want.mask_bits)).mean() < 1e-3
+
+
+def _canny_input(kind, shape, g, cuda):
+    if kind == "levels":
+        return torch.randint(0, 256, shape, device=cuda,
+                             generator=g).float() / 255.0
+    if kind == "flat":
+        return torch.full(shape, 0.3, device=cuda)
+    return torch.rand(shape, device=cuda, generator=g)
+
+
+@pytest.mark.parametrize("kind", ["levels", "rand", "flat"])
+@pytest.mark.parametrize("shape", [(2, 9, 11, 3), (3, 40, 24, 3),
+                                   (2, 33, 70, 3), (48, 256, 256, 3)])
+def test_canny_soft_matches_plain(cuda, shape, kind):
+    g = _gen(79)
+    x = _canny_input(kind, shape, g, cuda)
+    cot = torch.randn(shape[:3] + (1,), device=cuda, generator=g)
+    before = launch_counts()["canny_soft"]
+    yk, gk = _grads(canny.canny_soft, x, cot)
+    assert launch_counts()["canny_soft"] == before + 2
+    yp, gp = _grads(lambda v: canny.canny_soft_plain(v, exact_border=True),
+                    x, cot)
+    torch.cuda.synchronize()
+    assert float((yk - yp).abs().max()) <= 1e-6
+    assert float((gk - gp).abs().max()) <= 1e-5 * max(
+        float(gp.abs().max()), 1e-30)
+
+
+def test_canny_soft_nonfinite_as_plain(cuda):
+    shape = (4, 64, 64, 3)
+    x, cot = _nonfinite(shape, shape[:3] + (1,), (1, 5, 6, 0),
+                        (2, 30, 31, 2), (3, 10, 10, 0), 0.0, 1.0, 83)
+    yk, gk = _grads(canny.canny_soft, x, cot)
+    yp, gp = _grads(lambda v: canny.canny_soft_plain(v, exact_border=True),
+                    x, cot)
+    torch.cuda.synchronize()
+    assert bool(yp.isnan().any()) and bool(gp.isnan().any())
+    _same_nonfinite(yk, yp, 1e-6, 0.0)
+    _same_nonfinite(gk, gp, 0.0, 1e-5)

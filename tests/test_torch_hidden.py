@@ -573,7 +573,9 @@ def test_synthetic_images_equal_jax():
 
 
 def test_image_folder_equals_jax(tmp_path):
-    """The same files, sizes and augmentation draws as the JAX dataset."""
+    """The same files, sizes and augmentation draws as the JAX dataset;
+    with ``with_canny`` the same canny maps (the port's host canny, bit-equal
+    to the JAX dataset's ``cv2.Canny``)."""
     import cv2
     rng = np.random.default_rng(9)
     for i in range(3):
@@ -585,8 +587,12 @@ def test_image_folder_equals_jax(tmp_path):
     assert len(port) == len(ref) == 3
     for i in range(5):
         np.testing.assert_array_equal(port[i]["image"], ref[i]["image"])
-    with pytest.raises(NotImplementedError):
-        ImageFolderDataset(str(tmp_path), read_image, with_canny=True)
+    port = ImageFolderDataset(str(tmp_path), read_image, size=16, seed=4,
+                              with_canny=True)
+    ref = JFolder(str(tmp_path), size=16, seed=4, with_canny=True)
+    for i in range(5):
+        np.testing.assert_array_equal(port[i]["image"], ref[i]["image"])
+        np.testing.assert_array_equal(port[i]["canny"], ref[i]["canny"])
 
 
 def _last_json(out):

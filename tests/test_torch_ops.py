@@ -226,7 +226,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "nets.blocks", "nets.hidden", "models.hidden_model", "data.images",
         "eval_hidden", "continue_hidden", "nets.mbrs", "models.mbrs_model",
         "run_family_convergence", "nets.sunet", "models.tianchi_model",
-        "kernels.window_attention", "serve")} <= names
+        "kernels.window_attention", "serve", "kernels.canny", "ops.canny",
+        "ops.pad", "nets.localizer", "models.image_model", "data.edges")
+    } <= names
 
 
 def test_serve_imports_and_parses_without_cv2():

@@ -17,19 +17,28 @@ package, the pool of ratios is fixed and each ratio's down∘up resampling
 is one (S, S) matrix per axis; the ratio index is an explicit tensor, and
 the two products run as batched ``torch.matmul`` (the JAX package leaves
 the same two einsums to XLA).
+
+The image family's tamper (:111-146): ``shift_zero_pad`` moves (N, H, W,
+C) by whole pixels with zero fill, ``copy_move_tamper`` pastes a shifted
+copy of the image (detached, JAX's ``stop_gradient``) through the shifted
+stroke mask, which becomes the new ground truth. The shift is an explicit
+draw (``copy_move_shift`` maps the two U[0, 1) draws to it as JAX does).
 """
 
 import functools
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.ondevice import rect_mask
 from ..ops.resize import resize_matrix
 
 __all__ = ["DEFAULT_RATIOS", "make_resize_roundtrip_pool", "resize_roundtrip",
            "sample_crop_apex", "crop_attack", "rect_mask", "cropout",
-           "cropout_apex", "dropout_mix"]
+           "cropout_apex", "dropout_mix", "shift_zero_pad",
+           "copy_move_shift", "copy_move_tamper"]
 
 DEFAULT_RATIOS = tuple(np.round(np.arange(0.5, 1.51, 0.05), 2))
 
@@ -134,3 +143,36 @@ def dropout_mix(img: torch.Tensor, cover: torch.Tensor, keep_u: torch.Tensor,
     keep = _uniform(keep_u, keep_min, keep_max)
     mask = (mask_u < keep).to(img.dtype)[..., None]
     return img * mask + cover * (1 - mask)
+
+
+def shift_zero_pad(x: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """``out[i, j] = x[i − dx, j − dy]`` on (N, H, W, C), zeros where the
+    source falls outside the frame; |dx| ≤ H/2, |dy| ≤ W/2."""
+    h, w = x.shape[-3], x.shape[-2]
+    ph, pw = h // 2, w // 2
+    if abs(dx) > ph or abs(dy) > pw:
+        raise ValueError(f"shift ({dx}, {dy}) beyond half the frame")
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    return xp[..., ph - dx:ph - dx + h, pw - dy:pw - dy + w, :]
+
+
+def copy_move_shift(ux: float, uy: float, hw, max_shift_frac: float = 0.5):
+    """The shift (dx, dy) from two U[0, 1) draws, JAX's float32
+    ``floor(H·frac·(2u − 1))`` (``:127-130``)."""
+    h, w = hw
+    f32 = np.float32
+    dx = math.floor(f32(h * max_shift_frac) * (f32(2.0) * f32(ux) - f32(1.0)))
+    dy = math.floor(f32(w * max_shift_frac) * (f32(2.0) * f32(uy) - f32(1.0)))
+    return int(dx), int(dy)
+
+
+def copy_move_tamper(img: torch.Tensor, mask: torch.Tensor, shift):
+    """Copy-move self-paste (models/IRNp_model.py:561-601): the detached
+    image and its mask (B, H, W, 1) shifted by ``shift`` (dx, dy), the
+    shifted content pasted through the shifted mask (clipped to [0, 1] as
+    ``jnp.clip``). Returns ``(tampered, shifted_mask)``."""
+    dx, dy = shift
+    shifted = shift_zero_pad(img.detach(), dx, dy)
+    m = shift_zero_pad(mask, dx, dy)
+    m = torch.minimum(torch.maximum(m, m.new_zeros(())), m.new_ones(()))
+    return img * (1.0 - m) + shifted * m, m

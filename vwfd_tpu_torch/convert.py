@@ -35,9 +35,21 @@ count to ``AdamW.count``.
 
 ``states_from_jax`` / ``states_to_jax`` carry a whole model's nets (the
 HiDDeN family's encoder, decoder and discriminator, MBRS's encoder and
-decoder, Tianchi's SUNet ``netG``: params, batch stats and Adam ``mu`` /
-``nu`` / ``count`` of each) both ways. MBRS's ExpandNet transposed convs are ``message_expand.up{i}``,
-which the ConvTranspose rule's name pattern matches.
+decoder, Tianchi's SUNet ``netG``, the image family's ``netG`` and
+``localizer``: params, batch stats, spectral vectors and Adam ``mu`` /
+``nu`` / ``count`` of each) both ways. MBRS's ExpandNet transposed convs
+are ``message_expand.up{i}``, which the ConvTranspose rule's name pattern
+matches.
+
+The localizer (``nets/localizer.py``, flax's ``UNetDiscriminator``): its
+``bayar_kernel`` is an array of the root module with no ``kernel`` beside
+it, so it keeps its name and flax's (5, 5, Cin, 3) layout; its decoder's
+transposed ``SNConv`` (``dec{i}_up``) take the ConvTranspose rule (flax's
+``conv_transpose`` without ``transpose_kernel`` is PyTorch's transposed
+convolution of the flipped kernel, F3); the ``spectral`` collection's
+``u`` vectors (flax's row order (kh, kw, cin), which the port keeps)
+become each ``SNConv``'s ``u`` buffer (``spectral_from_jax`` /
+``spectral_to_jax``).
 """
 
 import re
@@ -48,11 +60,12 @@ import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
            "state_dict_to_jax", "opt_state_from_jax", "opt_state_to_jax",
-           "states_from_jax", "states_to_jax", "unet_int8_from_jax",
-           "inn_int8_from_jax"]
+           "states_from_jax", "states_to_jax", "spectral_from_jax",
+           "spectral_to_jax", "unet_int8_from_jax", "inn_int8_from_jax"]
 
-# the ConvTransposes: UNetTPU's decoder's, MBRS's message_expand's
-_CONVT = re.compile(r"(^|\.)up\d+$")
+# the ConvTransposes: UNetTPU's decoder's, MBRS's message_expand's, the
+# localizer's transposed SNConv
+_CONVT = re.compile(r"(^|\.)up\d+$|(^|\.)dec\d+_up$")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Mapping]:
@@ -199,15 +212,33 @@ def opt_state_to_jax(net: torch.nn.Module, mu, nu, count
     return trees[0], trees[1], np.asarray(int(count), np.int32)
 
 
+def spectral_from_jax(spectral: Mapping) -> Dict[str, torch.Tensor]:
+    """flax's ``spectral`` collection → the ``<module>.u`` buffers."""
+    return {f"{path}.u": _tensor(p["u"])
+            for path, p in _flatten(spectral).items()}
+
+
+def spectral_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The ``<module>.u`` buffers of a state dict → flax's ``spectral``
+    collection."""
+    tree: Dict = {}
+    for key, t in sd.items():
+        if key.endswith(".u"):
+            _set(tree, key[:-2], "u", t.detach().cpu().numpy())
+    return tree
+
+
 def states_from_jax(model, trees: Mapping[str, Mapping]) -> None:
     """Load each net of ``model`` (``model.nets()``, ``model.optimizers``)
     from ``trees[name]``: ``params``, ``batch_stats`` (where the net has
-    BatchNorms) and, where given, the Adam state ``mu``, ``nu``, ``count``;
-    shapes are checked by ``load_state_dict`` and ``opt_state_from_jax``."""
+    BatchNorms), ``spectral`` (where it has spectral-norm convs) and, where
+    given, the Adam state ``mu``, ``nu``, ``count``; shapes are checked by
+    ``load_state_dict`` and ``opt_state_from_jax``."""
     with torch.no_grad():
         for name, net in model.nets().items():
             t = trees[name]
             sd = state_dict_from_jax(t["params"], t.get("batch_stats"))
+            sd.update(spectral_from_jax(t.get("spectral", {})))
             own = net.state_dict()
             sd.update({k: v for k, v in own.items()
                        if k.endswith("num_batches_tracked")})
@@ -222,12 +253,18 @@ def states_from_jax(model, trees: Mapping[str, Mapping]) -> None:
 
 
 def states_to_jax(model, optimizer: bool = True) -> Dict[str, Dict]:
-    """Inverse of ``states_from_jax``: per net ``params``, ``batch_stats``
-    and (with ``optimizer``) ``mu``, ``nu``, ``count``, numpy trees."""
+    """Inverse of ``states_from_jax``: per net ``params``, ``batch_stats``,
+    ``spectral`` (where it has spectral-norm convs) and (with
+    ``optimizer``) ``mu``, ``nu``, ``count``, numpy trees."""
     out = {}
     for name, net in model.nets().items():
-        params, stats = _state_dict_to_tree(net.state_dict())
+        sd = net.state_dict()
+        params, stats = _state_dict_to_tree(
+            {k: v for k, v in sd.items() if not k.endswith(".u")})
         out[name] = {"params": params, "batch_stats": stats}
+        spectral = spectral_to_jax(sd)
+        if spectral:
+            out[name]["spectral"] = spectral
         if optimizer:
             opt = model.optimizers[name]
             mu, nu, count = opt_state_to_jax(net, opt.mu, opt.nu, opt.count)

@@ -1,22 +1,26 @@
 """Data pipeline of the port (counterparts of vwfd_tpu/data): the DAVIS and
 synthetic video datasets, the synthetic images and the image folder of the
-message families, the tamper masks and the batching loader (numpy only;
+message and image families, the host canny map without OpenCV
+(``edges.py``), the tamper masks and the batching loader (numpy only;
 DAVIS and the image folder take their image readers from the caller), and
 the convergence runner's clip generator on the device (``ondevice.py``)."""
 
 from .davis import DavisVideoDataset, cv2_readers
+from .edges import canny_map, canny_u8, rgb_to_gray_u8
 from .images import ImageFolderDataset, cv2_mask_reader
 from .loader import Loader
 from .masks import free_form_stroke_mask, random_rect_mask
 from .ondevice import (ClipDraws, clips_from_draws, rect_mask,
                        sample_clip_draws, seeded_generator, synthetic_clips)
-from .synthetic import (SpliceForgeryDataset, SyntheticImageDataset,
-                        SyntheticVideoDataset)
+from .synthetic import (CannyImages, SpliceForgeryDataset,
+                        SyntheticImageDataset, SyntheticVideoDataset,
+                        stroke_masks)
 
-__all__ = ["DavisVideoDataset", "cv2_readers", "ImageFolderDataset",
+__all__ = ["DavisVideoDataset", "cv2_readers", "canny_map", "canny_u8",
+           "rgb_to_gray_u8", "ImageFolderDataset",
            "cv2_mask_reader", "SpliceForgeryDataset",
            "SyntheticImageDataset", "Loader",
            "free_form_stroke_mask", "random_rect_mask",
            "SyntheticVideoDataset", "ClipDraws", "clips_from_draws",
            "rect_mask", "sample_clip_draws", "seeded_generator",
-           "synthetic_clips"]
+           "synthetic_clips", "CannyImages", "stroke_masks"]

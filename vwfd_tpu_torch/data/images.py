@@ -12,14 +12,18 @@ also holds ``"mask"``: the file of the image's base name under
 ``mask_root``, read by the caller's ``read_mask(path, size)`` (float32
 (size, size) in {0, 1}; ``cv2_mask_reader`` is the JAX module's: gray,
 nearest resize, > 127), shaped (size, size, 1). As in the JAX module the
-mask is not augmented. The canny edge map (``with_canny``) serves the image
-families, which the port has not taken over: it raises.
+mask is not augmented. With ``with_canny`` (the image family's watermark
+channel, ``images.py:46-48``) each item also holds ``"canny"``: the host
+canny map of the augmented image (``data/edges.py::canny_map``, bit-equal
+to ``cv2.Canny`` of its 8-bit gray image, 100, 200), (size, size, 1).
 """
 
 import os
 from typing import Callable, Optional
 
 import numpy as np
+
+from .edges import canny_map
 
 __all__ = ["ImageFolderDataset", "cv2_mask_reader"]
 
@@ -53,9 +57,6 @@ class ImageFolderDataset:
                  augment: bool = True, with_canny: bool = False,
                  mask_root: Optional[str] = None,
                  read_mask: Optional[Reader] = None, seed: int = 0):
-        if with_canny:
-            raise NotImplementedError("with_canny serves the image families, "
-                                      "which are not ported yet")
         self.paths = sorted(
             os.path.join(dp, f)
             for dp, _, fs in os.walk(root) for f in fs
@@ -68,6 +69,7 @@ class ImageFolderDataset:
         self.mask_root, self.read_mask = mask_root, read_mask
         self.size = size
         self.augment = augment
+        self.with_canny = with_canny
         self.rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -81,6 +83,8 @@ class ImageFolderDataset:
                 img = img[:, ::-1]
             img = np.rot90(img, int(self.rng.integers(0, 4)), axes=(0, 1))
         out = {"image": np.ascontiguousarray(img, dtype=np.float32)}
+        if self.with_canny:
+            out["canny"] = canny_map(out["image"])
         if self.mask_root is not None:
             m = self.read_mask(os.path.join(self.mask_root,
                                             os.path.basename(path)),

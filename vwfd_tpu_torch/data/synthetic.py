@@ -3,14 +3,17 @@ vwfd_tpu/data/synthetic.py:10-61). Video: smooth
 random frames with a per-clip tamper mask, the DVDataset batch contract
 ``(video (T,H,W,3), mask (T,H,W,1))`` in [0, 1], float32. The frames and the
 rectangle masks equal the JAX package's for the same seed and index; the
-stroke masks come from the port's numpy rasteriser (``masks.py``)."""
+stroke masks come from the port's numpy rasteriser (``masks.py``). The
+image family's items (``CannyImages``: an image and its host canny map)
+and per-batch stroke masks (``stroke_masks``) sit beside them."""
 
 import numpy as np
 
+from .edges import canny_map
 from .masks import free_form_stroke_mask, random_rect_mask
 
 __all__ = ["SyntheticVideoDataset", "SyntheticImageDataset",
-           "SpliceForgeryDataset"]
+           "SpliceForgeryDataset", "CannyImages", "stroke_masks"]
 
 
 class SyntheticVideoDataset:
@@ -92,3 +95,33 @@ class SpliceForgeryDataset:
         donor, _ = self.base[(i * 7919 + 1) % len(self.base)]
         img = video[0] * (1 - mask[0]) + donor[0] * mask[0]
         return img.astype(np.float32), mask[0]
+
+
+class CannyImages:
+    """The image family's items of a dataset of (H, W, 3) images (or of
+    ``{"image": ...}`` items): ``(image, canny)`` with the host canny map
+    (``edges.canny_map``, the JAX image loops' ``cv2.Canny``), or the image
+    alone without ``with_canny`` (ImugeV2 embeds the previous batch, not
+    the canny)."""
+
+    def __init__(self, base, with_canny: bool = True):
+        self.base, self.with_canny = base, with_canny
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        item = self.base[i]
+        img = item["image"] if isinstance(item, dict) else item
+        return (img, canny_map(img)) if self.with_canny else img
+
+
+def stroke_masks(seed, n: int, size) -> np.ndarray:
+    """(n, H, W, 1) free-form stroke masks from ``default_rng(seed)`` (a
+    seed or a sequence, e.g. (data seed, batch index)): each batch's masks
+    from a generator of its own, so a resumed run draws the same ones
+    (the JAX loops draw them per item from one generator that the loader's
+    threads share)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([free_form_stroke_mask(rng, size)
+                     for _ in range(n)])[..., None].astype(np.float32)

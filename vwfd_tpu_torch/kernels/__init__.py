@@ -35,6 +35,8 @@
 * K18 ``window_attention`` — SUNet's shifted-window attention between its
   qkv and proj Dense layers, forward and backward, the bias table's
   gradient summed deterministically (kernels/window_attention.py)
+* K19 ``canny_soft``     — the image family's soft canny edge map of the
+  attacked copies, forward and backward (kernels/canny.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -43,24 +45,27 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16, K17 and K18 launch their own backward kernels. ``KERNELS`` routes through the
-wrappers; ``PLAIN`` calls the plain versions on any device, so that a
+K16, K17, K18 and K19 launch their own backward kernels. ``KERNELS``
+routes through the wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
-training or evaluating, through both and compare.
+training or evaluating, through both and compare. ``PLAIN``'s
+``canny_soft`` is the plain version with ``exact_border`` (F24), which K19
+is held to; the wrapper's CPU path is the JAX form as it is.
 """
 
+import functools
 from typing import Callable, Dict, NamedTuple
 
-from . import (affine, coupling, crop_resize, f1, haar, jpeg, mask, median,
-               mix, qconv, qconv_t, qcoupling, splice, ssim, transition, wire,
-               window_attention, zigzag)
+from . import (affine, canny, coupling, crop_resize, f1, haar, jpeg, mask,
+               median, mix, qconv, qconv_t, qcoupling, splice, ssim,
+               transition, wire, window_attention, zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
            splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
-           crop_resize, window_attention)
+           crop_resize, window_attention, canny)
 
 
 class KernelSet(NamedTuple):
@@ -87,6 +92,7 @@ class KernelSet(NamedTuple):
     zigzag_jpeg: Callable
     crop_resize: Callable
     window_attention: Callable
+    canny_soft: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -97,7 +103,7 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_s2d_i8, wire.to_u8_s2d_i8, haar.haar,
                     affine.coupling_affine, zigzag.zigzag_jpeg,
                     crop_resize.crop_resize,
-                    window_attention.window_attention)
+                    window_attention.window_attention, canny.canny_soft)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -108,7 +114,9 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_s2d_i8_plain, wire.to_u8_s2d_i8_plain,
                   haar.haar_plain, affine.coupling_affine_plain,
                   zigzag.zigzag_jpeg_plain, crop_resize.crop_resize_plain,
-                  window_attention.window_attention_plain)
+                  window_attention.window_attention_plain,
+                  functools.partial(canny.canny_soft_plain,
+                                    exact_border=True))
 
 
 def launch_counts() -> Dict[str, int]:

@@ -79,6 +79,9 @@ _SIGNATURES = {
     "vwfd_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P],
     "vwfd_window_attention_ctas": [_I, _I],
+    "vwfd_canny_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _FP, _P],
+    "vwfd_canny_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _FP,
+                       _P],
 }
 
 _lock = threading.Lock()

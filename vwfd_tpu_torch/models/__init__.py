@@ -1,8 +1,9 @@
 """Models of the port (counterparts of vwfd_tpu/models)."""
 
 from .hidden_model import HiddenModel
+from .image_model import ImageImmunizationModel
 from .mbrs_model import MBRSModel
 from .tianchi_model import TianchiModel
 from .video_model import VideoWatermarkModel
 
-__all__ = ["HiddenModel", "MBRSModel", "TianchiModel", "VideoWatermarkModel"]
+__all__ = ["HiddenModel", "ImageImmunizationModel", "MBRSModel", "TianchiModel", "VideoWatermarkModel"]

@@ -2,12 +2,13 @@
 
 from .inn import (DenseSubnet, InvertibleNet, RNVPCoupling, ResSubnet,
                   ResSubnetTPU, ResSubnetTPUS2)
-from .blocks import ConvBNRelu
+from .blocks import ConvBNRelu, ResnetBlock, SNConv
 from .hidden import (HiddenDecoder, HiddenDiscriminator, HiddenEncoder,
                      HiddenEncoderDecoder)
 from .mbrs import (BalujaHiding, BalujaPrep, BalujaReveal, ExpandNet,
                    MBRSDecoder, MBRSEncoder, MBRSPlainDecoder, SEBottleneck,
                    SENet, SENetDecoder)
+from .localizer import UNetDiscriminator
 from .sunet import SUNet
 from .unet import UNet, UNetTPU
 
@@ -16,4 +17,5 @@ __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
            "HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
            "HiddenEncoderDecoder", "SEBottleneck", "SENet", "SENetDecoder",
            "ExpandNet", "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder",
-           "BalujaPrep", "BalujaHiding", "BalujaReveal", "SUNet"]
+           "BalujaPrep", "BalujaHiding", "BalujaReveal", "SUNet",
+           "SNConv", "ResnetBlock", "UNetDiscriminator"]

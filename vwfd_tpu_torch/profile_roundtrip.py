@@ -18,6 +18,7 @@ step's time goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip --mode mbrs
     # Tianchi's train step, then its eval step (SUNet, 256², b8, f32)
     python -m vwfd_tpu_torch.profile_roundtrip --mode tianchi
+    python -m vwfd_tpu_torch.profile_roundtrip --mode pami
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -35,7 +36,12 @@ noise draws of ``MBRSSampler``) on the runner's synthetic images, and
 ``eval_step`` (``models/tianchi_model.py``, SUNet at the published widths,
 the port's ``configs/tianchi.yaml``, 256², batch 8 unless ``--batch``,
 float32, the JPEG draws of ``TianchiSampler``) on the runner's splice
-forgeries, one JSON line each. ``--int8`` serves the roundtrip or the
+forgeries, one JSON line each; ``--mode pami`` the image family's PAMI
+``train_step`` and then its ``eval_step`` (``models/image_model.py``, the
+port's ``configs/pami.yaml``: the 4-channel INN in bf16, k = 6, 256²,
+batch 8 unless ``--batch``, ``--size``; random weights from a seed, the
+draws of ``ImageSampler``) on the runner's synthetic images with their
+host canny maps and stroke masks, one JSON line each. ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
 through the int8 embed (calibrated on one seeded random clip, off the
 clock). Each runs under
@@ -84,7 +90,10 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "crop_resize": ("crop_resize_fwd", "crop_resize_bwd",
                                 "crop_resize_taps"),
                 "window_attention": ("window_attention_fwd",
-                                     "window_attention_bwd")}
+                                     "window_attention_bwd"),
+                "canny_soft": ("canny_grad_kernel", "canny_map_kernel",
+                               "canny_local_bwd", "canny_gather_bwd",
+                               "canny_reduce_bwd", "canny_input_bwd")}
 
 
 def classify(name: str) -> str:
@@ -116,7 +125,7 @@ def main(argv=None):
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval",
-                             "hidden", "mbrs", "tianchi"])
+                             "hidden", "mbrs", "tianchi", "pami"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -126,8 +135,8 @@ def main(argv=None):
                     help="roundtrip through the int8 embed")
     ap.set_defaults(batch=None)
     args = ap.parse_args(argv)
-    if args.batch is None:  # Tianchi's record's batch; the video model's
-        args.batch = 8 if args.mode == "tianchi" else 16
+    if args.batch is None:  # Tianchi's and PAMI's batch; the video model's
+        args.batch = 8 if args.mode in ("tianchi", "pami") else 16
 
     cfg = build_config(args)
     torch.backends.cudnn.allow_tf32 = False
@@ -200,6 +209,40 @@ def main(argv=None):
         def eval_one():
             step[0] += 1
             return model.eval_step(*batches[step[0] % len(batches)])
+    elif args.mode == "pami":
+        import dataclasses
+        from . import PAMI_CONFIG, load_config
+        from .data import CannyImages, SyntheticImageDataset, stroke_masks
+        from .models import ImageImmunizationModel
+        from .models.image_model import ImageBatch
+        t = 1
+        pcfg = load_config(PAMI_CONFIG)
+        pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(
+            pcfg.data, gt_size=s, batch_size=b))
+        model = ImageImmunizationModel(pcfg, device=args.device)
+        model.init_states(0)
+        ds = CannyImages(SyntheticImageDataset(size=s, length=5 * b,
+                                               seed=10))
+        batches = []
+        for i in range(5):
+            imgs, canny = (np.stack(x) for x in zip(
+                *[ds[i * b + j] for j in range(b)]))
+            batches.append(ImageBatch(*model.to_device(
+                imgs, canny, stroke_masks((10, i), b, (s, s)))))
+        sampler = model.sampler(0)
+        step = [0]
+
+        def train_one():
+            step[0] += 1
+            i = step[0] % len(batches)
+            return model.train_step(batches[i], batches[i - 1].image,
+                                    sampler((b, s, s)))
+
+        def eval_one():
+            step[0] += 1
+            i = step[0] % len(batches)
+            return model.eval_step(batches[i], batches[i - 1].image,
+                                   sampler((b, s, s)))
     elif args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)
@@ -236,7 +279,7 @@ def main(argv=None):
             "packed": args.packed, "int8": args.int8,
             "int8_embed": args.int8_embed, "requests": args.requests,
             "batch": b, "frames": t, "size": s}
-    if args.mode == "tianchi":
+    if args.mode in ("tianchi", "pami"):
         for what, fn in (("train_step", train_one), ("eval_step", eval_one)):
             print(json.dumps({**head, "step": what,
                               **profile_window(fn, args.requests,

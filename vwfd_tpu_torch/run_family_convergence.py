@@ -1,6 +1,6 @@
 """Convergence runs of the message and image families (port of
 tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
-``_tianchi``, :279-341).
+``_tianchi``, :279-341; PAMI and ImugeV2: ``_image_family``, :73-167).
 
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs \\
         --steps 15000 --eval-every 500 --out runs/conv_torch_mbrs.jsonl \\
@@ -14,6 +14,11 @@ tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs --steps 4 \\
         --eval-every 2 --log-every 1 --size 32 --batch 2 --device cpu \\
         --out build/mbrs.jsonl
+    python -m vwfd_tpu_torch.run_family_convergence --task imuge \\
+        --steps 3750 --size 256 --batch 8 --reverse-k 0 --eval-every 250 \\
+        --out runs/conv_torch_imuge.jsonl --ckpt-dir build/imuge_ckpt
+    python -m vwfd_tpu_torch.run_family_convergence --task pami \\
+        --steps 1000 --size 512 --batch 3 --reverse-k 3 --eval-every 250
 
 ``--task mbrs`` trains ``MBRSModel`` (128², b16 unless ``--size`` /
 ``--batch``) on the JAX runner's data: ``SyntheticImageDataset(size, 2000,
@@ -42,11 +47,37 @@ held-out forgeries (``SpliceForgeryDataset(size, 64, 10 + 7777)`` through
 ``Loader(..., seed=10 + 7777, ratio=200)``, a fresh epoch order each eval,
 as the JAX runner's loop draws them).
 
+``--task pami`` / ``--task imuge`` train ``ImageImmunizationModel`` (the
+port's ``configs/pami.yaml``: the 4-channel INN in bf16, the localizer,
+k = 6 attacks; 512², b3 for pami, 256², b8 for imuge unless ``--size`` /
+``--batch``, the JAX runner's geometry; ``--reverse-k`` bounds the reverse
+fan-out, 0 for all, as the JAX flag) on the JAX runner's images:
+``SyntheticImageDataset(size, 2000, 10)`` through ``Loader(..., seed=10,
+ratio=200)``, each with its host canny map (``data.edges``, bit-equal to
+the JAX runner's ``cv2.Canny``; pami only: imuge embeds the previous
+batch in gray), and stroke masks drawn per batch from ``default_rng((10,
+batch index))`` (the JAX runner draws them per item from one generator
+its loader's threads share, so its masks are not reproducible; the
+port's rasteriser is F11's). The first batch only seeds the previous
+batch. The tamper and fan-out draws (``ImageSampler``) and the weights
+come from ``--seed``. Every ``--eval-every`` steps and at the last the
+means over ``--eval-batches`` (4) held-out batches of ``--eval-batch``
+(the train batch) of ``psnr_forward``, ``psnr_backward``,
+``ssim_forward``, ``f1_best`` and ``f1_per_attack_mean``: a fresh epoch
+of ``SyntheticImageDataset(size, 64, 10 + 7777)`` through ``Loader(...,
+seed=10 + 7777, ratio=200)`` each eval, its first batch only seeding the
+previous batch, the eval draws from a sampler seeded ``--seed`` + 7777.
+An eval loader that yields a single batch (the JAX runner's fault at
+``:134``, ADVICE.md) evaluates that batch against itself rolled by one
+image, and the record says how many batches it took
+(``eval_batches``).
+
 The JSONL record is the JAX runner's, key for key: a config line (with the
 device, its name and the seeds), at step 1 and every ``--log-every`` steps
 the logs (MBRS: ``loss``, ``encoder_mse``, ``message_mse``,
-``bitwise_error``; Tianchi: ``CE``, ``CE1``) and ``wall`` (seconds since
-the start), and at every ``--eval-every`` step and the last an eval
+``bitwise_error``; Tianchi: ``CE``, ``CE1``; the image family: ``loss``,
+``lF``, ``lB``, ``l_mask``, ``PF``, ``PB``, ``NULL``) and ``wall`` (seconds
+since the start), and at every ``--eval-every`` step and the last an eval
 record. MBRS's is on 16 held-out images (``SyntheticImageDataset (size,
 16, 10 + 7777)``, messages from ``default_rng(7777)``): the encoded PSNR
 (``psnr255_int`` of the clipped encoding) and the bitwise error on it
@@ -61,9 +92,9 @@ step and continues with the batches, messages, draws and eval orders an
 unbroken run would see (the loaders' orders, the message and draw
 generators replayed to the step). ``--stop-at-step`` ends a segment with a
 checkpoint. Only the latest checkpoint is kept. Runs on the CUDA card
-unless ``--device cpu``; without a card it raises. The image family's
-tasks and KD-JPEG are not ported yet: each raises ``NotImplementedError``
-naming its ROADMAP.md item.
+unless ``--device cpu``; without a card it raises. CLR and KD-JPEG are
+not ported yet: each raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 import argparse
@@ -77,26 +108,29 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import TIANCHI_CONFIG, load_config
+from . import PAMI_CONFIG, TIANCHI_CONFIG, load_config
 from .attacks import jpeg_real
-from .data import Loader, SpliceForgeryDataset, SyntheticImageDataset
+from .data import (CannyImages, Loader, SpliceForgeryDataset,
+                   SyntheticImageDataset, stroke_masks)
 from .metrics import bitwise_message_error, psnr255_int
-from .models import MBRSModel, TianchiModel
+from .models import ImageImmunizationModel, MBRSModel, TianchiModel
+from .models.image_model import ImageBatch
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint
 from .run_convergence import _keep_upto, _save
 from .utils import setup_logger
 
 __all__ = ["DATA_SEED", "EVAL_QUALITIES", "NOT_PORTED", "DEFAULTS",
-           "MBRSStreams", "TianchiStreams", "parse_args", "run", "main"]
+           "MBRSStreams", "TianchiStreams", "ImageStreams", "image_eval",
+           "image_eval_loader", "parse_args", "run", "main"]
 
 DATA_SEED = 10  # the JAX runner's cfg.train.seed: data and messages
 EVAL_QUALITIES = (50, 70, 90)
 # (size, batch) unless --size / --batch: the JAX runner's geometry
-DEFAULTS = {"mbrs": (128, 16), "tianchi": (512, 4)}
-NOT_PORTED = {"pami": "ROADMAP.md §1, its image family item",
-              "clr": "ROADMAP.md §1, its image family item",
-              "imuge": "ROADMAP.md §1, its image family item",
+DEFAULTS = {"mbrs": (128, 16), "tianchi": (512, 4), "pami": (512, 3),
+            "imuge": (256, 8)}
+IMAGE_TASKS = ("pami", "imuge")
+NOT_PORTED = {"clr": "ROADMAP.md §1, its image family remainder item",
               "kdjpeg": "ROADMAP.md §1, its KD-JPEG item"}
 
 
@@ -114,12 +148,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "tianchi config's)")
     ap.add_argument("--seed", type=int, default=0,
                     help="the weights' and the noise draws' seed")
+    ap.add_argument("--reverse-k", type=int, default=0,
+                    help="pami / imuge: attacked copies reversed (0: all)")
     ap.add_argument("--eval-every", type=int, default=250)
     ap.add_argument("--eval-batch", type=int, default=None,
                     help="held-out batch (default: 16 mbrs, the train "
                          "batch tianchi)")
     ap.add_argument("--eval-batches", type=int, default=4,
-                    help="tianchi: held-out batches an eval")
+                    help="tianchi, pami, imuge: held-out batches an eval")
     ap.add_argument("--log-every", type=int, default=25)
     ap.add_argument("--save-every", type=int, default=1000)
     ap.add_argument("--out", default=None)
@@ -136,7 +172,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.size = args.size or size
     args.batch = args.batch or batch
     if args.eval_batch is None:
-        args.eval_batch = args.batch if args.task == "tianchi" else 16
+        args.eval_batch = args.batch if args.task != "mbrs" else 16
     return args
 
 
@@ -225,6 +261,76 @@ def tianchi_eval(model: TianchiModel, loader: Loader, batches: int) -> dict:
     return {"f1_best": float(np.mean(f1s))}
 
 
+class ImageStreams:
+    """The image family's train steps from step ``start + 1`` on, as an
+    unbroken run sees them: ``(ImageBatch, previous images, draws)``."""
+
+    def __init__(self, model: ImageImmunizationModel, size: int, batch: int,
+                 seed: int, start: int = 0):
+        ds = CannyImages(SyntheticImageDataset(size=size, length=2000,
+                                               seed=DATA_SEED),
+                         with_canny=model.task == "pami")
+        self.batches = Loader(ds, batch, seed=DATA_SEED,
+                              ratio=200).stream(start)
+        self.index, self.size = start, size
+        self.prev = self._next()[0]
+        self.sampler = model.sampler(seed)
+        for _ in range(start):
+            self.sampler((batch, size, size))
+
+    def _next(self) -> ImageBatch:
+        item = next(self.batches)
+        imgs, canny = item if isinstance(item, tuple) else (item, None)
+        masks = stroke_masks((DATA_SEED, self.index), len(imgs),
+                             (self.size, self.size))
+        self.index += 1
+        return ImageBatch(imgs, canny, masks)
+
+    def __next__(self):
+        batch, prev = self._next(), self.prev
+        self.prev = batch.image
+        return batch, prev, self.sampler(batch.image.shape)
+
+
+def image_eval_loader(model: ImageImmunizationModel, size: int, batch: int,
+                      evals_done: int = 0, length: int = 64,
+                      ratio: int = 200) -> Loader:
+    """The held-out images' loader, its order generator moved past the
+    epochs of ``evals_done`` earlier evals (each draws one)."""
+    held = CannyImages(SyntheticImageDataset(size=size, length=length,
+                                             seed=DATA_SEED + 7777),
+                       with_canny=model.task == "pami")
+    loader = Loader(held, batch, seed=DATA_SEED + 7777, ratio=ratio)
+    for _ in range(evals_done):
+        loader._order()
+    return loader
+
+
+def image_eval(model: ImageImmunizationModel, loader: Loader, batches: int,
+               sampler, evals_done: int) -> dict:
+    """The means of the eval metrics over ``batches`` batches of a fresh
+    epoch of ``loader`` after the one that seeds the previous batch; a
+    loader of one batch evaluates it against itself rolled by one image."""
+    got = []
+    for i, item in enumerate(itertools.islice(iter(loader), batches + 1)):
+        imgs, canny = item if isinstance(item, tuple) else (item, None)
+        size = imgs.shape[1:3]
+        got.append(ImageBatch(imgs, canny, stroke_masks(
+            (DATA_SEED + 7777, evals_done, i), len(imgs), size)))
+    pairs = [(b, a.image) for a, b in zip(got, got[1:])] or \
+        [(got[0], np.roll(got[0].image, 1, axis=0))]
+    keys = ("psnr_forward", "psnr_backward", "ssim_forward", "f1_best")
+    accs = []
+    for batch, prev in pairs:
+        o = model.eval_step(batch, prev, sampler(batch.image.shape))
+        rec = {k: float(o[k]) for k in keys}
+        rec["f1_per_attack_mean"] = float(o["f1_per_attack"].mean())
+        accs.append(rec)
+    out = {k: float(np.mean([a[k] for a in accs])) for k in accs[0]}
+    out["eval_batches"] = len(accs)
+    return out
+
+
 def _emit(f, rec: dict) -> None:
     line = json.dumps(rec)
     f.write(line + "\n")
@@ -237,6 +343,16 @@ def _model(args):
     if args.task == "mbrs":
         model = MBRSModel(image_size=args.size, lr=args.lr or 1e-3,
                           device=args.device)
+    elif args.task in IMAGE_TASKS:
+        cfg = load_config(PAMI_CONFIG)
+        cfg = dataclasses.replace(
+            cfg, task=args.task,
+            data=dataclasses.replace(cfg.data, gt_size=args.size,
+                                     batch_size=args.batch, synthetic=True),
+            train=dataclasses.replace(cfg.train, lr=args.lr or cfg.train.lr))
+        model = ImageImmunizationModel(cfg, task=args.task,
+                                       reverse_k=args.reverse_k,
+                                       device=args.device)
     else:
         cfg = load_config(TIANCHI_CONFIG)
         cfg = dataclasses.replace(
@@ -274,7 +390,10 @@ def run(args: argparse.Namespace,
             _emit(f, {"config": True, "task": args.task, "size": args.size,
                       "batch": args.batch, "steps": args.steps,
                       "lr": (model.lr if args.task == "mbrs"
-                             else model.cfg.train.lr), "seed": args.seed,
+                             else model.cfg.train.lr),
+                      **({"reverse_k": args.reverse_k}
+                         if args.task in IMAGE_TASKS else {}),
+                      "seed": args.seed,
                       "data_seed": DATA_SEED, "device": model.device.type,
                       "device_name": (torch.cuda.get_device_name(
                           model.device) if cuda else "cpu")})
@@ -284,6 +403,21 @@ def run(args: argparse.Namespace,
 
         def evaluate():
             return mbrs_eval(model, *held)
+    elif args.task in IMAGE_TASKS:
+        streams = ImageStreams(model, args.size, args.batch, args.seed,
+                               start)
+        evals = [start // args.eval_every]
+        eval_sampler = model.sampler(args.seed + 7777)
+        for _ in range(evals[0] * max(args.eval_batches, 1)):
+            eval_sampler((args.eval_batch, args.size, args.size))
+
+        def evaluate():
+            loader = image_eval_loader(model, args.size, args.eval_batch,
+                                       evals[0])
+            out = image_eval(model, loader, args.eval_batches, eval_sampler,
+                             evals[0])
+            evals[0] += 1
+            return out
     else:
         streams = TianchiStreams(model, args.batch, args.seed, start)
         held = tianchi_eval_loader(args.size, args.eval_batch,

@@ -1,6 +1,6 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video|hidden|mbrs|tianchi [--root DIR | --synthetic] [--steps N | --val]
-[--resume]``).
+video|hidden|mbrs|tianchi|pami|imuge [--root DIR | --synthetic] [--steps N
+| --val] [--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
     python -m vwfd_tpu_torch.train --synthetic --steps 100
@@ -67,6 +67,27 @@ tianchi``'s.
 
     python -m vwfd_tpu_torch.train --task tianchi --synthetic --steps 3 \
         --device cpu --batch 2 --size 64
+
+``--task pami`` and ``--task imuge`` train the image family
+(``models/image_model.py``; the JAX ``train.py``'s ``_image_loop``,
+:101-201) with the port's ``configs/pami.yaml`` unless ``--config``
+(``--size``, ``--batch`` override): on synthetic images (``--synthetic``:
+``SyntheticImageDataset(seed=train.seed)``) or an image folder (``--root``,
+read through OpenCV), each with its host canny map (``data/edges.py``, the
+JAX loop's ``cv2.Canny`` without OpenCV; pami only) and stroke masks drawn
+per batch from ``default_rng((train.seed, batch index))`` (F11's
+rasteriser); the first batch only seeds the previous batch; the tamper and
+fan-out draws from ``ImageSampler`` seeded ``train.seed``; a progress bar,
+the scalar log and a checkpoint every ``save_interval`` steps;
+``--resume`` continues the latest one. It
+prints one JSON line (the last step's logs, ms per step and images/s over
+the steps after the first). ``--val`` runs ``eval_step`` on
+``--val-batches`` batches after the one that seeds the previous batch and
+prints the means of its scalars. The held-out protocol of the JAX
+records is ``run_family_convergence --task pami|imuge``'s.
+
+    python -m vwfd_tpu_torch.train --task pami --synthetic --steps 3 \
+        --device cpu --batch 2 --size 32
 """
 
 import argparse
@@ -78,11 +99,15 @@ import time
 import numpy as np
 import torch
 
-from . import FLAGSHIP_CONFIG, TIANCHI_CONFIG, Config, load_config
-from .data import (DavisVideoDataset, ImageFolderDataset, Loader,
-                   SpliceForgeryDataset, SyntheticImageDataset,
-                   SyntheticVideoDataset, cv2_mask_reader, cv2_readers)
-from .models import HiddenModel, MBRSModel, TianchiModel, VideoWatermarkModel
+from . import (FLAGSHIP_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG, Config,
+               load_config)
+from .data import (CannyImages, DavisVideoDataset, ImageFolderDataset,
+                   Loader, SpliceForgeryDataset, SyntheticImageDataset,
+                   SyntheticVideoDataset, cv2_mask_reader, cv2_readers,
+                   stroke_masks)
+from .models import (HiddenModel, ImageImmunizationModel, MBRSModel,
+                     TianchiModel, VideoWatermarkModel)
+from .models.image_model import ImageBatch
 from .models.hidden_model import HiddenSampler
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint, save_checkpoint
@@ -310,17 +335,120 @@ def _tianchi(args, ap, logger):
                         else "cpu")}))
 
 
+def _image(args, ap, logger):
+    """``--task pami`` or ``imuge``: the JAX ``train.py``'s
+    ``_image_loop``."""
+    task = args.task
+    cfg = load_config(args.config or PAMI_CONFIG)
+    data = dict(batch_size=args.batch or cfg.data.batch_size,
+                gt_size=args.size or cfg.data.gt_size,
+                root=args.root or cfg.data.root,
+                synthetic=args.synthetic or (cfg.data.synthetic
+                                             and not args.root))
+    cfg = dataclasses.replace(cfg, task=task,
+                              data=dataclasses.replace(cfg.data, **data),
+                              ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
+    d, seed = cfg.data, cfg.train.seed
+    pami = task == "pami"
+    if d.root and not d.synthetic:
+        try:
+            read_image, _ = cv2_readers()
+        except ImportError:
+            ap.error("--root needs OpenCV (cv2) to read the images, and it "
+                     "does not import here")
+        dataset = CannyImages(ImageFolderDataset(d.root, read_image,
+                                                 size=d.gt_size), pami)
+    elif d.synthetic:
+        dataset = CannyImages(SyntheticImageDataset(
+            size=d.gt_size, length=2000, seed=seed), pami)
+    else:
+        ap.error("no data: pass --root (an image folder) or --synthetic")
+    model = ImageImmunizationModel(cfg, task=task, device=args.device)
+    model.init_states(seed)
+    step0 = latest_step(cfg.ckpt_dir) if args.resume else None
+    if step0 is not None:
+        logger.info("resuming %s from step %d", task, step0)
+        restore_checkpoint(cfg.ckpt_dir, step0, model)
+    start = step0 or 0
+    sampler = model.sampler(seed)
+    shape = (d.batch_size, d.gt_size, d.gt_size)
+    for _ in range(start):
+        sampler(shape)
+    loader = Loader(dataset, d.batch_size, seed=seed, ratio=d.ratio)
+    index = [start]
+
+    def batches():
+        for item in loader.stream(start):
+            imgs, canny = item if pami else (item, None)
+            yield ImageBatch(imgs, canny, stroke_masks(
+                (seed, index[0]), len(imgs), (d.gt_size, d.gt_size)))
+            index[0] += 1
+
+    stream = batches()
+    prev = next(stream).image
+    cuda = model.device.type == "cuda"
+    if args.val:
+        outs, times = [], []
+        for _ in range(args.val_batches):
+            batch = next(stream)
+            t0 = time.perf_counter()
+            o = model.eval_step(batch, prev, sampler(batch.image.shape))
+            outs.append({k: float(v) for k, v in o.items()
+                         if v.dim() == 0})  # syncs
+            times.append((time.perf_counter() - t0) * 1e3)
+            prev = batch.image
+        result = {k: float(np.mean([o[k] for o in outs])) for k in outs[0]}
+        result.update(val_batches=args.val_batches,
+                      ms_per_eval_step=float(np.median(times[1:] or times)))
+        logger.info("eval: %s", result)
+    else:
+        scalar_logger = None if args.no_telemetry else ScalarLogger(
+            args.logdir or os.path.join("runs", f"{cfg.name}_{task}"))
+        pb = Progbar(args.steps, stateful_metrics=["PF", "PB"])
+        step, times, vals = start, [], {}
+        try:
+            while step < start + args.steps:
+                batch = next(stream)
+                t0 = time.perf_counter()
+                logs = model.train_step(batch, prev,
+                                        sampler(batch.image.shape))
+                vals = {k: float(v) for k, v in logs.items()}  # syncs
+                times.append((time.perf_counter() - t0) * 1e3)
+                prev = batch.image
+                step += 1
+                pb.add(1, values=list(vals.items()))
+                if scalar_logger is not None:
+                    scalar_logger.log(step, **vals)
+                if step % cfg.train.save_interval == 0:
+                    save_checkpoint(cfg.ckpt_dir, step, model)
+        finally:
+            if scalar_logger is not None:
+                scalar_logger.close()
+        ms = float(np.median(times[1:] or times))
+        result = {**vals, "steps": args.steps, "ms_per_step": ms,
+                  "images_per_s": d.batch_size / ms * 1e3}
+        logger.info("done: %s", vals)
+    print(json.dumps({
+        **result, "batch": d.batch_size, "size": d.gt_size,
+        "data": "synthetic" if d.synthetic else "images",
+        "resumed_step": step0, "device": str(model.device),
+        "device_name": (torch.cuda.get_device_name(model.device) if cuda
+                        else "cpu")}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="video",
-                    choices=("video", "hidden", "mbrs", "tianchi"),
-                    help="video (default), hidden, mbrs or tianchi")
+                    choices=("video", "hidden", "mbrs", "tianchi", "pami",
+                             "imuge"),
+                    help="video (default), hidden, mbrs, tianchi, pami or "
+                         "imuge")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
                     help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
-                         "with --task hidden, mbrs or tianchi an image "
-                         "folder")
+                         "with --task hidden, mbrs, tianchi, pami or imuge "
+                         "an image folder")
     ap.add_argument("--mask-root", default=None,
                     help="--task tianchi: the forgery-mask folder (each "
                          "mask the image's base name)")
@@ -353,6 +481,8 @@ def main(argv=None):
         return _message(args, ap, logger)
     if args.task == "tianchi":
         return _tianchi(args, ap, logger)
+    if args.task in ("pami", "imuge"):
+        return _image(args, ap, logger)
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
