@@ -2664,58 +2664,103 @@ IMAGE_AFFINE_LEVELS = [(128, 8), (64, 32), (32, 128)]
 IMG_BIG = (512, 3, 3)  # the JAX PAMI record's size, batch and reverse_k
 
 
-def canny_input(g, kind):
+# the PAMI-512 record's fan-out: reverse_k · B = 3·3 copies at 512²
+CANNY_BIG = (IMG_BIG[1] * IMG_BIG[2], IMG_BIG[0], IMG_BIG[0], 3)
+
+
+def canny_input(g, kind, shape=CANNY_SHAPE):
     if kind == "levels":   # 8-bit levels: ties in the NMS and the clip
-        return torch.randint(0, 256, CANNY_SHAPE, device="cuda",
+        return torch.randint(0, 256, shape, device="cuda",
                              generator=g).float() / 255.0
     if kind == "flat":     # every pixel tied at the per-image max
-        return torch.full(CANNY_SHAPE, 0.3, device="cuda")
-    return torch.rand(CANNY_SHAPE, device="cuda", generator=g)
+        return torch.full(shape, 0.3, device="cuda")
+    return torch.rand(shape, device="cuda", generator=g)
+
+
+def launch_ms(fn, x, cot, reps=10):
+    """Device ms a call of each kernel (and memset) that one forward +
+    backward of ``fn`` runs, under ``torch.profiler`` (after 3 warm-up
+    pairs)."""
+    xg = x.clone().requires_grad_(True)
+    for _ in range(3):
+        torch.autograd.grad(fn(xg), xg, cot)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(fn(xg), xg, cot)
+        torch.cuda.synchronize()
+    ms = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            ms[name.split("(")[0].split("::")[-1]] += \
+                e.time_range.elapsed_us() / 1e3 / reps
+    return dict(ms)
 
 
 def check_canny(rows, card):
-    """K19 at the PAMI step's (48, 256, 256, 3) on 8-bit, continuous and
-    flat inputs: forward within ``CANNY_FWD_ATOL`` and the input gradient
-    within ``CANNY_GRAD_RTOL`` of the plain version's max (the plain
-    version with ``exact_border``, F24; the JAX form's own corner noise is
-    printed beside it); NaN and Inf pixels and a NaN cotangent NaN where the
-    plain version's are; timed forward + backward (a train step's two
-    launches) warm and with a cold L2 beside the plain version and a
-    depthwise 5×5 ``F.conv2d`` on the gray image (yardstick)."""
+    """K19 at the PAMI step's (48, 256, 256, 3) and the PAMI-512 record's
+    (9, 512, 512, 3) on 8-bit, continuous and flat inputs: forward within
+    ``CANNY_FWD_ATOL`` and the input gradient within ``CANNY_GRAD_RTOL`` of
+    the plain version's max (the plain version with ``exact_border``, F24;
+    the JAX form's own corner noise is printed beside it), the same bits
+    over two calls; the kernels' geometry the host plan's; NaN and Inf
+    pixels and a NaN cotangent NaN where the plain version's are; timed
+    forward + backward (a train step's two launches) at both shapes warm
+    and with a cold L2, each device launch's time beside the total, beside
+    the plain version and a depthwise 5×5 ``F.conv2d`` on the gray image
+    (yardstick). The bound counts x and y forward, x, the cotangent and
+    dx backward, at the step's shape."""
     row = rows["canny_soft"]
+    canny.check_geometry()
     g = torch.Generator("cuda").manual_seed(71)
     exact = functools.partial(canny.canny_soft_plain, exact_border=True)
-    for kind in ("levels", "rand", "flat"):
-        x = canny_input(g, kind)
-        cot = torch.randn(CANNY_SHAPE[:3] + (1,), device="cuda",
-                          generator=g)
-        (yk,), (gk,) = grads_of(canny.canny_soft, [x], [True], cot)
-        (yp,), (gp,) = grads_of(exact, [x], [True], cot)
-        (_,), (gj,) = grads_of(canny.canny_soft_plain, [x], [True], cot)
-        torch.cuda.synchronize()
-        fe = float((yk - yp).abs().max())
-        gmax = float(gp.abs().max()) or 1.0
-        ge = float((gk - gp).abs().max())
-        check(fe <= CANNY_FWD_ATOL, f"canny_soft {kind} forward: {fe}")
-        check(ge <= CANNY_GRAD_RTOL * gmax,
-              f"canny_soft {kind} gradient: {ge} (plain max {gmax})")
-        row.err = max(row.err, fe)
-        print(f"check canny_soft {CANNY_SHAPE} {kind}: forward "
-              f"max_abs_err={fe:.3g}, gradient {ge:.3g} of plain max "
-              f"{gmax:.3g}; the JAX form's gradient (exact_border off) "
-              f"{float((gj - gp).abs().max()) / gmax:.3g} of the max from "
-              f"the exact-border one (F24)")
-    shape = (4, 64, 64, 3)
-    x, cot = nonfinite_input(g, shape, (1, 5, 6, 0), (2, 30, 31, 2),
-                             (3, 10, 10, 0), out_shape=shape[:3] + (1,))
+    for shape in (CANNY_SHAPE, CANNY_BIG):
+        for kind in ("levels", "rand", "flat"):
+            x = canny_input(g, kind, shape)
+            cot = torch.randn(shape[:3] + (1,), device="cuda", generator=g)
+            (yk,), (gk,) = grads_of(canny.canny_soft, [x], [True], cot)
+            (yk2,), (gk2,) = grads_of(canny.canny_soft, [x], [True], cot)
+            (yp,), (gp,) = grads_of(exact, [x], [True], cot)
+            (_,), (gj,) = grads_of(canny.canny_soft_plain, [x], [True], cot)
+            torch.cuda.synchronize()
+            fe = float((yk - yp).abs().max())
+            gmax = float(gp.abs().max()) or 1.0
+            ge = float((gk - gp).abs().max())
+            check(fe <= CANNY_FWD_ATOL,
+                  f"canny_soft {shape} {kind} forward: {fe}")
+            check(ge <= CANNY_GRAD_RTOL * gmax,
+                  f"canny_soft {shape} {kind} gradient: {ge} (plain max "
+                  f"{gmax})")
+            check(torch.equal(yk, yk2) and torch.equal(gk, gk2),
+                  f"canny_soft {shape} {kind}: two calls differ")
+            row.err = max(row.err, fe)
+            print(f"check canny_soft {shape} {kind}: forward max_abs_err="
+                  f"{fe:.3g}, gradient {ge:.3g} of plain max {gmax:.3g}, "
+                  f"bit-identical over calls; the JAX form's gradient "
+                  f"(exact_border off) {float((gj - gp).abs().max()) / gmax:.3g}"
+                  f" of the max from the exact-border one (F24)")
+    nshape = (4, 64, 64, 3)
+    x, cot = nonfinite_input(g, nshape, (1, 5, 6, 0), (2, 30, 31, 2),
+                             (3, 10, 10, 0), out_shape=nshape[:3] + (1,))
     check_nonfinite("canny_soft", canny.canny_soft, exact, x, cot,
                     CANNY_FWD_ATOL)
-    x = canny_input(g, "levels")
-    cot = torch.randn(CANNY_SHAPE[:3] + (1,), device="cuda", generator=g)
-    kf, kb = fwd_bwd_ms(canny.canny_soft, x, cot)
-    cf, cb = fwd_bwd_cold_ms(canny.canny_soft, lambda i: (
-        canny_input(g, "levels"), torch.randn(cot.shape, device="cuda",
-                                              generator=g)))
+    times = {}
+    for shape in (CANNY_SHAPE, CANNY_BIG):
+        x = canny_input(g, "levels", shape)
+        cot = torch.randn(shape[:3] + (1,), device="cuda", generator=g)
+        kf, kb = fwd_bwd_ms(canny.canny_soft, x, cot)
+        cf, cb = fwd_bwd_cold_ms(canny.canny_soft, lambda i: (
+            canny_input(g, "levels", shape),
+            torch.randn(cot.shape, device="cuda", generator=g)))
+        launches = launch_ms(canny.canny_soft, x, cot)
+        times[shape] = (kf, kb, cf, cb, launches, x, cot)
+        print(f"check canny_soft {shape} f32: ms fwd={kf:.4f} bwd={kb:.4f} "
+              f"total={kf + kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f}; device "
+              f"ms a launch: " + ", ".join(f"{k}={v:.4f}" for k, v in
+                                           launches.items()) + f" [{card}]")
+    kf, kb, cf, cb, launches, x, cot = times[CANNY_SHAPE]
     pf, pb = fwd_bwd_ms(exact, x, cot)
     gray = canny.gray(x)[:, None]
     w = torch.from_numpy(gaussian_kernel_2d(5, 1.0)).to("cuda")[None, None]
@@ -2729,8 +2774,14 @@ def check_canny(rows, card):
             yardstick_ms=yf + yb, cold_ms=cf + cb)
     bf, bb = (bound(fwd_bytes, px * CANNY_OPS[0])[0],
               bound(bwd_bytes, px * CANNY_OPS[1])[0])
+    big = times[CANNY_BIG]
     row.extra = {"forward_ms": kf, "backward_ms": kb,
-                 "forward_bound_ms": bf, "backward_bound_ms": bb}
+                 "forward_bound_ms": bf, "backward_bound_ms": bb,
+                 "launch_ms": launches,
+                 "pami512": {"shape": list(CANNY_BIG), "ms": big[0] + big[1],
+                             "forward_ms": big[0], "backward_ms": big[1],
+                             "cold_ms": big[2] + big[3],
+                             "launch_ms": big[4]}}
     print(f"check canny_soft {CANNY_SHAPE} f32: ms fwd={kf:.4f} "
           f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd={pf:.4f} "
           f"bwd={pb:.4f} yardstick (5x5 conv on gray) fwd={yf:.4f} "

@@ -58,9 +58,12 @@ with K3 ×2 and K4 ×1 against the plain server, mask bits EQUAL but within
 1e-6 of the threshold. K19 ``canny_soft``: its forward within 1e-6 of the
 plain version and its input gradient within 1e-5 of the plain max (the
 plain version with ``exact_border``, F24), on 8-bit, continuous and flat
-images (every pixel tied at the max), ragged shapes and the image step's
-(48, 256, 256, 3); NaN where the plain version has NaN with NaN and Inf
-pixels and a NaN cotangent; one forward and one backward launch. K14 and
+images (every pixel tied at the max), ragged shapes (one past its 32 × 90
+tile, 3 × 3, 300 × 5), the image step's (48, 256, 256, 3) and the
+PAMI-512 record's (9, 512, 512, 3); NaN where the plain version has NaN
+with NaN and Inf pixels and a NaN cotangent; one forward and one backward
+launch; the same bits over calls; a forward that keeps y and a few KB, a
+backward whose peak is dx, two planes and its slots. K14 and
 K15 at the image INN's shapes (4 → 16 → 64 → 256 channels) as above.
 """
 
@@ -1521,9 +1524,15 @@ def _canny_input(kind, shape, g, cuda):
     return torch.rand(shape, device=cuda, generator=g)
 
 
+# K19's tile is 32 × 90 outputs: shapes one past it in each dimension,
+# two tiles and one row past, the 3 × 3 minimum, a tall narrow image, the
+# PAMI step's (48, 256, 256) and the PAMI-512 record's (9, 512, 512)
 @pytest.mark.parametrize("kind", ["levels", "rand", "flat"])
 @pytest.mark.parametrize("shape", [(2, 9, 11, 3), (3, 40, 24, 3),
-                                   (2, 33, 70, 3), (48, 256, 256, 3)])
+                                   (2, 33, 70, 3), (2, 33, 91, 3),
+                                   (1, 65, 181, 3), (1, 3, 3, 3),
+                                   (2, 300, 5, 3), (48, 256, 256, 3),
+                                   (9, 512, 512, 3)])
 def test_canny_soft_matches_plain(cuda, shape, kind):
     g = _gen(79)
     x = _canny_input(kind, shape, g, cuda)
@@ -1537,6 +1546,49 @@ def test_canny_soft_matches_plain(cuda, shape, kind):
     assert float((yk - yp).abs().max()) <= 1e-6
     assert float((gk - gp).abs().max()) <= 1e-5 * max(
         float(gp.abs().max()), 1e-30)
+
+
+def test_canny_soft_geometry_is_the_plan(cuda):
+    canny.check_geometry()
+
+
+# two calls give the same bits, forward and backward (no atomics, slots
+# summed in one fixed order)
+@pytest.mark.parametrize("kind", ["levels", "flat"])
+def test_canny_soft_bit_identical_over_calls(cuda, kind):
+    shape = (9, 512, 512, 3)
+    g = _gen(80)
+    x = _canny_input(kind, shape, g, cuda)
+    cot = torch.randn(shape[:3] + (1,), device=cuda, generator=g)
+    y1, g1 = _grads(canny.canny_soft, x, cot)
+    y2, g2 = _grads(canny.canny_soft, x, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(g1, g2)
+
+
+# the forward keeps y and one max word a tile, nothing a pixel beside y;
+# the backward's peak is dx, its two planes and the tiles' slots and tie
+# lists (under 1 MB), within 1 MB
+def test_canny_soft_memory(cuda):
+    shape = (48, 256, 256, 3)
+    g = _gen(81)
+    x = torch.rand(shape, device=cuda, generator=g).requires_grad_()
+    cot = torch.randn(shape[:3] + (1,), device=cuda, generator=g)
+    p = canny.plan(*shape[:3])
+    y_bytes = cot.numel() * 4
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = canny.canny_soft(x)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    assert kept <= y_bytes + 16 * 1024, kept
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (dx,) = torch.autograd.grad(y, x, cot)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert p.scratch_bytes() <= 4 * 2 * cot.numel() + 2 ** 20
+    assert peak <= dx.numel() * 4 + p.scratch_bytes() + 2 ** 20, peak
 
 
 def test_canny_soft_nonfinite_as_plain(cuda):

@@ -32,9 +32,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # The C interface, one entry per exported function: argtypes (a launcher's
 # trailing void* is the CUDA stream); every launcher returns a cudaError_t as
-# int (vwfd_window_attention_ctas, no launcher, returns a count).
+# int (vwfd_window_attention_ctas and vwfd_canny_geometry, no launchers,
+# return counts).
 _SIGNATURES = {
     "vwfd_transition": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_coupling_head": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I,
@@ -79,9 +81,10 @@ _SIGNATURES = {
     "vwfd_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P],
     "vwfd_window_attention_ctas": [_I, _I],
-    "vwfd_canny_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _FP, _P],
-    "vwfd_canny_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _FP,
-                       _P],
+    "vwfd_canny_geometry": [_IP],
+    "vwfd_canny_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_canny_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -41,13 +41,23 @@ cut), and is what the kernel is held to on the card.
 Bound: bytes. At the image step's (48, 256, 256, 3) the forward reads x
 (37.7 MB) and writes y (12.6 MB), about 0.015 ms at 3.35 TB/s; the
 backward reads x and the cotangent and writes dx, 88.1 MB, about 0.026 ms.
-The design (``csrc/canny.cu``) and why it sits above that: two forward
-launches through gx, gy and mag0 in device memory (the per-image max sits
-between the stencil and the NMS), four backward ones (the max's cotangent
-is a per-image sum between the NMS's transpose and the stencils').
+The design (``csrc/canny.cu``): a per-image max sits between the stencils
+and the NMS, and a per-image sum (the max's cotangent) between the NMS's
+transpose and the stencils', so each direction takes two launches over
+tiles of 32 × 90 outputs, each tile recomputing gray, the gaussian and the
+Sobel of its halo from x in shared memory. The forward writes y and one max
+word a tile (``plan``'s slots) and saves x and those words; the backward
+writes two planes (the cotangents of gx and gy short of the max's term)
+and per tile a sum, a tie count and a list of ties, and recomputes the
+rest. Each direction's second kernel waits only for its image's tiles of
+the first, through per-image counts kept in a zeroed scratch of the
+stream (``_counters``). ``plan`` is the launch's geometry; the kernels'
+own is held to it once a process (``check_geometry``) and its grid on every
+launch.
 """
 
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +66,7 @@ from . import _lib
 from ..ops.filters import gaussian_kernel_2d
 
 __all__ = ["canny_soft", "canny_soft_plain", "sobel_edges", "gray", "GRAY",
-           "COUNT", "SHARPNESS", "LOW", "HIGH"]
+           "COUNT", "SHARPNESS", "LOW", "HIGH", "plan", "Plan"]
 
 COUNT = _lib.LaunchCount("canny_soft")
 
@@ -168,44 +178,141 @@ def _nms_threshold(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
         torch.maximum(q, q.new_zeros(())), q.new_ones(()))
 
 
+# csrc/canny.cu's geometry: output rows and columns a tile, threads a CTA,
+# and the length of a tile's list of pixels tied at the max
+TILE_H, TILE_W, THREADS, TIES = 32, 90, 192, 16
+SMEM_CTA = 227 * 1024  # sm_90's shared memory a CTA
+# each kernel's gray halo: its other stages' halos follow from it (the
+# gaussian 2 less, the Sobel 3 less); the input kernel's is the reach of
+# its folds, ``input_ties`` that of its recompute where a tile holds a tie
+HALOS = {"max": 3, "map": 4, "local": 5, "input": 4, "input_ties": 6}
+
+
+def _region(h: int) -> int:
+    """Floats of a tile grown by ``h`` on every side."""
+    return (TILE_H + 2 * h) * (TILE_W + 2 * h)
+
+
+# shared-memory bytes of each kernel: two areas, each reused in turn
+SMEM = {"max": 4 * (_region(3) + _region(1)),
+        "map": 4 * (max(_region(4), _region(1)) + _region(2)),
+        "local": 4 * (max(_region(5), _region(2)) + _region(3)),
+        "input": 4 * (max(2 * _region(3), _region(6), _region(0))
+                      + max(_region(4), _region(2)))}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """K19's launch for (n, h, w): a grid of ``tiles_x`` × ``tiles_y`` × n
+    CTAs of ``THREADS``, each owning the outputs ``box(ty, tx)``; one slot a
+    tile (the forward's max, the backward's sum and tie count)."""
+    n: int
+    h: int
+    w: int
+    tiles_y: int
+    tiles_x: int
+
+    @property
+    def slots(self) -> int:
+        """Slots an image."""
+        return self.tiles_y * self.tiles_x
+
+    @property
+    def grid(self):
+        return self.tiles_x, self.tiles_y, self.n
+
+    def box(self, ty: int, tx: int):
+        """The output rows and columns ``[r0, r1) × [c0, c1)`` of a tile,
+        clipped to the image."""
+        r0, c0 = ty * TILE_H, tx * TILE_W
+        return r0, min(r0 + TILE_H, self.h), c0, min(c0 + TILE_W, self.w)
+
+    def edge(self, ty: int, tx: int, halo: int) -> bool:
+        """Whether the tile grown by ``halo`` reaches past the image: such a
+        tile takes the kernels' reflect, mask and fold code, any other the
+        straight stencils."""
+        r0, c0 = ty * TILE_H, tx * TILE_W
+        return (r0 < halo or c0 < halo or r0 + TILE_H + halo > self.h
+                or c0 + TILE_W + halo > self.w)
+
+    def scratch_bytes(self) -> int:
+        """The backward's scratch beyond dx: two planes, and a tile's sum,
+        tie count and list of ties (a position and two floats each)."""
+        return 4 * (2 * self.n * self.h * self.w
+                    + (2 + 3 * TIES) * self.n * self.slots)
+
+
+def plan(n: int, h: int, w: int) -> Plan:
+    if h < 3 or w < 3 or not 1 <= n <= 65535:
+        raise ValueError(f"canny_soft: no plan for (n={n}, h={h}, w={w}): "
+                         f"H, W ≥ 3 and 1 ≤ N ≤ 65535")
+    return Plan(n, h, w, -(-h // TILE_H), -(-w // TILE_W))
+
+
 @functools.lru_cache(maxsize=None)
-def _gauss_taps():
+def check_geometry() -> None:
+    """Raise unless the built kernels' geometry is this module's; once a
+    process, before the first launch."""
     import ctypes
-    k = gaussian_kernel_2d(5, SIGMA).reshape(-1)
-    return (ctypes.c_float * 25)(*[float(v) for v in k])
+    out = (ctypes.c_int * 8)()
+    _lib.load().vwfd_canny_geometry(out)
+    want = (TILE_H, TILE_W, THREADS, TIES, SMEM["max"], SMEM["map"],
+            SMEM["local"], SMEM["input"])
+    if tuple(out) != want:
+        raise RuntimeError(f"canny kernels' geometry {tuple(out)} is not "
+                           f"the host plan's {want}")
+
+
+_SCRATCH = {}  # per device and stream: the kernels' per-image counters
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """4·n int32, zero between calls: the forward's pair of per-image
+    counts, then the backward's (``csrc/canny.cu``: each direction's second
+    kernel waits for its image's tiles of the first and sets them back)."""
+    (done,) = _lib.stream_scratch(_SCRATCH, dev, [(4 * n, torch.int32,
+                                                   True)])
+    return done
 
 
 class _CannyKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         n, h, w, _ = x.shape
-        gx, gy, mag0 = (torch.empty((n, h, w), device=x.device,
-                                    dtype=torch.float32) for _ in range(3))
-        mbits = torch.zeros(n, device=x.device, dtype=torch.int32)
+        p = plan(n, h, w)
+        check_geometry()
+        mslot = torch.empty(n * p.slots, device=x.device, dtype=torch.int32)
         y = torch.empty((n, h, w, 1), device=x.device, dtype=torch.float32)
-        _lib.launch("vwfd_canny_fwd", x.device, x.data_ptr(), gx.data_ptr(),
-                    gy.data_ptr(), mag0.data_ptr(), mbits.data_ptr(),
-                    y.data_ptr(), n, h, w, _gauss_taps())
+        done = _counters(x.device, n)
+        _lib.launch("vwfd_canny_fwd", x.device, x.data_ptr(),
+                    mslot.data_ptr(), y.data_ptr(), done.data_ptr(), n, h, w,
+                    p.tiles_y, p.tiles_x)
         COUNT.n += 1
-        ctx.save_for_backward(gx, gy, mag0, mbits)
+        ctx.save_for_backward(x, mslot)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        gx, gy, mag0, mbits = ctx.saved_tensors
-        n, h, w = gx.shape
+        x, mslot = ctx.saved_tensors
+        n, h, w, _ = x.shape
+        p = plan(n, h, w)
         g = g.contiguous()
-        dev = gx.device
-        blocks = (h * w + 255) // 256
-        scratch = torch.empty(8 * n * h * w, device=dev, dtype=torch.float32)
-        partials = torch.empty(2 * n * blocks, device=dev,
-                               dtype=torch.float32)
-        totals = torch.empty(2 * n, device=dev, dtype=torch.float32)
+        dev = x.device
+        psum = torch.empty(n * p.slots, device=dev, dtype=torch.float32)
+        pcnt = torch.empty(n * p.slots, device=dev, dtype=torch.int32)
+        tie_pos = torch.empty(n * p.slots * TIES, device=dev,
+                              dtype=torch.int32)
+        tie_g = torch.empty(2 * n * p.slots * TIES, device=dev,
+                            dtype=torch.float32)
+        planes = torch.empty((2, n, h, w), device=dev, dtype=torch.float32)
         dx = torch.empty((n, h, w, 3), device=dev, dtype=torch.float32)
-        _lib.launch("vwfd_canny_bwd", dev, g.data_ptr(), gx.data_ptr(),
-                    gy.data_ptr(), mag0.data_ptr(), mbits.data_ptr(),
-                    scratch.data_ptr(), partials.data_ptr(),
-                    totals.data_ptr(), dx.data_ptr(), n, h, w, _gauss_taps())
+        done = _counters(dev, n)
+        _lib.launch("vwfd_canny_bwd", dev, x.data_ptr(), g.data_ptr(),
+                    mslot.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
+                    tie_pos.data_ptr(), tie_g.data_ptr(),
+                    planes[0].data_ptr(), planes[1].data_ptr(),
+                    dx.data_ptr(), done[2 * n:].data_ptr(), n, h, w,
+                    p.tiles_y, p.tiles_x)
         COUNT.n += 1
         return dx
 

@@ -91,9 +91,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                                 "crop_resize_taps"),
                 "window_attention": ("window_attention_fwd",
                                      "window_attention_bwd"),
-                "canny_soft": ("canny_grad_kernel", "canny_map_kernel",
-                               "canny_local_bwd", "canny_gather_bwd",
-                               "canny_reduce_bwd", "canny_input_bwd")}
+                "canny_soft": ("canny_max_kernel", "canny_map_kernel",
+                               "canny_local_kernel", "canny_input_kernel")}
 
 
 def classify(name: str) -> str:
