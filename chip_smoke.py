@@ -257,11 +257,12 @@ from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
 from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, _lib, affine, canny,
-                                    coupling, crop_resize, f1, haar, jpeg,
-                                    launch_counts, mask, median, mix, qconv,
-                                    qconv_t, qcoupling, reset_launch_counts,
-                                    splice, ssim, transition,
-                                    window_attention, wire, zigzag)
+                                    coupling, crop_cubic, crop_resize, f1,
+                                    haar, jpeg, launch_counts, mask, median,
+                                    mix, qconv, qconv_t, qcoupling, rectify,
+                                    reset_launch_counts, splice, ssim,
+                                    ssim_grad, transition, window_attention,
+                                    wire, zigzag)
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models import video_model
 from vwfd_tpu_torch.models.state import save_checkpoint, save_npz_tree
@@ -336,6 +337,12 @@ KERNEL_SOURCES = {
                          "vwfd_tpu/nets/sunet.py:32"),
     "canny_soft": ("vwfd_tpu_torch/csrc/canny.cu",
                    "vwfd_tpu/ops/canny.py:39"),
+    "crop_cubic": ("vwfd_tpu_torch/csrc/crop_cubic.cu",
+                   "vwfd_tpu/ops/resize.py:135"),
+    "rectify": ("vwfd_tpu_torch/csrc/rectify.cu",
+                "vwfd_tpu/attacks/spatial.py:191"),
+    "ssim_grad": ("vwfd_tpu_torch/csrc/ssim_grad.cu",
+                  "vwfd_tpu/metrics/metrics.py:65"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -362,12 +369,15 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
                              "(I⊗C8) per direction, the mask and the clip, "
                              "forward and backward",
               "canny_soft": "one depthwise 5x5 F.conv2d on the gray image "
-                            "(the gaussian alone), forward and backward"}
+                            "(the gaussian alone), forward and backward",
+              "ssim_grad": "the input gradient of one depthwise 11x11 "
+                           "F.conv2d over the stacked windowed maps"}
 # K14 and K15 run on the INN module path only (the refshape phase), K16
 # and K17 on HiDDeN's (phase 12)
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
            "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0,
-           "window_attention": 0, "canny_soft": 0}
+           "window_attention": 0, "canny_soft": 0, "crop_cubic": 0,
+           "rectify": 0, "ssim_grad": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -400,7 +410,9 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "zigzag_jpeg": "hidden_train_jpeg_mask",
             "crop_resize": "hidden_train_crop",
             "window_attention": "tianchi_train_step",
-            "canny_soft": "pami_train_step"}
+            "canny_soft": "pami_train_step",
+            "crop_cubic": "clr_train_step", "rectify": "clr_train_step",
+            "ssim_grad": "clr_train_step"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -2841,6 +2853,344 @@ def check_image_inn_shapes(card):
           f"plain max")
 
 
+# ------------------------------------------------------------ phase 3, CLR
+
+# CLR's train step at clr.yaml's width: the crop of 8 images of 256², the
+# rectification of its 6·8 copies; the JAX record's 512² b3, reverse_k 3
+CLR_B, CLR_S, CLR_K = 8, 256, 6
+CLR_BIG = (512, 3, 3)
+CUBIC_GRAD_RTOL = 1e-5   # K20's gradient vs plain, of the plain max
+RECT_GRAD_RTOL = 1e-6    # K21's (PyTorch ops) gradient into clean
+# per output value: the row pass 16 products and 12 sums, the column pass
+# 4 and 3 (K20 forward, K21's paste, which adds the clip, the window's two
+# products and the straight-through sum: 6); K20's backward the same
+# products and sums in transpose
+CUBIC_OPS = (35, 35)
+RECT_OPS = 41
+# windows at CLR's 256²: inside, one pixel, on three edges, the image
+CUBIC_APEXES = [(10.0, 230.0, 3.0, 256.0), (100.0, 101.0, 7.0, 8.0),
+                (0.0, 200.0, 56.0, 256.0), (0.0, 256.0, 0.0, 256.0)]
+
+
+def cubic_inputs(g, shape):
+    return torch.rand(shape, device="cuda", generator=g) * 1.2 - 0.1
+
+
+def window_bytes(shape, apex):
+    """Bytes of the window a crop reads (its pixels, every channel)."""
+    n, h, w, c = shape
+    h0, h1, w0, w1 = (int(v) for v in apex)
+    return n * (h1 - h0) * (w1 - w0) * c * 4
+
+
+def check_crop_cubic(rows, card):
+    """K20 at CLR's (8, 256, 256, 3) over four windows (one pixel, the
+    edges, the image) and at the 512² record's (3, 512, 512, 3): forward
+    EQUAL to the plain version, the gradient within ``CUBIC_GRAD_RTOL`` of
+    the plain max, both bit-identical over two calls; NaN and Inf pixels and
+    a NaN cotangent NaN where the plain version's are; timed forward +
+    backward warm and with a cold L2 beside the plain version and
+    ``F.interpolate(bicubic, align_corners=False)`` of the sliced window
+    (library: the same function, which the port never calls). The bound
+    counts the window read and y written forward, g read and gx written
+    backward."""
+    row = rows["crop_cubic"]
+    g = torch.Generator("cuda").manual_seed(75)
+    shape = (CLR_B, CLR_S, CLR_S, 3)
+    big = (CLR_BIG[1], CLR_BIG[0], CLR_BIG[0], 3)
+    cases = [(shape, a) for a in CUBIC_APEXES] + [
+        (big, (31.0, 480.0, 0.0, 400.0))]
+    worst = 0.0
+    for shp, apex in cases:
+        x = cubic_inputs(g, shp)
+        cot = torch.randn(shp, device="cuda", generator=g)
+        ap = torch.tensor(apex, device="cuda")
+
+        def fn(v, ap=ap):
+            return crop_cubic.crop_cubic(v, ap)
+
+        def pl(v, ap=ap):
+            return crop_cubic.crop_cubic_plain(v, ap)
+        (yk,), (gk,) = grads_of(fn, [x], [True], cot)
+        (yk2,), (gk2,) = grads_of(fn, [x], [True], cot)
+        (yp,), (gp,) = grads_of(pl, [x], [True], cot)
+        torch.cuda.synchronize()
+        gmax = float(gp.abs().max())
+        ge = float((gk - gp).abs().max())
+        check(torch.equal(yk, yp), f"crop_cubic {shp} {apex}: forward "
+              f"differs from plain ({float((yk - yp).abs().max())})")
+        check(ge <= CUBIC_GRAD_RTOL * gmax, f"crop_cubic {shp} {apex}: "
+              f"gradient {ge} (plain max {gmax})")
+        check(torch.equal(yk, yk2) and torch.equal(gk, gk2),
+              f"crop_cubic {shp} {apex}: two calls differ")
+        worst = max(worst, ge / gmax)
+        print(f"check crop_cubic {shp} window {apex}: forward equal to "
+              f"plain, gradient max_abs_err={ge:.3g} of plain max "
+              f"{gmax:.3g}, bit-identical over calls")
+    x, cot = nonfinite_input(g, (4, 64, 64, 3), (1, 30, 12, 0),
+                             (0, 6, 3, 2), (1, 31, 20, 1))
+    ap = torch.tensor((5.0, 60.0, 2.0, 50.0), device="cuda")
+    (yk,), (gk,) = grads_of(lambda v: crop_cubic.crop_cubic(v, ap), [x],
+                            [True], cot)
+    (yp,), (gp,) = grads_of(lambda v: crop_cubic.crop_cubic_plain(v, ap),
+                            [x], [True], cot)
+    torch.cuda.synchronize()
+    for name, k, p in (("forward", yk, yp), ("gradient", gk, gp)):
+        check(torch.equal(k.isnan(), p.isnan()) and torch.equal(
+            k.isinf(), p.isinf()), f"crop_cubic non-finite {name}: NaN or "
+              f"Inf at other places than the plain version's")
+    fin = gp.isfinite()
+    check(torch.equal(yk[yp.isfinite()], yp[yp.isfinite()])
+          and float((gk[fin] - gp[fin]).abs().max())
+          <= CUBIC_GRAD_RTOL * float(gp[fin].abs().max()),
+          "crop_cubic non-finite: finite values differ")
+    print(f"check crop_cubic non-finite: NaN {int(yp.isnan().sum())} "
+          f"forward, {int(gp.isnan().sum())} gradient, at the plain "
+          f"version's places")
+    row.err = worst
+    times = {}
+    for shp, apex in ((shape, CUBIC_APEXES[0]), (big, cases[-1][1])):
+        x = cubic_inputs(g, shp)
+        cot = torch.randn(shp, device="cuda", generator=g)
+        ap = torch.tensor(apex, device="cuda")
+        kf, kb = fwd_bwd_ms(lambda v: crop_cubic.crop_cubic(v, ap), x, cot)
+        cf, cb = fwd_bwd_cold_ms(
+            lambda v: crop_cubic.crop_cubic(v, ap), lambda i: (
+                cubic_inputs(g, shp), torch.randn(shp, device="cuda",
+                                                  generator=g)))
+        pf, pb = fwd_bwd_ms(lambda v: crop_cubic.crop_cubic_plain(v, ap), x,
+                            cot)
+        h0, h1, w0, w1 = (int(v) for v in apex)
+
+        def lib(v):
+            win = v[:, h0:h1, w0:w1].permute(0, 3, 1, 2)
+            return F.interpolate(win, size=shp[1:3], mode="bicubic",
+                                 align_corners=False)
+        lf, lb = fwd_bwd_ms(lib, x, cot.permute(0, 3, 1, 2))
+        fwd_bytes = window_bytes(shp, apex) + nbytes(x)
+        bwd_bytes = 2 * nbytes(x)
+        ops = x.numel() * sum(CUBIC_OPS)
+        bf, bb = (bound(fwd_bytes, x.numel() * CUBIC_OPS[0])[0],
+                  bound(bwd_bytes, x.numel() * CUBIC_OPS[1])[0])
+        times[shp] = dict(kf=kf, kb=kb, cf=cf, cb=cb, pf=pf, pb=pb, lf=lf,
+                          lb=lb, bytes=fwd_bytes + bwd_bytes, ops=ops,
+                          bf=bf, bb=bb)
+        print(f"check crop_cubic {shp} window {apex}: ms fwd={kf:.4f} "
+              f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd="
+              f"{pf:.4f} bwd={pb:.4f} library (F.interpolate bicubic of the "
+              f"window) fwd={lf:.4f} bwd={lb:.4f} bound fwd={bf:.4f} bwd="
+              f"{bb:.4f} share_of_bound={(bf + bb) / (kf + kb):.3f} [{card}]")
+    t = times[shape]
+    row.add(t["kf"] + t["kb"], t["pf"] + t["pb"], t["bytes"], t["ops"],
+            library_ms=t["lf"] + t["lb"], cold_ms=t["cf"] + t["cb"])
+    b512 = times[big]
+    row.extra = {"forward_ms": t["kf"], "backward_ms": t["kb"],
+                 "forward_bound_ms": t["bf"], "backward_bound_ms": t["bb"],
+                 "grad_rtol_of_plain_max": worst,
+                 "clr512": {"shape": list(big), "ms": b512["kf"] + b512["kb"],
+                            "cold_ms": b512["cf"] + b512["cb"],
+                            "plain_ms": b512["pf"] + b512["pb"],
+                            "library_ms": b512["lf"] + b512["lb"],
+                            "bound_ms": b512["bf"] + b512["bb"]}}
+
+
+def rect_inputs(g, reps, shape):
+    att = torch.rand((shape[0] * reps,) + shape[1:], device="cuda",
+                     generator=g) * 1.2 - 0.1
+    return att, torch.rand(shape, device="cuda", generator=g)
+
+
+def check_rectify(rows, card):
+    """K21 at CLR's train step (48 copies of 256² against 8 clean images)
+    and the 512² record's reverse (9 copies against 3), over windows of
+    one pixel's height, on the edges and the image: output EQUAL to the
+    plain version, the gradient into the clean images (PyTorch ops) within
+    ``RECT_GRAD_RTOL`` of the plain max, bit-identical over calls; an Inf
+    attacked pixel outside the window and a NaN inside give NaN where the
+    plain version's are; the forward timed warm and with a cold L2 beside
+    the plain version and ``F.interpolate`` of the copies to the window's
+    size then ``F.pad`` to its place (library; the port never calls it),
+    the backward's PyTorch ops timed too. The bound counts the copies and
+    the clean images read and the output written (the forward)."""
+    row = rows["rectify"]
+    g = torch.Generator("cuda").manual_seed(76)
+    shape = (CLR_B, CLR_S, CLR_S, 3)
+    big = (CLR_BIG[1], CLR_BIG[0], CLR_BIG[0], 3)
+    cases = [(CLR_K, shape, a) for a in (CUBIC_APEXES[0], (100.0, 101.0,
+                                                           7.0, 200.0),
+                                         CUBIC_APEXES[2], CUBIC_APEXES[3])]
+    cases.append((CLR_BIG[2], big, (31.0, 480.0, 0.0, 400.0)))
+    worst = 0.0
+    for reps, shp, apex in cases:
+        att, clean = rect_inputs(g, reps, shp)
+        cot = torch.randn(att.shape, device="cuda", generator=g)
+        ap = torch.tensor(apex, device="cuda")
+        (yk,), (gk,) = grads_of(lambda c: rectify.rectify(att, c, ap),
+                                [clean], [True], cot)
+        (yk2,), _ = grads_of(lambda c: rectify.rectify(att, c, ap),
+                             [clean], [True], cot)
+        (yp,), (gp,) = grads_of(lambda c: rectify.rectify_plain(att, c, ap),
+                                [clean], [True], cot)
+        torch.cuda.synchronize()
+        ge = float((gk - gp).abs().max())
+        gmax = float(gp.abs().max()) or 1.0
+        check(torch.equal(yk, yp), f"rectify {reps}x{shp} {apex}: differs "
+              f"from plain ({float((yk - yp).abs().max())})")
+        check(ge <= RECT_GRAD_RTOL * gmax, f"rectify gradient {ge}")
+        check(torch.equal(yk, yk2), "rectify: two calls differ")
+        worst = max(worst, ge / gmax)
+        print(f"check rectify {reps}x{shp} window {apex}: equal to plain, "
+              f"gradient into clean max_abs_err={ge:.3g} of {gmax:.3g}")
+    att, clean = rect_inputs(g, 2, (2, 64, 64, 3))
+    att[0, 1, 1, 0] = float("inf")
+    att[3, 30, 30, 2] = float("nan")
+    ap = torch.tensor((5.0, 60.0, 2.0, 50.0), device="cuda")
+    yk, yp = rectify.rectify(att, clean, ap), rectify.rectify_plain(
+        att, clean, ap)
+    torch.cuda.synchronize()
+    check(torch.equal(yk.isnan(), yp.isnan()) and bool(yp.isnan().any())
+          and torch.equal(yk[yp.isfinite()], yp[yp.isfinite()]),
+          "rectify non-finite: differs from plain")
+    print(f"check rectify non-finite: NaN {int(yp.isnan().sum())} at the "
+          f"plain version's places")
+    row.err = worst
+    out = {}
+    for reps, shp, apex in (cases[0], cases[-1]):
+        att, clean = rect_inputs(g, reps, shp)
+        ap = torch.tensor(apex, device="cuda")
+        ms = time_ms(lambda: rectify.rectify(att, clean, ap))
+        moved = nbytes(att, clean, att)
+        cold = time_cold_ms(lambda a, c: rectify.rectify(a, c, ap),
+                            cold_sets(lambda i: rect_inputs(g, reps, shp),
+                                      moved))
+        pms = time_ms(lambda: rectify.rectify_plain(att, clean, ap), iters=5,
+                      warmup=1)
+        h0, h1, w0, w1 = (int(v) for v in apex)
+        a_nchw = att.permute(0, 3, 1, 2)
+
+        def lib():
+            win = F.interpolate(a_nchw, size=(h1 - h0, w1 - w0),
+                                mode="bicubic", align_corners=False)
+            return F.pad(win, (w0, shp[2] - w1, h0, shp[1] - h1))
+        lms = time_ms(lib)
+        cg = clean.clone().requires_grad_(True)
+        y = rectify.rectify(att, cg, ap)
+        cot = torch.randn(att.shape, device="cuda", generator=g)
+        bms = time_ms(lambda: torch.autograd.grad(y, cg, cot,
+                                                  retain_graph=True))
+        ops = att.numel() * RECT_OPS
+        bnd = bound(moved, ops)[0]
+        out[shp] = (ms, cold, pms, lms, bms, moved, ops, bnd)
+        print(f"check rectify {reps}x{shp}: ms={ms:.4f} cold_ms={cold:.4f} "
+              f"plain_ms={pms:.4f} library (F.interpolate + F.pad) "
+              f"ms={lms:.4f} backward (PyTorch ops) ms={bms:.4f} bound_ms="
+              f"{bnd:.4f} share_of_bound={bnd / ms:.3f} [{card}]")
+    ms, cold, pms, lms, bms, moved, ops, bnd = out[shape]
+    row.add(ms, pms, moved, ops, library_ms=lms, cold_ms=cold)
+    b = out[big]
+    row.extra = {"backward_pytorch_ms": bms,
+                 "clr512": {"copies": CLR_BIG[1] * CLR_BIG[2],
+                            "shape": list(big), "ms": b[0], "cold_ms": b[1],
+                            "plain_ms": b[2], "library_ms": b[3],
+                            "backward_pytorch_ms": b[4], "bound_ms": b[7]}}
+
+
+def ssim_grad_inputs(g, shape, flat=False):
+    """``fwd_rgb`` near ``img`` (the embed is ~50 dB from it), with a flat
+    patch on request."""
+    img = torch.rand(shape, device="cuda", generator=g)
+    x1 = (img + 0.01 * torch.randn(shape, device="cuda", generator=g)).clamp(
+        0, 1)
+    if flat:
+        x1[:, 40:120, 30:200] = img[:, 40:120, 30:200] = 0.25
+    return x1, img
+
+
+def check_ssim_grad(rows, card):
+    """K22 at CLR's (8, 256, 256, 3) (with and without a flat patch, where
+    σ² cancels), the 512² record's (3, 512, 512, 3) and ragged shapes:
+    within ``ssim_grad.RTOL`` of the plain gradient's max (autograd of
+    ``ssim_plain``), bit-identical over calls, through ``metrics.ssim``
+    under autograd (K8 + K22); a NaN pixel gives NaN where the plain
+    version's gradient has it; timed warm and with a cold L2 beside the
+    plain version and the input gradient of one depthwise 11×11
+    ``F.conv2d`` over the five stacked maps (yardstick). The bound counts
+    x1 and x2 read and dx written, and ``ssim_grad.OPS`` a value."""
+    from vwfd_tpu_torch.metrics import ssim as metrics_ssim
+    row = rows["ssim_grad"]
+    g = torch.Generator("cuda").manual_seed(77)
+    shape = (CLR_B, CLR_S, CLR_S, 3)
+    big = (CLR_BIG[1], CLR_BIG[0], CLR_BIG[0], 3)
+    worst = 0.0
+    for shp, flat in ((shape, False), (shape, True), (big, False),
+                      ((3, 37, 45, 3), False), ((2, 5, 300, 3), False),
+                      ((1, 11, 11, 3), False)):
+        x1, img = ssim_grad_inputs(g, shp, flat)
+        xk = x1.clone().requires_grad_(True)
+        before = (launch_counts()["ssim"], launch_counts()["ssim_grad"])
+        gk, = torch.autograd.grad(metrics_ssim(xk, img), xk)
+        check((launch_counts()["ssim"], launch_counts()["ssim_grad"])
+              == (before[0] + 1, before[1] + 1),
+              "metrics.ssim under autograd: not K8 + K22")
+        gk2, = torch.autograd.grad(metrics_ssim(xk, img), xk)
+        xp = x1.clone().requires_grad_(True)
+        gp, = torch.autograd.grad(ssim.ssim_plain(xp, img)[1], xp)
+        torch.cuda.synchronize()
+        ge = float((gk - gp).abs().max())
+        gmax = float(gp.abs().max())
+        check(ge <= ssim_grad.RTOL * gmax, f"ssim_grad {shp} flat={flat}: "
+              f"{ge} (plain max {gmax})")
+        check(torch.equal(gk, gk2), f"ssim_grad {shp}: two calls differ")
+        worst = max(worst, ge / gmax)
+        print(f"check ssim_grad {shp} flat patch={flat}: max_abs_err={ge:.3g}"
+              f" of plain max {gmax:.3g} ({ge / gmax:.3g}; tol "
+              f"{ssim_grad.RTOL}), bit-identical over calls")
+    x1, img = ssim_grad_inputs(g, (2, 40, 40, 3))
+    x1[1, 17, 3, 1] = float("nan")
+    xk, xp = (x1.clone().requires_grad_(True) for _ in range(2))
+    gk, = torch.autograd.grad(metrics_ssim(xk, img), xk)
+    gp, = torch.autograd.grad(ssim.ssim_plain(xp, img)[1], xp)
+    torch.cuda.synchronize()
+    check(torch.equal(gk.isnan(), gp.isnan()) and bool(gp.isnan().any()),
+          f"ssim_grad non-finite: NaN {int(gk.isnan().sum())} vs plain "
+          f"{int(gp.isnan().sum())}")
+    print(f"check ssim_grad non-finite: NaN {int(gp.isnan().sum())} at the "
+          f"plain version's places")
+    row.err = worst
+    x1, img = ssim_grad_inputs(g, shape, True)
+    sc = ssim_grad.scale_of(torch.zeros(CLR_B, device="cuda"),
+                            torch.ones((), device="cuda"), shape)
+    ms = time_ms(lambda: ssim_grad.ssim_grad(x1, img, sc))
+    moved = 3 * nbytes(x1)
+    cold = time_cold_ms(lambda a, b: ssim_grad.ssim_grad(a, b, sc),
+                        cold_sets(lambda i: ssim_grad_inputs(g, shape),
+                                  moved))
+    pms = time_ms(lambda: ssim_grad.ssim_grad_plain(x1, img, sc), iters=3,
+                  warmup=1)
+    stacked = torch.cat([x1, img, x1 * x1, img * img, x1 * img], -1).permute(
+        0, 3, 1, 2).contiguous().requires_grad_(True)
+    w = ssim.window_2d().to("cuda").expand(15, 1, 11, 11).contiguous()
+    yconv = F.conv2d(stacked, w, padding=5, groups=15)
+    ycot = torch.randn(yconv.shape, device="cuda", generator=g)
+    yard = time_ms(lambda: torch.autograd.grad(yconv, stacked, ycot,
+                                               retain_graph=True))
+    ops = x1.numel() * ssim_grad.OPS
+    row.add(ms, pms, moved, ops, yardstick_ms=yard, cold_ms=cold)
+    bms, by = bound(moved, ops)
+    xb, ib = ssim_grad_inputs(g, big)
+    scb = ssim_grad.scale_of(torch.zeros(big[0], device="cuda"),
+                             torch.ones((), device="cuda"), big)
+    ms512 = time_ms(lambda: ssim_grad.ssim_grad(xb, ib, scb))
+    row.extra = {"grad_rtol_of_plain_max": worst,
+                 "clr512": {"shape": list(big), "ms": ms512,
+                            "bound_ms": bound(3 * nbytes(xb),
+                                              xb.numel() * ssim_grad.OPS)[0]}}
+    print(f"check ssim_grad {shape} f32: ms={ms:.4f} cold_ms={cold:.4f} "
+          f"plain_ms={pms:.4f} yardstick (11x11 depthwise conv input "
+          f"gradient) ms={yard:.4f} bound_ms={bms:.4f} ({by}) "
+          f"share_of_bound={bms / ms:.3f}; {big}: ms={ms512:.4f} [{card}]")
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -4751,6 +5101,220 @@ def run_image(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+# CLR at clr.yaml's width, then the image family's options
+
+CLR_LOSS_RTOL = 1e-5     # loss terms, KERNELS vs PLAIN
+CLR_GRAD_COS = 0.9999    # each net's gradient, KERNELS vs PLAIN
+# a CLR train step: PAMI's INN, fan-out and canny launches, the crop
+# forward and backward, the rectification of the reversed copies, K8 and
+# K22 for the SSIM term; the eval step: PAMI's, the crop, the
+# rectification of every copy
+CLR_TRAIN = {**IMG_TRAIN, "crop_cubic": 2, "rectify": 1, "ssim": 1,
+             "ssim_grad": 1}
+CLR_EVAL = {**IMG_EVAL, "crop_cubic": 1, "rectify": 1}
+
+
+def clr_cfg(s, b):
+    from vwfd_tpu_torch import CLR_CONFIG
+    cfg = load_config(CLR_CONFIG)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gt_size=s, batch_size=b))
+
+
+def grad_cosines(gk, gp):
+    return {n: cosine(torch.cat([t.flatten() for t in gk[n]]),
+                      torch.cat([t.flatten() for t in gp[n]]))
+            for n in gk}
+
+
+def kernels_vs_plain_step(model, ref, batch, prev, d, key, keys, launches,
+                          want=None):
+    """One train step through ``model`` (KERNELS) with the launch counts at
+    0 just before and read just after, and through ``ref`` (PLAIN) from the
+    same state: loss terms within ``CLR_LOSS_RTOL``, gradient cosines ≥
+    ``CLR_GRAD_COS``; returns (kernels' terms, plain's, cosines)."""
+    copy_image(ref, model)
+    gp_, gk_ = {}, {}
+    lp = {k: float(v) for k, v in ref.train_step(batch, prev, d,
+                                                 gp_).items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    logs = model.train_step(batch, prev, d, gk_)
+    torch.cuda.synchronize()
+    launches[key] = launch_counts()
+    lk = {k: float(v) for k, v in logs.items()}
+    cos = grad_cosines(gk_, gp_)
+    used = {k: v for k, v in launches[key].items() if v}
+    print(f"{key} train step: kernels {json.dumps(lk)} plain "
+          f"{json.dumps(lp)}; gradient cosines {cos}; launches "
+          f"{json.dumps(used)}")
+    if want is not None:
+        check(launches[key] == want, f"{key} launches {launches[key]}")
+    for k in keys:
+        check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+              <= CLR_LOSS_RTOL * abs(lp[k]),
+              f"{key} {k}: kernels {lk[k]} plain {lp[k]}")
+    check(all(c >= CLR_GRAD_COS for c in cos.values()),
+          f"{key} gradient cosines {cos}")
+    return lk, lp, cos
+
+
+def run_clr(card):
+    """Phase 17: CLR at clr.yaml's width (256², b8, k 6, the bf16 INN, the
+    localizer, the apex regressor), random weights from a seed with the
+    INN heads perturbed: a ``train_step`` through ``KERNELS`` and
+    ``PLAIN`` from the same state, batch, previous batch and draws (loss
+    terms within ``CLR_LOSS_RTOL``, each net's gradient cosine ≥
+    ``CLR_GRAD_COS``: netG's carries K22's SSIM gradient), with the launch
+    counts at 0 just before and read just after; an ``eval_step`` with its
+    counts beside the plain one; an Inf pixel that moves nothing; p50s,
+    images/s and the peak memory; one step at 512² b3 ``reverse_k`` 3;
+    then one PAMI step each with ``with_gan`` and ``use_perceptual`` (256²
+    b8) through ``KERNELS`` and ``PLAIN``."""
+    from vwfd_tpu_torch.models.image_model import ImageBatch
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = clr_cfg(CLR_S, CLR_B)
+    mc = cfg.model
+    check((cfg.task, mc.inn_subnet, mc.inn_haar, mc.inn_down_num,
+           mc.n_attacks, mc.localizer_dim, cfg.train.dtype)
+          == ("clr", "res", "mixed", 3, CLR_K, 16, "bfloat16"), "clr config")
+    model = image_model(cfg, 41, task="clr")
+    ref = image_model(cfg, 41, kernels=PLAIN, task="clr")
+    check(model.apex_net.out_size == CLR_S, "apex regressor's out_size")
+    batches = image_batches(model, 6)
+    sampler = model.sampler(7)
+    launches, terms, cosines = {}, {}, {}
+    keys = ("loss", "lF", "lB", "l_mask", "l_apex", "l_ce")
+    for i in range(2):
+        d = sampler((CLR_B, CLR_S, CLR_S))
+        key = f"clr_train_{i}"
+        lk, lp, cos = kernels_vs_plain_step(model, ref, batches[i + 1],
+                                            batches[i].image, d, key, keys,
+                                            launches, CLR_TRAIN)
+        terms[key], cosines[key] = {"kernels": lk, "plain": lp,
+                                    "apex_u": d.apex_u.tolist()}, cos
+    launches["clr_train_step"] = launches["clr_train_0"]
+
+    copy_image(ref, model)
+    batch, prev = batches[4], batches[3].image
+    d = sampler((CLR_B, CLR_S, CLR_S))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = model.eval_step(batch, prev, d)
+    torch.cuda.synchronize()
+    launches["clr_eval_step"] = launch_counts()
+    check(launches["clr_eval_step"] == CLR_EVAL,
+          f"clr eval launches {launches['clr_eval_step']}")
+    outp = ref.eval_step(batch, prev, d)
+    ek = {k: float(v) for k, v in out.items() if v.dim() == 0}
+    ep = {k: float(v) for k, v in outp.items() if v.dim() == 0}
+    for k, atol in (("psnr_forward", EVAL_PSNR_ATOL),
+                    ("psnr_backward", EVAL_PSNR_ATOL),
+                    ("ssim_forward", EVAL_SSIM_ATOL),
+                    ("f1_best", IMG_F1_ATOL)):
+        check(abs(ek[k] - ep[k]) <= atol, f"clr eval {k}: {ek[k]} vs {ep[k]}")
+    check(0.0 <= ek["f1_best"] <= 1.0 and all(
+        math.isfinite(v) for v in ek.values()), f"clr eval {ek}")
+    used = {k: v for k, v in launches["clr_eval_step"].items() if v}
+    print(f"clr eval step: kernels {json.dumps(ek)} plain {json.dumps(ep)}; "
+          f"launches {json.dumps(used)}")
+
+    bad = batches[5].image.clone()
+    bad[1, 120, 130, 2] = float("inf")
+    before = [t.clone() for t in model._tensors()]
+    logs = model.train_step(ImageBatch(bad, batches[5].canny,
+                                       batches[5].mask), batches[4].image,
+                            sampler((CLR_B, CLR_S, CLR_S)))
+    check(not math.isfinite(float(logs["loss"])), "Inf batch: finite loss")
+    check(all(torch.equal(a, b) for a, b in zip(before, model._tensors())),
+          "clr Inf batch moved a parameter, moment, count or spectral "
+          "vector")
+    print("clr guard: an Inf pixel left every parameter, Adam moment, count "
+          "and spectral vector of netG, the localizer and the apex "
+          "regressor as it was")
+    del ref, before
+    gc.collect()
+
+    it_ = iter(range(10 ** 6))
+
+    def train_one():
+        i = next(it_) % 5 + 1
+        return model.train_step(batches[i], batches[i - 1].image, sampler(
+            (CLR_B, CLR_S, CLR_S)))["loss"].item()
+
+    def eval_one():
+        i = next(it_) % 5 + 1
+        return model.eval_step(batches[i], batches[i - 1].image, sampler(
+            (CLR_B, CLR_S, CLR_S)))["f1_best"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    eval_p50 = p50_of(eval_one, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"clr p50 at b{CLR_B}, {CLR_S}², k {CLR_K}: train step "
+          f"{train_p50:.3f} ms ({CLR_B / train_p50 * 1e3:.1f} images/s), "
+          f"eval step {eval_p50:.3f} ms ({CLR_B / eval_p50 * 1e3:.1f} "
+          f"images/s); peak memory {peak:.3f} GiB [{card}]")
+    del model, batches
+    gc.collect()
+
+    bs, bn, bk = CLR_BIG
+    big = image_model(clr_cfg(bs, bn), 42, task="clr", reverse_k=bk)
+    bb = image_batches(big, 2)
+    sampler = big.sampler(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lb = {k: float(v) for k, v in big.train_step(
+        bb[1], bb[0].image, sampler((bn, bs, bs))).items()}
+    torch.cuda.synchronize()
+    launches["clr_train_512"] = launch_counts()
+    check(all(math.isfinite(v) for v in lb.values())
+          and launches["clr_train_512"] == CLR_TRAIN,
+          f"clr 512² step {lb} {launches['clr_train_512']}")
+    p512 = p50_of(lambda: big.train_step(bb[1], bb[0].image, sampler(
+        (bn, bs, bs)))["loss"].item(), 3, warmup=1)
+    peak512 = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"clr 512² b3 reverse_k 3 train step: {json.dumps(lb)}; p50 "
+          f"{p512:.3f} ms; peak memory {peak512:.3f} GiB [{card}]")
+    del big, bb
+    gc.collect()
+
+    # the options, on PAMI at pami.yaml's width
+    opts = {}
+    for name, kw, extra in (("gan", dict(with_gan=True), ("g_adv",
+                                                         "d_loss")),
+                            ("perceptual", dict(use_perceptual=True), ())):
+        pcfg = image_cfg(IMG_S, IMG_B)
+        m = image_model(pcfg, 43, **kw)
+        r = image_model(pcfg, 43, kernels=PLAIN, **kw)
+        if name == "perceptual":
+            r.vgg.load_state_dict(m.vgg.state_dict())
+        pb = image_batches(m, 2)
+        d = m.sampler(9)((IMG_B, IMG_S, IMG_S))
+        lk, lp, cos = kernels_vs_plain_step(
+            m, r, pb[1], pb[0].image, d, f"pami_{name}",
+            ("loss", "lF", "lB", "l_mask") + extra, launches, IMG_TRAIN)
+        ms = p50_of(lambda: m.train_step(pb[1], pb[0].image, d)[
+            "loss"].item(), 3, warmup=1)
+        opts[name] = {"kernels": lk, "plain": lp, "gradient_cosines": cos,
+                      "train_step_p50_ms": ms}
+        print(f"pami {name} train step p50 {ms:.3f} ms [{card}]")
+        del m, r, pb
+        gc.collect()
+    print(json.dumps({"clr": {
+        "train_step_p50_ms": train_p50,
+        "train_images_per_s": CLR_B / train_p50 * 1e3,
+        "eval_step_p50_ms": eval_p50,
+        "eval_images_per_s": CLR_B / eval_p50 * 1e3, "batch": CLR_B,
+        "size": CLR_S, "attacks": CLR_K, "peak_memory_gib": peak,
+        "terms": terms, "gradient_cosines": cosines,
+        "eval": {"kernels": ek, "plain": ep},
+        "train_step_512_b3_reverse_k3_p50_ms": p512,
+        "peak_memory_512_gib": peak512, "options": opts, "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -4794,6 +5358,9 @@ def main():
     check_window_attention(rows, card)
     check_canny(rows, card)
     check_image_inn_shapes(card)
+    check_crop_cubic(rows, card)
+    check_rectify(rows, card)
+    check_ssim_grad(rows, card)
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -4811,12 +5378,13 @@ def main():
     serve_launches = run_serving_remainder(card)
     tc_launches = run_tianchi(card)
     img_launches = run_image(card)
+    clr_launches = run_clr(card)
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
                **mbrs_launches, **serve_launches, **tc_launches,
-               **img_launches}
+               **img_launches, **clr_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

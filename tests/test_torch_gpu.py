@@ -65,6 +65,19 @@ with NaN and Inf pixels and a NaN cotangent; one forward and one backward
 launch; the same bits over calls; a forward that keeps y and a few KB, a
 backward whose peak is dx, two planes and its slots. K14 and
 K15 at the image INN's shapes (4 → 16 → 64 → 256 channels) as above.
+K20 ``crop_cubic``'s forward is EQUAL to its plain version (the weights'
+FMAs and every product and sum in the plain order) and its gradient within
+1e-5 of the plain max (the transpose sums up to 4·OH terms an input in
+another order than autograd's atomic index_adds), bit-identical over
+calls, NaN where the plain version's is; K21 ``rectify`` EQUAL forward,
+its gradient into the clean images within 1e-6 of the plain max, NaN
+where the plain version's is; K22 ``ssim_grad`` within ``ssim_grad.RTOL``
+(1e-3) of the plain gradient's max (separable window sums, and σ² = E[x²]
+− μ² cancels in flat windows), bit-identical over calls, and
+``metrics.ssim`` under autograd launches K8 forward and K22 backward. A
+small CLR step through ``KERNELS`` against ``PLAIN`` (loss terms within
+1e-5 relative, gradient cosines ≥ 0.9999) with K20 ×2, K21 ×1, K8 ×1,
+K22 ×1 and K19 ×2.
 """
 
 import dataclasses
@@ -75,13 +88,13 @@ import torch
 
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
-from vwfd_tpu_torch.kernels import (PLAIN, affine, canny, coupling,
-                                    crop_resize, f1, haar, jpeg,
+from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, affine, canny, coupling,
+                                    crop_cubic, crop_resize, f1, haar, jpeg,
                                     launch_counts, mask, median,
-                                    mix, qconv, qconv_t, qcoupling,
+                                    mix, qconv, qconv_t, qcoupling, rectify,
                                     reset_launch_counts, splice, ssim,
-                                    transition, window_attention, wire,
-                                    zigzag)
+                                    ssim_grad, transition, window_attention,
+                                    wire, zigzag)
 from vwfd_tpu_torch.ops.quantize import ste_quantize_255
 from vwfd_tpu_torch.metrics import DEFAULT_THRESHOLDS, threshold_level
 from vwfd_tpu_torch.models.video_model import VideoWatermarkModel
@@ -94,7 +107,8 @@ DTYPES = [torch.float32, torch.bfloat16]
 # path that runs none of them
 _NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
             "qcoupling_head": 0, "haar": 0,
-            "coupling_affine": 0, "window_attention": 0, "canny_soft": 0}
+            "coupling_affine": 0, "window_attention": 0, "canny_soft": 0,
+            "crop_cubic": 0, "rectify": 0, "ssim_grad": 0}
 
 
 @pytest.fixture
@@ -961,7 +975,9 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "qconv_t": 4, "qcoupling_head": 10,
                                "haar": 0, "coupling_affine": 0,
                                "zigzag_jpeg": 0, "crop_resize": 0,
-                               "window_attention": 0}
+                               "window_attention": 0, "canny_soft": 0,
+                               "crop_cubic": 0, "rectify": 0,
+                               "ssim_grad": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -1602,3 +1618,169 @@ def test_canny_soft_nonfinite_as_plain(cuda):
     assert bool(yp.isnan().any()) and bool(gp.isnan().any())
     _same_nonfinite(yk, yp, 1e-6, 0.0)
     _same_nonfinite(gk, gp, 0.0, 1e-5)
+
+
+# ----------------------------------------------------------- K20, K21, K22
+
+_CUBIC_CASES = [((8, 256, 256, 3), (10.0, 230.0, 3.0, 256.0), None),
+                ((8, 256, 256, 3), (100.0, 101.0, 7.0, 8.0), None),
+                ((3, 512, 512, 3), (0.0, 480.0, 40.0, 512.0), None),
+                ((2, 40, 70, 3), (6.0, 38.0, 2.0, 61.0), (32, 48)),
+                ((2, 40, 70, 3), (0.0, 40.0, 0.0, 70.0), (96, 20))]
+
+
+@pytest.mark.parametrize("shape,apex,out_hw", _CUBIC_CASES)
+def test_crop_cubic_matches_plain(cuda, shape, apex, out_hw):
+    g = _gen(90)
+    x = torch.rand(shape, device=cuda, generator=g) * 1.2 - 0.1
+    oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+    cot = torch.randn(oshape, device=cuda, generator=g)
+    ap = torch.tensor(apex, device=cuda)
+    before = launch_counts()["crop_cubic"]
+    yk, gk = _grads(lambda v: crop_cubic.crop_cubic(v, ap, out_hw), x, cot)
+    assert launch_counts()["crop_cubic"] == before + 2
+    yk2, gk2 = _grads(lambda v: crop_cubic.crop_cubic(v, ap, out_hw), x, cot)
+    yp, gp = _grads(lambda v: crop_cubic.crop_cubic_plain(v, ap, out_hw), x,
+                    cot)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp)
+    assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    assert torch.equal(yk, yk2) and torch.equal(gk, gk2)
+
+
+def test_crop_cubic_nonfinite_as_plain(cuda):
+    shape, apex = (4, 64, 64, 3), (5.0, 60.0, 2.0, 50.0)
+    x, cot = _nonfinite(shape, shape, (1, 30, 12, 0), (0, 6, 3, 2),
+                        (1, 31, 20, 1), 0.0, 1.0, 91)
+    ap = torch.tensor(apex, device=cuda)
+    yk, gk = _grads(lambda v: crop_cubic.crop_cubic(v, ap), x, cot)
+    yp, gp = _grads(lambda v: crop_cubic.crop_cubic_plain(v, ap), x, cot)
+    torch.cuda.synchronize()
+    assert bool(yp.isnan().any()) and bool(gp.isnan().any())
+    _same_nonfinite(yk, yp, 0.0, 0.0)
+    _same_nonfinite(gk, gp, 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("shape,reps,apex", [
+    ((8, 256, 256, 3), 6, (10.0, 230.0, 3.0, 256.0)),
+    ((3, 512, 512, 3), 3, (31.0, 512.0, 0.0, 400.0)),
+    ((2, 40, 70, 3), 2, (6.0, 7.0, 2.0, 61.0))])
+def test_rectify_matches_plain(cuda, shape, reps, apex):
+    g = _gen(92)
+    att = torch.rand((shape[0] * reps,) + shape[1:], device=cuda,
+                     generator=g) * 1.2 - 0.1
+    clean = torch.rand(shape, device=cuda, generator=g)
+    cot = torch.randn(att.shape, device=cuda, generator=g)
+    ap = torch.tensor(apex, device=cuda)
+    before = launch_counts()["rectify"]
+    yk, gk = _grads(lambda c: rectify.rectify(att, c, ap), clean, cot)
+    assert launch_counts()["rectify"] == before + 1
+    yp, gp = _grads(lambda c: rectify.rectify_plain(att, c, ap), clean, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp)
+    assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+
+
+def test_rectify_nonfinite_as_plain(cuda):
+    shape, apex = (2, 64, 64, 3), (5.0, 60.0, 2.0, 50.0)
+    g = _gen(93)
+    att = torch.rand((4,) + shape[1:], device=cuda, generator=g)
+    att[0, 1, 1, 0] = float("inf")     # outside the window
+    att[3, 30, 30, 2] = float("nan")   # inside
+    clean = torch.rand(shape, device=cuda, generator=g)
+    ap = torch.tensor(apex, device=cuda)
+    yk = rectify.rectify(att, clean, ap)
+    yp = rectify.rectify_plain(att, clean, ap)
+    torch.cuda.synchronize()
+    assert bool(yp.isnan().any())
+    _same_nonfinite(yk, yp, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("shape,flat", [((8, 256, 256, 3), False),
+                                        ((8, 256, 256, 3), True),
+                                        ((3, 40, 70, 3), False),
+                                        ((1, 11, 5, 3), False)])
+def test_ssim_grad_matches_plain(cuda, shape, flat):
+    g = _gen(94)
+    x2 = torch.rand(shape, device=cuda, generator=g)
+    x1 = (x2 + 0.02 * torch.randn(shape, device=cuda, generator=g)).clamp(
+        0, 1)
+    if flat:
+        x1[:, 40:120, 30:200] = 0.5
+        x2[:, 40:120, 30:200] = 0.5
+    xk = x1.clone().requires_grad_()
+    before = (launch_counts()["ssim"], launch_counts()["ssim_grad"])
+    gk, = torch.autograd.grad(KERNELS.ssim(xk, x2)[1], xk)
+    assert (launch_counts()["ssim"], launch_counts()["ssim_grad"]) == (
+        before[0] + 1, before[1] + 1)
+    gk2, = torch.autograd.grad(KERNELS.ssim(xk, x2)[1], xk)
+    xp = x1.clone().requires_grad_()
+    gp, = torch.autograd.grad(ssim.ssim_plain(xp, x2)[1], xp)
+    torch.cuda.synchronize()
+    assert float((gk - gp).abs().max()) <= ssim_grad.RTOL * float(
+        gp.abs().max())
+    assert torch.equal(gk, gk2)
+
+
+def test_ssim_grad_per_image_cotangents(cuda):
+    g = _gen(95)
+    x1 = torch.rand((3, 48, 40, 3), device=cuda, generator=g)
+    x2 = torch.rand((3, 48, 40, 3), device=cuda, generator=g)
+    gm = torch.tensor([0.5, -1.0, 2.0], device=cuda)
+    xk, xp = x1.clone().requires_grad_(), x1.clone().requires_grad_()
+    means, mean = KERNELS.ssim(xk, x2)
+    gk, = torch.autograd.grad((means * gm).sum() + 0.3 * mean, xk)
+    means, mean = ssim.ssim_plain(xp, x2)
+    gp, = torch.autograd.grad((means * gm).sum() + 0.3 * mean, xp)
+    assert float((gk - gp).abs().max()) <= ssim_grad.RTOL * float(
+        gp.abs().max())
+    with pytest.raises(ValueError, match="img2"):
+        KERNELS.ssim(x1, x2.clone().requires_grad_())
+
+
+def test_clr_step_on_the_card_matches_plain(cuda):
+    """A small CLR step (64², b2, k 6, INN down_num 2) through the kernels
+    and through ``PLAIN`` from the same state and draws: loss terms within
+    1e-5 relative, each net's gradient cosine ≥ 0.9999; K20 ×2, K21 ×1,
+    K8 ×1, K22 ×1, K19 ×2."""
+    from vwfd_tpu_torch import (CLR_CONFIG, load_config)
+    from vwfd_tpu_torch.models.image_model import (ImageBatch,
+                                                   ImageImmunizationModel)
+    cfg = load_config(CLR_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, gt_size=64, batch_size=2),
+        model=dataclasses.replace(cfg.model, inn_down_num=2,
+                                  inn_block_num=(1, 1),
+                                  localizer_residual_blocks=1),
+        train=dataclasses.replace(cfg.train, dtype="float32"))
+    model = ImageImmunizationModel(cfg, task="clr")
+    model.init_states(3)
+    ref = ImageImmunizationModel(cfg, task="clr", kernels=PLAIN)
+    with torch.no_grad():
+        for a, b in zip(ref._tensors(), model._tensors()):
+            a.copy_(b)
+    rng = np.random.default_rng(5)
+    x = ((rng.integers(0, 255, (2, 64, 64, 3)) + 0.25) / 255).astype(
+        np.float32)
+    canny_ = (rng.random((2, 64, 64, 1)) > 0.85).astype(np.float32)
+    mask_ = np.zeros((2, 64, 64, 1), np.float32)
+    draws = model.sampler(2)((2, 64, 64))
+    gk, gp = {}, {}
+    lp = ref.train_step(ImageBatch(x, canny_, mask_), x[::-1].copy(), draws,
+                        gp)
+    reset_launch_counts()
+    lk = model.train_step(ImageBatch(x, canny_, mask_), x[::-1].copy(),
+                          draws, gk)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert {k: counts[k] for k in ("crop_cubic", "rectify", "ssim",
+                                   "ssim_grad", "canny_soft")} == {
+        "crop_cubic": 2, "rectify": 1, "ssim": 1, "ssim_grad": 1,
+        "canny_soft": 2}
+    for k in ("loss", "lF", "lB", "l_mask", "l_apex", "l_ce"):
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-5 * abs(float(lp[k]))
+    for name in gk:
+        a = torch.cat([t.flatten() for t in gk[name]])
+        b = torch.cat([t.flatten() for t in gp[name]])
+        assert float(torch.nn.functional.cosine_similarity(
+            a, b, dim=0)) >= 0.9999, name

@@ -34,7 +34,7 @@ from .config import Config, DataConfig, ModelConfig, TrainConfig, load_config
 
 __all__ = ["Config", "DataConfig", "ModelConfig", "TrainConfig",
            "load_config", "FLAGSHIP_CONFIG", "REFSHAPE_CONFIG",
-           "TIANCHI_CONFIG", "PAMI_CONFIG"]
+           "TIANCHI_CONFIG", "PAMI_CONFIG", "CLR_CONFIG"]
 
 FLAGSHIP_CONFIG = os.path.join(os.path.dirname(__file__), "configs",
                                "video.yaml")
@@ -46,3 +46,5 @@ TIANCHI_CONFIG = os.path.join(os.path.dirname(__file__), "configs",
                               "tianchi.yaml")
 # the image family's (PAMI and ImugeV2; models/image_model.py)
 PAMI_CONFIG = os.path.join(os.path.dirname(__file__), "configs", "pami.yaml")
+# the image family's CLR (the crop tamper and the apex regressor)
+CLR_CONFIG = os.path.join(os.path.dirname(__file__), "configs", "clr.yaml")

@@ -23,6 +23,15 @@ C) by whole pixels with zero fill, ``copy_move_tamper`` pastes a shifted
 copy of the image (detached, JAX's ``stop_gradient``) through the shifted
 stroke mask, which becomes the new ground truth. The shift is an explicit
 draw (``copy_move_shift`` maps the two U[0, 1) draws to it as JAX does).
+
+CLR's crop geometry (:149-201): ``paste_resize`` resamples a full-size
+image back to the crop window's size at its place in a zero canvas
+(bicubic, the taps clamped to the image, clipped to [0, 1], times the
+window's mask); ``cropped_out`` and ``rectify_crop_pad`` are the
+straight-through frames ``ideal + stop_grad(paste − ideal)`` with
+``ideal = clean·inside``: the values of the paste, the gradient of the
+clean image inside the window. ``rectify_crop_pad`` is the plain version
+of K21 (``kernels/rectify.py``).
 """
 
 import functools
@@ -33,12 +42,13 @@ import torch
 import torch.nn.functional as F
 
 from ..data.ondevice import rect_mask
-from ..ops.resize import resize_matrix
+from ..ops.resize import _sample_axis, crop_resize, resize_matrix
 
 __all__ = ["DEFAULT_RATIOS", "make_resize_roundtrip_pool", "resize_roundtrip",
            "sample_crop_apex", "crop_attack", "rect_mask", "cropout",
            "cropout_apex", "dropout_mix", "shift_zero_pad",
-           "copy_move_shift", "copy_move_tamper"]
+           "copy_move_shift", "copy_move_tamper", "paste_resize",
+           "cropped_out", "rectify_crop_pad"]
 
 DEFAULT_RATIOS = tuple(np.round(np.arange(0.5, 1.51, 0.05), 2))
 
@@ -176,3 +186,61 @@ def copy_move_tamper(img: torch.Tensor, mask: torch.Tensor, shift):
     m = shift_zero_pad(mask, dx, dy)
     m = torch.minimum(torch.maximum(m, m.new_zeros(())), m.new_ones(()))
     return img * (1.0 - m) + shifted * m, m
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)``: NaN stays NaN, gradient ½ at either end."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _inside(hw, apex: torch.Tensor) -> torch.Tensor:
+    return rect_mask(tuple(hw), apex.unbind())[..., None]
+
+
+def paste_resize(scaled: torch.Tensor, apex: torch.Tensor) -> torch.Tensor:
+    """The inverse of the bicubic crop (noise_layers/crop.py:105-117):
+    output pixel i inside ``[h0, h1)`` reads source row ``((i − h0) + ½)·H
+    / ch − ½`` (columns likewise), the taps clamped to the image; clipped
+    to [0, 1] and zero outside the window (``apex`` a (4,) float32
+    tensor)."""
+    h, w = scaled.shape[-3], scaled.shape[-2]
+    h0, h1, w0, w1 = apex.to(torch.float32).unbind()
+    f32 = dict(dtype=torch.float32, device=scaled.device)
+    ys = ((torch.arange(h, **f32) - h0) + 0.5) * h / (h1 - h0) - 0.5
+    xs = ((torch.arange(w, **f32) - w0) + 0.5) * w / (w1 - w0) - 0.5
+    out = _sample_axis(scaled, ys, scaled.dim() - 3, method="bicubic")
+    out = _sample_axis(out, xs, out.dim() - 2, method="bicubic")
+    return _clip01(out) * _inside((h, w), apex)
+
+
+def _tiled(clean: torch.Tensor, n: int) -> torch.Tensor:
+    """``clean`` (B, ...) repeated to ``n`` copies, copy m = clean[m mod
+    B] (JAX's ``jnp.tile``)."""
+    if n % clean.shape[0]:
+        raise ValueError(f"{n} copies do not tile a batch of "
+                         f"{clean.shape[0]}")
+    return clean.repeat(n // clean.shape[0], *([1] * (clean.dim() - 1)))
+
+
+def cropped_out(img: torch.Tensor, apex: torch.Tensor):
+    """``(scaled, real, mask)``: the bicubic crop upscaled to full size and
+    clipped, the zero-padded original-position frame with the values of
+    the crop → resize → resize-back round trip and the gradient of the
+    clean crop, and the mask, 1 OUTSIDE the crop
+    (noise_layers/crop.py:77-118)."""
+    scaled = _clip01(crop_resize(img, apex, method="bicubic"))
+    inside = _inside(img.shape[-3:-1], apex)
+    ideal = img * inside
+    real = ideal + (paste_resize(scaled, apex) - ideal).detach()
+    return scaled, real, 1.0 - inside
+
+
+def rectify_crop_pad(attacked: torch.Tensor, clean: torch.Tensor,
+                     apex: torch.Tensor) -> torch.Tensor:
+    """Scale-back rectification before CLR's reverse pass
+    (models/IRNclr_model.py:556-575): ``ideal + stop_grad(paste_resize(
+    attacked) − ideal)``, ``ideal = clean·inside``, copy m against
+    ``clean[m mod B]``. The plain version of K21."""
+    inside = _inside(attacked.shape[-3:-1], apex)
+    ideal = _tiled(clean, attacked.shape[0]) * inside
+    return ideal + (paste_resize(attacked, apex) - ideal).detach()

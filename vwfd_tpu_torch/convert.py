@@ -36,7 +36,8 @@ count to ``AdamW.count``.
 ``states_from_jax`` / ``states_to_jax`` carry a whole model's nets (the
 HiDDeN family's encoder, decoder and discriminator, MBRS's encoder and
 decoder, Tianchi's SUNet ``netG``, the image family's ``netG`` and
-``localizer``: params, batch stats, spectral vectors and Adam ``mu`` /
+``localizer``, CLR's ``apex`` regressor and the ``with_gan``
+``discriminator``: params, batch stats, spectral vectors and Adam ``mu`` /
 ``nu`` / ``count`` of each) both ways. MBRS's ExpandNet transposed convs
 are ``message_expand.up{i}``, which the ConvTranspose rule's name pattern
 matches.
@@ -49,7 +50,13 @@ transposed ``SNConv`` (``dec{i}_up``) take the ConvTranspose rule (flax's
 convolution of the flipped kernel, F3); the ``spectral`` collection's
 ``u`` vectors (flax's row order (kh, kw, cin), which the port keeps)
 become each ``SNConv``'s ``u`` buffer (``spectral_from_jax`` /
-``spectral_to_jax``).
+``spectral_to_jax``). The apex regressor (``nets/fbcnn.py``, flax's
+``QFPredictor``) keeps its ``bayar_kernel`` the same way (HWIO (5, 5, Cin,
+3)); its residual blocks' ``c1`` / ``c2``, the stride-2 ``*_down`` convs,
+``to_img`` and the Dense ``qf0``–``qf2`` take the Conv and Dense rules; the
+discriminator's ``SNConv`` pairs carry no bias. The VGG19 trunk of
+``use_perceptual`` (``metrics/perceptual.py``) is frozen and not a state:
+``state_dict_from_jax`` maps a flax tree of it.
 """
 
 import re

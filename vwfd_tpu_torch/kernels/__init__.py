@@ -37,6 +37,12 @@
   gradient summed deterministically (kernels/window_attention.py)
 * K19 ``canny_soft``     — the image family's soft canny edge map of the
   attacked copies, forward and backward (kernels/canny.py)
+* K20 ``crop_cubic``     — CLR's crop tamper: a window resampled bicubically
+  back to the full grid, forward and backward (kernels/crop_cubic.py)
+* K21 ``rectify``        — CLR's scale-back rectification of the attacked
+  copies before the reverse pass (kernels/rectify.py)
+* K22 ``ssim_grad``      — the SSIM's gradient in its first image, K8's
+  backward under autograd (kernels/ssim_grad.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -45,7 +51,8 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16, K17, K18 and K19 launch their own backward kernels. ``KERNELS``
+K16, K17, K18, K19 and K20 launch their own backward kernels, K8's is K22,
+and K21's is PyTorch ops (its gradient is ``g·inside``). ``KERNELS``
 routes through the wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare. ``PLAIN``'s
@@ -56,16 +63,18 @@ is held to; the wrapper's CPU path is the JAX form as it is.
 import functools
 from typing import Callable, Dict, NamedTuple
 
-from . import (affine, canny, coupling, crop_resize, f1, haar, jpeg, mask,
-               median, mix, qconv, qconv_t, qcoupling, splice, ssim,
-               transition, wire, window_attention, zigzag)
+from . import (affine, canny, coupling, crop_cubic, crop_resize, f1, haar,
+               jpeg, mask, median, mix, qconv, qconv_t, qcoupling, rectify,
+               splice, ssim, ssim_grad, transition, wire, window_attention,
+               zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
 
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
            splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
-           crop_resize, window_attention, canny)
+           crop_resize, window_attention, canny, crop_cubic, rectify,
+           ssim_grad)
 
 
 class KernelSet(NamedTuple):
@@ -93,6 +102,8 @@ class KernelSet(NamedTuple):
     crop_resize: Callable
     window_attention: Callable
     canny_soft: Callable
+    crop_cubic: Callable
+    rectify: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -103,7 +114,8 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     wire.to_s2d_i8, wire.to_u8_s2d_i8, haar.haar,
                     affine.coupling_affine, zigzag.zigzag_jpeg,
                     crop_resize.crop_resize,
-                    window_attention.window_attention, canny.canny_soft)
+                    window_attention.window_attention, canny.canny_soft,
+                    crop_cubic.crop_cubic, rectify.rectify)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -116,7 +128,8 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   zigzag.zigzag_jpeg_plain, crop_resize.crop_resize_plain,
                   window_attention.window_attention_plain,
                   functools.partial(canny.canny_soft_plain,
-                                    exact_border=True))
+                                    exact_border=True),
+                  crop_cubic.crop_cubic_plain, rectify.rectify_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -35,6 +35,12 @@ a single map value may move by up to about 1e-4 where a window is flat
 (σ² near 0; c2 = 9e-4 bounds the denominator); the means average such
 errors away. ``chip_smoke.py`` holds every mean within ``ATOL`` of the
 plain version's.
+
+Under autograd (a CUDA ``img1`` that requires a gradient, grad mode on)
+``ssim`` is a ``torch.autograd.Function``: K8 forward, K22
+(``kernels/ssim_grad.py``) backward, with the cotangents of the per-image
+means and of the mean. ``img2`` must not require a gradient (CLR's is
+data). The eval path runs K8 alone.
 """
 
 import ctypes
@@ -162,11 +168,28 @@ def ssim_plain(img1: torch.Tensor, img2: torch.Tensor,
     return m.mean(dim=(1, 2, 3)).float(), m.mean().float()
 
 
+class _SSIMFn(torch.autograd.Function):
+    """K8 forward, K22 backward (the gradient in ``img1``)."""
+
+    @staticmethod
+    def forward(ctx, img1, img2):
+        ctx.save_for_backward(img1, img2)
+        return _ssim_kernel(img1, img2)
+
+    @staticmethod
+    def backward(ctx, g_means, g_mean):
+        from . import ssim_grad
+        img1, img2 = ctx.saved_tensors
+        scale = ssim_grad.scale_of(g_means, g_mean, img1.shape)
+        return ssim_grad.ssim_grad(img1, img2, scale), None
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = WINDOW
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSIM ``(means, mean)`` of two (N, H, W, 3) float32 batches in
     [0, 1]: the CUDA kernel for CUDA tensors (11×11 window, three
-    channels), the plain version for CPU tensors."""
+    channels; differentiable in ``img1`` through K22), the plain version
+    for CPU tensors."""
     _check(img1, img2)
     if not _lib.on_cuda(img1, img2):
         return ssim_plain(img1, img2, window_size)
@@ -176,6 +199,18 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = WINDOW
                          f"window {window_size} on {c}")
     if n > 65535:
         raise ValueError(f"ssim kernel: at most 65535 images, got {n}")
+    if torch.is_grad_enabled() and img2.requires_grad:
+        raise ValueError("ssim kernel: no gradient into img2 (K22 takes "
+                         "the first image's)")
+    if torch.is_grad_enabled() and img1.requires_grad:
+        return _SSIMFn.apply(img1, img2)
+    return _ssim_kernel(img1, img2)
+
+
+def _ssim_kernel(img1: torch.Tensor, img2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K8 on checked CUDA tensors."""
+    n, h, w, c = img1.shape
     dev = img1.device
     sms = _lib.sm_count(dev)
     tiles, splits, rows = geometry(n, h, w, sms)

@@ -8,6 +8,8 @@ from .hidden import (HiddenDecoder, HiddenDiscriminator, HiddenEncoder,
 from .mbrs import (BalujaHiding, BalujaPrep, BalujaReveal, ExpandNet,
                    MBRSDecoder, MBRSEncoder, MBRSPlainDecoder, SEBottleneck,
                    SENet, SENetDecoder)
+from .discriminator import Discriminator
+from .fbcnn import QFPredictor
 from .localizer import UNetDiscriminator
 from .sunet import SUNet
 from .unet import UNet, UNetTPU
@@ -18,4 +20,5 @@ __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
            "HiddenEncoderDecoder", "SEBottleneck", "SENet", "SENetDecoder",
            "ExpandNet", "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder",
            "BalujaPrep", "BalujaHiding", "BalujaReveal", "SUNet",
-           "SNConv", "ResnetBlock", "UNetDiscriminator"]
+           "SNConv", "ResnetBlock", "UNetDiscriminator", "Discriminator",
+           "QFPredictor"]

@@ -9,11 +9,14 @@ Lanczos kernel and its antialias option serve attacks the port has not
 taken over, and are not ported.
 
 ``crop_resize`` (``resize.py:97-152``) resamples a crop window, whose apex
-is a tensor (no host sync), back onto the full grid, bilinear, with the
-taps clamped to the window: the plain version of K17
-(``kernels/crop_resize.py``), which HiDDeN's crop attack calls. The JAX
-package's bicubic variant of it serves attacks the port has not taken
-over.
+is a tensor (no host sync), back onto the full grid with the taps clamped
+to the window: bilinear, the plain version of K17
+(``kernels/crop_resize.py``), which HiDDeN's crop attack calls; bicubic
+(four taps, a = −0.75), the plain version of K20
+(``kernels/crop_cubic.py``), which CLR's crop tamper calls.
+``_sample_axis`` with ``bounds=None`` clamps the taps to the image (CLR's
+paste back, ``attacks/spatial.py::paste_resize``). ``resize_bicubic`` is
+the two bicubic products (the apex regressor's mask head).
 """
 
 import functools
@@ -22,7 +25,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resize_matrix", "resize_bilinear", "crop_resize"]
+__all__ = ["resize_matrix", "resize_bilinear", "resize_bicubic",
+           "crop_resize", "cubic_weights"]
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -63,44 +67,101 @@ def resize_matrix(in_size: int, out_size: int,
     return w.astype(np.float32)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32
-    (float64 stays float64, for the CPU parity tests): the rows' matrix,
-    then the columns'."""
+def _resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str
+            ) -> torch.Tensor:
     h, w = x.shape[-3], x.shape[-2]
     dt = torch.float64 if x.dtype == torch.float64 else torch.float32
-    mh = torch.from_numpy(resize_matrix(h, out_hw[0], "bilinear")).to(
+    mh = torch.from_numpy(resize_matrix(h, out_hw[0], method)).to(
         x.device, dt)
-    mw = torch.from_numpy(resize_matrix(w, out_hw[1], "bilinear")).to(
+    mw = torch.from_numpy(resize_matrix(w, out_hw[1], method)).to(
         x.device, dt)
     x = torch.einsum("oh,...hwc->...owc", mh, x.to(dt))
     return torch.einsum("pw,...owc->...opc", mw, x)
 
 
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32
+    (float64 stays float64, for the CPU parity tests): the rows' matrix,
+    then the columns'."""
+    return _resize(x, out_hw, "bilinear")
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic (a = −0.75) resize of (..., H, W, C), as ``resize_bilinear``
+    (``resize.py:92-94``)."""
+    return _resize(x, out_hw, "bicubic")
+
+
+def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` of float32 tensors rounded once (a fused multiply-add):
+    the product is exact in float64 and the sum rounds to float64 and then
+    to float32 (the two roundings part from one only about once in 2²⁸)."""
+    return (a.double() * b + c.double()).to(a.dtype)
+
+
+def cubic_weights(t: torch.Tensor, a: float = -0.75):
+    """The four bicubic weights of offsets −1, 0, 1, 2 at fractions ``t``
+    (``resize.py:121-126``), with the float32 operations XLA:CPU compiles
+    the JAX expression to: ``ad³ = (ad·ad)·ad``; inside ``|d| ≤ 1``
+    ``fma(ad³, a + 2, −(a + 3)·ad²) + 1``; inside ``|d| < 2``
+    ``fma(ad, 8a, fma(ad³, a, −5a·ad²)) − 4a`` (XLA contracts the
+    products into FMAs; the outer taps' terms of order 10 cancel to below
+    0.1, so the contraction moves a weight by up to 1.4e-6). K20 and K21
+    compute the same operations (``csrc/cubic.cuh``)."""
+    out = []
+    for off in (-1, 0, 1, 2):
+        ad = torch.abs(t - float(off))
+        c2 = ad * ad
+        c3 = c2 * ad
+        w1 = _fma(c3, a + 2.0, -((a + 3.0) * c2)) + 1.0
+        w2 = _fma(ad, 8 * a, _fma(c3, a, -((5 * a) * c2))) - 4 * a
+        out.append(torch.where(ad <= 1.0, w1, torch.where(
+            ad < 2.0, w2, torch.zeros_like(ad))))
+    return out
+
+
 def _sample_axis(x: torch.Tensor, coords: torch.Tensor, axis: int,
-                 bounds) -> torch.Tensor:
-    """Bilinear resample of ``x`` along ``axis`` at the float32 positions
-    ``coords`` (out,), the two taps of each clamped into ``bounds = (lo,
-    hi)`` (0-dim float tensors, truncated to integers as the JAX package's
-    ``astype(int32)``). Each output is ``x[i0]·(1 − t) + x[i1]·t``."""
+                 bounds=None, method: str = "bilinear") -> torch.Tensor:
+    """Resample ``x`` along ``axis`` at the float32 positions ``coords``
+    (out,), each tap clamped into ``bounds = (lo, hi)`` (0-dim float
+    tensors, truncated to integers as the JAX package's ``astype(int32)``)
+    or, with ``bounds=None``, into the image. Bilinear: ``x[i0]·(1 − t) +
+    x[i1]·t``; bicubic: the four taps' products summed in tap order."""
     base = torch.floor(coords)
     t = coords - base
-    lo, hi = (b.to(torch.int64) for b in bounds)
     b = base.to(torch.int64)
-    i0 = torch.minimum(torch.maximum(b, lo), hi)
-    i1 = torch.minimum(torch.maximum(b + 1, lo), hi)
+    if bounds is None:
+        lo, hi = 0, x.shape[axis] - 1
+    else:
+        lo, hi = (v.to(torch.int64) for v in bounds)
     shape = [1] * x.dim()
     shape[axis] = coords.shape[0]
-    return (torch.index_select(x, axis, i0) * (1.0 - t).view(shape)
-            + torch.index_select(x, axis, i1) * t.view(shape))
+
+    def tap(off):
+        if bounds is None:
+            i = torch.clamp(b + off, lo, hi)
+        else:
+            i = torch.minimum(torch.maximum(b + off, lo), hi)
+        return torch.index_select(x, axis, i)
+
+    if method == "bilinear":
+        return tap(0) * (1.0 - t).view(shape) + tap(1) * t.view(shape)
+    if method != "bicubic":
+        raise ValueError(f"method must be bilinear or bicubic, got {method!r}")
+    ws = cubic_weights(t)
+    out = tap(-1) * ws[0].view(shape)
+    for off, wt in zip((0, 1, 2), ws[1:]):
+        out = out + tap(off) * wt.view(shape)
+    return out
 
 
 def crop_resize(x: torch.Tensor, apex: torch.Tensor,
-                out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                out_hw: Optional[Tuple[int, int]] = None,
+                method: str = "bilinear") -> torch.Tensor:
     """Crop the window ``apex = (h0, h1, w0, w1)`` (a (4,) float32 tensor
     of pixel bounds, half-open, shared by the batch) of (..., H, W, C) and
-    resample it bilinearly to ``out_hw`` (default the input's size):
-    half-pixel centres, rows first, then columns."""
+    resample it (``method`` bilinear or bicubic) to ``out_hw`` (default
+    the input's size): half-pixel centres, rows first, then columns."""
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = out_hw if out_hw is not None else (h, w)
     h0, h1, w0, w1 = apex.to(torch.float32).unbind()
@@ -111,5 +172,5 @@ def crop_resize(x: torch.Tensor, apex: torch.Tensor,
         / torch.full((), oh, **f32) - 0.5
     xs = w0 + (torch.arange(ow, **f32) + 0.5) * (w1 - w0) \
         / torch.full((), ow, **f32) - 0.5
-    x = _sample_axis(x, ys, x.dim() - 3, (h0, h1 - 1))
-    return _sample_axis(x, xs, x.dim() - 2, (w0, w1 - 1))
+    x = _sample_axis(x, ys, x.dim() - 3, (h0, h1 - 1), method)
+    return _sample_axis(x, xs, x.dim() - 2, (w0, w1 - 1), method)

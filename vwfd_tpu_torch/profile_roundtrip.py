@@ -19,6 +19,7 @@ step's time goes on the card.
     # Tianchi's train step, then its eval step (SUNet, 256², b8, f32)
     python -m vwfd_tpu_torch.profile_roundtrip --mode tianchi
     python -m vwfd_tpu_torch.profile_roundtrip --mode pami
+    python -m vwfd_tpu_torch.profile_roundtrip --mode clr
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -41,7 +42,11 @@ forgeries, one JSON line each; ``--mode pami`` the image family's PAMI
 port's ``configs/pami.yaml``: the 4-channel INN in bf16, k = 6, 256²,
 batch 8 unless ``--batch``, ``--size``; random weights from a seed, the
 draws of ``ImageSampler``) on the runner's synthetic images with their
-host canny maps and stroke masks, one JSON line each. ``--int8`` serves the roundtrip or the
+host canny maps and stroke masks, one JSON line each; ``--mode clr`` the
+same for CLR (the port's ``configs/clr.yaml``: the crop tamper, the apex
+regressor, the rectified reverse, the SSIM term); ``--reverse-k`` bounds
+their reversed copies (``--size 512 --batch 3 --reverse-k 3``: the JAX
+records' geometry). ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
 through the int8 embed (calibrated on one seeded random clip, off the
 clock). Each runs under
@@ -92,7 +97,11 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "window_attention": ("window_attention_fwd",
                                      "window_attention_bwd"),
                 "canny_soft": ("canny_max_kernel", "canny_map_kernel",
-                               "canny_local_kernel", "canny_input_kernel")}
+                               "canny_local_kernel", "canny_input_kernel"),
+                "crop_cubic": ("crop_cubic_fwd_kernel", "crop_cubic_bwd_cols",
+                               "crop_cubic_bwd_rows"),
+                "rectify": ("rectify_kernel",),
+                "ssim_grad": ("ssim_maps", "ssim_apply")}
 
 
 def classify(name: str) -> str:
@@ -124,7 +133,7 @@ def main(argv=None):
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval",
-                             "hidden", "mbrs", "tianchi", "pami"])
+                             "hidden", "mbrs", "tianchi", "pami", "clr"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -132,10 +141,12 @@ def main(argv=None):
                     help="roundtrip or detect through the int8 extractor")
     ap.add_argument("--int8-embed", action="store_true",
                     help="roundtrip through the int8 embed")
+    ap.add_argument("--reverse-k", type=int, default=0,
+                    help="pami, clr: attacked copies reversed (0: all)")
     ap.set_defaults(batch=None)
     args = ap.parse_args(argv)
     if args.batch is None:  # Tianchi's and PAMI's batch; the video model's
-        args.batch = 8 if args.mode in ("tianchi", "pami") else 16
+        args.batch = 8 if args.mode in ("tianchi", "pami", "clr") else 16
 
     cfg = build_config(args)
     torch.backends.cudnn.allow_tf32 = False
@@ -208,17 +219,19 @@ def main(argv=None):
         def eval_one():
             step[0] += 1
             return model.eval_step(*batches[step[0] % len(batches)])
-    elif args.mode == "pami":
+    elif args.mode in ("pami", "clr"):
         import dataclasses
-        from . import PAMI_CONFIG, load_config
+        from . import CLR_CONFIG, PAMI_CONFIG, load_config
         from .data import CannyImages, SyntheticImageDataset, stroke_masks
         from .models import ImageImmunizationModel
         from .models.image_model import ImageBatch
         t = 1
-        pcfg = load_config(PAMI_CONFIG)
+        pcfg = load_config(CLR_CONFIG if args.mode == "clr" else PAMI_CONFIG)
         pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(
             pcfg.data, gt_size=s, batch_size=b))
-        model = ImageImmunizationModel(pcfg, device=args.device)
+        model = ImageImmunizationModel(pcfg, task=args.mode,
+                                       reverse_k=args.reverse_k,
+                                       device=args.device)
         model.init_states(0)
         ds = CannyImages(SyntheticImageDataset(size=s, length=5 * b,
                                                seed=10))
@@ -277,8 +290,10 @@ def main(argv=None):
             "extractor": args.extractor, "haar": args.haar,
             "packed": args.packed, "int8": args.int8,
             "int8_embed": args.int8_embed, "requests": args.requests,
-            "batch": b, "frames": t, "size": s}
-    if args.mode in ("tianchi", "pami"):
+            "batch": b, "frames": t, "size": s,
+            **({"reverse_k": args.reverse_k}
+               if args.mode in ("pami", "clr") else {})}
+    if args.mode in ("tianchi", "pami", "clr"):
         for what, fn in (("train_step", train_one), ("eval_step", eval_one)):
             print(json.dumps({**head, "step": what,
                               **profile_window(fn, args.requests,

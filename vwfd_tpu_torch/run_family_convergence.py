@@ -1,6 +1,7 @@
 """Convergence runs of the message and image families (port of
 tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
-``_tianchi``, :279-341; PAMI and ImugeV2: ``_image_family``, :73-167).
+``_tianchi``, :279-341; PAMI, ImugeV2 and CLR: ``_image_family``,
+:73-167).
 
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs \\
         --steps 15000 --eval-every 500 --out runs/conv_torch_mbrs.jsonl \\
@@ -19,6 +20,9 @@ tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
         --out runs/conv_torch_imuge.jsonl --ckpt-dir build/imuge_ckpt
     python -m vwfd_tpu_torch.run_family_convergence --task pami \\
         --steps 1000 --size 512 --batch 3 --reverse-k 3 --eval-every 250
+    python -m vwfd_tpu_torch.run_family_convergence --task clr \\
+        --steps 1150 --size 512 --batch 3 --reverse-k 3 --eval-every 250 \\
+        --out runs/conv_torch_clr512.jsonl
 
 ``--task mbrs`` trains ``MBRSModel`` (128², b16 unless ``--size`` /
 ``--batch``) on the JAX runner's data: ``SyntheticImageDataset(size, 2000,
@@ -47,14 +51,16 @@ held-out forgeries (``SpliceForgeryDataset(size, 64, 10 + 7777)`` through
 ``Loader(..., seed=10 + 7777, ratio=200)``, a fresh epoch order each eval,
 as the JAX runner's loop draws them).
 
-``--task pami`` / ``--task imuge`` train ``ImageImmunizationModel`` (the
-port's ``configs/pami.yaml``: the 4-channel INN in bf16, the localizer,
-k = 6 attacks; 512², b3 for pami, 256², b8 for imuge unless ``--size`` /
-``--batch``, the JAX runner's geometry; ``--reverse-k`` bounds the reverse
+``--task pami`` / ``--task imuge`` / ``--task clr`` train
+``ImageImmunizationModel`` (the port's ``configs/pami.yaml``, or
+``configs/clr.yaml`` for clr: the 4-channel INN in bf16, the localizer,
+k = 6 attacks, clr's crop tamper and apex regressor; 512², b3 for pami and
+clr, 256², b8 for imuge unless ``--size`` / ``--batch``, the JAX runner's
+geometry; ``--reverse-k`` bounds the reverse
 fan-out, 0 for all, as the JAX flag) on the JAX runner's images:
 ``SyntheticImageDataset(size, 2000, 10)`` through ``Loader(..., seed=10,
 ratio=200)``, each with its host canny map (``data.edges``, bit-equal to
-the JAX runner's ``cv2.Canny``; pami only: imuge embeds the previous
+the JAX runner's ``cv2.Canny``; pami and clr: imuge embeds the previous
 batch in gray), and stroke masks drawn per batch from ``default_rng((10,
 batch index))`` (the JAX runner draws them per item from one generator
 its loader's threads share, so its masks are not reproducible; the
@@ -76,7 +82,8 @@ The JSONL record is the JAX runner's, key for key: a config line (with the
 device, its name and the seeds), at step 1 and every ``--log-every`` steps
 the logs (MBRS: ``loss``, ``encoder_mse``, ``message_mse``,
 ``bitwise_error``; Tianchi: ``CE``, ``CE1``; the image family: ``loss``,
-``lF``, ``lB``, ``l_mask``, ``PF``, ``PB``, ``NULL``) and ``wall`` (seconds
+``lF``, ``lB``, ``l_mask``, ``PF``, ``PB``, ``NULL``; clr's also
+``l_apex``, ``l_ce``) and ``wall`` (seconds
 since the start), and at every ``--eval-every`` step and the last an eval
 record. MBRS's is on 16 held-out images (``SyntheticImageDataset (size,
 16, 10 + 7777)``, messages from ``default_rng(7777)``): the encoded PSNR
@@ -92,9 +99,8 @@ step and continues with the batches, messages, draws and eval orders an
 unbroken run would see (the loaders' orders, the message and draw
 generators replayed to the step). ``--stop-at-step`` ends a segment with a
 checkpoint. Only the latest checkpoint is kept. Runs on the CUDA card
-unless ``--device cpu``; without a card it raises. CLR and KD-JPEG are
-not ported yet: each raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+unless ``--device cpu``; without a card it raises. KD-JPEG is not ported
+yet: it raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 import argparse
@@ -108,7 +114,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import PAMI_CONFIG, TIANCHI_CONFIG, load_config
+from . import CLR_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG, load_config
 from .attacks import jpeg_real
 from .data import (CannyImages, Loader, SpliceForgeryDataset,
                    SyntheticImageDataset, stroke_masks)
@@ -128,10 +134,9 @@ DATA_SEED = 10  # the JAX runner's cfg.train.seed: data and messages
 EVAL_QUALITIES = (50, 70, 90)
 # (size, batch) unless --size / --batch: the JAX runner's geometry
 DEFAULTS = {"mbrs": (128, 16), "tianchi": (512, 4), "pami": (512, 3),
-            "imuge": (256, 8)}
-IMAGE_TASKS = ("pami", "imuge")
-NOT_PORTED = {"clr": "ROADMAP.md §1, its image family remainder item",
-              "kdjpeg": "ROADMAP.md §1, its KD-JPEG item"}
+            "imuge": (256, 8), "clr": (512, 3)}
+IMAGE_TASKS = ("pami", "imuge", "clr")
+NOT_PORTED = {"kdjpeg": "ROADMAP.md §1, its KD-JPEG item"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -149,13 +154,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0,
                     help="the weights' and the noise draws' seed")
     ap.add_argument("--reverse-k", type=int, default=0,
-                    help="pami / imuge: attacked copies reversed (0: all)")
+                    help="pami / imuge / clr: attacked copies reversed (0: "
+                         "all)")
     ap.add_argument("--eval-every", type=int, default=250)
     ap.add_argument("--eval-batch", type=int, default=None,
                     help="held-out batch (default: 16 mbrs, the train "
                          "batch tianchi)")
     ap.add_argument("--eval-batches", type=int, default=4,
-                    help="tianchi, pami, imuge: held-out batches an eval")
+                    help="tianchi, pami, imuge, clr: held-out batches an "
+                         "eval")
     ap.add_argument("--log-every", type=int, default=25)
     ap.add_argument("--save-every", type=int, default=1000)
     ap.add_argument("--out", default=None)
@@ -269,7 +276,7 @@ class ImageStreams:
                  seed: int, start: int = 0):
         ds = CannyImages(SyntheticImageDataset(size=size, length=2000,
                                                seed=DATA_SEED),
-                         with_canny=model.task == "pami")
+                         with_canny=model.task != "imuge")
         self.batches = Loader(ds, batch, seed=DATA_SEED,
                               ratio=200).stream(start)
         self.index, self.size = start, size
@@ -299,7 +306,7 @@ def image_eval_loader(model: ImageImmunizationModel, size: int, batch: int,
     epochs of ``evals_done`` earlier evals (each draws one)."""
     held = CannyImages(SyntheticImageDataset(size=size, length=length,
                                              seed=DATA_SEED + 7777),
-                       with_canny=model.task == "pami")
+                       with_canny=model.task != "imuge")
     loader = Loader(held, batch, seed=DATA_SEED + 7777, ratio=ratio)
     for _ in range(evals_done):
         loader._order()
@@ -344,7 +351,7 @@ def _model(args):
         model = MBRSModel(image_size=args.size, lr=args.lr or 1e-3,
                           device=args.device)
     elif args.task in IMAGE_TASKS:
-        cfg = load_config(PAMI_CONFIG)
+        cfg = load_config(CLR_CONFIG if args.task == "clr" else PAMI_CONFIG)
         cfg = dataclasses.replace(
             cfg, task=args.task,
             data=dataclasses.replace(cfg.data, gt_size=args.size,

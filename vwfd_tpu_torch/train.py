@@ -1,5 +1,5 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video|hidden|mbrs|tianchi|pami|imuge [--root DIR | --synthetic] [--steps N
+video|hidden|mbrs|tianchi|pami|imuge|clr [--root DIR | --synthetic] [--steps N
 | --val] [--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
@@ -68,13 +68,15 @@ tianchi``'s.
     python -m vwfd_tpu_torch.train --task tianchi --synthetic --steps 3 \
         --device cpu --batch 2 --size 64
 
-``--task pami`` and ``--task imuge`` train the image family
-(``models/image_model.py``; the JAX ``train.py``'s ``_image_loop``,
-:101-201) with the port's ``configs/pami.yaml`` unless ``--config``
-(``--size``, ``--batch`` override): on synthetic images (``--synthetic``:
+``--task pami``, ``--task imuge`` and ``--task clr`` train the image
+family (``models/image_model.py``; the JAX ``train.py``'s ``_image_loop``,
+:101-201, :475) with the port's ``configs/pami.yaml`` (``configs/clr.yaml``
+for clr) unless ``--config`` (``--size``, ``--batch`` override; the model
+options ``--with-gan`` and ``--use-perceptual``, the latter PAMI and
+ImugeV2 only, as in JAX): on synthetic images (``--synthetic``:
 ``SyntheticImageDataset(seed=train.seed)``) or an image folder (``--root``,
 read through OpenCV), each with its host canny map (``data/edges.py``, the
-JAX loop's ``cv2.Canny`` without OpenCV; pami only) and stroke masks drawn
+JAX loop's ``cv2.Canny`` without OpenCV; pami and clr) and stroke masks drawn
 per batch from ``default_rng((train.seed, batch index))`` (F11's
 rasteriser); the first batch only seeds the previous batch; the tamper and
 fan-out draws from ``ImageSampler`` seeded ``train.seed``; a progress bar,
@@ -84,9 +86,11 @@ prints one JSON line (the last step's logs, ms per step and images/s over
 the steps after the first). ``--val`` runs ``eval_step`` on
 ``--val-batches`` batches after the one that seeds the previous batch and
 prints the means of its scalars. The held-out protocol of the JAX
-records is ``run_family_convergence --task pami|imuge``'s.
+records is ``run_family_convergence --task pami|imuge|clr``'s.
 
     python -m vwfd_tpu_torch.train --task pami --synthetic --steps 3 \
+        --device cpu --batch 2 --size 32
+    python -m vwfd_tpu_torch.train --task clr --synthetic --steps 2 \
         --device cpu --batch 2 --size 32
 """
 
@@ -99,8 +103,8 @@ import time
 import numpy as np
 import torch
 
-from . import (FLAGSHIP_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG, Config,
-               load_config)
+from . import (CLR_CONFIG, FLAGSHIP_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG,
+               Config, load_config)
 from .data import (CannyImages, DavisVideoDataset, ImageFolderDataset,
                    Loader, SpliceForgeryDataset, SyntheticImageDataset,
                    SyntheticVideoDataset, cv2_mask_reader, cv2_readers,
@@ -336,10 +340,11 @@ def _tianchi(args, ap, logger):
 
 
 def _image(args, ap, logger):
-    """``--task pami`` or ``imuge``: the JAX ``train.py``'s
+    """``--task pami``, ``imuge`` or ``clr``: the JAX ``train.py``'s
     ``_image_loop``."""
     task = args.task
-    cfg = load_config(args.config or PAMI_CONFIG)
+    cfg = load_config(args.config or (CLR_CONFIG if task == "clr"
+                                      else PAMI_CONFIG))
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 gt_size=args.size or cfg.data.gt_size,
                 root=args.root or cfg.data.root,
@@ -349,7 +354,7 @@ def _image(args, ap, logger):
                               data=dataclasses.replace(cfg.data, **data),
                               ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
     d, seed = cfg.data, cfg.train.seed
-    pami = task == "pami"
+    pami = task != "imuge"  # the canny watermark
     if d.root and not d.synthetic:
         try:
             read_image, _ = cv2_readers()
@@ -363,7 +368,9 @@ def _image(args, ap, logger):
             size=d.gt_size, length=2000, seed=seed), pami)
     else:
         ap.error("no data: pass --root (an image folder) or --synthetic")
-    model = ImageImmunizationModel(cfg, task=task, device=args.device)
+    model = ImageImmunizationModel(cfg, task=task, device=args.device,
+                                   with_gan=args.with_gan,
+                                   use_perceptual=args.use_perceptual)
     model.init_states(seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
@@ -440,15 +447,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="video",
                     choices=("video", "hidden", "mbrs", "tianchi", "pami",
-                             "imuge"),
-                    help="video (default), hidden, mbrs, tianchi, pami or "
-                         "imuge")
+                             "imuge", "clr"),
+                    help="video (default), hidden, mbrs, tianchi, pami, "
+                         "imuge or clr")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
                     help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
-                         "with --task hidden, mbrs, tianchi, pami or imuge "
-                         "an image folder")
+                         "with --task hidden, mbrs, tianchi, pami, imuge or "
+                         "clr an image folder")
     ap.add_argument("--mask-root", default=None,
                     help="--task tianchi: the forgery-mask folder (each "
                          "mask the image's base name)")
@@ -470,6 +477,12 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--size", type=int, default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--with-gan", action="store_true",
+                    help="pami, imuge, clr: the patch discriminator and its "
+                         "nsgan terms")
+    ap.add_argument("--use-perceptual", action="store_true",
+                    help="pami, imuge: the VGG19 feature loss "
+                         "(train.vgg_weights, else a seeded trunk)")
     args = ap.parse_args(argv)
     if min(args.steps, args.val_batches) < 1:
         ap.error("--steps and --val-batches take at least 1")
@@ -481,8 +494,10 @@ def main(argv=None):
         return _message(args, ap, logger)
     if args.task == "tianchi":
         return _tianchi(args, ap, logger)
-    if args.task in ("pami", "imuge"):
+    if args.task in ("pami", "imuge", "clr"):
         return _image(args, ap, logger)
+    if args.with_gan or args.use_perceptual:
+        ap.error("--with-gan and --use-perceptual are image-family options")
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
