@@ -253,6 +253,7 @@ import torch.nn.functional as F
 from vwfd_tpu_torch import (FLAGSHIP_CONFIG, PAMI_CONFIG, REFSHAPE_CONFIG,
                             kernel_report, load_config)
 from vwfd_tpu_torch.attacks import quant_tables
+from vwfd_tpu_torch.attacks.spatial import rect_mask
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
@@ -3003,15 +3004,20 @@ def rect_inputs(g, reps, shape):
 def check_rectify(rows, card):
     """K21 at CLR's train step (48 copies of 256² against 8 clean images)
     and the 512² record's reverse (9 copies against 3), over windows of
-    one pixel's height, on the edges and the image: output EQUAL to the
-    plain version, the gradient into the clean images (PyTorch ops) within
-    ``RECT_GRAD_RTOL`` of the plain max, bit-identical over calls; an Inf
-    attacked pixel outside the window and a NaN inside give NaN where the
-    plain version's are; the forward timed warm and with a cold L2 beside
-    the plain version and ``F.interpolate`` of the copies to the window's
-    size then ``F.pad`` to its place (library; the port never calls it),
-    the backward's PyTorch ops timed too. The bound counts the copies and
-    the clean images read and the output written (the forward)."""
+    one pixel's height, on the edges and the image, and a W·C that is not
+    a multiple of 4 (the scalar path): output EQUAL to the plain version,
+    the gradient into the clean images (K21's backward kernel) within
+    ``RECT_GRAD_RTOL`` of the plain max, both bit-identical over calls; an
+    Inf attacked pixel outside the window and a NaN inside give NaN where
+    the plain version's are, and so does a NaN cotangent outside the window
+    in the backward. Each launch timed apart, warm and with a cold L2: the
+    forward beside the plain version and ``F.interpolate`` of the copies to
+    the window's size then ``F.pad`` to its place (library; the port never
+    calls it), the backward beside its plain version (the PyTorch ops it
+    replaces) and one ``torch.einsum`` of the same sum (library). The
+    forward's bound counts the copies and the clean images read and the
+    output written, the backward's g read and dclean
+    written."""
     row = rows["rectify"]
     g = torch.Generator("cuda").manual_seed(76)
     shape = (CLR_B, CLR_S, CLR_S, 3)
@@ -3019,7 +3025,8 @@ def check_rectify(rows, card):
     cases = [(CLR_K, shape, a) for a in (CUBIC_APEXES[0], (100.0, 101.0,
                                                            7.0, 200.0),
                                          CUBIC_APEXES[2], CUBIC_APEXES[3])]
-    cases.append((CLR_BIG[2], big, (31.0, 480.0, 0.0, 400.0)))
+    cases += [(CLR_BIG[2], big, (31.0, 480.0, 0.0, 400.0)),
+              (2, (2, 40, 71, 3), (6.0, 40.0, 30.0, 71.0))]
     worst = 0.0
     for reps, shp, apex in cases:
         att, clean = rect_inputs(g, reps, shp)
@@ -3027,8 +3034,8 @@ def check_rectify(rows, card):
         ap = torch.tensor(apex, device="cuda")
         (yk,), (gk,) = grads_of(lambda c: rectify.rectify(att, c, ap),
                                 [clean], [True], cot)
-        (yk2,), _ = grads_of(lambda c: rectify.rectify(att, c, ap),
-                             [clean], [True], cot)
+        (yk2,), (gk2,) = grads_of(lambda c: rectify.rectify(att, c, ap),
+                                  [clean], [True], cot)
         (yp,), (gp,) = grads_of(lambda c: rectify.rectify_plain(att, c, ap),
                                 [clean], [True], cot)
         torch.cuda.synchronize()
@@ -3037,34 +3044,54 @@ def check_rectify(rows, card):
         check(torch.equal(yk, yp), f"rectify {reps}x{shp} {apex}: differs "
               f"from plain ({float((yk - yp).abs().max())})")
         check(ge <= RECT_GRAD_RTOL * gmax, f"rectify gradient {ge}")
-        check(torch.equal(yk, yk2), "rectify: two calls differ")
+        check(torch.equal(yk, yk2) and torch.equal(gk, gk2),
+              "rectify: two calls differ")
         worst = max(worst, ge / gmax)
         print(f"check rectify {reps}x{shp} window {apex}: equal to plain, "
-              f"gradient into clean max_abs_err={ge:.3g} of {gmax:.3g}")
+              f"gradient into clean max_abs_err={ge:.3g} of {gmax:.3g}, "
+              f"bit-identical over calls")
     att, clean = rect_inputs(g, 2, (2, 64, 64, 3))
     att[0, 1, 1, 0] = float("inf")
     att[3, 30, 30, 2] = float("nan")
     ap = torch.tensor((5.0, 60.0, 2.0, 50.0), device="cuda")
-    yk, yp = rectify.rectify(att, clean, ap), rectify.rectify_plain(
-        att, clean, ap)
+    cot = torch.randn(att.shape, device="cuda", generator=g)
+    cot[1, 62, 1, 1] = float("nan")  # outside the window
+    (yk,), (gk,) = grads_of(lambda c: rectify.rectify(att, c, ap), [clean],
+                            [True], cot)
+    (yp,), (gp,) = grads_of(lambda c: rectify.rectify_plain(att, c, ap),
+                            [clean], [True], cot)
     torch.cuda.synchronize()
-    check(torch.equal(yk.isnan(), yp.isnan()) and bool(yp.isnan().any())
-          and torch.equal(yk[yp.isfinite()], yp[yp.isfinite()]),
-          "rectify non-finite: differs from plain")
-    print(f"check rectify non-finite: NaN {int(yp.isnan().sum())} at the "
-          f"plain version's places")
+    for what, k, p in (("forward", yk, yp), ("gradient", gk, gp)):
+        fin = p.isfinite()
+        check(torch.equal(k.isnan(), p.isnan()) and bool(p.isnan().any())
+              and float((k[fin] - p[fin]).abs().max())
+              <= RECT_GRAD_RTOL * float(p[fin].abs().max()),
+              f"rectify non-finite {what}: differs from plain")
+    check(torch.equal(yk[yp.isfinite()], yp[yp.isfinite()]),
+          "rectify non-finite: finite outputs differ")
+    print(f"check rectify non-finite: NaN {int(yp.isnan().sum())} forward, "
+          f"{int(gp.isnan().sum())} gradient, at the plain version's places")
     row.err = worst
     out = {}
-    for reps, shp, apex in (cases[0], cases[-1]):
+    for reps, shp, apex in (cases[0], cases[4]):
         att, clean = rect_inputs(g, reps, shp)
         ap = torch.tensor(apex, device="cuda")
-        ms = time_ms(lambda: rectify.rectify(att, clean, ap))
-        moved = nbytes(att, clean, att)
-        cold = time_cold_ms(lambda a, c: rectify.rectify(a, c, ap),
-                            cold_sets(lambda i: rect_inputs(g, reps, shp),
-                                      moved))
-        pms = time_ms(lambda: rectify.rectify_plain(att, clean, ap), iters=5,
-                      warmup=1)
+        cot = torch.randn(att.shape, device="cuda", generator=g)
+        fwd_bytes = nbytes(att, clean, att)
+        bwd_bytes = nbytes(cot, clean)
+        t = {"f": time_ms(lambda: rectify.rectify(att, clean, ap)),
+             "b": time_ms(lambda: rectify.rectify_backward(cot, ap, reps)),
+             "pb": time_ms(lambda: rectify.rectify_backward_plain(cot, ap,
+                                                                  reps))}
+        t["cf"] = time_cold_ms(
+            lambda a, c: rectify.rectify(a, c, ap),
+            cold_sets(lambda i: rect_inputs(g, reps, shp), fwd_bytes))
+        t["cb"] = time_cold_ms(
+            lambda gv: rectify.rectify_backward(gv, ap, reps),
+            cold_sets(lambda i: (torch.randn(att.shape, device="cuda",
+                                             generator=g),), bwd_bytes))
+        t["pf"] = time_ms(lambda: rectify.rectify_plain(att, clean, ap),
+                          iters=5, warmup=1)
         h0, h1, w0, w1 = (int(v) for v in apex)
         a_nchw = att.permute(0, 3, 1, 2)
 
@@ -3072,27 +3099,42 @@ def check_rectify(rows, card):
             win = F.interpolate(a_nchw, size=(h1 - h0, w1 - w0),
                                 mode="bicubic", align_corners=False)
             return F.pad(win, (w0, shp[2] - w1, h0, shp[1] - h1))
-        lms = time_ms(lib)
-        cg = clean.clone().requires_grad_(True)
-        y = rectify.rectify(att, cg, ap)
-        cot = torch.randn(att.shape, device="cuda", generator=g)
-        bms = time_ms(lambda: torch.autograd.grad(y, cg, cot,
-                                                  retain_graph=True))
-        ops = att.numel() * RECT_OPS
-        bnd = bound(moved, ops)[0]
-        out[shp] = (ms, cold, pms, lms, bms, moved, ops, bnd)
-        print(f"check rectify {reps}x{shp}: ms={ms:.4f} cold_ms={cold:.4f} "
-              f"plain_ms={pms:.4f} library (F.interpolate + F.pad) "
-              f"ms={lms:.4f} backward (PyTorch ops) ms={bms:.4f} bound_ms="
-              f"{bnd:.4f} share_of_bound={bnd / ms:.3f} [{card}]")
-    ms, cold, pms, lms, bms, moved, ops, bnd = out[shape]
-    row.add(ms, pms, moved, ops, library_ms=lms, cold_ms=cold)
+        t["lf"] = time_ms(lib)
+        inside = rect_mask(shp[1:3], ap.unbind())[..., None].expand(shp[1:])
+        g5 = cot.view(reps, *shp)
+        t["lb"] = time_ms(lambda: torch.einsum("rbhwc,hwc->bhwc", g5,
+                                               inside))
+        t["bf"], t["bb"] = (bound(fwd_bytes, att.numel() * RECT_OPS)[0],
+                            bound(bwd_bytes, att.numel() * 2)[0])
+        t["fwd"] = (fwd_bytes, att.numel() * RECT_OPS)
+        t["bwd"] = (bwd_bytes, att.numel() * 2)
+        out[shp] = t
+        print(f"check rectify {reps}x{shp}: forward ms={t['f']:.4f} "
+              f"cold_ms={t['cf']:.4f} plain_ms={t['pf']:.4f} library "
+              f"(F.interpolate + F.pad) ms={t['lf']:.4f} bound_ms="
+              f"{t['bf']:.4f} share={t['bf'] / t['f']:.3f}; backward kernel "
+              f"ms={t['b']:.4f} cold_ms={t['cb']:.4f} PyTorch ops ms="
+              f"{t['pb']:.4f} einsum ms={t['lb']:.4f} bound_ms="
+              f"{t['bb']:.4f} share={t['bb'] / t['b']:.3f} [{card}]")
+    t = out[shape]
+    row.add(t["f"], t["pf"], *t["fwd"], library_ms=t["lf"],
+            cold_ms=t["cf"])
+    row.add(t["b"], t["pb"], *t["bwd"], library_ms=t["lb"],
+            cold_ms=t["cb"])
     b = out[big]
-    row.extra = {"backward_pytorch_ms": bms,
+    row.extra = {"forward_ms": t["f"], "forward_cold_ms": t["cf"],
+                 "forward_bound_ms": t["bf"], "backward_ms": t["b"],
+                 "backward_cold_ms": t["cb"], "backward_bound_ms": t["bb"],
+                 "backward_pytorch_ops_ms": t["pb"],
                  "clr512": {"copies": CLR_BIG[1] * CLR_BIG[2],
-                            "shape": list(big), "ms": b[0], "cold_ms": b[1],
-                            "plain_ms": b[2], "library_ms": b[3],
-                            "backward_pytorch_ms": b[4], "bound_ms": b[7]}}
+                            "shape": list(big), "forward_ms": b["f"],
+                            "forward_cold_ms": b["cf"],
+                            "forward_bound_ms": b["bf"],
+                            "backward_ms": b["b"], "backward_cold_ms": b["cb"],
+                            "backward_bound_ms": b["bb"],
+                            "backward_pytorch_ops_ms": b["pb"],
+                            "plain_ms": b["pf"] + b["pb"],
+                            "library_ms": b["lf"] + b["lb"]}}
 
 
 def ssim_grad_inputs(g, shape, flat=False):
@@ -3108,14 +3150,17 @@ def ssim_grad_inputs(g, shape, flat=False):
 
 def check_ssim_grad(rows, card):
     """K22 at CLR's (8, 256, 256, 3) (with and without a flat patch, where
-    σ² cancels), the 512² record's (3, 512, 512, 3) and ragged shapes:
-    within ``ssim_grad.RTOL`` of the plain gradient's max (autograd of
-    ``ssim_plain``), bit-identical over calls, through ``metrics.ssim``
-    under autograd (K8 + K22); a NaN pixel gives NaN where the plain
-    version's gradient has it; timed warm and with a cold L2 beside the
-    plain version and the input gradient of one depthwise 11×11
-    ``F.conv2d`` over the five stacked maps (yardstick). The bound counts
-    x1 and x2 read and dx written, and ``ssim_grad.OPS`` a value."""
+    σ² cancels), the 512² record's (3, 512, 512, 3) and ragged shapes (one
+    past a 64-column strip and a segment of ``ssim_grad.plan``'s rows in
+    each dimension, and smaller than the window): within ``ssim_grad.RTOL``
+    of the plain gradient's max (autograd of ``ssim_plain``), bit-identical
+    over calls, through ``metrics.ssim`` under autograd (K8 + K22); a NaN
+    pixel gives NaN where the plain version's gradient has it; the launch
+    allocates nothing beyond dx; timed warm and with a cold L2 at both
+    shapes beside the plain version and the input gradient of one
+    depthwise 11×11 ``F.conv2d`` over the five stacked maps (yardstick).
+    The bound counts x1 and x2 read and dx written, and ``ssim_grad.OPS``
+    a value."""
     from vwfd_tpu_torch.metrics import ssim as metrics_ssim
     row = rows["ssim_grad"]
     g = torch.Generator("cuda").manual_seed(77)
@@ -3124,7 +3169,8 @@ def check_ssim_grad(rows, card):
     worst = 0.0
     for shp, flat in ((shape, False), (shape, True), (big, False),
                       ((3, 37, 45, 3), False), ((2, 5, 300, 3), False),
-                      ((1, 11, 11, 3), False)):
+                      ((1, 11, 11, 3), False), ((1, 69, 65, 3), False),
+                      ((2, 69, 129, 3), False)):
         x1, img = ssim_grad_inputs(g, shp, flat)
         xk = x1.clone().requires_grad_(True)
         before = (launch_counts()["ssim"], launch_counts()["ssim_grad"])
@@ -3157,38 +3203,55 @@ def check_ssim_grad(rows, card):
     print(f"check ssim_grad non-finite: NaN {int(gp.isnan().sum())} at the "
           f"plain version's places")
     row.err = worst
-    x1, img = ssim_grad_inputs(g, shape, True)
-    sc = ssim_grad.scale_of(torch.zeros(CLR_B, device="cuda"),
-                            torch.ones((), device="cuda"), shape)
-    ms = time_ms(lambda: ssim_grad.ssim_grad(x1, img, sc))
-    moved = 3 * nbytes(x1)
-    cold = time_cold_ms(lambda a, b: ssim_grad.ssim_grad(a, b, sc),
-                        cold_sets(lambda i: ssim_grad_inputs(g, shape),
-                                  moved))
-    pms = time_ms(lambda: ssim_grad.ssim_grad_plain(x1, img, sc), iters=3,
-                  warmup=1)
-    stacked = torch.cat([x1, img, x1 * x1, img * img, x1 * img], -1).permute(
-        0, 3, 1, 2).contiguous().requires_grad_(True)
-    w = ssim.window_2d().to("cuda").expand(15, 1, 11, 11).contiguous()
-    yconv = F.conv2d(stacked, w, padding=5, groups=15)
-    ycot = torch.randn(yconv.shape, device="cuda", generator=g)
-    yard = time_ms(lambda: torch.autograd.grad(yconv, stacked, ycot,
-                                               retain_graph=True))
-    ops = x1.numel() * ssim_grad.OPS
-    row.add(ms, pms, moved, ops, yardstick_ms=yard, cold_ms=cold)
-    bms, by = bound(moved, ops)
-    xb, ib = ssim_grad_inputs(g, big)
-    scb = ssim_grad.scale_of(torch.zeros(big[0], device="cuda"),
-                             torch.ones((), device="cuda"), big)
-    ms512 = time_ms(lambda: ssim_grad.ssim_grad(xb, ib, scb))
+    out = {}
+    for shp in (shape, big):
+        x1, img = ssim_grad_inputs(g, shp, True)
+        sc = ssim_grad.scale_of(torch.zeros(shp[0], device="cuda"),
+                                torch.ones((), device="cuda"), shp)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dx = ssim_grad.ssim_grad(x1, img, sc)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - nbytes(dx)
+        del dx
+        check(extra <= 1 << 20, f"ssim_grad {shp}: {extra} bytes beyond dx")
+        moved = 3 * nbytes(x1)
+        t = {"ms": time_ms(lambda: ssim_grad.ssim_grad(x1, img, sc)),
+             "cold": time_cold_ms(
+                 lambda a, b: ssim_grad.ssim_grad(a, b, sc),
+                 cold_sets(lambda i: ssim_grad_inputs(g, shp), moved)),
+             "plain": time_ms(lambda: ssim_grad.ssim_grad_plain(x1, img, sc),
+                              iters=3, warmup=1),
+             "moved": moved, "ops": x1.numel() * ssim_grad.OPS,
+             "extra": extra}
+        if shp == shape:
+            stacked = torch.cat([x1, img, x1 * x1, img * img, x1 * img],
+                                -1).permute(0, 3, 1, 2).contiguous(
+                                ).requires_grad_(True)
+            w = ssim.window_2d().to("cuda").expand(15, 1, 11, 11).contiguous()
+            yconv = F.conv2d(stacked, w, padding=5, groups=15)
+            ycot = torch.randn(yconv.shape, device="cuda", generator=g)
+            t["yard"] = time_ms(lambda: torch.autograd.grad(
+                yconv, stacked, ycot, retain_graph=True))
+        t["bound"], t["by"] = bound(moved, t["ops"])
+        out[shp] = t
+        print(f"check ssim_grad {shp} f32: ms={t['ms']:.4f} cold_ms="
+              f"{t['cold']:.4f} plain_ms={t['plain']:.4f} yardstick (11x11 "
+              f"depthwise conv input gradient) ms={t.get('yard', 0):.4f} "
+              f"bound_ms={t['bound']:.4f} ({t['by']}) share_of_bound="
+              f"{t['bound'] / t['ms']:.3f}; bytes beyond dx {extra} "
+              f"[{card}]")
+    t = out[shape]
+    row.add(t["ms"], t["plain"], t["moved"], t["ops"], yardstick_ms=t["yard"],
+            cold_ms=t["cold"])
+    b = out[big]
     row.extra = {"grad_rtol_of_plain_max": worst,
-                 "clr512": {"shape": list(big), "ms": ms512,
-                            "bound_ms": bound(3 * nbytes(xb),
-                                              xb.numel() * ssim_grad.OPS)[0]}}
-    print(f"check ssim_grad {shape} f32: ms={ms:.4f} cold_ms={cold:.4f} "
-          f"plain_ms={pms:.4f} yardstick (11x11 depthwise conv input "
-          f"gradient) ms={yard:.4f} bound_ms={bms:.4f} ({by}) "
-          f"share_of_bound={bms / ms:.3f}; {big}: ms={ms512:.4f} [{card}]")
+                 "bytes_beyond_dx": t["extra"],
+                 "clr512": {"shape": list(big), "ms": b["ms"],
+                            "cold_ms": b["cold"], "plain_ms": b["plain"],
+                            "bound_ms": b["bound"],
+                            "bytes_beyond_dx": b["extra"]}}
 
 
 # ------------------------------------------------------------ phase 4
@@ -5107,10 +5170,10 @@ def run_image(card):
 CLR_LOSS_RTOL = 1e-5     # loss terms, KERNELS vs PLAIN
 CLR_GRAD_COS = 0.9999    # each net's gradient, KERNELS vs PLAIN
 # a CLR train step: PAMI's INN, fan-out and canny launches, the crop
-# forward and backward, the rectification of the reversed copies, K8 and
-# K22 for the SSIM term; the eval step: PAMI's, the crop, the
-# rectification of every copy
-CLR_TRAIN = {**IMG_TRAIN, "crop_cubic": 2, "rectify": 1, "ssim": 1,
+# forward and backward, the rectification of the reversed copies forward
+# and backward, K8 and K22 for the SSIM term; the eval step: PAMI's, the
+# crop, the rectification of every copy
+CLR_TRAIN = {**IMG_TRAIN, "crop_cubic": 2, "rectify": 2, "ssim": 1,
              "ssim_grad": 1}
 CLR_EVAL = {**IMG_EVAL, "crop_cubic": 1, "rectify": 1}
 

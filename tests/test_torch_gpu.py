@@ -70,14 +70,16 @@ FMAs and every product and sum in the plain order) and its gradient within
 1e-5 of the plain max (the transpose sums up to 4·OH terms an input in
 another order than autograd's atomic index_adds), bit-identical over
 calls, NaN where the plain version's is; K21 ``rectify`` EQUAL forward,
-its gradient into the clean images within 1e-6 of the plain max, NaN
-where the plain version's is; K22 ``ssim_grad`` within ``ssim_grad.RTOL``
-(1e-3) of the plain gradient's max (separable window sums, and σ² = E[x²]
-− μ² cancels in flat windows), bit-identical over calls, and
-``metrics.ssim`` under autograd launches K8 forward and K22 backward. A
-small CLR step through ``KERNELS`` against ``PLAIN`` (loss terms within
-1e-5 relative, gradient cosines ≥ 0.9999) with K20 ×2, K21 ×1, K8 ×1,
-K22 ×1 and K19 ×2.
+its backward kernel's gradient into the clean images within 1e-6 of the
+plain max, both bit-identical over calls, one launch each way, NaN where
+the plain version's is (an attacked pixel forward, a cotangent outside
+the window backward); K22 ``ssim_grad`` within ``ssim_grad.RTOL`` (1e-3)
+of the plain gradient's max (separable window sums, and σ² = E[x²] − μ²
+cancels in flat windows), bit-identical over calls, one launch that
+allocates nothing but dx, and ``metrics.ssim`` under autograd launches
+K8 forward and K22 backward. A small CLR step through ``KERNELS`` against
+``PLAIN`` (loss terms within 1e-5 relative, gradient cosines ≥ 0.9999)
+with K20 ×2, K21 ×2, K8 ×1, K22 ×1 and K19 ×2.
 """
 
 import dataclasses
@@ -1663,8 +1665,11 @@ def test_crop_cubic_nonfinite_as_plain(cuda):
 
 @pytest.mark.parametrize("shape,reps,apex", [
     ((8, 256, 256, 3), 6, (10.0, 230.0, 3.0, 256.0)),
+    ((8, 256, 256, 3), 6, (100.0, 101.0, 7.0, 200.0)),  # one pixel high
+    ((8, 256, 256, 3), 6, (180.0, 256.0, 150.0, 256.0)),  # bottom, right
     ((3, 512, 512, 3), 3, (31.0, 512.0, 0.0, 400.0)),
-    ((2, 40, 70, 3), 2, (6.0, 7.0, 2.0, 61.0))])
+    ((2, 40, 70, 3), 2, (6.0, 7.0, 2.0, 61.0)),
+    ((2, 40, 71, 3), 2, (6.0, 40.0, 30.0, 71.0))])  # W·C % 4: scalar path
 def test_rectify_matches_plain(cuda, shape, reps, apex):
     g = _gen(92)
     att = torch.rand((shape[0] * reps,) + shape[1:], device=cuda,
@@ -1674,11 +1679,13 @@ def test_rectify_matches_plain(cuda, shape, reps, apex):
     ap = torch.tensor(apex, device=cuda)
     before = launch_counts()["rectify"]
     yk, gk = _grads(lambda c: rectify.rectify(att, c, ap), clean, cot)
-    assert launch_counts()["rectify"] == before + 1
+    assert launch_counts()["rectify"] == before + 2  # forward + backward
+    yk2, gk2 = _grads(lambda c: rectify.rectify(att, c, ap), clean, cot)
     yp, gp = _grads(lambda c: rectify.rectify_plain(att, c, ap), clean, cot)
     torch.cuda.synchronize()
     assert torch.equal(yk, yp)
     assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+    assert torch.equal(yk, yk2) and torch.equal(gk, gk2)
 
 
 def test_rectify_nonfinite_as_plain(cuda):
@@ -1696,11 +1703,33 @@ def test_rectify_nonfinite_as_plain(cuda):
     _same_nonfinite(yk, yp, 0.0, 0.0)
 
 
+def test_rectify_backward_nonfinite_as_plain(cuda):
+    """A NaN cotangent outside the window: NaN in the clean image's
+    gradient where the plain version's ``g·inside`` gives NaN·0."""
+    shape, apex = (2, 64, 64, 3), (5.0, 60.0, 2.0, 50.0)
+    g = _gen(96)
+    att = torch.rand((4,) + shape[1:], device=cuda, generator=g)
+    clean = torch.rand(shape, device=cuda, generator=g)
+    cot = torch.randn(att.shape, device=cuda, generator=g)
+    cot[1, 62, 1, 1] = float("nan")    # outside the window
+    cot[2, 30, 30, 0] = float("nan")   # inside
+    ap = torch.tensor(apex, device=cuda)
+    _, gk = _grads(lambda c: rectify.rectify(att, c, ap), clean, cot)
+    _, gp = _grads(lambda c: rectify.rectify_plain(att, c, ap), clean, cot)
+    torch.cuda.synchronize()
+    assert bool(gp[1, 62, 1, 1].isnan()) and int(gp.isnan().sum()) == 2
+    _same_nonfinite(gk, gp, 0.0, 1e-6)
+
+
 @pytest.mark.parametrize("shape,flat", [((8, 256, 256, 3), False),
                                         ((8, 256, 256, 3), True),
+                                        ((3, 512, 512, 3), False),
                                         ((3, 40, 70, 3), False),
-                                        ((1, 11, 5, 3), False)])
+                                        ((1, 11, 5, 3), False),
+                                        ((8, 69, 65, 3), False)])
 def test_ssim_grad_matches_plain(cuda, shape, flat):
+    """(8, 69, 65, 3): one past the 64-column strip and past the 68-row
+    segment of the step shape's plan."""
     g = _gen(94)
     x2 = torch.rand(shape, device=cuda, generator=g)
     x1 = (x2 + 0.02 * torch.randn(shape, device=cuda, generator=g)).clamp(
@@ -1720,6 +1749,16 @@ def test_ssim_grad_matches_plain(cuda, shape, flat):
     assert float((gk - gp).abs().max()) <= ssim_grad.RTOL * float(
         gp.abs().max())
     assert torch.equal(gk, gk2)
+    # one launch: nothing allocated but dx (1 MB of slack)
+    sc = ssim_grad.scale_of(torch.zeros(shape[0], device=cuda),
+                            torch.ones((), device=cuda), shape)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx = ssim_grad.ssim_grad(x1, x2, sc)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= \
+        dx.numel() * 4 + (1 << 20)
 
 
 def test_ssim_grad_per_image_cotangents(cuda):
@@ -1741,8 +1780,8 @@ def test_ssim_grad_per_image_cotangents(cuda):
 def test_clr_step_on_the_card_matches_plain(cuda):
     """A small CLR step (64², b2, k 6, INN down_num 2) through the kernels
     and through ``PLAIN`` from the same state and draws: loss terms within
-    1e-5 relative, each net's gradient cosine ≥ 0.9999; K20 ×2, K21 ×1,
-    K8 ×1, K22 ×1, K19 ×2."""
+    1e-5 relative, each net's gradient cosine ≥ 0.9999; K20 ×2, K21 ×2
+    (forward and backward), K8 ×1, K22 ×1, K19 ×2."""
     from vwfd_tpu_torch import (CLR_CONFIG, load_config)
     from vwfd_tpu_torch.models.image_model import (ImageBatch,
                                                    ImageImmunizationModel)
@@ -1775,7 +1814,7 @@ def test_clr_step_on_the_card_matches_plain(cuda):
     counts = launch_counts()
     assert {k: counts[k] for k in ("crop_cubic", "rectify", "ssim",
                                    "ssim_grad", "canny_soft")} == {
-        "crop_cubic": 2, "rectify": 1, "ssim": 1, "ssim_grad": 1,
+        "crop_cubic": 2, "rectify": 2, "ssim": 1, "ssim_grad": 1,
         "canny_soft": 2}
     for k in ("loss", "lF", "lB", "l_mask", "l_apex", "l_ce"):
         assert abs(float(lk[k]) - float(lp[k])) <= 1e-5 * abs(float(lp[k]))

@@ -40,7 +40,7 @@
 * K20 ``crop_cubic``     — CLR's crop tamper: a window resampled bicubically
   back to the full grid, forward and backward (kernels/crop_cubic.py)
 * K21 ``rectify``        — CLR's scale-back rectification of the attacked
-  copies before the reverse pass (kernels/rectify.py)
+  copies before the reverse pass, forward and backward (kernels/rectify.py)
 * K22 ``ssim_grad``      — the SSIM's gradient in its first image, K8's
   backward under autograd (kernels/ssim_grad.py)
 

@@ -84,8 +84,9 @@ _SIGNATURES = {
     "vwfd_canny_geometry": [_IP],
     "vwfd_crop_cubic_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_crop_cubic_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vwfd_rectify": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vwfd_ssim_grad": [_P, _P, _P, _FP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vwfd_rectify": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_rectify_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_ssim_grad": [_P, _P, _P, _FP, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_canny_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_canny_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _I, _P],

@@ -15,25 +15,33 @@ No gradient flows into the second image (the model's is data).
 
 Bound: the larger of bytes (x1 and x2 read, dx written: 18.9 MB at CLR's
 (8, 256, 256, 3), 5.6 µs at 3.35 TB/s) and operations (``OPS`` a value,
-H100 SXM data sheet, 700 W).
+8.1 µs at 67 TFLOP/s; H100 SXM data sheet, 700 W).
 
-Design (first version): two launches over 32×32 tiles of one channel with
-a 5-pixel halo in shared memory. The first recomputes K8's five windowed
-sums (vertical then horizontal 11-tap passes) and writes α, β, γ as three
-planes; the second applies the window to the planes and combines with x1
-and x2. The plain version is the autograd of ``ssim.ssim_map``
-(``ssim_grad_plain``); the kernel sums in another order and σ² = E[x²] −
-μ² cancels in flat windows, so it is held to the plain gradient's max
-(``RTOL``), not per value.
+Design (``csrc/ssim_grad.cu``): one launch with K8's structure run twice
+over, α, β and γ kept in shared memory. A CTA of 256 threads (one an SM)
+walks a strip of 64 output columns (all three channels) down ``plan``'s
+segment of rows, 13 a chunk: the forward's four vertical sums roll in registers, its
+horizontal sums read float4 from shared memory (12 outputs a thread) and
+form α, β, γ on the strip and a 5-pixel halo, the transposed window's
+vertical sums roll in registers 5 rows behind, and its horizontal sums
+combine with x1 and x2 (the rows staged a chunk back) into dx. Inputs
+arrive by ``cp.async``; nothing but dx is written to device memory and the
+wrapper allocates nothing else. The
+plain version is the autograd of ``ssim.ssim_map`` (``ssim_grad_plain``);
+the kernel sums in another order and σ² = E[x²] − μ² cancels in flat
+windows, so it is held to the plain gradient's max (``RTOL``), not per
+value.
 """
+
+from typing import Tuple
 
 import torch
 
 from . import _lib
 from .ssim import _TAPS, ssim_map
 
-__all__ = ["ssim_grad", "ssim_grad_plain", "scale_of", "RTOL", "OPS",
-           "COUNT"]
+__all__ = ["ssim_grad", "ssim_grad_plain", "scale_of", "plan",
+           "segment_walk", "SMEM_BYTES", "RTOL", "OPS", "COUNT"]
 
 COUNT = _lib.LaunchCount("ssim_grad")
 RTOL = 1e-3  # kernel vs plain: max |Δ| within this of the plain max
@@ -47,6 +55,51 @@ RTOL = 1e-3  # kernel vs plain: max |Δ| within this of the plain max
 # - the transposed window over α, β, γ: 2 passes × 3 sums × 11 FMA = 132;
 # - the combine s·(Wα + 2·x1·Wβ + x2·Wγ): 6.
 OPS = 2 * 4 * 11 * 2 + 4 + 15 + 13 + 2 * 3 * 11 * 2 + 6  # 346
+
+_HALO = 5      # the window's half width
+_TW = 64       # csrc/ssim_grad.cu kTW: output columns of a strip
+_RC = 13       # kRC: rows of a chunk
+_BLOCK = 256   # kBlock: threads of a CTA, one CTA an SM
+# kSmemFloats: three chunks' raw rows (3 × 2 × kRC × kBlock), the vertical
+# sums (4 × kRC × kVStride, kVStride = 12·18 + 44: the forward's, then the
+# transpose's in the same place) and α, β, γ (3 × kRC × 12·19), float32
+SMEM_BYTES = 4 * _RC * (3 * 2 * _BLOCK + 4 * 260 + 3 * 228)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(n: int, h: int, w: int, sms: int) -> Tuple[int, int, int]:
+    """``(strips, segments, rows)``: the grid is ``(strips, segments, n)``,
+    a CTA writes a strip of 64 columns and ``rows`` rows (13·chunks − 10)
+    of one image. The split minimises the waves of CTAs (one an SM) times
+    the x rows each walks (its chunks' and the 10 that fill the window);
+    ties keep fewer segments."""
+    strips = _cdiv(w, _TW)
+    best = None
+    for chunks in range(1, _cdiv(h + 2 * _HALO, _RC) + 1):
+        rows = _RC * chunks - 2 * _HALO
+        segments = _cdiv(h, rows)
+        if segments > 65535:
+            continue
+        waves = _cdiv(strips * segments * n, sms)
+        cost = waves * (_RC * chunks + 2 * _HALO)
+        if best is None or cost < best[0]:
+            best = (cost, segments, rows)
+    return strips, best[1], best[2]
+
+
+def segment_walk(h: int, rows: int, s: int):
+    """What CTA row ``s`` of the grid covers (``csrc/ssim_grad.cu``): its
+    output rows ``[r0, r1)``, the x rows it stages ``[r0 − 10, r0 +
+    13·chunks)`` (the first 10 fill the window) and the α rows it forms
+    ``[r0 − 5, r0 − 5 + 13·chunks)``."""
+    r0 = s * rows
+    r1 = min(h, r0 + rows)
+    chunks = _cdiv(r1 - r0 + 2 * _HALO, _RC)
+    return ((r0, r1), (r0 - 2 * _HALO, r0 + _RC * chunks),
+            (r0 - _HALO, r0 - _HALO + _RC * chunks))
 
 
 def scale_of(g_means: torch.Tensor, g_mean: torch.Tensor, shape
@@ -70,8 +123,8 @@ def ssim_grad_plain(img1: torch.Tensor, img2: torch.Tensor,
 
 def ssim_grad(img1: torch.Tensor, img2: torch.Tensor, scale: torch.Tensor
               ) -> torch.Tensor:
-    """d/d img1 of ``Σ_n scale_n·Σ_p S_n(p)`` for (N, H, W, C) float32
-    images: the CUDA kernels for CUDA tensors, the plain version for CPU
+    """d/d img1 of ``Σ_n scale_n·Σ_p S_n(p)`` for (N, H, W, 3) float32
+    images: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
     _lib.check_nhwc(img1, "ssim_grad img1")
     _lib.check_nhwc(img2, "ssim_grad img2")
@@ -84,14 +137,13 @@ def ssim_grad(img1: torch.Tensor, img2: torch.Tensor, scale: torch.Tensor
             or scale.dtype != torch.float32:
         raise TypeError("the ssim_grad kernel takes float32")
     n, h, w, c = img1.shape
-    if n * c > 65535:
-        raise ValueError(f"ssim_grad kernel: at most 65535 image channels, "
-                         f"got {n * c}")
-    planes = torch.empty((3,) + tuple(img1.shape), device=img1.device)
+    if c != 3 or n > 65535:
+        raise ValueError(f"ssim_grad kernel: at most 65535 images of three "
+                         f"channels, got {n} of {c}")
+    _, segments, rows = plan(n, h, w, _lib.sm_count(img1.device))
     dx = torch.empty_like(img1)
     _lib.launch("vwfd_ssim_grad", img1.device, img1.data_ptr(),
-                img2.data_ptr(), scale.data_ptr(), _TAPS,
-                planes[0].data_ptr(), planes[1].data_ptr(),
-                planes[2].data_ptr(), dx.data_ptr(), n, h, w, c)
+                img2.data_ptr(), scale.data_ptr(), _TAPS, dx.data_ptr(), n, h,
+                w, segments, rows)
     COUNT.n += 1
     return dx

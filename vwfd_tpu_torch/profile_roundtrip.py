@@ -100,8 +100,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                                "canny_local_kernel", "canny_input_kernel"),
                 "crop_cubic": ("crop_cubic_fwd_kernel", "crop_cubic_bwd_cols",
                                "crop_cubic_bwd_rows"),
-                "rectify": ("rectify_kernel",),
-                "ssim_grad": ("ssim_maps", "ssim_apply")}
+                "rectify": ("rectify_kernel", "rectify_bwd_kernel"),
+                "ssim_grad": ("ssim_grad_kernel",)}
 
 
 def classify(name: str) -> str:
