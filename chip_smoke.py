@@ -2886,11 +2886,18 @@ def window_bytes(shape, apex):
 
 def check_crop_cubic(rows, card):
     """K20 at CLR's (8, 256, 256, 3) over four windows (one pixel, the
-    edges, the image) and at the 512² record's (3, 512, 512, 3): forward
-    EQUAL to the plain version, the gradient within ``CUBIC_GRAD_RTOL`` of
-    the plain max, both bit-identical over two calls; NaN and Inf pixels and
-    a NaN cotangent NaN where the plain version's are; timed forward +
-    backward warm and with a cold L2 beside the plain version and
+    edges, the image), at the 512² record's (3, 512, 512, 3), downsampled
+    to (128, 96) and (200, 160), and wide: (1, 2160, 3840, 3) (15 column
+    tiles) and a 20,000-pixel row (240 KB, past a CTA's shared memory)
+    down to (8, 300) (forward tiles of 75 pixels); rows downsampled 5 and
+    5.12 times ((2, 40, 70, 3) to (8, 48), 512² to (100, 100): output
+    rows skip input rows); a 300-column window to 1,000 (150 pixels of a
+    tile with more column terms than registers hold): forward EQUAL to the
+    plain version, the gradient within ``CUBIC_GRAD_RTOL`` of the plain
+    max, both bit-identical over two calls; NaN and Inf pixels and a NaN
+    cotangent NaN where the plain version's are; the bytes a forward and a
+    backward allocate beyond y and gx (none); timed forward and backward
+    apart, warm and with a cold L2, beside the plain version and
     ``F.interpolate(bicubic, align_corners=False)`` of the sliced window
     (library: the same function, which the port never calls). The bound
     counts the window read and y written forward, g read and gx written
@@ -2899,35 +2906,45 @@ def check_crop_cubic(rows, card):
     g = torch.Generator("cuda").manual_seed(75)
     shape = (CLR_B, CLR_S, CLR_S, 3)
     big = (CLR_BIG[1], CLR_BIG[0], CLR_BIG[0], 3)
-    cases = [(shape, a) for a in CUBIC_APEXES] + [
-        (big, (31.0, 480.0, 0.0, 400.0))]
+    cases = [(shape, a, None) for a in CUBIC_APEXES] + [
+        (big, (31.0, 480.0, 0.0, 400.0), None),
+        (shape, CUBIC_APEXES[0], (128, 96)),
+        (big, (31.0, 480.0, 0.0, 400.0), (200, 160)),
+        ((1, 2160, 3840, 3), (100.0, 2000.0, 37.0, 3801.0), None),
+        ((1, 8, 20000, 3), (1.0, 7.0, 123.0, 19877.0), (8, 300)),
+        ((2, 40, 70, 3), (0.0, 40.0, 0.0, 70.0), (8, 48)),
+        ((3, 512, 512, 3), (0.0, 512.0, 0.0, 512.0), (100, 100)),
+        ((1, 32, 1000, 3), (0.0, 32.0, 100.0, 400.0), (32, 1000))]
     worst = 0.0
-    for shp, apex in cases:
+    for shp, apex, out_hw in cases:
+        oshape = shp if out_hw is None else (shp[0], *out_hw, shp[3])
         x = cubic_inputs(g, shp)
-        cot = torch.randn(shp, device="cuda", generator=g)
+        cot = torch.randn(oshape, device="cuda", generator=g)
         ap = torch.tensor(apex, device="cuda")
 
-        def fn(v, ap=ap):
-            return crop_cubic.crop_cubic(v, ap)
+        def fn(v, ap=ap, out_hw=out_hw):
+            return crop_cubic.crop_cubic(v, ap, out_hw)
 
-        def pl(v, ap=ap):
-            return crop_cubic.crop_cubic_plain(v, ap)
+        def pl(v, ap=ap, out_hw=out_hw):
+            return crop_cubic.crop_cubic_plain(v, ap, out_hw)
         (yk,), (gk,) = grads_of(fn, [x], [True], cot)
         (yk2,), (gk2,) = grads_of(fn, [x], [True], cot)
         (yp,), (gp,) = grads_of(pl, [x], [True], cot)
         torch.cuda.synchronize()
         gmax = float(gp.abs().max())
         ge = float((gk - gp).abs().max())
-        check(torch.equal(yk, yp), f"crop_cubic {shp} {apex}: forward "
-              f"differs from plain ({float((yk - yp).abs().max())})")
-        check(ge <= CUBIC_GRAD_RTOL * gmax, f"crop_cubic {shp} {apex}: "
-              f"gradient {ge} (plain max {gmax})")
+        check(torch.equal(yk, yp), f"crop_cubic {shp} {apex} {out_hw}: "
+              f"forward differs from plain "
+              f"({float((yk - yp).abs().max())})")
+        check(ge <= CUBIC_GRAD_RTOL * gmax, f"crop_cubic {shp} {apex} "
+              f"{out_hw}: gradient {ge} (plain max {gmax})")
         check(torch.equal(yk, yk2) and torch.equal(gk, gk2),
-              f"crop_cubic {shp} {apex}: two calls differ")
+              f"crop_cubic {shp} {apex} {out_hw}: two calls differ")
         worst = max(worst, ge / gmax)
-        print(f"check crop_cubic {shp} window {apex}: forward equal to "
-              f"plain, gradient max_abs_err={ge:.3g} of plain max "
-              f"{gmax:.3g}, bit-identical over calls")
+        print(f"check crop_cubic {shp} window {apex} out_hw {out_hw}: "
+              f"forward equal to plain, gradient max_abs_err={ge:.3g} of "
+              f"plain max {gmax:.3g}, bit-identical over calls")
+        del x, cot, yk, gk, yk2, gk2, yp, gp
     x, cot = nonfinite_input(g, (4, 64, 64, 3), (1, 30, 12, 0),
                              (0, 6, 3, 2), (1, 31, 20, 1))
     ap = torch.tensor((5.0, 60.0, 2.0, 50.0), device="cuda")
@@ -2950,10 +2967,27 @@ def check_crop_cubic(rows, card):
           f"version's places")
     row.err = worst
     times = {}
-    for shp, apex in ((shape, CUBIC_APEXES[0]), (big, cases[-1][1])):
+    for shp, apex in ((shape, CUBIC_APEXES[0]), (big, cases[4][1])):
         x = cubic_inputs(g, shp)
         cot = torch.randn(shp, device="cuda", generator=g)
         ap = torch.tensor(apex, device="cuda")
+        # the bytes a call allocates beyond its output (none: the backward
+        # keeps no (N, OH, W, C) plane)
+        xg = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = crop_cubic.crop_cubic(xg, ap)
+        torch.cuda.synchronize()
+        fwd_extra = torch.cuda.max_memory_allocated() - base - nbytes(y)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (gx,) = torch.autograd.grad(y, xg, cot)
+        torch.cuda.synchronize()
+        bwd_extra = torch.cuda.max_memory_allocated() - base - nbytes(gx)
+        del xg, y, gx
+        check(fwd_extra == 0 and bwd_extra == 0, f"crop_cubic {shp}: "
+              f"{fwd_extra} bytes beyond y, {bwd_extra} beyond gx")
         kf, kb = fwd_bwd_ms(lambda v: crop_cubic.crop_cubic(v, ap), x, cot)
         cf, cb = fwd_bwd_cold_ms(
             lambda v: crop_cubic.crop_cubic(v, ap), lambda i: (
@@ -2975,18 +3009,23 @@ def check_crop_cubic(rows, card):
                   bound(bwd_bytes, x.numel() * CUBIC_OPS[1])[0])
         times[shp] = dict(kf=kf, kb=kb, cf=cf, cb=cb, pf=pf, pb=pb, lf=lf,
                           lb=lb, bytes=fwd_bytes + bwd_bytes, ops=ops,
-                          bf=bf, bb=bb)
+                          bf=bf, bb=bb, fwd_extra=fwd_extra,
+                          bwd_extra=bwd_extra)
         print(f"check crop_cubic {shp} window {apex}: ms fwd={kf:.4f} "
               f"bwd={kb:.4f} cold fwd={cf:.4f} bwd={cb:.4f} plain fwd="
               f"{pf:.4f} bwd={pb:.4f} library (F.interpolate bicubic of the "
               f"window) fwd={lf:.4f} bwd={lb:.4f} bound fwd={bf:.4f} bwd="
-              f"{bb:.4f} share_of_bound={(bf + bb) / (kf + kb):.3f} [{card}]")
+              f"{bb:.4f} share_of_bound={(bf + bb) / (kf + kb):.3f}; bytes "
+              f"allocated beyond y {fwd_extra}, beyond gx {bwd_extra} "
+              f"[{card}]")
     t = times[shape]
     row.add(t["kf"] + t["kb"], t["pf"] + t["pb"], t["bytes"], t["ops"],
             library_ms=t["lf"] + t["lb"], cold_ms=t["cf"] + t["cb"])
     b512 = times[big]
     row.extra = {"forward_ms": t["kf"], "backward_ms": t["kb"],
+                 "forward_cold_ms": t["cf"], "backward_cold_ms": t["cb"],
                  "forward_bound_ms": t["bf"], "backward_bound_ms": t["bb"],
+                 "bytes_beyond_outputs": t["fwd_extra"] + t["bwd_extra"],
                  "grad_rtol_of_plain_max": worst,
                  "clr512": {"shape": list(big), "ms": b512["kf"] + b512["kb"],
                             "cold_ms": b512["cf"] + b512["cb"],

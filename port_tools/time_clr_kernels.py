@@ -1,8 +1,8 @@
-"""K21 ``rectify`` (forward, backward) and K22 ``ssim_grad`` timed on the
-card, each launch apart, at CLR's step shapes.
+"""K20 ``crop_cubic`` and K21 ``rectify`` (forward, backward) and K22
+``ssim_grad`` timed on the card, each launch apart, at CLR's step shapes.
 
     python port_tools/time_clr_kernels.py [--root DIR] [--label NAME]
-        [--reps 20] [--out FILE]
+        [--reps 20] [--only crop_cubic,rectify,ssim_grad] [--out FILE]
 
 Imports ``vwfd_tpu_torch`` from ``--root`` (default: this checkout; an
 earlier commit unpacked with ``git archive`` times that commit's kernels in
@@ -18,8 +18,17 @@ step's shapes (K21: 48 copies against 8 clean images; K22: (8, 256, 256,
   queued behind a device sleep) and with a cold L2 (the calls rotate over
   inputs of at least 100 MB, twice the L2);
 - K22 the same way, called as ``ssim_grad.ssim_grad``;
+- K20's forward and its backward under autograd at the train step's (8,
+  256, 256, 3) and the record's (3, 512, 512, 3), the window chip_smoke.py
+  times and two narrow ones, warm and cold, by profiler op and bytes
+  beyond the output; the forward ``torch.equal`` to the plain version,
+  the gradient's max |Δ| over the plain gradient's max, both outputs
+  bit-identical over two calls, and a SHA-256 of the gradient's bytes
+  (equal digests in two trees' lines: bit-equal gradients);
 - each device operation's ms per call under ``torch.profiler`` and its
-  count per call; the bytes a call allocates beyond its output;
+  count per call; the bytes a call allocates beyond its output; for K20's
+  backward, 1,000 calls timed each apart (min, p10, median, p90, max) and
+  the SM clock ``nvidia-smi`` samples meanwhile;
 - the outputs against the plain versions: K21's forward ``torch.equal``,
   its gradient's and K22's max |Δ| over the plain gradient's max.
 
@@ -30,10 +39,12 @@ measurement tool, not part of the package: nothing imports it.
 
 import argparse
 import collections
+import hashlib
 import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -61,6 +72,40 @@ def time_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def per_call_ms(fn, calls):
+    """Each of ``calls`` calls' device ms (events between calls queued
+    behind a device sleep), and the SM clock in MHz as ``nvidia-smi``
+    samples it every 20 ms meanwhile."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    try:
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        smi = None
+    time.sleep(0.5)  # its first sample
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for k in range(calls):
+        fn()
+        ev[k + 1].record()
+    ev[-1].synchronize()
+    time.sleep(0.05)
+    clocks = []
+    if smi is not None:
+        smi.terminate()
+        clocks = [int(v) for v in smi.communicate()[0].split()
+                  if v.isdigit()]
+    ms = sorted(ev[k].elapsed_time(ev[k + 1]) for k in range(calls))
+    return {"min": ms[0], "p10": ms[calls // 10], "median": ms[calls // 2],
+            "p90": ms[calls * 9 // 10], "max": ms[-1],
+            "sm_clock_mhz": clocks}
 
 
 def time_cold_ms(fn, sets, iters):
@@ -214,25 +259,100 @@ def measure_ssim_grad(ssim_grad, shape, reps_t):
             / float(gp.abs().max())}
 
 
+# (images, size, window) as chip_smoke.py's check_crop_cubic times them,
+# a one-pixel window (every output taps one pixel) and a 30-column one (30
+# pixels of about 34 column terms each): the backward's path for pixels
+# with more terms than it keeps in registers
+CUBIC_CASES = [(8, 256, (10.0, 230.0, 3.0, 256.0)),
+               (3, 512, (31.0, 480.0, 0.0, 400.0)),
+               (8, 256, (100.0, 101.0, 7.0, 8.0)),
+               (8, 256, (10.0, 250.0, 100.0, 130.0))]
+
+
+def measure_crop_cubic(crop_cubic, case, reps_t):
+    b, s, apex = case
+    g = torch.Generator("cuda").manual_seed(75)
+    shape = (b, s, s, 3)
+
+    def inputs():
+        return (torch.rand(shape, device="cuda", generator=g) * 1.2 - 0.1,
+                torch.randn(shape, device="cuda", generator=g))
+    x, cot = inputs()
+    ap = torch.tensor(apex, device="cuda")
+
+    def grad_of(v, gv):
+        vg = v.clone().requires_grad_(True)
+        y = crop_cubic.crop_cubic(vg, ap)
+        return y, torch.autograd.grad(y, vg, gv)[0]
+    yk, gk = grad_of(x, cot)
+    yk2, gk2 = grad_of(x, cot)
+    xp = x.clone().requires_grad_(True)
+    yp = crop_cubic.crop_cubic_plain(xp, ap)
+    gp, = torch.autograd.grad(yp, xp, cot)
+    xg = x.clone().requires_grad_(True)
+    y = crop_cubic.crop_cubic(xg, ap)
+    fwd = time_ms(lambda: crop_cubic.crop_cubic(x, ap), reps_t)
+    bwd = time_ms(lambda: torch.autograd.grad(y, xg, cot, retain_graph=True),
+                  reps_t)
+    sets = [inputs() for _ in range(max(2, math.ceil(
+        COLD_BYTES / (2 * x.numel() * 4))))]
+    cold_fwd = time_cold_ms(lambda v, c: crop_cubic.crop_cubic(v, ap), sets,
+                            reps_t)
+    graphs = []
+    for v, c in sets:
+        v = v.requires_grad_(True)
+        graphs.append((crop_cubic.crop_cubic(v, ap), v, c))
+    cold_bwd = time_cold_ms(lambda o, v, c: torch.autograd.grad(
+        o, v, c, retain_graph=True), graphs, reps_t)
+    del graphs, sets
+    fwd_extra, _ = extra_bytes(lambda: crop_cubic.crop_cubic(x, ap))
+    bwd_extra, _ = extra_bytes(lambda: torch.autograd.grad(
+        y, xg, cot, retain_graph=True))
+    digest = hashlib.sha256(gk.cpu().numpy().tobytes()).hexdigest()
+    return {
+        "kernel": "crop_cubic", "shape": list(shape), "apex": list(apex),
+        "fwd_ms": fwd, "cold_fwd_ms": cold_fwd, "bwd_ms": bwd,
+        "cold_bwd_ms": cold_bwd,
+        "fwd_by_op": by_op(lambda: crop_cubic.crop_cubic(x, ap), reps_t),
+        "bwd_by_op": by_op(lambda: torch.autograd.grad(
+            y, xg, cot, retain_graph=True), reps_t),
+        "bwd_per_call_ms": per_call_ms(lambda: torch.autograd.grad(
+            y, xg, cot, retain_graph=True), 1000),
+        "fwd_extra_bytes": fwd_extra, "bwd_extra_bytes": bwd_extra,
+        "fwd_equal_plain": bool(torch.equal(yk, yp)),
+        "bit_identical": bool(torch.equal(yk, yk2) and torch.equal(gk, gk2)),
+        "grad_err_of_plain_max": float((gk - gp).abs().max())
+        / float(gp.abs().max()),
+        "grad_sha256": digest}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[1])
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="crop_cubic,rectify,ssim_grad")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         sys.exit("time_clr_kernels: needs a CUDA card")
     sys.path.insert(0, str(args.root.resolve()))
     from vwfd_tpu_torch.attacks.spatial import rect_mask
-    from vwfd_tpu_torch.kernels import _lib, rectify, ssim_grad
+    from vwfd_tpu_torch.kernels import _lib, crop_cubic, rectify, ssim_grad
     _lib.load()
     name = card()
-    recs = [measure_rectify(rectify, rect_mask, c, args.reps)
-            for c in RECT_CASES]
-    recs += [measure_ssim_grad(ssim_grad, (b, s, s, 3), args.reps)
-             for b, _, s, _ in RECT_CASES]
+    recs = []
+    if "crop_cubic" in only:
+        recs += [measure_crop_cubic(crop_cubic, c, args.reps)
+                 for c in CUBIC_CASES]
+    if "rectify" in only:
+        recs += [measure_rectify(rectify, rect_mask, c, args.reps)
+                 for c in RECT_CASES]
+    if "ssim_grad" in only:
+        recs += [measure_ssim_grad(ssim_grad, (b, s, s, 3), args.reps)
+                 for b, _, s, _ in RECT_CASES]
     for rec in recs:
         line = json.dumps({"label": args.label or str(args.root),
                            "card": name, **rec})

@@ -69,7 +69,11 @@ K20 ``crop_cubic``'s forward is EQUAL to its plain version (the weights'
 FMAs and every product and sum in the plain order) and its gradient within
 1e-5 of the plain max (the transpose sums up to 4·OH terms an input in
 another order than autograd's atomic index_adds), bit-identical over
-calls, NaN where the plain version's is; K21 ``rectify`` EQUAL forward,
+calls, NaN where the plain version's is, at CLR's shapes, column tiles
+(3840 and 20000 wide, 2160 × 3840), downsampling and upsampling
+``out_hw``, a window narrow enough for more column terms than a pixel
+lists, 1 and 4 channels; one launch each way, nothing allocated beyond y
+and gx; K21 ``rectify`` EQUAL forward,
 its backward kernel's gradient into the clean images within 1e-6 of the
 plain max, both bit-identical over calls, one launch each way, NaN where
 the plain version's is (an attacked pixel forward, a cotangent outside
@@ -1628,7 +1632,24 @@ _CUBIC_CASES = [((8, 256, 256, 3), (10.0, 230.0, 3.0, 256.0), None),
                 ((8, 256, 256, 3), (100.0, 101.0, 7.0, 8.0), None),
                 ((3, 512, 512, 3), (0.0, 480.0, 40.0, 512.0), None),
                 ((2, 40, 70, 3), (6.0, 38.0, 2.0, 61.0), (32, 48)),
-                ((2, 40, 70, 3), (0.0, 40.0, 0.0, 70.0), (96, 20))]
+                ((2, 40, 70, 3), (0.0, 40.0, 0.0, 70.0), (96, 20)),
+                # column tiles: 15 of 256 pixels; a row of 240 KB, whose
+                # forward tiles shrink to 60 output pixels for (8, 300)
+                ((1, 2160, 3840, 3), (100.0, 2000.0, 37.0, 3801.0), None),
+                ((1, 8, 20000, 3), (1.0, 7.0, 123.0, 19877.0), (8, 300)),
+                ((2, 64, 600, 3), (3.0, 60.0, 5.0, 590.0), (50, 700)),
+                ((3, 512, 512, 3), (31.0, 480.0, 0.0, 400.0), (200, 160)),
+                # 30 columns to 300: about 40 column terms a pixel
+                ((2, 64, 300, 3), (10.0, 50.0, 100.0, 130.0), None),
+                # 150 heavy pixels a tile (about 13 terms each): chunks of
+                # 4 output rows
+                ((1, 32, 1000, 3), (0.0, 32.0, 100.0, 400.0), (32, 1000)),
+                # rows downsampled 5 and 5.12 times: output rows skip input
+                # rows at a band's top and bottom
+                ((2, 40, 70, 3), (0.0, 40.0, 0.0, 70.0), (8, 48)),
+                ((3, 512, 512, 3), (0.0, 512.0, 0.0, 512.0), (100, 100)),
+                ((2, 33, 45, 1), (2.0, 30.0, 4.0, 41.0), None),
+                ((2, 33, 45, 4), (2.0, 30.0, 4.0, 41.0), (20, 64))]
 
 
 @pytest.mark.parametrize("shape,apex,out_hw", _CUBIC_CASES)
@@ -1648,6 +1669,29 @@ def test_crop_cubic_matches_plain(cuda, shape, apex, out_hw):
     assert torch.equal(yk, yp)
     assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
     assert torch.equal(yk, yk2) and torch.equal(gk, gk2)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((8, 256, 256, 3), None),
+                                          ((1, 2160, 3840, 3), (200, 300))])
+def test_crop_cubic_allocates_only_its_outputs(cuda, shape, out_hw):
+    """The forward allocates y and the backward gx, nothing else (the
+    allocator's 2 MiB rounding allowed)."""
+    g = _gen(92)
+    x = torch.rand(shape, device=cuda, generator=g).requires_grad_(True)
+    ap = torch.tensor((10.0, 200.0, 3.0, 250.0), device=cuda)
+    oshape = shape if out_hw is None else (shape[0], *out_hw, shape[3])
+    cot = torch.randn(oshape, device=cuda, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = crop_cubic.crop_cubic(x, ap, out_hw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= y.numel() * 4 + 2 ** 21
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (gx,) = torch.autograd.grad(y, x, cot)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= gx.numel() * 4 + 2 ** 21
 
 
 def test_crop_cubic_nonfinite_as_plain(cuda):

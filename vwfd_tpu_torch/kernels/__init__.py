@@ -51,8 +51,8 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16, K17, K18, K19 and K20 launch their own backward kernels, K8's is K22,
-and K21's is PyTorch ops (its gradient is ``g·inside``). ``KERNELS``
+K16, K17, K18, K19, K20 (one launch, no scratch) and K21 launch their own
+backward kernels, and K8's is K22. ``KERNELS``
 routes through the wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare. ``PLAIN``'s

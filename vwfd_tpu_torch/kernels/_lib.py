@@ -82,8 +82,10 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _F, _P],
     "vwfd_window_attention_ctas": [_I, _I],
     "vwfd_canny_geometry": [_IP],
-    "vwfd_crop_cubic_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vwfd_crop_cubic_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vwfd_crop_cubic_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    "vwfd_crop_cubic_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     "vwfd_rectify": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_rectify_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_ssim_grad": [_P, _P, _P, _FP, _P, _I, _I, _I, _I, _I, _P],

@@ -98,8 +98,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                                      "window_attention_bwd"),
                 "canny_soft": ("canny_max_kernel", "canny_map_kernel",
                                "canny_local_kernel", "canny_input_kernel"),
-                "crop_cubic": ("crop_cubic_fwd_kernel", "crop_cubic_bwd_cols",
-                               "crop_cubic_bwd_rows"),
+                "crop_cubic": ("crop_cubic_fwd_kernel",
+                               "crop_cubic_bwd_kernel"),
                 "rectify": ("rectify_kernel", "rectify_bwd_kernel"),
                 "ssim_grad": ("ssim_grad_kernel",)}
 
