@@ -210,7 +210,22 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    just after (K18 ×56: 28 forward, 28 backward; K5 ×1); an ``eval_step``
    (K18 ×14, K7 ×1); an Inf pixel that moves nothing; one step at 512²
    b4, where every stage shifts; the p50 of train and eval steps,
-   images/s and the peak memory.
+   images/s and the peak memory;
+16. PAMI and ImugeV2 at ``configs/pami.yaml``'s width (``run_image``);
+17. CLR at ``configs/clr.yaml``'s width and the image family's options
+   (``run_clr``);
+18. KD-JPEG at its published widths (FBCNN nc (32, 64, 128, 256), nb 4;
+   256², one source × 6 classes; ``run_kdjpeg``): a ``train_step`` at
+   ``aux_ramp`` 0 and 1 through ``KERNELS`` and ``PLAIN`` (logs within
+   1e-5 relative, PSSIMU within 1e-3 dB, gradient cosines ≥ 0.9999; K23
+   ×24), an Inf pixel that moves no state, ``simulate``, the step's p50,
+   images/s and peak memory; one PAMI step at 512² b3 with
+   ``with_jpeg_simulator`` through both (K5 ×1 more than PAMI's, K23 ×12).
+   Phase 3 holds K23 ``film_residual`` (forward and gh EQUAL to the plain
+   version, the sums within 1e-5 of the plain Σ|·|, bit-identical over
+   calls, NaN where the plain version's are, 0 bytes beyond the outputs)
+   at KD-JPEG's three up levels and the simulator's three at 512² b3,
+   timed warm and cold beside the plain version and ``torch.addcmul``.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -225,7 +240,8 @@ K5, K6, K9 and K10, per eval step for K7 and K8, per int8 roundtrip for
 K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
 roundtrip for K14 and K15, and per HiDDeN train step of the member that
 runs it for K16 and K17, per Tianchi train step for K18, per PAMI train
-step for K19;
+step for K19, per CLR train step for K20-K22, per KD-JPEG train step for
+K23;
 ``launches_by_path`` holds MBRS's, serving's and Tianchi's paths, K5's
 entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
 whole-row width); the last
@@ -259,8 +275,9 @@ from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
 from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, _lib, affine, canny,
                                     coupling, crop_cubic, crop_resize, f1,
-                                    haar, jpeg, launch_counts, mask, median,
-                                    mix, qconv, qconv_t, qcoupling, rectify,
+                                    film, haar, jpeg, launch_counts, mask,
+                                    median, mix, qconv, qconv_t, qcoupling,
+                                    rectify,
                                     reset_launch_counts, splice, ssim,
                                     ssim_grad, transition, window_attention,
                                     wire, zigzag)
@@ -344,6 +361,8 @@ KERNEL_SOURCES = {
                 "vwfd_tpu/attacks/spatial.py:191"),
     "ssim_grad": ("vwfd_tpu_torch/csrc/ssim_grad.cu",
                   "vwfd_tpu/metrics/metrics.py:65"),
+    "film_residual": ("vwfd_tpu_torch/csrc/film.cu",
+                      "vwfd_tpu/nets/fbcnn.py:40"),
 }
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
@@ -372,13 +391,15 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
               "canny_soft": "one depthwise 5x5 F.conv2d on the gray image "
                             "(the gaussian alone), forward and backward",
               "ssim_grad": "the input gradient of one depthwise 11x11 "
-                           "F.conv2d over the stacked windowed maps"}
+                           "F.conv2d over the stacked windowed maps",
+              "film_residual": "torch.addcmul(x + beta, gamma, h) (the "
+                               "forward in two calls)"}
 # K14 and K15 run on the INN module path only (the refshape phase), K16
 # and K17 on HiDDeN's (phase 12)
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
            "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0,
            "window_attention": 0, "canny_soft": 0, "crop_cubic": 0,
-           "rectify": 0, "ssim_grad": 0}
+           "rectify": 0, "ssim_grad": 0, "film_residual": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -413,7 +434,8 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "window_attention": "tianchi_train_step",
             "canny_soft": "pami_train_step",
             "crop_cubic": "clr_train_step", "rectify": "clr_train_step",
-            "ssim_grad": "clr_train_step"}
+            "ssim_grad": "clr_train_step",
+            "film_residual": "kdjpeg_train_step"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -5417,6 +5439,383 @@ def run_clr(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 3,
+# KD-JPEG's FiLM epilogue
+
+# K23 at KD-JPEG's three up levels (256² b6: four launches each way a level
+# at nb 4) and at the image model's simulator at PAMI's 512² b3 (one each)
+FILM_KD = [(6, 128, 64, 64), (6, 64, 128, 128), (6, 32, 256, 256)]
+FILM_SIM = [(3, 32, 128, 128), (3, 24, 256, 256), (3, 16, 512, 512)]
+FILM_NB = 4              # KD-JPEG's blocks a level: launches a level each way
+FILM_SUM_RTOL = 1e-5     # gγ, gβ: of the plain Σ|g·h| and Σ|g| of the plane
+# per value: forward γ·h, + β, + x; backward γ·g, g·h and its sum, Σ g
+FILM_OPS = (3, 4)
+
+
+def film_inputs(g, shape):
+    x, h = (torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+    gamma = torch.rand(shape[:2], device="cuda", generator=g)
+    beta = torch.rand(shape[:2], device="cuda", generator=g) * 2 - 1
+    return x, h, gamma, beta
+
+
+def alloc_bytes(*ts):
+    """The caching allocator's bytes for ``ts``: each tensor's rounded up
+    to its 512-byte blocks."""
+    return sum(-(-nbytes(t) // 512) * 512 for t in ts)
+
+
+def film_sums_err(gk, gp, cot, h):
+    """gγ's and gβ's largest error, each of its plane's plain Σ|g·h| and
+    Σ|g|."""
+    s_gh = (cot * h).abs().sum((2, 3))
+    s_g = cot.abs().sum((2, 3))
+    return max(float(((gk[2] - gp[2]).abs() / s_gh).max()),
+               float(((gk[3] - gp[3]).abs() / s_g).max()))
+
+
+def check_film(rows, card):
+    """K23 at KD-JPEG's three up levels and the simulator's three at PAMI's
+    512² b3, and a ragged plane (the scalar path): the forward and gh
+    EQUAL to the plain version, gx the cotangent itself, gγ and gβ within
+    ``FILM_SUM_RTOL`` of the plain Σ|g·h| and Σ|g| of their plane, all
+    bit-identical over calls; a NaN and an Inf in h, x and the cotangent
+    give NaN where the plain version's are; a call with γ and β frozen
+    (the simulator's branch: no sums) equal too; no bytes allocated beyond
+    out, gh and the (B, C) sums. Each shape timed warm and with a cold L2,
+    forward and backward, beside the plain version (autograd of the
+    expression) and ``torch.addcmul(x + β, γ, h)`` (the forward's
+    yardstick: no PyTorch call computes the function); the bound counts x
+    and h read and out written, g and h read and gh written."""
+    row = rows["film_residual"]
+    g = torch.Generator("cuda").manual_seed(78)
+    needs = [True] * 4
+    worst = 0.0
+    for shape in FILM_KD + FILM_SIM + [(2, 5, 7, 9)]:
+        ins = film_inputs(g, shape)
+        cot = torch.randn(shape, device="cuda", generator=g)
+        (yk,), gk = grads_of(film.film_residual, list(ins), needs, cot)
+        (yk2,), gk2 = grads_of(film.film_residual, list(ins), needs, cot)
+        (yp,), gp = grads_of(film.film_residual_plain, list(ins), needs, cot)
+        torch.cuda.synchronize()
+        check(torch.equal(yk, yp), f"film {shape}: forward differs from "
+              f"plain ({float((yk - yp).abs().max())})")
+        check(torch.equal(gk[0], cot) and torch.equal(gk[1], gp[1]),
+              f"film {shape}: gx or gh differs")
+        err = film_sums_err(gk, gp, cot, ins[1])
+        check(err <= FILM_SUM_RTOL, f"film {shape}: sums {err}")
+        check(torch.equal(yk, yk2) and all(torch.equal(a, b)
+                                           for a, b in zip(gk, gk2)),
+              f"film {shape}: two calls differ")
+        worst = max(worst, err)
+        print(f"check film_residual {shape}: forward and gh equal to plain, "
+              f"gx is g, sums within {err:.3g} of the plain Σ|·| (tol "
+              f"{FILM_SUM_RTOL}), bit-identical over calls")
+    x, h, gm, bt = film_inputs(g, (2, 4, 16, 16))
+    cot = torch.randn(x.shape, device="cuda", generator=g)
+    h[0, 1, 5, 7] = float("nan")
+    x[1, 3, 0, 0] = float("inf")
+    cot[1, 2, 3, 3] = float("nan")
+    (yk,), gk = grads_of(film.film_residual, [x, h, gm, bt], needs, cot)
+    (yp,), gp = grads_of(film.film_residual_plain, [x, h, gm, bt], needs,
+                         cot)
+    torch.cuda.synchronize()
+    for what, k, p in (("out", yk, yp), ("gh", gk[1], gp[1]),
+                       ("gγ", gk[2], gp[2]), ("gβ", gk[3], gp[3])):
+        fin = p.isfinite()
+        check(torch.equal(k.isnan(), p.isnan()) and torch.equal(
+            k.isinf(), p.isinf()) and float((k[fin] - p[fin]).abs().max())
+            <= 1e-5 * float(p[fin].abs().max()),
+            f"film non-finite {what}: differs from plain")
+    print(f"check film_residual non-finite: NaN {int(yp.isnan().sum())} "
+          f"out, {int(gp[2].isnan().sum())} gγ, {int(gp[3].isnan().sum())} "
+          f"gβ planes, at the plain version's places")
+    x, h, gm, bt = film_inputs(g, FILM_SIM[2])
+    cot = torch.randn(x.shape, device="cuda", generator=g)
+    before = film.COUNT.n
+    (yk,), gk = grads_of(lambda a, b: film.film_residual(a, b, gm, bt),
+                         [x, h], [True, True], cot)
+    (yp,), gp = grads_of(lambda a, b: film.film_residual_plain(a, b, gm, bt),
+                         [x, h], [True, True], cot)
+    torch.cuda.synchronize()
+    check(film.COUNT.n - before == 2 and torch.equal(yk, yp)
+          and torch.equal(gk[1], gp[1]), "film with frozen γ, β")
+    print("check film_residual frozen γ, β: equal to plain, one forward "
+          "and one backward launch (no sums)")
+    row.err = worst
+
+    out = {}
+    for shape in FILM_KD + FILM_SIM:
+        x, h, gm, bt = ins = film_inputs(g, shape)
+        cot = torch.randn(shape, device="cuda", generator=g)
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        y = film.film_residual(*xs)
+        torch.autograd.grad(y, xs, cot)  # the stream scratch, once
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = film.film_residual(*xs)
+        torch.cuda.synchronize()
+        fwd_extra = (torch.cuda.max_memory_allocated() - base
+                     - alloc_bytes(y))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gs = torch.autograd.grad(y, xs, cot)
+        torch.cuda.synchronize()
+        gx_is_g = gs[0].data_ptr() == cot.data_ptr()
+        new = [t for t in gs if t.data_ptr() != cot.data_ptr()]
+        bwd_extra = (torch.cuda.max_memory_allocated() - base
+                     - alloc_bytes(*new))
+        del xs, y, gs, new
+        check(fwd_extra == 0 and bwd_extra == 0, f"film {shape}: "
+              f"{fwd_extra} bytes beyond out, {bwd_extra} beyond gh and the "
+              f"sums")
+        fwd_bytes, bwd_bytes = nbytes(x, h, x), nbytes(cot, h, cot)
+        n = x.numel()
+        t = {"f": time_ms(lambda: film.film_residual(x, h, gm, bt)),
+             "b": time_ms(lambda: film.film_backward(cot, h, gm)),
+             "b_frozen": time_ms(lambda: film.film_backward(
+                 cot, h, gm, want_sums=False))}
+        t["cf"] = time_cold_ms(
+            film.film_residual,
+            cold_sets(lambda i: film_inputs(g, shape), fwd_bytes))
+        t["cb"] = time_cold_ms(
+            lambda c, hh, gg: film.film_backward(c, hh, gg),
+            cold_sets(lambda i: (torch.randn(shape, device="cuda",
+                                             generator=g),
+                                 *film_inputs(g, shape)[1:3]), bwd_bytes))
+        ps = [t_.clone().requires_grad_(True) for t_ in ins]
+        t["pf"] = time_ms(lambda: film.film_residual_plain(*ps))
+        yp = film.film_residual_plain(*ps)
+        t["pb"] = time_ms(lambda: torch.autograd.grad(yp, ps, cot,
+                                                      retain_graph=True))
+        bb = bt[:, :, None, None]
+        gg = gm[:, :, None, None]
+        t["ys"] = time_ms(lambda: torch.addcmul(x + bb, gg, h))
+        t["fwd"] = (fwd_bytes, n * FILM_OPS[0])
+        t["bwd"] = (bwd_bytes, n * FILM_OPS[1])
+        t["bf"], t["bb"] = bound(*t["fwd"])[0], bound(*t["bwd"])[0]
+        t["gx_is_g"] = gx_is_g
+        out[shape] = t
+        print(f"check film_residual {shape}: forward ms={t['f']:.4f} "
+              f"cold_ms={t['cf']:.4f} plain_ms={t['pf']:.4f} addcmul "
+              f"yardstick ms={t['ys']:.4f} bound_ms={t['bf']:.4f} share="
+              f"{t['bf'] / t['f']:.3f} (cold {t['bf'] / t['cf']:.3f}); "
+              f"backward ms={t['b']:.4f} cold_ms={t['cb']:.4f} frozen γ, β "
+              f"ms={t['b_frozen']:.4f} plain_ms={t['pb']:.4f} bound_ms="
+              f"{t['bb']:.4f} share={t['bb'] / t['b']:.3f} (cold "
+              f"{t['bb'] / t['cb']:.3f}); 0 bytes beyond the outputs, gx is "
+              f"g: {gx_is_g} [{card}]")
+    for shape in FILM_KD:  # a KD-JPEG train step: four launches a level
+        t = out[shape]
+        row.add(FILM_NB * t["f"], FILM_NB * t["pf"],
+                *(FILM_NB * v for v in t["fwd"]),
+                yardstick_ms=FILM_NB * t["ys"], cold_ms=FILM_NB * t["cf"])
+        row.add(FILM_NB * t["b"], FILM_NB * t["pb"],
+                *(FILM_NB * v for v in t["bwd"]), cold_ms=FILM_NB * t["cb"])
+
+    def path(shapes, reps):
+        return {k: reps * sum(out[s][k] for s in shapes)
+                for k in ("f", "cf", "b", "cb", "pf", "pb", "ys", "bf",
+                          "bb", "b_frozen")}
+    kd, sim = path(FILM_KD, FILM_NB), path(FILM_SIM, 1)
+    row.extra = {
+        "forward_ms": kd["f"], "forward_cold_ms": kd["cf"],
+        "forward_bound_ms": kd["bf"], "backward_ms": kd["b"],
+        "backward_cold_ms": kd["cb"], "backward_bound_ms": kd["bb"],
+        "plain_forward_ms": kd["pf"], "plain_backward_ms": kd["pb"],
+        "bytes_beyond_outputs": 0,
+        "gx_is_g": all(t["gx_is_g"] for t in out.values()),
+        "shapes": {str(list(s)): {k: out[s][k] for k in (
+            "f", "cf", "b", "cb", "b_frozen", "pf", "pb", "ys", "bf", "bb")}
+            for s in out},
+        "pami_sim_512": {"shapes": [list(s) for s in FILM_SIM],
+                         "launches_each_way_per_call": 3,
+                         "forward_ms": sim["f"],
+                         "backward_frozen_ms": sim["b_frozen"],
+                         "backward_ms": sim["b"], "bound_ms": sim["bf"]
+                         + sim["bb"], "plain_ms": sim["pf"] + sim["pb"]}}
+
+
+# ------------------------------------------------------------ phase 18
+# KD-JPEG at its published widths, and the image family's simulator
+
+KD_S, KD_B = 256, 6      # the JAX runner's geometry: one source × 6 classes
+KD_LOG_RTOL = 1e-5       # the logs, KERNELS vs PLAIN
+KD_PSNR_ATOL = 1e-3      # PSSIMU (dB)
+KD_GRAD_COS = 0.9999     # each net's gradient, KERNELS vs PLAIN
+KD_SIM_ATOL = 1e-5       # simulate, KERNELS vs PLAIN
+KD_LOGS = ("lQF", "l_simul", "l_simul_bayar", "qfsimu", "FW_GAN",
+           "dis_loss")
+# a KD-JPEG train step: one generator forward (12 K23 launches at nb 4)
+# and its backward (12)
+KD_TRAIN = {**ZERO_LAUNCHES, "film_residual": 2 * 3 * FILM_NB}
+# PAMI with the simulator: PAMI's, the jpeg_basic target's K5 draw, two
+# simulator calls of three K23 launches each way
+SIM_TRAIN = {**IMG_TRAIN, "jpeg_pair": IMG_TRAIN["jpeg_pair"] + 1,
+             "film_residual": 12}
+
+
+def kd_cfg(s, b):
+    from vwfd_tpu_torch import KDJPEG_CONFIG
+    cfg = load_config(KDJPEG_CONFIG)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gt_size=s, batch_size=b))
+
+
+def kd_model(cfg, seed, kernels=None):
+    from vwfd_tpu_torch.models import KDJpegModel
+    model = KDJpegModel(cfg, kernels=kernels or KERNELS)
+    model.init_states(seed)
+    return model
+
+
+def kd_batches(model, n, seed=10):
+    """``n`` class-major batches of the runner's LQ items (PIL's JPEG at 10,
+    30, 50, 70, 90), on the device."""
+    from vwfd_tpu_torch.data import LQJpegDataset
+    items = max(1, model.cfg.data.batch_size // model.qf_classes)
+    ds = LQJpegDataset(size=model.size, synthetic_length=n * items,
+                       seed=seed)
+    out = []
+    for i in range(n):
+        v, lab = (np.stack(x) for x in zip(*[ds[i * items + j]
+                                             for j in range(items)]))
+        out.append(model.to_device(*model.collate(v, lab)))
+    return out
+
+
+def run_kdjpeg(card):
+    """Phase 18: KD-JPEG at its published widths (FBCNN nc (32, 64, 128,
+    256) nb 4, the QF classifier nb 1, the discriminator dim 32; 256², one
+    clean source × 6 classes, f32), random weights from a seed: a
+    ``train_step`` at ``aux_ramp`` 0 and 1 through ``KERNELS`` and
+    ``PLAIN`` from the same state and batch (logs within ``KD_LOG_RTOL``,
+    PSSIMU within ``KD_PSNR_ATOL``, each net's gradient cosine ≥
+    ``KD_GRAD_COS``), with the launch counts at 0 just before and read just
+    after (K23 ×24); an Inf pixel that moves no state of the three nets;
+    ``simulate`` against ``PLAIN``'s; the p50 of a train step, images/s and
+    the peak memory. Then one PAMI step at 512² b3 ``reverse_k`` 3 with
+    ``with_jpeg_simulator`` (the ``jpeg_basic`` target) through both sets:
+    K5 ×1 more than PAMI's, K23 ×12."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kd_cfg(KD_S, KD_B)
+    model = kd_model(cfg, 51)
+    ref = kd_model(cfg, 51, PLAIN)
+    gen = model.generator
+    check((gen.nb, gen.head.out_channels, gen.down3_down.out_channels,
+           model.localizer.nb, model.discriminator.init_a.features)
+          == (4, 32, 128, 1, 32), "kdjpeg widths")
+    batches = kd_batches(model, 4)
+    launches, terms, cosines = {}, {}, {}
+    for i, ramp in enumerate((0.0, 1.0)):
+        copy_image(ref, model)
+        gp_, gk_ = {}, {}
+        lp = {k: float(v) for k, v in ref.train_step(
+            *batches[i], aux_ramp=ramp, grads_out=gp_).items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        logs = model.train_step(*batches[i], aux_ramp=ramp, grads_out=gk_)
+        torch.cuda.synchronize()
+        key = f"kdjpeg_train_{i}"
+        launches[key] = launch_counts()
+        lk = {k: float(v) for k, v in logs.items()}
+        cos = grad_cosines(gk_, gp_)
+        print(f"{key} (aux_ramp {ramp}): kernels {json.dumps(lk)} plain "
+              f"{json.dumps(lp)}; gradient cosines {cos}; launches "
+              f"{json.dumps({k: v for k, v in launches[key].items() if v})}")
+        check(launches[key] == KD_TRAIN, f"{key} launches {launches[key]}")
+        for k in KD_LOGS:
+            check(math.isfinite(lk[k]) and abs(lk[k] - lp[k])
+                  <= KD_LOG_RTOL * abs(lp[k]),
+                  f"{key} {k}: kernels {lk[k]} plain {lp[k]}")
+        check(abs(lk["PSSIMU"] - lp["PSSIMU"]) <= KD_PSNR_ATOL,
+              f"{key} PSSIMU {lk['PSSIMU']} vs {lp['PSSIMU']}")
+        check(all(c >= KD_GRAD_COS for c in cos.values()),
+              f"{key} gradient cosines {cos}")
+        terms[key], cosines[key] = {"kernels": lk, "plain": lp}, cos
+    launches["kdjpeg_train_step"] = launches["kdjpeg_train_0"]
+
+    bad = batches[2][0].clone()
+    bad[3, KD_S // 3, KD_S // 2, 1] = float("inf")
+    before = [t.clone() for t in model._tensors()]
+    logs = model.train_step(bad, batches[2][1])
+    check(not math.isfinite(float(logs["lQF"])), "Inf batch: finite lQF")
+    check(all(torch.equal(a, b) for a, b in zip(before, model._tensors())),
+          "kdjpeg Inf batch moved a parameter, moment, count or spectral "
+          "vector")
+    print("kdjpeg guard: an Inf pixel left every parameter, Adam moment, "
+          "count and spectral vector of the generator, the QF classifier "
+          "and the discriminator as it was")
+    del before
+
+    copy_image(ref, model)
+    src = batches[3][0][:KD_B]
+    qf = torch.arange(KD_B, device=src.device,
+                      dtype=torch.float32)[:, None] / 5
+    reset_launch_counts()
+    sim = model.simulate(src, qf)
+    torch.cuda.synchronize()
+    sim_launches = launch_counts()["film_residual"]
+    simp = ref.simulate(src, qf)
+    serr = float((sim - simp).abs().max())
+    check(sim.shape == src.shape and bool(torch.isfinite(sim).all())
+          and float(sim.min()) >= 0.0 and float(sim.max()) <= 1.0
+          and serr <= KD_SIM_ATOL and sim_launches == 3 * FILM_NB,
+          f"kdjpeg simulate: err {serr}, launches {sim_launches}")
+    print(f"kdjpeg simulate: {tuple(sim.shape)} in [0, 1], max_abs_err vs "
+          f"plain {serr:.3g}, K23 ×{sim_launches}")
+    del ref
+    gc.collect()
+
+    it_ = iter(range(10 ** 6))
+
+    def train_one():
+        b = batches[next(it_) % 4]
+        return model.train_step(*b)["lQF"].item()
+    train_p50 = p50_of(train_one, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"kdjpeg p50 at {KD_S}², {KD_B} images: train step "
+          f"{train_p50:.3f} ms ({KD_B / train_p50 * 1e3:.1f} images/s); "
+          f"peak memory {peak:.3f} GiB [{card}]")
+    del model, batches
+    gc.collect()
+
+    bs, bn, bk = IMG_BIG
+    pcfg = image_cfg(bs, bn)
+    m = image_model(pcfg, 44, with_jpeg_simulator=True, reverse_k=bk)
+    r = image_model(pcfg, 44, kernels=PLAIN, with_jpeg_simulator=True,
+                    reverse_k=bk)
+    pb = image_batches(m, 2)
+    d = m.sampler(9)((bn, bs, bs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lk, lp, cos = kernels_vs_plain_step(
+        m, r, pb[1], pb[0].image, d, "pami_sim_512",
+        ("loss", "lF", "lB", "l_mask", "l_sim"), launches, SIM_TRAIN)
+    peak_sim = torch.cuda.max_memory_allocated() / 2 ** 30
+    del r
+    gc.collect()
+    p_sim = p50_of(lambda: m.train_step(pb[1], pb[0].image, d)[
+        "loss"].item(), 3, warmup=1)
+    print(f"pami 512² b3 reverse_k 3 with the JPEG simulator: train step "
+          f"p50 {p_sim:.3f} ms; peak memory {peak_sim:.3f} GiB (both "
+          f"models) [{card}]")
+    del m, pb
+    gc.collect()
+    print(json.dumps({"kdjpeg": {
+        "train_step_p50_ms": train_p50,
+        "train_images_per_s": KD_B / train_p50 * 1e3, "images": KD_B,
+        "size": KD_S, "peak_memory_gib": peak, "terms": terms,
+        "gradient_cosines": cosines, "simulate_max_abs_err": serr,
+        "pami_sim_512": {"kernels": lk, "plain": lp,
+                         "gradient_cosines": cos, "train_step_p50_ms": p_sim,
+                         "peak_memory_gib": peak_sim},
+        "card": card}}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -5435,6 +5834,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s ({built})")
 
     rows = {n: Row(n) for n in KERNEL_SOURCES}
+    t_phase = time.perf_counter()
     check_transition(rows, card)
     check_coupling(rows, card)
     check_wire(rows, card)
@@ -5463,6 +5863,10 @@ def main():
     check_crop_cubic(rows, card)
     check_rectify(rows, card)
     check_ssim_grad(rows, card)
+    t_film = time.perf_counter()
+    check_film(rows, card)
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s, of it K23's "
+          f"checks {time.perf_counter() - t_film:.1f} s")
     errs = {n: r.err for n, r in rows.items()}
     print(f"kernels max_abs_err (bf16 vs plain): {json.dumps(errs)}")
 
@@ -5481,12 +5885,16 @@ def main():
     tc_launches = run_tianchi(card)
     img_launches = run_image(card)
     clr_launches = run_clr(card)
+    t_phase = time.perf_counter()
+    kd_launches = run_kdjpeg(card)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s; script so far "
+          f"{time.perf_counter() - t0:.1f} s")
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
                **mbrs_launches, **serve_launches, **tc_launches,
-               **img_launches, **clr_launches}
+               **img_launches, **clr_launches, **kd_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

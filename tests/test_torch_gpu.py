@@ -83,7 +83,16 @@ cancels in flat windows), bit-identical over calls, one launch that
 allocates nothing but dx, and ``metrics.ssim`` under autograd launches
 K8 forward and K22 backward. A small CLR step through ``KERNELS`` against
 ``PLAIN`` (loss terms within 1e-5 relative, gradient cosines ≥ 0.9999)
-with K20 ×2, K21 ×2, K8 ×1, K22 ×1 and K19 ×2.
+with K20 ×2, K21 ×2, K8 ×1, K22 ×1 and K19 ×2. K23 ``film_residual``: its
+forward and gh EQUAL to the plain version (each product and sum one IEEE
+rounding in the plain order), gx the cotangent itself, gγ and gβ within
+1e-5 of the plain Σ|g·h| and Σ|g| of their plane (sums in another order),
+at KD-JPEG's three up levels, the simulator's three at 512² b3 and a
+ragged plane; bit-identical over calls; equal with γ and β frozen (no
+sums); a CUDA tensor of another dtype raises. A small KD-JPEG step through
+``KERNELS`` against ``PLAIN`` (logs within 1e-5 relative, PSSIMU within
+1e-3 dB, gradient cosines ≥ 0.9999) with K23 ×12 at ``nb`` 2 (one
+generator forward and its backward) and nothing else.
 """
 
 import dataclasses
@@ -95,8 +104,8 @@ import torch
 from vwfd_tpu_torch import FLAGSHIP_CONFIG, load_config
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, affine, canny, coupling,
-                                    crop_cubic, crop_resize, f1, haar, jpeg,
-                                    launch_counts, mask, median,
+                                    crop_cubic, crop_resize, f1, film, haar,
+                                    jpeg, launch_counts, mask, median,
                                     mix, qconv, qconv_t, qcoupling, rectify,
                                     reset_launch_counts, splice, ssim,
                                     ssim_grad, transition, window_attention,
@@ -114,7 +123,8 @@ DTYPES = [torch.float32, torch.bfloat16]
 _NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
             "qcoupling_head": 0, "haar": 0,
             "coupling_affine": 0, "window_attention": 0, "canny_soft": 0,
-            "crop_cubic": 0, "rectify": 0, "ssim_grad": 0}
+            "crop_cubic": 0, "rectify": 0, "ssim_grad": 0,
+            "film_residual": 0}
 
 
 @pytest.fixture
@@ -983,7 +993,7 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "zigzag_jpeg": 0, "crop_resize": 0,
                                "window_attention": 0, "canny_soft": 0,
                                "crop_cubic": 0, "rectify": 0,
-                               "ssim_grad": 0}
+                               "ssim_grad": 0, "film_residual": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -1862,6 +1872,108 @@ def test_clr_step_on_the_card_matches_plain(cuda):
         "canny_soft": 2}
     for k in ("loss", "lF", "lB", "l_mask", "l_apex", "l_ce"):
         assert abs(float(lk[k]) - float(lp[k])) <= 1e-5 * abs(float(lp[k]))
+    for name in gk:
+        a = torch.cat([t.flatten() for t in gk[name]])
+        b = torch.cat([t.flatten() for t in gp[name]])
+        assert float(torch.nn.functional.cosine_similarity(
+            a, b, dim=0)) >= 0.9999, name
+
+
+_FILM_SHAPES = [(6, 128, 64, 64), (6, 64, 128, 128), (6, 32, 256, 256),
+                (3, 32, 128, 128), (3, 24, 256, 256), (3, 16, 512, 512),
+                (2, 5, 7, 9)]
+
+
+def _film_case(shape, seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x, h, cot = (torch.randn(shape, device="cuda", generator=g)
+                 for _ in range(3))
+    gamma = torch.rand(shape[:2], device="cuda", generator=g)
+    beta = torch.rand(shape[:2], device="cuda", generator=g) * 2 - 1
+    return [x, h, gamma, beta], cot
+
+
+def _film_grads(fn, ins, cot):
+    ins = [t.clone().requires_grad_(True) for t in ins]
+    y = fn(*ins)
+    return y.detach(), torch.autograd.grad(y, ins, cot)
+
+
+@pytest.mark.parametrize("shape", _FILM_SHAPES)
+def test_film_matches_plain(cuda, shape):
+    ins, cot = _film_case(shape)
+    before = launch_counts()["film_residual"]
+    yk, gk = _film_grads(film.film_residual, ins, cot)
+    assert launch_counts()["film_residual"] == before + 2
+    yp, gp = _film_grads(film.film_residual_plain, ins, cot)
+    assert torch.equal(yk, yp)
+    assert torch.equal(gk[0], cot) and torch.equal(gk[1], gp[1])
+    h = ins[1]
+    for got, want, scale in ((gk[2], gp[2], (cot * h).abs().sum((2, 3))),
+                             (gk[3], gp[3], cot.abs().sum((2, 3)))):
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_film_bit_identical_over_calls(cuda):
+    for shape in _FILM_SHAPES[2], _FILM_SHAPES[5]:
+        ins, cot = _film_case(shape, 1)
+        a = _film_grads(film.film_residual, ins, cot)
+        b = _film_grads(film.film_residual, ins, cot)
+        assert torch.equal(a[0], b[0])
+        assert all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+
+
+def test_film_with_frozen_gamma_beta(cuda):
+    """The simulator's attack branch: γ and β take no gradient, so the
+    backward skips its sums; x's and h's gradients as the plain
+    version's."""
+    (x, h, gm, bt), cot = _film_case((3, 16, 512, 512), 2)
+    k = _film_grads(lambda a, b: film.film_residual(a, b, gm, bt), [x, h],
+                    cot)
+    p = _film_grads(lambda a, b: film.film_residual_plain(a, b, gm, bt),
+                    [x, h], cot)
+    assert torch.equal(k[0], p[0])
+    assert all(torch.equal(u, v) for u, v in zip(k[1], p[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_film_refuses_other_dtypes(cuda, dtype):
+    ins, _ = _film_case((2, 4, 8, 8))
+    with pytest.raises(TypeError, match="float32"):
+        film.film_residual(*(t.to(dtype) for t in ins))
+
+
+def test_kdjpeg_step_on_the_card_matches_plain(cuda):
+    """A small KD-JPEG step (FBCNN nc (8, 8, 16, 16), nb 2; 32², six
+    images) through the kernels and through ``PLAIN`` from the same state:
+    logs within 1e-5 relative, PSSIMU within 1e-3 dB, each net's gradient
+    cosine ≥ 0.9999; K23 ×12 and no other kernel."""
+    from vwfd_tpu_torch import KDJPEG_CONFIG
+    from vwfd_tpu_torch.data import LQJpegDataset
+    from vwfd_tpu_torch.models import KDJpegModel
+    cfg = load_config(KDJPEG_CONFIG)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gt_size=32, batch_size=6))
+    kw = dict(nc=(8, 8, 16, 16), nb=2, disc_dim=8)
+    model = KDJpegModel(cfg, **kw)
+    model.init_states(3)
+    ref = KDJpegModel(cfg, kernels=PLAIN, **kw)
+    with torch.no_grad():
+        for a, b in zip(ref._tensors(), model._tensors()):
+            a.copy_(b)
+    v, lab = LQJpegDataset(size=32, synthetic_length=1, seed=1)[0]
+    flat, labels = KDJpegModel.collate(v[None], lab[None])
+    gk, gp = {}, {}
+    lp = ref.train_step(flat, labels, grads_out=gp)
+    reset_launch_counts()
+    lk = model.train_step(flat, labels, grads_out=gk)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "film_residual": 12}
+    for k in ("lQF", "l_simul", "l_simul_bayar", "qfsimu", "FW_GAN",
+              "dis_loss"):
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-5 * abs(float(lp[k]))
+    assert abs(float(lk["PSSIMU"]) - float(lp["PSSIMU"])) <= 1e-3
     for name in gk:
         a = torch.cat([t.flatten() for t in gk[name]])
         b = torch.cat([t.flatten() for t in gp[name]])

@@ -147,8 +147,11 @@ _COMPILED = {}
 
 def _jax(method, jmodel, *args):
     """JAX's ``train_step`` / ``eval_step`` jitted without ``algsimp``
-    (F9), once per model and method, traced with the exact-border canny."""
-    key = (method, jmodel.task, jmodel.tamper_mode)
+    (F9), once per model and method, traced with the exact-border canny.
+    Keyed by the model object itself: two models of one task and tamper
+    mode (``test_torch_clr.py``'s ``use_perceptual`` ImugeV2 beside this
+    file's plain one, in one worker) must not share a compiled step."""
+    key = (method, jmodel)
     first = key not in _COMPILED
     if first:
         fn = functools.partial(getattr(JImage, method).__wrapped__, jmodel)
@@ -361,11 +364,20 @@ def test_guard_keeps_every_state_on_an_inf_pixel_f21(trees):
 
 
 def test_unported_options_raise():
-    """The one option left unported, KD-JPEG's simulator, names its item
-    (CLR, ``with_gan`` and ``use_perceptual`` run: tests/test_torch_clr.py)."""
+    """Every option of the JAX model is ported (CLR, ``with_gan`` and
+    ``use_perceptual``: tests/test_torch_clr.py; ``with_jpeg_simulator``:
+    tests/test_torch_kdjpeg_sim.py): the simulator builds its FBCNN
+    ``jpeg_sim`` with its own optimizer; what the JAX model does not know,
+    a task or a tamper mode, raises."""
     cfg = _cfgs()[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*KD-JPEG"):
-        ImageImmunizationModel(cfg, device="cpu", with_jpeg_simulator=True)
+    model = ImageImmunizationModel(cfg, device="cpu",
+                                   with_jpeg_simulator=True)
+    assert set(model.nets()) == {"netG", "localizer", "jpeg_sim"}
+    assert set(model.optimizers) == set(model.nets())
+    with pytest.raises(ValueError, match="task"):
+        ImageImmunizationModel(cfg, task="kdjpeg", device="cpu")
+    with pytest.raises(ValueError, match="tamper_mode"):
+        ImageImmunizationModel(cfg, tamper_mode="crop", device="cpu")
 
 
 def _last_json(out):

@@ -427,11 +427,15 @@ def test_runner_resumed_is_the_unbroken_run(tmp_path, monkeypatch):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("task", sorted(runner.NOT_PORTED))
+@pytest.mark.parametrize("task", ["kdjpeg"])
 def test_runner_other_tasks_name_their_roadmap_item(task, tmp_path):
+    """The runner's last unported task, KD-JPEG, is ported: every task of
+    the JAX runner parses, at its geometry (KD-JPEG 256², b6, 8 held-out
+    images); tests/test_torch_kdjpeg_step.py runs it."""
     args = runner.parse_args(["--task", task, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, its "):
-        runner.run(args)
+    assert (args.size, args.batch, args.eval_batch) == (256, 6, 8)
+    assert set(runner.DEFAULTS) == {"pami", "clr", "imuge", "kdjpeg",
+                                    "tianchi", "mbrs"}
 
 
 def test_train_cli_task_mbrs(tmp_path, capsys, monkeypatch):

@@ -54,7 +54,13 @@ become each ``SNConv``'s ``u`` buffer (``spectral_from_jax`` /
 ``QFPredictor``) keeps its ``bayar_kernel`` the same way (HWIO (5, 5, Cin,
 3)); its residual blocks' ``c1`` / ``c2``, the stride-2 ``*_down`` convs,
 ``to_img`` and the Dense ``qf0``–``qf2`` take the Conv and Dense rules; the
-discriminator's ``SNConv`` pairs carry no bias. The VGG19 trunk of
+discriminator's ``SNConv`` pairs carry no bias. ``FBCNN`` (KD-JPEG's
+generator, the image model's ``jpeg_sim``) keeps flax's names: the Dense
+``qf_embed{i}``, ``to_gamma_{lvl}``, ``to_beta_{lvl}``, the convs
+``head``, ``*_down``, ``tail`` and the blocks' ``c1`` / ``c2``, and its
+``up{3,2,1}_up`` take the ConvTranspose rule. KD-JPEG's three nets
+(``generator``, ``localizer``: a ``QFPredictor``, ``discriminator`` with
+its spectral vectors) carry both ways as any model's. The VGG19 trunk of
 ``use_perceptual`` (``metrics/perceptual.py``) is frozen and not a state:
 ``state_dict_from_jax`` maps a flax tree of it.
 """
@@ -71,8 +77,8 @@ __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
            "spectral_to_jax", "unet_int8_from_jax", "inn_int8_from_jax"]
 
 # the ConvTransposes: UNetTPU's decoder's, MBRS's message_expand's, the
-# localizer's transposed SNConv
-_CONVT = re.compile(r"(^|\.)up\d+$|(^|\.)dec\d+_up$")
+# localizer's transposed SNConv, FBCNN's up stages
+_CONVT = re.compile(r"(^|\.)up\d+$|(^|\.)dec\d+_up$|(^|\.)up\d+_up$")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Mapping]:

@@ -43,6 +43,8 @@
   copies before the reverse pass, forward and backward (kernels/rectify.py)
 * K22 ``ssim_grad``      — the SSIM's gradient in its first image, K8's
   backward under autograd (kernels/ssim_grad.py)
+* K23 ``film_residual``  — the FiLM epilogue of FBCNN's QF-attention
+  blocks, x + (γ·h + β), forward and backward (kernels/film.py)
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -51,8 +53,8 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16, K17, K18, K19, K20 (one launch, no scratch) and K21 launch their own
-backward kernels, and K8's is K22. ``KERNELS``
+K16, K17, K18, K19, K20 (one launch, no scratch), K21 and K23 launch their
+own backward kernels, and K8's is K22. ``KERNELS``
 routes through the wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare. ``PLAIN``'s
@@ -63,10 +65,10 @@ is held to; the wrapper's CPU path is the JAX form as it is.
 import functools
 from typing import Callable, Dict, NamedTuple
 
-from . import (affine, canny, coupling, crop_cubic, crop_resize, f1, haar,
-               jpeg, mask, median, mix, qconv, qconv_t, qcoupling, rectify,
-               splice, ssim, ssim_grad, transition, wire, window_attention,
-               zigzag)
+from . import (affine, canny, coupling, crop_cubic, crop_resize, f1, film,
+               haar, jpeg, mask, median, mix, qconv, qconv_t, qcoupling,
+               rectify, splice, ssim, ssim_grad, transition, wire,
+               window_attention, zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
            "reset_launch_counts", "MODULES"]
@@ -74,7 +76,7 @@ __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
            splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
            crop_resize, window_attention, canny, crop_cubic, rectify,
-           ssim_grad)
+           ssim_grad, film)
 
 
 class KernelSet(NamedTuple):
@@ -104,6 +106,7 @@ class KernelSet(NamedTuple):
     canny_soft: Callable
     crop_cubic: Callable
     rectify: Callable
+    film_residual: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -115,7 +118,8 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     affine.coupling_affine, zigzag.zigzag_jpeg,
                     crop_resize.crop_resize,
                     window_attention.window_attention, canny.canny_soft,
-                    crop_cubic.crop_cubic, rectify.rectify)
+                    crop_cubic.crop_cubic, rectify.rectify,
+                    film.film_residual)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -129,7 +133,8 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   window_attention.window_attention_plain,
                   functools.partial(canny.canny_soft_plain,
                                     exact_border=True),
-                  crop_cubic.crop_cubic_plain, rectify.rectify_plain)
+                  crop_cubic.crop_cubic_plain, rectify.rectify_plain,
+                  film.film_residual_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -92,6 +92,8 @@ _SIGNATURES = {
     "vwfd_canny_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vwfd_canny_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _I, _P],
+    "vwfd_film_fwd": [_P, _P, _P, _P, _P, _L, _L, _P],
+    "vwfd_film_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -54,10 +54,27 @@ One ``train_step`` (``_loss``, ``:205-468``, and ``train_step``,
    that order; ``use_perceptual`` (``:418-425``, PAMI and ImugeV2 only)
    adds the VGG19 feature loss (``metrics/perceptual.py``: the
    ``TrainConfig.vgg_weights`` npz, else the port's seeded trunk);
+   ``with_jpeg_simulator`` (``:252-290``, ``:438-439``) adds ``l_sim``
+   (below);
 8. one AdamW per net (netG, localizer, the apex regressor, the
-   discriminator; ``models/state.py``, each clipped on its own); where the
-   loss is not finite every parameter, moment, count and spectral vector
-   keeps its value (``torch.where`` on the device, F6).
+   discriminator, the JPEG simulator; ``models/state.py``, each clipped on
+   its own); where the loss is not finite every parameter, moment, count
+   and spectral vector keeps its value (``torch.where`` on the device,
+   F6).
+
+``with_jpeg_simulator`` (the reference's IRN_model.py:701-798): a small
+FBCNN (``nets/fbcnn.py``, ``nc`` (16, 24, 32, 48), ``nb`` 1; its FiLM
+epilogues K23), the state ``jpeg_sim`` with its own AdamW, learns JPEG at
+the step's drawn quality Q of (50, …, 90) (``ImageDraws.sim_q``): with a
+real pair in the batch (``jpeg_pair=(jpeg_real, qf)``, ``qf`` = Q/100 per
+image) ``l_sim = L1(clip(sim(img, qf)), jpeg_real)``, else ``L1(clip(
+sim(tampered.detach(), Q/100)), jpeg_basic(tampered.detach(), Q))`` (the
+hard-round JPEG, one draw of K5, no gradient). Its FROZEN copy on the live
+clipped ``tampered`` at Q/100, clipped, is one more fan-out branch: k + 1
+copies into the localizer and the reverse. The two calls route their
+gradients apart: ``l_sim`` reaches only the simulator's parameters, the
+branch only its input (K23's backward skips γ's and β's sums there). The
+eval step does not run the simulator.
 
 Every clip that can sit exactly on 0 or 1 (the tamper's, each branch's,
 the reverse's) is ``jnp.clip``'s, gradient ½ there
@@ -72,11 +89,11 @@ The draws (F4): JAX draws the copy-move shift, the mixed mode's choice,
 each branch's member draw and (``clr``) the window's four uniforms from
 its key on the device; the port's ``ImageSampler`` draws them on the host
 from a numpy generator (``ImageDraws``; the window's only for ``clr``, so
-the other tasks' streams are unchanged) and the step runs only the drawn
-tamper (JAX's ``where`` gives the other none of the gradient).
-``with_jpeg_simulator`` (KD-JPEG's FBCNN) is not ported: it raises,
-naming its ROADMAP.md item. The apex regressor is built for ``clr``
-alone: JAX's rectification and target read a window only the crop draws.
+the other tasks' streams are unchanged; the simulator's quality likewise
+only with ``with_jpeg_simulator``, JAX's ``split(k_crop)[0]``) and the
+step runs only the drawn tamper (JAX's ``where`` gives the other none of
+the gradient). The apex regressor is built for ``clr`` alone: JAX's
+rectification and target read a window only the crop draws.
 """
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -88,7 +105,7 @@ from torch.func import functional_call
 from ..attacks import (copy_move_shift, copy_move_tamper,
                        gaussian_blur_attack, gaussian_noise, jpeg_pool_draw,
                        median_blur_attack, resize_roundtrip)
-from ..attacks.jpeg import QUALITIES
+from ..attacks.jpeg import QUALITIES, jpeg_basic
 from ..attacks.spatial import DEFAULT_RATIOS, rect_mask, sample_crop_apex
 from ..config import Config
 from ..device import compute_dtype, full_f32, resolve_device
@@ -100,7 +117,7 @@ from ..metrics import (adversarial_loss, bce_loss, f1_sweep, l1_loss,
 from ..metrics.perceptual import (default_features, load_vgg_npz,
                                   perceptual_loss)
 from ..nets.discriminator import Discriminator
-from ..nets.fbcnn import QFPredictor
+from ..nets.fbcnn import FBCNN, QFPredictor
 from ..nets.inn import InvertibleNet
 from ..nets.localizer import UNetDiscriminator
 from ..ops.quantize import clamp_with_grad, ste_quantize_255
@@ -113,7 +130,6 @@ TASKS = ("pami", "imuge", "clr")
 TAMPER_MODES = ("splice", "copymove", "mixed")
 # the fan-out's members, branch i taking POOL[i % 7] (image_model.py:189-198)
 POOL = ("quantize", "jpeg", "resize", "median", "blur", "jpeg", "noise")
-_LATER = "ROADMAP.md §1, KD-JPEG's item"
 CROP_RATES = (0.6, 1.0)  # CLR's window: each side 60-100 % (:229)
 ADVERSARIAL_WEIGHT = 0.01  # the GAN's generator term (JAX's default, :63)
 
@@ -130,25 +146,29 @@ class ImageDraws(NamedTuple):
     (quantizer, median, blur), (quality index into ``QUALITIES``, mode)
     (JPEG), the ratio index (resize) or a (B, H, W, 3) N(0, 1) array
     (noise); for ``clr`` the crop window's four U[0, 1) draws (height
-    ratio, width ratio, row, column: ``attacks.sample_crop_apex``)."""
+    ratio, width ratio, row, column: ``attacks.sample_crop_apex``); with
+    the JPEG simulator its quality's index into ``QUALITIES``."""
     shift: Tuple[int, int]
     use_cm: bool
     branch: Tuple
     apex_u: Optional[np.ndarray] = None
+    sim_q: Optional[int] = None
 
 
 class ImageSampler:
     """Seeded draws on the host (numpy ``default_rng``), per step in this
     order: the shift's two uniforms, the mixed mode's uniform (copy-move
     below ``copy_move_prob``), each branch's draw, then (``apex``, CLR's
-    crop) the window's four uniforms."""
+    crop) the window's four uniforms, then (``sim``, the JPEG simulator)
+    its quality's index."""
 
     def __init__(self, seed: int, n_attacks: int, n_ratios: int,
-                 copy_move_prob: float = 1.0 / 3.0, apex: bool = False):
+                 copy_move_prob: float = 1.0 / 3.0, apex: bool = False,
+                 sim: bool = False):
         self.rng = np.random.default_rng(seed)
         self.n_attacks, self.n_ratios = n_attacks, n_ratios
         self.copy_move_prob = copy_move_prob
-        self.apex = apex
+        self.apex, self.sim = apex, sim
 
     def __call__(self, shape) -> ImageDraws:
         b, h, w = shape[0], shape[1], shape[2]
@@ -169,7 +189,8 @@ class ImageSampler:
             else:
                 branch.append(None)
         apex_u = r.random(4).astype(np.float32) if self.apex else None
-        return ImageDraws(shift, use_cm, tuple(branch), apex_u)
+        sim_q = int(r.integers(len(QUALITIES))) if self.sim else None
+        return ImageDraws(shift, use_cm, tuple(branch), apex_u, sim_q)
 
 
 def attack_fanout(img: torch.Tensor, branch, ratios=DEFAULT_RATIOS,
@@ -218,7 +239,8 @@ class ImageImmunizationModel:
     canny watermark, the crop tamper, the apex regressor); the nets on
     ``device`` (``None`` → the CUDA card; raises without one unless
     ``device="cpu"``) through ``kernels`` (``kernels.KERNELS`` or
-    ``kernels.PLAIN``)."""
+    ``kernels.PLAIN``); ``with_gan``, ``use_perceptual`` and
+    ``with_jpeg_simulator`` as in JAX."""
 
     def __init__(self, cfg: Config, task: str = "pami",
                  n_attacks: Optional[int] = None, attack_ratios=None,
@@ -228,9 +250,6 @@ class ImageImmunizationModel:
                  reverse_k: Optional[int] = None,
                  use_perceptual: bool = False, device=None,
                  kernels: KernelSet = KERNELS):
-        if with_jpeg_simulator:
-            raise NotImplementedError(f"with_jpeg_simulator (KD-JPEG's "
-                                      f"FBCNN) is not ported yet: {_LATER}")
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
         if tamper_mode is None:
@@ -266,6 +285,10 @@ class ImageImmunizationModel:
         self.discriminator = Discriminator(
             dim=mc.discriminator_dim, use_sigmoid=True).to(self.device) \
             if with_gan else None
+        # the JPEG simulator (IRN_model.py:701-798)
+        self.jpeg_sim = FBCNN(nc=(16, 24, 32, 48), nb=1,
+                              kernels=kernels).to(self.device) \
+            if with_jpeg_simulator else None
         self.vgg = None
         if use_perceptual:
             self.vgg = (load_vgg_npz(tc.vgg_weights, self.device)
@@ -282,6 +305,8 @@ class ImageImmunizationModel:
             out["apex"] = self.apex_net
         if self.discriminator is not None:
             out["discriminator"] = self.discriminator
+        if self.jpeg_sim is not None:
+            out["jpeg_sim"] = self.jpeg_sim
         return out
 
     def init_states(self, seed: int = 0) -> None:
@@ -302,7 +327,8 @@ class ImageImmunizationModel:
 
     def sampler(self, seed: int) -> ImageSampler:
         return ImageSampler(seed, self.n_attacks, len(self.attack_ratios),
-                            self.copy_move_prob, apex=self.task == "clr")
+                            self.copy_move_prob, apex=self.task == "clr",
+                            sim=self.jpeg_sim is not None)
 
     def to_device(self, *arrays) -> List[torch.Tensor]:
         """Images, maps or masks (numpy or tensors) → float32 on the
@@ -396,10 +422,32 @@ class ImageImmunizationModel:
                         + adversarial_loss(d_fake, False, True, "nsgan"))
         return g_adv, d_loss
 
+    def _simulator(self, img, tampered, q_idx: int, jpeg_pair):
+        """``(l_sim, the frozen simulator's branch)`` (``:252-290``): the
+        simulator's loss on the real pair (``jpeg_pair``) or on the
+        hard-round JPEG of the detached ``tampered``, and its frozen copy on
+        the live ``tampered``, clipped."""
+        b = img.shape[0]
+        qf_in = torch.full((b, 1), QUALITIES[q_idx] / 100.0,
+                           device=self.device)
+        if jpeg_pair is not None:
+            real, qf = jpeg_pair
+            sim = self.jpeg_sim(img, qf[:, None])[0]
+            l_sim = l1_loss(clip01(sim), real.detach())
+        else:
+            src = tampered.detach()
+            with torch.no_grad():
+                target = jpeg_basic(src, q_idx, "round",
+                                    kernels=self.kernels)
+            l_sim = l1_loss(clip01(self.jpeg_sim(src, qf_in)[0]), target)
+        frozen = {k: v.detach() for k, v in self.jpeg_sim.named_parameters()}
+        branch = functional_call(self.jpeg_sim, frozen, (tampered, qf_in))
+        return l_sim, clip01(branch[0])
+
     # --------------------------------------------------------------- train
 
     def _loss(self, img, wm, mask, prev, draws: ImageDraws, sn: dict,
-              sn_d: dict):
+              sn_d: dict, jpeg_pair=None):
         b, h, w, _ = img.shape
         clr = self.task == "clr"
         fwd_rgb, fwd_null = self._embed(img, wm)
@@ -410,8 +458,15 @@ class ImageImmunizationModel:
             tampered = fwd_rgb * (1.0 - mask) + prev * mask
         else:
             tampered, mask = copy_move_tamper(fwd_rgb, mask, draws.shift)
-        attacked = attack_fanout(clip01(tampered), draws.branch,
-                                 self.attack_ratios, self.kernels)
+        tampered = clip01(tampered)
+        attacked = attack_fanout(tampered, draws.branch, self.attack_ratios,
+                                 self.kernels)
+        aux = {}
+        if self.jpeg_sim is not None:
+            l_sim, branch = self._simulator(img, tampered, draws.sim_q,
+                                            jpeg_pair)
+            attacked = torch.cat([attacked, branch[None]])
+            aux["l_sim"] = l_sim
         k = attacked.shape[0]
         flat = attacked.reshape(k * b, h, w, 3)
         share = 0.0 if clr else 0.01
@@ -420,11 +475,10 @@ class ImageImmunizationModel:
         gt = mask.repeat(k, 1, 1, 1)
         l_mask = bce_loss(pred, gt)
         n_rev = k if self.reverse_k == 0 else min(self.reverse_k, k)
-        aux = {}
         rect = flat[:n_rev * b]
         if clr:
             l_apex = self._apex_loss(flat, apex, gt)
-            aux = {"l_apex": l_apex, "l_ce": l_apex}
+            aux.update(l_apex=l_apex, l_ce=l_apex)
             # only the reversed copies are rectified: the rest feed nothing
             rect = self.kernels.rectify(rect, fwd_rgb.contiguous(), apex)
         rev = self._reverse(rect)
@@ -461,6 +515,8 @@ class ImageImmunizationModel:
             loss = alpha_f * l_forward + 0.75 * (l_backward
                                                  + local_w * l_local)
         loss = loss + l_mask
+        if self.jpeg_sim is not None:
+            loss = loss + aux["l_sim"]
         if self.with_gan:
             g_adv, d_loss = self._gan(fwd_rgb, img, sn_d)
             loss = loss + ADVERSARIAL_WEIGHT * g_adv + d_loss
@@ -469,15 +525,20 @@ class ImageImmunizationModel:
                       "PF": psnr_f, "PB": psnr_b, "NULL": l_null, **aux}
 
     def train_step(self, batch: ImageBatch, prev, draws: ImageDraws,
-                   grads_out: Optional[dict] = None
+                   grads_out: Optional[dict] = None, jpeg_pair=None
                    ) -> Dict[str, torch.Tensor]:
         """One step on ``batch`` with the previous batch's images ``prev``
         spliced in and the step's ``draws``; returns the logs (``loss``,
         ``lF``, ``lB``, ``l_mask``, ``PF``, ``PB``, ``NULL``; ``l_apex``,
-        ``l_ce`` for CLR; ``g_adv``, ``d_loss`` with the GAN) as 0-dim
-        tensors (no host sync). ``grads_out``, a dict, receives each net's
-        gradients (lists in parameter order)."""
+        ``l_ce`` for CLR; ``g_adv``, ``d_loss`` with the GAN; ``l_sim``
+        with the JPEG simulator) as 0-dim tensors (no host sync).
+        ``grads_out``, a dict, receives each net's gradients (lists in
+        parameter order). ``jpeg_pair``, ``(jpeg_real (B, H, W, 3), qf
+        (B,))``, gives the simulator real-JPEG targets (qf in [0, 1]);
+        without it the simulator learns the hard-round JPEG."""
         img, canny, mask, prev = self.to_device(*batch, prev)
+        if jpeg_pair is not None:
+            jpeg_pair = self.to_device(*jpeg_pair)
         nets = self.nets()
         params = {k: list(net.parameters()) for k, net in nets.items()}
         flat = [p for ps in params.values() for p in ps]
@@ -487,7 +548,7 @@ class ImageImmunizationModel:
                if self.with_gan else None)
         with torch.enable_grad(), full_f32():
             loss, aux = self._loss(img, self.watermark(canny, prev), mask,
-                                   prev, draws, sn, sn_d)
+                                   prev, draws, sn, sn_d, jpeg_pair)
             g = torch.autograd.grad(loss, flat, allow_unused=True)
         g = [torch.zeros_like(p) if d is None else d for p, d in zip(flat, g)]
         grads, i = {}, 0

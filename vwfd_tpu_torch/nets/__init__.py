@@ -9,7 +9,7 @@ from .mbrs import (BalujaHiding, BalujaPrep, BalujaReveal, ExpandNet,
                    MBRSDecoder, MBRSEncoder, MBRSPlainDecoder, SEBottleneck,
                    SENet, SENetDecoder)
 from .discriminator import Discriminator
-from .fbcnn import QFPredictor
+from .fbcnn import FBCNN, QFPredictor
 from .localizer import UNetDiscriminator
 from .sunet import SUNet
 from .unet import UNet, UNetTPU
@@ -21,4 +21,4 @@ __all__ = ["DenseSubnet", "InvertibleNet", "RNVPCoupling", "ResSubnet",
            "ExpandNet", "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder",
            "BalujaPrep", "BalujaHiding", "BalujaReveal", "SUNet",
            "SNConv", "ResnetBlock", "UNetDiscriminator", "Discriminator",
-           "QFPredictor"]
+           "QFPredictor", "FBCNN"]

@@ -20,6 +20,8 @@ step's time goes on the card.
     python -m vwfd_tpu_torch.profile_roundtrip --mode tianchi
     python -m vwfd_tpu_torch.profile_roundtrip --mode pami
     python -m vwfd_tpu_torch.profile_roundtrip --mode clr
+    # KD-JPEG's train step (FBCNN, the QF classifier, the discriminator)
+    python -m vwfd_tpu_torch.profile_roundtrip --mode kdjpeg
 
 The model options are the convergence runner's
 (``run_convergence.model_options``, the JAX runner's names and defaults:
@@ -44,7 +46,11 @@ batch 8 unless ``--batch``, ``--size``; random weights from a seed, the
 draws of ``ImageSampler``) on the runner's synthetic images with their
 host canny maps and stroke masks, one JSON line each; ``--mode clr`` the
 same for CLR (the port's ``configs/clr.yaml``: the crop tamper, the apex
-regressor, the rectified reverse, the SSIM term); ``--reverse-k`` bounds
+regressor, the rectified reverse, the SSIM term); ``--mode kdjpeg`` the
+KD-JPEG family's ``train_step`` (``models/kdjpeg_model.py`` at the
+published widths, the port's ``configs/kdjpeg.yaml``: 256², six images a
+clean source, batch 6 unless ``--batch``, float32, ``aux_ramp`` 1) on
+``LQJpegDataset``'s synthetic items, one JSON line; ``--reverse-k`` bounds
 their reversed copies (``--size 512 --batch 3 --reverse-k 3``: the JAX
 records' geometry). ``--int8`` serves the roundtrip or the
 detect through the int8 extractor and ``--int8-embed`` the roundtrip
@@ -101,7 +107,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                 "crop_cubic": ("crop_cubic_fwd_kernel",
                                "crop_cubic_bwd_kernel"),
                 "rectify": ("rectify_kernel", "rectify_bwd_kernel"),
-                "ssim_grad": ("ssim_grad_kernel",)}
+                "ssim_grad": ("ssim_grad_kernel",),
+                "film_residual": ("film_fwd", "film_bwd")}
 
 
 def classify(name: str) -> str:
@@ -133,7 +140,8 @@ def main(argv=None):
                                  parents=[model_options()])
     ap.add_argument("--mode", default="roundtrip",
                     choices=["roundtrip", "detect", "train", "eval",
-                             "hidden", "mbrs", "tianchi", "pami", "clr"])
+                             "hidden", "mbrs", "tianchi", "pami", "clr",
+                             "kdjpeg"])
     ap.add_argument("--requests", type=int, default=10,
                     help="requests (or train or eval steps) in the window")
     ap.add_argument("--trace", default=None)
@@ -145,8 +153,9 @@ def main(argv=None):
                     help="pami, clr: attacked copies reversed (0: all)")
     ap.set_defaults(batch=None)
     args = ap.parse_args(argv)
-    if args.batch is None:  # Tianchi's and PAMI's batch; the video model's
-        args.batch = 8 if args.mode in ("tianchi", "pami", "clr") else 16
+    if args.batch is None:  # the families' batches; the video model's
+        args.batch = {"tianchi": 8, "pami": 8, "clr": 8, "kdjpeg": 6}.get(
+            args.mode, 16)
 
     cfg = build_config(args)
     torch.backends.cudnn.allow_tf32 = False
@@ -255,6 +264,28 @@ def main(argv=None):
             i = step[0] % len(batches)
             return model.eval_step(batches[i], batches[i - 1].image,
                                    sampler((b, s, s)))
+    elif args.mode == "kdjpeg":
+        import dataclasses
+        from . import KDJPEG_CONFIG, load_config
+        from .data import LQJpegDataset
+        from .models import KDJpegModel
+        t = 1
+        kcfg = load_config(KDJPEG_CONFIG)
+        kcfg = dataclasses.replace(kcfg, data=dataclasses.replace(
+            kcfg.data, gt_size=s, batch_size=b))
+        model = KDJpegModel(kcfg, size=s, device=args.device)
+        model.init_states(0)
+        items = max(1, b // model.qf_classes)
+        ds = LQJpegDataset(size=s, synthetic_length=4 * items, seed=10)
+        batches = [model.to_device(*KDJpegModel.collate(*(
+            np.stack(x) for x in zip(*[ds[i * items + j]
+                                       for j in range(items)]))))
+            for i in range(4)]
+        step = [0]
+
+        def one():
+            step[0] += 1
+            return model.train_step(*batches[step[0] % len(batches)])
     elif args.mode in ("train", "eval"):
         model = VideoWatermarkModel(cfg, device=args.device)
         model.init_states(cfg.train.seed)

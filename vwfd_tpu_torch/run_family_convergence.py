@@ -1,7 +1,7 @@
-"""Convergence runs of the message and image families (port of
+"""Convergence runs of the message, image and KD-JPEG families (port of
 tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
 ``_tianchi``, :279-341; PAMI, ImugeV2 and CLR: ``_image_family``,
-:73-167).
+:73-167; KD-JPEG: ``_kdjpeg``, :170-276).
 
     python -m vwfd_tpu_torch.run_family_convergence --task mbrs \\
         --steps 15000 --eval-every 500 --out runs/conv_torch_mbrs.jsonl \\
@@ -23,6 +23,8 @@ tools/run_family_convergence.py; MBRS: ``_mbrs``, :351-420; Tianchi:
     python -m vwfd_tpu_torch.run_family_convergence --task clr \\
         --steps 1150 --size 512 --batch 3 --reverse-k 3 --eval-every 250 \\
         --out runs/conv_torch_clr512.jsonl
+    python -m vwfd_tpu_torch.run_family_convergence --task kdjpeg \\
+        --steps 1000 --eval-every 250 --out runs/conv_torch_kdjpeg.jsonl
 
 ``--task mbrs`` trains ``MBRSModel`` (128², b16 unless ``--size`` /
 ``--batch``) on the JAX runner's data: ``SyntheticImageDataset(size, 2000,
@@ -78,12 +80,30 @@ An eval loader that yields a single batch (the JAX runner's fault at
 image, and the record says how many batches it took
 (``eval_batches``).
 
+``--task kdjpeg`` trains ``KDJpegModel`` (the port's ``configs/
+kdjpeg.yaml``: FBCNN ``nc`` (32, 64, 128, 256), ``nb`` 4, the QF
+classifier, the discriminator ``dim`` 32; 256², b6 unless ``--size`` /
+``--batch``) on the JAX runner's data: ``LQJpegDataset(size, (10, 30, 50,
+70, 90), 2000, 10)`` (the clean image and PIL's 4:2:0 JPEG at each
+quality) through ``Loader(..., batch // 6, seed=10, ratio=200)``, each
+batch flattened class-major by ``collate``; the generator, classifier and
+discriminator terms ramp in over steps 250-1000 (``aux_ramp = clip((step −
+250)/750, 0, 1)``, the step counted before it runs). Its eval
+(``kdjpeg_eval``) is on ``--eval-batch`` (8) held-out images
+(``SyntheticImageDataset(size, n, 10 + 7777)``) compressed by the same
+encoder: per quality ``psnr_sim_q{q}`` (the simulation at that class's
+``qf01`` against PIL's JPEG) and ``psnr_identity_q{q}`` (the clean image
+against it), their means ``psnr_sim_conditioned`` and ``psnr_identity``,
+``psnr_sim_fixed_qf`` (every image simulated at class 3, QF 50's) and
+``qf_classifier_acc`` over the five compressed sets and the clean one.
+
 The JSONL record is the JAX runner's, key for key: a config line (with the
 device, its name and the seeds), at step 1 and every ``--log-every`` steps
 the logs (MBRS: ``loss``, ``encoder_mse``, ``message_mse``,
 ``bitwise_error``; Tianchi: ``CE``, ``CE1``; the image family: ``loss``,
 ``lF``, ``lB``, ``l_mask``, ``PF``, ``PB``, ``NULL``; clr's also
-``l_apex``, ``l_ce``) and ``wall`` (seconds
+``l_apex``, ``l_ce``; KD-JPEG: ``lQF``, ``l_simul``, ``l_simul_bayar``,
+``qfsimu``, ``FW_GAN``, ``dis_loss``, ``PSSIMU``) and ``wall`` (seconds
 since the start), and at every ``--eval-every`` step and the last an eval
 record. MBRS's is on 16 held-out images (``SyntheticImageDataset (size,
 16, 10 + 7777)``, messages from ``default_rng(7777)``): the encoded PSNR
@@ -99,8 +119,7 @@ step and continues with the batches, messages, draws and eval orders an
 unbroken run would see (the loaders' orders, the message and draw
 generators replayed to the step). ``--stop-at-step`` ends a segment with a
 checkpoint. Only the latest checkpoint is kept. Runs on the CUDA card
-unless ``--device cpu``; without a card it raises. KD-JPEG is not ported
-yet: it raises ``NotImplementedError`` naming its ROADMAP.md item.
+unless ``--device cpu``; without a card it raises.
 """
 
 import argparse
@@ -114,40 +133,44 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import CLR_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG, load_config
+from . import (CLR_CONFIG, KDJPEG_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG,
+               load_config)
 from .attacks import jpeg_real
-from .data import (CannyImages, Loader, SpliceForgeryDataset,
+from .data import (CannyImages, Loader, LQJpegDataset, SpliceForgeryDataset,
                    SyntheticImageDataset, stroke_masks)
+from .data.jpeg_data import LQ_QUALITIES
 from .metrics import bitwise_message_error, psnr255_int
-from .models import ImageImmunizationModel, MBRSModel, TianchiModel
+from .models import (ImageImmunizationModel, KDJpegModel, MBRSModel,
+                     TianchiModel)
 from .models.image_model import ImageBatch
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint
 from .run_convergence import _keep_upto, _save
 from .utils import setup_logger
 
-__all__ = ["DATA_SEED", "EVAL_QUALITIES", "NOT_PORTED", "DEFAULTS",
-           "MBRSStreams", "TianchiStreams", "ImageStreams", "image_eval",
-           "image_eval_loader", "parse_args", "run", "main"]
+__all__ = ["DATA_SEED", "EVAL_QUALITIES", "DEFAULTS", "MBRSStreams",
+           "TianchiStreams", "ImageStreams", "KDJpegStreams", "image_eval",
+           "image_eval_loader", "kdjpeg_eval_set", "kdjpeg_eval",
+           "aux_ramp", "parse_args", "run", "main"]
 
 DATA_SEED = 10  # the JAX runner's cfg.train.seed: data and messages
 EVAL_QUALITIES = (50, 70, 90)
 # (size, batch) unless --size / --batch: the JAX runner's geometry
 DEFAULTS = {"mbrs": (128, 16), "tianchi": (512, 4), "pami": (512, 3),
-            "imuge": (256, 8), "clr": (512, 3)}
+            "imuge": (256, 8), "clr": (512, 3), "kdjpeg": (256, 6)}
 IMAGE_TASKS = ("pami", "imuge", "clr")
-NOT_PORTED = {"kdjpeg": "ROADMAP.md §1, its KD-JPEG item"}
+KDJPEG_EVAL_IMAGES = 8  # the JAX runner's held-out images (eval_batch or 8)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--task", required=True,
-                    choices=(*DEFAULTS, *NOT_PORTED))
+    ap.add_argument("--task", required=True, choices=tuple(DEFAULTS))
     ap.add_argument("--steps", type=int, default=4000)
     ap.add_argument("--size", type=int, default=None,
-                    help="image side (default: 128 mbrs, 512 tianchi)")
+                    help="image side (default: DEFAULTS, the JAX runner's)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="train batch (default: 16 mbrs, 4 tianchi)")
+                    help="train batch (default: DEFAULTS; kdjpeg: images, "
+                         "six a clean source)")
     ap.add_argument("--lr", type=float, default=None,
                     help="learning rate (default: MBRS's 1e-3, the "
                          "tianchi config's)")
@@ -158,8 +181,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "all)")
     ap.add_argument("--eval-every", type=int, default=250)
     ap.add_argument("--eval-batch", type=int, default=None,
-                    help="held-out batch (default: 16 mbrs, the train "
-                         "batch tianchi)")
+                    help="held-out batch (default: 16 mbrs, 8 kdjpeg, the "
+                         "train batch otherwise)")
     ap.add_argument("--eval-batches", type=int, default=4,
                     help="tianchi, pami, imuge, clr: held-out batches an "
                          "eval")
@@ -179,7 +202,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.size = args.size or size
     args.batch = args.batch or batch
     if args.eval_batch is None:
-        args.eval_batch = args.batch if args.task != "mbrs" else 16
+        args.eval_batch = {"mbrs": 16, "kdjpeg": KDJPEG_EVAL_IMAGES}.get(
+            args.task, args.batch)
     return args
 
 
@@ -338,6 +362,71 @@ def image_eval(model: ImageImmunizationModel, loader: Loader, batches: int,
     return out
 
 
+def aux_ramp(step: int) -> np.float32:
+    """The KD-JPEG aux terms' weight at a step that ``step`` steps precede:
+    0 to step 250, then up to 1 by step 1000 (the JAX runner's ramp)."""
+    return np.float32(np.clip((step - 250) / 750.0, 0.0, 1.0))
+
+
+class KDJpegStreams:
+    """KD-JPEG's train steps from step ``start + 1`` on, as an unbroken run
+    sees them: ``(class-major images, labels, aux_ramp)``."""
+
+    def __init__(self, model: KDJpegModel, size: int, batch: int,
+                 start: int = 0):
+        self.ds = LQJpegDataset(size=size, qualities=LQ_QUALITIES,
+                                synthetic_length=2000, seed=DATA_SEED)
+        self.batches = Loader(self.ds, max(1, batch // model.qf_classes),
+                              seed=DATA_SEED, ratio=200).stream(start)
+        self.step, self.model = start, model
+
+    def __next__(self):
+        versions, labels = next(self.batches)
+        flat, lab = self.model.collate(versions, labels,
+                                       self.model.qf_classes)
+        ramp = aux_ramp(self.step)
+        self.step += 1
+        return flat, lab, ramp
+
+
+def kdjpeg_eval_set(ds: LQJpegDataset, n: int):
+    """The JAX runner's held-out set: ``n`` clean images and each one's
+    real JPEG at every quality of ``ds``, by ``ds``'s own encoder."""
+    held = SyntheticImageDataset(size=ds.size, length=n,
+                                 seed=DATA_SEED + 7777)
+    clean = np.stack([held[i] for i in range(n)])
+    return clean, {q: np.stack([ds._jpeg(c, q) for c in clean])
+                   for q in ds.qualities}
+
+
+def kdjpeg_eval(model: KDJpegModel, clean: np.ndarray, real: dict) -> dict:
+    """The JAX runner's KD-JPEG record (``:205-259``): the simulation at
+    each class's conditioning and at QF 50's, against real JPEG; the
+    identity's PSNR; the QF classifier's accuracy over every class."""
+    rec, cond, fixed, ident = {}, [], [], []
+    correct = total = 0
+    n = clean.shape[0]
+    ct, = model.to_device(clean)
+    fix = model.simulate(ct, np.full((n, 1), 3 / 5.0, np.float32))
+    for ci, q in enumerate(real, start=1):
+        sim = model.simulate(ct, np.full((n, 1), ci / 5.0, np.float32))
+        tgt, = model.to_device(real[q])
+        cond.append(float(psnr255_int(sim, tgt)))
+        fixed.append(float(psnr255_int(fix, tgt)))
+        ident.append(float(psnr255_int(ct, tgt)))
+        correct += int((model.classify(tgt) == ci).sum())
+        total += n
+        rec[f"psnr_sim_q{q}"] = cond[-1]
+        rec[f"psnr_identity_q{q}"] = ident[-1]
+    correct += int((model.classify(ct) == 0).sum())
+    total += n
+    rec.update(psnr_sim_conditioned=float(np.mean(cond)),
+               psnr_sim_fixed_qf=float(np.mean(fixed)),
+               psnr_identity=float(np.mean(ident)),
+               qf_classifier_acc=correct / total)
+    return rec
+
+
 def _emit(f, rec: dict) -> None:
     line = json.dumps(rec)
     f.write(line + "\n")
@@ -360,6 +449,14 @@ def _model(args):
         model = ImageImmunizationModel(cfg, task=args.task,
                                        reverse_k=args.reverse_k,
                                        device=args.device)
+    elif args.task == "kdjpeg":
+        cfg = load_config(KDJPEG_CONFIG)
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, gt_size=args.size,
+                                          batch_size=args.batch,
+                                          synthetic=True),
+            train=dataclasses.replace(cfg.train, lr=args.lr or cfg.train.lr))
+        model = KDJpegModel(cfg, size=args.size, device=args.device)
     else:
         cfg = load_config(TIANCHI_CONFIG)
         cfg = dataclasses.replace(
@@ -377,9 +474,6 @@ def run(args: argparse.Namespace,
     """The run of ``args`` (``parse_args``); ``on_step(step, images,
     messages or masks, draws)``, if given, sees each train step's inputs.
     Returns ``"done"`` or ``"stopped"`` (a segment's end)."""
-    if args.task in NOT_PORTED:
-        raise NotImplementedError(f"--task {args.task} is not ported yet: "
-                                  f"{NOT_PORTED[args.task]}")
     log = setup_logger("base")
     model = _model(args)
     out_path = args.out or os.path.join("build",
@@ -425,6 +519,12 @@ def run(args: argparse.Namespace,
                              evals[0])
             evals[0] += 1
             return out
+    elif args.task == "kdjpeg":
+        streams = KDJpegStreams(model, args.size, args.batch, start)
+        held = kdjpeg_eval_set(streams.ds, args.eval_batch)
+
+        def evaluate():
+            return kdjpeg_eval(model, *held)
     else:
         streams = TianchiStreams(model, args.batch, args.seed, start)
         held = tianchi_eval_loader(args.size, args.eval_batch,

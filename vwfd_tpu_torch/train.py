@@ -1,6 +1,6 @@
 """Training and evaluation CLI of the port (counterpart of ``train.py --task
-video|hidden|mbrs|tianchi|pami|imuge|clr [--root DIR | --synthetic] [--steps N
-| --val] [--resume]``).
+video|hidden|mbrs|tianchi|pami|imuge|clr|kdjpeg [--root DIR | --synthetic]
+[--steps N | --val] [--resume]``).
 
     python -m vwfd_tpu_torch.train --root /data/DAVIS --steps 1000
     python -m vwfd_tpu_torch.train --synthetic --steps 100
@@ -88,10 +88,34 @@ the steps after the first). ``--val`` runs ``eval_step`` on
 prints the means of its scalars. The held-out protocol of the JAX
 records is ``run_family_convergence --task pami|imuge|clr``'s.
 
+``--jpeg-simulator`` (pami, imuge, clr) adds the image model's JPEG
+simulator and the JAX loop's real pairs (``train.py:184-189``): each step
+PIL's JPEG of the clean batch (``attacks.jpeg_real``, 4:4:4 after a clip)
+at a quality drawn from (50, …, 90) by ``default_rng(train.seed)``, with
+``q/100`` per image as its conditioning.
+
     python -m vwfd_tpu_torch.train --task pami --synthetic --steps 3 \
         --device cpu --batch 2 --size 32
     python -m vwfd_tpu_torch.train --task clr --synthetic --steps 2 \
         --device cpu --batch 2 --size 32
+    python -m vwfd_tpu_torch.train --task pami --jpeg-simulator \
+        --synthetic --steps 2 --device cpu --batch 2 --size 32
+
+``--task kdjpeg`` trains the KD-JPEG family (``models/kdjpeg_model.py``;
+the JAX ``train.py``'s ``_kdjpeg_loop``, :287-330) with the port's
+``configs/kdjpeg.yaml`` unless ``--config`` (``--size``, ``--batch``
+override; the batch counts images, six a clean source): on
+``LQJpegDataset`` items (``--synthetic``: ``synthetic_length`` 2000, seed
+``train.seed``; or ``--root``, an image folder read through OpenCV), the
+loader at ``batch // 6`` items, each batch flattened class-major by
+``collate``, the step at ``aux_ramp`` 1, a progress bar, the scalar log
+and a checkpoint of the three nets every ``save_interval`` steps;
+``--resume`` continues the latest. It prints one JSON line (the last
+step's logs, ms per step and images/s over the steps after the first).
+Its held-out eval is ``run_family_convergence --task kdjpeg``'s.
+
+    python -m vwfd_tpu_torch.train --task kdjpeg --synthetic --steps 2 \
+        --device cpu --size 32
 """
 
 import argparse
@@ -103,14 +127,16 @@ import time
 import numpy as np
 import torch
 
-from . import (CLR_CONFIG, FLAGSHIP_CONFIG, PAMI_CONFIG, TIANCHI_CONFIG,
-               Config, load_config)
+from . import (CLR_CONFIG, FLAGSHIP_CONFIG, KDJPEG_CONFIG, PAMI_CONFIG,
+               TIANCHI_CONFIG, Config, load_config)
+from .attacks import jpeg_real
+from .attacks.jpeg import QUALITIES
 from .data import (CannyImages, DavisVideoDataset, ImageFolderDataset,
-                   Loader, SpliceForgeryDataset, SyntheticImageDataset,
-                   SyntheticVideoDataset, cv2_mask_reader, cv2_readers,
-                   stroke_masks)
-from .models import (HiddenModel, ImageImmunizationModel, MBRSModel,
-                     TianchiModel, VideoWatermarkModel)
+                   Loader, LQJpegDataset, SpliceForgeryDataset,
+                   SyntheticImageDataset, SyntheticVideoDataset,
+                   cv2_mask_reader, cv2_readers, stroke_masks)
+from .models import (HiddenModel, ImageImmunizationModel, KDJpegModel,
+                     MBRSModel, TianchiModel, VideoWatermarkModel)
 from .models.image_model import ImageBatch
 from .models.hidden_model import HiddenSampler
 from .models.mbrs_model import MBRSSampler
@@ -370,7 +396,8 @@ def _image(args, ap, logger):
         ap.error("no data: pass --root (an image folder) or --synthetic")
     model = ImageImmunizationModel(cfg, task=task, device=args.device,
                                    with_gan=args.with_gan,
-                                   use_perceptual=args.use_perceptual)
+                                   use_perceptual=args.use_perceptual,
+                                   with_jpeg_simulator=args.jpeg_simulator)
     model.init_states(seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
@@ -379,8 +406,19 @@ def _image(args, ap, logger):
     start = step0 or 0
     sampler = model.sampler(seed)
     shape = (d.batch_size, d.gt_size, d.gt_size)
+    pair_rng = np.random.default_rng(seed)  # the simulator's real pairs
     for _ in range(start):
         sampler(shape)
+        if args.jpeg_simulator:
+            pair_rng.choice(QUALITIES)
+
+    def pair(imgs):
+        """The step's real-JPEG pair (``train.py:184-189``), or None."""
+        if not args.jpeg_simulator:
+            return None
+        q = int(pair_rng.choice(QUALITIES))
+        return (jpeg_real(imgs, q),
+                np.full((len(imgs),), q / 100.0, np.float32))
     loader = Loader(dataset, d.batch_size, seed=seed, ratio=d.ratio)
     index = [start]
 
@@ -418,7 +456,8 @@ def _image(args, ap, logger):
                 batch = next(stream)
                 t0 = time.perf_counter()
                 logs = model.train_step(batch, prev,
-                                        sampler(batch.image.shape))
+                                        sampler(batch.image.shape),
+                                        jpeg_pair=pair(batch.image))
                 vals = {k: float(v) for k, v in logs.items()}  # syncs
                 times.append((time.perf_counter() - t0) * 1e3)
                 prev = batch.image
@@ -443,19 +482,92 @@ def _image(args, ap, logger):
                         else "cpu")}))
 
 
+def _kdjpeg(args, ap, logger):
+    """``--task kdjpeg``: the JAX ``train.py``'s ``_kdjpeg_loop``."""
+    if args.val:
+        ap.error("--val is the video model's; KD-JPEG's held-out eval is "
+                 "python -m vwfd_tpu_torch.run_family_convergence --task "
+                 "kdjpeg")
+    cfg = load_config(args.config or KDJPEG_CONFIG)
+    data = dict(batch_size=args.batch or cfg.data.batch_size,
+                gt_size=args.size or cfg.data.gt_size,
+                root=args.root or cfg.data.root,
+                synthetic=args.synthetic or (cfg.data.synthetic
+                                             and not args.root))
+    cfg = dataclasses.replace(cfg, task="kdjpeg",
+                              data=dataclasses.replace(cfg.data, **data),
+                              ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
+    d, seed = cfg.data, cfg.train.seed
+    if d.root and not d.synthetic:
+        try:
+            read_image, _ = cv2_readers()
+        except ImportError:
+            ap.error("--root needs OpenCV (cv2) to read the images, and it "
+                     "does not import here")
+        dataset = LQJpegDataset(d.root, size=d.gt_size, seed=seed,
+                                read_image=read_image)
+    elif d.synthetic:
+        dataset = LQJpegDataset(size=d.gt_size, synthetic_length=2000,
+                                seed=seed)
+    else:
+        ap.error("no data: pass --root (an image folder) or --synthetic")
+    model = KDJpegModel(cfg, size=d.gt_size, device=args.device)
+    model.init_states(seed)
+    step0 = latest_step(cfg.ckpt_dir) if args.resume else None
+    if step0 is not None:
+        logger.info("resuming kdjpeg from step %d", step0)
+        restore_checkpoint(cfg.ckpt_dir, step0, model)
+    start = step0 or 0
+    items = max(1, d.batch_size // model.qf_classes)
+    loader = Loader(dataset, items, seed=seed, ratio=d.ratio)
+    scalar_logger = None if args.no_telemetry else ScalarLogger(
+        args.logdir or os.path.join("runs", f"{cfg.name}_kdjpeg"))
+    pb = Progbar(args.steps, stateful_metrics=["PSSIMU"])
+    step, times, vals = start, [], {}
+    try:
+        for versions, labels in loader.stream(start):
+            if step >= start + args.steps:
+                break
+            flat, lab = KDJpegModel.collate(versions, labels,
+                                            model.qf_classes)
+            t0 = time.perf_counter()
+            logs = model.train_step(flat, lab)
+            vals = {k: float(v) for k, v in logs.items()}  # syncs
+            times.append((time.perf_counter() - t0) * 1e3)
+            step += 1
+            pb.add(1, values=list(vals.items()))
+            if scalar_logger is not None:
+                scalar_logger.log(step, **vals)
+            if step % cfg.train.save_interval == 0:
+                save_checkpoint(cfg.ckpt_dir, step, model)
+    finally:
+        if scalar_logger is not None:
+            scalar_logger.close()
+    ms = float(np.median(times[1:] or times))
+    logger.info("done: %s", vals)
+    images = items * model.qf_classes
+    cuda = model.device.type == "cuda"
+    print(json.dumps({
+        **vals, "steps": args.steps, "ms_per_step": ms,
+        "images_per_s": images / ms * 1e3, "batch": images,
+        "size": d.gt_size, "data": "synthetic" if d.synthetic else "images",
+        "resumed_step": step0, "device": str(model.device),
+        "device_name": (torch.cuda.get_device_name(model.device) if cuda
+                        else "cpu")}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="video",
                     choices=("video", "hidden", "mbrs", "tianchi", "pami",
-                             "imuge", "clr"),
+                             "imuge", "clr", "kdjpeg"),
                     help="video (default), hidden, mbrs, tianchi, pami, "
-                         "imuge or clr")
+                         "imuge, clr or kdjpeg")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset")
     ap.add_argument("--root", default=None,
                     help="a DAVIS tree (JPEGImages/480p, Annotations/480p); "
-                         "with --task hidden, mbrs, tianchi, pami, imuge or "
-                         "clr an image folder")
+                         "with the other tasks an image folder")
     ap.add_argument("--mask-root", default=None,
                     help="--task tianchi: the forgery-mask folder (each "
                          "mask the image's base name)")
@@ -483,6 +595,9 @@ def main(argv=None):
     ap.add_argument("--use-perceptual", action="store_true",
                     help="pami, imuge: the VGG19 feature loss "
                          "(train.vgg_weights, else a seeded trunk)")
+    ap.add_argument("--jpeg-simulator", action="store_true",
+                    help="pami, imuge, clr: the FBCNN JPEG simulator, "
+                         "trained on real-JPEG pairs of each batch")
     args = ap.parse_args(argv)
     if min(args.steps, args.val_batches) < 1:
         ap.error("--steps and --val-batches take at least 1")
@@ -496,8 +611,11 @@ def main(argv=None):
         return _tianchi(args, ap, logger)
     if args.task in ("pami", "imuge", "clr"):
         return _image(args, ap, logger)
-    if args.with_gan or args.use_perceptual:
-        ap.error("--with-gan and --use-perceptual are image-family options")
+    if args.with_gan or args.use_perceptual or args.jpeg_simulator:
+        ap.error("--with-gan, --use-perceptual and --jpeg-simulator are "
+                 "image-family options")
+    if args.task == "kdjpeg":
+        return _kdjpeg(args, ap, logger)
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
