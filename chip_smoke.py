@@ -225,7 +225,30 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    version, the sums within 1e-5 of the plain Σ|·|, bit-identical over
    calls, NaN where the plain version's are, 0 bytes beyond the outputs)
    at KD-JPEG's three up levels and the simulator's three at 512² b3,
-   timed warm and cold beside the plain version and ``torch.addcmul``.
+   timed warm and cold beside the plain version and ``torch.addcmul``;
+19. data parallelism and multi-card serving of the flagship
+   (``run_parallel``): (a) one NCCL rank in this process (a ``FileStore``
+   under ``build/``): a data-parallel ``train_step`` at phase 6's shape
+   and weights, every loss term, parameter, moment, count and running
+   statistic ``torch.equal`` to the step without a group from the same
+   batch, previous batch and draws, the launch counts at 0 just before
+   and read just after (phase 6's), then one ``eval_step`` the same way
+   (phase 7's counts); the p50 of 10 data-parallel steps beside 10 plain
+   ones, interleaved, and the bytes all-reduced a step; (b) two gloo
+   ranks on ``cuda:0`` (this script as ``--dp-child DIR``, 8 of the 16
+   clips each): their losses bit-equal over two steps and their states
+   bit-equal, the loss terms within ``TRAIN_LOSS_RTOL`` and each net's
+   all-reduced gradient within ``TRAIN_GRAD_COS`` of the one-process
+   step on the global batch, and an Inf pixel in rank 1's rows alone
+   leaving every state on both ranks as it was; (c)
+   ``WatermarkServer(devices=("cuda:0", "cuda:0"))`` on phase 4's
+   weights, each request launching phase 4's counts twice: with both int8
+   paths embed, detect and roundtrip EQUAL to one device, in bf16 within
+   ``DP_EMBED_MAX_LEVELS`` and mask bits differing only within
+   ``DP_MASK_NEAR`` of the threshold (cuDNN takes other kernels for the
+   half batch), each roundtrip's p50 beside one device's; (d) where there are
+   two cards, two NCCL ranks (``dryrun_multiprocess``) and a two-card
+   server, otherwise a line saying they were not run.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -252,6 +275,7 @@ line is
 
 import collections
 import dataclasses
+import datetime
 import functools
 import gc
 import json
@@ -264,10 +288,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vwfd_tpu_torch import (FLAGSHIP_CONFIG, PAMI_CONFIG, REFSHAPE_CONFIG,
-                            kernel_report, load_config)
+                            kernel_report, load_config, parallel)
 from vwfd_tpu_torch.attacks import quant_tables
 from vwfd_tpu_torch.attacks.spatial import rect_mask
 from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
@@ -290,6 +315,7 @@ from vwfd_tpu_torch.kernels.coupling import affine_e
 from vwfd_tpu_torch.ops import haar as ops_haar
 from vwfd_tpu_torch.ops.filters import gaussian_kernel_2d
 from vwfd_tpu_torch.ops.squeeze import depth_to_space
+from vwfd_tpu_torch.parallel.spawn import LocalRanks, RankFailure
 from vwfd_tpu_torch.serving import WatermarkServer, unpack_mask_bits
 from vwfd_tpu_torch.utils import ScalarLogger, read_png
 
@@ -5816,7 +5842,354 @@ def run_kdjpeg(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 19
+
+
+DP_TIMEOUT_S = 120.0     # the group's collective timeout
+DP_RANKS_TIMEOUT_S = 180.0  # the two ranks' wall time in all
+DP_TIMED = 10            # timed steps of each kind (2 warm-up)
+# bf16 replicas vs one device: cuDNN takes other convolution kernels for a
+# replica's half batch, so the INN's bf16 output may move by an ulp or two,
+# about a level each near 1 (2⁻⁸), before the 8-bit rounding
+DP_EMBED_MAX_LEVELS = 2
+# a replica's mask bit may differ from one device's only where one device's
+# probability lies this close to the threshold: the half batch moves the
+# detect head's bf16 logits by at most 0.0088 (port_tools/dp_diagnose.py),
+# p by at most a quarter of that
+DP_MASK_NEAR = 0.01
+
+
+def dp_params(model):
+    """Each net's parameters flattened, float32, on the host."""
+    return {name: torch.cat([p.detach().flatten() for p in
+                             net.parameters()]).float().cpu()
+            for name, net in model.nets().items()}
+
+
+def dp_child(out_dir):
+    """Phase 19 (b), one rank (``chip_smoke.py --dp-child DIR``): gloo on
+    ``cuda:0``, phase 4's weights replicated, this rank's 8 of the 16
+    clips of each global batch; two train steps (the first's update and
+    every step's logs kept), the replicas' equality, then a batch with an
+    Inf pixel in rank 1's rows alone."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rank = parallel.maybe_init_distributed(dev, backend="gloo",
+                                           timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = parallel.make_mesh()
+        cfg = load_config(FLAGSHIP_CONFIG)
+        model = VideoWatermarkModel(cfg, device=dev, mesh=mesh)
+        model.load_states(perturbed_states(cfg, seed=7))
+        parallel.replicate(model, mesh)
+        rows = parallel.local_batch_slice(B, mesh)
+        loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=4 * B,
+                                              seed=cfg.train.seed), B,
+                        seed=cfg.train.seed, rows=rows)
+        batches = [model.to_device(v, m) for v, m in loader]
+        before = dp_params(model)
+        grads = {}
+        logs = [model.train_step(batches[1][0], batches[1][1],
+                                 batches[0][0], grads_out=grads)]
+        update = {k: v - before[k] for k, v in dp_params(model).items()}
+        grads = {k: torch.cat([g.flatten() for g in v]).float().cpu()
+                 for k, v in grads.items()}
+        logs.append(model.train_step(batches[2][0], batches[2][1],
+                                     batches[1][0]))
+        equal = parallel.replicas_equal(model, mesh)
+        kept = snapshot(model)
+        bad = batches[3][0].clone()
+        if rank == 1:
+            bad[2, 1, 9, 11, 0] = float("inf")
+        guard = model.train_step(bad, batches[3][1], batches[2][0])
+        guard_kept = all(torch.equal(a, b)
+                         for a, b in zip(snapshot(model), kept))
+        torch.save({"rank": rank, "rows": rows, "update": update,
+                    "grads": grads,
+                    "logs": [{k: float(v) for k, v in lg.items()}
+                             for lg in logs],
+                    "replicas_equal": equal,
+                    "guard_loss": float(guard["loss"]),
+                    "guard_kept": guard_kept,
+                    "guard_equal": parallel.replicas_equal(model, mesh)},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_world1(card):
+    """Phase 19 (a): one NCCL rank in this process (a ``FileStore`` under
+    ``build/``), phase 6's shape and weights."""
+    store_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    cfg = load_config(FLAGSHIP_CONFIG)
+    states = perturbed_states(cfg, seed=7)
+    plain = VideoWatermarkModel(cfg)
+    plain.load_states(states)
+    store = dist.FileStore(str(store_dir / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh()
+        dp = VideoWatermarkModel(cfg, mesh=mesh)
+        dp.load_states(states)
+        parallel.replicate(dp, mesh)
+        loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=4 * B,
+                                              seed=cfg.train.seed), B,
+                        seed=cfg.train.seed)
+        batches = [plain.to_device(v, m) for v, m in loader]
+        prev, (video, mask_) = batches[0][0], batches[1]
+        draws = plain.sample_draws(B, T)
+        dp.eval_step(video, mask_, prev, draws)  # warm up cuDNN/cuBLAS
+        torch.cuda.synchronize()
+        want = plain.train_step(video, mask_, prev, draws)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = dp.train_step(video, mask_, prev, draws)
+        torch.cuda.synchronize()
+        train_launches = launch_counts()
+        check(train_launches == TRAIN_LAUNCHES,
+              f"dp train launch counts {train_launches}")
+        check(all(torch.equal(got[k], want[k]) for k in want),
+              f"dp step logs {got} vs plain {want}")
+        equal = all(torch.equal(a, b) for a, b in zip(snapshot(dp),
+                                                      snapshot(plain)))
+        check(equal, "world size 1: a parameter, moment, count or running "
+              "statistic differs from the step without a group")
+        reset_launch_counts()
+        ev_dp = dp.eval_step(video, mask_, prev, draws)
+        torch.cuda.synchronize()
+        eval_launches = launch_counts()
+        ev = plain.eval_step(video, mask_, prev, draws)
+        check(eval_launches == EVAL_LAUNCHES,
+              f"dp eval launch counts {eval_launches}")
+        check(all(torch.equal(ev[k], ev_dp[k]) for k in ev),
+              f"dp eval {ev_dp} vs plain {ev}")
+        print(f"parallel (a) world size 1, NCCL: train step and eval step "
+              f"torch.equal to the steps without a group "
+              f"({len(snapshot(dp))} state tensors); launches "
+              f"{json.dumps({k: v for k, v in train_launches.items() if v})}")
+        times = {"plain": [], "dp": []}
+        for i in range(2 + DP_TIMED):
+            p, (v, m) = batches[i % 3][0], batches[i % 3 + 1]
+            for name, model in (("plain", plain), ("dp", dp)):
+                t0 = time.perf_counter()
+                model.train_step(v, m, p)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        p50 = {k: float(np.percentile(v, 50)) for k, v in times.items()}
+        grad_bytes = sum(4 * q.numel() for net in dp.nets().values()
+                         for q in net.parameters())
+        print(f"parallel (a) train step p50: plain {p50['plain']:.3f} ms, "
+              f"data-parallel at world size 1 {p50['dp']:.3f} ms "
+              f"(+{p50['dp'] - p50['plain']:.3f}); {grad_bytes} bytes of "
+              f"float32 gradients all-reduced a step [{card}]")
+        return {"train_step_p50_ms": p50["plain"],
+                "dp_train_step_p50_ms": p50["dp"],
+                "allreduce_bytes_per_step": grad_bytes,
+                "equal": equal}, train_launches, eval_launches
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def dp_reference(cfg, states, batches):
+    """The one-process step on the global batch (phase 6's model): its
+    logs, each net's gradients and update, flattened."""
+    ref = VideoWatermarkModel(cfg)
+    ref.load_states(states)
+    before = dp_params(ref)
+    grads = {}
+    logs = {k: float(v) for k, v in ref.train_step(
+        batches[1][0], batches[1][1], batches[0][0],
+        grads_out=grads).items()}
+    upd = {k: v - before[k] for k, v in dp_params(ref).items()}
+    return logs, {k: torch.cat([g.flatten() for g in v]).float().cpu()
+                  for k, v in grads.items()}, upd
+
+
+def dp_two_ranks(card):
+    """Phase 19 (b): two gloo ranks on ``cuda:0`` (``dp_child``) against
+    the one-process step on the global batch: loss terms within
+    ``TRAIN_LOSS_RTOL`` and each net's all-reduced gradient within
+    ``TRAIN_GRAD_COS`` (phase 6's tolerances). The updates' cosines are
+    printed: the first AdamW update is about lr·sign(g), so the gradients
+    that cancel, whose sign the half batch's other cuDNN algorithms and
+    BatchNorm's variance formula flip, weigh as much as the rest."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    states = perturbed_states(cfg, seed=7)
+    loader = Loader(SyntheticVideoDataset(size=S, frames=T, length=4 * B,
+                                          seed=cfg.train.seed), B,
+                    seed=cfg.train.seed)
+    batches = [[t.cuda() for t in map(torch.as_tensor, b)] for b in loader]
+    want, grads, upd = dp_reference(cfg, states, batches)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        with LocalRanks([sys.executable, str(Path(__file__).resolve()),
+                         "--dp-child", str(out_dir)], 2) as ranks:
+            ranks.wait(DP_RANKS_TIMEOUT_S)
+        got = [torch.load(out_dir / f"rank{r}.pt") for r in range(2)]
+    except RankFailure as e:
+        check(False, f"two gloo ranks on cuda:0 failed (if gloo refuses "
+              f"CUDA tensors in this build, this phase cannot run): {e}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    check(got[0]["logs"] == got[1]["logs"],
+          f"ranks' losses differ: {got[0]['logs']} vs {got[1]['logs']}")
+    check(all(g["replicas_equal"] for g in got),
+          "the two ranks' states differ after two steps")
+    lk = got[0]["logs"][0]
+    for k in ("loss", "lF", "lB"):
+        check(abs(lk[k] - want[k]) <= TRAIN_LOSS_RTOL * abs(want[k]),
+              f"two ranks {k} {lk[k]} vs one process {want[k]}")
+    cos = {k: cosine(got[0]["grads"][k], grads[k]) for k in grads}
+    check(all(c >= TRAIN_GRAD_COS for c in cos.values()),
+          f"two ranks' gradient cosines {cos}")
+    ucos = {k: cosine(got[0]["update"][k], upd[k]) for k in upd}
+    check(all(not math.isfinite(g["guard_loss"]) and g["guard_kept"]
+              and g["guard_equal"] for g in got),
+          f"Inf pixel on rank 1: {[(g['guard_loss'], g['guard_kept']) for g in got]}")
+    print(f"parallel (b) two gloo ranks on cuda:0 (8 + 8 clips): losses "
+          f"bit-equal across ranks over 2 steps, replicas bit-equal; step 1 "
+          f"{json.dumps(lk)} vs one process {json.dumps(want)}; gradient "
+          f"cosines {cos}; update cosines {ucos}; an Inf pixel in rank 1's "
+          f"rows kept every state on "
+          f"both ranks; {wall:.1f} s for both ranks (not a scaling figure: "
+          f"the two ranks share one card) [{card}]")
+    return {"loss_terms": {"ranks": lk, "one_process": want},
+            "gradient_cosines": cos, "update_cosines": ucos,
+            "ranks_wall_s": wall}
+
+
+def replica_diff(got, want, one, detected):
+    """How far a replicated server's outputs lie from the one-device
+    server's (``one``): the watermark's largest level difference and its
+    exact share; the mask bits that disagree, and of them those where
+    ``one``'s probability on ``detected`` (the uint8 frames its detector
+    read) lies ``DP_MASK_NEAR`` or more from the threshold; the tamper
+    fraction's largest error."""
+    out = {}
+    if "watermarked" in got.keys():
+        d = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
+        out.update(embed_max_levels=int(d.max()),
+                   embed_exact=float((d == 0).mean()))
+    if "mask_bits" in got.keys():
+        n = len(got.mask)
+        pad = np.zeros((B,) + detected.shape[1:], np.uint8)
+        pad[:n] = detected
+        p = int8_probs(one, pad).reshape(B, T, S, S, 1)[:n]
+        flips = got.mask != want.mask
+        out.update(mask_disagree=float(flips.mean()),
+                   mask_flips_off_threshold=int(
+                       (flips & (np.abs(p - one.threshold)
+                                 >= DP_MASK_NEAR)).sum()),
+                   tamper_fraction_err=float(np.abs(
+                       got.tamper_fraction - want.tamper_fraction).max()))
+    return out
+
+
+def dp_server(card, devices):
+    """Phase 19 (c)/(d): ``WatermarkServer(devices=devices)`` against the
+    one-device server on phase 4's weights, a request launching phase 4's
+    counts once per replica: int8 (both int8 paths) EQUAL; bf16 within
+    ``DP_EMBED_MAX_LEVELS`` on ≥ ``EMBED_FRAC_EXACT`` of the bytes, mask
+    bits differing only within ``DP_MASK_NEAR`` of the threshold, the
+    bytes and bits that differ counted: cuDNN takes other convolution
+    kernels for a replica's half
+    batch (other sums, from the UNet's third convolution and the INN's
+    trunk on), whatever ``cudnn.deterministic`` or ``benchmark`` say. The
+    roundtrip's p50 beside the one-device server's."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    states = perturbed_states(cfg, seed=7)
+    modes = ("embed", "detect", "roundtrip")
+    rng = np.random.default_rng(19)
+    clip = rng.integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+    out, launches, diff = {}, {}, {}
+    for kind, kw in (("bf16", {}), ("int8", dict(
+            int8_extract=True, int8_embed=True, int8_calib=clip))):
+        one = WatermarkServer(cfg, weights=states, modes=modes, **kw)
+        many = WatermarkServer(cfg, devices=devices, weights=states,
+                               modes=modes, **kw)
+        for mode in modes:
+            for req in (clip, clip[: B - 3]):
+                want = one.serve(req, mode)
+                n1, _ = served_launches(one, req, mode)
+                n2, got = served_launches(many, req, mode)
+                check(n2 == {k: len(devices) * v for k, v in n1.items()},
+                      f"{kind} {mode}: launches {n2} vs one device {n1}")
+                same = {k: bool(np.array_equal(getattr(got, k),
+                                               getattr(want, k)))
+                        for k in want.keys()}
+                if kind == "int8":
+                    check(all(same.values()), f"int8 {mode} over {devices}: "
+                          f"{same} (EQUAL expected)")
+                else:
+                    read = want.watermarked if mode == "roundtrip" else req
+                    diff[f"{mode}_{len(req)}"] = {
+                        "equal": same,
+                        **replica_diff(got, want, one, read)}
+            launches[f"dp_server_{kind}_{mode}"] = n2
+        out[kind] = {"roundtrip_p50_ms": p50_ms(one, clip, "roundtrip"),
+                     "replicas_roundtrip_p50_ms":
+                     p50_ms(many, clip, "roundtrip")}
+        del one, many
+        gc.collect()
+    out["bf16_against_one_device"] = diff
+    for key, d in diff.items():
+        check(d.get("embed_max_levels", 0) <= DP_EMBED_MAX_LEVELS
+              and d.get("embed_exact", 1.0) >= EMBED_FRAC_EXACT
+              and d.get("mask_flips_off_threshold", 0) == 0,
+              f"bf16 replicas over {devices}, {key}: {d}")
+    print(f"parallel server over {list(map(str, devices))}: int8 embed, "
+          f"detect and roundtrip EQUAL to one device (full and short "
+          f"requests); bf16 {json.dumps(diff)}; roundtrip p50 "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'bf16_against_one_device'})} [{card}]")
+    return out, launches
+
+
+def run_parallel(card):
+    """Phase 19: data-parallel training and multi-card serving."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world1, train_l, eval_l = dp_world1(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = dp_two_ranks(card)
+    server, launches = dp_server(card, ("cuda:0", "cuda:0"))
+    launches.update(dp_train_step=train_l, dp_eval_step=eval_l)
+    multi = None
+    if torch.cuda.device_count() > 1:
+        from vwfd_tpu_torch import dryrun_multiprocess
+        multi = {"nccl_two_cards": dryrun_multiprocess.run(
+            2, "cuda", batch=B, frames=T, size=S,
+            timeout_s=DP_RANKS_TIMEOUT_S),
+            "server_two_cards": dp_server(card, ("cuda:0", "cuda:1"))[0]}
+    else:
+        print("parallel (d): one card: two ranks over NCCL on two cards and "
+              "the two-card server were not run")
+    wall = time.perf_counter() - t0
+    print(json.dumps({"parallel": {
+        "world_size_1_nccl": world1, "two_gloo_ranks_one_card": two,
+        "two_replica_server_one_card": server, "two_cards": multi,
+        "phase_s": wall, "batch": B, "frames": T, "size": S,
+        "card": card}}))
+    return launches
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-child":
+        return dp_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         sys.exit(2)
@@ -5889,12 +6262,17 @@ def main():
     kd_launches = run_kdjpeg(card)
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s; script so far "
           f"{time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
+    dp_launches = run_parallel(card)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s; script so far "
+          f"{time.perf_counter() - t0:.1f} s")
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
                **mbrs_launches, **serve_launches, **tc_launches,
-               **img_launches, **clr_launches, **kd_launches}
+               **img_launches, **clr_launches, **kd_launches,
+               **dp_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -1979,3 +1979,129 @@ def test_kdjpeg_step_on_the_card_matches_plain(cuda):
         b = torch.cat([t.flatten() for t in gp[name]])
         assert float(torch.nn.functional.cosine_similarity(
             a, b, dim=0)) >= 0.9999, name
+
+
+# ------------------------------------------------------- data parallelism
+
+
+def _small_flagship(batch, size=64, frames=4):
+    cfg = load_config(FLAGSHIP_CONFIG)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=batch, gt_size=size, frames=frames))
+
+
+def _dp_state(model):
+    out = [t.detach().clone() for net in model.nets().values()
+           for t in list(net.parameters()) + list(net.buffers())]
+    for opt in model.optimizers.values():
+        out += [t.clone() for t in opt.mu + opt.nu + [opt.count]]
+    return out
+
+
+def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
+    """One NCCL rank (a ``FileStore`` under ``tmp_path``): the data-parallel
+    train step (the loss means, the PSNR's MSE and the gradient buckets
+    all-reduced) and eval step (K7's counts, SSIM and PSNR all-reduced)
+    are ``torch.equal`` to the steps without a group, from the same
+    weights, batch, previous batch and draws, in bf16, with the same
+    launch counts."""
+    import torch.distributed as dist
+    from vwfd_tpu_torch import parallel
+    cfg = _small_flagship(2)
+    plain = VideoWatermarkModel(cfg)
+    plain.init_states(5)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        dp = VideoWatermarkModel(cfg, mesh=parallel.make_mesh())
+        dp.load_states(plain.states())
+        parallel.replicate(dp, dp.mesh)
+        g = _gen(6)
+        video = torch.rand(2, 4, 64, 64, 3, device=cuda, generator=g)
+        prev = torch.rand(2, 4, 64, 64, 3, device=cuda, generator=g)
+        mask = (torch.rand(2, 4, 64, 64, 1, device=cuda, generator=g)
+                > 0.7).float()
+        draws = plain.sample_draws(2, 4)
+        counts = []
+        for m in (plain, dp):
+            reset_launch_counts()
+            m.train_step(video, mask, prev, draws)
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+        assert counts[0] == counts[1] and counts[0]["transition"] == 11
+        assert all(torch.equal(a, b) for a, b in zip(_dp_state(dp),
+                                                     _dp_state(plain)))
+        assert parallel.replicas_equal(dp, dp.mesh)
+        a = plain.eval_step(video, mask, prev, draws)
+        b = dp.eval_step(video, mask, prev, draws)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_two_replica_server_on_one_card_against_one_device(cuda, int8):
+    """``WatermarkServer(devices=("cuda:0", "cuda:0"))`` on the same
+    weights as the one-device server, each replica launching the
+    one-device counts on its half. With both int8 paths every kernel sums
+    exactly, so embed, detect and roundtrip are EQUAL. In bf16 cuDNN takes
+    other convolution kernels for the half batch (other sums): the
+    watermark within one level, the mask bits on ≥ 99 % of pixels."""
+    cfg = _small_flagship(4)
+    modes = ("embed", "detect", "roundtrip")
+    clip = np.random.default_rng(1).integers(0, 256, (4, 4, 64, 64, 3),
+                                             dtype=np.uint8)
+    kw = dict(modes=modes)
+    if int8:
+        kw.update(int8_extract=True, int8_embed=True, int8_calib=clip)
+    one = WatermarkServer(cfg, **kw)
+    two = WatermarkServer(cfg, devices=("cuda:0", "cuda:0"),
+                          weights=one.model.states(), **kw)
+    for mode in modes:
+        want = one.serve(clip, mode)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = two.serve(clip, mode)
+        got.prefetch()
+        torch.cuda.synchronize()
+        n2 = launch_counts()
+        reset_launch_counts()
+        one.serve(clip, mode).prefetch()
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        assert n2 == {k: 2 * v for k, v in n1.items()}, mode
+        for k in want.keys():
+            if int8:
+                np.testing.assert_array_equal(getattr(got, k),
+                                              getattr(want, k), err_msg=mode)
+        if not int8 and "watermarked" in want.keys():
+            d = np.abs(got.watermarked.astype(int)
+                       - want.watermarked.astype(int))
+            assert d.max() <= 1, mode
+        if not int8 and mode != "embed":
+            assert (got.mask != want.mask).mean() < 1e-2, mode
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+def test_launch_runs_on_the_tensors_card(two_cards):
+    """With the other card current, K3 and K1 launch on their tensors'
+    card (``_lib.launch``'s device guard): both cards' results as their
+    plain versions (K3 EQUAL, K1 within its tolerance)."""
+    for dev, other in (two_cards, two_cards[::-1]):
+        g = torch.Generator(dev).manual_seed(3)
+        clip = torch.randint(0, 256, (2, 4, 32, 32, 3), device=dev,
+                             generator=g, dtype=torch.uint8)
+        x = torch.randn(2, 8, 8, 192, device=dev, generator=g)
+        with torch.cuda.device(other):
+            got = wire.to_channels(clip, torch.bfloat16)
+            t = transition.transition(x, "p2p")
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and t.device == dev
+        assert torch.equal(got, wire.to_channels_plain(clip, torch.bfloat16))
+        _close(t, transition.transition_plain(x, "p2p"))

@@ -230,7 +230,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "ops.pad", "nets.localizer", "models.image_model", "data.edges",
         "kernels.crop_cubic", "kernels.rectify", "kernels.ssim_grad",
         "nets.fbcnn", "nets.discriminator", "metrics.perceptual",
-        "kernels.film", "models.kdjpeg_model", "data.jpeg_data")
+        "kernels.film", "models.kdjpeg_model", "data.jpeg_data",
+        "parallel", "parallel.spawn", "dryrun_multiprocess")
     } <= names
 
 

@@ -45,6 +45,8 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
                    // through the CUDA runtime, so no -lcuda
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -360,6 +362,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // past its edges.
 cudaError_t encode_map(CUtensorMap* map, const void* base, int cols,
                        int rows, int ld, int box_rows) {
+  // cuTensorMapEncodeTiled's address: one for the process, whatever the
+  // device
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -389,16 +393,23 @@ cudaError_t encode_map(CUtensorMap* map, const void* base, int cols,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The current device's SM count, queried once per device (the launcher
+// runs with the tensors' device current, and one process may drive several
+// cards). 0 where the query fails.
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> sms[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    sms[dev].store(n, std::memory_order_relaxed);
   }
-  return sms;
+  return n;
 }
 
 template <int BN, int NC>

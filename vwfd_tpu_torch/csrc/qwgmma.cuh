@@ -904,6 +904,8 @@ inline cudaError_t encode_i8(CUtensorMap* map, const void* base, int rank,
                              const cuuint64_t* dims,
                              const cuuint64_t* strides, const cuuint32_t* box,
                              CUtensorMapSwizzle swizzle) {
+  // cuTensorMapEncodeTiled's address: one for the process, whatever the
+  // device
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;

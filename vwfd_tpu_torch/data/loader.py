@@ -5,7 +5,11 @@ JAX package's (``np.arange(len·ratio) % len``, shuffled by a seeded
 ``default_rng``), items are fetched over a thread pool, and a thread keeps
 ``prefetch`` batches ready. The model moves a batch to the card.
 ``stream(start)`` yields the batches of successive epochs from batch
-``start`` on, for a resumed run.
+``start`` on, for a resumed run. Under data parallelism (``rows``) every
+rank draws the global order from the shared seed and fetches only its
+block ``[lo, hi)`` of each global batch (``parallel.local_batch_slice``,
+vwfd_tpu/data/loader.py:34-44), so the ranks' batches together are the
+one-process loader's.
 """
 
 import queue
@@ -19,9 +23,15 @@ __all__ = ["Loader"]
 
 class Loader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 prefetch=2, ratio=1, num_workers=4):
+                 prefetch=2, ratio=1, num_workers=4, rows=None):
+        """``batch_size`` is the global batch; ``rows`` ``(lo, hi)`` the
+        block of each batch this process fetches (None: every row)."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = (0, batch_size) if rows is None else tuple(rows)
+        if not 0 <= self.rows[0] < self.rows[1] <= batch_size:
+            raise ValueError(f"rows {rows} are not a block of a batch of "
+                             f"{batch_size}")
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
@@ -64,14 +74,15 @@ class Loader:
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        lo, hi = self.rows
+
         def worker():
             with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                 for b in range(first, n // self.batch_size):
                     if stop.is_set():
                         break
-                    q.put(self._make_batch(
-                        order[b * self.batch_size:(b + 1) * self.batch_size],
-                        pool))
+                    at = b * self.batch_size
+                    q.put(self._make_batch(order[at + lo:at + hi], pool))
             q.put(None)
 
         t = threading.Thread(target=worker, daemon=True)

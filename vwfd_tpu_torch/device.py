@@ -1,8 +1,10 @@
 """Device resolution for the port's entry points.
 
-Entry points run on the CUDA card unless the caller asks for the CPU by
-name. There is no silent fallback: with no card and no explicit ``"cpu"``
-they raise.
+Entry points run on a CUDA card unless the caller asks for the CPU by
+name: ``"cuda"`` is the current card, ``"cuda:N"`` card N (a data-parallel
+rank takes ``cuda:LOCAL_RANK``, ``parallel.local_device``; a server may
+drive several, ``WatermarkServer(devices=...)``). There is no silent
+fallback: with no card and no explicit ``"cpu"`` they raise.
 """
 
 import contextlib
@@ -13,8 +15,8 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` → ``cuda`` (raises without a card); otherwise the named
-    device, which must exist."""
+    """``None`` → ``cuda``, the current card (raises without one);
+    otherwise the named device, which must exist."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

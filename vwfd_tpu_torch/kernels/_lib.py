@@ -194,11 +194,15 @@ def load() -> ctypes.CDLL:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call one C launcher on the current stream of ``device`` and raise if
-    the launch was refused."""
+    """Call one C launcher on the current stream of ``device``, with
+    ``device`` the thread's current device (a launcher's attribute calls
+    and launches act on the current device: a server driving two cards
+    must not launch one card's tensors on the other), and raise if the
+    launch was refused."""
     lib = load()
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*args, stream)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         msg = lib.vwfd_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

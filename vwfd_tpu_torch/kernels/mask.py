@@ -27,7 +27,7 @@ ticket and partial scratch live in buffers kept per device and stream, and a
 call allocates only its outputs.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +62,10 @@ def fast_grid(clips: int, rows_per_clip: int, sms: int) -> Tuple[int, int]:
 
 
 def mask_pack_plain(logits: torch.Tensor, frames: int, s: int,
-                    threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: ``(mask, tamper_fraction)``."""
+                    threshold: float, plan_clips: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``(mask, tamper_fraction)`` (``plan_clips``
+    is the kernel's and changes nothing here)."""
     _check(logits, frames, s)
     n, hs, ws, _ = logits.shape
     b, h, w = n // frames, hs * s, ws * s
@@ -78,11 +80,15 @@ def mask_pack_plain(logits: torch.Tensor, frames: int, s: int,
     return (bits * weights).sum(-1, dtype=torch.uint8), frac
 
 
-def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float
+def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float,
+              plan_clips: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threshold + pack the detect head's logits; returns ``(mask,
     tamper_fraction)``: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    for a CPU tensor. The fast path's grid, and with it the order in which
+    a clip's mean is summed, is planned for ``plan_clips`` clips (default:
+    the call's): a replica that serves part of a request plans for the
+    whole request, and so sums each clip as one device would."""
     _check(logits, frames, s)
     if not _lib.on_cuda(logits):
         return mask_pack_plain(logits, frames, s, threshold)
@@ -99,7 +105,7 @@ def mask_pack(logits: torch.Tensor, frames: int, s: int, threshold: float
     frac = torch.empty(b, device=dev, dtype=torch.float32)
     if s == 2 and packed and logits.data_ptr() % 16 == 0:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        g, rpw = fast_grid(b, frames * hs, sms)
+        g, rpw = fast_grid(plan_clips or b, frames * hs, sms)
     else:
         clip_bytes = frames * h * (w // 8 if packed else w)
         g, rpw = max(1, min(64, -(-clip_bytes // 1024))), 0

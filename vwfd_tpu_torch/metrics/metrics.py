@@ -26,9 +26,10 @@ import numpy as np
 import torch
 
 from ..kernels.ssim import depthwise_same_conv as _depthwise_same_conv
+from ..parallel import global_sum
 from ..kernels.ssim import window_2d as _ssim_window
 
-__all__ = ["postprocess_int", "psnr", "psnr255_int", "ssim", "edge_accuracy",
+__all__ = ["postprocess_int", "psnr", "psnr_from_mse", "psnr255_int", "ssim", "edge_accuracy",
            "threshold_level", "mask_confusion", "f1_from_confusion",
            "mask_scores", "f1_sweep", "DEFAULT_THRESHOLDS",
            "bitwise_message_error",
@@ -49,12 +50,17 @@ def postprocess_int(img01: torch.Tensor) -> torch.Tensor:
     return torch.trunc(img01 * 255.0)
 
 
+def psnr_from_mse(mse: torch.Tensor, max_val: float = 255.0
+                  ) -> torch.Tensor:
+    """``20·log10(max_val) − 10·log10(mse)``; 0 when the MSE is 0."""
+    val = 20.0 * math.log10(max_val) - 10.0 * torch.log10(mse)
+    return torch.where(mse == 0, torch.zeros_like(val), val)
+
+
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 255.0
          ) -> torch.Tensor:
     """PSNR of post-processed images; 0 when the MSE is 0."""
-    mse = torch.mean((a.float() - b.float()) ** 2)
-    val = 20.0 * math.log10(max_val) - 10.0 * torch.log10(mse)
-    return torch.where(mse == 0, torch.zeros_like(val), val)
+    return psnr_from_mse(torch.mean((a.float() - b.float()) ** 2), max_val)
 
 
 def psnr255_int(img01_a: torch.Tensor, img01_b: torch.Tensor
@@ -134,13 +140,15 @@ def mask_scores(pred01: torch.Tensor, gt01: torch.Tensor,
 
 def f1_sweep(pred01: torch.Tensor, gt01: torch.Tensor,
              thresholds: Sequence[float] = DEFAULT_THRESHOLDS,
-             kernels=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             kernels=None, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The F1 at every threshold (calculate_f1.py:52-72), from one pass of
-    ``kernels.f1_sweep`` (K7) over the prediction and the mask. Returns
-    ``(thresholds, f1s)``, float32 (L,) each, on the inputs' device."""
+    ``kernels.f1_sweep`` (K7) over the prediction and the mask; with a
+    ``parallel.Mesh``, the counts summed over its ranks (int64) first.
+    Returns ``(thresholds, f1s)``, float32 (L,) each, on the inputs'
+    device."""
     ts = np.asarray(thresholds, np.float32)
-    counts = _kernel_set(kernels).f1_sweep(
-        pred01, gt01, [threshold_level(t) for t in ts])
+    counts = global_sum(_kernel_set(kernels).f1_sweep(
+        pred01, gt01, [threshold_level(t) for t in ts]), mesh)
     tp, fp, fn = counts.unbind(-1)
     return (torch.from_numpy(ts).to(pred01.device),
             f1_from_confusion(None, tp, fn, fp))

@@ -29,6 +29,17 @@ all as device tensors. ``extract_f1`` (``:277-283``) and ``eval_real_jpeg``
 (``:285-305``, with the host JPEG codec an argument: the port reads no
 image library).
 
+Data parallelism (``mesh=``, ``video_model.py:60-62,126-128``): each rank
+holds its rows of the global batch, and the step is the one-process step
+on the global batch (``parallel``): the draws are the global batch's, each
+rank keeping its rows (F4); the fidelity and mask losses are global means
+and the PSNR gate reads the global MSE; each net's gradients are
+all-reduced before its clip (F2); the guard reads the global loss, so every
+rank keeps or takes the step together (F6); BatchNorm takes the global
+batch's moments (``nets/unet.py``); the eval step sums K7's counts over the
+ranks in int64 (F12) and takes SSIM's and PSNR's global means. Without a
+mesh every path is the single-process one.
+
 Ported: ``_to_channels``, ``_to_frames``, ``__init__``, ``init_states``
 (with ``model.pretrain_path``), ``embed``, ``predict_mask``, ``_loss``,
 ``train_step``, ``fit`` (the previous-batch buffer, checkpoints every
@@ -52,8 +63,11 @@ from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..kernels import KERNELS, KernelSet
 from ..kernels.splice import to_frames as _to_frames
-from ..metrics import bce_with_logits, f1_sweep, l1_loss, psnr255_int, ssim
+from ..metrics import (bce_with_logits, f1_sweep, l1_loss, postprocess_int,
+                       psnr_from_mse, ssim)
 from ..nets import InvertibleNet, UNet, UNetTPU
+from ..parallel import (Mesh, all_reduce_grads, barrier, global_mean,
+                        local_rows)
 from ..utils.images import save_png, stitch_images
 from .state import AdamW, apply_pretrain, make_optimizer, save_checkpoint
 
@@ -91,11 +105,14 @@ class VideoWatermarkModel:
     ``generator`` extractor (``UNetTPU`` or ``UNet``) on ``device``
     (``None`` → the CUDA card; raises without one unless
     ``device="cpu"``). ``kernels`` is the kernel set both nets
-    call: ``kernels.KERNELS`` (the wrappers) or ``kernels.PLAIN``."""
+    call: ``kernels.KERNELS`` (the wrappers) or ``kernels.PLAIN``.
+    ``mesh`` (``parallel.make_mesh()``) makes the steps data-parallel:
+    each rank passes its rows of the global batch."""
 
     def __init__(self, cfg: Config, device=None,
-                 kernels: KernelSet = KERNELS):
+                 kernels: KernelSet = KERNELS, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.frames = cfg.data.frames
         self.kernels = kernels
@@ -153,13 +170,21 @@ class VideoWatermarkModel:
         return self._opt
 
     def sample_draws(self, b: int, t: int) -> AttackDraws:
-        """Attack draws for one step from the model's generator (seeded
-        with ``TrainConfig.seed`` at first use)."""
+        """Attack draws for one step of ``b`` clips from the model's
+        generator (seeded with ``TrainConfig.seed`` at first use). Under a
+        mesh ``b`` is this rank's clips: every rank draws the global
+        batch's draws and keeps its rows (F4)."""
         if self._draw_gen is None:
             self._draw_gen = torch.Generator(self.device).manual_seed(
                 self.cfg.train.seed)
-        return sample_attack_draws(self._draw_gen, b, t,
-                                   len(self.attack_ratios))
+        world = 1 if self.mesh is None else self.mesh.size
+        return local_rows(sample_attack_draws(
+            self._draw_gen, b * world, t, len(self.attack_ratios)), self.mesh)
+
+    @staticmethod
+    def _mse255_int(a, b) -> torch.Tensor:
+        """The MSE that ``psnr255_int`` takes (this process's rows)."""
+        return torch.mean((postprocess_int(a) - postprocess_int(b)) ** 2)
 
     def _inn(self, video: torch.Tensor) -> torch.Tensor:
         """INN forward of a clip (B,T,H,W,3): (B,H,W,T·3) in the compute
@@ -204,20 +229,25 @@ class VideoWatermarkModel:
         attacked = attack_pool_video(attacked_fwd, draws, self.attack_ratios,
                                      self.kernels, epilogue="quantize")
         pred, stats = self.unet(attacked.reshape(b * t, *attacked.shape[2:]),
-                                train=True)
+                                train=True, mesh=self.mesh)
         pred_mask = pred.reshape(b, t, *pred.shape[1:])
         with torch.no_grad():
-            psnr_forward = psnr255_int(video, fwd_video)
-        w_fwd = torch.where(psnr_forward < tc.psnr_gate, tc.loss_weight_low,
-                            tc.loss_weight_high)
+            mse = self._mse255_int(video, fwd_video)
         if tc.forward_criterion == "l1":
             l_fid = l1_loss(fwd_video, video)
         elif tc.forward_criterion == "l2":
             l_fid = torch.mean((fwd_video - video) ** 2)
         else:
             l_fid = bce_with_logits(fwd_video, video)
-        l_forward = w_fwd * l_fid
         l_backward = bce_with_logits(pred_mask, mask)
+        if self.mesh is not None:  # the three global means in one all-reduce
+            l_fid, l_backward, mse = global_mean(
+                torch.stack([l_fid, l_backward, mse]), self.mesh).unbind()
+        with torch.no_grad():
+            psnr_forward = psnr_from_mse(mse)
+        w_fwd = torch.where(psnr_forward < tc.psnr_gate, tc.loss_weight_low,
+                            tc.loss_weight_high)
+        l_forward = w_fwd * l_fid
         loss = l_forward + l_backward
         return loss, {"lF": l_forward, "lB": l_backward,
                       "PF": psnr_forward}, stats
@@ -231,7 +261,10 @@ class VideoWatermarkModel:
     def loss_and_grads(self, video, mask, prev,
                        draws: Optional[AttackDraws] = None):
         """The loss, its terms, the gradients per net (lists in parameter
-        order) and the new BatchNorm statistics, without any update."""
+        order) and the new BatchNorm statistics, without any update. Under
+        a mesh the loss is the global batch's, every rank's the same, and
+        the gradients this rank's: ``world`` times its share of the global
+        gradient (``parallel``), which ``train_step`` all-reduces."""
         video, mask, prev = self.to_device(video, mask, prev)
         if draws is None:
             draws = self.sample_draws(video.shape[0], video.shape[1])
@@ -247,16 +280,23 @@ class VideoWatermarkModel:
         return loss.detach(), aux, {"netG": g[:n], "generator": g[n:]}, stats
 
     def train_step(self, video, mask, prev,
-                   draws: Optional[AttackDraws] = None
+                   draws: Optional[AttackDraws] = None,
+                   grads_out: Optional[dict] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a batch (video (B,T,H,W,3), mask (B,T,H,W,1)) with
         the previous batch ``prev`` spliced in. Returns the logs as 0-dim
-        tensors on the device (no host sync)."""
+        tensors on the device (no host sync). Under a mesh each net's
+        gradients are all-reduced before its clip, and the guard reads the
+        global loss, the same on every rank. ``grads_out``, if given,
+        receives each net's gradients as the optimizer takes them."""
         loss, aux, grads, stats = self.loss_and_grads(video, mask, prev,
                                                       draws)
         good = torch.isfinite(loss)
         for name, opt in self.optimizers.items():
-            opt.step(grads[name], good)
+            g = all_reduce_grads(grads[name], self.mesh)
+            if grads_out is not None:
+                grads_out[name] = g
+            opt.step(g, good)
         self.unet.load_stats(stats, good)
         return {"loss": loss, **aux}
 
@@ -279,12 +319,16 @@ class VideoWatermarkModel:
                                      self.attack_ratios, self.kernels,
                                      epilogue="clamp")
         pred_mask = self.predict_mask(attacked)
-        _, f1s = f1_sweep(pred_mask, mask, kernels=self.kernels)
+        _, f1s = f1_sweep(pred_mask, mask, kernels=self.kernels,
+                          mesh=self.mesh)
+        s = ssim(fwd_video.reshape(-1, *fwd_video.shape[2:]),
+                 video.reshape(-1, *video.shape[2:]), kernels=self.kernels)
+        if self.mesh is not None:  # equal image counts on every rank
+            s = global_mean(s.double(), self.mesh).float()
         return {
-            "psnr_forward": psnr255_int(video, fwd_video),
-            "ssim_forward": ssim(fwd_video.reshape(-1, *fwd_video.shape[2:]),
-                                 video.reshape(-1, *video.shape[2:]),
-                                 kernels=self.kernels),
+            "psnr_forward": psnr_from_mse(global_mean(
+                self._mse255_int(video, fwd_video), self.mesh)),
+            "ssim_forward": s,
             "f1_best": torch.max(f1s),
             "f1_sweep": f1s,
         }
@@ -295,7 +339,7 @@ class VideoWatermarkModel:
         (B,T,H,W,3): the building block of host-side attack evals."""
         attacked, mask = self.to_device(attacked, mask)
         _, f1s = f1_sweep(self.predict_mask(attacked), mask,
-                          kernels=self.kernels)
+                          kernels=self.kernels, mesh=self.mesh)
         return torch.max(f1s)
 
     @torch.no_grad()
@@ -335,9 +379,15 @@ class VideoWatermarkModel:
         ``montage_dir`` (``_dump_montage``); with ``ckpt_dir``, a checkpoint
         every ``TrainConfig.save_interval`` steps. ``step_ms``, if given,
         receives each step's wall time (the step and its logs read back).
-        Returns ``(states, logs)`` with the last step's logs as floats."""
+        Under a mesh the loader yields this rank's rows (the previous-batch
+        splice is per clip, so no row crosses ranks), and only rank 0
+        reports, logs, writes montages and checkpoints; every rank waits at
+        a barrier after a checkpoint. Returns ``(states, logs)`` with the
+        last step's logs as floats."""
         log = logging.getLogger("base")
         tc = self.cfg.train
+        if self.mesh is not None and self.mesh.rank != 0:
+            progbar = scalar_logger = montage_dir = None
         prev, step, logs_out = None, start_step, {}
         while step < start_step + steps:
             seen = 0
@@ -366,7 +416,9 @@ class VideoWatermarkModel:
                     self._dump_montage(video, mask, prev, montage_dir, step)
                 prev = video
                 if ckpt_dir and step % tc.save_interval == 0:
-                    save_checkpoint(ckpt_dir, step, self)
+                    if self.mesh is None or self.mesh.rank == 0:
+                        save_checkpoint(ckpt_dir, step, self)
+                    barrier(self.mesh)
             if not seen:
                 raise ValueError("the loader yields no batches")
         return self.states(), logs_out

@@ -30,7 +30,12 @@ statistics (biased variance, float32 for a bf16 input, as flax) and
 returns the running statistics flax would store, ``0.9·ra + 0.1·batch``
 with the BIASED batch variance (``F.batch_norm`` alone would blend in the
 unbiased one), without writing them: the train step applies them with
-``load_stats`` after its non-finite guard.
+``load_stats`` after its non-finite guard. Under data parallelism
+(``forward(..., mesh=)``, more than one rank) train mode takes the
+moments over the global batch, as flax's BatchNorm does under ``jit`` on a
+sharded batch: each rank's float32 means of x and x² are all-reduced
+differentiably, the variance is flax's ``max(0, E[x²] − E[x]²)``, and the
+running statistics take those global moments.
 """
 
 import math
@@ -41,8 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.squeeze import depth_to_space, space_to_depth
+from ..parallel import global_mean
 
-__all__ = ["UNet", "UNetTPU"]
+__all__ = ["UNet", "UNetTPU", "BatchStats"]
 
 
 def _trunc_normal_(w: torch.Tensor, scale: float, fan_in: int,
@@ -69,16 +75,49 @@ def _conv(x, conv: nn.Conv2d, dt, padding):
 _MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9): ra ← 0.9·ra + 0.1·batch
 
 
+class BatchStats(dict):
+    """The running statistics of a train-mode forward, ``{bn: (mean,
+    var)}``; ``mesh``: the data group whose global batch the moments are
+    taken over (None: this process's rows)."""
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.mesh = mesh
+
+
+def _bn_global(x, bn: nn.BatchNorm2d, stats: BatchStats):
+    """Train-mode BatchNorm over the global batch of ``stats.mesh``
+    (flax's ``_compute_stats`` and ``_normalize`` in float32: one
+    all-reduce of the stacked local means of x and x², equal row counts on
+    every rank)."""
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mu, mu2 = global_mean(torch.stack([xf.mean(dims), (xf * xf).mean(dims)]),
+                          stats.mesh).unbind()
+    var = torch.clamp_min(mu2 - mu * mu, 0.0)
+    y = (xf - mu) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    with torch.no_grad():
+        stats[bn] = (_MOMENTUM * bn.running_mean + (1 - _MOMENTUM) * mu,
+                     _MOMENTUM * bn.running_var + (1 - _MOMENTUM) * var)
+    return y.to(x.dtype)
+
+
 def _bn(x, bn: nn.BatchNorm2d, stats=None):
     """BatchNorm of NHWC ``x`` (flax computes it in f32 and casts to the
     compute dtype; PyTorch does the same for a bf16 input with f32
     statistics). ``stats`` None: eval mode, running statistics. Otherwise
     train mode: batch statistics, and ``stats[bn]`` receives the updated
-    running (mean, var)."""
+    running (mean, var); over the global batch when ``stats`` is a
+    ``BatchStats`` whose mesh has more than one rank (with one, its rows
+    are the global batch, and ``F.batch_norm`` normalises as without a
+    mesh)."""
     if stats is None:
         y = F.batch_norm(_nchw(x), bn.running_mean, bn.running_var,
                          bn.weight, bn.bias, False, 0.0, bn.eps)
         return _nhwc(y)
+    mesh = getattr(stats, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        return _bn_global(x, bn, stats)
     c = x.shape[-1]
     mean = torch.zeros(c, device=x.device)
     var = torch.ones(c, device=x.device)
@@ -147,13 +186,14 @@ class _Extractor(nn.Module):
                 with torch.no_grad():
                     m.bias.zero_()
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
         """(N,H,W,C) in [0,1] → sigmoid probabilities (N,H,W,out), f32.
         ``train=True`` returns ``(probs, stats)``: BatchNorm on batch
         statistics, and the updated running (mean, var) of every BatchNorm
-        for ``load_stats`` (flax's ``mutable=["batch_stats"]``)."""
+        for ``load_stats`` (flax's ``mutable=["batch_stats"]``); with a
+        ``parallel.Mesh`` of more than one rank, on the global batch's."""
         dt = self.dtype or torch.float32
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         logits = self.body(space_to_depth(x.to(dt), self.s2d), stats)
         probs = torch.sigmoid(depth_to_space(logits, self.head_s2d).float())
         return (probs, stats) if train else probs

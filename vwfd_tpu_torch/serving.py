@@ -33,23 +33,34 @@ K11 ``qconv`` and K12 ``qconv_t`` and hands the head's float32 logits to K4;
 the int8 embed runs K1, K11 and K13 ``qcoupling_head``, and its output
 goes through K3 as the bf16 INN's does. Uploads go through pinned host
 buffers with ``non_blocking`` copies; results come back the same way,
-behind a CUDA event, so ``serve`` returns without waiting for the card and
+behind a CUDA event, so ``serve`` returns without waiting for the cards and
 ``serve_stream`` keeps a window of requests in flight.
 
 Weights come from a checkpoint directory (``ckpt_dir``: the port's own
 layout, ``models/state.py``, which ``tools/jax_checkpoint_to_torch.py``
 writes from a JAX package's orbax checkpoint), a weights file or mapping,
 or a seed. Media folders, ``--stream`` and ``--s2d`` are the CLI's
-(``serve.py``). Not ported yet: AOT compile (CUDA graphs), ``mesh``,
-``export_program`` and ``cost_analysis`` (ROADMAP.md §1).
+(``serve.py``).
+
+Several devices (``devices=``; the JAX package's data-mesh server,
+vwfd_tpu/serving.py:178-181,208-232): one process holds a replica of the
+states on each device, the int8 trees too (copied from the first, which
+calibrates). A request's rows are split in order into equal parts, every
+part is launched on its device before any is read back, so the cards work
+at once, and the outputs are concatenated on the host. The batch must
+divide by the number of devices. Not ported yet: AOT compile (CUDA
+graphs), ``export_program`` and ``cost_analysis`` (ROADMAP.md §1).
 """
 
-from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple, Union
+import copy
+from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from .config import Config
+from .device import resolve_device
 from .kernels import KERNELS, KernelSet
 from .models.state import latest_step, load_nets
 from .models.video_model import VideoWatermarkModel, _to_channels
@@ -60,6 +71,8 @@ __all__ = ["WatermarkServer", "ServeResult", "unpack_mask_bits", "check_int8",
            "save_weights"]
 
 MODES = ("embed", "detect", "roundtrip")
+_DEVICE_FNS = {"embed": "_embed_u8", "detect": "_detect_u8",
+               "roundtrip": "_roundtrip_u8"}
 Weights = Union[str, Mapping[str, Mapping[str, torch.Tensor]]]
 
 
@@ -123,51 +136,58 @@ def save_weights(states: Mapping[str, Mapping[str, torch.Tensor]],
 
 
 class ServeResult:
-    """One served clip batch. Holds device tensors; the device→host copies
-    start at ``prefetch`` (into pinned buffers, behind a CUDA event) and the
-    consumer waits only when it reads an output."""
+    """One served clip batch. Holds device tensors, one dict of them per
+    replica, in row order; the device→host copies start at ``prefetch``
+    (into pinned buffers, behind a CUDA event on each device) and the
+    consumer waits only when it reads an output, the replicas' rows
+    concatenated."""
 
-    __slots__ = ("_arrays", "n", "_host", "_done")
+    __slots__ = ("_parts", "n", "_host", "_done")
 
-    def __init__(self, arrays: Dict[str, torch.Tensor], n: int):
-        self._arrays = arrays
+    def __init__(self, arrays: Union[Dict[str, torch.Tensor],
+                                     List[Dict[str, torch.Tensor]]], n: int):
+        self._parts = arrays if isinstance(arrays, list) else [arrays]
         self.n = n  # valid rows (≤ server batch; the rest is tail padding)
         self._host = None
-        self._done = None
+        self._done = []
 
     def prefetch(self) -> "ServeResult":
         """Start the device→host copies of every output now."""
         if self._host is None:
-            host = {}
-            for name, arr in self._arrays.items():
-                if arr.is_cuda:
-                    buf = torch.empty(arr.shape, dtype=arr.dtype,
-                                      pin_memory=True)
-                    host[name] = buf.copy_(arr, non_blocking=True)
-                else:
-                    host[name] = arr
-            if any(a.is_cuda for a in self._arrays.values()):
-                self._done = torch.cuda.Event()
-                self._done.record()
-            self._host = host
+            self._host = []
+            for part in self._parts:
+                host = {}
+                for name, arr in part.items():
+                    if arr.is_cuda:
+                        buf = torch.empty(arr.shape, dtype=arr.dtype,
+                                          pin_memory=True)
+                        host[name] = buf.copy_(arr, non_blocking=True)
+                    else:
+                        host[name] = arr
+                self._host.append(host)
+                for dev in {a.device for a in part.values() if a.is_cuda}:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    self._done.append(done)
         return self
 
     def _fetch(self, name: str) -> np.ndarray:
         self.prefetch()
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host[name].numpy()
+        for done in self._done:
+            done.synchronize()
+        parts = [h[name].numpy() for h in self._host]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def __getattr__(self, name):
-        if name == "mask" and "mask" not in self._arrays:
+        if name == "mask" and "mask" not in self._parts[0]:
             # bit-packed wire format — unpack on the host, same interface
             return unpack_mask_bits(self._fetch("mask_bits"))[: self.n]
-        if name not in self._arrays:
+        if name not in self._parts[0]:
             raise AttributeError(name)
         return self._fetch(name)[: self.n]
 
     def keys(self):
-        return self._arrays.keys()
+        return self._parts[0].keys()
 
 
 class WatermarkServer:
@@ -179,8 +199,13 @@ class WatermarkServer:
         ``cfg.data`` fixes the clip shape (batch_size, frames, gt_size);
         ``cfg.model`` picks the nets; ``cfg.train.dtype`` the compute dtype.
     device : str or torch.device, optional
-        ``None`` → the CUDA card (raises without one); ``"cpu"`` runs the
-        plain PyTorch path.
+        ``None`` → the current CUDA card (raises without one); ``"cpu"``
+        runs the plain PyTorch path.
+    devices : sequence of str or torch.device, optional
+        Serve over several devices instead (``device`` then stays None):
+        a replica of the states on each, each request's rows split in
+        order over them (``cfg.data.batch_size`` must divide by their
+        number). ``("cpu", "cpu")`` runs the split on the CPU.
     weights : str or mapping, optional
         A file written by ``save_weights`` or ``{"netG": state_dict,
         "generator": state_dict}`` (e.g. from ``convert.params_from_jax``).
@@ -220,6 +245,7 @@ class WatermarkServer:
     """
 
     def __init__(self, cfg: Config, device=None,
+                 devices: Optional[Sequence] = None,
                  weights: Optional[Weights] = None,
                  modes: Tuple[str, ...] = ("embed", "detect"),
                  threshold: float = 0.5, kernels: KernelSet = KERNELS,
@@ -230,6 +256,15 @@ class WatermarkServer:
         unknown = set(modes) - set(MODES)
         if unknown:
             raise ValueError(f"unknown modes {sorted(unknown)}")
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            devices = [resolve_device(d) for d in devices]
+            if not devices or cfg.data.batch_size % len(devices):
+                raise ValueError(
+                    f"the server batch {cfg.data.batch_size} must divide "
+                    f"by the number of devices {len(devices)}")
+            device = devices[0]
         check_int8(cfg.model, int8_extract, int8_embed)
         if weights is not None and ckpt_dir is not None:
             raise ValueError("pass weights or ckpt_dir, not both")
@@ -255,8 +290,6 @@ class WatermarkServer:
                 weights = torch.load(weights, map_location="cpu",
                                      weights_only=True)
             self.model.load_states(weights)
-        self._fns = {"embed": self._embed_u8, "detect": self._detect_u8,
-                     "roundtrip": self._roundtrip_u8}
         self._qemb = self._qext = None
         int8_calib = _materialize(int8_calib)
         if int8_embed:  # first: the detect's self-calibration embeds with it
@@ -267,6 +300,23 @@ class WatermarkServer:
             self._qext = self._quantize_extract(
                 _materialize(int8_calib_detect)
                 if int8_calib_detect is not None else int8_calib, int8_margin)
+        self._replicas = [self] + [self._replica(d)
+                                   for d in (devices or [])[1:]]
+
+    def _replica(self, device: torch.device) -> "WatermarkServer":
+        """This server's states and int8 trees on ``device``: a server of
+        its own, which serves its rows of each request."""
+        r = copy.copy(self)
+        r.model = VideoWatermarkModel(self.cfg, device=device,
+                                      kernels=self.kernels)
+        r.model.load_states(self.model.states())
+        r.device = r.model.device
+        for key in ("_qemb", "_qext"):
+            tree = getattr(self, key)
+            setattr(r, key, None if tree is None else unet_int8.tree_map(
+                lambda t: t.to(r.device), tree))
+        r._replicas = [r]
+        return r
 
     # ------------------------------------------------------ int8 conversion
 
@@ -321,9 +371,11 @@ class WatermarkServer:
         m = self.model
         logits = (m.unet.body(xs) if self._qext is None
                   else unet_int8.body_int8(self._qext, xs, self.kernels))
+        # K4's grid planned for the whole request: a replica sums each
+        # clip's fraction in the order one device does
         mask, frac = self.kernels.mask_pack(logits, self.frames,
-                                            m.unet.head_s2d,
-                                            self.threshold)
+                                            m.unet.head_s2d, self.threshold,
+                                            plan_clips=self.batch)
         key = "mask_bits" if self.size % 8 == 0 else "mask"
         return {key: mask, "tamper_fraction": frac}
 
@@ -349,8 +401,9 @@ class WatermarkServer:
 
     # ------------------------------------------------------------- serving
 
-    def _put(self, clip_u8: np.ndarray) -> Tuple[torch.Tensor, int]:
-        """Host→device upload with tail padding to the server batch."""
+    def _put(self, clip_u8: np.ndarray) -> Tuple[List[torch.Tensor], int]:
+        """Host→device uploads with tail padding to the server batch: each
+        replica's rows, in order, on its device."""
         n = clip_u8.shape[0]
         want = (self.batch, self.frames, self.size, self.size, 3)
         if clip_u8.dtype != np.uint8:
@@ -363,16 +416,21 @@ class WatermarkServer:
                            pin_memory=self.device.type == "cuda")
         host[:n] = torch.from_numpy(np.ascontiguousarray(clip_u8))
         host[n:] = 0
-        return host.to(self.device, non_blocking=True), n
+        per = self.batch // len(self._replicas)
+        return [host[i * per:(i + 1) * per].to(r.device, non_blocking=True)
+                for i, r in enumerate(self._replicas)], n
 
     def serve(self, clip_u8: np.ndarray, mode: str) -> ServeResult:
-        """One request; returns before the card finishes (the result waits
-        only when its outputs are read)."""
+        """One request; returns before the cards finish (the result waits
+        only when its outputs are read). Over several devices, every
+        replica's rows are launched before any is read back."""
         if mode not in self.modes:
             raise KeyError(f"mode {mode!r} not served (modes={self.modes})")
-        dev, n = self._put(clip_u8)
+        parts, n = self._put(clip_u8)
+        fn = _DEVICE_FNS[mode]
         with torch.no_grad():
-            return ServeResult(self._fns[mode](dev), n)
+            return ServeResult([getattr(r, fn)(x) for r, x
+                                in zip(self._replicas, parts)], n)
 
     def serve_stream(self, clips: Iterable[np.ndarray], mode: str,
                      window: int = 2) -> Iterator[ServeResult]:

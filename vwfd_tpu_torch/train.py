@@ -30,7 +30,21 @@ the device. ``--val`` instead runs ``eval_step`` on ``--val-batches``
 batches (default 10) and prints one JSON line: the means of
 ``psnr_forward``, ``ssim_forward`` and ``f1_best``, ms per eval step and
 frames/s over the steps after the first, the restored step and the device.
-Runs on the CUDA card unless ``--device cpu``; without a card it raises.
+Runs on a CUDA card unless ``--device cpu``; without a card it raises.
+
+``--task video`` also trains and evaluates data-parallel, one process a
+card under ``torchrun`` (NCCL; gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node 8 -m vwfd_tpu_torch.train --task video \
+        --synthetic --steps 1000
+
+``--batch`` is then the global batch, as in the JAX package: each rank
+takes its contiguous block of every batch's rows (``parallel``), the step
+is the one-process step on the global batch, the device is
+``cuda:LOCAL_RANK``, rank 0 alone logs, writes checkpoints and montages
+and prints the JSON line (with ``world_size`` and the global frames/s),
+and ``--resume`` restores on every rank, then broadcasts rank 0's state.
+The other tasks refuse to start under a ``WORLD_SIZE`` above 1.
 
 ``--task hidden`` trains the HiDDeN family (``models/hidden_model.py``; the
 JAX ``train.py``'s ``_message_loop``, :219-284), ``--task mbrs`` the MBRS
@@ -126,6 +140,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import (CLR_CONFIG, FLAGSHIP_CONFIG, KDJPEG_CONFIG, PAMI_CONFIG,
                TIANCHI_CONFIG, Config, load_config)
@@ -141,6 +156,9 @@ from .models.image_model import ImageBatch
 from .models.hidden_model import HiddenSampler
 from .models.mbrs_model import MBRSSampler
 from .models.state import latest_step, restore_checkpoint, save_checkpoint
+from .parallel import (local_batch_slice, local_device, make_mesh,
+                       maybe_init_distributed, replicate,
+                       world_size_from_env)
 from .utils import Progbar, ScalarLogger, setup_logger
 
 
@@ -604,6 +622,11 @@ def main(argv=None):
     if args.synthetic and args.root:
         ap.error("--synthetic and --root exclude each other")
 
+    world = world_size_from_env()
+    if world > 1 and args.task != "video":
+        ap.error(f"--task {args.task} does not run data-parallel yet "
+                 f"(WORLD_SIZE={world}): ROADMAP.md §1 queues it after the "
+                 f"flagship's; run it in one process")
     logger = setup_logger("base")
     if args.task in ("hidden", "mbrs"):
         return _message(args, ap, logger)
@@ -616,6 +639,21 @@ def main(argv=None):
                  "image-family options")
     if args.task == "kdjpeg":
         return _kdjpeg(args, ap, logger)
+    if world == 1:
+        return _video(args, ap, logger, args.device)
+    owned = not dist.is_initialized()
+    device = local_device(args.device)
+    maybe_init_distributed(device)
+    try:
+        return _video(args, ap, logger, device, make_mesh())
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _video(args, ap, logger, device, mesh=None):
+    """``--task video``: train or evaluate the flagship, data-parallel
+    over ``mesh``'s ranks when given."""
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
     data = dict(batch_size=args.batch or cfg.data.batch_size,
                 frames=args.frames or cfg.data.frames,
@@ -624,14 +662,17 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
                               ckpt_dir=args.ckpt_dir or cfg.ckpt_dir)
     dataset = _dataset(cfg, args.synthetic, ap)
-    model = VideoWatermarkModel(cfg, device=args.device)
+    b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
+    rows = local_batch_slice(b, mesh)  # raises unless b divides
+    model = VideoWatermarkModel(cfg, device=device, mesh=mesh)
     model.init_states(cfg.train.seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
         logger.info("resuming from step %d", step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
-    b, t, s = cfg.data.batch_size, cfg.data.frames, cfg.data.gt_size
-    loader = Loader(dataset, b, seed=cfg.train.seed)
+    replicate(model, mesh)
+    main_rank = mesh is None or mesh.rank == 0
+    loader = Loader(dataset, b, seed=cfg.train.seed, rows=rows)
     if args.val:
         outs, ms = _timed(model, iter(loader), args.val_batches,
                           model.eval_step)
@@ -640,15 +681,16 @@ def main(argv=None):
         logger.info("eval: %s", result)
     else:
         scalar_logger = montage_dir = None
-        if not args.no_telemetry:
+        if not args.no_telemetry and main_rank:
             scalar_logger = ScalarLogger(args.logdir or os.path.join(
                 "runs", f"{cfg.name}_{cfg.task}"))
             montage_dir = os.path.join(cfg.out_dir, "montage")
         times = []
         try:
             _, logs = model.fit(loader, args.steps, ckpt_dir=cfg.ckpt_dir,
-                                progbar=Progbar(args.steps,
-                                                stateful_metrics=["PF"]),
+                                progbar=(Progbar(args.steps,
+                                                 stateful_metrics=["PF"])
+                                         if main_rank else None),
                                 scalar_logger=scalar_logger,
                                 montage_dir=montage_dir,
                                 start_step=step0 or 0, step_ms=times)
@@ -658,11 +700,14 @@ def main(argv=None):
         ms = float(np.median(times[1:] or times))
         result = {**logs, "steps": args.steps, "ms_per_step": ms}
         logger.info("done: %s", logs)
+    if not main_rank:
+        return
     cuda = model.device.type == "cuda"
     print(json.dumps({
         **result, "frames_per_s": b * t / ms * 1e3, "batch": b, "frames": t,
         "size": s, "data": "synthetic" if args.synthetic else "davis",
-        "resumed_step": step0, "device": str(model.device),
+        "resumed_step": step0, "world_size": 1 if mesh is None else mesh.size,
+        "device": str(model.device),
         "device_name": (torch.cuda.get_device_name(model.device) if cuda
                         else "cpu")}))
 
