@@ -248,7 +248,25 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    ``DP_MASK_NEAR`` of the threshold (cuDNN takes other kernels for the
    half batch), each roundtrip's p50 beside one device's; (d) where there are
    two cards, two NCCL ranks (``dryrun_multiprocess``) and a two-card
-   server, otherwise a line saying they were not run.
+   server, otherwise a line saying they were not run;
+20. data parallelism of every other family (``run_parallel_families``):
+   (a) one NCCL rank in this process per task (HiDDeN on crop, MBRS soft
+   Q90, Tianchi, PAMI, ImugeV2 with the VGG loss, CLR with the GAN and the
+   JPEG simulator, KD-JPEG) at its family phase's shape: a train step
+   over the world-1 group against the step without one from the same
+   state, batch and draws, every log and state tensor ``torch.equal``,
+   the launch counts at 0 just before and read just after each and
+   equal; for Tianchi, PAMI and CLR an eval step the same way; each
+   step's all-reduce calls and bytes and the p50 of 4 steps of each,
+   interleaved; (b) two gloo ranks on ``cuda:0`` (this script as
+   ``--dpf-child DIR``), MBRS then CLR on half the global batch each:
+   their logs and states bit-equal over two steps, the loss terms within
+   ``DPF_LOSS_RTOL`` and each net's all-reduced gradient cosine ≥
+   ``DPF_GRAD_COS`` against the one-process step (MBRS's with flax's
+   variance; with phase 13's per-block rule where the soft JPEG flipped a
+   block between the two encodings, counted), an Inf pixel in rank 1's
+   rows keeping every state on both ranks, the first updates' cosines
+   printed. It prints one ``{"parallel_families": ...}`` line.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -265,7 +283,8 @@ roundtrip for K14 and K15, and per HiDDeN train step of the member that
 runs it for K16 and K17, per Tianchi train step for K18, per PAMI train
 step for K19, per CLR train step for K20-K22, per KD-JPEG train step for
 K23;
-``launches_by_path`` holds MBRS's, serving's and Tianchi's paths, K5's
+``launches_by_path`` holds every phase's paths (phase 20's
+``dp_<task>_train_step`` and ``dp_<task>_eval_step`` among them), K5's
 entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
 whole-row width); the last
 line is
@@ -274,6 +293,7 @@ line is
 """
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -5859,6 +5879,23 @@ DP_EMBED_MAX_LEVELS = 2
 DP_MASK_NEAR = 0.01
 
 
+@contextlib.contextmanager
+def world1_group(name):
+    """One NCCL rank in this process (a ``FileStore`` under ``build/``):
+    the ``"data"`` mesh of world size 1."""
+    store_dir = Path(__file__).resolve().parent / "build" / name
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    store = dist.FileStore(str(store_dir / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        yield parallel.make_mesh()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 def dp_params(model):
     """Each net's parameters flattened, float32, on the host."""
     return {name: torch.cat([p.detach().flatten() for p in
@@ -5921,18 +5958,11 @@ def dp_child(out_dir):
 def dp_world1(card):
     """Phase 19 (a): one NCCL rank in this process (a ``FileStore`` under
     ``build/``), phase 6's shape and weights."""
-    store_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
-    shutil.rmtree(store_dir, ignore_errors=True)
-    store_dir.mkdir(parents=True)
     cfg = load_config(FLAGSHIP_CONFIG)
     states = perturbed_states(cfg, seed=7)
     plain = VideoWatermarkModel(cfg)
     plain.load_states(states)
-    store = dist.FileStore(str(store_dir / "store"), 1)
-    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
-                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
-    try:
-        mesh = parallel.make_mesh()
+    with world1_group("chip_smoke_dp") as mesh:
         dp = VideoWatermarkModel(cfg, mesh=mesh)
         dp.load_states(states)
         parallel.replicate(dp, mesh)
@@ -5991,9 +6021,6 @@ def dp_world1(card):
                 "dp_train_step_p50_ms": p50["dp"],
                 "allreduce_bytes_per_step": grad_bytes,
                 "equal": equal}, train_launches, eval_launches
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def dp_reference(cfg, states, batches):
@@ -6187,9 +6214,445 @@ def run_parallel(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 20
+# data parallelism of every other family: (a) one NCCL rank per task at its
+# family phase's shape, EQUAL to the step without a group; (b) MBRS and CLR
+# on two gloo ranks sharing cuda:0
+
+DPF_TASKS = ("hidden", "mbrs", "tianchi", "pami", "imuge", "clr", "kdjpeg")
+DPF_EVALS = ("tianchi", "pami", "clr")
+DPF_TIMEOUT_S = 120.0        # the group's collective timeout
+DPF_RANKS_TIMEOUT_S = 240.0  # the two ranks' wall time in all
+DPF_TIMED = 4                # (a): timed steps of each kind (1 warm-up)
+DPF_LOSS_RTOL = 1e-4         # (b): loss terms against the one process
+DPF_GRAD_COS = 0.9999        # (b): each net's all-reduced gradient
+DPF_B = {"hidden": HID_B, "mbrs": MBRS_B, "tianchi": TC_B, "pami": IMG_B,
+         "imuge": IMG_B, "clr": CLR_B, "kdjpeg": KD_B}
+DPF_S = {"hidden": HID_S, "mbrs": MBRS_S, "tianchi": TC_S, "pami": IMG_S,
+         "imuge": IMG_S, "clr": CLR_S, "kdjpeg": KD_S}
+
+
+def dpf_model(task, mesh=None):
+    """``task``'s model at its family phase's width, from a fixed seed
+    (two calls give bit-equal states), on ``cuda:0``; CLR with the GAN
+    and the JPEG simulator (K23), ImugeV2 with the VGG loss."""
+    from vwfd_tpu_torch.models import (HiddenModel, KDJpegModel, MBRSModel,
+                                       TianchiModel)
+    if task == "hidden":
+        model = HiddenModel(image_size=HID_S, mesh=mesh)
+    elif task == "mbrs":
+        model = MBRSModel(mesh=mesh)
+    elif task == "tianchi":
+        model = TianchiModel(tianchi_cfg(TC_S, TC_B), mesh=mesh)
+    elif task == "kdjpeg":
+        model = KDJpegModel(kd_cfg(KD_S, KD_B), mesh=mesh)
+    elif task == "clr":
+        return image_model(clr_cfg(CLR_S, CLR_B), 41, task="clr",
+                           with_gan=True, with_jpeg_simulator=True, mesh=mesh)
+    else:
+        return image_model(image_cfg(IMG_S, IMG_B), 31, task=task, mesh=mesh,
+                           use_perceptual=task == "imuge")
+    model.init_states(26)
+    return model
+
+
+def dpf_inputs(task, model):
+    """Two global batches of ``task`` on the device (the second for the
+    eval step and the two-rank phase's second step) and each one's draws,
+    from fixed seeds."""
+    from vwfd_tpu_torch.models.hidden_model import HiddenSampler
+    from vwfd_tpu_torch.models.mbrs_model import MBRSDraws
+    from vwfd_tpu_torch.models.tianchi_model import TianchiDraws
+    b, s = DPF_B[task], DPF_S[task]
+    if task in ("hidden", "mbrs"):
+        from vwfd_tpu_torch.data import SyntheticImageDataset
+        ds = SyntheticImageDataset(size=s, length=2 * b, seed=10)
+        rng = np.random.default_rng(10)
+        sampler = HiddenSampler(14, "cuda")
+        return [dict(img=model.to_device(np.stack(
+                    [ds[i * b + j] for j in range(b)]))[0],
+                     msg=model.to_device((rng.random((b, 30)) > 0.5).astype(
+                         np.float32))[0],
+                     draws=(sampler((b, s, s, 3), ("crop", "gaussian")[i])
+                            if task == "hidden" else MBRSDraws(2, 4)))
+                for i in range(2)]
+    if task == "tianchi":
+        return [dict(zip(("img", "mask"), model.to_device(*x)),
+                     draws=TianchiDraws(*TC_DRAWS[i]))
+                for i, x in enumerate(tianchi_batches(model, 2))]
+    if task == "kdjpeg":
+        return [dict(zip(("flat", "lab"), x)) for x in kd_batches(model, 2)]
+    batches = image_batches(model, 3)
+    sampler = model.sampler(5)
+    return [dict(batch=batches[i + 1], prev=batches[i].image,
+                 draws=sampler((b, s, s))) for i in range(2)]
+
+
+def dpf_step(task, model, d, mesh, grads=None):
+    """One train step of ``task`` on this process's rows of ``d`` (all of
+    them without a mesh or at world size 1)."""
+    from vwfd_tpu_torch.models.image_model import ImageBatch
+    rows = functools.partial(parallel.local_rows, mesh=mesh)
+    if task in ("hidden", "mbrs"):
+        draws = d["draws"].rows(mesh) if task == "hidden" else d["draws"]
+        return model.train_step(rows(d["img"]), rows(d["msg"]), draws, grads)
+    if task == "tianchi":
+        out = [] if grads is not None else None
+        logs = model.train_step(rows(d["img"]), rows(d["mask"]), d["draws"],
+                                out)
+        if grads is not None:
+            grads.update(ce=out[0], ce1=out[1])
+        return logs
+    if task == "kdjpeg":
+        flat, lab, src = model.local_batch(d["flat"], d["lab"])
+        return model.train_step(flat, lab, grads_out=grads, sources=src)
+    return model.train_step(ImageBatch(*map(rows, d["batch"])),
+                            rows(d["prev"]), d["draws"].rows(mesh), grads)
+
+
+def dpf_eval(task, model, d, mesh):
+    from vwfd_tpu_torch.models.image_model import ImageBatch
+    rows = functools.partial(parallel.local_rows, mesh=mesh)
+    if task == "tianchi":
+        return model.eval_step(rows(d["img"]), rows(d["mask"]))
+    return model.eval_step(ImageBatch(*map(rows, d["batch"])),
+                           rows(d["prev"]), d["draws"].rows(mesh))
+
+
+def dpf_counted(fn):
+    """``fn()`` with the launch counts at 0 just before and read just
+    after, under cuDNN's deterministic algorithms."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def dpf_collectives(fn):
+    """``fn()``'s ``all_reduce`` calls and their bytes."""
+    sizes = []
+    real = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        sizes.append(t.numel() * t.element_size())
+        return real(t, *a, **kw)
+    dist.all_reduce = counted
+    try:
+        fn()
+    finally:
+        dist.all_reduce = real
+    return len(sizes), sum(sizes)
+
+
+def dpf_world1(card):
+    """Phase 20 (a): per task, a train step (and for Tianchi, PAMI and CLR
+    an eval step) through the model without a group and through the model
+    over a world-1 NCCL group, from the same state, batch and draws: every
+    log, state tensor and eval output ``torch.equal``, the launch counts
+    equal; the group's launches are the main path's. Then the all-reduce
+    calls and bytes of a step, and the p50 of ``DPF_TIMED`` steps of each
+    model, interleaved after one warm-up (host wall ending in a
+    synchronize)."""
+    out, launches = {}, {}
+    with world1_group("chip_smoke_dpf") as mesh:
+        for task in DPF_TASKS:
+            t0 = time.perf_counter()
+            plain = dpf_model(task)
+            dp = dpf_model(task, mesh)
+            parallel.replicate(dp, mesh)
+            inp = dpf_inputs(task, plain)
+            check(all(torch.equal(a, b) for a, b in zip(
+                parallel._state_tensors(dp),
+                parallel._state_tensors(plain))), f"{task}: states differ")
+            want, n_plain = dpf_counted(lambda: dpf_step(task, plain, inp[0],
+                                                         None))
+            got, n_dp = dpf_counted(lambda: dpf_step(task, dp, inp[0], mesh))
+            launches[f"dp_{task}_train_step"] = n_dp
+            check(n_dp == n_plain, f"{task} dp train launches {n_dp} vs "
+                  f"{n_plain}")
+            check(want.keys() == got.keys() and all(
+                torch.equal(got[k], want[k]) for k in want),
+                f"{task} dp step logs {got} vs {want}")
+            ts = parallel._state_tensors(dp)
+            equal = all(torch.equal(a, b) for a, b in zip(
+                ts, parallel._state_tensors(plain)))
+            check(equal, f"{task} world size 1: a state tensor differs from "
+                  f"the step without a group")
+            res = {"state_tensors": len(ts), "train_equal": equal,
+                   "logs": {k: float(v) for k, v in got.items()}}
+            if task in DPF_EVALS:
+                ev, e_plain = dpf_counted(lambda: dpf_eval(task, plain,
+                                                           inp[1], None))
+                ev_dp, e_dp = dpf_counted(lambda: dpf_eval(task, dp, inp[1],
+                                                           mesh))
+                launches[f"dp_{task}_eval_step"] = e_dp
+                check(e_dp == e_plain, f"{task} dp eval launches {e_dp} vs "
+                      f"{e_plain}")
+                check(ev.keys() == ev_dp.keys() and all(
+                    torch.equal(ev_dp[k], ev[k]) for k in ev),
+                    f"{task} dp eval differs from the eval without a group")
+                res["eval_equal"] = True
+            res["allreduce_calls"], res["allreduce_bytes"] = dpf_collectives(
+                lambda: dpf_step(task, dp, inp[1], mesh))
+            times = {"plain": [], "dp": []}
+            for i in range(1 + DPF_TIMED):
+                for name, m, me in (("plain", plain, None), ("dp", dp, mesh)):
+                    t1 = time.perf_counter()
+                    dpf_step(task, m, inp[i % 2], me)
+                    torch.cuda.synchronize()
+                    if i >= 1:
+                        times[name].append((time.perf_counter() - t1) * 1e3)
+            res["train_step_p50_ms"] = float(np.percentile(times["plain"], 50))
+            res["dp_train_step_p50_ms"] = float(np.percentile(times["dp"],
+                                                              50))
+            res["s"] = time.perf_counter() - t0
+            used = {k: v for k, v in n_dp.items() if v}
+            print(f"parallel families (a) {task} b{DPF_B[task]} "
+                  f"{DPF_S[task]}², world size 1 NCCL: train step"
+                  f"{' and eval step' if task in DPF_EVALS else ''} "
+                  f"torch.equal to the step without a group "
+                  f"({len(ts)} state tensors); launches {json.dumps(used)}; "
+                  f"{res['allreduce_calls']} all-reduces of "
+                  f"{res['allreduce_bytes']} bytes a step; step p50 plain "
+                  f"{res['train_step_p50_ms']:.3f} ms, data-parallel "
+                  f"{res['dp_train_step_p50_ms']:.3f} ms [{card}]")
+            out[task] = res
+            del plain, dp, inp
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+DPF_CHILD_TASKS = ("mbrs", "clr")
+
+
+def dpf_flat(grads):
+    return {k: torch.cat([g.flatten() for g in v]).float().cpu()
+            for k, v in grads.items()}
+
+
+def dpf_jpeg(model, d, mesh):
+    """MBRS: the JPEG of the first step's clipped encoding (this process's
+    rows), as the step computes it."""
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    from vwfd_tpu_torch.device import full_f32
+    from vwfd_tpu_torch.kernels.zigzag import clip01
+    rows = functools.partial(parallel.local_rows, mesh=mesh)
+    with torch.no_grad(), full_f32():
+        enc = clip01(model.encoder(rows(d["img"]), rows(d["msg"]),
+                                   train=True, mesh=mesh)[0])
+        return jpeg_basic(enc, d["draws"].q_idx, "ss").cpu()
+
+
+def dpf_run(task, model, inp, mesh, bad_rank):
+    """Two steps (the first's gradients and update kept, every step's
+    logs; MBRS: the first step's JPEG too), the replicas' equality, then
+    the first batch with an Inf pixel in ``bad_rank``'s rows alone (every
+    rank's state kept)."""
+    jpeg = dpf_jpeg(model, inp[0], mesh) if task == "mbrs" else None
+    before = dp_params(model)
+    grads = {}
+    logs = [dpf_step(task, model, inp[0], mesh, grads)]
+    update = {k: v - before[k] for k, v in dp_params(model).items()}
+    logs.append(dpf_step(task, model, inp[1], mesh))
+    equal = parallel.replicas_equal(model, mesh)
+    kept = [t.clone() for t in parallel._state_tensors(model)]
+    bad = dict(inp[0])
+    b = DPF_B[task]
+    if task == "mbrs":
+        bad["img"] = inp[0]["img"].clone()
+        bad["img"][b - 1, 9, 11, 0] = float("inf")
+    else:
+        from vwfd_tpu_torch.models.image_model import ImageBatch
+        img = inp[0]["batch"].image.clone()
+        img[b - 1, 120, 130, 2] = float("inf")
+        bad["batch"] = ImageBatch(img, *inp[0]["batch"][1:])
+    guard = dpf_step(task, model, bad, mesh)
+    return {"logs": [{k: float(v) for k, v in lg.items()} for lg in logs],
+            "grads": dpf_flat(grads), "update": update, "jpeg": jpeg,
+            "replicas_equal": equal,
+            "guard_loss": float(guard["loss"]),
+            "guard_kept": all(torch.equal(a, b) for a, b in zip(
+                parallel._state_tensors(model), kept)),
+            "guard_equal": parallel.replicas_equal(model, mesh)}
+
+
+def dpf_child(out_dir):
+    """Phase 20 (b), one rank (``chip_smoke.py --dpf-child DIR``): gloo on
+    ``cuda:0``, MBRS then CLR, each from a rank-seeded model made equal by
+    ``replicate``, on this rank's half of every global batch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rank = parallel.maybe_init_distributed(dev, backend="gloo",
+                                           timeout_s=DPF_TIMEOUT_S)
+    try:
+        mesh = parallel.make_mesh()
+        out = {"rank": rank}
+        for task in DPF_CHILD_TASKS:
+            model = dpf_model(task, mesh)
+            if rank == 1:  # a state of its own, for replicate to overwrite
+                with torch.no_grad():
+                    first = next(iter(model.nets().values()))
+                    next(first.parameters()).add_(1.0)
+            differed = not parallel.replicas_equal(model, mesh)
+            parallel.replicate(model, mesh)
+            inp = dpf_inputs(task, model)
+            out[task] = {"differed": differed,
+                         **dpf_run(task, model, inp, mesh, 1)}
+            del model, inp
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def dpf_flax_form():
+    """Train-mode BatchNorm with flax's ``E[x²] − E[x]²`` variance on this
+    process's rows (the global path's formula; ``F.batch_norm`` takes
+    another, which parts a cancelled gradient by more than its rounding:
+    ``tests/test_torch_parallel.py``)."""
+    from unittest import mock
+
+    from vwfd_tpu_torch.nets import mbrs as mbrs_nets
+    from vwfd_tpu_torch.nets import unet
+    plain = unet._bn
+
+    def bn(x, layer, stats=None):
+        return (plain(x, layer) if stats is None
+                else unet._bn_global(x, layer, stats))
+    with mock.patch.object(unet, "_bn", bn), \
+            mock.patch.object(mbrs_nets, "_bn", bn):
+        yield
+
+
+def dpf_two_ranks(card):
+    """Phase 20 (b): two gloo ranks on ``cuda:0`` (``dpf_child``), MBRS
+    (BatchNorm over the global batch, K5) and CLR (K14, K15, K19-K22, K8,
+    the gates), each against the one-process step on the global batch
+    (MBRS's with flax's variance, ``dpf_flax_form``; the plain one's
+    cosines printed): the ranks' states bit-equal after two steps, loss
+    terms within ``DPF_LOSS_RTOL``, each net's all-reduced gradient cosine
+    ≥ ``DPF_GRAD_COS``, an Inf pixel in rank 1's rows keeping every state on
+    both ranks; the first updates' cosines printed, not gated (the first
+    AdamW update is about lr·sign(g), and the gradients that cancel take
+    either sign between two summation orders). MBRS's soft JPEG is counted
+    for 8×8 blocks that flipped between the ranks' encoding and the one
+    process's (cuDNN's other algorithms for the half batch move the
+    encoding by ulps): with flips, phase 13's rule for each
+    (``MBRS_FLIP_LOSS_RTOL``, ``MBRS_FLIP_GRAD_COS``)."""
+    want, plain_bn = {}, {}
+    for task in DPF_CHILD_TASKS:
+        model = dpf_model(task)
+        inp = dpf_inputs(task, model)
+        if task == "mbrs":
+            plain_bn[task] = dpf_run(task, model, inp, None, 1)
+            model = dpf_model(task)
+            with dpf_flax_form():
+                want[task] = dpf_run(task, model, inp, None, 1)
+        else:
+            want[task] = dpf_run(task, model, inp, None, 1)
+        del model, inp
+        gc.collect()
+        torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dpf2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        with LocalRanks([sys.executable, str(Path(__file__).resolve()),
+                         "--dpf-child", str(out_dir)], 2) as ranks:
+            ranks.wait(DPF_RANKS_TIMEOUT_S)
+        got = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+               for r in range(2)]
+    except RankFailure as e:
+        check(False, f"phase 20 (b): two gloo ranks on cuda:0 failed: {e}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    out = {"ranks_wall_s": wall}
+    for task in DPF_CHILD_TASKS:
+        a, b = got[0][task], got[1][task]
+        check(a["differed"] and b["differed"],
+              f"{task}: the ranks' seeded states were equal before replicate")
+        check(a["logs"] == b["logs"], f"{task}: ranks' logs differ: "
+              f"{a['logs']} vs {b['logs']}")
+        check(a["replicas_equal"] and b["replicas_equal"],
+              f"{task}: the two ranks' states differ after two steps")
+        ref = want[task]
+        nflip = 0
+        if task == "mbrs":
+            nflip, nblocks = flipped_blocks(torch.cat([a["jpeg"], b["jpeg"]]),
+                                            ref["jpeg"], JPEG_FLIP_ATOL)
+            print(f"parallel families (b) mbrs: the step's soft JPEG, ranks "
+                  f"against one process: {nflip} of {nblocks} 8×8 blocks "
+                  f"flipped")
+        rtol = MBRS_FLIP_LOSS_RTOL * nflip if nflip else DPF_LOSS_RTOL
+        min_cos = 1 - (1 - MBRS_FLIP_GRAD_COS) * nflip if nflip \
+            else DPF_GRAD_COS
+        lk, lp = a["logs"][0], ref["logs"][0]
+        check(lk.keys() == lp.keys(), f"{task} log keys {lk} vs {lp}")
+        # the bit error counts bits: printed, not a loss term
+        rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp
+               if k != "bitwise_error"}
+        check(all(r <= rtol for r in rel.values()),
+              f"{task} two ranks' loss terms {lk} vs one process {lp}")
+        cos = {k: cosine(a["grads"][k], ref["grads"][k]) for k in ref["grads"]}
+        check(all(c >= min_cos for c in cos.values()),
+              f"{task} two ranks' gradient cosines {cos} ({nflip} flipped "
+              f"JPEG blocks)")
+        ucos = {k: cosine(a["update"][k], ref["update"][k])
+                for k in ref["update"]}
+        if task in plain_bn:
+            cos_bn = {k: cosine(a["grads"][k], plain_bn[task]["grads"][k])
+                      for k in ref["grads"]}
+            print(f"parallel families (b) {task}: gradient cosines against "
+                  f"the one process with F.batch_norm's variance {cos_bn}")
+        check(all(not math.isfinite(g["guard_loss"]) and g["guard_kept"]
+                  and g["guard_equal"] for g in (a, b)),
+              f"{task} Inf pixel on rank 1: "
+              f"{[(g['guard_loss'], g['guard_kept']) for g in (a, b)]}")
+        print(f"parallel families (b) {task} on two gloo ranks on cuda:0 "
+              f"(b{DPF_B[task]} {DPF_S[task]}², half each): logs bit-equal "
+              f"across ranks over 2 steps, replicas bit-equal; step 1 "
+              f"{json.dumps(lk)} vs one process {json.dumps(lp)} (largest "
+              f"relative difference {max(rel.values()):.3g}); gradient "
+              f"cosines {cos}; first-update cosines {ucos}; an Inf pixel in "
+              f"rank 1's rows kept every state on both ranks [{card}]")
+        out[task] = {"loss_terms": {"ranks": lk, "one_process": lp},
+                     "max_rel": max(rel.values()), "gradient_cosines": cos,
+                     "update_cosines": ucos, "flipped_jpeg_blocks": nflip}
+        if task in plain_bn:
+            out[task]["gradient_cosines_f_batch_norm"] = cos_bn
+    return out
+
+
+def run_parallel_families(card):
+    """Phase 20: data-parallel training of every other family."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world1, launches = dpf_world1(card)
+    t1 = time.perf_counter()
+    two = dpf_two_ranks(card)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"parallel_families": {
+        "world_size_1_nccl": world1, "two_gloo_ranks_one_card": two,
+        "world_size_1_s": t1 - t0, "two_ranks_s": time.perf_counter() - t1,
+        "phase_s": wall, "card": card}}))
+    return launches
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-child":
         return dp_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--dpf-child":
+        return dpf_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         sys.exit(2)
@@ -6266,13 +6729,17 @@ def main():
     dp_launches = run_parallel(card)
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s; script so far "
           f"{time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
+    dpf_launches = run_parallel_families(card)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; script so far "
+          f"{time.perf_counter() - t0:.1f} s")
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
                **mbrs_launches, **serve_launches, **tc_launches,
                **img_launches, **clr_launches, **kd_launches,
-               **dp_launches}
+               **dp_launches, **dpf_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ attack pool does: on CUDA tensors ``kernels.KERNELS`` launches K7
 (``f1_sweep``) and K8 (``ssim``); on CPU tensors, or with ``kernels.PLAIN``,
 they run the plain versions. The confusion counts are exact int64 (the JAX
 package sums them in float32, exact only below 2²⁴ pixels: F12).
+
+Under data parallelism ``f1_sweep`` (``mesh=``, a ``parallel.Mesh``)
+sums the counts over the ranks (F30); a model takes the global PSNR as
+``psnr_from_mse`` of the ranks' ``mse255_int`` averaged (F28's form) and
+the global SSIM as the ranks' means averaged, each rank holding equally
+many rows.
 """
 
 import math
@@ -29,7 +35,8 @@ from ..kernels.ssim import depthwise_same_conv as _depthwise_same_conv
 from ..parallel import global_sum
 from ..kernels.ssim import window_2d as _ssim_window
 
-__all__ = ["postprocess_int", "psnr", "psnr_from_mse", "psnr255_int", "ssim", "edge_accuracy",
+__all__ = ["postprocess_int", "psnr", "psnr_from_mse", "mse255_int",
+           "psnr255_int", "ssim", "edge_accuracy",
            "threshold_level", "mask_confusion", "f1_from_confusion",
            "mask_scores", "f1_sweep", "DEFAULT_THRESHOLDS",
            "bitwise_message_error",
@@ -63,10 +70,18 @@ def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 255.0
     return psnr_from_mse(torch.mean((a.float() - b.float()) ** 2), max_val)
 
 
+def mse255_int(img01_a: torch.Tensor, img01_b: torch.Tensor
+               ) -> torch.Tensor:
+    """The MSE that ``psnr255_int`` takes: of the int-truncated [0, 255]
+    images, in float32."""
+    return torch.mean((postprocess_int(img01_a).float()
+                       - postprocess_int(img01_b).float()) ** 2)
+
+
 def psnr255_int(img01_a: torch.Tensor, img01_b: torch.Tensor
                 ) -> torch.Tensor:
     """``psnr(postprocess_int(a), postprocess_int(b))``."""
-    return psnr(postprocess_int(img01_a), postprocess_int(img01_b))
+    return psnr_from_mse(mse255_int(img01_a, img01_b))
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

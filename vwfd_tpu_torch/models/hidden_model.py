@@ -32,6 +32,16 @@ device. The members are ``jax.random``-free functions of explicit draws
 (``HiddenDraws``); tests derive the draws from a JAX key with the JAX
 code's split sequence.
 
+Data parallelism (``mesh=``, JAX's ``_message_loop`` over its ``"data"``
+mesh): each rank passes its rows of the global batch and its rows of the
+global draws (``HiddenDraws.rows``: gaussian's (B, H, W, 3) field is
+sliced, dropout's (H, W) field and every ``u`` stay whole). The BatchNorm
+moments of the three nets are the global batch's (F27; the discriminator's
+two train-mode forwards each), every loss term and the bit error global
+means, D's gradients all-reduced before its update and the encoder's and
+decoder's before theirs, the G step against the updated D, and the guard
+reads the global totals (F29).
+
 Adam is ``optax.adam(1e-3)``: the port's ``AdamW`` without clip or decay.
 The model runs in float32 throughout, as the JAX package's, and on the card
 with TF32 off for its convolutions and products (``device.full_f32``).
@@ -48,6 +58,7 @@ from ..device import full_f32, resolve_device
 from ..kernels import KERNELS, KernelSet
 from ..metrics import bce_with_logits, bitwise_message_error, l2_loss
 from ..nets import HiddenDecoder, HiddenDiscriminator, HiddenEncoder
+from ..parallel import Mesh, all_reduce_grads, global_means, local_rows
 from .state import AdamW
 
 __all__ = ["NOISE_POOL", "EVAL_MEMBERS", "PAPER_RATIO", "HiddenDraws",
@@ -76,6 +87,15 @@ class HiddenDraws(NamedTuple):
     def to(self, device) -> "HiddenDraws":
         return HiddenDraws(self.member, *(None if t is None else t.to(device)
                                           for t in (self.u, self.field)))
+
+    def rows(self, mesh: Optional[Mesh]) -> "HiddenDraws":
+        """This rank's draws of the global batch's: gaussian's per-image
+        field sliced to the rank's rows, every other draw whole (dropout's
+        (H, W) field and each ``u`` serve every image); itself without a
+        mesh. ``parallel.local_rows`` would slice dropout's field too."""
+        if mesh is None or self.member != "gaussian":
+            return self
+        return self._replace(field=local_rows(self.field, mesh))
 
 
 def member_draws(member: str, shape: Sequence[int],
@@ -158,8 +178,10 @@ class HiddenModel:
                  adversarial_loss_weight: float = 1e-3,
                  encoder_loss_weight: float = 0.7,
                  decoder_loss_weight: float = 1.0, lr: float = 1e-3,
-                 device=None, kernels: KernelSet = KERNELS):
+                 device=None, kernels: KernelSet = KERNELS,
+                 mesh: Optional[Mesh] = None):
         self.message_length = message_length
+        self.mesh = mesh
         self.image_size = image_size
         self.w_adv = adversarial_loss_weight
         self.w_enc = encoder_loss_weight
@@ -220,55 +242,62 @@ class HiddenModel:
         """One D step and one G step on a batch (B, H, W, 3) in [0, 1] and
         its messages (B, L) in {0, 1}, with the noise ``draws``; returns the
         logs as 0-dim tensors (no host sync). ``grads_out``, a dict, receives
-        each net's gradients (lists in parameter order)."""
+        each net's gradients (lists in parameter order; under a mesh
+        all-reduced). Under a mesh the batch and ``draws`` are this rank's
+        rows (``HiddenDraws.rows``)."""
         images, messages = self.to_device(images, messages)
         draws = draws.to(self.device)
+        mesh = self.mesh
         enc_p = list(self.encoder.parameters())
         dec_p = list(self.decoder.parameters())
         disc_p = list(self.discriminator.parameters())
         disc = self.discriminator
         old_disc = [t.clone() for t in self._tensors("discriminator")]
         with torch.enable_grad(), full_f32():
-            enc, enc_stats = self.encoder(images, messages, train=True)
+            enc, enc_stats = self.encoder(images, messages, train=True,
+                                          mesh=mesh)
 
             # ---- D step, on the detached encoded images
-            d_cover, s1 = disc(images, train=True)
+            d_cover, s1 = disc(images, train=True, mesh=mesh)
             disc.load_stats(s1)
-            d_enc, s2 = disc(enc.detach(), train=True)
+            d_enc, s2 = disc(enc.detach(), train=True, mesh=mesh)
             disc.load_stats(s2)
-            d_on_cover = bce_with_logits(d_cover, torch.ones_like(d_cover))
-            d_on_encoded = bce_with_logits(d_enc, torch.zeros_like(d_enc))
+            d_on_cover, d_on_encoded = global_means(
+                (bce_with_logits(d_cover, torch.ones_like(d_cover)),
+                 bce_with_logits(d_enc, torch.zeros_like(d_enc))), mesh)
             d_total = d_on_cover + d_on_encoded
-            d_grads = torch.autograd.grad(d_total, disc_p)
+            d_grads = all_reduce_grads(torch.autograd.grad(d_total, disc_p),
+                                       mesh)
             self.optimizers["discriminator"].step(d_grads)
 
             # ---- G step, against the updated discriminator in eval mode
             noised = apply_noise(enc, images, draws, self.kernels)
-            dec, dec_stats = self.decoder(noised, train=True)
+            dec, dec_stats = self.decoder(noised, train=True, mesh=mesh)
             d_on_enc = disc(enc)
-            g_adv = bce_with_logits(d_on_enc, torch.ones_like(d_on_enc))
-            g_enc = l2_loss(enc, images)
-            g_dec = l2_loss(dec, messages)
+            g_adv, g_enc, g_dec, bit_err = global_means(
+                (bce_with_logits(d_on_enc, torch.ones_like(d_on_enc)),
+                 l2_loss(enc, images), l2_loss(dec, messages),
+                 bitwise_message_error(dec.detach(), messages)), mesh)
             g_total = (self.w_adv * g_adv + self.w_enc * g_enc
                        + self.w_dec * g_dec)
             g_grads = torch.autograd.grad(g_total, enc_p + dec_p)
             good = torch.isfinite(g_total) & torch.isfinite(d_total)
+        g_grads = (all_reduce_grads(g_grads[:len(enc_p)], mesh),
+                   all_reduce_grads(g_grads[len(enc_p):], mesh))
 
         with torch.no_grad():
-            self.optimizers["encoder"].step(g_grads[:len(enc_p)], good)
-            self.optimizers["decoder"].step(g_grads[len(enc_p):], good)
+            self.optimizers["encoder"].step(g_grads[0], good)
+            self.optimizers["decoder"].step(g_grads[1], good)
             self.encoder.load_stats(enc_stats, good)
             self.decoder.load_stats(dec_stats, good)
             for t, old in zip(self._tensors("discriminator"), old_disc):
                 t.copy_(torch.where(good, t, old))
         if grads_out is not None:
-            grads_out.update(encoder=list(g_grads[:len(enc_p)]),
-                             decoder=list(g_grads[len(enc_p):]),
+            grads_out.update(encoder=list(g_grads[0]),
+                             decoder=list(g_grads[1]),
                              discriminator=list(d_grads))
         return {"loss": g_total.detach(), "encoder_mse": g_enc.detach(),
-                "dec_mse": g_dec.detach(),
-                "bitwise_error": bitwise_message_error(dec.detach(),
-                                                       messages),
+                "dec_mse": g_dec.detach(), "bitwise_error": bit_err.detach(),
                 "adversarial_bce": g_adv.detach(),
                 "discr_cover_bce": d_on_cover.detach(),
                 "discr_encod_bce": d_on_encoded.detach()}

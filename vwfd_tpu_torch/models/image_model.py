@@ -94,6 +94,21 @@ only with ``with_jpeg_simulator``, JAX's ``split(k_crop)[0]``) and the
 step runs only the drawn tamper (JAX's ``where`` gives the other none of
 the gradient). The apex regressor is built for ``clr`` alone: JAX's
 rectification and target read a window only the crop draws.
+
+Data parallelism (``mesh=``, ``image_model.py:61,93,169-171``): each rank
+passes its rows of the global batch (image, canny, mask, the previous
+batch, the real-JPEG pair) and its rows of the global draws
+(``ImageDraws.rows``: the noise branches sliced, every other draw whole:
+``ImageSampler`` is called with the GLOBAL shape, since its noise consumes
+the stream by B). Every loss term is a global mean, all of them through one
+all-reduce; a ratio is the global numerator over the global denominator
+(``l_local``); the gates read global values (F28: ``alpha_f`` from the
+global forward PSNR, CLR's ``alpha_b`` from the global PSNRs, ``local_w``
+from the global tamper share); each net's gradients are all-reduced before
+its update and the guard reads the global loss (F29). ``eval_step``
+reports the global batch's PSNRs, SSIM and F1 counts (F30). The spectral
+vectors are computed from replicated weights alone, so they stay equal
+on every rank.
 """
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -113,7 +128,7 @@ from ..kernels import KERNELS, KernelSet
 from ..kernels.canny import gray as gray_of
 from ..kernels.zigzag import clip01
 from ..metrics import (adversarial_loss, bce_loss, f1_sweep, l1_loss,
-                       l2_loss, psnr255_int, ssim)
+                       l2_loss, mse255_int, psnr_from_mse, ssim)
 from ..metrics.perceptual import (default_features, load_vgg_npz,
                                   perceptual_loss)
 from ..nets.discriminator import Discriminator
@@ -121,6 +136,8 @@ from ..nets.fbcnn import FBCNN, QFPredictor
 from ..nets.inn import InvertibleNet
 from ..nets.localizer import UNetDiscriminator
 from ..ops.quantize import clamp_with_grad, ste_quantize_255
+from ..parallel import (Mesh, all_reduce_grads, global_mean, global_means,
+                        local_rows)
 from .state import AdamW, make_optimizer
 
 __all__ = ["TASKS", "TAMPER_MODES", "POOL", "ImageBatch", "ImageDraws",
@@ -153,6 +170,16 @@ class ImageDraws(NamedTuple):
     branch: Tuple
     apex_u: Optional[np.ndarray] = None
     sim_q: Optional[int] = None
+
+    def rows(self, mesh: Optional[Mesh]) -> "ImageDraws":
+        """This rank's draws of the global batch's: each noise branch's
+        (B, H, W, 3) array sliced to the rank's rows, every other draw
+        whole (one draw a batch); itself without a mesh."""
+        if mesh is None:
+            return self
+        return self._replace(branch=tuple(
+            local_rows(d, mesh) if POOL[i % len(POOL)] == "noise" else d
+            for i, d in enumerate(self.branch)))
 
 
 class ImageSampler:
@@ -249,7 +276,7 @@ class ImageImmunizationModel:
                  copy_move_prob: float = 1.0 / 3.0,
                  reverse_k: Optional[int] = None,
                  use_perceptual: bool = False, device=None,
-                 kernels: KernelSet = KERNELS):
+                 kernels: KernelSet = KERNELS, mesh: Optional[Mesh] = None):
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
         if tamper_mode is None:
@@ -266,6 +293,7 @@ class ImageImmunizationModel:
         self.attack_ratios = tuple(ratios) if ratios else DEFAULT_RATIOS
         self.copy_move_prob = copy_move_prob
         self.reverse_k = reverse_k or 0
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.kernels = kernels
         dt = compute_dtype(tc.dtype)
@@ -308,6 +336,11 @@ class ImageImmunizationModel:
         if self.jpeg_sim is not None:
             out["jpeg_sim"] = self.jpeg_sim
         return out
+
+    def frozen_nets(self) -> Dict[str, torch.nn.Module]:
+        """The nets a step reads and never updates: the VGG trunk of
+        ``use_perceptual`` (``parallel.replicate`` broadcasts it)."""
+        return {} if self.vgg is None else {"vgg": self.vgg}
 
     def init_states(self, seed: int = 0) -> None:
         """Fresh parameters with flax's initialisers' distributions from a
@@ -461,24 +494,22 @@ class ImageImmunizationModel:
         tampered = clip01(tampered)
         attacked = attack_fanout(tampered, draws.branch, self.attack_ratios,
                                  self.kernels)
-        aux = {}
         if self.jpeg_sim is not None:
             l_sim, branch = self._simulator(img, tampered, draws.sim_q,
                                             jpeg_pair)
             attacked = torch.cat([attacked, branch[None]])
-            aux["l_sim"] = l_sim
         k = attacked.shape[0]
         flat = attacked.reshape(k * b, h, w, 3)
         share = 0.0 if clr else 0.01
         flat_ce = flat * share + flat.detach() * (1.0 - share)
         pred = self.localizer(flat_ce, sn=sn)
         gt = mask.repeat(k, 1, 1, 1)
-        l_mask = bce_loss(pred, gt)
+        # every term a mean over this rank's rows: global means below
+        t = {"l_mask": bce_loss(pred, gt)}
         n_rev = k if self.reverse_k == 0 else min(self.reverse_k, k)
         rect = flat[:n_rev * b]
         if clr:
-            l_apex = self._apex_loss(flat, apex, gt)
-            aux.update(l_apex=l_apex, l_ce=l_apex)
+            t["l_apex"] = self._apex_loss(flat, apex, gt)
             # only the reversed copies are rectified: the rest feed nothing
             rect = self.kernels.rectify(rect, fwd_rgb.contiguous(), apex)
         rev = self._reverse(rect)
@@ -486,43 +517,62 @@ class ImageImmunizationModel:
         img_exp = img.repeat(n_rev, 1, 1, 1)
         wm_exp = wm.repeat(n_rev, 1, 1, 1)
         with torch.no_grad():
-            psnr_f = psnr255_int(img, fwd_rgb)
-            psnr_b = psnr255_int(img_exp, rev_rgb)
-        l_backward = l1_loss(rev_rgb, img_exp) + l1_loss(rev_wm, wm_exp)
+            t["mse_f"] = mse255_int(img, fwd_rgb)
+            t["mse_b"] = mse255_int(img_exp, rev_rgb)
+        t["lB"] = l1_loss(rev_rgb, img_exp) + l1_loss(rev_wm, wm_exp)
         mask_r = gt[:n_rev * b]
         if clr:
-            l_null = l1_loss(fwd_null, wm)
-            l_forward = l1_loss(fwd_rgb, img) + l_null
-            l_local = l1_loss(rev_rgb * mask_r, img_exp * mask_r) / (
-                torch.mean(mask_r) + 1e-6)
+            t["NULL"] = l1_loss(fwd_null, wm)
+            t["l1_f"] = l1_loss(fwd_rgb, img)
+            t["local"] = l1_loss(rev_rgb * mask_r, img_exp * mask_r)
+            t["mean_mask"] = torch.mean(mask_r)
+            t["ssim"] = ssim(fwd_rgb, img, kernels=self.kernels)
+        else:
+            t["NULL"] = l2_loss(fwd_null, torch.zeros_like(fwd_null))
+            t["l1_f"] = l1_loss(fwd_rgb, img)
+            if self.use_perceptual:
+                t["perceptual"] = perceptual_loss(fwd_rgb, img, self.vgg)
+            t["mean_mask"] = torch.mean(mask)
+            t["local"] = l1_loss(rev_rgb * mask_r, img_exp * mask_r)
+        if self.jpeg_sim is not None:
+            t["l_sim"] = l_sim
+        if self.with_gan:
+            t["g_adv"], t["d_loss"] = self._gan(fwd_rgb, img, sn_d)
+        t = dict(zip(t, global_means(list(t.values()), self.mesh)))
+        with torch.no_grad():
+            psnr_f = psnr_from_mse(t["mse_f"])
+            psnr_b = psnr_from_mse(t["mse_b"])
+        l_null, l_backward, mean_mask = t["NULL"], t["lB"], t["mean_mask"]
+        aux = {}
+        if clr:
+            l_apex = t["l_apex"]
+            aux.update(l_apex=l_apex, l_ce=l_apex)
+            l_forward = t["l1_f"] + l_null
+            l_local = t["local"] / (mean_mask + 1e-6)
             alpha_f = torch.where(psnr_f < 35.0, 5.0, 1.5)
             alpha_b = torch.where(psnr_f - psnr_b > 1.0, 1.5, 1.0)
             loss = alpha_f * l_forward + alpha_b * (l_backward + l_local)
             loss = loss + 0.1 * l_apex.detach() + l_apex
-            loss = loss + 0.1 * (1.0 - ssim(fwd_rgb, img,
-                                            kernels=self.kernels))
+            loss = loss + 0.1 * (1.0 - t["ssim"])
         else:
-            l_null = l2_loss(fwd_null, torch.zeros_like(fwd_null))
-            l_forward = l1_loss(fwd_rgb, img) + 8.0 * l_null
+            l_forward = t["l1_f"] + 8.0 * l_null
             if self.use_perceptual:
-                l_forward = l_forward + 0.01 * perceptual_loss(
-                    fwd_rgb, img, self.vgg)
-            mean_mask = torch.mean(mask)
-            l_local = l1_loss(rev_rgb * mask_r, img_exp * mask_r) / (
-                1e-3 + mean_mask)
+                l_forward = l_forward + 0.01 * t["perceptual"]
+            l_local = t["local"] / (1e-3 + mean_mask)
             alpha_f = torch.where(psnr_f < 35.0, 3.0, 1.0)
             local_w = torch.where(mean_mask > 0.2, 3.0, 1.0)
             loss = alpha_f * l_forward + 0.75 * (l_backward
                                                  + local_w * l_local)
-        loss = loss + l_mask
+        loss = loss + t["l_mask"]
         if self.jpeg_sim is not None:
-            loss = loss + aux["l_sim"]
+            loss = loss + t["l_sim"]
+            aux["l_sim"] = t["l_sim"]
         if self.with_gan:
-            g_adv, d_loss = self._gan(fwd_rgb, img, sn_d)
-            loss = loss + ADVERSARIAL_WEIGHT * g_adv + d_loss
-            aux.update(g_adv=g_adv, d_loss=d_loss)
-        return loss, {"lF": l_forward, "lB": l_backward, "l_mask": l_mask,
-                      "PF": psnr_f, "PB": psnr_b, "NULL": l_null, **aux}
+            loss = loss + ADVERSARIAL_WEIGHT * t["g_adv"] + t["d_loss"]
+            aux.update(g_adv=t["g_adv"], d_loss=t["d_loss"])
+        return loss, {"lF": l_forward, "lB": l_backward,
+                      "l_mask": t["l_mask"], "PF": psnr_f, "PB": psnr_b,
+                      "NULL": l_null, **aux}
 
     def train_step(self, batch: ImageBatch, prev, draws: ImageDraws,
                    grads_out: Optional[dict] = None, jpeg_pair=None
@@ -535,7 +585,10 @@ class ImageImmunizationModel:
         ``grads_out``, a dict, receives each net's gradients (lists in
         parameter order). ``jpeg_pair``, ``(jpeg_real (B, H, W, 3), qf
         (B,))``, gives the simulator real-JPEG targets (qf in [0, 1]);
-        without it the simulator learns the hard-round JPEG."""
+        without it the simulator learns the hard-round JPEG. Under a mesh
+        ``batch``, ``prev``, ``jpeg_pair`` and ``draws`` are this rank's
+        rows (``ImageDraws.rows``) and each net's gradients are
+        all-reduced (``grads_out`` receives them so)."""
         img, canny, mask, prev = self.to_device(*batch, prev)
         if jpeg_pair is not None:
             jpeg_pair = self.to_device(*jpeg_pair)
@@ -553,7 +606,7 @@ class ImageImmunizationModel:
         g = [torch.zeros_like(p) if d is None else d for p, d in zip(flat, g)]
         grads, i = {}, 0
         for name, ps in params.items():
-            grads[name] = g[i:i + len(ps)]
+            grads[name] = all_reduce_grads(g[i:i + len(ps)], self.mesh)
             i += len(ps)
         with torch.no_grad():
             good = torch.isfinite(loss)
@@ -578,7 +631,9 @@ class ImageImmunizationModel:
         ``psnr_backward`` (the mean over branches),
         ``psnr_backward_per_attack`` (k,), ``ssim_forward``, ``f1_best``,
         ``f1_sweep`` (pooled), ``f1_per_attack`` (k,), ``recovered`` and
-        ``predicted_mask`` (branch 0's)."""
+        ``predicted_mask`` (branch 0's). Under a mesh the scalars and sweeps
+        are the global batch's (the F1 counts summed over the ranks) and
+        ``recovered`` and ``predicted_mask`` this rank's rows."""
         img, canny, mask, prev = self.to_device(*batch, prev)
         b, h, w, _ = img.shape
         with full_f32():
@@ -597,16 +652,20 @@ class ImageImmunizationModel:
             rev_rgb = clip01(self._reverse(flat)[..., :3])
             pred_k = pred.reshape(k, b, h, w, 1)
             rev_k = rev_rgb.reshape(k, b, h, w, 3)
-            kw = {"kernels": self.kernels}
+            kw = {"kernels": self.kernels, "mesh": self.mesh}
             f1_k = torch.stack([f1_sweep(pred_k[i], mask, **kw)[1]
                                 for i in range(k)])
-            psnr_b_k = torch.stack([psnr255_int(img, rev_k[i])
-                                    for i in range(k)])
+            # the forward MSE, each branch's and the SSIM: one all-reduce
+            mse = global_mean(torch.stack(
+                [mse255_int(img, fwd_rgb),
+                 *(mse255_int(img, rev_k[i]) for i in range(k)),
+                 ssim(fwd_rgb, img, kernels=self.kernels)]), self.mesh)
+            psnr_b_k = psnr_from_mse(mse[1:k + 1])
             _, f1s = f1_sweep(pred, mask.repeat(k, 1, 1, 1), **kw)
-            return {"psnr_forward": psnr255_int(img, fwd_rgb),
+            return {"psnr_forward": psnr_from_mse(mse[0]),
                     "psnr_backward": torch.mean(psnr_b_k),
                     "psnr_backward_per_attack": psnr_b_k,
-                    "ssim_forward": ssim(fwd_rgb, img, **kw),
+                    "ssim_forward": mse[k + 1],
                     "f1_best": torch.max(f1s), "f1_sweep": f1s,
                     "f1_per_attack": torch.max(f1_k, -1).values,
                     "recovered": rev_k[0], "predicted_mask": pred_k[0]}

@@ -40,6 +40,18 @@ spans all three, F6): the step snapshots them, updates, and
 ``l_simul_bayar``, ``qfsimu``, ``FW_GAN``, ``dis_loss``, ``PSSIMU``
 (``psnr255_int(sim, real_jpeg)``), 0-dim tensors. ``simulate(images,
 qf01)`` is ``clip(FBCNN(images, qf01), 0, 1)``.
+
+Data parallelism (``mesh=``, JAX's ``_kdjpeg_loop``, ``train.py:301-303``):
+the loader is not row-sharded; every rank collates the whole class-major
+batch and takes its contiguous block of the flat rows (``local_batch``:
+JAX's ``device_put(flat, batch_sharding(mesh))``; at 6 images on two
+ranks rank 0 holds classes 0-2, rank 1 classes 3-5) with each row's clean
+source (row j's is row j mod B, which another rank may hold). The
+classifier's CE, the discriminator's loss, the generator's L1, CE and GAN
+terms and the PSNR are global means (one all-reduce a net's step), the
+Bayar ratio is the global L1 over the global ``1e-3 + mean|bayar_real|``,
+each net's gradients (K23's γ and β sums among them) are all-reduced
+before its update, and the guard reads the three global losses (F29).
 """
 
 from typing import Dict, List, Optional
@@ -52,10 +64,12 @@ from torch.func import functional_call
 from ..config import Config
 from ..device import full_f32, resolve_device
 from ..kernels import KERNELS, KernelSet
-from ..metrics import bce_loss, l1_loss, psnr255_int
+from ..metrics import bce_loss, l1_loss, mse255_int, psnr_from_mse
 from ..nets.discriminator import Discriminator
 from ..nets.fbcnn import FBCNN, QFPredictor
 from ..ops.quantize import clamp_with_grad
+from ..parallel import (Mesh, all_reduce_grads, global_means,
+                        local_batch_slice)
 from .state import AdamW, make_optimizer
 
 __all__ = ["KDJpegModel", "QF_CLASSES"]
@@ -79,8 +93,9 @@ class KDJpegModel:
     def __init__(self, cfg: Config, qf_classes: int = QF_CLASSES,
                  size: Optional[int] = None, nc=(32, 64, 128, 256),
                  nb: int = 4, disc_dim: int = 32, device=None,
-                 kernels: KernelSet = KERNELS):
+                 kernels: KernelSet = KERNELS, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
         self.size = size or cfg.data.gt_size
         self.qf_classes = qf_classes
         self.device = resolve_device(device)
@@ -144,6 +159,19 @@ class KDJpegModel:
                 f"got {lab[:3 * b]}…")
         return flat, lab
 
+    def local_batch(self, flat, labels):
+        """This rank's block of a class-major batch (``collate``'s ``(flat,
+        labels)``, numpy): its contiguous rows of the flat images and
+        labels (JAX's ``batch_sharding`` blocks) and each row's clean source
+        (row j's is row j mod B, B the items); ``(flat, labels, None)``
+        without a mesh. A flat batch that does not divide by the world size
+        raises."""
+        if self.mesh is None:
+            return flat, labels, None
+        lo, hi = local_batch_slice(len(flat), self.mesh)
+        b = len(flat) // self.qf_classes
+        return flat[lo:hi], labels[lo:hi], flat[np.arange(lo, hi) % b]
+
     def to_device(self, *arrays) -> List[torch.Tensor]:
         """Images or labels (numpy or tensors) on the model's device,
         floating ones in the nets' dtype (float32)."""
@@ -156,19 +184,30 @@ class KDJpegModel:
         return out
 
     def train_step(self, real_jpeg, labels, aux_ramp: float = 1.0,
-                   grads_out: Optional[dict] = None
+                   grads_out: Optional[dict] = None, sources=None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a class-major batch (``collate``): ``real_jpeg``
         (6B, H, W, 3) in [0, 1], ``labels`` (6B,); returns the logs as 0-dim
         tensors (no host sync). ``grads_out``, a dict, receives each net's
-        gradients (lists in parameter order)."""
+        gradients (lists in parameter order; under a mesh all-reduced).
+        Under a mesh the three arrays are this rank's (``local_batch``):
+        its rows, their labels and their clean ``sources``."""
         real, labels = self.to_device(real_jpeg, labels)
-        b6 = real.shape[0]
-        if b6 % self.qf_classes:
-            raise ValueError(
-                f"batch of {b6} is not divisible by qf_classes="
-                f"{self.qf_classes}; pass a class-major LQ batch (collate())")
-        b = b6 // self.qf_classes
+        mesh = self.mesh
+        if sources is None:
+            if mesh is not None:
+                raise ValueError("under a mesh pass this rank's rows with "
+                                 "their sources (local_batch())")
+            b6 = real.shape[0]
+            if b6 % self.qf_classes:
+                raise ValueError(
+                    f"batch of {b6} is not divisible by qf_classes="
+                    f"{self.qf_classes}; pass a class-major LQ batch "
+                    f"(collate())")
+            b = b6 // self.qf_classes
+            src = real[:b].repeat(self.qf_classes, 1, 1, 1)
+        else:
+            (src,) = self.to_device(sources)
         gen, loc, disc = self.generator, self.localizer, self.discriminator
         opts = self.optimizers
         with torch.no_grad():
@@ -177,46 +216,53 @@ class KDJpegModel:
         with torch.enable_grad(), full_f32():
             # 1. the QF classifier
             bayar_real, logits = loc(real)
-            l_qf = _ce(logits, labels)
-            grads["localizer"] = torch.autograd.grad(
-                l_qf, list(loc.parameters()))
+            (l_qf,) = global_means((_ce(logits, labels),), mesh)
+            grads["localizer"] = all_reduce_grads(torch.autograd.grad(
+                l_qf, list(loc.parameters())), mesh)
             bayar_real = bayar_real.detach()
             opts["localizer"].step(grads["localizer"])
             # the simulation, once: detached for D, live for the generator
             qf_in = (labels.to(real.dtype)
                      / float(self.qf_classes - 1))[:, None]
-            src = real[:b].repeat(self.qf_classes, 1, 1, 1)
             sim = clamp_with_grad(gen(src, qf_in)[0])
             # 2. the discriminator
             sn: dict = {}
             d_real = disc(real, sn=sn)
             disc.load_u(sn)
             d_fake = disc(sim.detach(), sn=sn)
-            dis_loss = 0.5 * (bce_loss(d_real, torch.ones_like(d_real))
-                              + bce_loss(d_fake, torch.zeros_like(d_fake)))
-            grads["discriminator"] = torch.autograd.grad(
-                dis_loss, list(disc.parameters()))
+            d_on_real, d_on_fake = global_means(
+                (bce_loss(d_real, torch.ones_like(d_real)),
+                 bce_loss(d_fake, torch.zeros_like(d_fake))), mesh)
+            dis_loss = 0.5 * (d_on_real + d_on_fake)
+            grads["discriminator"] = all_reduce_grads(torch.autograd.grad(
+                dis_loss, list(disc.parameters())), mesh)
             opts["discriminator"].step(grads["discriminator"])
             disc.load_u(sn)
             # 3. the generator, on the updated classifier and discriminator
             l_simul = l1_loss(sim, real)
             bayar_sim, qf_sim = _frozen(loc, sim)
-            l_bayar = l1_loss(bayar_sim, bayar_real) / (
-                1e-3 + torch.mean(torch.abs(bayar_real)))
+            bayar_l1 = l1_loss(bayar_sim, bayar_real)
+            bayar_mean = torch.mean(torch.abs(bayar_real))
             l_qf_sim = _ce(qf_sim, labels)
             g_fake = _frozen(disc, sim)
             fw_gan = bce_loss(g_fake, torch.ones_like(g_fake))
+            with torch.no_grad():
+                mse = mse255_int(sim, real)
+            l_simul, bayar_l1, bayar_mean, l_qf_sim, fw_gan, mse = \
+                global_means((l_simul, bayar_l1, bayar_mean, l_qf_sim,
+                              fw_gan, mse), mesh)
+            l_bayar = bayar_l1 / (1e-3 + bayar_mean)
             g_total = l_simul + aux_ramp * (5.0 * l_bayar + 0.01 * l_qf_sim
                                             + 0.01 * fw_gan)
-            grads["generator"] = torch.autograd.grad(
-                g_total, list(gen.parameters()))
+            grads["generator"] = all_reduce_grads(torch.autograd.grad(
+                g_total, list(gen.parameters())), mesh)
         opts["generator"].step(grads["generator"])
         with torch.no_grad():
             good = (torch.isfinite(l_qf) & torch.isfinite(dis_loss)
                     & torch.isfinite(g_total))
             for t, old in zip(self._tensors(), before):
                 t.copy_(torch.where(good, t, old))
-            pssimu = psnr255_int(sim, real)
+            pssimu = psnr_from_mse(mse)
         if grads_out is not None:
             grads_out.update({k: list(v) for k, v in grads.items()})
         logs = {"lQF": l_qf, "l_simul": l_simul, "l_simul_bayar": l_bayar,

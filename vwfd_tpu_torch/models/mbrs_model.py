@@ -21,6 +21,13 @@ hard one (its forward under ``no_grad``), soft two (forward and backward).
 
 The model runs in float32, on the card with TF32 off
 (``device.full_f32``).
+
+Data parallelism (``mesh=``, JAX's ``_message_loop`` over its ``"data"``
+mesh): each rank passes its rows of the global batch and the whole
+``MBRSDraws`` (one draw a batch, every rank's sampler seeded alike); the
+BatchNorm moments are the global batch's (F27), the two loss terms and
+the bit error global means (one all-reduce), each net's gradients
+all-reduced before its update, and the guard reads the global loss (F29).
 """
 
 from typing import Dict, List, NamedTuple, Optional, Sequence
@@ -34,6 +41,7 @@ from ..kernels import KERNELS, KernelSet
 from ..kernels.zigzag import clip01
 from ..metrics import bitwise_message_error, l2_loss
 from ..nets import MBRSDecoder, MBRSEncoder
+from ..parallel import Mesh, all_reduce_grads, global_means
 from .state import AdamW
 
 __all__ = ["MODES", "QUALITY_INDICES", "MBRSDraws", "MBRSSampler",
@@ -88,8 +96,9 @@ class MBRSModel:
                  channels: int = 64, blocks: int = 4,
                  diffusion_length: int = 256, lr: float = 1e-3,
                  w_enc: float = 0.7, w_msg: float = 10.0, device=None,
-                 kernels: KernelSet = KERNELS):
+                 kernels: KernelSet = KERNELS, mesh: Optional[Mesh] = None):
         self.image_size = image_size
+        self.mesh = mesh
         self.message_length = message_length
         self.w_enc, self.w_msg = w_enc, w_msg
         self.lr = lr
@@ -145,31 +154,37 @@ class MBRSModel:
         """One step on a batch (B, H, W, 3) in [0, 1] and its messages (B,
         L) in {0, 1} with the noise ``draws``; returns the logs as 0-dim
         tensors (no host sync). ``grads_out``, a dict, receives each net's
-        gradients (lists in parameter order)."""
+        gradients (lists in parameter order; under a mesh all-reduced).
+        Under a mesh the batch is this rank's rows."""
         images, messages = self.to_device(images, messages)
         enc_p = list(self.encoder.parameters())
         dec_p = list(self.decoder.parameters())
+        mesh = self.mesh
         with torch.enable_grad(), full_f32():
-            enc, enc_stats = self.encoder(images, messages, train=True)
+            enc, enc_stats = self.encoder(images, messages, train=True,
+                                          mesh=mesh)
             noised = mbrs_noise(enc, draws, self.kernels)
-            dec, dec_stats = self.decoder(noised, train=True)
+            dec, dec_stats = self.decoder(noised, train=True, mesh=mesh)
             l_enc = l2_loss(enc, images)
             l_msg = l2_loss(dec, messages)
+            bit_err = bitwise_message_error(dec.detach(), messages)
+            l_enc, l_msg, bit_err = global_means((l_enc, l_msg, bit_err),
+                                                 mesh)
             loss = self.w_enc * l_enc + self.w_msg * l_msg
             grads = torch.autograd.grad(loss, enc_p + dec_p)
             good = torch.isfinite(loss)
+        grads = {"encoder": all_reduce_grads(grads[:len(enc_p)], mesh),
+                 "decoder": all_reduce_grads(grads[len(enc_p):], mesh)}
         with torch.no_grad():
-            self.optimizers["encoder"].step(grads[:len(enc_p)], good)
-            self.optimizers["decoder"].step(grads[len(enc_p):], good)
+            self.optimizers["encoder"].step(grads["encoder"], good)
+            self.optimizers["decoder"].step(grads["decoder"], good)
             self.encoder.load_stats(enc_stats, good)
             self.decoder.load_stats(dec_stats, good)
         if grads_out is not None:
-            grads_out.update(encoder=list(grads[:len(enc_p)]),
-                             decoder=list(grads[len(enc_p):]))
+            grads_out.update({k: list(v) for k, v in grads.items()})
         return {"loss": loss.detach(), "encoder_mse": l_enc.detach(),
                 "message_mse": l_msg.detach(),
-                "bitwise_error": bitwise_message_error(dec.detach(),
-                                                       messages)}
+                "bitwise_error": bit_err.detach()}
 
     @torch.no_grad()
     def encode(self, images, messages) -> torch.Tensor:

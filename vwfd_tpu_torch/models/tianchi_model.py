@@ -30,6 +30,14 @@ cannot be replayed) and the step runs the drawn pool member only.
 (``f1_best`` the best threshold's F1). The model runs in float32, on the
 card with TF32 off (``device.full_f32``); every SwinBlock's attention runs
 K18 (28 forward and 28 backward launches a train step, 14 an eval step).
+
+Data parallelism (``mesh=``, JAX's ``_tianchi_loop`` over its ``"data"``
+mesh): each rank passes its rows of the global batch and the whole
+``TianchiDraws`` (one draw a batch); CE and CE1 are global means, each
+update's gradients are all-reduced before it (the AdamW clip then reads
+the global norm), the guard reads the global losses (F29) and
+``eval_step``'s F1 counts are summed over the ranks (F30). The SUNet's
+LayerNorms are per row: nothing else is global.
 """
 
 from typing import Dict, List, NamedTuple, Optional, Sequence
@@ -43,6 +51,7 @@ from ..device import full_f32, resolve_device
 from ..kernels import KERNELS, KernelSet
 from ..metrics import bce_loss, f1_sweep, l1_loss
 from ..nets.sunet import SUNet
+from ..parallel import Mesh, all_reduce_grads, global_means
 from .state import AdamW, make_optimizer
 
 __all__ = ["QF_BANDS", "MODES", "TianchiDraws", "TianchiSampler",
@@ -85,8 +94,10 @@ class TianchiModel:
                  depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 8, robustness_band: int = 50,
-                 device=None, kernels: KernelSet = KERNELS):
+                 device=None, kernels: KernelSet = KERNELS,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.kernels = kernels
         self.image_size = cfg.data.gt_size
@@ -147,21 +158,24 @@ class TianchiModel:
         """One step on images (B, H, W, 3) in [0, 1] and their masks (B, H,
         W, 1) in {0, 1} with the JPEG ``draws``; returns ``CE`` and ``CE1``
         as 0-dim tensors (no host sync). ``grads_out``, a list, receives
-        both updates' gradients (two lists in parameter order)."""
+        both updates' gradients (two lists in parameter order; under a mesh
+        all-reduced). Under a mesh the batch is this rank's rows."""
         images, masks = self.to_device(images, masks)
         opt = self.optimizers["netG"]
         params = opt.params
+        mesh = self.mesh
         with torch.no_grad():
             before = [t.clone() for t in self._tensors()]
         with torch.enable_grad(), full_f32():
-            ce = bce_loss(self.net(images), masks)
-            grads = torch.autograd.grad(ce, params)
+            (ce,) = global_means((bce_loss(self.net(images), masks),), mesh)
+            grads = all_reduce_grads(torch.autograd.grad(ce, params), mesh)
         opt.step(grads)
         with full_f32():
             processed = self.processed(images, draws)
         with torch.enable_grad(), full_f32():
-            ce1 = l1_loss(self.net(processed), torch.zeros_like(masks))
-            grads1 = torch.autograd.grad(ce1, params)
+            (ce1,) = global_means((l1_loss(self.net(processed),
+                                           torch.zeros_like(masks)),), mesh)
+            grads1 = all_reduce_grads(torch.autograd.grad(ce1, params), mesh)
         opt.step(grads1)
         with torch.no_grad():
             good = torch.isfinite(ce) & torch.isfinite(ce1)
@@ -174,10 +188,11 @@ class TianchiModel:
     @torch.no_grad()
     def eval_step(self, images, masks) -> Dict[str, torch.Tensor]:
         """``f1_best``, ``f1_sweep`` (K7) and ``predicted``, on the
-        device."""
+        device. Under a mesh the F1 counts are the global batch's and
+        ``predicted`` is this rank's rows."""
         images, masks = self.to_device(images, masks)
         with full_f32():
             pred = self.net(images)
-        _, f1s = f1_sweep(pred, masks, kernels=self.kernels)
+        _, f1s = f1_sweep(pred, masks, kernels=self.kernels, mesh=self.mesh)
         return {"f1_best": torch.max(f1s), "f1_sweep": f1s,
                 "predicted": pred}

@@ -67,7 +67,7 @@ from ..metrics import (bce_with_logits, f1_sweep, l1_loss, postprocess_int,
                        psnr_from_mse, ssim)
 from ..nets import InvertibleNet, UNet, UNetTPU
 from ..parallel import (Mesh, all_reduce_grads, barrier, global_mean,
-                        local_rows)
+                        global_means, local_rows)
 from ..utils.images import save_png, stitch_images
 from .state import AdamW, apply_pretrain, make_optimizer, save_checkpoint
 
@@ -240,9 +240,9 @@ class VideoWatermarkModel:
         else:
             l_fid = bce_with_logits(fwd_video, video)
         l_backward = bce_with_logits(pred_mask, mask)
-        if self.mesh is not None:  # the three global means in one all-reduce
-            l_fid, l_backward, mse = global_mean(
-                torch.stack([l_fid, l_backward, mse]), self.mesh).unbind()
+        # the three global means in one all-reduce
+        l_fid, l_backward, mse = global_means((l_fid, l_backward, mse),
+                                              self.mesh)
         with torch.no_grad():
             psnr_forward = psnr_from_mse(mse)
         w_fwd = torch.where(psnr_forward < tc.psnr_gate, tc.loss_weight_low,

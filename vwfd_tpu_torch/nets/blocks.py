@@ -33,6 +33,13 @@ localizer's blocks, NCHW inside the port's nets:
 * ``ResnetBlock`` reflect-pads by the dilation 2, a dilated 3×3 ``SNConv``
   (no bias under spectral norm), GELU (flax's tanh form), a reflect pad of
   1 and a 3×3 ``SNConv``, added to its input.
+
+``reflect_pad`` is ``F.pad(mode="reflect")`` made of slices, flips and
+concatenations: the same values, and a backward that adds each pixel's
+mirrored cotangents two at a time, rows then columns, where PyTorch's CUDA
+reflection-pad backward accumulates up to four with ``atomicAdd`` and its
+last bits vary from call to call. The localizer's gradients then repeat
+bit for bit, and a step over a world-1 group equals the step without one.
 """
 
 import math
@@ -45,7 +52,7 @@ from torch import nn
 from .unet import _bn_relu, _conv, _nchw, _nhwc, _trunc_normal_
 
 __all__ = ["ConvBNRelu", "FlaxNet", "conv_nhwc", "SNConv", "ResnetBlock",
-           "gelu"]
+           "gelu", "reflect_pad"]
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
@@ -94,6 +101,15 @@ class FlaxNet(nn.Module):
         for bn, (mean, var) in stats.items():
             for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
                 buf.copy_(new if good is None else torch.where(good, new, buf))
+
+
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``F.pad(x, (p, p, p, p), mode="reflect")`` of NCHW ``x`` (module
+    docstring)."""
+    x = torch.cat([x[..., 1:p + 1].flip(-1), x,
+                   x[..., -p - 1:-1].flip(-1)], -1)
+    return torch.cat([x[..., 1:p + 1, :].flip(-2), x,
+                      x[..., -p - 1:-1, :].flip(-2)], -2)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -199,7 +215,7 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor, sn: Optional[dict] = None
                 ) -> torch.Tensor:
         d = self.d
-        h = self.conv1(F.pad(x, (d, d, d, d), mode="reflect"), sn)
+        h = self.conv1(reflect_pad(x, d), sn)
         h = gelu(h)
-        h = self.conv2(F.pad(h, (1, 1, 1, 1), mode="reflect"), sn)
+        h = self.conv2(reflect_pad(h, 1), sn)
         return x + h

@@ -17,7 +17,9 @@ blocks). Module names are the flax tree's (``conv0.Conv_0``,
 ``linear``), so a tree converts one to one (``convert.py``). ``forward(...,
 train=True)`` returns ``(out, stats)``: BatchNorm on batch statistics and
 the updated running statistics of each (flax's ``mutable=["batch_stats"]``),
-applied with ``load_stats``.
+applied with ``load_stats``; with ``mesh`` (a ``parallel.Mesh`` of more than
+one rank) the batch statistics are the global batch's (``nets/unet.py``'s
+``BatchStats``).
 """
 
 from typing import Callable, Optional
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from .blocks import ConvBNRelu, FlaxNet
-from .unet import _conv
+from .unet import BatchStats, _conv
 
 __all__ = ["HiddenEncoder", "HiddenDecoder", "HiddenDiscriminator",
            "HiddenEncoderDecoder"]
@@ -54,9 +56,9 @@ class HiddenEncoder(_HiddenNet):
         self.final = nn.Conv2d(channels, 3, 1)
 
     def forward(self, image: torch.Tensor, message: torch.Tensor,
-                train: bool = False):
+                train: bool = False, mesh=None):
         """(B, H, W, 3) image, (B, L) message → (B, H, W, 3) encoded."""
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         h = self._blocks(image, self.blocks, stats)
         b, ih, iw, _ = image.shape
         expanded = message[:, None, None, :].expand(b, ih, iw,
@@ -77,9 +79,10 @@ class HiddenDecoder(_HiddenNet):
         self.msg_conv = ConvBNRelu(channels, message_length)
         self.linear = nn.Linear(message_length, message_length)
 
-    def forward(self, image_wm: torch.Tensor, train: bool = False):
+    def forward(self, image_wm: torch.Tensor, train: bool = False,
+                mesh=None):
         """(B, H, W, 3) → (B, L) message logits (AdaptiveAvgPool2d(1))."""
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         h = self.msg_conv(self._blocks(image_wm, self.blocks, stats), stats)
         out = self.linear(h.mean(dim=(1, 2)))
         return (out, stats) if train else out
@@ -94,9 +97,9 @@ class HiddenDiscriminator(_HiddenNet):
                                                  channels))
         self.linear = nn.Linear(channels, 1)
 
-    def forward(self, image: torch.Tensor, train: bool = False):
+    def forward(self, image: torch.Tensor, train: bool = False, mesh=None):
         """(B, H, W, 3) → (B, 1) logits."""
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         h = self._blocks(image, self.blocks, stats)
         out = self.linear(h.mean(dim=(1, 2)))
         return (out, stats) if train else out
@@ -117,13 +120,13 @@ class HiddenEncoderDecoder(nn.Module):
                                      decoder_blocks)
 
     def forward(self, image, message, noiser: Optional[Callable] = None,
-                train: bool = False):
+                train: bool = False, mesh=None):
         """``(encoded, noised, decoded)``; with ``train`` also the two nets'
         BatchNorm statistics, ``(…, enc_stats, dec_stats)``."""
         if train:
-            encoded, es = self.encoder(image, message, train=True)
+            encoded, es = self.encoder(image, message, train=True, mesh=mesh)
             noised = encoded if noiser is None else noiser(encoded, image)
-            decoded, ds = self.decoder(noised, train=True)
+            decoded, ds = self.decoder(noised, train=True, mesh=mesh)
             return encoded, noised, decoded, es, ds
         encoded = self.encoder(image, message)
         noised = encoded if noiser is None else noiser(encoded, image)

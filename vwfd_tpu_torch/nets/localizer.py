@@ -30,7 +30,7 @@ from torch import nn
 
 from ..ops.filters import bayar_constrain, srm_conv
 from ..ops.pad import symm_pad
-from .blocks import ResnetBlock, SNConv, gelu
+from .blocks import ResnetBlock, SNConv, gelu, reflect_pad
 from .unet import _trunc_normal_
 
 __all__ = ["UNetDiscriminator"]
@@ -122,8 +122,7 @@ class UNetDiscriminator(nn.Module):
     def _film(self, z, q, name):
         gamma = torch.sigmoid(getattr(self, f"film{name}_g")(q))
         beta = torch.tanh(getattr(self, f"film{name}_b")(q))
-        a = getattr(self, f"attn{name}")(F.pad(z, (3, 3, 3, 3),
-                                               mode="reflect"))
+        a = getattr(self, f"attn{name}")(reflect_pad(z, 3))
         return gamma[:, :, None, None] * a + beta[:, :, None, None]
 
     def forward(self, x: torch.Tensor, qf: Optional[torch.Tensor] = None,

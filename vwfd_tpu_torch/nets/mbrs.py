@@ -28,7 +28,9 @@ transposed convs, whose kernels flax applies flipped, F3). Flax pads a 1×1
 strided conv by 0 ('SAME') and a 4×4 'SAME' conv by 1 before and 2 after.
 ``forward(..., train=True)`` returns ``(out, stats)``: BatchNorm on the
 batch statistics and the updated running statistics of each (flax's
-``mutable=["batch_stats"]``, F1), applied with ``load_stats``. The SE
+``mutable=["batch_stats"]``, F1), applied with ``load_stats``; with
+``mesh`` (a ``parallel.Mesh`` of more than one rank) the batch statistics
+are the global batch's (``nets/unet.py``'s ``BatchStats``). The SE
 blocks' third BatchNorm and ``downsample_bn`` have no ReLU.
 """
 
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .blocks import ConvBNRelu, FlaxNet, conv_nhwc
-from .unet import _bn
+from .unet import BatchStats, _bn
 
 __all__ = ["SEBottleneck", "SENet", "SENetDecoder", "ExpandNet",
            "MBRSEncoder", "MBRSDecoder", "MBRSPlainDecoder", "BalujaPrep",
@@ -144,9 +146,9 @@ class MBRSEncoder(FlaxNet):
         self.final = nn.Conv2d(c + 3, 3, 1)
 
     def forward(self, image: torch.Tensor, message: torch.Tensor,
-                train: bool = False):
+                train: bool = False, mesh=None):
         """(B, H, W, 3) image, (B, L) message → (B, H, W, 3) encoded."""
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         img = self.image_first(self.image_pre(image, stats), stats)
         m = self.message_duplicate(message).reshape(-1, self.dsize,
                                                     self.dsize, 1)
@@ -170,9 +172,9 @@ class MBRSDecoder(FlaxNet):
         self.final = ConvBNRelu(c, 1)
         self.message = nn.Linear(diffusion_length, message_length)
 
-    def forward(self, image: torch.Tensor, train: bool = False):
+    def forward(self, image: torch.Tensor, train: bool = False, mesh=None):
         """(B, H, W, 3) → (B, L) message logits."""
-        stats = {} if train else None
+        stats = BatchStats(mesh) if train else None
         h = self.down(self.pre(image, stats), stats)
         h = self.final(self.keep(self.mid(h, stats), stats), stats)
         out = self.message(h.reshape(h.shape[0], -1))
@@ -191,8 +193,8 @@ class MBRSPlainDecoder(FlaxNet):
         self.head = ConvBNRelu(channels, out_num)
         self.linear = nn.Linear(out_num, out_num)
 
-    def forward(self, image: torch.Tensor, train: bool = False):
-        stats = {} if train else None
+    def forward(self, image: torch.Tensor, train: bool = False, mesh=None):
+        stats = BatchStats(mesh) if train else None
         h = image
         for i in range(9):
             h = getattr(self, f"conv{i}")(h, stats)

@@ -87,10 +87,10 @@ class BatchStats(dict):
 
 def _bn_global(x, bn: nn.BatchNorm2d, stats: BatchStats):
     """Train-mode BatchNorm over the global batch of ``stats.mesh``
-    (flax's ``_compute_stats`` and ``_normalize`` in float32: one
-    all-reduce of the stacked local means of x and x², equal row counts on
-    every rank)."""
-    xf = x.float()
+    (flax's ``_compute_stats`` and ``_normalize`` in float32, float64 for a
+    float64 input: one all-reduce of the stacked local means of x and x²,
+    equal row counts on every rank)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = tuple(range(x.dim() - 1))
     mu, mu2 = global_mean(torch.stack([xf.mean(dims), (xf * xf).mean(dims)]),
                           stats.mesh).unbind()

@@ -11,8 +11,9 @@ implicitly:
 * the gradient all-reduce (``all_reduce_grads``: one flat bucket per net,
   summed, divided by the world size);
 * every mean over the global batch (``global_mean`` / ``global_sum``:
-  the loss terms, the PSNR's MSE, BatchNorm's moments, the eval counts),
-  differentiable where a gradient flows through them.
+  the PSNR's MSE, BatchNorm's moments, the eval counts; ``global_means``:
+  a step's loss terms in one all-reduce), differentiable where a gradient
+  flows through them.
 
 A step computed this way on each rank's rows equals the one-process step
 on the concatenated batch up to float rounding, as the JAX mesh step
@@ -45,7 +46,7 @@ __all__ = ["Mesh", "DEFAULT_TIMEOUT_S", "local_device",
            "maybe_init_distributed", "is_main_process", "process_index",
            "process_count", "make_mesh", "local_batch_slice", "local_rows",
            "replicate", "replicas_equal", "all_reduce_grads", "global_sum",
-           "global_mean", "barrier", "world_size_from_env"]
+           "global_mean", "global_means", "barrier", "world_size_from_env"]
 
 DEFAULT_TIMEOUT_S = 600.0  # a collective that waits longer raises
 
@@ -193,6 +194,40 @@ def global_mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _div(global_sum(x, mesh), mesh.size)
 
 
+class _Global(torch.autograd.Function):
+    """The global value ``g`` of a per-rank term ``x``, whose backward hands
+    the cotangent to ``x`` unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g.clone()
+
+    @staticmethod
+    def backward(ctx, c):
+        return c, None
+
+
+def global_means(xs: Sequence[torch.Tensor], mesh: Optional[Mesh]
+                 ) -> Tuple[torch.Tensor, ...]:
+    """``global_mean`` of a step's 0-dim per-rank loss terms (means over
+    equally many rows) through ONE all-reduce of their stacked vector; the
+    tensors themselves without a mesh. Every rank computes the loss from
+    these global values alike, so each term's cotangent is the same on
+    every rank, and the backward of ``global_mean`` (an all-reduce of those
+    equal cotangents over ``world`` ranks, divided by ``world``) is that
+    cotangent: here it is handed to each term as it is, with no backward
+    collective. Each term keeps its own node in the graph, so autograd
+    accumulates the gradients in the order it does without a mesh (a
+    world-1 step equals the step without a group bit for bit). Not for a
+    value whose cotangent differs between ranks (BatchNorm's moments take
+    ``global_mean``)."""
+    if mesh is None:
+        return tuple(xs)
+    with torch.no_grad():
+        g = global_mean(torch.stack([x.detach() for x in xs]), mesh)
+    return tuple(_Global.apply(x, gi) for x, gi in zip(xs, g.unbind()))
+
+
 def barrier(mesh: Optional[Mesh]) -> None:
     """Wait for every rank (nothing without a mesh)."""
     if mesh is not None:
@@ -206,32 +241,63 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
     return out
 
 
+# each gradient's slot in an all-reduce bucket starts on a multiple of this
+# many elements (256 bytes in float32), so that a slot is aligned as a fresh
+# tensor is
+_ALIGN = 64
+
+
+def _memory_order(t: torch.Tensor) -> List[int]:
+    """``t``'s dimensions by decreasing stride: the order its elements lie
+    in memory (a convolution's weight gradient may be channels-last)."""
+    return sorted(range(t.dim()), key=lambda d: (-t.stride(d), d))
+
+
 def all_reduce_grads(grads: Sequence[torch.Tensor],
                      mesh: Optional[Mesh]) -> List[torch.Tensor]:
     """One net's gradients summed over the ranks and divided by the world
     size, through one flat bucket per dtype; the list itself without a
-    mesh."""
+    mesh. Each gradient is packed in its memory order into an aligned slot
+    (``_ALIGN``) and comes back as a view with its own strides, so what
+    reads it after (AdamW's clip norm, a reduction whose order follows the
+    strides) sums in the order it does without a mesh: a world-1 step
+    equals the step without a group bit for bit."""
     grads = list(grads)
     if mesh is None:
         return grads
     out = list(grads)
     for idx in _buckets(grads).values():
-        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        zeros = grads[idx[0]].new_zeros(_ALIGN)
+        parts, offsets, at = [], [], 0
+        for i in idx:
+            g = grads[i]
+            parts.append(g.permute(_memory_order(g)).reshape(-1))
+            offsets.append(at)
+            pad = -g.numel() % _ALIGN
+            if pad:
+                parts.append(zeros[:pad])
+            at += g.numel() + pad
+        flat = torch.cat(parts)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
         flat = _div(flat, mesh.size)
-        at = 0
-        for i in idx:
-            n = grads[i].numel()
-            out[i] = flat[at:at + n].view_as(grads[i])
-            at += n
+        for i, at in zip(idx, offsets):
+            g = grads[i]
+            order = _memory_order(g)
+            packed = flat[at:at + g.numel()].view([g.shape[d] for d in order])
+            out[i] = packed.permute([order.index(d) for d in range(g.dim())])
     return out
 
 
 def _state_tensors(model) -> List[torch.Tensor]:
-    """Every tensor that a train step reads and writes: each net's
-    parameters and buffers (BatchNorm's running statistics), then each
-    optimizer's moments and step count."""
-    out = [t for net in model.nets().values()
+    """Every tensor that a train step reads and writes, and every one a
+    rank would otherwise hold on its own: each net's parameters and buffers
+    (BatchNorm's running statistics, the spectral-norm vectors ``u``), the
+    frozen nets' (``model.frozen_nets()`` where the model has it: the image
+    family's VGG trunk), then each optimizer's moments and step count."""
+    nets = list(model.nets().values())
+    if hasattr(model, "frozen_nets"):
+        nets += list(model.frozen_nets().values())
+    out = [t for net in nets
            for t in list(net.parameters()) + list(net.buffers())]
     for opt in model.optimizers.values():
         out += list(opt.mu) + list(opt.nu) + [opt.count]
@@ -241,8 +307,8 @@ def _state_tensors(model) -> List[torch.Tensor]:
 @torch.no_grad()
 def replicate(model, mesh: Optional[Mesh]) -> None:
     """Broadcast rank 0's state into every rank's ``model`` in place: each
-    net's parameters and buffers, each optimizer's moments and count (one
-    flat bucket per dtype). Call it after ``init_states``, a restore or a
+    net's parameters and buffers, the frozen nets', each optimizer's
+    moments and count (``_state_tensors``; one flat bucket per dtype). Call it after ``init_states``, a restore or a
     ``pretrain_path``. Nothing without a mesh."""
     if mesh is None:
         return

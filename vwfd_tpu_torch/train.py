@@ -32,19 +32,27 @@ batches (default 10) and prints one JSON line: the means of
 frames/s over the steps after the first, the restored step and the device.
 Runs on a CUDA card unless ``--device cpu``; without a card it raises.
 
-``--task video`` also trains and evaluates data-parallel, one process a
-card under ``torchrun`` (NCCL; gloo with ``--device cpu``):
+Every task also trains (and where it has ``--val``, evaluates)
+data-parallel, one process a card under ``torchrun`` (NCCL; gloo with
+``--device cpu``):
 
     torchrun --nproc_per_node 8 -m vwfd_tpu_torch.train --task video \
+        --synthetic --steps 1000
+    torchrun --nproc_per_node 8 -m vwfd_tpu_torch.train --task clr \
         --synthetic --steps 1000
 
 ``--batch`` is then the global batch, as in the JAX package: each rank
 takes its contiguous block of every batch's rows (``parallel``), the step
-is the one-process step on the global batch, the device is
-``cuda:LOCAL_RANK``, rank 0 alone logs, writes checkpoints and montages
-and prints the JSON line (with ``world_size`` and the global frames/s),
-and ``--resume`` restores on every rank, then broadcasts rank 0's state.
-The other tasks refuse to start under a ``WORLD_SIZE`` above 1.
+is the one-process step on the global batch (the model's ``mesh=``), the
+device is ``cuda:LOCAL_RANK``, rank 0 alone logs, writes checkpoints and
+montages and prints the JSON line (with ``world_size`` and the global
+frames/s or images/s), and ``--resume`` restores on every rank, then
+broadcasts rank 0's state. A global batch that does not divide by the
+world size stops the run. Every rank draws what the one process draws
+for the global batch (messages, stroke masks, the samplers' draws, the
+simulator's quality) and keeps its rows of it; KD-JPEG's loader is not
+row-sharded: each rank collates the whole class-major batch and takes its
+block of the flat rows, as JAX's ``train.py:301-303``.
 
 ``--task hidden`` trains the HiDDeN family (``models/hidden_model.py``; the
 JAX ``train.py``'s ``_message_loop``, :219-284), ``--task mbrs`` the MBRS
@@ -159,6 +167,7 @@ from .models.state import latest_step, restore_checkpoint, save_checkpoint
 from .parallel import (local_batch_slice, local_device, make_mesh,
                        maybe_init_distributed, replicate,
                        world_size_from_env)
+from .parallel import Mesh
 from .utils import Progbar, ScalarLogger, setup_logger
 
 
@@ -213,9 +222,40 @@ class _ImagesOnly:
         return self.base[i]["image"]
 
 
-def _message(args, ap, logger):
+def _messages(rng, b: int, length: int, rows):
+    """The global batch's messages from ``rng`` (``b`` × ``length`` bits,
+    ``train.py:257-269``), this rank's ``rows``."""
+    lo, hi = rows
+    return (rng.random((b, length)) > 0.5).astype(np.float32)[lo:hi]
+
+
+def _strokes(seed, b: int, size: int, rows):
+    """The global batch's stroke masks from ``seed`` (``train.py:
+    446-447``), this rank's ``rows``."""
+    lo, hi = rows
+    return stroke_masks(seed, b, (size, size))[lo:hi]
+
+
+def _rank0(mesh) -> bool:
+    """Whether this process logs, writes checkpoints and prints."""
+    return mesh is None or mesh.rank == 0
+
+
+def _result(model, mesh, vals, **extra):
+    """Rank 0's JSON line (nothing on another rank)."""
+    if not _rank0(mesh):
+        return
+    cuda = model.device.type == "cuda"
+    print(json.dumps({
+        **vals, **extra, "world_size": 1 if mesh is None else mesh.size,
+        "device": str(model.device),
+        "device_name": (torch.cuda.get_device_name(model.device) if cuda
+                        else "cpu")}))
+
+
+def _message(args, ap, logger, device, mesh: Mesh = None):
     """``--task hidden`` or ``mbrs``: the message loop of the JAX
-    ``train.py``."""
+    ``train.py``, data-parallel over ``mesh``'s ranks when given."""
     if args.val:
         ap.error("--val is the video model's; HiDDeN's per-member eval is "
                  "python -m vwfd_tpu_torch.eval_hidden, MBRS's "
@@ -242,53 +282,58 @@ def _message(args, ap, logger):
                                                  size=s))
     else:
         ap.error("no data: pass --root (an image folder) or --synthetic")
+    lo, hi = local_batch_slice(b, mesh)  # raises unless b divides
     if task == "hidden":
-        model = HiddenModel(image_size=s, device=args.device)
+        model = HiddenModel(image_size=s, device=device, mesh=mesh)
         sampler = HiddenSampler(cfg.train.seed, model.device)
     else:
-        model = MBRSModel(image_size=s, device=args.device)
+        model = MBRSModel(image_size=s, device=device, mesh=mesh)
         sampler = MBRSSampler(cfg.train.seed)
     model.init_states(cfg.train.seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
         logger.info("resuming %s from step %d", task, step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
-    loader = Loader(dataset, b, seed=cfg.train.seed, ratio=cfg.data.ratio)
+    replicate(model, mesh)
+    main_rank = _rank0(mesh)
+    loader = Loader(dataset, b, seed=cfg.train.seed, ratio=cfg.data.ratio,
+                    rows=(lo, hi))
     rng = np.random.default_rng(cfg.train.seed)
-    scalar_logger = None if args.no_telemetry else ScalarLogger(
-        args.logdir or os.path.join("runs", f"{cfg.name}_{task}"))
-    pb = Progbar(args.steps, stateful_metrics=["bitwise_error"])
-    cuda = model.device.type == "cuda"
+    scalar_logger = None if args.no_telemetry or not main_rank else \
+        ScalarLogger(args.logdir or os.path.join("runs", f"{cfg.name}_{task}"))
+    pb = Progbar(args.steps, stateful_metrics=["bitwise_error"]) \
+        if main_rank else None
     step, end, times, vals = step0 or 0, (step0 or 0) + args.steps, [], {}
     try:
         while step < end:
             for imgs in loader:
                 if step >= end:
                     break
-                msgs = (rng.random((imgs.shape[0], model.message_length))
-                        > 0.5).astype(np.float32)
+                # the global batch's messages and draws, this rank's rows
+                msgs = _messages(rng, b, model.message_length, (lo, hi))
+                draws = sampler((b,) + imgs.shape[1:])
+                if task == "hidden":
+                    draws = draws.rows(mesh)
                 t0 = time.perf_counter()
-                logs = model.train_step(imgs, msgs, sampler(imgs.shape))
+                logs = model.train_step(imgs, msgs, draws)
                 vals = {k: float(v) for k, v in logs.items()}  # syncs
                 times.append((time.perf_counter() - t0) * 1e3)
                 step += 1
-                pb.add(1, values=list(vals.items()))
+                if pb is not None:
+                    pb.add(1, values=list(vals.items()))
                 if scalar_logger is not None:
                     scalar_logger.log(step, **vals)
-                if step % cfg.train.save_interval == 0:
+                if main_rank and step % cfg.train.save_interval == 0:
                     save_checkpoint(cfg.ckpt_dir, step, model)
     finally:
         if scalar_logger is not None:
             scalar_logger.close()
     ms = float(np.median(times[1:] or times))
     logger.info("done: %s", vals)
-    print(json.dumps({
-        **vals, "steps": args.steps, "ms_per_step": ms,
-        "images_per_s": b / ms * 1e3, "batch": b, "size": s,
-        "data": "synthetic" if args.synthetic else "images",
-        "resumed_step": step0, "device": str(model.device),
-        "device_name": (torch.cuda.get_device_name(model.device) if cuda
-                        else "cpu")}))
+    _result(model, mesh, vals, steps=args.steps, ms_per_step=ms,
+            images_per_s=b / ms * 1e3, batch=b, size=s,
+            data="synthetic" if args.synthetic else "images",
+            resumed_step=step0)
 
 
 class _ImageMask:
@@ -306,8 +351,9 @@ class _ImageMask:
         return item["image"], item["mask"]
 
 
-def _tianchi(args, ap, logger):
-    """``--task tianchi``: the JAX ``train.py``'s ``_tianchi_loop``."""
+def _tianchi(args, ap, logger, device, mesh: Mesh = None):
+    """``--task tianchi``: the JAX ``train.py``'s ``_tianchi_loop``,
+    data-parallel over ``mesh``'s ranks when given."""
     if args.val:
         ap.error("--val is the video model's; Tianchi's held-out F1 is "
                  "python -m vwfd_tpu_torch.run_family_convergence --task "
@@ -341,18 +387,22 @@ def _tianchi(args, ap, logger):
                                        seed=cfg.train.seed)
     else:
         ap.error("no data: pass --root and --mask-root or --synthetic")
-    model = TianchiModel(cfg, device=args.device)
+    rows = local_batch_slice(d.batch_size, mesh)  # raises unless it divides
+    model = TianchiModel(cfg, device=device, mesh=mesh)
     model.init_states(cfg.train.seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
         logger.info("resuming tianchi from step %d", step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
+    replicate(model, mesh)
+    main_rank = _rank0(mesh)
     sampler = model.sampler(cfg.train.seed)
     loader = Loader(dataset, d.batch_size, seed=cfg.train.seed,
-                    ratio=d.ratio)
-    scalar_logger = None if args.no_telemetry else ScalarLogger(
-        args.logdir or os.path.join("runs", f"{cfg.name}_tianchi"))
-    pb = Progbar(args.steps)
+                    ratio=d.ratio, rows=rows)
+    scalar_logger = None if args.no_telemetry or not main_rank else \
+        ScalarLogger(args.logdir or os.path.join("runs",
+                                                 f"{cfg.name}_tianchi"))
+    pb = Progbar(args.steps) if main_rank else None
     step, end, times, vals = step0 or 0, (step0 or 0) + args.steps, [], {}
     try:
         for imgs, masks in loader.stream():
@@ -363,29 +413,26 @@ def _tianchi(args, ap, logger):
             vals = {k: float(v) for k, v in logs.items()}  # syncs
             times.append((time.perf_counter() - t0) * 1e3)
             step += 1
-            pb.add(1, values=list(vals.items()))
+            if pb is not None:
+                pb.add(1, values=list(vals.items()))
             if scalar_logger is not None:
                 scalar_logger.log(step, **vals)
-            if step % cfg.train.save_interval == 0:
+            if main_rank and step % cfg.train.save_interval == 0:
                 save_checkpoint(cfg.ckpt_dir, step, model)
     finally:
         if scalar_logger is not None:
             scalar_logger.close()
     ms = float(np.median(times[1:] or times))
     logger.info("done: %s", vals)
-    cuda = model.device.type == "cuda"
-    print(json.dumps({
-        **vals, "steps": args.steps, "ms_per_step": ms,
-        "images_per_s": d.batch_size / ms * 1e3, "batch": d.batch_size,
-        "size": d.gt_size, "data": "synthetic" if d.synthetic else "images",
-        "resumed_step": step0, "device": str(model.device),
-        "device_name": (torch.cuda.get_device_name(model.device) if cuda
-                        else "cpu")}))
+    _result(model, mesh, vals, steps=args.steps, ms_per_step=ms,
+            images_per_s=d.batch_size / ms * 1e3, batch=d.batch_size,
+            size=d.gt_size, data="synthetic" if d.synthetic else "images",
+            resumed_step=step0)
 
 
-def _image(args, ap, logger):
+def _image(args, ap, logger, device, mesh: Mesh = None):
     """``--task pami``, ``imuge`` or ``clr``: the JAX ``train.py``'s
-    ``_image_loop``."""
+    ``_image_loop``, data-parallel over ``mesh``'s ranks when given."""
     task = args.task
     cfg = load_config(args.config or (CLR_CONFIG if task == "clr"
                                       else PAMI_CONFIG))
@@ -412,15 +459,19 @@ def _image(args, ap, logger):
             size=d.gt_size, length=2000, seed=seed), pami)
     else:
         ap.error("no data: pass --root (an image folder) or --synthetic")
-    model = ImageImmunizationModel(cfg, task=task, device=args.device,
+    lo, hi = local_batch_slice(d.batch_size, mesh)  # raises unless it divides
+    model = ImageImmunizationModel(cfg, task=task, device=device,
                                    with_gan=args.with_gan,
                                    use_perceptual=args.use_perceptual,
-                                   with_jpeg_simulator=args.jpeg_simulator)
+                                   with_jpeg_simulator=args.jpeg_simulator,
+                                   mesh=mesh)
     model.init_states(seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
         logger.info("resuming %s from step %d", task, step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
+    replicate(model, mesh)
+    main_rank = _rank0(mesh)
     start = step0 or 0
     sampler = model.sampler(seed)
     shape = (d.batch_size, d.gt_size, d.gt_size)
@@ -431,31 +482,36 @@ def _image(args, ap, logger):
             pair_rng.choice(QUALITIES)
 
     def pair(imgs):
-        """The step's real-JPEG pair (``train.py:184-189``), or None."""
+        """The step's real-JPEG pair (``train.py:184-189``) of this rank's
+        rows, or None: one quality a step on every rank."""
         if not args.jpeg_simulator:
             return None
         q = int(pair_rng.choice(QUALITIES))
         return (jpeg_real(imgs, q),
                 np.full((len(imgs),), q / 100.0, np.float32))
-    loader = Loader(dataset, d.batch_size, seed=seed, ratio=d.ratio)
+
+    def draws():
+        """The step's draws for the global batch, this rank's rows."""
+        return sampler(shape).rows(mesh)
+    loader = Loader(dataset, d.batch_size, seed=seed, ratio=d.ratio,
+                    rows=(lo, hi))
     index = [start]
 
     def batches():
         for item in loader.stream(start):
             imgs, canny = item if pami else (item, None)
-            yield ImageBatch(imgs, canny, stroke_masks(
-                (seed, index[0]), len(imgs), (d.gt_size, d.gt_size)))
+            yield ImageBatch(imgs, canny, _strokes(
+                (seed, index[0]), d.batch_size, d.gt_size, (lo, hi)))
             index[0] += 1
 
     stream = batches()
     prev = next(stream).image
-    cuda = model.device.type == "cuda"
     if args.val:
         outs, times = [], []
         for _ in range(args.val_batches):
             batch = next(stream)
             t0 = time.perf_counter()
-            o = model.eval_step(batch, prev, sampler(batch.image.shape))
+            o = model.eval_step(batch, prev, draws())
             outs.append({k: float(v) for k, v in o.items()
                          if v.dim() == 0})  # syncs
             times.append((time.perf_counter() - t0) * 1e3)
@@ -465,25 +521,27 @@ def _image(args, ap, logger):
                       ms_per_eval_step=float(np.median(times[1:] or times)))
         logger.info("eval: %s", result)
     else:
-        scalar_logger = None if args.no_telemetry else ScalarLogger(
-            args.logdir or os.path.join("runs", f"{cfg.name}_{task}"))
-        pb = Progbar(args.steps, stateful_metrics=["PF", "PB"])
+        scalar_logger = None if args.no_telemetry or not main_rank else \
+            ScalarLogger(args.logdir or os.path.join("runs",
+                                                     f"{cfg.name}_{task}"))
+        pb = Progbar(args.steps, stateful_metrics=["PF", "PB"]) \
+            if main_rank else None
         step, times, vals = start, [], {}
         try:
             while step < start + args.steps:
                 batch = next(stream)
                 t0 = time.perf_counter()
-                logs = model.train_step(batch, prev,
-                                        sampler(batch.image.shape),
+                logs = model.train_step(batch, prev, draws(),
                                         jpeg_pair=pair(batch.image))
                 vals = {k: float(v) for k, v in logs.items()}  # syncs
                 times.append((time.perf_counter() - t0) * 1e3)
                 prev = batch.image
                 step += 1
-                pb.add(1, values=list(vals.items()))
+                if pb is not None:
+                    pb.add(1, values=list(vals.items()))
                 if scalar_logger is not None:
                     scalar_logger.log(step, **vals)
-                if step % cfg.train.save_interval == 0:
+                if main_rank and step % cfg.train.save_interval == 0:
                     save_checkpoint(cfg.ckpt_dir, step, model)
         finally:
             if scalar_logger is not None:
@@ -492,16 +550,15 @@ def _image(args, ap, logger):
         result = {**vals, "steps": args.steps, "ms_per_step": ms,
                   "images_per_s": d.batch_size / ms * 1e3}
         logger.info("done: %s", vals)
-    print(json.dumps({
-        **result, "batch": d.batch_size, "size": d.gt_size,
-        "data": "synthetic" if d.synthetic else "images",
-        "resumed_step": step0, "device": str(model.device),
-        "device_name": (torch.cuda.get_device_name(model.device) if cuda
-                        else "cpu")}))
+    _result(model, mesh, result, batch=d.batch_size, size=d.gt_size,
+            data="synthetic" if d.synthetic else "images",
+            resumed_step=step0)
 
 
-def _kdjpeg(args, ap, logger):
-    """``--task kdjpeg``: the JAX ``train.py``'s ``_kdjpeg_loop``."""
+def _kdjpeg(args, ap, logger, device, mesh: Mesh = None):
+    """``--task kdjpeg``: the JAX ``train.py``'s ``_kdjpeg_loop``,
+    data-parallel over ``mesh``'s ranks when given: every rank loads and
+    collates the whole batch and takes its block of the flat rows."""
     if args.val:
         ap.error("--val is the video model's; KD-JPEG's held-out eval is "
                  "python -m vwfd_tpu_torch.run_family_convergence --task "
@@ -529,49 +586,51 @@ def _kdjpeg(args, ap, logger):
                                 seed=seed)
     else:
         ap.error("no data: pass --root (an image folder) or --synthetic")
-    model = KDJpegModel(cfg, size=d.gt_size, device=args.device)
+    model = KDJpegModel(cfg, size=d.gt_size, device=device, mesh=mesh)
+    items = max(1, d.batch_size // model.qf_classes)
+    images = items * model.qf_classes
+    local_batch_slice(images, mesh)  # raises unless the flat batch divides
     model.init_states(seed)
     step0 = latest_step(cfg.ckpt_dir) if args.resume else None
     if step0 is not None:
         logger.info("resuming kdjpeg from step %d", step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
+    replicate(model, mesh)
+    main_rank = _rank0(mesh)
     start = step0 or 0
-    items = max(1, d.batch_size // model.qf_classes)
     loader = Loader(dataset, items, seed=seed, ratio=d.ratio)
-    scalar_logger = None if args.no_telemetry else ScalarLogger(
-        args.logdir or os.path.join("runs", f"{cfg.name}_kdjpeg"))
-    pb = Progbar(args.steps, stateful_metrics=["PSSIMU"])
+    scalar_logger = None if args.no_telemetry or not main_rank else \
+        ScalarLogger(args.logdir or os.path.join("runs",
+                                                 f"{cfg.name}_kdjpeg"))
+    pb = Progbar(args.steps, stateful_metrics=["PSSIMU"]) \
+        if main_rank else None
     step, times, vals = start, [], {}
     try:
         for versions, labels in loader.stream(start):
             if step >= start + args.steps:
                 break
-            flat, lab = KDJpegModel.collate(versions, labels,
-                                            model.qf_classes)
+            flat, lab, src = model.local_batch(*KDJpegModel.collate(
+                versions, labels, model.qf_classes))
             t0 = time.perf_counter()
-            logs = model.train_step(flat, lab)
+            logs = model.train_step(flat, lab, sources=src)
             vals = {k: float(v) for k, v in logs.items()}  # syncs
             times.append((time.perf_counter() - t0) * 1e3)
             step += 1
-            pb.add(1, values=list(vals.items()))
+            if pb is not None:
+                pb.add(1, values=list(vals.items()))
             if scalar_logger is not None:
                 scalar_logger.log(step, **vals)
-            if step % cfg.train.save_interval == 0:
+            if main_rank and step % cfg.train.save_interval == 0:
                 save_checkpoint(cfg.ckpt_dir, step, model)
     finally:
         if scalar_logger is not None:
             scalar_logger.close()
     ms = float(np.median(times[1:] or times))
     logger.info("done: %s", vals)
-    images = items * model.qf_classes
-    cuda = model.device.type == "cuda"
-    print(json.dumps({
-        **vals, "steps": args.steps, "ms_per_step": ms,
-        "images_per_s": images / ms * 1e3, "batch": images,
-        "size": d.gt_size, "data": "synthetic" if d.synthetic else "images",
-        "resumed_step": step0, "device": str(model.device),
-        "device_name": (torch.cuda.get_device_name(model.device) if cuda
-                        else "cpu")}))
+    _result(model, mesh, vals, steps=args.steps, ms_per_step=ms,
+            images_per_s=images / ms * 1e3, batch=images, size=d.gt_size,
+            data="synthetic" if d.synthetic else "images",
+            resumed_step=step0)
 
 
 def main(argv=None):
@@ -622,36 +681,27 @@ def main(argv=None):
     if args.synthetic and args.root:
         ap.error("--synthetic and --root exclude each other")
 
-    world = world_size_from_env()
-    if world > 1 and args.task != "video":
-        ap.error(f"--task {args.task} does not run data-parallel yet "
-                 f"(WORLD_SIZE={world}): ROADMAP.md §1 queues it after the "
-                 f"flagship's; run it in one process")
-    logger = setup_logger("base")
-    if args.task in ("hidden", "mbrs"):
-        return _message(args, ap, logger)
-    if args.task == "tianchi":
-        return _tianchi(args, ap, logger)
-    if args.task in ("pami", "imuge", "clr"):
-        return _image(args, ap, logger)
-    if args.with_gan or args.use_perceptual or args.jpeg_simulator:
+    if args.task not in ("pami", "imuge", "clr") and (
+            args.with_gan or args.use_perceptual or args.jpeg_simulator):
         ap.error("--with-gan, --use-perceptual and --jpeg-simulator are "
                  "image-family options")
-    if args.task == "kdjpeg":
-        return _kdjpeg(args, ap, logger)
-    if world == 1:
-        return _video(args, ap, logger, args.device)
+    loop = {"hidden": _message, "mbrs": _message, "tianchi": _tianchi,
+            "pami": _image, "imuge": _image, "clr": _image,
+            "kdjpeg": _kdjpeg, "video": _video}[args.task]
+    logger = setup_logger("base")
+    if world_size_from_env() == 1:
+        return loop(args, ap, logger, args.device)
     owned = not dist.is_initialized()
     device = local_device(args.device)
     maybe_init_distributed(device)
     try:
-        return _video(args, ap, logger, device, make_mesh())
+        return loop(args, ap, logger, device, make_mesh())
     finally:
         if owned:
             dist.destroy_process_group()
 
 
-def _video(args, ap, logger, device, mesh=None):
+def _video(args, ap, logger, device, mesh: Mesh = None):
     """``--task video``: train or evaluate the flagship, data-parallel
     over ``mesh``'s ranks when given."""
     cfg = load_config(args.config or FLAGSHIP_CONFIG)
@@ -671,7 +721,7 @@ def _video(args, ap, logger, device, mesh=None):
         logger.info("resuming from step %d", step0)
         restore_checkpoint(cfg.ckpt_dir, step0, model)
     replicate(model, mesh)
-    main_rank = mesh is None or mesh.rank == 0
+    main_rank = _rank0(mesh)
     loader = Loader(dataset, b, seed=cfg.train.seed, rows=rows)
     if args.val:
         outs, ms = _timed(model, iter(loader), args.val_batches,
