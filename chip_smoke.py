@@ -266,7 +266,30 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    variance; with phase 13's per-block rule where the soft JPEG flipped a
    block between the two encodings, counted), an Inf pixel in rank 1's
    rows keeping every state on both ranks, the first updates' cosines
-   printed. It prints one ``{"parallel_families": ...}`` line.
+   printed. It prints one ``{"parallel_families": ...}`` line;
+21. the JPEG-vs-adversarial study and its library (``run_library``): (a)
+   K24 ``diffjpeg`` against its plain version forward and backward at the
+   study's (1, 32, 32, 3), at 64 frames of 256² and at a ragged (3, 48,
+   80, 3) (``DIFFJPEG_ATOL``: every macroblock at the study's and the
+   ragged shape, at 256² every one but those where the plain version sits
+   within rounding of a step, ``kernels/diffjpeg.py::tie_macroblocks``),
+   with NaN and Inf pixels (NaN where the plain version's are), timed warm
+   (cold at 256²) beside the plain version; K5's 4:2:0 mode against its plain
+   version at MBRS's shape, timed beside its 4:4:4 mode; (b) ``python -m
+   vwfd_tpu_torch.jpegadv_experiment``'s ``main`` at the study's defaults
+   (32², 10 classes, n 16, Q 90…10) for each victim A, B, C and each of
+   FGSM, IGSM, targeted IGSM and the JPEG-resistant attack, the launch
+   counts at 0 just before and read just after each run (K24 ×20 an image
+   on ``jpeg_resistant``, nothing else), the summary's rates checked, K24's
+   device time inside victim A's ``jpeg_resistant`` run under
+   ``torch.profiler`` (the row's ``ms``; its ``plain_ms`` the same run's
+   with ``PLAIN``'s K24, by the difference of the two runs' device time),
+   and each ``jpeg_resistant`` run again with ``PLAIN``'s K24 (at most
+   ``STUDY_ROWS_APART`` image apart); (c) K25 ``blockdct`` on the host at
+   256² against its numpy plain version and ``scipy.fft.dctn``, timed,
+   a ``DCTDomainDataset`` item (K25 ×2) and the cvtransforms train and val
+   pipelines on it; (d) the library's ops and losses on the card against
+   the CPU (``LIB_RTOL``). It prints one ``{"study": ...}`` line.
 
 TF32 is off for cuDNN and cuBLAS throughout (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32``), so that the float32 checks
@@ -282,7 +305,9 @@ K11-K13, per int8 detect for K3's int8 stem, ``wire_i8``, per refshape
 roundtrip for K14 and K15, and per HiDDeN train step of the member that
 runs it for K16 and K17, per Tianchi train step for K18, per PAMI train
 step for K19, per CLR train step for K20-K22, per KD-JPEG train step for
-K23;
+K23, per study run (16 images × 10 attack steps) of ``jpeg_resistant`` for
+K24, per ``DCTDomainDataset`` item at 256² for K25 (``route`` ``host``: its
+ms are the host's clock);
 ``launches_by_path`` holds every phase's paths (phase 20's
 ``dp_<task>_train_step`` and ``dp_<task>_eval_step`` among them), K5's
 entry an ``mbrs`` timing at MBRS's shape and K17's a ``wide`` one past its
@@ -319,7 +344,8 @@ from vwfd_tpu_torch.data import Loader, SyntheticVideoDataset
 from vwfd_tpu_torch.attacks import attack_pool_video
 from vwfd_tpu_torch.convert import params_to_jax
 from vwfd_tpu_torch.kernels import (KERNELS, PLAIN, _lib, affine, canny,
-                                    coupling, crop_cubic, crop_resize, f1,
+                                    coupling, crop_cubic, crop_resize,
+                                    diffjpeg, f1,
                                     film, haar, jpeg, launch_counts, mask,
                                     median, mix, qconv, qconv_t, qcoupling,
                                     rectify,
@@ -409,7 +435,13 @@ KERNEL_SOURCES = {
                   "vwfd_tpu/metrics/metrics.py:65"),
     "film_residual": ("vwfd_tpu_torch/csrc/film.cu",
                       "vwfd_tpu/nets/fbcnn.py:40"),
+    "diffjpeg": ("vwfd_tpu_torch/csrc/diffjpeg.cu",
+                 "vwfd_tpu/attacks/jpeg.py:114"),
+    "blockdct": ("vwfd_tpu_torch/csrc/blockdct_host.cpp",
+                 "csrc/blockdct.cpp:35"),
 }
+# K25 runs on the host (the DCT-domain dataset's items), built with g++
+ROUTES = {"blockdct": "host"}
 # a row counted under another kernel's launch count: K3's int8 stem
 COUNT_OF = {"wire_i8": "wire"}
 # one PyTorch call beside a kernel that computes a related, not the same,
@@ -445,7 +477,8 @@ YARDSTICKS = {"coupling_head": "torch.cat + torch.matmul (the unfused head)",
 NO_INT8 = {"qconv": 0, "qconv_t": 0, "qcoupling_head": 0, "haar": 0,
            "coupling_affine": 0, "zigzag_jpeg": 0, "crop_resize": 0,
            "window_attention": 0, "canny_soft": 0, "crop_cubic": 0,
-           "rectify": 0, "ssim_grad": 0, "film_residual": 0}
+           "rectify": 0, "ssim_grad": 0, "film_residual": 0,
+           "diffjpeg": 0}
 ROUNDTRIP_LAUNCHES = {"transition": 6, "coupling_head": 10, "wire": 2,
                       "mask_pack": 1, "jpeg_pair": 0, "median3": 0,
                       "f1_sweep": 0, "ssim": 0, "attack_mix": 0,
@@ -481,7 +514,9 @@ ROW_PATH = {"jpeg_pair": "train_step", "median3": "train_step",
             "canny_soft": "pami_train_step",
             "crop_cubic": "clr_train_step", "rectify": "clr_train_step",
             "ssim_grad": "clr_train_step",
-            "film_residual": "kdjpeg_train_step"}
+            "film_residual": "kdjpeg_train_step",
+            "diffjpeg": "study_jpeg_resistant",
+            "blockdct": "dct_dataset_item"}
 # per value, the least work of the function: 2 passes x 4 sums (mu1, mu2,
 # E[x²+y²], E[xy]; the map takes σ1² + σ2² only as a sum) x 11 FMA = 176,
 # the products x², y² and xy summed 4, the map 15 (its division one), the
@@ -588,9 +623,11 @@ class Row:
         src, rep = KERNEL_SOURCES[self.name]
         path = ROW_PATH.get(self.name, "roundtrip")
         count = COUNT_OF.get(self.name, self.name)
-        out = {"name": self.name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": by_path[path][count],
-               "launches_by_path": {k: v[count] for k, v in by_path.items()},
+        out = {"name": self.name, "route": ROUTES.get(self.name, "cuda"),
+               "source": src, "replaces": rep,
+               "launches": by_path[path][count],
+               "launches_by_path": {k: v.get(count, 0)
+                                    for k, v in by_path.items()},
                "timed_per": path,
                "max_abs_err": self.err, "ms": self.ms,
                "cold_ms": self.cold_ms,
@@ -6648,6 +6685,533 @@ def run_parallel_families(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 21
+# the JPEG-vs-adversarial study and the library around it: K24 diffjpeg,
+# K5's 4:2:0 mode, K25 blockdct (the host), the study end to end, and the
+# library's ops and losses on the card against their CPU results
+
+STUDY_N, STUDY_SIZE, STUDY_STEPS = 16, 32, 10   # the study's defaults
+STUDY_SHAPE = (1, STUDY_SIZE, STUDY_SIZE, 3)    # one image an attack step
+STUDY_ATTACKS = (("fgsm", False), ("igsm", False), ("igsm", True),
+                 ("jpeg_resistant", False))
+# K24 vs plain: forward within DIFFJPEG_ATOL (outputs in [0, 1]) and the
+# gradient within DIFFJPEG_ATOL of its max on every 16×16 macroblock, but
+# for those where the plain version has a coefficient within rounding of
+# the soft round's jump at |c/t| = ½ (forward and gradient) or a pre-clip
+# value within rounding of 0 or 255 (gradient), where the sums' order may
+# tip it (``diffjpeg.tie_macroblocks``); at the study's and the ragged
+# shape those too
+DIFFJPEG_ATOL = 1e-5
+# per pixel, the least work: colour maps 2 × 15, the 2×2 means 1, four
+# 8-term passes over Y (64 flops a value) and over the two quarter-size
+# chroma planes (32), quantisation 6, the clip and /255 3: about 140
+# forward; the backward recomputes it and carries g back: about 420
+DIFFJPEG_OPS = (140, 420)
+# the study, K24 against plain: a gradient sign that is rounding noise may
+# flip between the two (tests/test_torch_adversarial.py), so at most one of
+# the STUDY_N images may end on another label or move its PSNR by more
+# than 0.05 dB
+STUDY_ROWS_APART = 1
+LIB_RTOL = 1e-4  # library ops on the card vs their CPU results, of scale
+
+
+def flipped_mbs(got, want, atol):
+    """16×16 macroblocks (all channels) of NHWC frames where |got − want| >
+    atol, and their number."""
+    n, h, w, c = got.shape
+    d = (got - want).abs().reshape(n, h // 16, 16, w // 16, 16, c)
+    d = d.amax(dim=(2, 4, 5))
+    return int((d > atol).sum()), n * (h // 16) * (w // 16), d
+
+
+def diffjpeg_against_plain(what, x, f, cot, strict):
+    """K24 and its plain version forward and backward at x: NaN where the
+    plain version's are, within ``DIFFJPEG_ATOL`` on every macroblock
+    (``strict``) or on every one that is not a tie of the plain version;
+    returns (parted fwd, parted grad, ties fwd, ties grad, macroblocks, max
+    err outside the parted fwd, grad)."""
+    (yk,), (gk,) = grads_of(lambda v: diffjpeg.diffjpeg(v, f), [x], [True],
+                            cot)
+    (yp,), (gp,) = grads_of(lambda v: diffjpeg.diffjpeg_plain(v, f), [x],
+                            [True], cot)
+    torch.cuda.synchronize()
+    for name, k, p in (("forward", yk, yp), ("gradient", gk, gp)):
+        check(torch.equal(k.isnan(), p.isnan()),
+              f"{what} {name}: NaN at other places than the plain version's "
+              f"({int(k.isnan().sum())} vs {int(p.isnan().sum())})")
+    yk, yp, gk, gp = (torch.nan_to_num(t, nan=0.0) for t in (yk, yp, gk, gp))
+    gscale = float(gp.abs().max()) or 1.0
+    fb, mbs, dy = flipped_mbs(yk, yp, DIFFJPEG_ATOL)
+    gfb, _, dg = flipped_mbs(gk, gp, DIFFJPEG_ATOL * gscale)
+    jump, tie = diffjpeg.tie_macroblocks(x, f)
+    if strict:
+        jump, tie = torch.zeros_like(jump), torch.zeros_like(tie)
+    loose_y = int(((dy > DIFFJPEG_ATOL) & ~jump).sum())
+    loose_g = int(((dg > DIFFJPEG_ATOL * gscale) & ~tie).sum())
+    check(loose_y == 0 and loose_g == 0,
+          f"{what}: {loose_y} / {loose_g} of {mbs} macroblocks differ where "
+          f"the plain version has no tie (forward / gradient; {fb} / {gfb} "
+          f"in all, {int(jump.sum())} / {int(tie.sum())} ties)")
+    calm_y = float(dy[dy <= DIFFJPEG_ATOL].max()) if fb < mbs else 0.0
+    calm_g = (float(dg[dg <= DIFFJPEG_ATOL * gscale].max()) / gscale
+              if gfb < mbs else 0.0)
+    return fb, gfb, int(jump.sum()), int(tie.sum()), mbs, calm_y, calm_g
+
+
+def check_diffjpeg(rows, card):
+    """(a) K24 against its plain version, forward and backward, at the
+    study's (1, 32, 32, 3), at K5's train shape (64 frames of 256²) and at
+    a ragged (3, 48, 80, 3) (a last CTA with one macroblock of four), at
+    the study's Q75 and at Q50, with a saturated macroblock (the clip); with
+    NaN and Inf pixels; timed warm (and at the train shape with a cold L2)
+    beside the plain version, with its bound. Then K5's 4:2:0 mode against
+    its plain version at MBRS's shape, timed beside its 4:4:4 mode."""
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    from vwfd_tpu_torch.ops.quantize import quality_to_factor
+    row = rows["diffjpeg"]
+    g = torch.Generator("cuda").manual_seed(210)
+    train = (B * T, S, S, 3)
+    flips, calm_y, calm_g = {}, 0.0, 0.0
+    # (3, 48, 80): 45 macroblocks, the last CTA's one live macroblock of 4
+    for shape in (STUDY_SHAPE, train, (3, 48, 80, 3)):
+        for q in (75, 50):
+            x = torch.rand(shape, device="cuda", generator=g)
+            x[:, :16, :16] = 1.0
+            f = torch.full((shape[0],), quality_to_factor(q), device="cuda")
+            cot = torch.randn(shape, device="cuda", generator=g)
+            fb, gfb, tj, tg, mbs, cy, cg = diffjpeg_against_plain(
+                f"diffjpeg {shape} Q{q}", x, f, cot, shape != train)
+            flips[f"{shape[0]}x{shape[1]}_Q{q}"] = [fb, gfb, tj, tg, mbs]
+            calm_y, calm_g = max(calm_y, cy), max(calm_g, cg)
+    bad = torch.rand((2, 48, 64, 3), device="cuda", generator=g)
+    bad[0, 5, 9, 1] = float("nan")
+    bad[1, 30, 40, 0] = float("inf")
+    diffjpeg_against_plain("diffjpeg non-finite", bad,
+                           torch.full((2,), 0.5, device="cuda"),
+                           torch.randn(bad.shape, device="cuda",
+                                       generator=g), False)
+    print(f"check diffjpeg (K24) f32: parted macroblocks (forward, "
+          f"gradient, the plain version's ties forward, gradient, of; none "
+          f"parted but ties) {json.dumps(flips)}; max_abs_err outside them "
+          f"{calm_y:.3g} (gradient {calm_g:.3g} of its max); with NaN and "
+          f"Inf pixels NaN where the plain version's are")
+
+    f75 = quality_to_factor(75)
+
+    def times(shape, cold):
+        n = shape[0]
+        f = torch.full((n,), f75, device="cuda")
+        fn = lambda v: diffjpeg.diffjpeg(v, f)  # noqa: E731
+        pfn = lambda v: diffjpeg.diffjpeg_plain(v, f)  # noqa: E731
+        make = lambda i: (torch.rand(shape, device="cuda", generator=g),  # noqa: E731,E501
+                          torch.randn(shape, device="cuda", generator=g))
+        sets = cold_sets(make, 5 * 4 * math.prod(shape)) if cold \
+            else [make(0)]
+        kf, kb, cf, cb = fused_times(fn, sets, [True])
+        pf, pb, _, _ = fused_times(pfn, sets[:1], [True])
+        px = n * shape[1] * shape[2]
+        bf, _ = bound(24 * px, DIFFJPEG_OPS[0] * px)
+        bb, _ = bound(36 * px, DIFFJPEG_OPS[1] * px)
+        return {"shape": list(shape), "fwd_ms": kf, "bwd_ms": kb,
+                "cold_ms": (cf + cb) if cold else None, "plain_fwd_ms": pf,
+                "plain_bwd_ms": pb, "bound_fwd_ms": bf, "bound_bwd_ms": bb}
+
+    step = times(STUDY_SHAPE, False)
+    big = times(train, True)
+    row.err = calm_y  # (ms and plain_ms: the study run's, run_study_phase)
+    row.extra.update({"step": step, "train_shape": big,
+                      "parted_macroblocks": flips,
+                      "grad_err_of_max": calm_g})
+    for name, t in (("study step", step), ("train shape", big)):
+        k = t["fwd_ms"] + t["bwd_ms"]
+        b = t["bound_fwd_ms"] + t["bound_bwd_ms"]
+        print(f"check diffjpeg {name} {t['shape']} ms fwd={t['fwd_ms']:.5f} "
+              f"bwd={t['bwd_ms']:.5f} cold={t['cold_ms']} plain "
+              f"fwd={t['plain_fwd_ms']:.4f} bwd={t['plain_bwd_ms']:.4f} "
+              f"bound_ms={b:.5f} (bytes) share_of_bound={b / k:.4f} "
+              f"[{card}]")
+
+    # K5's 4:2:0 mode (jpeg_basic(subsample=2)) at MBRS's shape
+    x = torch.rand(MBRS_SHAPE, device="cuda", generator=g)
+    cot = torch.randn(MBRS_SHAPE, device="cuda", generator=g)
+    sub_flips, sub_calm = {}, 0.0
+    for rounding in ("round", "ss"):
+        for q in (0, 2, 4):
+            fb, gfb, c = k5_against_plain(
+                f"jpeg_basic 4:2:0 {rounding} q_idx {q}",
+                lambda v: jpeg_basic(v, q, rounding, subsample=2),
+                lambda v: jpeg_basic(v, q, rounding, subsample=2,
+                                     kernels=PLAIN), x, cot)
+            sub_flips[f"{rounding}_{q}"] = [fb, gfb]
+            sub_calm = max(sub_calm, c)
+    n = MBRS_B
+    qt = quant_tables(torch.full((n, 2), 4, device="cuda")).contiguous()
+    mode = torch.ones((n, 2), dtype=torch.int32, device="cuda")
+    w = torch.tensor([[1.0, 0.0]], device="cuda").expand(n, 2).contiguous()
+    sets = [(x, cot)]
+    t = {}
+    for sub in (0, 2):
+        kf, kb, _, _ = fused_times(
+            lambda v: jpeg.jpeg_pair(v, qt, mode, w, subsample=sub), sets,
+            [True])
+        pf, pb, _, _ = fused_times(
+            lambda v: jpeg.jpeg_pool_pair_plain(v, qt, mode, w, sub), sets,
+            [True])
+        t[sub] = (kf, kb, pf, pb)
+    nb = nbytes(x)
+    bms, by = bound(5 * nb, x.numel() * (64 + 20 + 96 + 30))
+    rows["jpeg_pair"].extra["sub420"] = {
+        "shape": list(MBRS_SHAPE), "mode": "ss Q90 (fwd + bwd)",
+        "fwd_ms": t[2][0], "bwd_ms": t[2][1], "plain_ms": t[2][2] + t[2][3],
+        "mode0_fwd_ms_same_call": t[0][0], "mode0_bwd_ms_same_call": t[0][1],
+        "bound_ms": bms, "bound_by": by, "flipped_blocks": sub_flips,
+        "max_abs_err_outside_flips": sub_calm}
+    print(f"check jpeg_basic 4:2:0 (K5) {MBRS_SHAPE}: flipped blocks "
+          f"{json.dumps(sub_flips)}; max_abs_err outside them {sub_calm:.3g};"
+          f" ms fwd={t[2][0]:.5f} bwd={t[2][1]:.5f} (4:4:4 fwd={t[0][0]:.5f}"
+          f" bwd={t[0][1]:.5f}) plain={t[2][2] + t[2][3]:.4f} "
+          f"bound_ms={bms:.5f} ({by}) [{card}]")
+
+
+def device_ms(fn, names):
+    """Device ms of one call of ``fn`` under ``torch.profiler``: of the
+    kernels named ``names`` and of every device event."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    mine = total = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            total += ms
+            name = e.name.replace("(anonymous namespace)::", "")
+            if name.split("(")[0].split("::")[-1] in names:
+                mine += ms
+    return mine, total
+
+
+def run_study_phase(rows, card):
+    """(b) The study through its entry point
+    (``python -m vwfd_tpu_torch.jpegadv_experiment``'s ``main``) on the card
+    at its defaults for every victim and attack, with the launch counts at
+    0 just before and read just after each run (K24 ×2 a step of
+    ``jpeg_resistant``, nothing else); each ``jpeg_resistant`` run again
+    with ``PLAIN``'s K24 on the same weights and images. K24's row: its
+    device time inside victim A's ``jpeg_resistant`` run (``run_study`` on
+    the entry point's weights and images) under ``torch.profiler``, and
+    the plain K24's as the same run's with ``PLAIN`` less the device time
+    the two runs share (all but K24's)."""
+    import contextlib
+    import io
+    from vwfd_tpu_torch import jpegadv_experiment as study
+    zero = {k: 0 for k in ROUNDTRIP_LAUNCHES}
+    out, by_path = {}, {}
+    for victim in "ABC":
+        for attack, targeted in STUDY_ATTACKS:
+            args = ["--victim", victim, "--attack", attack, "--n",
+                    str(STUDY_N)] + (["--targeted"] if targeted else [])
+            buf = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                summary = study.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            want = dict(zero)
+            if attack == "jpeg_resistant":
+                want["diffjpeg"] = 2 * STUDY_STEPS * STUDY_N
+            check(launches == want, f"study {args}: launches {launches}")
+            line = json.loads(buf.getvalue().splitlines()[-1])
+            for k in ("adv_fooled_rate", "adv_target_rate"):
+                check(0.0 <= line[k] <= 1.0 and line[k] == summary[k],
+                      f"study {args}: {k} {line[k]}")
+            check(all(math.isfinite(r["adv_psnr"]) and r["adv_psnr"] > 20
+                      for r in summary["rows"]),
+                  f"study {args}: an adversarial image's PSNR")
+            name = f"{victim}_{attack}{'_targeted' if targeted else ''}"
+            res = {"fooled": line["adv_fooled_rate"],
+                   "target": line["adv_target_rate"], "wall_s": wall}
+            if attack == "jpeg_resistant":
+                if victim == "A":
+                    by_path["study_jpeg_resistant"] = launches
+                model = study.build_victim(victim, 10, STUDY_SIZE)
+                images = np.random.default_rng(0).random(
+                    (STUDY_N, STUDY_SIZE, STUDY_SIZE, 3)).astype(np.float32)
+                reset_launch_counts()
+                plain = study.run_study(model, images, attack, False, 0.03,
+                                        [90, 70, 50, 30, 10], kernels=PLAIN,
+                                        log=lambda s: None)
+                check(launch_counts()["diffjpeg"] == 0, "plain study: K24")
+                if victim == "A":
+                    k24_run_ms(rows["diffjpeg"], study, model, images, card)
+                apart = sum(a["adv_label"] != b["adv_label"]
+                            or abs(a["adv_psnr"] - b["adv_psnr"]) > 0.05
+                            for a, b in zip(summary["rows"], plain["rows"]))
+                check(apart <= STUDY_ROWS_APART,
+                      f"study {victim} jpeg_resistant: {apart} images apart "
+                      f"from the plain K24's")
+                res.update(plain_fooled=plain["adv_fooled_rate"],
+                           plain_target=plain["adv_target_rate"],
+                           rows_apart=apart)
+            out[name] = res
+            if victim == "A" and attack == "igsm" and not targeted:
+                by_path["study_igsm"] = launches
+    print(json.dumps({"study": out, "n": STUDY_N, "size": STUDY_SIZE,
+                      "card": card}))
+    return by_path
+
+
+def k24_run_ms(row, study, model, images, card):
+    """K24's device time in one ``jpeg_resistant`` study run (320 launches)
+    and the plain K24's in the same run with ``PLAIN``, into its row with
+    the run's bound."""
+    def run(kernels):
+        return lambda: study.run_study(
+            model, images, "jpeg_resistant", False, 0.03,
+            [90, 70, 50, 30, 10], kernels=kernels, log=lambda s: None)
+    k_ms, k_total = device_ms(run(None), ("diffjpeg_fwd", "diffjpeg_bwd"))
+    _, p_total = device_ms(run(PLAIN), ())
+    plain_ms = p_total - (k_total - k_ms)
+    steps = STUDY_N * STUDY_STEPS  # the run's attack steps
+    px = math.prod(STUDY_SHAPE[:3])
+    row.add(k_ms, plain_ms, steps * 60 * px, steps * sum(DIFFJPEG_OPS) * px)
+    row.extra["in_run"] = {
+        "run": "victim A jpeg_resistant, 16 images x 10 steps",
+        "device_ms_run": k_total, "device_ms_run_plain": p_total,
+        "plain_ms_by": "difference of the two runs' device time"}
+    print(f"check diffjpeg in a jpeg_resistant run ({2 * steps} launches): "
+          f"device ms {k_ms:.4f} (run {k_total:.3f}); plain K24 "
+          f"{plain_ms:.3f} (run {p_total:.3f}) [{card}]")
+
+
+def run_dct_data(rows, card):
+    """(c) K25 against its plain version on the card machine's host at 256²
+    (the coefficients within 1e-4 of their max), timed (the median of 7
+    rounds) beside the plain version and ``scipy.fft.dctn`` of the blocks; ``DCTDomainDataset`` at
+    256² with the count at 0 just before an item and read just after (K25
+    ×2: Y, then Cb and Cr), and the cvtransforms train and val pipelines
+    on it."""
+    import random
+    from vwfd_tpu_torch import native
+    from vwfd_tpu_torch.data import cvtransforms as cvt
+    from vwfd_tpu_torch.data.jpeg_data import DCTDomainDataset
+    row = rows["blockdct"]
+    rng = np.random.default_rng(25)
+    y = (rng.random((256, 256)) * 255 - 128).astype(np.float32)
+    c = (rng.random((2, 128, 128)) * 255 - 128).astype(np.float32)
+    err = 0.0
+    for p in (y, c):
+        got, want = native.blockwise_dct(p), native.blockwise_dct_plain(p)
+        e = float(np.abs(got - want).max())
+        check(e <= 1e-4 * float(np.abs(want).max()), f"blockdct err {e}")
+        err = max(err, e)
+
+    def host_ms(fn, reps=20, rounds=7):
+        """The median over ``rounds`` of the mean of ``reps`` calls (the
+        host's clock: a shared host's cores make single rounds spread)."""
+        fn()
+        means = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            means.append((time.perf_counter() - t0) / reps * 1e3)
+        return float(np.median(means))
+
+    ms = host_ms(lambda: native.blockwise_dct(y)) + \
+        host_ms(lambda: native.blockwise_dct(c))
+    plain_ms = host_ms(lambda: native.blockwise_dct_plain(y)) + \
+        host_ms(lambda: native.blockwise_dct_plain(c))
+    library_ms = None
+    try:
+        import scipy.fft
+
+        def lib(p):
+            b = p.reshape(*p.shape[:-2], p.shape[-2] // 8, 8,
+                          p.shape[-1] // 8, 8).swapaxes(-3, -2)
+            return scipy.fft.dctn(b, norm="ortho", axes=(-2, -1))
+        ref = lib(y).reshape(32, 32, 64)
+        check(float(np.abs(ref - native.blockwise_dct(y)).max())
+              <= 1e-4 * float(np.abs(ref).max()), "blockdct vs scipy")
+        library_ms = host_ms(lambda: lib(y)) + host_ms(lambda: lib(c))
+    except ImportError:
+        pass
+    values = y.size + c.size  # read each once, write each once
+    row.err = err
+    row.add(ms, plain_ms, 8 * values, 2 * 1024 * (values // 64),
+            library_ms=library_ms)
+    row.extra["host"] = ("the card machine's host CPU: host ms by "
+                         "time.perf_counter; bound_ms from the card's table "
+                         "as for every row")
+    ds = DCTDomainDataset(size=256, synthetic_length=4)
+    native.COUNT.n = 0
+    item = ds[0]
+    launches = {"blockdct": native.COUNT.n}
+    check(launches["blockdct"] == 2, f"DCT item: K25 launches {launches}")
+    check(item["dct_y"].shape == (32, 32, 64)
+          and item["dct_cb"].shape == (16, 16, 64)
+          and all(np.isfinite(v).all() for v in item.values()),
+          "DCT item shapes or values")
+    trip = (item["dct_y"], item["dct_cb"], item["dct_cr"])
+    r = random.Random(0)
+    train = cvt.Compose([
+        cvt.UpsampleCbCr(), cvt.SubsetDCT2(channels=24),
+        cvt.RandomResizedCropDCT(size=224, rng=r), cvt.Aggregate2(),
+        cvt.RandomHorizontalFlip(rng=r), cvt.ToTensorDCT2(),
+        cvt.NormalizeDCT(np.zeros(192), np.ones(192), channels=24)])
+    val = cvt.Compose([
+        cvt.UpsampleCbCr(), cvt.SubsetDCT2(channels=24),
+        cvt.Resize(28), cvt.CenterCropDCT(size=224), cvt.Aggregate2(),
+        cvt.ToTensorDCT2(),
+        cvt.NormalizeDCT(np.zeros(192), np.ones(192), channels=24)])
+    for name, tf in (("train", train), ("val", val)):
+        t = tf(trip)
+        check(t.shape == (24, 28, 28) and np.isfinite(t).all(),
+              f"cvtransforms {name}: {t.shape}")
+    print(f"check blockdct (K25, host) 256² item: max_abs_err {err:.3g}; "
+          f"ms {ms:.4f} plain {plain_ms:.4f} scipy {library_ms}; "
+          f"DCTDomainDataset item K25 x2, train and val pipelines "
+          f"(24, 28, 28) [{card}]")
+    return {"dct_dataset_item": launches}
+
+
+def lib_cases(g):
+    """The library's ops and losses: (name, function, inputs, whether the
+    inputs take a gradient)."""
+    from vwfd_tpu_torch.attacks import gf_attack
+    from vwfd_tpu_torch.attacks import stegastamp as steg
+    from vwfd_tpu_torch.metrics import losses as L
+    from vwfd_tpu_torch.ops import color, dwt, filters, morphology, resize
+    from vwfd_tpu_torch.ops import warp
+
+    def r(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=g)
+
+    img, img2 = r(2, 32, 48, 3), r(2, 32, 48, 3)
+    mask = (r(2, 32, 48, 1) > 0.5).float()
+    u5, u42 = r(5), r(4, 2)
+    uh, ub = r(2, 1, 1, 3), r(2, 1, 1, 1)
+    logits, target = r(4, 10, lo=-3, hi=3), torch.tensor([1, 0, 9, 3])
+    cases = [
+        ("rgb_to_ycbcr_diffjpeg", color.rgb_to_ycbcr_diffjpeg,
+         [img * 255], True),
+        ("ycbcr_to_rgb_diffjpeg", color.ycbcr_to_rgb_diffjpeg,
+         [img * 255], True),
+        ("rgb_to_y_bt601", color.rgb_to_y_bt601, [img], True),
+        ("avg_pool_2x2", filters.avg_pool_2x2, [img], True),
+        ("median_5", lambda v: filters.median_blur(v, 5), [img], True),
+        ("resize_lanczos_aa", lambda v: resize.resize(v, (13, 20),
+                                                      "lanczos", True),
+         [img], True),
+        ("resize_bicubic_aa", lambda v: resize.resize_bicubic(
+            v, (13, 20), antialias=True), [img], True),
+        ("dwt", dwt.dwt, [img], True),
+        ("iwt", dwt.iwt, [r(2, 16, 24, 12)], True),
+        ("dilate", lambda m: morphology.dilate(m, 2), [mask], False),
+        ("erode", lambda m: morphology.erode(m, 2), [mask], False),
+        ("closing", morphology.closing, [mask], False),
+        ("opening", morphology.opening, [mask], False),
+        ("blur_kernel", steg.random_blur_kernel, [u5], False),
+        ("apply_blur_kernel", lambda v, u: steg.apply_blur_kernel(
+            v, steg.random_blur_kernel(u)), [img, u5], True),
+        ("perspective", steg.random_perspective, [img, u42], True),
+        ("brightness_hue", steg.random_brightness_hue, [img, uh, ub],
+         True),
+        ("gf_attack", gf_attack, [img], True),
+        ("smooth_l1", L.smooth_l1, [img, img2], True),
+        ("reconstruction_loss", L.reconstruction_loss, [img, img2], True),
+        ("ssim_loss_map", L.ssim_loss_map, [img, img2], True),
+        ("exclusion_loss", L.exclusion_loss, [img, img2], True),
+        ("gradient_loss", L.gradient_loss, [img], True),
+        ("grayscale_loss", L.grayscale_loss, [img, img2], True),
+        ("extended_l1_loss", L.extended_l1_loss, [img, img2, mask], True),
+        ("non_blurry_loss", L.non_blurry_loss, [img], True),
+        ("std_loss", L.std_loss, [img], True),
+        ("dice_loss", L.dice_loss, [img, (img2 > 0.5).float()], True),
+        ("cw_loss", lambda v, t: L.cw_loss(v, t, False, 10, 0.5),
+         [logits, target], False),
+    ]
+    for interp in ("bilinear", "nearest"):
+        for pad in ("zeros", "border"):
+            cases.append((f"flow_warp_{interp}_{pad}",
+                          lambda v, f, i=interp, p=pad: warp.flow_warp(
+                              v, f, i, p), [img, r(2, 32, 48, 2, lo=-3,
+                                                   hi=3)], True))
+    return cases
+
+
+def run_library_ops(card):
+    """(d) Each library op and loss on the card against the same function
+    on the CPU (TF32 off), forward and input gradients within ``LIB_RTOL``
+    of their scale; ``gradient_penalty`` on a discriminator (dim 8) with
+    the same weights on both."""
+    from vwfd_tpu_torch.metrics import losses as L
+    from vwfd_tpu_torch.nets.discriminator import Discriminator
+    g = torch.Generator().manual_seed(211)
+    worst = {}
+    for name, fn, ins, diff in lib_cases(g):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            xs = [t.to(dev).clone() for t in ins]
+            needs = [diff and t.is_floating_point() for t in xs]
+            if any(needs):
+                xs = [t.requires_grad_(True) if n else t
+                      for t, n in zip(xs, needs)]
+            y = fn(*xs)
+            # (a nearest warp's flow reaches the output through indices
+            # alone: no gradient, compared as zeros)
+            grads = (torch.autograd.grad(
+                y, [t for t in xs if t.requires_grad],
+                torch.ones_like(y) if y.dim() else None, allow_unused=True)
+                if any(needs) else [])
+            outs.append([y.detach().cpu()] + [
+                torch.zeros(()) if t is None else t.cpu() for t in grads])
+        err = 0.0
+        for a, b in zip(*outs):
+            scale = float(a.abs().max()) or 1.0
+            e = float((a.float() - b.float()).abs().max()) / scale
+            check(e <= LIB_RTOL, f"library op {name} on the card: {e:.3g}")
+            err = max(err, e)
+        worst[name] = err
+    net = Discriminator(dim=8, use_sigmoid=False, use_spectral_norm=False)
+    net.init_params(torch.Generator().manual_seed(212))
+    real, fake = torch.rand(2, 32, 32, 3, generator=g), \
+        torch.rand(2, 32, 32, 3, generator=g)
+    eps = torch.rand(2, 1, 1, 1, generator=g)
+    pens = []
+    for dev in ("cpu", "cuda"):
+        d = net.to(dev)
+        pens.append(float(L.gradient_penalty(d, eps.to(dev), real.to(dev),
+                                             fake.to(dev)).detach()))
+    net.cpu()
+    e = abs(pens[0] - pens[1]) / max(abs(pens[0]), 1e-12)
+    check(e <= LIB_RTOL, f"gradient_penalty on the card: {e:.3g}")
+    worst["gradient_penalty"] = e
+    print(f"check library ops on the card vs the CPU (of scale): "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} "
+          f"[{card}]")
+
+
+def run_library(rows, card):
+    """Phase 21: (a) K24 and K5's 4:2:0 mode, (b) the study, (c) K25 and
+    the DCT-domain data, (d) the library on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_diffjpeg(rows, card)
+    t1 = time.perf_counter()
+    launches = run_study_phase(rows, card)
+    t2 = time.perf_counter()
+    launches.update(run_dct_data(rows, card))
+    run_library_ops(card)
+    print(f"phase 21: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c)+(d) "
+          f"{time.perf_counter() - t2:.1f} s")
+    return launches
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-child":
         return dp_child(sys.argv[2])
@@ -6733,13 +7297,17 @@ def main():
     dpf_launches = run_parallel_families(card)
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; script so far "
           f"{time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
+    lib_launches = run_library(rows, card)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; script so far "
+          f"{time.perf_counter() - t0:.1f} s")
 
     by_path = {"roundtrip": launches, "train_step": train_launches,
                "eval_step": eval_launches, **int8_launches,
                **conv_launches, **ref_launches, **hid_launches,
                **mbrs_launches, **serve_launches, **tc_launches,
                **img_launches, **clr_launches, **kd_launches,
-               **dp_launches, **dpf_launches}
+               **dp_launches, **dpf_launches, **lib_launches}
     print(json.dumps({"kernels": [rows[n].json(by_path)
                                   for n in KERNEL_SOURCES]}))
     print(json.dumps({"ok": True, "device": {

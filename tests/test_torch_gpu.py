@@ -124,7 +124,7 @@ _NO_INT8 = {"zigzag_jpeg": 0, "crop_resize": 0, "qconv": 0, "qconv_t": 0,
             "qcoupling_head": 0, "haar": 0,
             "coupling_affine": 0, "window_attention": 0, "canny_soft": 0,
             "crop_cubic": 0, "rectify": 0, "ssim_grad": 0,
-            "film_residual": 0}
+            "film_residual": 0, "diffjpeg": 0}
 
 
 @pytest.fixture
@@ -993,7 +993,8 @@ def test_int8_server_on_card_matches_plain_and_counts_launches(cuda):
                                "zigzag_jpeg": 0, "crop_resize": 0,
                                "window_attention": 0, "canny_soft": 0,
                                "crop_cubic": 0, "rectify": 0,
-                               "ssim_grad": 0, "film_residual": 0}
+                               "ssim_grad": 0, "film_residual": 0,
+                               "diffjpeg": 0}
     want = ref.serve(clip, "roundtrip")
     diff = np.abs(got.watermarked.astype(int) - want.watermarked.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999
@@ -2105,3 +2106,120 @@ def test_launch_runs_on_the_tensors_card(two_cards):
         assert got.device == dev and t.device == dev
         assert torch.equal(got, wire.to_channels_plain(clip, torch.bfloat16))
         _close(t, transition.transition_plain(x, "p2p"))
+
+
+# ------------------------------------------------------------ K24, K5 4:2:0,
+# the JPEG-vs-adversarial study
+
+def _dj_grads(fn, x, cot):
+    xg = x.clone().requires_grad_(True)
+    y = fn(xg)
+    (g,) = torch.autograd.grad(y, xg, cot)
+    return y.detach(), g
+
+
+def _parted_mbs(got, want, atol):
+    """(N, H/16, W/16): the 16×16 macroblocks (all channels) where |got −
+    want| > atol."""
+    n, h, w, c = got.shape
+    d = (got - want).abs().reshape(n, h // 16, 16, w // 16, 16, c)
+    return d.amax(dim=(2, 4, 5)) > atol
+
+
+# the study's single image; 45 macroblocks (the last CTA holds one of its
+# four); a batch of 256² frames
+@pytest.mark.parametrize("shape", [(1, 32, 32, 3), (3, 48, 80, 3),
+                                   (8, 256, 256, 3)])
+@pytest.mark.parametrize("q", [75, 30])
+def test_diffjpeg_kernel_matches_plain(cuda, shape, q):
+    """K24 forward within 1e-5 and its gradient within 1e-5 of the plain
+    max on every macroblock at the study's and the ragged shape, and at
+    256² on every one where the plain version has no tie
+    (``diffjpeg.tie_macroblocks``); two launches."""
+    from vwfd_tpu_torch.kernels import diffjpeg
+    from vwfd_tpu_torch.ops.quantize import quality_to_factor
+    g = _gen(27)
+    x = torch.rand(shape, device=cuda, generator=g)
+    x[:, :16, :16] = 1.0
+    f = torch.full((shape[0],), quality_to_factor(q), device=cuda)
+    cot = torch.randn(shape, device=cuda, generator=g)
+    before = launch_counts()["diffjpeg"]
+    yk, gk = _dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x, cot)
+    yp, gp = _dj_grads(lambda v: diffjpeg.diffjpeg_plain(v, f), x, cot)
+    torch.cuda.synchronize()
+    assert launch_counts()["diffjpeg"] == before + 2
+    bad = _parted_mbs(yk, yp, 1e-5)
+    gbad = _parted_mbs(gk, gp, 1e-5 * float(gp.abs().max()))
+    if shape[1] == 256:
+        jump, tie = diffjpeg.tie_macroblocks(x, f)
+        bad, gbad = bad & ~jump, gbad & ~tie
+    assert int(bad.sum()) == 0 and int(gbad.sum()) == 0, (
+        int(bad.sum()), int(gbad.sum()), bad.numel())
+
+
+def test_diffjpeg_nonfinite_as_plain(cuda):
+    from vwfd_tpu_torch.kernels import diffjpeg
+    g = _gen(28)
+    x = torch.rand(2, 48, 64, 3, device=cuda, generator=g)
+    x[0, 5, 9, 1] = float("nan")
+    x[1, 30, 40, 0] = float("inf")
+    f = torch.full((2,), 0.5, device=cuda)
+    cot = torch.randn(x.shape, device=cuda, generator=g)
+    yk, gk = _dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x, cot)
+    yp, gp = _dj_grads(lambda v: diffjpeg.diffjpeg_plain(v, f), x, cot)
+    assert torch.equal(yk.isnan(), yp.isnan()) and bool(yk.isnan().any())
+    assert torch.equal(gk.isnan(), gp.isnan())
+
+
+@pytest.mark.parametrize("rounding", ["round", "ss"])
+def test_jpeg_basic_420_on_k5_matches_plain(cuda, rounding):
+    """K5's 4:2:0 mode against its plain version: 1e-4 outside flipped 8×8
+    blocks (at most one in a thousand, or one), forward and gradient."""
+    from vwfd_tpu_torch.attacks import jpeg_basic
+    g = _gen(29)
+    x = torch.rand(4, 64, 96, 3, device=cuda, generator=g)
+    cot = torch.randn(x.shape, device=cuda, generator=g)
+    for q in (0, 2, 4):
+        before = launch_counts()["jpeg_pair"]
+        yk, gk = _dj_grads(lambda v: jpeg_basic(v, q, rounding, subsample=2),
+                           x, cot)
+        yp, gp = _dj_grads(lambda v: jpeg_basic(v, q, rounding, subsample=2,
+                                                kernels=PLAIN), x, cot)
+        torch.cuda.synchronize()
+        assert launch_counts()["jpeg_pair"] == before + 2
+        bad, blocks = _flipped_blocks(yk, yp, 1e-4)
+        gbad, _ = _flipped_blocks(gk, gp, 1e-4 * float(gp.abs().max()))
+        assert max(bad, gbad) <= max(1, blocks // 1000), (q, bad, gbad)
+
+
+def test_study_jpeg_resistant_launches_k24_on_every_step(cuda):
+    """``python -m vwfd_tpu_torch.jpegadv_experiment --attack
+    jpeg_resistant`` on the card: K24 forward and backward on each of the
+    10 steps of each image, and no other kernel."""
+    import contextlib
+    import io
+    from vwfd_tpu_torch import jpegadv_experiment as study
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = study.main(["--attack", "jpeg_resistant", "--n", "2"])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "diffjpeg": 40}
+    assert 0.0 <= summary["adv_fooled_rate"] <= 1.0
+
+
+def test_library_losses_on_the_card_match_the_cpu(cuda):
+    from vwfd_tpu_torch.metrics import losses as L
+    g = torch.Generator().manual_seed(30)
+    a, b = torch.rand(2, 16, 24, 3, generator=g), \
+        torch.rand(2, 16, 24, 3, generator=g)
+    for name in ("smooth_l1", "reconstruction_loss", "ssim_loss_map",
+                 "exclusion_loss", "gradient_loss", "grayscale_loss",
+                 "std_loss"):
+        fn = getattr(L, name)
+        want = fn(a, b) if name not in ("gradient_loss", "std_loss") \
+            else fn(a)
+        got = (fn(a.to(cuda), b.to(cuda))
+               if name not in ("gradient_loss", "std_loss")
+               else fn(a.to(cuda)))
+        _close(got.cpu(), want)

@@ -20,7 +20,7 @@ from .jpeg import QUALITIES, jpeg_pool_pair
 from .spatial import DEFAULT_RATIOS, resize_roundtrip
 
 __all__ = ["ATTACK_POOL_SIZE", "AttackDraws", "sample_attack_draws",
-           "attack_pool_video"]
+           "attack_pool_video", "combined_switch", "sample_switch_index"]
 
 ATTACK_POOL_SIZE = 5  # resize, jpeg strong, jpeg weak, median, gaussian blur
 
@@ -72,3 +72,17 @@ def attack_pool_video(video: torch.Tensor, draws: AttackDraws,
     out = kernels.attack_mix(flat, a0.contiguous(), a_jpeg, a3, alpha,
                              epilogue)
     return out.reshape(video.shape)
+
+
+def sample_switch_index(generator: torch.Generator, n: int) -> int:
+    """``combined_switch``'s draw: a uniform member index in [0, n)."""
+    return int(torch.randint(0, n, (), generator=generator,
+                             device=generator.device))
+
+
+def combined_switch(img: torch.Tensor, attack_fns, idx) -> torch.Tensor:
+    """Uniform random member selection (noise_layers/combined.py:15-20;
+    ``vwfd_tpu/attacks/combined.py:13-22``): member ``idx`` (the explicit
+    draw, ``sample_switch_index``) of ``attack_fns``, each a function of
+    the image with its own draws bound."""
+    return attack_fns[int(idx)](img)

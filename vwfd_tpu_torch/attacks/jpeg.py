@@ -17,6 +17,17 @@ same way: the JAX ``jpeg_pool(key, img, qualities)`` of Tianchi's QF
 bands (``quality_tables`` builds tables from quality values, Q < 50
 scaling by 50/Q).
 
+``jpeg_basic(subsample=2)`` takes 4:2:0 chroma (``:67-75``) through K5's
+4:2:0 mode; ``jpeg_mask`` (``:93-107``) is JpegMask, one draw of K5 in its
+zonal mode 2 (the quality is accepted and ignored, as the reference's).
+
+``diffjpeg`` (``:114-146``) is the reference's DiffJPEG (utils/JPEG.py:
+501-540): DiffJPEG YCbCr, 2×2-mean chroma, centred DCT, the transposed
+tables times the quality factor, the x³ soft round, JAX's clip, through
+K24 (``kernels/diffjpeg.py``). ``diffjpeg_pool`` (``:226-234``) is one draw
+of ``Combined([DiffJPEG(Q) for Q in (60, 70, 80, 90)])``, the quality
+index an explicit tensor (``sample_diffjpeg_index`` draws it).
+
 ``hidden_jpeg_mask_compression`` (``:249-258``) is HiDDeN's JpegCompression:
 analog YUV, blockwise DCT, the zig-zag keep masks (``zigzag_keep_mask``,
 ``:236-246``; 25 / 9 / 9 coefficients), IDCT and back, with the clip of
@@ -28,32 +39,19 @@ import numpy as np
 import torch
 
 from ..ops.color import rgb_to_yuv_jpegbasic, yuv_to_rgb_jpegbasic
-from ..ops.dct import (block_merge, block_split, dct_blocks, idct_blocks,
-                       zigzag_keep_mask)
-from ..ops.quantize import jpeg_scale_factor, round_only_at_0
+from ..ops.dct import (C_TABLE, Y_TABLE, block_merge, block_split,
+                       dct_blocks, idct_blocks, zigzag_keep_mask)
+from ..ops.quantize import (jpeg_scale_factor, quality_to_factor,
+                             round_only_at_0)
 
-__all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "quant_tables",
-           "quality_tables", "jpeg_pool", "jpeg_pool_draw", "jpeg_pool_pair", "jpeg_basic", "jpeg_real", "zigzag_keep_mask",
-           "hidden_jpeg_mask_compression"]
+__all__ = ["Y_TABLE", "C_TABLE", "QUALITIES", "DIFFJPEG_QUALITIES",
+           "quant_tables", "quality_tables", "jpeg_pool", "jpeg_pool_draw",
+           "jpeg_pool_pair", "jpeg_basic", "jpeg_mask", "diffjpeg",
+           "diffjpeg_pool", "sample_diffjpeg_index", "jpeg_real",
+           "zigzag_keep_mask", "hidden_jpeg_mask_compression"]
 
 QUALITIES = (50, 60, 70, 80, 90)
-
-# standard JPEG Annex-K quantisation tables (public ISO constants)
-Y_TABLE = np.array([
-    [16, 11, 10, 16, 24, 40, 51, 61],
-    [12, 12, 14, 19, 26, 58, 60, 55],
-    [14, 13, 16, 24, 40, 57, 69, 56],
-    [14, 17, 22, 29, 51, 87, 80, 62],
-    [18, 22, 37, 56, 68, 109, 103, 77],
-    [24, 35, 55, 64, 81, 104, 113, 92],
-    [49, 64, 78, 87, 103, 121, 120, 101],
-    [72, 92, 95, 98, 112, 100, 103, 99],
-], dtype=np.float32)
-
-C_TABLE = np.full((8, 8), 99, dtype=np.float32)
-C_TABLE[:4, :4] = np.array(
-    [[17, 18, 24, 47], [18, 21, 26, 66], [24, 26, 56, 99], [47, 66, 99, 99]],
-    dtype=np.float32)
+DIFFJPEG_QUALITIES = (60, 70, 80, 90)  # diffjpeg_pool's (IRNcrop_model:104)
 
 
 def quality_tables(q: torch.Tensor) -> torch.Tensor:
@@ -111,8 +109,8 @@ def jpeg_pool_pair(img: torch.Tensor, q_idx: torch.Tensor,
     return kernels.jpeg_pair(img, qt, mode.to(torch.int32).contiguous(), w)
 
 
-def jpeg_pool_draw(img: torch.Tensor, quality, mode, kernels=None
-                   ) -> torch.Tensor:
+def jpeg_pool_draw(img: torch.Tensor, quality, mode, kernels=None,
+                   subsample: int = 0) -> torch.Tensor:
     """One draw of the JAX ``jpeg_pool(key, img, qualities)`` for the whole
     batch (N, H, W, 3), H and W multiples of 8, at the drawn quality
     *value* ``quality`` (any, e.g. Tianchi's band 40-55) and ``mode`` (0
@@ -120,7 +118,7 @@ def jpeg_pool_draw(img: torch.Tensor, quality, mode, kernels=None
     tensor or one per frame: K5 ``jpeg_pair`` (default
     ``kernels.KERNELS``) with both draws set to it and weights (1, 0),
     which is the draw exactly (see ``jpeg_basic``), differentiable in
-    img."""
+    img; ``subsample=2`` takes 4:2:0 chroma (modes 0 and 1)."""
     if kernels is None:
         from ..kernels import KERNELS as kernels
     n, dev = img.shape[0], img.device
@@ -130,7 +128,7 @@ def jpeg_pool_draw(img: torch.Tensor, quality, mode, kernels=None
         -1, 1).expand(n, 2).contiguous()
     w = torch.tensor([1.0, 0.0], device=dev,
                      dtype=torch.float32).expand(n, 2).contiguous()
-    return kernels.jpeg_pair(img, qt, m, w)
+    return kernels.jpeg_pair(img, qt, m, w, subsample=subsample)
 
 
 _ROUNDING = {"round": 0, "ss": 1}  # jpeg_pair's modes
@@ -152,16 +150,66 @@ def jpeg_basic(img: torch.Tensor, q_idx: torch.Tensor,
     draws carry the quality and the mode, the weights are (1, 0), and K5's
     mix ``(1·d + 0·d)/1`` is ``d`` and its ``(w1 + w2)·rgb/255`` is
     ``rgb/255``, exactly (both in its plain version too, which a CPU tensor
-    takes). 4:2:0 chroma (``subsample=2``) is not ported: ROADMAP.md §1
-    lists it with the family that runs it."""
-    if subsample:
-        raise NotImplementedError(
-            "jpeg_basic(subsample=2) is not ported yet (ROADMAP.md §1, the "
-            "ops and attacks the families bring)")
+    takes). ``subsample=2`` is the reference's 4:2:0 chroma (each 8×8
+    block's chroma taken from the even row and column of each 2×2, before
+    the DCT), K5's 4:2:0 mode."""
+    if subsample not in (0, 2):
+        raise ValueError(f"subsample must be 0 or 2, got {subsample!r}")
     if rounding not in _ROUNDING:
         raise ValueError(f"rounding must be 'round' or 'ss', got {rounding!r}")
     q = _quality(torch.as_tensor(q_idx, device=img.device))
-    return jpeg_pool_draw(img, q, _ROUNDING[rounding], kernels)
+    return jpeg_pool_draw(img, q, _ROUNDING[rounding], kernels, subsample)
+
+
+def jpeg_mask(img: torch.Tensor, quality=None, kernels=None) -> torch.Tensor:
+    """JpegMask (``vwfd_tpu/attacks/jpeg.py:93-107``) of (N, H, W, 3)
+    float32 in [0, 1], H and W multiples of 8: the jpegbasic YUV, the
+    blockwise DCT, Y's 5×5 and chroma's 3×3 low frequencies kept, no
+    quantisation, back: K5's zonal mode 2, one draw with weights (1, 0).
+    ``quality`` is accepted and ignored, as in the reference."""
+    del quality
+    return jpeg_pool_draw(img, 50.0, 2, kernels)
+
+
+def _factors(n: int, factor, device) -> torch.Tensor:
+    f = torch.as_tensor(factor, dtype=torch.float32, device=device)
+    return f.reshape(-1).expand(n).contiguous()
+
+
+def diffjpeg(img: torch.Tensor, quality=None, *, factor=None, kernels=None
+             ) -> torch.Tensor:
+    """DiffJPEG (``vwfd_tpu/attacks/jpeg.py:114-146``) of (..., H, W, 3)
+    float32 in [0, 1], H and W multiples of 16, at ``quality`` (a number)
+    or ``factor`` (a number, a 0-dim tensor or one per frame); through
+    ``kernels.diffjpeg`` (K24; default ``kernels.KERNELS``),
+    differentiable in img."""
+    if kernels is None:
+        from ..kernels import KERNELS as kernels
+    if factor is None:
+        factor = quality_to_factor(quality)
+    x = img.reshape((-1,) + tuple(img.shape[-3:])).contiguous()
+    out = kernels.diffjpeg(x, _factors(x.shape[0], factor, x.device))
+    return out.reshape(img.shape)
+
+
+def sample_diffjpeg_index(generator: torch.Generator,
+                          qualities=DIFFJPEG_QUALITIES) -> torch.Tensor:
+    """``diffjpeg_pool``'s draw: one uniform quality index (a 0-dim int64
+    tensor on the generator's device)."""
+    return torch.randint(0, len(qualities), (), generator=generator,
+                         device=generator.device)
+
+
+def diffjpeg_pool(img: torch.Tensor, q_idx, qualities=DIFFJPEG_QUALITIES,
+                  kernels=None) -> torch.Tensor:
+    """One draw of ``Combined([DiffJPEG(Q) for Q in qualities])``
+    (``vwfd_tpu/attacks/jpeg.py:226-234``, models/IRNcrop_model.py:104):
+    the quality ``qualities[q_idx]`` (an explicit index, a number or a
+    tensor, one for the call or one per frame) enters as DiffJPEG's factor
+    in float32, as the JAX package's traced draw."""
+    qs = torch.tensor(qualities, dtype=torch.float32, device=img.device)
+    q = qs[torch.as_tensor(q_idx, device=img.device)]
+    return diffjpeg(img, factor=quality_to_factor(q), kernels=kernels)
 
 
 def hidden_jpeg_mask_compression(img: torch.Tensor, yuv_keep=(25, 9, 9),

@@ -74,7 +74,8 @@ import torch
 __all__ = ["params_from_jax", "params_to_jax", "state_dict_from_jax",
            "state_dict_to_jax", "opt_state_from_jax", "opt_state_to_jax",
            "states_from_jax", "states_to_jax", "spectral_from_jax",
-           "spectral_to_jax", "unet_int8_from_jax", "inn_int8_from_jax"]
+           "spectral_to_jax", "unet_int8_from_jax", "inn_int8_from_jax",
+           "victim_from_jax"]
 
 # the ConvTransposes: UNetTPU's decoder's, MBRS's message_expand's, the
 # localizer's transposed SNConv, FBCNN's up stages
@@ -320,3 +321,14 @@ def inn_int8_from_jax(q: Mapping) -> Dict:
     return {blk: {st: {k: _leaf(v, conv=k in convs) for k, v in p.items()}
                   for st, p in sub.items()}
             for blk, sub in q.items()}
+
+
+def victim_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JPEG-vs-adversarial study's victim (``vwfd_tpu/adversarial.py``
+    VictimA/B/C: ``Conv_i`` and ``Dense_i`` only) → the state dict of
+    ``adversarial.VICTIMS[name]``: ``model.init(...)``'s tree, its
+    ``params`` level or the whole dict. The port's victims flatten their
+    maps in flax's (H, W, C) order, so the first Dense kernel maps as it
+    is."""
+    tree = params.get("params", params)
+    return state_dict_from_jax(tree)

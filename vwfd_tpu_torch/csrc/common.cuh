@@ -272,4 +272,40 @@ __device__ __forceinline__ void dct8(const float* in, float* out) {
   }
 }
 
+// 8×8 tile transposes through shared memory, a block's 8 threads (one
+// column each) sharing a warp: rows at pitch kTP (9, so that a column's
+// writes fall in 8 banks), kTB floats a block (≡ 8 mod 32).
+constexpr int kTP = 9;
+constexpr int kTB = 8 * kTP;
+
+// Thread c of a block: its column (as 8 rows) into the block's tile, then
+// row c of the tile back.
+__device__ __forceinline__ void col_to_row(float* t, int c, const float* col,
+                                           float* row) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k * kTP + c] = col[k];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) row[i] = t[c * kTP + i];
+  __syncwarp();
+}
+
+__device__ __forceinline__ void row_to_col(float* t, int c, const float* row,
+                                           float* col) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[c * kTP + j] = row[j];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) col[k] = t[k * kTP + c];
+  __syncwarp();
+}
+
+// a·m0 + b·m1 + c·m2 summed left to right, one rounding an operation (a
+// colour map's row as numpy's and torch's matmul of 3 terms round it)
+__device__ __forceinline__ float dot3(float a, float b, float c, float m0,
+                                      float m1, float m2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, m0), __fmul_rn(b, m1)),
+                   __fmul_rn(c, m2));
+}
+
 }  // namespace vwfd

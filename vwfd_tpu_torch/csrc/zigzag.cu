@@ -57,14 +57,14 @@
 namespace {
 
 using vwfd::dct8;
+using vwfd::kTB;
+using vwfd::kTP;
 using vwfd::smem_u32;
 
 constexpr int kBlk = 8;              // 8×8 blocks per unit
 constexpr int kThr = 24 * kBlk;      // one thread per block column and channel
 constexpr int kRowF = 24 * kBlk;     // floats per staged unit row
 constexpr int kSlotF = 8 * kRowF;    // floats per staged unit (6 KB)
-constexpr int kTP = 9;               // tile row pitch
-constexpr int kTB = 8 * kTP;         // tile pitch
 
 struct Keep {
   unsigned long long m[3];  // bit 8k + l: coefficient (k, l) kept
@@ -104,8 +104,7 @@ __device__ __forceinline__ Row3 rgb_to_yuv_t(int ch) {
 // o = m·v: the three products summed left to right, as numpy's matmul of
 // the plain version rounds them
 __device__ __forceinline__ float dot3(const Row3& m, const float* v) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(v[0], m.m0), __fmul_rn(v[1], m.m1)),
-                   __fmul_rn(v[2], m.m2));
+  return vwfd::dot3(v[0], v[1], v[2], m.m0, m.m1, m.m2);
 }
 
 // Column c of a block's channel (v[i], rows i) → the same column of

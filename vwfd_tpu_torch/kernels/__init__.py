@@ -45,6 +45,11 @@
   backward under autograd (kernels/ssim_grad.py)
 * K23 ``film_residual``  — the FiLM epilogue of FBCNN's QF-attention
   blocks, x + (γ·h + β), forward and backward (kernels/film.py)
+* K24 ``diffjpeg``       — the reference's DiffJPEG (4:2:0 chroma, centred
+  DCT, soft round, JAX's clip), forward and backward (kernels/diffjpeg.py)
+
+K25 ``blockdct``, the DCT-domain data's blockwise DCT, is a host kernel
+(``vwfd_tpu_torch/native.py``), outside this set.
 
 K3 also writes the int8 extractor's detect stem (``wire_to_s2d_i8``,
 ``wire_to_u8_s2d_i8``), under K3's launch count.
@@ -53,8 +58,8 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain version
 only for CPU tensors. Under autograd K1 and K2 are ``torch.autograd.Function``s
 (K1's backward is K1 with ``transpose`` flipped), and so are K14 (its
 backward is K14 in the other direction) and K15; K5, K6, K9, K10, K15,
-K16, K17, K18, K19, K20 (one launch, no scratch), K21 and K23 launch their
-own backward kernels, and K8's is K22. ``KERNELS``
+K16, K17, K18, K19, K20 (one launch, no scratch), K21, K23 and K24 launch
+their own backward kernels, and K8's is K22. ``KERNELS``
 routes through the wrappers; ``PLAIN`` calls the plain versions on any device, so that a
 caller (the chip smoke script, a test) can run the same model, serving,
 training or evaluating, through both and compare. ``PLAIN``'s
@@ -65,9 +70,9 @@ is held to; the wrapper's CPU path is the JAX form as it is.
 import functools
 from typing import Callable, Dict, NamedTuple
 
-from . import (affine, canny, coupling, crop_cubic, crop_resize, f1, film,
-               haar, jpeg, mask, median, mix, qconv, qconv_t, qcoupling,
-               rectify, splice, ssim, ssim_grad, transition, wire,
+from . import (affine, canny, coupling, crop_cubic, crop_resize, diffjpeg,
+               f1, film, haar, jpeg, mask, median, mix, qconv, qconv_t,
+               qcoupling, rectify, splice, ssim, ssim_grad, transition, wire,
                window_attention, zigzag)
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
@@ -76,7 +81,7 @@ __all__ = ["KernelSet", "KERNELS", "PLAIN", "launch_counts",
 MODULES = (transition, coupling, wire, mask, jpeg, median, f1, ssim, mix,
            splice, qconv, qconv_t, qcoupling, haar, affine, zigzag,
            crop_resize, window_attention, canny, crop_cubic, rectify,
-           ssim_grad, film)
+           ssim_grad, film, diffjpeg)
 
 
 class KernelSet(NamedTuple):
@@ -107,6 +112,7 @@ class KernelSet(NamedTuple):
     crop_cubic: Callable
     rectify: Callable
     film_residual: Callable
+    diffjpeg: Callable
 
 
 KERNELS = KernelSet(transition.transition, coupling.coupling_head,
@@ -119,7 +125,7 @@ KERNELS = KernelSet(transition.transition, coupling.coupling_head,
                     crop_resize.crop_resize,
                     window_attention.window_attention, canny.canny_soft,
                     crop_cubic.crop_cubic, rectify.rectify,
-                    film.film_residual)
+                    film.film_residual, diffjpeg.diffjpeg)
 PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   wire.to_channels_plain, wire.to_u8_plain, wire.to_s2d_plain,
                   wire.to_u8_s2d_plain, mask.mask_pack_plain,
@@ -134,7 +140,7 @@ PLAIN = KernelSet(transition.transition_plain, coupling.coupling_head_plain,
                   functools.partial(canny.canny_soft_plain,
                                     exact_border=True),
                   crop_cubic.crop_cubic_plain, rectify.rectify_plain,
-                  film.film_residual_plain)
+                  film.film_residual_plain, diffjpeg.diffjpeg_plain)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "vwfd_wire_to_u8_s2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vwfd_mask_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                        _I, _I, _P],
-    "vwfd_jpeg_pair_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_jpeg_pair_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vwfd_jpeg_pair_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vwfd_median3_fwd": [_P, _P, _I, _I, _I, _P],
     "vwfd_median3_bwd": [_P, _P, _P, _I, _I, _I, _P],
     "vwfd_f1_sweep": [_P, _P, _L, _FP, _I, _I, _I, _P, _P, _P, _P],
@@ -94,6 +94,8 @@ _SIGNATURES = {
                        _I, _I, _I, _P],
     "vwfd_film_fwd": [_P, _P, _P, _P, _P, _L, _L, _P],
     "vwfd_film_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
+    "vwfd_diffjpeg_fwd": [_P, _P, _P, _I, _I, _I, _P],
+    "vwfd_diffjpeg_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

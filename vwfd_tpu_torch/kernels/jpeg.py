@@ -15,7 +15,11 @@ chroma 3×3. ``qt`` holds each frame's quantisation tables, (N, 2 draws,
 with the plain version's own ops, so the kernel does no scale arithmetic
 and ``rint`` sees the same tables; ``mode`` (N, 2) int32 and ``w`` (N, 2)
 float32 are the per-frame draws and weights. The draws and weights take no
-gradient.
+gradient. ``subsample=2`` is ``jpeg_basic(subsample=2)``'s 4:2:0 chroma
+(``vwfd_tpu/attacks/jpeg.py:67-75``): before the DCT each 8×8 block's
+chroma is taken from the even row and column of each 2×2; the backward
+gathers the four copies' gradients into the source pixel. ``subsample=0``
+launches the same code as before the option existed.
 
 Bound: bytes. At the training shape (64 frames of 256²×3 f32) the forward
 reads and writes 50.3 MB each, 0.030 ms at 3.35 TB/s; the backward reads x
@@ -70,7 +74,12 @@ def zonal_mask(device) -> torch.Tensor:
     return torch.from_numpy(_zonal_np()).to(device)
 
 
-def _check(x, qt, mode, w, dtypes=(torch.float32,)) -> None:
+_SUB_ROWS = (0, 0, 2, 2, 4, 4, 6, 6)  # 4:2:0: each 2×2 takes its even corner
+
+
+def _check(x, qt, mode, w, dtypes=(torch.float32,), subsample=0) -> None:
+    if subsample not in (0, 2):
+        raise ValueError(f"subsample must be 0 or 2, got {subsample!r}")
     _lib.check_nhwc(x, "jpeg_pair input")
     if x.dtype not in dtypes:
         raise TypeError(f"jpeg_pair takes {dtypes}, got {x.dtype}")
@@ -91,14 +100,20 @@ def _check(x, qt, mode, w, dtypes=(torch.float32,)) -> None:
 
 
 def jpeg_pool_pair_plain(x: torch.Tensor, qt: torch.Tensor,
-                         mode: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                         mode: torch.Tensor, w: torch.Tensor,
+                         subsample: int = 0) -> torch.Tensor:
     """Plain PyTorch version (gradients by autograd through the torch ops):
     ``jpeg_pool_pair`` of the JAX package on explicit draws; float32, or
     float64 for the CPU parity tests' float64 steps."""
-    _check(x, qt, mode, w, (torch.float32, torch.float64))
+    _check(x, qt, mode, w, (torch.float32, torch.float64), subsample)
     n = x.shape[0]
     yuv = rgb_to_yuv_jpegbasic(x * 255.0)
-    coeff = dct_blocks(block_split(yuv.movedim(-1, -3)))  # (N,3,hb,wb,8,8)
+    blocks = block_split(yuv.movedim(-1, -3))             # (N,3,hb,wb,8,8)
+    if subsample:
+        i = torch.tensor(_SUB_ROWS, device=x.device)
+        chroma = blocks[:, 1:].index_select(-2, i).index_select(-1, i)
+        blocks = torch.cat([blocks[:, :1], chroma], 1)
+    coeff = dct_blocks(blocks)
     q = qt[:, :, [0, 1, 1]]                                # (N,2,3,8,8)
     zm = zonal_mask(x.device)[:, None, None]
     draws = []
@@ -119,14 +134,15 @@ def jpeg_pool_pair_plain(x: torch.Tensor, qt: torch.Tensor,
 
 class _JpegPairKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, qt, mode, w):
+    def forward(ctx, x, qt, mode, w, subsample):
         n, h, wd, _ = x.shape
         y = torch.empty_like(x)
         _lib.launch("vwfd_jpeg_pair_fwd", x.device, x.data_ptr(),
                     y.data_ptr(), qt.data_ptr(), mode.data_ptr(),
-                    w.data_ptr(), n, h, wd)
+                    w.data_ptr(), n, h, wd, int(bool(subsample)))
         COUNT.n += 1
         ctx.save_for_backward(x, qt, mode, w)
+        ctx.subsample = subsample
         return y
 
     @staticmethod
@@ -137,18 +153,19 @@ class _JpegPairKernel(torch.autograd.Function):
         gx = torch.empty_like(x)
         _lib.launch("vwfd_jpeg_pair_bwd", x.device, x.data_ptr(),
                     g.data_ptr(), gx.data_ptr(), qt.data_ptr(),
-                    mode.data_ptr(), w.data_ptr(), n, h, wd)
+                    mode.data_ptr(), w.data_ptr(), n, h, wd,
+                    int(bool(ctx.subsample)))
         COUNT.n += 1
-        return gx, None, None, None
+        return gx, None, None, None, None
 
 
 def jpeg_pair(x: torch.Tensor, qt: torch.Tensor, mode: torch.Tensor,
-              w: torch.Tensor) -> torch.Tensor:
+              w: torch.Tensor, subsample: int = 0) -> torch.Tensor:
     """The two-draw JPEG attack of an NHWC float32 RGB batch, differentiable
     in x: the CUDA kernels (forward and backward) for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; ``subsample=2`` takes 4:2:0 chroma."""
     if not _lib.on_cuda(x, qt, mode, w):
-        return jpeg_pool_pair_plain(x, qt, mode, w)
-    _check(x, qt, mode, w)
+        return jpeg_pool_pair_plain(x, qt, mode, w, subsample)
+    _check(x, qt, mode, w, subsample=subsample)
     _lib.check_aligned(x, "jpeg_pair input")
-    return _JpegPairKernel.apply(x, qt, mode, w.detach())
+    return _JpegPairKernel.apply(x, qt, mode, w.detach(), subsample)

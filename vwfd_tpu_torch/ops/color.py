@@ -1,4 +1,4 @@
-"""Colour pairs (port of vwfd_tpu/ops/color.py:21-31, 47-58, 61-75, 87-94).
+"""Colour pairs (port of vwfd_tpu/ops/color.py:21-102).
 
 The Jpeg/JpegSS/JpegMask coefficient set of the reference
 (noise_layers/jpeg.py:147-163), and the analog BT.601 set of HiDDeN's
@@ -9,14 +9,22 @@ output channel is the 3-term sum
 rounding per operation: the JAX package's HIGHEST-precision 3×3
 contraction, in an order that K5 (``csrc/jpeg.cu``) and K16
 (``csrc/zigzag.cu``) repeat.
+
+The DiffJPEG pair (utils/JPEG.py:115-135, 408-428) adds the chroma shift
+(0, 128, 128) after the forward matrix and takes it off before the
+inverse one, as ``color.py:77-85`` does; K24 (``csrc/diffjpeg.cu``)
+repeats it. ``rgb_to_y_bt601`` is the video-range Y of the reference's
+Y-channel PSNR (data/util.py:180-205), ``color.py:97-102``.
 """
 
 import numpy as np
 import torch
 
 __all__ = ["rgb_to_yuv_jpegbasic", "yuv_to_rgb_jpegbasic",
-           "rgb_to_yuv_analog", "yuv_to_rgb_analog", "RGB2YUV_JPEGBASIC",
-           "YUV2RGB_JPEGBASIC", "RGB2YUV_ANALOG", "YUV2RGB_ANALOG"]
+           "rgb_to_yuv_analog", "yuv_to_rgb_analog", "rgb_to_ycbcr_diffjpeg",
+           "ycbcr_to_rgb_diffjpeg", "rgb_to_y_bt601", "RGB2YUV_JPEGBASIC",
+           "YUV2RGB_JPEGBASIC", "RGB2YUV_ANALOG", "YUV2RGB_ANALOG",
+           "RGB2YCBCR_DIFFJPEG", "YCBCR2RGB_DIFFJPEG", "SHIFT_DIFFJPEG"]
 
 RGB2YUV_JPEGBASIC = np.array([
     [0.299, 0.587, 0.114],
@@ -41,6 +49,20 @@ YUV2RGB_ANALOG = np.array([
     [1.0, -0.39465, -0.58060],
     [1.0, 2.03211, 0.0],
 ], dtype=np.float32)
+
+RGB2YCBCR_DIFFJPEG = np.array([
+    [0.299, 0.587, 0.114],
+    [-0.168736, -0.331264, 0.5],
+    [0.5, -0.418688, -0.081312],
+], dtype=np.float32)
+
+YCBCR2RGB_DIFFJPEG = np.array([
+    [1.0, 0.0, 1.402],
+    [1.0, -0.344136, -0.714136],
+    [1.0, 1.772, 0.0],
+], dtype=np.float32)
+
+SHIFT_DIFFJPEG = (0.0, 128.0, 128.0)
 
 
 def _apply(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
@@ -69,3 +91,25 @@ def yuv_to_rgb_analog(x: torch.Tensor) -> torch.Tensor:
     """YUV → RGB, the reference's analog BT.601 "inverse", (..., 3) float32
     (jpeg_compression.py:60-63)."""
     return _apply(x, YUV2RGB_ANALOG)
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(SHIFT_DIFFJPEG, dtype=x.dtype, device=x.device)
+
+
+def rgb_to_ycbcr_diffjpeg(x: torch.Tensor) -> torch.Tensor:
+    """RGB → YCbCr with the +128 chroma shift, input in [0, 255]
+    (utils/JPEG.py:115-135)."""
+    return _apply(x, RGB2YCBCR_DIFFJPEG) + _shift(x)
+
+
+def ycbcr_to_rgb_diffjpeg(x: torch.Tensor) -> torch.Tensor:
+    """YCbCr → RGB, the shift taken off first (utils/JPEG.py:408-428)."""
+    return _apply(x - _shift(x), YCBCR2RGB_DIFFJPEG)
+
+
+def rgb_to_y_bt601(x01: torch.Tensor) -> torch.Tensor:
+    """Video-range BT.601 Y of (..., 3) in [0, 1], back in [0, 1]:
+    ``(16 + 65.481·R + 128.553·G + 24.966·B) / 255``."""
+    r, g, b = x01.unbind(-1)
+    return (16.0 + 65.481 * r + 128.553 * g + 24.966 * b) / 255.0

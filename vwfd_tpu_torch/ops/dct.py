@@ -13,7 +13,26 @@ import numpy as np
 import torch
 
 __all__ = ["dct_matrix", "block_split", "block_merge", "dct_blocks",
-           "idct_blocks", "dct8x8", "idct8x8", "zigzag_keep_mask"]
+           "idct_blocks", "dct8x8", "idct8x8", "zigzag_keep_mask",
+           "Y_TABLE", "C_TABLE"]
+
+# standard JPEG Annex-K quantisation tables (public ISO constants), the
+# attacks' (attacks/jpeg.py) and, transposed, DiffJPEG's (kernels/diffjpeg.py)
+Y_TABLE = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+], dtype=np.float32)
+
+C_TABLE = np.full((8, 8), 99, dtype=np.float32)
+C_TABLE[:4, :4] = np.array(
+    [[17, 18, 24, 47], [18, 21, 26, 66], [24, 26, 56, 99], [47, 66, 99, 99]],
+    dtype=np.float32)
 
 
 @functools.lru_cache(maxsize=None)

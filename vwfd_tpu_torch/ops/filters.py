@@ -5,8 +5,11 @@ NHWC throughout. ``gaussian_blur`` is the depthwise 3×3, σ = 2 blur with
 zero padding, summed over the nine shifted views in raster order as the
 JAX package does. ``median_blur`` is the 3×3 median through the kernel
 set's ``median3`` (K6, ``kernels/median.py``: the Paeth network and its
-first-match backward); the JAX package's sort path for other sizes is not
-ported (no attack of the port uses it).
+first-match backward); other odd sizes take the JAX package's sort path
+(``:117-131``): the k² reflect-padded views stacked and sorted, the middle
+one taken, its gradient to the view it came from (a stable sort, as
+``jnp.sort``'s). ``avg_pool_2x2`` is DiffJPEG's chroma subsampling
+(``:133-138``).
 
 ``SRM_FILTERS``, ``srm_conv`` and ``bayar_constrain`` are the localizer's
 forensic front end (``:139-185``). ``srm_conv`` is one fixed ``F.conv2d``
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["gaussian_kernel_2d", "gaussian_blur", "median_blur",
-           "SRM_FILTERS", "srm_conv", "bayar_constrain"]
+           "avg_pool_2x2", "SRM_FILTERS", "srm_conv", "bayar_constrain"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,17 +56,42 @@ def gaussian_blur(x: torch.Tensor, kernel_size: int = 3,
     return out
 
 
+def _reflect_views(x: torch.Tensor, k: int):
+    """The k² shifted views of (..., H, W, C) under reflect padding, in
+    raster order of the offsets."""
+    p = k // 2
+    h, w = x.shape[-3], x.shape[-2]
+    xp = torch.cat([x[..., 1:p + 1, :, :].flip(-3), x,
+                    x[..., -p - 1:-1, :, :].flip(-3)], -3)
+    xp = torch.cat([xp[..., 1:p + 1, :].flip(-2), xp,
+                    xp[..., -p - 1:-1, :].flip(-2)], -2)
+    return [xp[..., dy:dy + h, dx:dx + w, :]
+            for dy in range(k) for dx in range(k)]
+
+
 def median_blur(x: torch.Tensor, kernel_size: int = 3, kernels=None
                 ) -> torch.Tensor:
-    """3×3 depthwise median of an NHWC batch under reflect padding (kornia
-    MedianBlur, noise_layers/middle_filter.py:5-13) through
-    ``kernels.median3`` (default ``kernels.KERNELS``)."""
-    if kernel_size != 3:
-        raise NotImplementedError(f"median_blur(kernel_size={kernel_size}) "
-                                  f"is not ported; the port runs k = 3")
-    if kernels is None:
-        from ..kernels import KERNELS as kernels
-    return kernels.median3(x)
+    """Depthwise k×k median of an NHWC batch under reflect padding
+    (kornia MedianBlur, noise_layers/middle_filter.py:5-13): k = 3 through
+    ``kernels.median3`` (K6; default ``kernels.KERNELS``), any other odd k
+    by a stable sort of the k² views."""
+    if kernel_size == 3:
+        if kernels is None:
+            from ..kernels import KERNELS as kernels
+        return kernels.median3(x)
+    if kernel_size % 2 == 0 or kernel_size < 1:
+        raise ValueError(f"median_blur takes an odd kernel size, got "
+                         f"{kernel_size}")
+    stack = torch.stack(_reflect_views(x, kernel_size), -1)
+    vals = torch.sort(stack, dim=-1, stable=True).values
+    return vals[..., (kernel_size * kernel_size) // 2]
+
+
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 average pool, stride 2, of (..., H, W, C): DiffJPEG's chroma
+    subsampling (utils/JPEG.py:139-160)."""
+    *lead, h, w, c = x.shape
+    return x.reshape(*lead, h // 2, 2, w // 2, 2, c).mean(dim=(-4, -2))
 
 
 # SRM noise-residual bank (the public MantraNet initialisation; the

@@ -10,8 +10,9 @@ are plain tensor code: ``torch.round`` carries a zero gradient, as
 
 import torch
 
-__all__ = ["ste_quantize_255", "clamp_with_grad", "diff_round",
-           "round_only_at_0", "jpeg_scale_factor"]
+__all__ = ["ste_quantize_255", "clamp_with_grad", "clip_ties_half",
+           "diff_round", "round_only_at_0", "jpeg_scale_factor",
+           "quality_to_factor"]
 
 
 class _SteQuantize255(torch.autograd.Function):
@@ -50,6 +51,15 @@ def clamp_with_grad(x: torch.Tensor, lo: float = 0.0, hi: float = 1.0
     return _ClampWithGrad.apply(x, lo, hi)
 
 
+def clip_ties_half(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` with its gradient: ``minimum(maximum(x,
+    lo), hi)``, ½ where x equals a bound (``torch.clamp`` gives 1), 0
+    outside, a NaN passed on."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
 def diff_round(x: torch.Tensor) -> torch.Tensor:
     """`round(x) + (x − round(x))³`: gradient 3(x − round(x))²
     (utils/JPEG.py:472-479)."""
@@ -70,3 +80,20 @@ def jpeg_scale_factor(quality):
     if isinstance(quality, torch.Tensor):
         return torch.where(quality >= 50, 2.0 - quality * 0.02, 50.0 / quality)
     return 2.0 - quality * 0.02 if quality >= 50 else 50.0 / quality
+
+
+def quality_to_factor(quality):
+    """DiffJPEG's table factor (utils/JPEG.py:487-498): Q < 50 → 50/Q,
+    else (200 − 2·Q)/100. A float for a number (the JAX package's float64
+    arithmetic), elementwise in float32 for a tensor of qualities (its
+    traced form, ``attacks/jpeg.py:232-233``)."""
+    if isinstance(quality, torch.Tensor):
+        # tensor divisions, each correctly rounded (``5000.0 / q`` would be
+        # a reciprocal and a product; CUDA divides by a Python scalar as a
+        # product with its reciprocal, F14)
+        q = quality.float()
+        f = torch.where(q < 50, torch.full_like(q, 5000.0) / q,
+                        200.0 - q * 2.0)
+        return f / torch.full((), 100.0, dtype=f.dtype, device=f.device)
+    q = 5000.0 / quality if quality < 50 else 200.0 - quality * 2.0
+    return q / 100.0

@@ -1,12 +1,13 @@
-"""Separable resampling (port of vwfd_tpu/ops/resize.py:23-90).
+"""Separable resampling (port of vwfd_tpu/ops/resize.py:23-152).
 
 Dense (out, in) resampling matrices in numpy, half-pixel centres and edge
-clamp as ``F.interpolate(align_corners=False)``: bicubic (a = −0.75) and
-bilinear. ``resize_bilinear`` applies the bilinear matrices as two float32
+clamp as ``F.interpolate(align_corners=False)``: bicubic (a = −0.75),
+bilinear and Lanczos-3 (``resize.py:36-42``); ``antialias=True`` widens the
+kernel by the downscale factor (``:50-51``, like PIL's and torch's
+antialias). ``resize_bilinear`` applies the bilinear matrices as two float32
 products, as the JAX package's two einsums at HIGHEST precision; the int8
-server's self-calibration clips use it (``serving.py``). The JAX package's
-Lanczos kernel and its antialias option serve attacks the port has not
-taken over, and are not ported.
+server's self-calibration clips use it (``serving.py``). ``resize`` takes
+any of the three methods.
 
 ``crop_resize`` (``resize.py:97-152``) resamples a crop window, whose apex
 is a tensor (no host sync), back onto the full grid with the taps clamped
@@ -25,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resize_matrix", "resize_bilinear", "resize_bicubic",
+__all__ = ["resize_matrix", "resize", "resize_bilinear", "resize_bicubic",
            "crop_resize", "cubic_weights"]
 
 
@@ -43,53 +44,68 @@ def _linear_kernel(t: np.ndarray) -> np.ndarray:
     return np.maximum(0.0, 1.0 - t)
 
 
-_KERNELS = {"bicubic": (_cubic_kernel, 2.0), "bilinear": (_linear_kernel, 1.0)}
+def _lanczos_kernel(t: np.ndarray, a: int = 3) -> np.ndarray:
+    """Lanczos-3 (utils/imresize.py's lanczos path)."""
+    t = np.abs(t)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = np.sinc(t) * np.sinc(t / a)
+    return np.where(t < a, k, 0.0)
+
+
+_KERNELS = {"bicubic": (_cubic_kernel, 2.0), "bilinear": (_linear_kernel, 1.0),
+            "lanczos": (_lanczos_kernel, 3.0)}
 
 
 @functools.lru_cache(maxsize=None)
-def resize_matrix(in_size: int, out_size: int,
-                  method: str = "bicubic") -> np.ndarray:
+def resize_matrix(in_size: int, out_size: int, method: str = "bicubic",
+                  antialias: bool = False) -> np.ndarray:
     """Dense (out_size, in_size) float32 resampling matrix (``method``
-    ``"bicubic"`` or ``"bilinear"``)."""
+    ``"bicubic"``, ``"bilinear"`` or ``"lanczos"``); ``antialias`` widens
+    the kernel by the downscale factor."""
     kernel, support = _KERNELS[method]
     scale = in_size / out_size
+    width = max(scale, 1.0) if antialias else 1.0
     src = (np.arange(out_size) + 0.5) * scale - 0.5
     idx = np.arange(in_size)
-    w = kernel(src[:, None] - idx[None, :])
-    if (src - support).min() < 0 or (src + support).max() > in_size - 1:
+    w = kernel((src[:, None] - idx[None, :]) / width)
+    if (src - support * width).min() < 0 or \
+            (src + support * width).max() > in_size - 1:
         # fold the out-of-range taps onto the clamped edge pixels
-        reach = int(np.ceil(support)) + 1
+        reach = int(np.ceil(support * width)) + 1
         idx_ext = np.arange(-reach, in_size + reach)
-        w_ext = kernel(src[:, None] - idx_ext[None, :])
+        w_ext = kernel((src[:, None] - idx_ext[None, :]) / width)
         w = np.zeros((out_size, in_size))
         np.add.at(w.T, np.clip(idx_ext, 0, in_size - 1), w_ext.T)
     w = w / w.sum(axis=1, keepdims=True)
     return w.astype(np.float32)
 
 
-def _resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str
-            ) -> torch.Tensor:
+def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str,
+           antialias: bool = False) -> torch.Tensor:
+    """Resize (..., H, W, C) to (..., out_h, out_w, C) with ``method``'s
+    matrices: the rows' product, then the columns', float32 (float64
+    stays float64, for the CPU parity tests)."""
     h, w = x.shape[-3], x.shape[-2]
     dt = torch.float64 if x.dtype == torch.float64 else torch.float32
-    mh = torch.from_numpy(resize_matrix(h, out_hw[0], method)).to(
+    mh = torch.from_numpy(resize_matrix(h, out_hw[0], method, antialias)).to(
         x.device, dt)
-    mw = torch.from_numpy(resize_matrix(w, out_hw[1], method)).to(
+    mw = torch.from_numpy(resize_matrix(w, out_hw[1], method, antialias)).to(
         x.device, dt)
     x = torch.einsum("oh,...hwc->...owc", mh, x.to(dt))
     return torch.einsum("pw,...owc->...opc", mw, x)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of (..., H, W, C) to (..., out_h, out_w, C), float32
-    (float64 stays float64, for the CPU parity tests): the rows' matrix,
-    then the columns'."""
-    return _resize(x, out_hw, "bilinear")
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    antialias: bool = False) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) (``resize``)."""
+    return resize(x, out_hw, "bilinear", antialias)
 
 
-def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bicubic (a = −0.75) resize of (..., H, W, C), as ``resize_bilinear``
-    (``resize.py:92-94``)."""
-    return _resize(x, out_hw, "bicubic")
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int],
+                   antialias: bool = False) -> torch.Tensor:
+    """Bicubic (a = −0.75) resize of (..., H, W, C) (``resize.py:92-94``).
+    """
+    return resize(x, out_hw, "bicubic", antialias)
 
 
 def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:

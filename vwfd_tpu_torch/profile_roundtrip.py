@@ -108,7 +108,8 @@ PORT_KERNELS = {"transition": ("transition_entry", "transition_p2p",
                                "crop_cubic_bwd_kernel"),
                 "rectify": ("rectify_kernel", "rectify_bwd_kernel"),
                 "ssim_grad": ("ssim_grad_kernel",),
-                "film_residual": ("film_fwd", "film_bwd")}
+                "film_residual": ("film_fwd", "film_bwd"),
+                "diffjpeg": ("diffjpeg_fwd", "diffjpeg_bwd")}
 
 
 def classify(name: str) -> str:
