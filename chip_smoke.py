@@ -269,12 +269,14 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    printed. It prints one ``{"parallel_families": ...}`` line;
 21. the JPEG-vs-adversarial study and its library (``run_library``): (a)
    K24 ``diffjpeg`` against its plain version forward and backward at the
-   study's (1, 32, 32, 3), at 64 frames of 256² and at a ragged (3, 48,
-   80, 3) (``DIFFJPEG_ATOL``: every macroblock at the study's and the
-   ragged shape, at 256² every one but those where the plain version sits
-   within rounding of a step, ``kernels/diffjpeg.py::tie_macroblocks``),
-   with NaN and Inf pixels (NaN where the plain version's are), timed warm
-   (cold at 256²) beside the plain version; K5's 4:2:0 mode against its plain
+   plan's shapes (one macroblock, the study's (1, 32, 32, 3), a ragged (3,
+   48, 80, 3), 64 frames of 256², a width past one unit's, fewer units
+   than CTAs), each on the card's route (printed) and on the other, EQUAL
+   to it (``DIFFJPEG_ATOL``: every macroblock at shapes of up to 45, past
+   that every one but those where the plain version sits within rounding
+   of a step, ``kernels/diffjpeg.py::tie_macroblocks``), with NaN and Inf
+   pixels (NaN where the plain version's are), timed warm (cold at 256²)
+   beside the plain version; K5's 4:2:0 mode against its plain
    version at MBRS's shape, timed beside its 4:4:4 mode; (b) ``python -m
    vwfd_tpu_torch.jpegadv_experiment``'s ``main`` at the study's defaults
    (32², 10 classes, n 16, Q 90…10) for each victim A, B, C and each of
@@ -286,7 +288,8 @@ imports nothing of JAX and nothing of ``vwfd_tpu``. Phases:
    with ``PLAIN``'s K24, by the difference of the two runs' device time),
    and each ``jpeg_resistant`` run again with ``PLAIN``'s K24 (at most
    ``STUDY_ROWS_APART`` image apart); (c) K25 ``blockdct`` on the host at
-   256² against its numpy plain version and ``scipy.fft.dctn``, timed,
+   256² against its numpy plain version and ``scipy.fft.dctn``, timed
+   beside its bound (the host's ``np.copyto`` of the same values),
    a ``DCTDomainDataset`` item (K25 ×2) and the cvtransforms train and val
    pipelines on it; (d) the library's ops and losses on the card against
    the CPU (``LIB_RTOL``). It prints one ``{"study": ...}`` line.
@@ -6758,43 +6761,80 @@ def diffjpeg_against_plain(what, x, f, cot, strict):
     return fb, gfb, int(jump.sum()), int(tie.sum()), mbs, calm_y, calm_g
 
 
+def diffjpeg_plans(shape):
+    """The card's plan for ``shape``, then the other route's (forced)."""
+    n, h, w, _ = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = diffjpeg.plan(n, h, w, sms)
+    return [p, diffjpeg.plan(n, h, w, sms,
+                             "latency" if p.route == "bytes" else "bytes")]
+
+
+def routes_equal(what, plans, x, f, cot):
+    """K24's forward and gradient at x on each route of ``plans`` EQUAL to
+    ``diffjpeg``'s (the card's plan), NaN where its are."""
+    (yk,), (gk,) = grads_of(lambda v: diffjpeg.diffjpeg(v, f), [x], [True],
+                            cot)
+    for p in plans[1:]:
+        (yo,), (go,) = grads_of(
+            lambda v: diffjpeg._DiffJpegKernel.apply(v, f, p), [x], [True],
+            cot)
+        check(all(torch.equal(a.isnan(), b.isnan()) and torch.equal(
+                  a.nan_to_num(), b.nan_to_num())
+                  for a, b in ((yo, yk), (go, gk))),
+              f"{what}: the {p.route} route is not EQUAL to the "
+              f"{plans[0].route} route")
+
+
 def check_diffjpeg(rows, card):
     """(a) K24 against its plain version, forward and backward, at the
-    study's (1, 32, 32, 3), at K5's train shape (64 frames of 256²) and at
-    a ragged (3, 48, 80, 3) (a last CTA with one macroblock of four), at
-    the study's Q75 and at Q50, with a saturated macroblock (the clip); with
-    NaN and Inf pixels; timed warm (and at the train shape with a cold L2)
-    beside the plain version, with its bound. Then K5's 4:2:0 mode against
-    its plain version at MBRS's shape, timed beside its 4:4:4 mode."""
+    plan's shapes: one macroblock, the study's (1, 32, 32, 3), a ragged
+    (3, 48, 80, 3) (45 macroblocks: the first version's last CTA held one
+    of four), K5's train shape (64 frames of 256²), a width past one
+    unit's (2, 64, 1040, 3) and (70, 64, 128, 3), whose 280 units are
+    fewer than the forward's room for CTAs; at the study's Q75 and at
+    Q50, with a saturated macroblock (the clip); each shape on the card's
+    route (printed) and on the other, which must EQUAL it; with NaN and
+    Inf pixels; timed warm (and at the train shape with a cold L2) beside
+    the plain version, with its bound. Then K5's 4:2:0 mode against its
+    plain version at MBRS's shape, timed beside its 4:4:4 mode."""
     from vwfd_tpu_torch.attacks import jpeg_basic
     from vwfd_tpu_torch.ops.quantize import quality_to_factor
     row = rows["diffjpeg"]
     g = torch.Generator("cuda").manual_seed(210)
     train = (B * T, S, S, 3)
-    flips, calm_y, calm_g = {}, 0.0, 0.0
-    # (3, 48, 80): 45 macroblocks, the last CTA's one live macroblock of 4
-    for shape in (STUDY_SHAPE, train, (3, 48, 80, 3)):
+    flips, calm_y, calm_g, routes = {}, 0.0, 0.0, {}
+    for shape in ((1, 16, 16, 3), STUDY_SHAPE, (3, 48, 80, 3), train,
+                  (2, 64, 1040, 3), (70, 64, 128, 3)):
+        plans = diffjpeg_plans(shape)
+        key = "x".join(map(str, shape))
+        routes[key] = [p.route for p in plans]
+        mbs = plans[0].macroblocks
         for q in (75, 50):
             x = torch.rand(shape, device="cuda", generator=g)
             x[:, :16, :16] = 1.0
             f = torch.full((shape[0],), quality_to_factor(q), device="cuda")
             cot = torch.randn(shape, device="cuda", generator=g)
             fb, gfb, tj, tg, mbs, cy, cg = diffjpeg_against_plain(
-                f"diffjpeg {shape} Q{q}", x, f, cot, shape != train)
-            flips[f"{shape[0]}x{shape[1]}_Q{q}"] = [fb, gfb, tj, tg, mbs]
+                f"diffjpeg {shape} Q{q}", x, f, cot, mbs <= 45)
+            flips[f"{key}_Q{q}"] = [fb, gfb, tj, tg, mbs]
             calm_y, calm_g = max(calm_y, cy), max(calm_g, cg)
+            routes_equal(f"diffjpeg {shape} Q{q}", plans, x, f, cot)
     bad = torch.rand((2, 48, 64, 3), device="cuda", generator=g)
     bad[0, 5, 9, 1] = float("nan")
     bad[1, 30, 40, 0] = float("inf")
-    diffjpeg_against_plain("diffjpeg non-finite", bad,
-                           torch.full((2,), 0.5, device="cuda"),
-                           torch.randn(bad.shape, device="cuda",
-                                       generator=g), False)
-    print(f"check diffjpeg (K24) f32: parted macroblocks (forward, "
-          f"gradient, the plain version's ties forward, gradient, of; none "
-          f"parted but ties) {json.dumps(flips)}; max_abs_err outside them "
-          f"{calm_y:.3g} (gradient {calm_g:.3g} of its max); with NaN and "
-          f"Inf pixels NaN where the plain version's are")
+    f, cot = torch.full((2,), 0.5, device="cuda"), torch.randn(
+        bad.shape, device="cuda", generator=g)
+    diffjpeg_against_plain("diffjpeg non-finite", bad, f, cot, False)
+    routes_equal("diffjpeg non-finite", diffjpeg_plans(bad.shape), bad, f,
+                 cot)
+    print(f"check diffjpeg (K24) f32: routes (the card's first, then the "
+          f"other's, EQUAL) {json.dumps(routes)}; parted macroblocks "
+          f"(forward, gradient, the plain version's ties forward, gradient, "
+          f"of; none parted but ties past 45 macroblocks) "
+          f"{json.dumps(flips)}; max_abs_err outside them {calm_y:.3g} "
+          f"(gradient {calm_g:.3g} of its max); with NaN and Inf pixels NaN "
+          f"where the plain version's are")
 
     f75 = quality_to_factor(75)
 
@@ -6812,20 +6852,22 @@ def check_diffjpeg(rows, card):
         px = n * shape[1] * shape[2]
         bf, _ = bound(24 * px, DIFFJPEG_OPS[0] * px)
         bb, _ = bound(36 * px, DIFFJPEG_OPS[1] * px)
-        return {"shape": list(shape), "fwd_ms": kf, "bwd_ms": kb,
+        return {"shape": list(shape), "route": diffjpeg_plans(shape)[0].route,
+                "fwd_ms": kf, "bwd_ms": kb,
                 "cold_ms": (cf + cb) if cold else None, "plain_fwd_ms": pf,
                 "plain_bwd_ms": pb, "bound_fwd_ms": bf, "bound_bwd_ms": bb}
 
     step = times(STUDY_SHAPE, False)
     big = times(train, True)
     row.err = calm_y  # (ms and plain_ms: the study run's, run_study_phase)
-    row.extra.update({"step": step, "train_shape": big,
+    row.extra.update({"step": step, "train_shape": big, "routes": routes,
                       "parted_macroblocks": flips,
                       "grad_err_of_max": calm_g})
     for name, t in (("study step", step), ("train shape", big)):
         k = t["fwd_ms"] + t["bwd_ms"]
         b = t["bound_fwd_ms"] + t["bound_bwd_ms"]
-        print(f"check diffjpeg {name} {t['shape']} ms fwd={t['fwd_ms']:.5f} "
+        print(f"check diffjpeg {name} {t['shape']} ({t['route']} route) "
+              f"ms fwd={t['fwd_ms']:.5f} "
               f"bwd={t['bwd_ms']:.5f} cold={t['cold_ms']} plain "
               f"fwd={t['plain_fwd_ms']:.4f} bwd={t['plain_bwd_ms']:.4f} "
               f"bound_ms={b:.5f} (bytes) share_of_bound={b / k:.4f} "
@@ -6964,6 +7006,11 @@ def run_study_phase(rows, card):
     return by_path
 
 
+# K24's kernels by name (csrc/diffjpeg.cu: a forward and a backward a route)
+K24_KERNELS = ("diffjpeg_fwd_bytes", "diffjpeg_bwd_bytes",
+               "diffjpeg_fwd_latency", "diffjpeg_bwd_latency")
+
+
 def k24_run_ms(row, study, model, images, card):
     """K24's device time in one ``jpeg_resistant`` study run (320 launches)
     and the plain K24's in the same run with ``PLAIN``, into its row with
@@ -6972,7 +7019,8 @@ def k24_run_ms(row, study, model, images, card):
         return lambda: study.run_study(
             model, images, "jpeg_resistant", False, 0.03,
             [90, 70, 50, 30, 10], kernels=kernels, log=lambda s: None)
-    k_ms, k_total = device_ms(run(None), ("diffjpeg_fwd", "diffjpeg_bwd"))
+    k_ms, k_total = device_ms(run(None), K24_KERNELS)
+    check(k_ms > 0, f"no kernel of {K24_KERNELS} in the run's profile")
     _, p_total = device_ms(run(PLAIN), ())
     plain_ms = p_total - (k_total - k_ms)
     steps = STUDY_N * STUDY_STEPS  # the run's attack steps
@@ -6990,7 +7038,9 @@ def k24_run_ms(row, study, model, images, card):
 def run_dct_data(rows, card):
     """(c) K25 against its plain version on the card machine's host at 256²
     (the coefficients within 1e-4 of their max), timed (the median of 7
-    rounds) beside the plain version and ``scipy.fft.dctn`` of the blocks; ``DCTDomainDataset`` at
+    rounds) beside the plain version and ``scipy.fft.dctn`` of the blocks,
+    and its bound: the host's ``np.copyto`` of as many values, each read
+    and written once (the same rounds); ``DCTDomainDataset`` at
     256² with the count at 0 just before an item and read just after (K25
     ×2: Y, then Cb and Cr), and the cvtransforms train and val pipelines
     on it."""
@@ -7043,9 +7093,18 @@ def run_dct_data(rows, card):
     row.err = err
     row.add(ms, plain_ms, 8 * values, 2 * 1024 * (values // 64),
             library_ms=library_ms)
+    # K25's own bound: the host's copy of the item's planes, read and
+    # written once (np.copyto of as many float32 values), the same rounds
+    src = np.concatenate([y.ravel(), c.ravel()])
+    dst = np.empty_like(src)
+    copy_ms = host_ms(lambda: np.copyto(dst, src))
+    row.bound_ms = row.bytes_bound_ms = copy_ms
     row.extra["host"] = ("the card machine's host CPU: host ms by "
-                         "time.perf_counter; bound_ms from the card's table "
-                         "as for every row")
+                         "time.perf_counter; bound_ms the host's np.copyto "
+                         "of the item's planes (each value read and written "
+                         "once), the median of 7 rounds of 20")
+    row.extra["host_copy_GBps"] = 8 * values / copy_ms / 1e6
+    row.extra["share_of_bound"] = copy_ms / ms
     ds = DCTDomainDataset(size=256, synthetic_length=4)
     native.COUNT.n = 0
     item = ds[0]
@@ -7072,7 +7131,9 @@ def run_dct_data(rows, card):
         check(t.shape == (24, 28, 28) and np.isfinite(t).all(),
               f"cvtransforms {name}: {t.shape}")
     print(f"check blockdct (K25, host) 256² item: max_abs_err {err:.3g}; "
-          f"ms {ms:.4f} plain {plain_ms:.4f} scipy {library_ms}; "
+          f"ms {ms:.4f} plain {plain_ms:.4f} scipy {library_ms}; bound "
+          f"(host np.copyto of the planes, {8 * values} bytes) "
+          f"{copy_ms:.4f} ms, share {copy_ms / ms:.4f}; "
           f"DCTDomainDataset item K25 x2, train and val pipelines "
           f"(24, 28, 28) [{card}]")
     return {"dct_dataset_item": launches}

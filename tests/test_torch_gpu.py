@@ -2126,16 +2126,32 @@ def _parted_mbs(got, want, atol):
     return d.amax(dim=(2, 4, 5)) > atol
 
 
-# the study's single image; 45 macroblocks (the last CTA holds one of its
-# four); a batch of 256² frames
-@pytest.mark.parametrize("shape", [(1, 32, 32, 3), (3, 48, 80, 3),
-                                   (8, 256, 256, 3)])
+# the plan's shapes (tests/test_torch_diffjpeg_plan.py): one macroblock;
+# the study's single image; 45 macroblocks (the first version's last CTA
+# held one of four); a batch of 256² frames; a width past one unit's (the
+# bytes route's ragged last unit)
+DJ_SHAPES = [(1, 16, 16, 3), (1, 32, 32, 3), (3, 48, 80, 3),
+             (8, 256, 256, 3), (2, 64, 1040, 3)]
+
+
+def _dj_plans(shape, dev):
+    """The card's plan for ``shape``, then the other route's (forced)."""
+    from vwfd_tpu_torch.kernels import _lib, diffjpeg
+    n, h, w, _ = shape
+    p = diffjpeg.plan(n, h, w, _lib.sm_count(dev))
+    return [p, diffjpeg.plan(n, h, w, _lib.sm_count(dev),
+                             "latency" if p.route == "bytes" else "bytes")]
+
+
+@pytest.mark.parametrize("shape", DJ_SHAPES)
 @pytest.mark.parametrize("q", [75, 30])
 def test_diffjpeg_kernel_matches_plain(cuda, shape, q):
-    """K24 forward within 1e-5 and its gradient within 1e-5 of the plain
-    max on every macroblock at the study's and the ragged shape, and at
-    256² on every one where the plain version has no tie
-    (``diffjpeg.tie_macroblocks``); two launches."""
+    """K24 on each route at each shape: forward within 1e-5 and its
+    gradient within 1e-5 of the plain max on every macroblock at the
+    shapes of up to 45 macroblocks, and on every one where the plain
+    version has no tie (``diffjpeg.tie_macroblocks``) at the larger; the
+    two routes and ``diffjpeg`` (the card's plan) EQUAL to each other,
+    each bit-identical over two calls; two launches a call."""
     from vwfd_tpu_torch.kernels import diffjpeg
     from vwfd_tpu_torch.ops.quantize import quality_to_factor
     g = _gen(27)
@@ -2143,21 +2159,32 @@ def test_diffjpeg_kernel_matches_plain(cuda, shape, q):
     x[:, :16, :16] = 1.0
     f = torch.full((shape[0],), quality_to_factor(q), device=cuda)
     cot = torch.randn(shape, device=cuda, generator=g)
-    before = launch_counts()["diffjpeg"]
-    yk, gk = _dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x, cot)
     yp, gp = _dj_grads(lambda v: diffjpeg.diffjpeg_plain(v, f), x, cot)
-    torch.cuda.synchronize()
-    assert launch_counts()["diffjpeg"] == before + 2
-    bad = _parted_mbs(yk, yp, 1e-5)
-    gbad = _parted_mbs(gk, gp, 1e-5 * float(gp.abs().max()))
-    if shape[1] == 256:
-        jump, tie = diffjpeg.tie_macroblocks(x, f)
-        bad, gbad = bad & ~jump, gbad & ~tie
-    assert int(bad.sum()) == 0 and int(gbad.sum()) == 0, (
-        int(bad.sum()), int(gbad.sum()), bad.numel())
+    jump, tie = diffjpeg.tie_macroblocks(x, f)
+    if jump.numel() <= 45:
+        jump, tie = torch.zeros_like(jump), torch.zeros_like(tie)
+    got = []
+    for p in _dj_plans(shape, cuda):
+        before = launch_counts()["diffjpeg"]
+        runs = [_dj_grads(lambda v: diffjpeg._DiffJpegKernel.apply(v, f, p),
+                          x, cot) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert launch_counts()["diffjpeg"] == before + 4
+        (yk, gk), (yk2, gk2) = runs
+        assert torch.equal(yk, yk2) and torch.equal(gk, gk2), p.route
+        bad = _parted_mbs(yk, yp, 1e-5) & ~jump
+        gbad = _parted_mbs(gk, gp, 1e-5 * float(gp.abs().max())) & ~tie
+        assert int(bad.sum()) == 0 and int(gbad.sum()) == 0, (
+            p.route, int(bad.sum()), int(gbad.sum()), bad.numel())
+        got.append((yk, gk))
+    got.append(_dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x, cot))
+    for yk, gk in got[1:]:
+        assert torch.equal(yk, got[0][0]) and torch.equal(gk, got[0][1])
 
 
 def test_diffjpeg_nonfinite_as_plain(cuda):
+    """With a NaN and an Inf pixel, each route's forward and gradient are
+    NaN where the plain version's are (F21: their 16×16 macroblocks)."""
     from vwfd_tpu_torch.kernels import diffjpeg
     g = _gen(28)
     x = torch.rand(2, 48, 64, 3, device=cuda, generator=g)
@@ -2165,10 +2192,51 @@ def test_diffjpeg_nonfinite_as_plain(cuda):
     x[1, 30, 40, 0] = float("inf")
     f = torch.full((2,), 0.5, device=cuda)
     cot = torch.randn(x.shape, device=cuda, generator=g)
-    yk, gk = _dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x, cot)
     yp, gp = _dj_grads(lambda v: diffjpeg.diffjpeg_plain(v, f), x, cot)
-    assert torch.equal(yk.isnan(), yp.isnan()) and bool(yk.isnan().any())
-    assert torch.equal(gk.isnan(), gp.isnan())
+    assert bool(yp.isnan().any())
+    for p in _dj_plans(x.shape, cuda):
+        yk, gk = _dj_grads(
+            lambda v: diffjpeg._DiffJpegKernel.apply(v, f, p), x, cot)
+        assert torch.equal(yk.isnan(), yp.isnan()), p.route
+        assert torch.equal(gk.isnan(), gp.isnan()), p.route
+
+
+def test_diffjpeg_off_the_16_byte_grid_equals_aligned(cuda):
+    """K24 on an x and a cotangent 4 bytes off the 16-byte grid (as the
+    slices of a flat ``torch.cat``): the wrapper hands the kernels aligned
+    copies, so forward and gradient EQUAL those of aligned copies."""
+    from vwfd_tpu_torch.kernels import diffjpeg
+    g = _gen(30)
+    shape = (2, 32, 48, 3)
+    n = int(np.prod(shape))
+    x = torch.rand(n + 1, device=cuda, generator=g)[1:].view(shape)
+    cot = torch.randn(n + 1, device=cuda, generator=g)[1:].view(shape)
+    assert x.data_ptr() % 16 and cot.data_ptr() % 16
+    f = torch.full((2,), 0.5, device=cuda)
+    xr = x.detach().requires_grad_()  # the view itself, off the grid
+    yk = diffjpeg.diffjpeg(xr, f)
+    (gk,) = torch.autograd.grad(yk, xr, cot)
+    ya, ga = _dj_grads(lambda v: diffjpeg.diffjpeg(v, f), x.clone(),
+                       cot.clone())
+    assert torch.equal(yk.detach(), ya) and torch.equal(gk, ga)
+
+
+def test_dryrun_multiprocess_default_passes_the_card(cuda):
+    """``dryrun_multiprocess.run`` with no device starts its ranks with
+    ``--device cuda`` where a card is present (the ranks stubbed)."""
+    from unittest import mock
+    from vwfd_tpu_torch import dryrun_multiprocess
+
+    class Stop(Exception):
+        pass
+
+    with mock.patch.object(dryrun_multiprocess, "LocalRanks") as ranks:
+        ranks.return_value.__enter__.return_value.wait.side_effect = Stop
+        with pytest.raises(Stop):
+            dryrun_multiprocess.run(2)
+    cmd = ranks.call_args.args[0]
+    assert cmd[cmd.index("--device") + 1] == "cuda"
+    assert ranks.call_args.args[1] == 2
 
 
 @pytest.mark.parametrize("rounding", ["round", "ss"])

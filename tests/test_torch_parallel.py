@@ -639,6 +639,26 @@ def test_dryrun_multiprocess_on_cpu():
     assert out["rows"] == [[0, 1], [1, 2]] and np.isfinite(out["loss"])
 
 
+def test_dryrun_multiprocess_defaults_to_the_card():
+    """Without ``--device`` the dry run takes the card (as every entry
+    point does): with none here it exits non-zero naming ``--device cpu``
+    and starts no rank; ``run()`` raises the same before spawning."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+    from vwfd_tpu_torch import dryrun_multiprocess
+    proc = subprocess.run(
+        [sys.executable, "-m", "vwfd_tpu_torch.dryrun_multiprocess",
+         "--procs", "2"], capture_output=True, text=True, timeout=120,
+        env=_ranks_env(),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "--device cpu" in proc.stderr and "CUDA" in proc.stderr
+    with mock.patch.object(dryrun_multiprocess, "LocalRanks") as ranks:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dryrun_multiprocess.run(2)
+    ranks.assert_not_called()
+
+
 def test_train_cli_under_two_ranks(tmp_path):
     """``train --task video`` as ``torchrun`` starts it, two gloo ranks on
     the CPU: two steps on the global batch of 4 with a checkpoint at step 2

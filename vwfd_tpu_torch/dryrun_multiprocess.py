@@ -1,8 +1,8 @@
 """A real multi-process data-parallel dry run of the flagship (counterpart
 of tools/dryrun_multiprocess.py).
 
+    python -m vwfd_tpu_torch.dryrun_multiprocess --procs 2
     python -m vwfd_tpu_torch.dryrun_multiprocess --procs 2 --device cpu
-    python -m vwfd_tpu_torch.dryrun_multiprocess --procs 2 --device cuda
     python -m vwfd_tpu_torch.dryrun_multiprocess --procs 2 --device cpu \
         --task mbrs
 
@@ -18,6 +18,8 @@ the same loss, bit for bit, and prints one JSON line. Every child has a
 wall-time limit (``--timeout``) and the group a collective timeout: a
 child that fails or hangs kills the others, and the tool exits non-zero.
 
+The ranks run on the cards unless ``--device cpu`` is given; without a
+card and without it the tool exits non-zero before it starts a rank.
 ``configs/video.yaml``'s model at ``--batch`` (the global batch, default 2
 clips a rank), ``--frames`` (2) and ``--size`` (32). On the cards: its
 widths in bf16 through the kernels, rank r on ``cuda:r``, over NCCL. On
@@ -41,6 +43,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ import torch.distributed as dist
 from . import (CLR_CONFIG, FLAGSHIP_CONFIG, KDJPEG_CONFIG, PAMI_CONFIG,
                TIANCHI_CONFIG, load_config)
 from .data import Loader, SyntheticVideoDataset
+from .device import resolve_device
 from .models import (HiddenModel, ImageImmunizationModel, KDJpegModel,
                      MBRSModel, TianchiModel, VideoWatermarkModel)
 from .models.hidden_model import HiddenSampler
@@ -190,14 +194,17 @@ def _child(args) -> None:
         dist.destroy_process_group()
 
 
-def run(procs: int, device: str = "cpu", batch=None, frames: int = 2,
-        size: int = 32, timeout_s: float = 300.0,
+def run(procs: int, device: Optional[str] = None, batch=None,
+        frames: int = 2, size: int = 32, timeout_s: float = 300.0,
         task: str = "video") -> dict:
     """Spawn the ranks, wait for them (bounded), check them; returns the
-    summary. Raises ``parallel.spawn.RankFailure`` when a rank fails or
-    hangs, ``RuntimeError`` when the ranks disagree."""
+    summary. ``device`` ``None`` is the card (``device.resolve_device``:
+    raises without one, before any rank starts). Raises
+    ``parallel.spawn.RankFailure`` when a rank fails or hangs,
+    ``RuntimeError`` when the ranks disagree."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    device = resolve_device(device).type
     batch = batch or (6 * procs if task == "kdjpeg" else 2 * procs)
     cmd = [sys.executable, "-m", "vwfd_tpu_torch.dryrun_multiprocess",
            "--child", "--device", device, "--batch", str(batch), "--frames",
@@ -233,7 +240,9 @@ def run(procs: int, device: str = "cpu", batch=None, frames: int = 2,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--procs", type=int, default=2)
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default=None,
+                    help="the ranks' device (default: the card; raises "
+                         "without one)")
     ap.add_argument("--task", choices=TASKS, default="video",
                     help="the family whose step the ranks take")
     ap.add_argument("--batch", type=int, default=None,
@@ -249,7 +258,11 @@ def main(argv=None) -> None:
         return _child(args)
     if args.procs < 2:
         ap.error("--procs takes at least 2 ranks")
-    print(json.dumps(run(args.procs, args.device, args.batch, args.frames,
+    try:
+        device = resolve_device(args.device).type
+    except RuntimeError as e:
+        ap.error(f"{e} (here: --device cpu)")
+    print(json.dumps(run(args.procs, device, args.batch, args.frames,
                          args.size, args.timeout, args.task)))
 
 

@@ -94,8 +94,8 @@ _SIGNATURES = {
                        _I, _I, _I, _P],
     "vwfd_film_fwd": [_P, _P, _P, _P, _P, _L, _L, _P],
     "vwfd_film_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
-    "vwfd_diffjpeg_fwd": [_P, _P, _P, _I, _I, _I, _P],
-    "vwfd_diffjpeg_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vwfd_diffjpeg_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vwfd_diffjpeg_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -266,6 +266,13 @@ def check_aligned(t: torch.Tensor, name: str, row_stride: int = 0) -> None:
         raise ValueError(f"{name}: base address and row stride must be "
                          f"16-byte aligned (address {t.data_ptr():#x}, row "
                          f"stride {row_stride} elements)")
+
+
+def on_16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it starts off a 16-byte boundary (a
+    contiguous view at an odd offset): for kernels whose vector or bulk
+    accesses need the boundary and whose callers may pass such a view."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_nhwc(t: torch.Tensor, name: str, ndim: int = 4) -> None:

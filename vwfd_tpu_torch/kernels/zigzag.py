@@ -106,11 +106,6 @@ def zigzag_jpeg_plain(x: torch.Tensor, keep=HIDDEN_KEEP, clip: bool = False
     return clip01(rgb) if clip else rgb
 
 
-def _on_16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where it is off a 16-byte boundary."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(x, g, code, keep, clip):
     """One launch: the forward (``g`` None) of x, writing the clip's codes
     where ``code`` is given; the backward of g, reading them. ``x`` or ``g``
@@ -136,12 +131,12 @@ class _ZigzagFn(torch.autograd.Function):
         code = (torch.empty(x.shape, device=x.device, dtype=torch.uint8)
                 if clip and ctx.needs_input_grad[0] else None)
         ctx.save_for_backward(code)
-        return _launch(_on_16(x), None, code, keep, clip)
+        return _launch(_lib.on_16(x), None, code, keep, clip)
 
     @staticmethod
     def backward(ctx, g):
         code, = ctx.saved_tensors
-        return _launch(None, _on_16(g.contiguous()), code, ctx.keep,
+        return _launch(None, _lib.on_16(g.contiguous()), code, ctx.keep,
                        ctx.clip), None, None
 
 
